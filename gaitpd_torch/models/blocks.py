@@ -1,0 +1,165 @@
+"""Layers shared by the port's models. Port of gaitpd/models/blocks.py:34-191.
+
+Streams stay time-major, (B, T, C), at every public function, as in the
+reference. Submodules carry the flax modules' names (``Conv1dSame_0``,
+``LayerNorm_0``, ...) so that gaitpd_torch.params maps a flax variables dict
+onto them leaf by leaf.
+
+Initialisers follow torch's defaults, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for
+kernel and bias, drawn from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+# ---------------------------------------------------------------------------
+# Initialisers (torch-law scales)
+# ---------------------------------------------------------------------------
+
+
+def uniform_param(shape, bound: float, generator: torch.Generator) -> nn.Parameter:
+    """A parameter drawn from U(-bound, bound)."""
+    return nn.Parameter(torch.empty(shape).uniform_(-bound, bound, generator=generator))
+
+
+def torch_bound(fan_in: int) -> float:
+    """1/sqrt(fan_in): torch's Linear/Conv1d default scale for kernel and bias."""
+    return 1.0 / math.sqrt(max(1, fan_in))
+
+
+def default_generator(generator: Optional[torch.Generator]) -> torch.Generator:
+    """The caller's generator, or a fresh one seeded 0."""
+    return generator if generator is not None else torch.Generator().manual_seed(0)
+
+
+# ---------------------------------------------------------------------------
+# Adaptive average pooling as a constant matrix
+# ---------------------------------------------------------------------------
+
+
+def adaptive_avg_pool_matrix(t_in: int, t_out: int, device=None) -> torch.Tensor:
+    """(t_in, t_out) matrix P with x_pooled = x^T P, matching
+    torch.nn.AdaptiveAvgPool1d: bin i averages frames
+    [floor(i*t_in/t_out), ceil((i+1)*t_in/t_out)). Bins overlap when t_out
+    does not divide t_in."""
+    p = torch.zeros(t_in, t_out, dtype=torch.float32)
+    for i in range(t_out):
+        start = (i * t_in) // t_out
+        end = -(-((i + 1) * t_in) // t_out)  # ceil
+        p[start:end, i] = 1.0 / (end - start)
+    return p.to(device)
+
+
+def adaptive_avg_pool1d(x: torch.Tensor, t_out: int) -> torch.Tensor:
+    """(B, T, C) -> (B, t_out, C)."""
+    p = adaptive_avg_pool_matrix(x.shape[1], t_out, x.device)
+    return torch.einsum("btc,to->boc", x, p)
+
+
+# ---------------------------------------------------------------------------
+# Layers
+# ---------------------------------------------------------------------------
+
+
+class Conv1dSame(nn.Module):
+    """Conv1d(k, stride 1, 'SAME' padding) on (B, T, C) streams.
+
+    ``weight`` is stored as torch stores it, (C_out, C_in, K); k must be odd,
+    so that 'SAME' pads k//2 frames on each side."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, *,
+                 generator: torch.Generator):
+        super().__init__()
+        if kernel_size % 2 != 1:
+            raise ValueError(f"Conv1dSame needs an odd kernel, got {kernel_size}")
+        bound = torch_bound(kernel_size * in_ch)
+        self.weight = uniform_param((out_ch, in_ch, kernel_size), bound, generator)
+        self.bias = uniform_param((out_ch,), bound, generator)
+
+    @property
+    def kernel_size(self) -> int:
+        return self.weight.shape[-1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv1d(x.transpose(1, 2), self.weight, self.bias,
+                     padding=self.kernel_size // 2)
+        return y.transpose(1, 2)
+
+
+class TorchLinear(nn.Module):
+    """Dense layer with torch-default init scales; ``weight`` is (out, in)."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 generator: torch.Generator):
+        super().__init__()
+        bound = torch_bound(in_features)
+        self.weight = uniform_param((out_features, in_features), bound, generator)
+        self.bias = uniform_param((out_features,), bound, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class CosineLinear(nn.Module):
+    """Normalised cosine classifier for GCL heads: L2-normalise features and
+    class weights (torch F.normalize's max(norm, eps)), clip the cosine to
+    (-1+eps, 1-eps). ``weight`` is (in, out), as the flax module keeps it."""
+
+    def __init__(self, in_features: int, out_features: int, eps: float = 1e-8, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.eps = eps
+        bound = math.sqrt(6.0 / (in_features + out_features))  # xavier uniform
+        self.weight = uniform_param((in_features, out_features), bound, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        x_norm = x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
+                                 min=self.eps)
+        w_norm = w / torch.clamp(torch.linalg.vector_norm(w, dim=0, keepdim=True),
+                                 min=self.eps)
+        return torch.clamp(x_norm @ w_norm, -1.0 + self.eps, 1.0 - self.eps)
+
+
+class TaskHead(nn.Module):
+    """Classification head: plain Linear (CE), LayerNorm+Linear (LDAM) or
+    LayerNorm+CosineLinear (GCL)."""
+
+    def __init__(self, in_features: int, num_classes: int, use_norm: bool = False,
+                 use_cosine: bool = False, *, generator: torch.Generator):
+        super().__init__()
+        self.use_norm = use_norm or use_cosine
+        self.use_cosine = use_cosine
+        if self.use_norm:
+            self.LayerNorm_0 = nn.LayerNorm(in_features, eps=1e-5)
+        if use_cosine:
+            self.CosineLinear_0 = CosineLinear(in_features, num_classes,
+                                               generator=generator)
+        else:
+            self.TorchLinear_0 = TorchLinear(in_features, num_classes,
+                                             generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_norm:
+            x = self.LayerNorm_0(x)
+        if self.use_cosine:
+            return self.CosineLinear_0(x)
+        return self.TorchLinear_0(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU."""
+    return F.gelu(x)
+
+
+def flatten_features(x: torch.Tensor) -> torch.Tensor:
+    """(B, bdim, C) -> (B, bdim*C), in (bdim, C) order as the reference, so
+    head weights need no permutation."""
+    return x.reshape(x.shape[0], -1)
