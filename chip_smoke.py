@@ -5,21 +5,36 @@
 
 Phases (each raises on failure, so the script exits non-zero):
   1. device: the card's name, count and power limit; build every kernel in
-     gaitpd_torch/csrc with nvcc, one process each, and print nvcc's -Xptxas -v
-     lines;
-  2. kernels: each kernel against its plain PyTorch version on the card,
-     max abs error <= 1e-5 in f32 with TF32 off;
-  3. serving, the main path: WearGaitEngine.predict_streams over all 7 sensor
-     subsets, predict_windows at batch 1024 and poll_sessions over 32
-     streaming sessions, for a plain-head and a LayerNorm+cosine-head model
-     made from --seed; every output against the same engine on the CPU (the
-     plain versions), and every kernel launched at least once on this path;
-  4. timings: each kernel, its plain version and a PyTorch library call at
-     the main path's shape (CUDA events), the kernel's bound, serving
-     windows/s and latency (host clock around synchronised calls), and the
-     device time by kernel of batch-1024 predict_windows (torch.profiler).
+     gaitpd_torch/csrc with nvcc, one process each, all at once, and print
+     nvcc's -Xptxas -v lines;
+  2. kernels: each kernel against its plain PyTorch version on the card
+     (f32, TF32 off): the stream block's forward (max abs <= 1e-5) and
+     backward (gx max abs <= 1e-5; gw, gb <= 1e-5 of the largest reference
+     value; two launches give the same bits), and the CAGrad solver on 104
+     Gram matrices, the degenerate ones included (w within 1e-4, objective
+     within 1e-6 relative, w on the simplex);
+  3. serving: WearGaitEngine.predict_streams over all 7 sensor subsets,
+     predict_windows at batch 1024 and poll_sessions over 32 streaming
+     sessions, for a plain-head and a LayerNorm+cosine-head model made from
+     --seed; every output against the same engine on the CPU;
+  4. training, this slice's main path: run_cv (WearGait, CAGrad, GCL, the
+     flagship widths) on the card and on the CPU from the same seed, sync
+     for 3 epochs then async for 1 (TRAIN_CV: a short run, since training
+     amplifies rounding); per-epoch losses within 1e-4 relative,
+     parameters after the first epoch within 1e-4 of the largest, the
+     7-subset table within one eval window's share; the backward kernel
+     launched 3 times and the solver once per train step; before it, one
+     train step from equal parameters and batch on both, parameters within
+     1e-6 and momentum within 1e-4 of the largest;
+  5. timings: each kernel, its plain version and a PyTorch library call at
+     the main path's shape (CUDA events) beside its bound; serving
+     windows/s and latency; one CAGrad train step at batch 64 and 1024
+     (host clock around synchronised steps); device time by kernel of
+     batch-1024 predict_windows and of 10 batch-1024 train steps
+     (torch.profiler).
 
-The second-to-last line is a JSON object with one entry per kernel; the last
+Every number is printed beside the card's name and power limit. The
+second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device it exits 1
 before printing any result.
 """
@@ -37,11 +52,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gaitpd_torch.data.weargait import prepare_split
+from gaitpd_torch.learning.mtl import build_flat_partition, make_method
 from gaitpd_torch.models.multitask import CHANNELS, MODALITIES, WearGaitThreeModal
 from gaitpd_torch.ops import _build
+from gaitpd_torch.ops import cagrad_solver as cs
 from gaitpd_torch.ops import stream_block as sb
 from gaitpd_torch.runtime.device import resolve_device
 from gaitpd_torch.serve import StreamingSession, WearGaitEngine, poll_sessions
+from gaitpd_torch.train import weargait_driver as wg
+from gaitpd_torch.train.cv import build_subj2label, make_fixed_balanced_folds_no_overlap
+from gaitpd_torch.train.optim import sgd_torch
+from gaitpd_torch.train.step import StepSettings, TrainState, make_loss_ctx, make_train_step
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
@@ -49,11 +71,33 @@ F32_FLOP_PER_S = 67e12
 
 KERNEL_TOL = 1e-5  # kernel vs plain version, f32, TF32 off
 SERVE_TOL = 1e-5  # card vs CPU probabilities: f32, summation order only
+SOLVER_W_TOL = 1e-4  # CAGrad solver kernel vs plain version: w
+SOLVER_F_RTOL = 1e-6  # ... and its objective, relative
+TRAIN_LOSS_RTOL = 1e-4  # card vs CPU per-epoch losses
+# card vs CPU after one CAGrad step from equal parameters and batch, of the
+# largest value: the momentum is the gradient, whose shared part moves with
+# the CAGrad weights, and those move by up to 4e-4 where the dual objective
+# is flat to f32 rounding (tests/test_torch_minnorm.py); the parameters, which
+# SGD at lr 1e-3 moves by a thousandth of that
+STEP_MOMENTUM_TOL = 1e-4
+STEP_PARAM_TOL = 1e-6
+# card vs CPU parameters after one epoch, of the largest: training amplifies
+# rounding (scaling the initial parameters by 1 + 1e-7 N(0, 1) moves them
+# 1.2e-4 apart after 14 steps of a larger fold on the CPU alone,
+# scripts/torch_train_sensitivity.py), so the runs compared here are short
+TRAIN_PARAM_TOL = 1e-4
+# the compared runs: a 2-fold split of 40 subjects, fold 1 trains on 24 (3
+# steps of 64 window tuples an epoch, and one empty tail batch) and
+# evaluates on 16
+TRAIN_CV = dict(n_folds=2, test_per_class=8, n_folds_cap=1)
 
 N_WINDOWS = 1024  # serving batch; the backbone sees 3 * N_WINDOWS windows
 LATENCY_SAMPLES = 100  # p90 then has ten samples beyond it
 WIN = HOP = 64
 SUBSETS = [s for r in (1, 2, 3) for s in itertools.combinations(MODALITIES, r)]
+# (B, T, C_in, K, C_out, t_out, act) of the backbone on the two paths
+MAIN_SHAPE = (3 * N_WINDOWS, 64, 12, 3, 16, 8, "relu")
+TRAIN_BATCHES = (64, 1024)  # window tuples per CAGrad step, timed
 
 
 def log(*parts) -> None:
@@ -66,6 +110,20 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def time_cuda(fn, warmup=20, reps=200) -> float:
+    """Milliseconds per call, from CUDA events around `reps` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 # ---------------------------------------------------------------------------
@@ -94,42 +152,104 @@ def phase_device() -> str:
 # ---------------------------------------------------------------------------
 
 
-def stream_block_inputs(rng, bsz, t, cin, k, cout, dev):
+def stream_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out=8):
     x = rng.normal(size=(bsz, t, cin)).astype(np.float32)
     w = (rng.normal(size=(k, cin, cout)) * 0.3).astype(np.float32)
     b = (rng.normal(size=(cout,)) * 0.1).astype(np.float32)
-    return [torch.from_numpy(a).to(dev) for a in (x, w, b)]
+    g = rng.normal(size=(bsz, t_out, cout)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (x, w, b, g)]
 
 
-def phase_kernels(rng, dev) -> dict:
-    # (B, T, C_in, K, C_out, t_out, act)
-    cases = {
-        "main": (3 * N_WINDOWS, 64, 12, 3, 16, 8, "relu"),
-        "k5_gelu_cin13": (64, 64, 13, 5, 16, 8, "gelu"),
-        "t101_overlapping_bins": (64, 101, 12, 3, 16, 8, "relu"),
-        "ragged_batch": (3 * 333 + 1, 64, 12, 3, 16, 8, "relu"),
-        "k1": (37, 64, 12, 1, 16, 8, "relu"),
-    }
+STREAM_BLOCK_CASES = {
+    "main": MAIN_SHAPE,
+    "train_batch64": (3 * 64, 64, 12, 3, 16, 8, "relu"),
+    "k5_gelu_cin13": (64, 64, 13, 5, 16, 8, "gelu"),
+    "t101_overlapping_bins": (64, 101, 12, 3, 16, 8, "relu"),
+    "ragged_batch": (3 * 333 + 1, 64, 12, 3, 16, 8, "relu"),
+    "k1": (37, 64, 12, 1, 16, 8, "relu"),
+}
+
+
+def check_stream_block(rng, dev) -> dict:
     errors = {}
-    for name, (bsz, t, cin, k, cout, t_out, act) in cases.items():
-        x, w, b = stream_block_inputs(rng, bsz, t, cin, k, cout, dev)
-        before = sb.launches
+    for name, (bsz, t, cin, k, cout, t_out, act) in STREAM_BLOCK_CASES.items():
+        x, w, b, g = stream_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
+        before = (sb.launches, sb.backward_launches)
         got = sb.stream_block(x, w, b, t_out, act)
+        grads = sb.stream_block_backward(x, w, b, g, t_out, act)
+        again = sb.stream_block_backward(x, w, b, g, t_out, act)
         torch.cuda.synchronize()
-        if sb.launches != before + 1:
-            raise RuntimeError(f"stream_block[{name}]: launch count did not go up")
-        want = sb.stream_block_reference(x, w, b, t_out, act)
-        err = (got - want).abs().max().item()
-        log(f"[kernel] stream_block {name} x{tuple(x.shape)} k{k} {act} -> "
-            f"{tuple(got.shape)}: max abs err {err:.3e} (tol {KERNEL_TOL})")
+        if (sb.launches, sb.backward_launches) != (before[0] + 1, before[1] + 2):
+            raise RuntimeError(f"stream_block[{name}]: launch counts did not go up")
+        err = (got - sb.stream_block_reference(x, w, b, t_out, act)).abs().max().item()
+        want = sb.stream_block_backward_reference(x, w, b, g, t_out, act)
+        errs = [(gk - wk).abs().max().item() for gk, wk in zip(grads, want)]
+        tols = [KERNEL_TOL] + [KERNEL_TOL * max(1.0, wk.abs().max().item()) for wk in want[1:]]
+        same = all(torch.equal(a, c) for a, c in zip(grads, again))
+        log(f"[kernel] stream_block {name} x{tuple(x.shape)} k{k} {act}: forward max abs err "
+            f"{err:.3e} (tol {KERNEL_TOL}); backward gx/gw/gb max abs err "
+            f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol {tols[0]:.1e}/{tols[1]:.2e}/"
+            f"{tols[2]:.2e}); two launches bitwise equal: {same}")
         if not np.isfinite(err) or err > KERNEL_TOL:
             raise RuntimeError(f"stream_block[{name}] disagrees with its plain version: {err}")
-        errors[name] = err
+        if not all(np.isfinite(e) and e <= tol for e, tol in zip(errs, tols)):
+            raise RuntimeError(f"stream_block backward[{name}] disagrees: {errs} vs {tols}")
+        if not same:
+            raise RuntimeError(f"stream_block backward[{name}] is not deterministic")
+        errors[name] = (err, max(errs))
     return errors
 
 
+def solver_grams(rng, n, k):
+    """n seeded PSD Gram matrices over four decades of scale, then the
+    degenerate ones: zero, rank-1, identical tasks, one zero task."""
+    a = rng.normal(size=(n, k, 6)) * 10.0 ** rng.uniform(-2, 2, size=(n, 1, 1))
+    grams = a @ a.transpose(0, 2, 1) + 1e-4 * np.eye(k)
+    v = rng.normal(size=k)
+    zero_task = grams[0].copy()
+    zero_task[0, :] = zero_task[:, 0] = 0.0
+    degenerate = [np.zeros((k, k)), np.outer(v, v), np.full((k, k), 2.0), zero_task]
+    return np.concatenate([grams, np.stack(degenerate)]).astype(np.float32)
+
+
+def solver_objective(w, gram, c):
+    """f64 CAGrad objective of w (N, K) for gram (N, K, K)."""
+    k = gram.shape[-1]
+    c_coef = c * np.sqrt(gram.mean((-2, -1)) + 1e-8) + 1e-8
+    gb = gram @ (np.ones(k) / k)
+    return (w * gb).sum(-1) + c_coef * np.sqrt(np.einsum("ni,nij,nj->n", w, gram, w) + 1e-8)
+
+
+def check_solver(rng, dev) -> float:
+    worst = 0.0
+    for k, n in ((3, 100), (2, 20), (8, 20)):
+        grams = torch.from_numpy(solver_grams(rng, n, k)).to(dev)
+        before = cs.launches
+        got = cs.cagrad_solve(grams, 0.5)
+        torch.cuda.synchronize()
+        if cs.launches != before + 1:
+            raise RuntimeError("cagrad_solver: launch count did not go up")
+        want = cs.cagrad_solve_reference(grams, 0.5)
+        gn, wn = got.double().cpu().numpy(), want.double().cpu().numpy()
+        g64 = grams.double().cpu().numpy()
+        w_err = float(np.abs(gn - wn).max())
+        f_got, f_want = solver_objective(gn, g64, 0.5), solver_objective(wn, g64, 0.5)
+        f_err = float((np.abs(f_got - f_want) / np.maximum(np.abs(f_want), 1e-12)).max())
+        bitwise = int((gn == wn).all(-1).sum())
+        on_simplex = bool(np.all(gn >= 0) and np.abs(gn.sum(-1) - 1).max() <= 1e-5)
+        log(f"[kernel] cagrad_solver K={k}, {len(gn)} Gram matrices: w max abs err "
+            f"{w_err:.3e} (tol {SOLVER_W_TOL}), objective max rel err {f_err:.3e} "
+            f"(tol {SOLVER_F_RTOL}), bitwise equal {bitwise}/{len(gn)}, on the simplex "
+            f"{on_simplex}")
+        if not (w_err <= SOLVER_W_TOL and f_err <= SOLVER_F_RTOL and on_simplex):
+            raise RuntimeError(f"cagrad_solver K={k} disagrees with its plain version")
+        if k == 3:
+            worst = w_err
+    return worst
+
+
 # ---------------------------------------------------------------------------
-# 3. serving, the main path
+# 3. serving
 # ---------------------------------------------------------------------------
 
 
@@ -233,43 +353,179 @@ def phase_serving(seed, rng):
     worst = serve_main_path(pairs, rng)
     torch.cuda.synchronize()
     launches = {"stream_block": sb.launches}
-    log(f"[serve] launches on the main path: {launches}; "
+    log(f"[serve] launches on the serving path: {launches}; "
         f"max card-vs-CPU diffs {worst}")
-    for name, n in launches.items():
-        if n == 0:
-            raise RuntimeError(f"kernel {name} was not launched on the main path")
+    if launches["stream_block"] == 0:
+        raise RuntimeError("kernel stream_block was not launched on the serving path")
     return pairs["plain_head"][0], launches
 
 
 # ---------------------------------------------------------------------------
-# 4. timings
+# 4. training, the main path
 # ---------------------------------------------------------------------------
 
 
-def time_cuda(fn, warmup=20, reps=200) -> float:
-    """Milliseconds per call, from CUDA events around `reps` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+class EpochRecorder:
+    """on_epoch hook of run_cv: per-epoch losses, non-empty train steps, the
+    parameters after the first epoch, and the eval windows' count."""
+
+    def __init__(self):
+        self.train_loss, self.eval_loss, self.steps = [], [], 0
+        self.first_epoch_params = None
+
+    def __call__(self, fold, epoch, state, tr, ev):
+        self.train_loss.append(np.asarray(tr.loss))
+        self.eval_loss.append(np.asarray(ev.loss))
+        self.steps += tr.steps
+        if epoch == 1:
+            self.first_epoch_params = {n: p.detach().cpu().clone()
+                                       for n, p in state.module.named_parameters()}
+
+
+def run_training(args) -> tuple:
+    rec = EpochRecorder()
+    t0 = time.perf_counter()
+    res = wg.run_cv(args, on_epoch=rec)
+    return res, rec, time.perf_counter() - t0
+
+
+def mask_share(args) -> float:
+    """One eval window's share of a 7-subset accuracy, in points: the sync
+    table pools all eval windows; the async table averages per-batch
+    accuracies, where one window weighs most in the smallest batch."""
+    streams, pd_ids, hc_ids = wg.get_streams(args)
+    folds = make_fixed_balanced_folds_no_overlap(
+        pd_ids, hc_ids, n_folds=args.n_folds, per_class=args.test_per_class, seed=args.seed)
+    split = prepare_split(streams, folds[0][0], folds[0][1], build_subj2label(pd_ids, hc_ids),
+                          win=args.win_len, hop=args.hop_len)
+    n = len(split.test_sync) if not args.async_loading else min(
+        len(split.test[m].keys) for m in MODALITIES)
+    batches = [min(args.batch_size, n - i) for i in range(0, n, args.batch_size)]
+    if not args.async_loading:
+        return 100.0 / n
+    return 100.0 / (len(batches) * min(batches))
+
+
+def check_one_step(seed, dev) -> None:
+    """One CAGrad train step at batch 64 on the card and on the CPU, from
+    equal parameters and an equal batch."""
+    runs = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        step, state, ctx, batch = make_step_setup(seed, device, 64)
+        state, metrics = step(state, batch, None, ctx)
+        runs[name] = (state, metrics)
+    card_state, cpu_state = runs["card"][0], runs["cpu"][0]
+    gaps = {}
+    for what, pick in (("parameters", lambda s, p: p),
+                       ("momentum", lambda s, p: s.optimizer.state[p]["momentum_buffer"])):
+        want = [pick(cpu_state, p).detach() for p in cpu_state.module.parameters()]
+        got = [pick(card_state, p).detach().cpu() for p in card_state.module.parameters()]
+        scale = max(1.0, max(w.abs().max().item() for w in want))
+        gaps[what] = (max((g - w).abs().max().item() for g, w in zip(got, want)), scale)
+    loss_gap = (runs["card"][1]["losses"].cpu() - runs["cpu"][1]["losses"]).abs().max().item()
+    log(f"[train] one CAGrad step at batch 64, card vs CPU: parameters max abs gap "
+        f"{gaps['parameters'][0]:.3e} (tol {STEP_PARAM_TOL * gaps['parameters'][1]:.2e}), "
+        f"momentum {gaps['momentum'][0]:.3e} (tol {STEP_MOMENTUM_TOL * gaps['momentum'][1]:.2e}), "
+        f"losses {loss_gap:.3e}")
+    if (gaps["parameters"][0] > STEP_PARAM_TOL * gaps["parameters"][1]
+            or gaps["momentum"][0] > STEP_MOMENTUM_TOL * gaps["momentum"][1]):
+        raise RuntimeError(f"one train step: card and CPU differ: {gaps}")
+
+
+def phase_training(seed, dev) -> dict:
+    """run_cv on the card and on the CPU from one seed; the card's run is the
+    main path, with every launch count set to 0 just before it."""
+    check_one_step(seed, dev)
+    common = dict(synthetic=True, seed=seed, batch_size=64, wm="gcl", alpha=0.5,
+                  noise_mul=0.0, verbose=False, patience=50, **TRAIN_CV)
+    out = {}
+    for mode, epochs in (("sync", 3), ("async", 1)):
+        args = wg.WearGaitArgs(epochs=epochs, async_loading=mode == "async", **common)
+        sb.launches = sb.backward_launches = cs.launches = 0
+        card_res, card_rec, card_s = run_training(args)
+        torch.cuda.synchronize()
+        launches = {"stream_block": sb.launches, "stream_block_backward": sb.backward_launches,
+                    "cagrad_solver": cs.launches}
+        cpu_args = wg.WearGaitArgs(epochs=epochs, async_loading=mode == "async",
+                                       device="cpu", **common)
+        cpu_res, cpu_rec, cpu_s = run_training(cpu_args)
+        steps = card_rec.steps
+        log(f"[train] {mode}: {epochs} epoch(s), {steps} train steps of batch 64; card "
+            f"{card_s:.2f} s, CPU {cpu_s:.2f} s; launches on the card {launches}")
+        if steps == 0 or steps != cpu_rec.steps:
+            raise RuntimeError(f"train {mode}: {steps} card steps vs {cpu_rec.steps} on the CPU")
+        for ep, (a, b) in enumerate(zip(card_rec.train_loss, cpu_rec.train_loss), 1):
+            gap = float((np.abs(a - b) / np.abs(b)).max())
+            log(f"[train] {mode} epoch {ep}: train losses card {np.round(a, 6).tolist()} "
+                f"CPU {np.round(b, 6).tolist()}, max rel gap {gap:.3e} (tol {TRAIN_LOSS_RTOL})")
+            if not np.all(np.isfinite(a)) or gap > TRAIN_LOSS_RTOL:
+                raise RuntimeError(f"train {mode} epoch {ep}: card losses differ from the CPU's")
+        scale = max(1.0, max(p.abs().max().item() for p in cpu_rec.first_epoch_params.values()))
+        p_gap = max((card_rec.first_epoch_params[n] - p).abs().max().item()
+                    for n, p in cpu_rec.first_epoch_params.items())
+        log(f"[train] {mode}: parameters after epoch 1, max abs gap {p_gap:.3e} "
+            f"(tol {TRAIN_PARAM_TOL * scale:.2e})")
+        if p_gap > TRAIN_PARAM_TOL * scale:
+            raise RuntimeError(f"train {mode}: parameters after epoch 1 differ from the CPU's")
+        share = mask_share(args)
+        flips = 0
+        for mk in wg.MASK_COMBOS:
+            a, b = card_res["masks"][mk], cpu_res["masks"][mk]
+            flips += a != b
+            log(f"[train] {mode} mask {mk:5}: card {a:.4f} %, CPU {b:.4f} %")
+            if a is None or abs(a - b) > share + 1e-4:
+                raise RuntimeError(f"train {mode} mask {mk}: {a} vs {b} (one window {share:.3f})")
+        log(f"[train] {mode}: {flips} of 7 subset accuracies differ, each by at most one "
+            f"eval window ({share:.4f} points); macro card {card_res['macro'][0]:.4f} %, "
+            f"CPU {cpu_res['macro'][0]:.4f} %")
+        if launches["stream_block_backward"] != 3 * steps or launches["cagrad_solver"] != steps:
+            raise RuntimeError(f"train {mode}: launches {launches} for {steps} steps "
+                               f"(want 3 backward and 1 solver launch a step)")
+        if launches["stream_block"] == 0:
+            raise RuntimeError(f"train {mode}: the forward kernel was not launched")
+        out[mode] = {"launches": launches, "steps": steps}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 5. timings
+# ---------------------------------------------------------------------------
 
 
 def stream_block_bound(bsz, t, cin, k, cout, t_out):
     moved = 4 * (bsz * t * cin + k * cin * cout + cout + bsz * t_out * cout)
     flop = 2 * bsz * t * cin * cout * k
+    return _bound(moved, flop)
+
+
+def stream_block_backward_bound(bsz, t, cin, k, cout, t_out):
+    """Read x, w, b, g once, write gx, gw, gb once; recompute z, then gx and
+    gw, each 2*B*T*Cin*Cout*K FLOP, plus g_y, act' and gb, about 4 per z."""
+    moved = 4 * (2 * bsz * t * cin + 2 * (k * cin * cout + cout) + bsz * t_out * cout)
+    flop = 3 * 2 * bsz * t * cin * cout * k + 4 * bsz * t * cout
+    return _bound(moved, flop)
+
+
+def solver_ops(k, iters=60, ls_iters=30, rounds=4):
+    """f32 operations of one solve, counted from csrc/cagrad_solver.cu."""
+    dot = 2 * k - 1
+    f = k * dot + 2 * dot + 4  # G w, two dot products, +EPS, sqrt, *c, +
+    golden = ls_iters * (6 + 4 * k + 2 * f + 1) + 2
+    line_step = golden + 2 * k + 2 * f + 1
+    outer = k * dot + dot + 2 + 5 * k + k * k + 5 * k + k + line_step
+    polish = rounds * k * (k - 1) * (k + line_step)
+    setup = 2 * k * k + 6 + k * dot + 3
+    return setup + iters * outer + polish
+
+
+def _bound(moved, flop):
     by_bytes, by_ops = moved / HBM_BYTES_PER_S, flop / F32_FLOP_PER_S
     return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
-def phase_timings(rng, dev, engine, card) -> dict:
-    bsz, t, cin, k, cout, t_out = 3 * N_WINDOWS, 64, 12, 3, 16, 8
-    x, w, b = stream_block_inputs(rng, bsz, t, cin, k, cout, dev)
+def time_stream_block(rng, dev, card) -> dict:
+    bsz, t, cin, k, cout, t_out, _ = MAIN_SHAPE
+    x, w, b, g = stream_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
     w_torch = w.permute(2, 1, 0).contiguous()  # (C_out, C_in, K) for F.conv1d
 
     def library():
@@ -289,8 +545,61 @@ def phase_timings(rng, dev, engine, card) -> dict:
     log(f"[time] {card}: stream_block x({bsz},{t},{cin}) k{k} -> ({bsz},{t_out},{cout}): "
         f"kernel {kernel_ms:.4f}/{kernel_ms_2:.4f} ms, plain {plain_ms:.4f}/{plain_ms_2:.4f} ms, "
         f"library conv1d+relu+adaptive_avg_pool1d {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
+        f"bound {bound_ms:.5f} ms ({bound_by})")
 
+    # the backward: (x, w, b, g) -> (gx, gw, gb), each version from scratch
+    leaves = [t_.detach().clone().requires_grad_() for t_ in (x, w, b)]
+
+    def library_backward():
+        xl, wl, bl = leaves
+        y = torch.relu(F.conv1d(xl.transpose(1, 2), wl.permute(2, 1, 0), bl, padding=k // 2))
+        out = F.adaptive_avg_pool1d(y, t_out).transpose(1, 2)
+        return torch.autograd.grad(out, leaves, g)
+
+    lib_b = library_backward()
+    want = sb.stream_block_backward_reference(x, w, b, g, t_out)
+    lib_b_err = max((p - q).abs().max().item() / max(1.0, q.abs().max().item())
+                    for p, q in zip(lib_b, want))
+    if lib_b_err > KERNEL_TOL:
+        raise RuntimeError(f"library backward computes another function: {lib_b_err}")
+    bwd_plain = time_cuda(lambda: sb.stream_block_backward_reference(x, w, b, g, t_out),
+                          warmup=5, reps=50)
+    bwd_kernel = time_cuda(lambda: sb.stream_block_backward(x, w, b, g, t_out))
+    bwd_kernel_2 = time_cuda(lambda: sb.stream_block_backward(x, w, b, g, t_out))
+    bwd_plain_2 = time_cuda(lambda: sb.stream_block_backward_reference(x, w, b, g, t_out),
+                            warmup=5, reps=50)
+    bwd_library = time_cuda(library_backward, warmup=5, reps=50)
+    bwd_bound, bwd_by = stream_block_backward_bound(bsz, t, cin, k, cout, t_out)
+    log(f"[time] {card}: stream_block_backward at x({bsz},{t},{cin}) k{k}: kernel "
+        f"{bwd_kernel:.4f}/{bwd_kernel_2:.4f} ms, plain (autograd of the plain forward) "
+        f"{bwd_plain:.4f}/{bwd_plain_2:.4f} ms, library (autograd of conv1d+relu+"
+        f"adaptive_avg_pool1d, forward included) {bwd_library:.4f} ms, bound "
+        f"{bwd_bound:.5f} ms ({bwd_by})")
+    return {
+        "stream_block": {"ms": min(kernel_ms, kernel_ms_2), "plain_ms": min(plain_ms, plain_ms_2),
+                         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by},
+        "stream_block_backward": {"ms": min(bwd_kernel, bwd_kernel_2),
+                                  "plain_ms": min(bwd_plain, bwd_plain_2),
+                                  "library_ms": bwd_library, "bound_ms": bwd_bound,
+                                  "bound_by": bwd_by},
+    }
+
+
+def time_solver(rng, dev, card) -> dict:
+    gram = torch.from_numpy(solver_grams(rng, 1, 3)[0]).to(dev)  # the main path: K = 3
+    kernel_ms = time_cuda(lambda: cs.cagrad_solve(gram, 0.5), warmup=10, reps=200)
+    plain_ms = time_cuda(lambda: cs.cagrad_solve_reference(gram, 0.5), warmup=1, reps=3)
+    kernel_ms_2 = time_cuda(lambda: cs.cagrad_solve(gram, 0.5), warmup=10, reps=200)
+    bound_ms, bound_by = _bound(4 * (9 + 3), solver_ops(3))
+    log(f"[time] {card}: cagrad_solver K=3 (one Gram matrix): kernel {kernel_ms:.4f}/"
+        f"{kernel_ms_2:.4f} ms, plain (eager torch on the card, 3 calls) {plain_ms:.2f} ms, "
+        f"bound {bound_ms:.3e} ms ({bound_by}: {solver_ops(3)} f32 operations); "
+        f"the dependent chain's latency bound is about 0.14 ms at 1980 MHz")
+    return {"ms": min(kernel_ms, kernel_ms_2), "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def time_serving(engine, rng, card) -> dict:
     batch = {m: rng.normal(size=(N_WINDOWS, WIN, c)).astype(np.float32)
              for m, c in CHANNELS.items()}
     one = {m: v[:1] for m, v in batch.items()}
@@ -314,15 +623,67 @@ def phase_timings(rng, dev, engine, card) -> dict:
         log(f"[time] {card}: predict_windows {label} (numpy in, numpy out): "
             f"{serving[label]['windows_per_s']:.1f} windows/s, latency p50 "
             f"{serving[label]['latency_ms_p50']:.4f} ms, p90 {serving[label]['latency_ms_p90']:.4f} ms")
-    return {
-        "stream_block": {"ms": min(kernel_ms, kernel_ms_2), "plain_ms": min(plain_ms, plain_ms_2),
-                         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by},
-        "serving": serving,
+    return serving
+
+
+def make_step_setup(seed, dev, bsz):
+    """A flagship model, its SGD and CAGrad step, and one card-resident batch
+    of ``bsz`` window tuples."""
+    model = WearGaitThreeModal(generator=torch.Generator().manual_seed(seed)).to(dev)
+    settings = StepSettings(n_streams=3, wm="gcl", synchronized=True,
+                            private_grads="sum_plus_own")
+    mtl = make_method("cagrad", 3, c=0.5)
+    step = make_train_step(settings, mtl, build_flat_partition(
+        model, model.shared_modules, model.task_modules))
+    state = TrainState(module=model, optimizer=sgd_torch(model.parameters(), 1e-3),
+                       mtl_state=mtl.init_state())
+    ctx = make_loss_ctx(settings, [[900, 700]] * 3, device=dev)
+    g = torch.Generator().manual_seed(seed)  # on the host: the same batch on any device
+    batch = {
+        "xs": tuple(torch.randn((bsz, WIN, CHANNELS[m]), generator=g).to(dev)
+                    for m in MODALITIES),
+        "ys": tuple(torch.randint(0, 2, (bsz,), generator=g).to(dev) for _ in MODALITIES),
+        "valid": torch.ones(bsz, device=dev),
+        "n_valid": bsz,
     }
+    return step, state, ctx, batch
 
 
-def phase_profile(engine, card) -> None:
-    """Device time by kernel over a few batch-1024 predict_windows calls."""
+def time_train_step(seed, dev, card) -> dict:
+    out = {}
+    for bsz in TRAIN_BATCHES:
+        step, state, ctx, batch = make_step_setup(seed, dev, bsz)
+        for _ in range(3):
+            step(state, batch, None, ctx)
+        torch.cuda.synchronize()
+        reps = 20
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            _, metrics = step(state, batch, None, ctx)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / reps
+        if not torch.isfinite(metrics["losses"]).all():
+            raise RuntimeError(f"train step at batch {bsz}: non-finite loss")
+        out[f"batch{bsz}"] = {"ms": ms, "window_tuples_per_s": 1e3 * bsz / ms}
+        log(f"[time] {card}: CAGrad train step, batch {bsz} window tuples (card-resident): "
+            f"{ms:.3f} ms, {1e3 * bsz / ms:.1f} window tuples/s")
+    return out
+
+
+def profile_table(prof, label, wall_ms, card) -> None:
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    device_us = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA)
+    log(f"[profile] {card}: {label}: {wall_ms:.3f} ms wall under the profiler, "
+        f"{device_us / 1e3:.3f} ms device time (sum of kernel self times), device idle "
+        f"{100 * max(0.0, 1 - device_us / 1e3 / wall_ms):.1f} %")
+    log(events.table(sort_by="self_device_time_total", row_limit=25))
+
+
+def phase_profiles(engine, seed, dev, card) -> None:
+    """Device time by kernel over 10 batch-1024 predict_windows calls and 10
+    batch-1024 CAGrad train steps."""
     from torch.profiler import ProfilerActivity, profile
 
     batch = {m: np.random.default_rng(0).normal(size=(N_WINDOWS, WIN, c)).astype(np.float32)
@@ -333,9 +694,18 @@ def phase_profile(engine, card) -> None:
         for _ in range(10):
             engine.predict_windows(batch)
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    log(f"[profile] {card}: 10 x predict_windows batch {N_WINDOWS}, "
-        f"{wall_ms:.3f} ms wall under the profiler")
-    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    profile_table(prof, f"10 x predict_windows batch {N_WINDOWS}", wall_ms, card)
+
+    step, state, ctx, tbatch = make_step_setup(seed, dev, 1024)
+    step(state, tbatch, None, ctx)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step(state, tbatch, None, ctx)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    profile_table(prof, "10 x CAGrad train step batch 1024", wall_ms, card)
 
 
 def main() -> int:
@@ -349,25 +719,38 @@ def main() -> int:
     dev = resolve_device("cuda")
     rng = np.random.default_rng(args.seed)
     card = phase_device()
-    errors = phase_kernels(rng, dev)
-    engine, launches = phase_serving(args.seed, rng)
-    times = phase_timings(rng, dev, engine, card)
-    phase_profile(engine, card)
-    st = times["stream_block"]
-    kernels = [{
-        "name": "stream_block",
-        "route": "cuda",
-        "source": "gaitpd_torch/csrc/stream_block.cu",
-        "replaces": "gaitpd/ops/pallas_blocks.py:72",
-        "launches": launches["stream_block"],
-        "max_abs_err": errors["main"],
-        "ms": st["ms"],
-        "plain_ms": st["plain_ms"],
-        "bound_ms": st["bound_ms"],
-        "bound_by": st["bound_by"],
-        "library_ms": st["library_ms"],
-    }]
-    log(f"[done] {time.perf_counter() - t_start:.1f} s; serving {json.dumps(times['serving'])}")
+    sb_errors = check_stream_block(rng, dev)
+    solver_err = check_solver(rng, dev)
+    engine, serve_launches = phase_serving(args.seed, rng)
+    training = phase_training(args.seed, dev)
+    times = time_stream_block(rng, dev, card)
+    times["cagrad_solver"] = time_solver(rng, dev, card)
+    serving = time_serving(engine, rng, card)
+    train_steps = time_train_step(args.seed, dev, card)
+    phase_profiles(engine, args.seed, dev, card)
+
+    launches = training["sync"]["launches"]
+    entries = [
+        ("stream_block", "gaitpd_torch/csrc/stream_block.cu", "gaitpd/ops/pallas_blocks.py:72",
+         sb_errors["main"][0]),
+        ("stream_block_backward", "gaitpd_torch/csrc/stream_block.cu",
+         "gaitpd/ops/pallas_blocks.py:160", sb_errors["main"][1]),
+        # not a TPU kernel: the CAGrad solver that XLA compiles into the step
+        ("cagrad_solver", "gaitpd_torch/csrc/cagrad_solver.cu", "gaitpd/learning/minnorm.py:58",
+         solver_err),
+    ]
+    kernels = []
+    for name, source, replaces, err in entries:
+        t = times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": err, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    log(f"[done] {time.perf_counter() - t_start:.1f} s; serving launches {serve_launches}; "
+        f"training {json.dumps(training)}; serving {json.dumps(serving)}; "
+        f"train steps {json.dumps(train_steps)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

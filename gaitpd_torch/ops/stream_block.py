@@ -1,19 +1,22 @@
 """Fused stream block: Conv1d(k, 'SAME') + bias + activation +
-AdaptiveAvgPool1d(t_out), the whole SharedBackbone in one op.
+AdaptiveAvgPool1d(t_out), the whole SharedBackbone in one op, with its
+gradient.
 
 Port of gaitpd/ops/pallas_blocks.py:55-69 (the jnp reference) and
-:142-176 (the Pallas TPU kernel). On a CUDA tensor ``stream_block`` launches
-the hand-written kernel gaitpd_torch/csrc/stream_block.cu and counts the
-launch in ``launches``; on a CPU tensor it takes the plain version,
-``stream_block_reference``. There is no fallback from one to the other.
-
-Forward only: the kernel has no backward yet, so the wrapper refuses a CUDA
-input that needs a gradient rather than return a result detached from it.
+:142-176 (the Pallas TPU kernel and its custom_vjp). On CUDA tensors
+``stream_block`` launches the hand-written forward kernel of
+gaitpd_torch/csrc/stream_block.cu, counted in ``launches``; where autograd
+needs a gradient it goes through ``_StreamBlockFunction``, whose backward is
+the hand-written backward kernel of the same file, counted in
+``backward_launches``. On CPU tensors both take the plain version,
+``stream_block_reference``, under ordinary autograd. There is no fallback
+from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,8 +25,10 @@ from gaitpd_torch.models.blocks import adaptive_avg_pool_matrix
 
 ACTIVATIONS = {"relu": 0, "gelu": 1}
 
-# Kernel launches made by ``stream_block``; callers may reset it to 0.
+# Kernel launches made by ``stream_block`` and ``stream_block_backward``;
+# callers may reset them to 0.
 launches = 0
+backward_launches = 0
 
 _bound = None
 
@@ -51,16 +56,34 @@ def stream_block_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return torch.einsum("btf,to->bof", y, pool)
 
 
+def stream_block_backward_reference(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
+    t_out: int = 8, act: str = "relu",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward: autograd of ``stream_block_reference``
+    for the cotangent g (B, t_out, C_out). Returns (gx, gw, gb)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+        out = stream_block_reference(*leaves, t_out, act)
+        return torch.autograd.grad(out, leaves, g)
+
+
 def _library():
     global _bound
     if _bound is None:
         from gaitpd_torch.ops import _build
 
         lib = _build.load("stream_block")
-        fn = lib.stream_block_forward
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _bound = fn
+        fwd = lib.stream_block_forward
+        fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fwd.restype = ctypes.c_int
+        rows = lib.stream_block_backward_rows
+        rows.argtypes = [ctypes.c_int] * 6
+        rows.restype = ctypes.c_int
+        bwd = lib.stream_block_backward
+        bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        bwd.restype = ctypes.c_int
+        _bound = (fwd, rows, bwd)
     return _bound
 
 
@@ -79,37 +102,104 @@ def _check(x, w, b, t_out, act):
         raise ValueError(f"need T >= 1 and t_out >= 1, got T={x.shape[1]}, t_out={t_out}")
 
 
-def stream_block(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 t_out: int = 8, act: str = "relu") -> torch.Tensor:
-    """x: (B, T, C_in); w: (K, C_in, C_out); b: (C_out,) -> (B, t_out, C_out).
-
-    CPU tensors take ``stream_block_reference``; CUDA tensors launch the
-    kernel or raise."""
-    global launches
-    _check(x, w, b, t_out, act)
-    if x.device.type == "cpu":
-        return stream_block_reference(x, w, b, t_out, act)
-    tensors = (x, w, b)
-    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
-        raise ValueError(f"x, w, b must lie on one CUDA device, got "
+def _check_cuda(name, tensors):
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: tensors must lie on one CUDA device, got "
                          f"{[str(t.device) for t in tensors]}")
     if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"stream_block takes float32, got {[t.dtype for t in tensors]}")
+        raise TypeError(f"{name} takes float32, got {[t.dtype for t in tensors]}")
     if any(not t.is_contiguous() for t in tensors):
-        raise ValueError("stream_block takes contiguous tensors")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("the stream_block kernel has no backward yet; "
-                           "call it under torch.no_grad()")
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
+def _forward_kernel(x, w, b, t_out, act):
+    global launches
     bsz, t, cin = x.shape
     k, _, cout = w.shape
     out = torch.empty((bsz, t_out, cout), dtype=torch.float32, device=x.device)
-    fn = _library()
+    fwd, _, _ = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 bsz, t, cin, cout, k, t_out, ACTIVATIONS[act], stream)
+        err = fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                  bsz, t, cin, cout, k, t_out, ACTIVATIONS[act], stream)
     if err != 0:
         raise RuntimeError(f"stream_block kernel launch failed: cudaError_t {err} "
                            f"(x {tuple(x.shape)}, w {tuple(w.shape)}, t_out {t_out})")
     launches += 1
     return out
+
+
+class _StreamBlockFunction(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient. Saves
+    only x, w and b: the backward recomputes the convolution."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, t_out, act):
+        ctx.save_for_backward(x, w, b)
+        ctx.t_out, ctx.act = t_out, act
+        return _forward_kernel(x, w, b, t_out, act)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w, b = ctx.saved_tensors
+        gx, gw, gb = stream_block_backward(x, w, b, g.contiguous(), ctx.t_out, ctx.act)
+        return gx, gw, gb, None, None
+
+
+def stream_block(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 t_out: int = 8, act: str = "relu") -> torch.Tensor:
+    """x: (B, T, C_in); w: (K, C_in, C_out); b: (C_out,) -> (B, t_out, C_out).
+
+    CPU tensors take ``stream_block_reference``; CUDA tensors launch the
+    kernel, through ``_StreamBlockFunction`` where a gradient is needed, or
+    raise."""
+    _check(x, w, b, t_out, act)
+    if x.device.type == "cpu":
+        return stream_block_reference(x, w, b, t_out, act)
+    _check_cuda("stream_block", (x, w, b))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, b)):
+        return _StreamBlockFunction.apply(x, w, b, t_out, act)
+    return _forward_kernel(x, w, b, t_out, act)
+
+
+def stream_block_backward(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
+    t_out: int = 8, act: str = "relu",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(gx, gw, gb), the VJP of ``stream_block`` at (x, w, b) for the
+    cotangent g (B, t_out, C_out).
+
+    CPU tensors take ``stream_block_backward_reference``; CUDA tensors launch
+    the backward kernel (deterministic: no float atomics) or raise."""
+    global backward_launches
+    _check(x, w, b, t_out, act)
+    bsz, t, cin = x.shape
+    k, _, cout = w.shape
+    if tuple(g.shape) != (bsz, t_out, cout):
+        raise ValueError(f"cotangent shape {tuple(g.shape)} != {(bsz, t_out, cout)}")
+    if x.device.type == "cpu":
+        return stream_block_backward_reference(x, w, b, g, t_out, act)
+    _check_cuda("stream_block_backward", (x, w, b, g))
+    if bsz == 0:
+        return torch.zeros_like(x), torch.zeros_like(w), torch.zeros_like(b)
+    _, rows_of, bwd = _library()
+    rows = rows_of(bsz, t, cin, cout, k, t_out)
+    if rows < 1:
+        raise ValueError(f"stream_block_backward does not take x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}, t_out {t_out}")
+    gx = torch.empty_like(x)
+    gw = torch.empty_like(w)
+    gb = torch.empty_like(b)
+    partial = torch.empty((rows, k * cin * cout + cout), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = bwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(), gx.data_ptr(),
+                  gw.data_ptr(), gb.data_ptr(), partial.data_ptr(),
+                  bsz, t, cin, cout, k, t_out, ACTIVATIONS[act], stream)
+    if err != 0:
+        raise RuntimeError(f"stream_block backward kernel launch failed: cudaError_t {err} "
+                           f"(x {tuple(x.shape)}, w {tuple(w.shape)}, t_out {t_out})")
+    backward_launches += 1
+    return gx, gw, gb

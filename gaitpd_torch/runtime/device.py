@@ -18,7 +18,9 @@ def set_strict_f32() -> None:
 
     cuDNN runs f32 convolutions in TF32 by default (about three decimal
     digits); the JAX reference runs every product at ``Precision.HIGHEST``,
-    so the port turns TF32 off for both matmuls and convolutions.
+    so the port turns TF32 off for both matmuls and convolutions. It leaves
+    cuDNN free to pick backward algorithms that add with atomics: on an
+    H100 its deterministic ones made a CAGrad step about ten times slower.
     """
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -30,5 +30,11 @@ def test_port_imports_nothing_of_jax_or_gaitpd(path):
 def test_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for must in ("gaitpd_torch/serve.py", "gaitpd_torch/ops/stream_block.py",
-                 "gaitpd_torch/models/multitask.py", "chip_smoke.py"):
+                 "gaitpd_torch/models/multitask.py", "gaitpd_torch/ops/cagrad_solver.py",
+                 "gaitpd_torch/learning/losses.py", "gaitpd_torch/learning/minnorm.py",
+                 "gaitpd_torch/learning/mtl.py", "gaitpd_torch/train/step.py",
+                 "gaitpd_torch/train/loop.py", "gaitpd_torch/train/weargait_driver.py",
+                 "gaitpd_torch/data/weargait.py", "gaitpd_torch/data/synthetic.py",
+                 "gaitpd_torch/data/sampler.py", "gaitpd_torch/train/cv.py",
+                 "chip_smoke.py"):
         assert must in names

@@ -1,16 +1,24 @@
-"""The CUDA stream-block kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
-Marked ``gpu``: each test skips where there is no CUDA device (the kernel has
-no CPU mode). This file imports no JAX, so it runs on a machine with a card
-and PyTorch alone:
+Marked ``gpu``: each test skips where there is no CUDA device (the kernels
+have no CPU mode). This file imports no JAX, so it runs on a machine with a
+card and PyTorch alone:
 
     python -m pytest tests/test_torch_kernel_card.py -m gpu
+
+Tolerances: the stream block's forward and gx within 1e-5 absolute (f32,
+only the order of summation differs); gw and gb within 1e-5 of the largest
+reference value, since they sum over every frame of the batch in another
+order. The CAGrad solver: w within 1e-4 and the objective within 1e-6
+relative (the kernel runs the plain version's IEEE operations in its order,
+so on the card the two agree to the bit).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from gaitpd_torch.ops import cagrad_solver as cs
 from gaitpd_torch.ops import stream_block as sb
 from gaitpd_torch.runtime.device import resolve_device
 
@@ -28,25 +36,43 @@ CASES = [
 
 
 def _inputs(case, dev, seed=0):
-    bsz, t, cin, k, cout, _, _ = case
+    bsz, t, cin, k, cout, t_out, _ = case
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(bsz, t, cin)).astype(np.float32)
     w = (rng.normal(size=(k, cin, cout)) * 0.1).astype(np.float32)
     b = (rng.normal(size=(cout,)) * 0.1).astype(np.float32)
-    return [torch.from_numpy(a).to(dev) for a in (x, w, b)]
+    g = rng.normal(size=(bsz, t_out, cout)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (x, w, b, g)]
 
 
 def _cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return resolve_device("cuda")
+
+
+def _grams(rng, n, k):
+    a = rng.normal(size=(n, k, 6)) * rng.uniform(0.1, 10.0, size=(n, 1, 1))
+    grams = a @ a.transpose(0, 2, 1) + 1e-4 * np.eye(k)
+    v = rng.normal(size=k)
+    degenerate = [np.zeros((k, k)), np.outer(v, v), np.ones((k, k)) * 2.0]
+    z = grams[0].copy()
+    z[0, :] = z[:, 0] = 0.0  # one task with a zero gradient
+    return np.concatenate([grams, np.stack(degenerate + [z])]).astype(np.float32)
+
+
+def _objective(w, gram, c):
+    k = gram.shape[-1]
+    c_coef = c * np.sqrt(gram.mean((-2, -1)) + 1e-8) + 1e-8
+    gb = gram @ (np.ones(k) / k)
+    return (w * gb).sum(-1) + c_coef * np.sqrt(np.einsum("ni,nij,nj->n", w, gram, w) + 1e-8)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
 def test_kernel_matches_plain_on_card(case):
     dev = _cuda()
-    x, w, b = _inputs(case, dev)
+    x, w, b, _ = _inputs(case, dev)
     before = sb.launches
     got = sb.stream_block(x, w, b, case[5], case[6])
     torch.cuda.synchronize()
@@ -56,14 +82,69 @@ def test_kernel_matches_plain_on_card(case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_backward_kernel_matches_plain_on_card(case):
+    dev = _cuda()
+    x, w, b, g = _inputs(case, dev)
+    before = sb.backward_launches
+    got = sb.stream_block_backward(x, w, b, g, case[5], case[6])
+    again = sb.stream_block_backward(x, w, b, g, case[5], case[6])
+    torch.cuda.synchronize()
+    assert sb.backward_launches == before + 2
+    want = sb.stream_block_backward_reference(x, w, b, g, case[5], case[6])
+    assert (got[0] - want[0]).abs().max().item() <= 1e-5
+    for gk, wk in zip(got[1:], want[1:]):
+        tol = 1e-5 * max(1.0, wk.abs().max().item())
+        assert (gk - wk).abs().max().item() <= tol
+    for a, c in zip(got, again):  # deterministic: the same bits twice
+        assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_autograd_goes_through_the_backward_kernel():
+    dev = _cuda()
+    x, w, b, g = _inputs(CASES[0], dev)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    before = (sb.launches, sb.backward_launches)
+    out = sb.stream_block(*leaves, CASES[0][5], CASES[0][6])
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (sb.launches, sb.backward_launches) == (before[0] + 1, before[1] + 1)
+    want = sb.stream_block_backward_reference(x, w, b, g, CASES[0][5], CASES[0][6])
+    for gk, wk in zip(grads, want):
+        assert (gk - wk).abs().max().item() <= 1e-5 * max(1.0, wk.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 3, 5, 8])
+def test_solver_kernel_matches_plain_on_card(k):
+    dev = _cuda()
+    grams = torch.from_numpy(_grams(np.random.default_rng(k), 40, k)).to(dev)
+    before = cs.launches
+    got = cs.cagrad_solve(grams, 0.5)
+    torch.cuda.synchronize()
+    assert cs.launches == before + 1
+    want = cs.cagrad_solve_reference(grams, 0.5)
+    gn, wn, gram_np = got.cpu().double().numpy(), want.cpu().double().numpy(), grams.cpu().double().numpy()
+    assert np.all(gn >= 0) and np.allclose(gn.sum(-1), 1.0, atol=1e-5)
+    f_got, f_want = _objective(gn, gram_np, 0.5), _objective(wn, gram_np, 0.5)
+    assert np.all(np.abs(f_got - f_want) <= 1e-6 * np.maximum(np.abs(f_want), 1e-12))
+    assert np.abs(gn - wn).max() <= 1e-4, np.abs(gn - wn).max(-1)
+
+
+@pytest.mark.gpu
 def test_kernel_refuses_what_it_does_not_take():
     dev = _cuda()
-    x, w, b = _inputs(CASES[0], dev)
+    x, w, b, g = _inputs(CASES[0], dev)
     with pytest.raises(TypeError):
         sb.stream_block(x.double(), w, b)
     with pytest.raises(ValueError):
         sb.stream_block(x.transpose(1, 2).contiguous().transpose(1, 2), w, b)
     with pytest.raises(ValueError):
         sb.stream_block(x, w.cpu(), b)
-    with pytest.raises(RuntimeError):
-        sb.stream_block(x, w.requires_grad_(), b)
+    with pytest.raises(ValueError):
+        sb.stream_block_backward(x, w, b, g[:, :4])
+    with pytest.raises(TypeError):
+        cs.cagrad_solve(torch.eye(3, device=dev, dtype=torch.float64), 0.5)
+    with pytest.raises(ValueError):
+        cs.cagrad_solve(torch.eye(9, device=dev), 0.5)

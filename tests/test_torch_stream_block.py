@@ -3,8 +3,10 @@ gaitpd.ops.pallas_blocks (interpret mode on the CPU, as tests/test_pallas.py
 runs it) and its jnp reference, on the same numpy inputs.
 
 On the CPU the wrapper takes its plain version; tests/test_torch_kernel_card.py
-holds the CUDA kernel against that plain version on the card. Tolerance: see
-test_torch_pipeline.
+holds the CUDA kernels (forward and backward) against that plain version on
+the card. Tolerance: see test_torch_pipeline; gradients within 1e-4
+relative and 1e-5 absolute, as tests/test_pallas.py holds gaitpd's own
+custom_vjp.
 """
 
 import numpy as np
@@ -77,6 +79,44 @@ def test_shared_backbone_matches_flax(t):
     with torch.no_grad():
         got = tm(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, np.asarray(fm.apply(v, jnp.asarray(x))), **TOL)
+
+
+# (B, T, C_in, K, C_out, t_out, act): tests/test_pallas.py:45-53's case, then
+# T = 101 (overlapping bins), k5 GELU and k1
+GRAD_CASES = [
+    (4, 32, 6, 3, 8, 4, "relu"),
+    (4, 101, 12, 3, 16, 8, "relu"),
+    (3, 64, 13, 5, 16, 8, "gelu"),
+    (5, 30, 4, 1, 7, 4, "relu"),
+]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_gradients_match_custom_vjp(case):
+    """The plain path's autograd against make_stream_block's custom_vjp
+    (Pallas forward in interpret mode, jnp-derived backward), for the
+    cotangent of sum(out ** 2) as in tests/test_pallas.py, and the CPU
+    wrapper stream_block_backward against both."""
+    t_out, act = case[5], case[6]
+    x, w, b = _inputs(case, seed=3)
+    op = make_stream_block(act, t_out)
+    ref = jax.grad(lambda *a: jnp.sum(op(*a) ** 2), argnums=(0, 1, 2))(
+        *map(jnp.asarray, (x, w, b)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, w, b)]
+    out = sb.stream_block(*leaves, t_out, act)
+    got = torch.autograd.grad((out ** 2).sum(), leaves)
+    before = sb.backward_launches
+    wrapped = sb.stream_block_backward(*(t.detach() for t in leaves), 2 * out.detach(), t_out, act)
+    assert sb.backward_launches == before  # the CPU path launches nothing
+    for name, g, c, r in zip("xwb", got, wrapped, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4, atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(c.numpy(), g.numpy(), rtol=1e-6, atol=1e-6, err_msg=name)
+
+
+def test_backward_rejects_a_cotangent_of_another_shape():
+    x, w, b = map(torch.from_numpy, _inputs(CASES[0]))
+    with pytest.raises(ValueError, match="cotangent"):
+        sb.stream_block_backward(x, w, b, torch.zeros(8, 4, 16))
 
 
 @pytest.mark.parametrize("bad", ["even_k", "act", "cin", "bias", "t_out"])
