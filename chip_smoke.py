@@ -26,12 +26,23 @@ Phases (each raises on failure, so the script exits non-zero):
      launched 3 times and the solver once per train step; before it, one
      train step from equal parameters and batch on both, parameters within
      1e-6 and momentum within 1e-4 of the largest;
-  5. timings: each kernel, its plain version and a PyTorch library call at
+  5. the fusion slice, this slice's main path: the stream block at the
+     fusion baselines' backbone widths (36 and 16 input channels) and the
+     cheap cross-attention kernels against their plain versions (forward within 1e-5 up to 64
+     keys, else 2e-5 + 2e-4 relative; dA, dB within 1e-5 + 1e-4 relative;
+     two backward launches bitwise equal) at the training path's shape (six
+     directed pairs of 1024 window tuples), the long and edge cases and the
+     symmetric 2-mod shape; one train step card vs CPU for each of the four
+     fusion baselines; run_cv of the cheap-xattn baseline on the card and
+     the CPU (sync 3 epochs, async 1; the same checks as phase 4, and
+     exactly one cheap_xattn backward, one stream-block backward and no
+     solver launch per train step); run_cv with single_mod="imu" for 1 epoch;
+  6. timings: each kernel, its plain version and a PyTorch library call at
      the main path's shape (CUDA events) beside its bound; serving
-     windows/s and latency; one CAGrad train step at batch 64 and 1024
-     (host clock around synchronised steps); device time by kernel of
-     batch-1024 predict_windows and of 10 batch-1024 train steps
-     (torch.profiler).
+     windows/s and latency; one CAGrad and one cheap-xattn train step at
+     batch 64 and 1024 (host clock around synchronised steps); device time
+     by kernel of batch-1024 predict_windows and of 10 batch-1024 train
+     steps of each (torch.profiler).
 
 Every number is printed beside the card's name and power limit. The
 second-to-last line is a JSON object with one entry per kernel; the last
@@ -42,6 +53,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import subprocess
@@ -57,6 +69,7 @@ from gaitpd_torch.learning.mtl import build_flat_partition, make_method
 from gaitpd_torch.models.multitask import CHANNELS, MODALITIES, WearGaitThreeModal
 from gaitpd_torch.ops import _build
 from gaitpd_torch.ops import cagrad_solver as cs
+from gaitpd_torch.ops import cheap_xattn as cx
 from gaitpd_torch.ops import stream_block as sb
 from gaitpd_torch.runtime.device import resolve_device
 from gaitpd_torch.serve import StreamingSession, WearGaitEngine, poll_sessions
@@ -97,7 +110,34 @@ WIN = HOP = 64
 SUBSETS = [s for r in (1, 2, 3) for s in itertools.combinations(MODALITIES, r)]
 # (B, T, C_in, K, C_out, t_out, act) of the backbone on the two paths
 MAIN_SHAPE = (3 * N_WINDOWS, 64, 12, 3, 16, 8, "relu")
-TRAIN_BATCHES = (64, 1024)  # window tuples per CAGrad step, timed
+TRAIN_BATCHES = (64, 1024)  # window tuples per train step, timed
+
+# (N, Tq, Tk, d) of the cheap cross-attention: the training path's six
+# directed pairs of 1024 and of 64 window tuples, tests/test_pallas.py:56-70's
+# shapes, the symmetric 2-mod model's two directions at T = 101, then one
+# query row, one key row and an odd batch
+XATTN_CASES = {
+    "main": (6 * N_WINDOWS, 64, 64, 12),
+    "train_batch64": (6 * 64, 64, 64, 12),
+    "pallas_101x426": (2, 101, 426, 12),
+    "pallas_200x100": (2, 200, 100, 12),
+    "pallas_grad_32x48_d8": (2, 32, 48, 8),
+    "sym_t101": (2 * 64, 101, 101, 12),
+    "tq1": (6 * 7, 1, 64, 12),
+    "tk1": (6 * 7, 64, 1, 12),
+    "odd_batch": (6 * 333 + 1, 64, 64, 12),
+}
+XATTN_LONG_ATOL, XATTN_LONG_RTOL = 2e-5, 2e-4  # over > 64 keys: tests/test_pallas.py:62
+XATTN_GRAD_ATOL, XATTN_GRAD_RTOL = 1e-5, 1e-4  # dA, dB: tests/test_pallas.py:70
+
+# every launch counter of the port: (module, attribute)
+COUNTERS = {
+    "stream_block": (sb, "launches"),
+    "stream_block_backward": (sb, "backward_launches"),
+    "cagrad_solver": (cs, "launches"),
+    "cheap_xattn": (cx, "launches"),
+    "cheap_xattn_backward": (cx, "backward_launches"),
+}
 
 
 def log(*parts) -> None:
@@ -124,6 +164,15 @@ def time_cuda(fn, warmup=20, reps=200) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def reset_launches() -> None:
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
+
+
+def read_launches() -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -163,16 +212,25 @@ def stream_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out=8):
 STREAM_BLOCK_CASES = {
     "main": MAIN_SHAPE,
     "train_batch64": (3 * 64, 64, 12, 3, 16, 8, "relu"),
+    # the fusion baselines' backbones: early fusion's 36 concatenated
+    # channels, the shared latent's 16
+    "early_fusion_cin36": (3 * 64, 64, 36, 3, 16, 8, "relu"),
+    "shared_latent_cin16": (3 * 64 + 1, 64, 16, 3, 16, 8, "relu"),
     "k5_gelu_cin13": (64, 64, 13, 5, 16, 8, "gelu"),
     "t101_overlapping_bins": (64, 101, 12, 3, 16, 8, "relu"),
     "ragged_batch": (3 * 333 + 1, 64, 12, 3, 16, 8, "relu"),
     "k1": (37, 64, 12, 1, 16, 8, "relu"),
 }
+# checked in the fusion slice's phase, from its own random stream: drawn
+# here they would shift every later phase's inputs (and they did put a ReLU
+# pre-activation of the library yardstick's inputs on its kink)
+FUSION_WIDTH_CASES = ("early_fusion_cin36", "shared_latent_cin16")
 
 
-def check_stream_block(rng, dev) -> dict:
+def check_stream_block(rng, dev, names) -> dict:
     errors = {}
-    for name, (bsz, t, cin, k, cout, t_out, act) in STREAM_BLOCK_CASES.items():
+    for name in names:
+        bsz, t, cin, k, cout, t_out, act = STREAM_BLOCK_CASES[name]
         x, w, b, g = stream_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
         before = (sb.launches, sb.backward_launches)
         got = sb.stream_block(x, w, b, t_out, act)
@@ -246,6 +304,47 @@ def check_solver(rng, dev) -> float:
         if k == 3:
             worst = w_err
     return worst
+
+
+def xattn_inputs(rng, n, tq, tk, d, dev):
+    """A, B and a cotangent of N problems, unit normal like the LayerNorm'd
+    encoder outputs the model feeds the kernel."""
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+            for s in ((n, tq, d), (n, tk, d), (n, tq, d))]
+
+
+def check_cheap_xattn(rng, dev, card) -> dict:
+    errors = {}
+    for name, (n, tq, tk, d) in XATTN_CASES.items():
+        a, b, g = xattn_inputs(rng, n, tq, tk, d, dev)
+        before = (cx.launches, cx.backward_launches)
+        got = cx.cheap_xattn(a, b)
+        grads = cx.cheap_xattn_backward(a, b, g)
+        again = cx.cheap_xattn_backward(a, b, g)
+        torch.cuda.synchronize()
+        if (cx.launches, cx.backward_launches) != (before[0] + 1, before[1] + 2):
+            raise RuntimeError(f"cheap_xattn[{name}]: launch counts did not go up")
+        want = cx.cheap_xattn_reference(a, b)
+        atol, rtol = (KERNEL_TOL, 0.0) if tk <= 64 else (XATTN_LONG_ATOL, XATTN_LONG_RTOL)
+        err = (got - want).abs().max().item()
+        ok = bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+        want_g = cx.cheap_xattn_backward_reference(a, b, g)
+        errs = [(gk - wk).abs().max().item() for gk, wk in zip(grads, want_g)]
+        ok_g = all(bool(((gk - wk).abs() <= XATTN_GRAD_ATOL + XATTN_GRAD_RTOL * wk.abs()).all())
+                   for gk, wk in zip(grads, want_g))
+        same = all(torch.equal(x, y) for x, y in zip(grads, again))
+        log(f"[kernel] {card}: cheap_xattn {name} (N {n}, Tq {tq}, Tk {tk}, d {d}): forward max "
+            f"abs err {err:.3e} (tol {atol:.0e} + {rtol:.0e} rel); backward dA/dB max abs err "
+            f"{errs[0]:.3e}/{errs[1]:.3e} (tol {XATTN_GRAD_ATOL:.0e} + {XATTN_GRAD_RTOL:.0e} "
+            f"rel); two launches bitwise equal: {same}")
+        if not (np.isfinite(err) and ok):
+            raise RuntimeError(f"cheap_xattn[{name}] disagrees with its plain version: {err}")
+        if not (all(np.isfinite(errs)) and ok_g):
+            raise RuntimeError(f"cheap_xattn backward[{name}] disagrees: {errs}")
+        if not same:
+            raise RuntimeError(f"cheap_xattn backward[{name}] is not deterministic")
+        errors[name] = (err, max(errs))
+    return errors
 
 
 # ---------------------------------------------------------------------------
@@ -406,12 +505,13 @@ def mask_share(args) -> float:
     return 100.0 / (len(batches) * min(batches))
 
 
-def check_one_step(seed, dev) -> None:
-    """One CAGrad train step at batch 64 on the card and on the CPU, from
-    equal parameters and an equal batch."""
+def check_one_step(seed, dev, baseline=None) -> None:
+    """One train step at batch 64 on the card and on the CPU, from equal
+    parameters and an equal batch: CAGrad for the flagship, the mean of the
+    branch losses for a fusion baseline."""
     runs = {}
     for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
-        step, state, ctx, batch = make_step_setup(seed, device, 64)
+        step, state, ctx, batch = make_step_setup(seed, device, 64, baseline)
         state, metrics = step(state, batch, None, ctx)
         runs[name] = (state, metrics)
     card_state, cpu_state = runs["card"][0], runs["cpu"][0]
@@ -423,68 +523,109 @@ def check_one_step(seed, dev) -> None:
         scale = max(1.0, max(w.abs().max().item() for w in want))
         gaps[what] = (max((g - w).abs().max().item() for g, w in zip(got, want)), scale)
     loss_gap = (runs["card"][1]["losses"].cpu() - runs["cpu"][1]["losses"]).abs().max().item()
-    log(f"[train] one CAGrad step at batch 64, card vs CPU: parameters max abs gap "
-        f"{gaps['parameters'][0]:.3e} (tol {STEP_PARAM_TOL * gaps['parameters'][1]:.2e}), "
+    log(f"[train] one {baseline or 'CAGrad'} step at batch 64, card vs CPU: parameters max abs "
+        f"gap {gaps['parameters'][0]:.3e} (tol {STEP_PARAM_TOL * gaps['parameters'][1]:.2e}), "
         f"momentum {gaps['momentum'][0]:.3e} (tol {STEP_MOMENTUM_TOL * gaps['momentum'][1]:.2e}), "
         f"losses {loss_gap:.3e}")
     if (gaps["parameters"][0] > STEP_PARAM_TOL * gaps["parameters"][1]
             or gaps["momentum"][0] > STEP_MOMENTUM_TOL * gaps["momentum"][1]):
-        raise RuntimeError(f"one train step: card and CPU differ: {gaps}")
+        raise RuntimeError(f"one {baseline or 'CAGrad'} train step: card and CPU differ: {gaps}")
 
 
-def phase_training(seed, dev) -> dict:
-    """run_cv on the card and on the CPU from one seed; the card's run is the
-    main path, with every launch count set to 0 just before it."""
-    check_one_step(seed, dev)
-    common = dict(synthetic=True, seed=seed, batch_size=64, wm="gcl", alpha=0.5,
-                  noise_mul=0.0, verbose=False, patience=50, **TRAIN_CV)
+def compare_run_cv(label, common, modes, per_step, nonzero) -> dict:
+    """run_cv on the card and on the CPU from one seed, for each (mode,
+    epochs) of ``modes``; the card's run is a main path, with every launch
+    count set to 0 just before it and read just after. ``per_step``: the
+    launches each non-empty train step must make of a kernel; ``nonzero``:
+    the kernels the run must launch at all."""
     out = {}
-    for mode, epochs in (("sync", 3), ("async", 1)):
+    for mode, epochs in modes:
         args = wg.WearGaitArgs(epochs=epochs, async_loading=mode == "async", **common)
-        sb.launches = sb.backward_launches = cs.launches = 0
+        reset_launches()
         card_res, card_rec, card_s = run_training(args)
         torch.cuda.synchronize()
-        launches = {"stream_block": sb.launches, "stream_block_backward": sb.backward_launches,
-                    "cagrad_solver": cs.launches}
-        cpu_args = wg.WearGaitArgs(epochs=epochs, async_loading=mode == "async",
-                                       device="cpu", **common)
-        cpu_res, cpu_rec, cpu_s = run_training(cpu_args)
+        launches = read_launches()
+        cpu_res, cpu_rec, cpu_s = run_training(dataclasses.replace(args, device="cpu"))
         steps = card_rec.steps
-        log(f"[train] {mode}: {epochs} epoch(s), {steps} train steps of batch 64; card "
+        tag = f"{label} {mode}"
+        log(f"[train] {tag}: {epochs} epoch(s), {steps} train steps of batch 64; card "
             f"{card_s:.2f} s, CPU {cpu_s:.2f} s; launches on the card {launches}")
         if steps == 0 or steps != cpu_rec.steps:
-            raise RuntimeError(f"train {mode}: {steps} card steps vs {cpu_rec.steps} on the CPU")
+            raise RuntimeError(f"train {tag}: {steps} card steps vs {cpu_rec.steps} on the CPU")
         for ep, (a, b) in enumerate(zip(card_rec.train_loss, cpu_rec.train_loss), 1):
             gap = float((np.abs(a - b) / np.abs(b)).max())
-            log(f"[train] {mode} epoch {ep}: train losses card {np.round(a, 6).tolist()} "
+            log(f"[train] {tag} epoch {ep}: train losses card {np.round(a, 6).tolist()} "
                 f"CPU {np.round(b, 6).tolist()}, max rel gap {gap:.3e} (tol {TRAIN_LOSS_RTOL})")
             if not np.all(np.isfinite(a)) or gap > TRAIN_LOSS_RTOL:
-                raise RuntimeError(f"train {mode} epoch {ep}: card losses differ from the CPU's")
+                raise RuntimeError(f"train {tag} epoch {ep}: card losses differ from the CPU's")
         scale = max(1.0, max(p.abs().max().item() for p in cpu_rec.first_epoch_params.values()))
         p_gap = max((card_rec.first_epoch_params[n] - p).abs().max().item()
                     for n, p in cpu_rec.first_epoch_params.items())
-        log(f"[train] {mode}: parameters after epoch 1, max abs gap {p_gap:.3e} "
+        log(f"[train] {tag}: parameters after epoch 1, max abs gap {p_gap:.3e} "
             f"(tol {TRAIN_PARAM_TOL * scale:.2e})")
         if p_gap > TRAIN_PARAM_TOL * scale:
-            raise RuntimeError(f"train {mode}: parameters after epoch 1 differ from the CPU's")
+            raise RuntimeError(f"train {tag}: parameters after epoch 1 differ from the CPU's")
         share = mask_share(args)
-        flips = 0
-        for mk in wg.MASK_COMBOS:
-            a, b = card_res["masks"][mk], cpu_res["masks"][mk]
-            flips += a != b
-            log(f"[train] {mode} mask {mk:5}: card {a:.4f} %, CPU {b:.4f} %")
-            if a is None or abs(a - b) > share + 1e-4:
-                raise RuntimeError(f"train {mode} mask {mk}: {a} vs {b} (one window {share:.3f})")
-        log(f"[train] {mode}: {flips} of 7 subset accuracies differ, each by at most one "
-            f"eval window ({share:.4f} points); macro card {card_res['macro'][0]:.4f} %, "
-            f"CPU {cpu_res['macro'][0]:.4f} %")
-        if launches["stream_block_backward"] != 3 * steps or launches["cagrad_solver"] != steps:
-            raise RuntimeError(f"train {mode}: launches {launches} for {steps} steps "
-                               f"(want 3 backward and 1 solver launch a step)")
-        if launches["stream_block"] == 0:
-            raise RuntimeError(f"train {mode}: the forward kernel was not launched")
+        if args.single_mod is not None:  # pooled accuracy, no masked table
+            a, b = card_res["macro"][0], cpu_res["macro"][0]
+            log(f"[train] {tag}: best pooled accuracy card {a:.4f} %, CPU {b:.4f} % "
+                f"(one eval window {share:.4f} points)")
+            if abs(a - b) > share + 1e-4:
+                raise RuntimeError(f"train {tag}: accuracy {a} vs {b}")
+        else:
+            flips = 0
+            for mk in wg.MASK_COMBOS:
+                a, b = card_res["masks"][mk], cpu_res["masks"][mk]
+                flips += a != b
+                log(f"[train] {tag} mask {mk:5}: card {a:.4f} %, CPU {b:.4f} %")
+                if a is None or abs(a - b) > share + 1e-4:
+                    raise RuntimeError(f"train {tag} mask {mk}: {a} vs {b} "
+                                       f"(one window {share:.3f})")
+            log(f"[train] {tag}: {flips} of 7 subset accuracies differ, each by at most one "
+                f"eval window ({share:.4f} points); macro card {card_res['macro'][0]:.4f} %, "
+                f"CPU {cpu_res['macro'][0]:.4f} %")
+        wrong = {k: (launches[k], n * steps) for k, n in per_step.items()
+                 if launches[k] != n * steps}
+        if wrong:
+            raise RuntimeError(f"train {tag}: launches (got, want) {wrong} for {steps} steps")
+        idle = [k for k in nonzero if launches[k] == 0]
+        if idle:
+            raise RuntimeError(f"train {tag}: kernel(s) {idle} were not launched")
         out[mode] = {"launches": launches, "steps": steps}
     return out
+
+
+def train_common(seed) -> dict:
+    return dict(synthetic=True, seed=seed, batch_size=64, wm="gcl", alpha=0.5,
+                noise_mul=0.0, verbose=False, patience=50, **TRAIN_CV)
+
+
+def phase_training(seed, dev) -> dict:
+    """The flagship's CAGrad training (the previous slice's main path):
+    3 backward and 1 solver launch a step."""
+    check_one_step(seed, dev)
+    return compare_run_cv("cagrad", train_common(seed), (("sync", 3), ("async", 1)),
+                          {"stream_block_backward": 3, "cagrad_solver": 1}, ("stream_block",))
+
+
+def phase_fusion_training(seed, dev) -> tuple:
+    """This slice's main path: the cheap-xattn fusion baseline trains on the
+    mean of its branch losses, with one launch each of the cross-attention
+    and stream-block backward kernels a step and no solver; before it, one
+    step of each fusion baseline (the stream block at 36 and 16 input
+    channels too); after it, the single-modality mode."""
+    for baseline in wg.FUSION_BASELINES:
+        check_one_step(seed, dev, baseline)
+    xattn = compare_run_cv(
+        "cheap_xattn", dict(train_common(seed), baseline="cheap_xattn"),
+        (("sync", 3), ("async", 1)),
+        {"cheap_xattn_backward": 1, "stream_block_backward": 1, "cagrad_solver": 0},
+        ("stream_block", "cheap_xattn"))
+    single = compare_run_cv(
+        "single_mod imu", dict(train_common(seed), single_mod="imu"), (("sync", 1),),
+        {"stream_block_backward": 1, "cagrad_solver": 0, "cheap_xattn": 0,
+         "cheap_xattn_backward": 0}, ("stream_block",))
+    return xattn, single
 
 
 # ---------------------------------------------------------------------------
@@ -585,6 +726,71 @@ def time_stream_block(rng, dev, card) -> dict:
     }
 
 
+def cheap_xattn_bound(n, tq, tk, d):
+    """Read A and B once, write O once; two products of 2*N*Tq*Tk*d FLOP."""
+    return _bound(4 * n * d * (2 * tq + tk), 2 * 2 * n * tq * tk * d)
+
+
+def cheap_xattn_backward_bound(n, tq, tk, d):
+    """Read A, B, dO once, write dA, dB once; five products (S, dP, dA, and
+    dB's two), each 2*N*Tq*Tk*d FLOP."""
+    return _bound(4 * n * d * (3 * tq + 2 * tk), 5 * 2 * n * tq * tk * d)
+
+
+def time_cheap_xattn(rng, dev, card) -> dict:
+    n, tq, tk, d = XATTN_CASES["main"]
+    a, b, g = xattn_inputs(rng, n, tq, tk, d, dev)
+
+    def library():  # its default scale is 1/sqrt(d): the same function
+        return F.scaled_dot_product_attention(a, b, b)
+
+    lib_err = (library() - cx.cheap_xattn_reference(a, b)).abs().max().item()
+    if lib_err > KERNEL_TOL:
+        raise RuntimeError(f"library yardstick computes another function: {lib_err}")
+    with torch.inference_mode():
+        plain_ms = time_cuda(lambda: cx.cheap_xattn_reference(a, b))
+        kernel_ms = time_cuda(lambda: cx.cheap_xattn(a, b))
+        kernel_ms_2 = time_cuda(lambda: cx.cheap_xattn(a, b))
+        plain_ms_2 = time_cuda(lambda: cx.cheap_xattn_reference(a, b))
+        library_ms = time_cuda(library)
+    bound_ms, bound_by = cheap_xattn_bound(n, tq, tk, d)
+    log(f"[time] {card}: cheap_xattn N {n}, Tq {tq}, Tk {tk}, d {d}: kernel "
+        f"{kernel_ms:.4f}/{kernel_ms_2:.4f} ms, plain {plain_ms:.4f}/{plain_ms_2:.4f} ms, "
+        f"library scaled_dot_product_attention {library_ms:.4f} ms (max abs diff "
+        f"{lib_err:.2e}), bound {bound_ms:.5f} ms ({bound_by})")
+
+    leaves = [t.detach().clone().requires_grad_() for t in (a, b)]
+
+    def library_backward():
+        out = F.scaled_dot_product_attention(leaves[0], leaves[1], leaves[1])
+        return torch.autograd.grad(out, leaves, g)
+
+    want = cx.cheap_xattn_backward_reference(a, b, g)
+    lib_b_err = max((p - q).abs().max().item() for p, q in zip(library_backward(), want))
+    if lib_b_err > XATTN_GRAD_ATOL + XATTN_GRAD_RTOL * max(q.abs().max().item() for q in want):
+        raise RuntimeError(f"library backward computes another function: {lib_b_err}")
+    bwd_plain = time_cuda(lambda: cx.cheap_xattn_backward_reference(a, b, g), warmup=5, reps=50)
+    bwd_kernel = time_cuda(lambda: cx.cheap_xattn_backward(a, b, g))
+    bwd_kernel_2 = time_cuda(lambda: cx.cheap_xattn_backward(a, b, g))
+    bwd_plain_2 = time_cuda(lambda: cx.cheap_xattn_backward_reference(a, b, g),
+                            warmup=5, reps=50)
+    bwd_library = time_cuda(library_backward, warmup=5, reps=50)
+    bwd_bound, bwd_by = cheap_xattn_backward_bound(n, tq, tk, d)
+    log(f"[time] {card}: cheap_xattn_backward at N {n}, Tq {tq}, Tk {tk}, d {d}: kernel "
+        f"{bwd_kernel:.4f}/{bwd_kernel_2:.4f} ms, plain (autograd of the plain forward) "
+        f"{bwd_plain:.4f}/{bwd_plain_2:.4f} ms, library (autograd of "
+        f"scaled_dot_product_attention, forward included; max abs diff {lib_b_err:.2e}) "
+        f"{bwd_library:.4f} ms, bound {bwd_bound:.5f} ms ({bwd_by})")
+    return {
+        "cheap_xattn": {"ms": min(kernel_ms, kernel_ms_2), "plain_ms": min(plain_ms, plain_ms_2),
+                        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by},
+        "cheap_xattn_backward": {"ms": min(bwd_kernel, bwd_kernel_2),
+                                 "plain_ms": min(bwd_plain, bwd_plain_2),
+                                 "library_ms": bwd_library, "bound_ms": bwd_bound,
+                                 "bound_by": bwd_by},
+    }
+
+
 def time_solver(rng, dev, card) -> dict:
     gram = torch.from_numpy(solver_grams(rng, 1, 3)[0]).to(dev)  # the main path: K = 3
     kernel_ms = time_cuda(lambda: cs.cagrad_solve(gram, 0.5), warmup=10, reps=200)
@@ -626,17 +832,22 @@ def time_serving(engine, rng, card) -> dict:
     return serving
 
 
-def make_step_setup(seed, dev, bsz):
-    """A flagship model, its SGD and CAGrad step, and one card-resident batch
-    of ``bsz`` window tuples."""
-    model = WearGaitThreeModal(generator=torch.Generator().manual_seed(seed)).to(dev)
+def make_step_setup(seed, dev, bsz, baseline=None):
+    """A flagship model with its SGD and CAGrad step, or a fusion baseline
+    with SGD on the mean of its branch losses (sync), and one card-resident
+    batch of ``bsz`` window tuples."""
+    model = wg.build_model(wg.WearGaitArgs(seed=seed, baseline=baseline), True).to(dev)
     settings = StepSettings(n_streams=3, wm="gcl", synchronized=True,
                             private_grads="sum_plus_own")
-    mtl = make_method("cagrad", 3, c=0.5)
-    step = make_train_step(settings, mtl, build_flat_partition(
-        model, model.shared_modules, model.task_modules))
+    if baseline is None:
+        mtl = make_method("cagrad", 3, c=0.5)
+        step = make_train_step(settings, mtl, build_flat_partition(
+            model, model.shared_modules, model.task_modules))
+        mtl_state = mtl.init_state()
+    else:
+        step, mtl_state = make_train_step(settings), {}
     state = TrainState(module=model, optimizer=sgd_torch(model.parameters(), 1e-3),
-                       mtl_state=mtl.init_state())
+                       mtl_state=mtl_state)
     ctx = make_loss_ctx(settings, [[900, 700]] * 3, device=dev)
     g = torch.Generator().manual_seed(seed)  # on the host: the same batch on any device
     batch = {
@@ -649,10 +860,10 @@ def make_step_setup(seed, dev, bsz):
     return step, state, ctx, batch
 
 
-def time_train_step(seed, dev, card) -> dict:
+def time_train_step(seed, dev, card, baseline=None) -> dict:
     out = {}
     for bsz in TRAIN_BATCHES:
-        step, state, ctx, batch = make_step_setup(seed, dev, bsz)
+        step, state, ctx, batch = make_step_setup(seed, dev, bsz, baseline)
         for _ in range(3):
             step(state, batch, None, ctx)
         torch.cuda.synchronize()
@@ -665,7 +876,8 @@ def time_train_step(seed, dev, card) -> dict:
         if not torch.isfinite(metrics["losses"]).all():
             raise RuntimeError(f"train step at batch {bsz}: non-finite loss")
         out[f"batch{bsz}"] = {"ms": ms, "window_tuples_per_s": 1e3 * bsz / ms}
-        log(f"[time] {card}: CAGrad train step, batch {bsz} window tuples (card-resident): "
+        log(f"[time] {card}: {baseline or 'CAGrad'} train step, batch {bsz} window tuples "
+            f"(card-resident): "
             f"{ms:.3f} ms, {1e3 * bsz / ms:.1f} window tuples/s")
     return out
 
@@ -674,7 +886,10 @@ def profile_table(prof, label, wall_ms, card) -> None:
     from torch.autograd import DeviceType
 
     events = prof.key_averages()
-    device_us = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA)
+    # kernels only: a user annotation (the optimizer's step range) is a CUDA
+    # event too, and would count its kernels twice
+    device_us = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
     log(f"[profile] {card}: {label}: {wall_ms:.3f} ms wall under the profiler, "
         f"{device_us / 1e3:.3f} ms device time (sum of kernel self times), device idle "
         f"{100 * max(0.0, 1 - device_us / 1e3 / wall_ms):.1f} %")
@@ -682,8 +897,8 @@ def profile_table(prof, label, wall_ms, card) -> None:
 
 
 def phase_profiles(engine, seed, dev, card) -> None:
-    """Device time by kernel over 10 batch-1024 predict_windows calls and 10
-    batch-1024 CAGrad train steps."""
+    """Device time by kernel over 10 batch-1024 predict_windows calls, 10
+    batch-1024 CAGrad train steps and 10 batch-1024 cheap-xattn train steps."""
     from torch.profiler import ProfilerActivity, profile
 
     batch = {m: np.random.default_rng(0).normal(size=(N_WINDOWS, WIN, c)).astype(np.float32)
@@ -707,6 +922,17 @@ def phase_profiles(engine, seed, dev, card) -> None:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     profile_table(prof, "10 x CAGrad train step batch 1024", wall_ms, card)
 
+    step, state, ctx, tbatch = make_step_setup(seed, dev, 1024, "cheap_xattn")
+    step(state, tbatch, None, ctx)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step(state, tbatch, None, ctx)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    profile_table(prof, "10 x cheap_xattn train step batch 1024", wall_ms, card)
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -719,17 +945,30 @@ def main() -> int:
     dev = resolve_device("cuda")
     rng = np.random.default_rng(args.seed)
     card = phase_device()
-    sb_errors = check_stream_block(rng, dev)
+    sb_errors = check_stream_block(
+        rng, dev, [n for n in STREAM_BLOCK_CASES if n not in FUSION_WIDTH_CASES])
     solver_err = check_solver(rng, dev)
     engine, serve_launches = phase_serving(args.seed, rng)
     training = phase_training(args.seed, dev)
+    # the fusion slice draws from its own stream, so the phases above see the
+    # inputs they always saw
+    xrng = np.random.default_rng([args.seed, 3])
+    check_stream_block(xrng, dev, FUSION_WIDTH_CASES)
+    xattn_errors = check_cheap_xattn(xrng, dev, card)
+    fusion, single = phase_fusion_training(args.seed, dev)
     times = time_stream_block(rng, dev, card)
     times["cagrad_solver"] = time_solver(rng, dev, card)
     serving = time_serving(engine, rng, card)
     train_steps = time_train_step(args.seed, dev, card)
+    times.update(time_cheap_xattn(xrng, dev, card))
+    fusion_steps = time_train_step(args.seed, dev, card, "cheap_xattn")
     phase_profiles(engine, args.seed, dev, card)
 
-    launches = training["sync"]["launches"]
+    # launches on each kernel's own main path: the CAGrad training's for the
+    # earlier slices' kernels, the cheap-xattn training's for this slice's
+    launches = dict(training["sync"]["launches"])
+    for name in ("cheap_xattn", "cheap_xattn_backward"):
+        launches[name] = fusion["sync"]["launches"][name]
     entries = [
         ("stream_block", "gaitpd_torch/csrc/stream_block.cu", "gaitpd/ops/pallas_blocks.py:72",
          sb_errors["main"][0]),
@@ -738,6 +977,10 @@ def main() -> int:
         # not a TPU kernel: the CAGrad solver that XLA compiles into the step
         ("cagrad_solver", "gaitpd_torch/csrc/cagrad_solver.cu", "gaitpd/learning/minnorm.py:58",
          solver_err),
+        ("cheap_xattn", "gaitpd_torch/csrc/cheap_xattn.cu", "gaitpd/ops/pallas_blocks.py:184",
+         xattn_errors["main"][0]),
+        ("cheap_xattn_backward", "gaitpd_torch/csrc/cheap_xattn.cu",
+         "gaitpd/ops/pallas_blocks.py:275", xattn_errors["main"][1]),
     ]
     kernels = []
     for name, source, replaces, err in entries:
@@ -749,8 +992,9 @@ def main() -> int:
             "library_ms": t["library_ms"],
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s; serving launches {serve_launches}; "
-        f"training {json.dumps(training)}; serving {json.dumps(serving)}; "
-        f"train steps {json.dumps(train_steps)}")
+        f"training {json.dumps(training)}; fusion training {json.dumps(fusion)}; single_mod "
+        f"{json.dumps(single)}; serving {json.dumps(serving)}; train steps "
+        f"{json.dumps(train_steps)}; cheap_xattn train steps {json.dumps(fusion_steps)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

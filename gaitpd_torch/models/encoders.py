@@ -1,16 +1,48 @@
-"""WearGait per-stream encoders and the shared temporal backbone.
-Port of gaitpd/models/encoders.py:58-135, time-major (B, T, C) throughout.
+"""Per-modality encoders and the shared temporal backbone.
+Port of gaitpd/models/encoders.py:25-69,91-135, time-major (B, T, C)
+throughout.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
 
-from gaitpd_torch.models.blocks import Conv1dSame, adaptive_avg_pool1d, gelu
+from gaitpd_torch.models.blocks import Conv1dSame, TorchLinear, adaptive_avg_pool1d, gelu
 from gaitpd_torch.ops.stream_block import stream_block
+
+
+class SensorEncoder(nn.Module):
+    """Conv1d(k3, same) + AdaptiveAvgPool1d(output_length), the pool only
+    when the input's length equals ``sensor_length`` (as the reference's
+    data-shape-dependent branch)."""
+
+    def __init__(self, in_ch: int, out_channels: int, sensor_length: Optional[int] = None,
+                 output_length: int = 101, *, generator: torch.Generator):
+        super().__init__()
+        self.sensor_length = sensor_length
+        self.output_length = output_length
+        self.Conv1dSame_0 = Conv1dSame(in_ch, out_channels, 3, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.Conv1dSame_0(x)
+        if x.shape[1] == self.sensor_length:
+            x = adaptive_avg_pool1d(x, self.output_length)
+        return x
+
+
+class SkeletonMLP(nn.Module):
+    """Linear -> LayerNorm -> ReLU over each frame."""
+
+    def __init__(self, in_features: int, output_dim: int, *, generator: torch.Generator):
+        super().__init__()
+        self.TorchLinear_0 = TorchLinear(in_features, output_dim, generator=generator)
+        self.LayerNorm_0 = nn.LayerNorm(output_dim, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.LayerNorm_0(self.TorchLinear_0(x)))
 
 
 class SharedBackbone(nn.Module):
@@ -30,6 +62,16 @@ class SharedBackbone(nn.Module):
         # (C_out, C_in, K) -> the kernel's (K, C_in, C_out)
         w = conv.weight.permute(2, 1, 0).contiguous()
         return stream_block(x.contiguous(), w, conv.bias, self.backbone_dim, "relu")
+
+
+def backbone_streams(backbone: SharedBackbone, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The shared backbone over several encoded streams. Its weights are
+    shared, so streams of one length go through ONE kernel launch over their
+    concatenated batch and are split back after; the result is the same per
+    window. Streams of unequal length go one by one."""
+    if len({f.shape[1] for f in feats}) == 1:
+        return list(backbone(torch.cat(list(feats), dim=0)).split([f.shape[0] for f in feats]))
+    return [backbone(f) for f in feats]
 
 
 class WalkwayEncoder(nn.Module):

@@ -13,6 +13,7 @@ from gaitpd_torch.models.encoders import (
     InsoleEncoderDeep,
     SharedBackbone,
     WalkwayEncoder,
+    backbone_streams,
 )
 
 MODALITIES = ("walkway", "insole", "imu")
@@ -73,20 +74,11 @@ class WearGaitThreeModal(nn.Module):
             return (self.head_shared,) * 3
         return (self.head_w, self.head_i, self.head_m)
 
-    def _backbone_streams(self, feats):
-        """Backbone over the three encoded streams. The backbone's weights are
-        shared by all three, so streams of one length go through ONE kernel
-        launch over their concatenated batch and are split back after; the
-        result is the same per window. Streams of unequal length (the walkway
-        encoder does not pool, the others pool to ``pool_len``) go one by one."""
-        if len({f.shape[1] for f in feats}) == 1:
-            pooled = self.backbone(torch.cat(feats, dim=0))
-            return pooled.split([f.shape[0] for f in feats], dim=0)
-        return [self.backbone(f) for f in feats]
-
     def forward(self, x_walk, x_insole, x_imu):
+        # one backbone launch for the three streams; with pool_len the walkway
+        # stream (never pooled) differs in length and they go one by one
         feats = [self.enc_w(x_walk), self.enc_i(x_insole), self.enc_m(x_imu)]
-        reps = [flatten_features(p) for p in self._backbone_streams(feats)]
+        reps = [flatten_features(p) for p in backbone_streams(self.backbone, feats)]
         return tuple(head(r) for head, r in zip(self._heads(), reps))
 
     def forward_single(self, x, mod: str):

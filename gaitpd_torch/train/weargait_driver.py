@@ -1,13 +1,16 @@
 """WearGait three-stream training with CAGrad and relaxed-input evaluation.
-Port of gaitpd/train/weargait_driver.py:37-47,73-135,169-198,248-397,479-533
+Port of gaitpd/train/weargait_driver.py:37-47,73-166,169-198,248-533
 (reference train/weargait_train.py: run_cv :533-645, train/eval epochs
-:300-352, masked eval :355-433).
+:300-352, masked eval :355-433, single-modality sub-driver :250-297).
 
     res = run_cv(WearGaitArgs(synthetic=True, epochs=3))  # on the card
+    res = run_cv(WearGaitArgs(synthetic=True, baseline="cheap_xattn"))
+    res = run_cv(WearGaitArgs(synthetic=True, single_mod="imu", device="cpu"))
 
-The flagship model only, on synthetic streams. Options of the reference
-trainer that the port does not have yet raise NotImplementedError naming
-their ROADMAP item; none is silently ignored.
+The flagship model (CAGrad), the four fusion baselines (the mean of the
+branch losses) and the single-modality mode, on synthetic streams. Options
+of the reference trainer that the port does not have yet raise
+NotImplementedError naming their ROADMAP item; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from gaitpd_torch.data import weargait as WG
 from gaitpd_torch.data.synthetic import make_weargait_streams
 from gaitpd_torch.learning.mtl import make_method
+from gaitpd_torch.models import fusion as FU
 from gaitpd_torch.models.multitask import WearGaitThreeModal
 from gaitpd_torch.runtime.device import DeviceLike, resolve_device
 from gaitpd_torch.train.cv import build_subj2label, make_fixed_balanced_folds_no_overlap
@@ -51,6 +55,15 @@ MASK_COMBOS = {
 }
 
 MODALITIES = ("walkway", "insole", "imu")
+
+# the baselines of gaitpd/train/weargait_driver.py:146-153 that the port has
+FUSION_BASELINES = {
+    "early_fusion": FU.EarlyFusion3,
+    "late_fusion": FU.LateFusion3,
+    "cheap_xattn": FU.CheapXAttn3,
+    "shared_latent": FU.SharedLatent3,
+}
+UNPORTED_BASELINES = ("deepav_lite", "focal", "taca")
 
 # Called after every epoch as on_epoch(fold, epoch, state, train, eval).
 EpochHook = Callable[[int, int, TrainState, EpochResult, EpochResult], None]
@@ -104,12 +117,11 @@ class WearGaitArgs:
 def check_supported(args: WearGaitArgs) -> None:
     """Raise NotImplementedError for an option the port does not have yet."""
     missing = [
-        (args.baseline is not None or args.baseline_torch_init or args.proj_ch != 16,
-         "the baselines (baseline, baseline_torch_init, proj_ch)", "Queue 1, items 12-13"),
-        (args.single_mod is not None, "single_mod", "Queue 1, item 5"),
+        (args.baseline in UNPORTED_BASELINES or args.baseline_torch_init,
+         "the DeepAV-Lite, FOCAL and TACA baselines (baseline_torch_init)", "Queue 1, item 13"),
         (args.ckpt_dir is not None or args.resume, "checkpoints (ckpt_dir, resume)",
          "Queue 1, item 9"),
-        (args.fused, "the fused forward (fused)", "Queue 1, item 12"),
+        (args.fused, "the fused forward (fused)", "Queue 1, item 15"),
         (args.aug_noise_std > 0 or args.aug_axis_p > 0 or args.modality_dropout > 0,
          "augmentation and modality dropout", "Queue 1, item 8"),
         (args.mesh is not None, "data-parallel meshes (mesh)", "Queue 1, item 14"),
@@ -121,20 +133,42 @@ def check_supported(args: WearGaitArgs) -> None:
             raise NotImplementedError(f"{what}: not ported yet (ROADMAP {item})")
 
 
+class SingleBranch(WearGaitThreeModal):
+    """The flagship model run on one branch: ``forward(x)`` is
+    ``forward_single(x, mod)``, as the reference applies it with
+    ``method=forward_single`` (gaitpd/train/weargait_driver.py:426-428). Its
+    parameters are the flagship's, under the same names."""
+
+    def __init__(self, mod: str, **kw):
+        super().__init__(**kw)
+        self.mod = mod
+
+    def forward(self, x):
+        return self.forward_single(x, self.mod)
+
+
 def build_model(args: WearGaitArgs, sync_flag: bool,
-                generator: Optional[torch.Generator] = None) -> WearGaitThreeModal:
-    """The flagship model (reference weargait_train.py:458-524), its
-    weights drawn from ``generator`` (default: seeded with args.seed)."""
-    return WearGaitThreeModal(
-        enc_out_ch=args.enc_out_ch,
-        backbone_dim=args.backbone_dim,
-        shared_out_ch=args.shared_out_ch,
-        num_classes=args.num_classes,
-        use_norm=args.use_norm,
-        use_cosine=args.use_cosine,
-        synchronized=sync_flag,
-        generator=generator if generator is not None else torch.Generator().manual_seed(args.seed),
-    )
+                generator: Optional[torch.Generator] = None) -> torch.nn.Module:
+    """The flagship model, one of the fusion baselines, or with ``single_mod``
+    the flagship's branch (reference weargait_train.py:458-524,
+    gaitpd/train/weargait_driver.py:123-166), its weights drawn from
+    ``generator`` (default: seeded with args.seed)."""
+    g = generator if generator is not None else torch.Generator().manual_seed(args.seed)
+    common = dict(enc_out_ch=args.enc_out_ch, backbone_dim=args.backbone_dim,
+                  shared_out_ch=args.shared_out_ch, num_classes=args.num_classes,
+                  synchronized=sync_flag, generator=g)
+    if args.baseline is not None:
+        if args.single_mod is not None:
+            raise ValueError("single_mod runs the flagship's branch: it takes no baseline")
+        if args.baseline not in FUSION_BASELINES:
+            raise ValueError(args.baseline)
+        if args.baseline == "shared_latent":
+            common["proj_ch"] = args.proj_ch
+        return FUSION_BASELINES[args.baseline](**common)
+    common.update(use_norm=args.use_norm, use_cosine=args.use_cosine)
+    if args.single_mod is not None:
+        return SingleBranch(args.single_mod, **common)
+    return WearGaitThreeModal(**common)
 
 
 def get_streams(args: WearGaitArgs):
@@ -197,7 +231,10 @@ def run_fold(
     ctx = make_loss_ctx(settings, counts, device=device)
 
     model = build_model(args, sync_flag)
-    mtl = make_method(args.mtl_method, 3, c=args.alpha) if args.alpha > 0 else None
+    # CAGrad for the flagship only; the baselines train on the mean of the
+    # branch losses (gaitpd/train/weargait_driver.py:282)
+    use_cagrad = args.baseline is None and args.single_mod is None and args.alpha > 0
+    mtl = make_method(args.mtl_method, 3, c=args.alpha) if use_cagrad else None
     make_optimizer = functools.partial(sgd_torch, lr=args.lr, momentum=0.9, weight_decay=1e-4)
     state, partition = init_train_state(model, make_optimizer, mtl, device)
     runner = EpochRunner(settings, mtl, partition)
@@ -267,6 +304,72 @@ def run_fold(
     return float(stopper.best), (best_w, best_i, best_m), mask_scores
 
 
+def run_single_mod_fold(
+    fi: int,
+    split: WG.WearGaitSplit,
+    args: WearGaitArgs,
+    on_epoch: Optional[EpochHook] = None,
+) -> Tuple[float, Tuple[float, float, float], Dict[str, float]]:
+    """Single-modality sub-driver (gaitpd/train/weargait_driver.py:400-476,
+    reference weargait_train.py:250-297, 579-588): only that branch through
+    the shared backbone and its head, a fresh SGD state every epoch, pooled
+    eval accuracy, no masked table. Returns (best, per-mod accs, {})."""
+    check_supported(args)
+    device = resolve_device(args.device)
+    async_mode = args.async_loading
+    k = MODALITIES.index(args.single_mod)
+    data3 = split_to_device(split, async_mode, args.seed, device)
+    data = DeviceFoldData(
+        xs=data3.xs[k:k + 1],
+        ys=data3.ys[k:k + 1],
+        train_pool=data3.train_pool[:, k:k + 1],
+        eval_pool=data3.eval_pool[:, k:k + 1],
+        eval_xs=data3.eval_xs[k:k + 1],
+        eval_ys=data3.eval_ys[k:k + 1],
+    )
+    counts = [np.bincount(split.train[args.single_mod].y[data.train_pool[:, 0]],
+                          minlength=args.num_classes)]
+    settings = StepSettings(
+        n_streams=1, wm=args.wm, synchronized=False, gcl_m=args.gcl_m, gcl_s=args.gcl_s,
+        noise_mul=args.noise_mul, drw_warmup=args.drw_warmup,
+    )
+    ctx = make_loss_ctx(settings, counts, device=device)
+    make_optimizer = functools.partial(sgd_torch, lr=args.lr, momentum=0.9, weight_decay=1e-4)
+    state, _ = init_train_state(build_model(args, not async_mode), make_optimizer, None, device)
+    runner = EpochRunner(settings)
+    rng = np.random.default_rng(args.seed + 1000 * fi)
+    generator = torch.Generator(device=device).manual_seed(args.seed + fi)
+    stopper = EarlyStopper(patience=args.patience)
+    for ep in range(1, args.epochs + 1):
+        state.epoch = ep - 1
+        # the reference builds a fresh SGD optimizer every epoch
+        # (weargait_train.py:273-276): momentum starts from zero again
+        state.optimizer = make_optimizer(state.module.parameters())
+        if async_mode:
+            data.train_pool = WG.async_pool(
+                split.train, np.random.default_rng(args.seed + ep))[:, k:k + 1]
+        order = rng.permutation(len(data.train_pool))
+        state, tr = run_train_epoch(runner, state, data, order, args.batch_size, generator, ctx)
+        ev = run_eval_epoch(runner, state, data, args.batch_size, generator, ctx)
+        # pooled accuracy: total correct over total windows
+        # (weargait_train.py:292-296), not the 3-stream per-batch means
+        va = float(ev.acc[0])
+        stopper.update(va)
+        if on_epoch is not None:
+            on_epoch(fi, ep, state, tr, ev)
+        if args.verbose:
+            print(
+                f"[Fold {fi}] Ep {ep:03d} | {args.single_mod} "
+                f"train {float(tr.acc_batchmean[0]):5.2f}% L{float(tr.loss[0]):.3f} | "
+                f"val {va:5.2f}% best {stopper.best:5.2f}%"
+            )
+        if stopper.stop:
+            break
+    best = stopper.best
+    per_mod = tuple(best if args.single_mod == m else 0.0 for m in MODALITIES)
+    return float(best), per_mod, {}
+
+
 def run_cv(args: WearGaitArgs, on_epoch: Optional[EpochHook] = None):
     """reference weargait_train.py:533-645."""
     check_supported(args)
@@ -289,7 +392,8 @@ def run_cv(args: WearGaitArgs, on_epoch: Optional[EpochHook] = None):
             streams, train_subs, test_subs, subj2label,
             win=args.win_len, hop=args.hop_len,
         )
-        macro, (bw, bi, bm), masks = run_fold(fi, split, args, on_epoch)
+        fold = run_single_mod_fold if args.single_mod is not None else run_fold
+        macro, (bw, bi, bm), masks = fold(fi, split, args, on_epoch)
         fold_macro.append(macro)
         fold_w.append(bw)
         fold_i.append(bi)

@@ -11,7 +11,11 @@ only the order of summation differs); gw and gb within 1e-5 of the largest
 reference value, since they sum over every frame of the batch in another
 order. The CAGrad solver: w within 1e-4 and the objective within 1e-6
 relative (the kernel runs the plain version's IEEE operations in its order,
-so on the card the two agree to the bit).
+so on the card the two agree to the bit). The cheap cross-attention: the
+forward within 1e-5 absolute up to 64 keys and, over more keys, within
+gaitpd's own Pallas-vs-jnp bound of 2e-5 absolute plus 2e-4 relative
+(tests/test_pallas.py:62); dA and dB within 1e-5 absolute plus 1e-4
+relative (tests/test_pallas.py:70), and two backward launches bitwise equal.
 """
 
 import numpy as np
@@ -19,12 +23,17 @@ import pytest
 import torch
 
 from gaitpd_torch.ops import cagrad_solver as cs
+from gaitpd_torch.ops import cheap_xattn as cx
 from gaitpd_torch.ops import stream_block as sb
 from gaitpd_torch.runtime.device import resolve_device
 
-# (B, T, C_in, K, C_out, t_out, act): the cases of test_torch_stream_block
-# plus the serving path's shape (3 streams x 1024 windows, plus a ragged tail)
+# (B, T, C_in, K, C_out, t_out, act): the cases of test_torch_stream_block,
+# the serving path's shape (3 streams x 1024 windows, plus a ragged tail),
+# and the fusion baselines' backbone widths: the early fusion's concatenated
+# 36 channels and the shared latent's 16
 CASES = [
+    (3 * 64, 64, 36, 3, 16, 8, "relu"),
+    (3 * 64 + 1, 64, 16, 3, 16, 8, "relu"),
     (8, 64, 13, 3, 16, 8, "relu"),
     (8, 64, 13, 5, 16, 8, "gelu"),
     (4, 101, 6, 3, 16, 8, "relu"),
@@ -132,6 +141,61 @@ def test_solver_kernel_matches_plain_on_card(k):
     assert np.abs(gn - wn).max() <= 1e-4, np.abs(gn - wn).max(-1)
 
 
+# (N, Tq, Tk, d): the training path's six pairs of 64 window tuples, an odd
+# batch, tests/test_pallas.py:56-70's shapes, the symmetric 2-mod shape, one
+# query row, one key row, d not a multiple of 4, and the largest d
+XATTN_CASES = [
+    (6 * 64, 64, 64, 12), (6 * 33 + 1, 64, 64, 12), (2, 101, 426, 12), (2, 200, 100, 12),
+    (2, 32, 48, 8), (2 * 64, 101, 101, 12), (5, 1, 64, 12), (5, 64, 1, 12),
+    (3, 37, 53, 6), (2, 130, 257, 64),
+]
+
+
+def _xattn_inputs(case, dev, seed=0):
+    n, tq, tk, d = case
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+            for s in ((n, tq, d), (n, tk, d), (n, tq, d))]
+
+
+def _xattn_close(got, want, atol, rtol):
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", XATTN_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cheap_xattn_kernels_match_plain_on_card(case):
+    dev = _cuda()
+    a, b, g = _xattn_inputs(case, dev)
+    before = (cx.launches, cx.backward_launches)
+    got = cx.cheap_xattn(a, b)
+    grads = cx.cheap_xattn_backward(a, b, g)
+    again = cx.cheap_xattn_backward(a, b, g)
+    torch.cuda.synchronize()
+    assert (cx.launches, cx.backward_launches) == (before[0] + 1, before[1] + 2)
+    want = cx.cheap_xattn_reference(a, b)
+    if case[2] <= 64:
+        assert (got - want).abs().max().item() <= 1e-5
+    else:
+        assert _xattn_close(got, want, 2e-5, 2e-4)
+    for gk, wk, ak in zip(grads, cx.cheap_xattn_backward_reference(a, b, g), again):
+        assert _xattn_close(gk, wk, 1e-5, 1e-4)
+        assert torch.equal(gk, ak)  # deterministic: the same bits twice
+
+
+@pytest.mark.gpu
+def test_autograd_goes_through_the_cheap_xattn_backward_kernel():
+    dev = _cuda()
+    a, b, g = _xattn_inputs(XATTN_CASES[0], dev)
+    leaves = [t.clone().requires_grad_() for t in (a, b)]
+    before = (cx.launches, cx.backward_launches)
+    grads = torch.autograd.grad(cx.cheap_xattn(*leaves), leaves, g)
+    torch.cuda.synchronize()
+    assert (cx.launches, cx.backward_launches) == (before[0] + 1, before[1] + 1)
+    for gk, wk in zip(grads, cx.cheap_xattn_backward_reference(a, b, g)):
+        assert _xattn_close(gk, wk, 1e-5, 1e-4)
+
+
 @pytest.mark.gpu
 def test_kernel_refuses_what_it_does_not_take():
     dev = _cuda()
@@ -148,3 +212,13 @@ def test_kernel_refuses_what_it_does_not_take():
         cs.cagrad_solve(torch.eye(3, device=dev, dtype=torch.float64), 0.5)
     with pytest.raises(ValueError):
         cs.cagrad_solve(torch.eye(9, device=dev), 0.5)
+    a, b, g = _xattn_inputs((2, 8, 8, 65), dev)
+    with pytest.raises(RuntimeError, match="cudaError_t"):  # d > 64
+        cx.cheap_xattn(a, b)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        cx.cheap_xattn_backward(a, b, g)
+    a, b, g = _xattn_inputs((2, 8, 8, 12), dev)
+    with pytest.raises(TypeError):
+        cx.cheap_xattn(a.double(), b.double())
+    with pytest.raises(ValueError):
+        cx.cheap_xattn(a.transpose(1, 2).contiguous().transpose(1, 2), b)

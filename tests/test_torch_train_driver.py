@@ -1,9 +1,12 @@
 """gaitpd_torch.train.weargait_driver.run_cv against
 gaitpd.train.weargait_driver.run_cv on the CPU, from the same initial
 parameters: gaitpd's init is recorded and copied into the port's model by
-wrapping each package's ``init_train_state`` (here only). The synthetic
-streams, folds, epoch orders and async pools come from the same seeds, so
-both runs see the same batches.
+wrapping each package's ``init_train_state`` (here only; gaitpd's
+single-modality driver builds its ``TrainState`` directly, so that is
+wrapped too). The synthetic streams, folds, epoch orders and async pools come
+from the same seeds, so both runs see the same batches. The configurations:
+the flagship with CAGrad, the cheap cross-attention fusion baseline (sync and
+async, the mean of the branch losses) and the single-modality mode.
 
 Tolerances: per-epoch losses within 1e-4 relative (f32 on both sides; the
 sums and the CAGrad solver's golden-section comparisons round differently,
@@ -17,6 +20,7 @@ import torch
 
 jax = pytest.importorskip("jax")
 
+import gaitpd.train.step as JS  # noqa: E402
 import gaitpd.train.weargait_driver as JD  # noqa: E402
 import gaitpd_torch.train.weargait_driver as TD  # noqa: E402
 from gaitpd_torch.params import load_flax_params  # noqa: E402
@@ -30,6 +34,16 @@ CONFIGS = {
     "async_class_wt": dict(n_folds=2, test_per_class=3, epochs=2, patience=50,
                            synthetic=True, verbose=False, seed=0, n_folds_cap=1,
                            wm="class_wt", alpha=0.5, async_loading=True),
+    "cheap_xattn_sync_gcl": dict(n_folds=2, test_per_class=3, epochs=3, patience=50,
+                                 synthetic=True, verbose=False, seed=0, n_folds_cap=1,
+                                 wm="gcl", alpha=0.5, baseline="cheap_xattn"),
+    "cheap_xattn_async_class_wt": dict(n_folds=2, test_per_class=3, epochs=2, patience=50,
+                                       synthetic=True, verbose=False, seed=0, n_folds_cap=1,
+                                       wm="class_wt", alpha=0.5, async_loading=True,
+                                       baseline="cheap_xattn"),
+    "single_mod_imu_gcl": dict(n_folds=2, test_per_class=3, epochs=3, patience=50,
+                               synthetic=True, verbose=False, seed=0, n_folds_cap=1,
+                               wm="gcl", alpha=0.5, single_mod="imu"),
 }
 
 
@@ -54,7 +68,14 @@ def _run_both(monkeypatch, kw):
         record["n_eval"].append(len(data.eval_pool))
         return orig_j_eval(runner, state, data, *a, **k)
 
+    orig_j_state = JS.TrainState
+
+    def j_state(**k):  # the single-modality driver's init
+        record["jax_init"] = jax.device_get(k["params"])
+        return orig_j_state(**k)
+
     monkeypatch.setattr(JD, "init_train_state", j_init)
+    monkeypatch.setattr(JS, "TrainState", j_state)
     monkeypatch.setattr(JD, "run_train_epoch", j_train)
     monkeypatch.setattr(JD, "run_eval_epoch", j_eval)
     ref = JD.run_cv(JD.WearGaitArgs(**kw))
@@ -82,9 +103,14 @@ def test_run_cv_matches_gaitpd(monkeypatch, name):
     share = 100.0 / max(rec["n_eval"])
     assert set(got["masks"]) == set(ref["masks"]) == set(TD.MASK_COMBOS)
     for mk in TD.MASK_COMBOS:
+        if "single_mod" in CONFIGS[name]:  # no masked table
+            assert got["masks"][mk] is None and ref["masks"][mk] is None
+            continue
         assert abs(got["masks"][mk] - ref["masks"][mk]) <= share + 1e-4, (
             mk, got["masks"][mk], ref["masks"][mk])
     assert abs(got["macro"][0] - ref["macro"][0]) <= share + 1e-4
+    for mod in TD.MODALITIES:
+        assert abs(got["per_mod"][mod] - ref["per_mod"][mod]) <= share + 1e-4, mod
 
 
 def test_default_device_is_the_card():
@@ -97,7 +123,7 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize("option", [
-    dict(baseline="early_fusion"), dict(single_mod="imu"), dict(ckpt_dir="ck"),
+    dict(baseline="deepav_lite"), dict(baseline="taca"), dict(ckpt_dir="ck"),
     dict(resume=True), dict(fused=True), dict(aug_noise_std=0.1),
     dict(modality_dropout=0.2), dict(synthetic=False), dict(mesh=object()),
     dict(mtl_method="mgda"),
