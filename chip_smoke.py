@@ -37,8 +37,19 @@ Phases (each raises on failure, so the script exits non-zero):
      the CPU (sync 3 epochs, async 1; the same checks as phase 4, and
      exactly one cheap_xattn backward, one stream-block backward and no
      solver launch per train step); run_cv with single_mod="imu" for 1 epoch;
+  5b. this slice's checks, from a random stream of their own: the
+     stream-block backward on cotangents with zero rows (the CAGrad task
+     passes' layouts at the main shape, zero rows that start and end inside
+     a block's tile, an all-zero g, a NaN in x of a zero-cotangent window),
+     against its plain version (NaN at the same entries, gx of the
+     zero-cotangent windows exactly 0, two launches bitwise equal); the
+     cheap cross-attention at d = 65, 96 and 200 (rows in device memory),
+     forward and backward, timed at d = 96;
   6. timings: each kernel, its plain version and a PyTorch library call at
-     the main path's shape (CUDA events) beside its bound; serving
+     the main path's shape (CUDA events) beside its bound, and the
+     stream-block backward also in a CAGrad task pass's layout (two thirds
+     of g zero) with its own bound and its launch (tile, shared memory,
+     blocks an SM); serving
      windows/s and latency; one CAGrad and one cheap-xattn train step at
      batch 64 and 1024 (host clock around synchronised steps); device time
      by kernel of batch-1024 predict_windows and of 10 batch-1024 train
@@ -227,35 +238,94 @@ STREAM_BLOCK_CASES = {
 FUSION_WIDTH_CASES = ("early_fusion_cin36", "shared_latent_cin16")
 
 
+def hold_backward(tag, x, w, b, g, t_out, act) -> tuple:
+    """Two launches of the backward kernel against its plain version: gx
+    within KERNEL_TOL, gw and gb within KERNEL_TOL of their largest value,
+    NaN at the same entries, and the same bits twice. Returns the largest
+    error and the two launches' (gx, gw, gb)."""
+    before = sb.backward_launches
+    grads = sb.stream_block_backward(x, w, b, g, t_out, act)
+    again = sb.stream_block_backward(x, w, b, g, t_out, act)
+    torch.cuda.synchronize()
+    if sb.backward_launches != before + 2:
+        raise RuntimeError(f"stream_block backward[{tag}]: launch count did not go up")
+    want = sb.stream_block_backward_reference(x, w, b, g, t_out, act)
+    errs, tols = [], []
+    for i, (gk, wk) in enumerate(zip(grads, want)):
+        if not torch.equal(torch.isnan(gk), torch.isnan(wk)):
+            raise RuntimeError(f"stream_block backward[{tag}]: NaN where the plain version "
+                               f"has none, or the reverse ({'x w b'.split()[i]})")
+        ok = ~torch.isnan(wk)
+        errs.append((gk[ok] - wk[ok]).abs().max().item() if ok.any() else 0.0)
+        scale = wk[ok].abs().max().item() if ok.any() and i > 0 else 1.0
+        tols.append(KERNEL_TOL * max(1.0, scale))
+    # bit patterns: NaN == NaN there
+    same = all(torch.equal(a.view(torch.int32), c.view(torch.int32)) for a, c in zip(grads, again))
+    nans = [int(torch.isnan(gk).sum()) for gk in grads]
+    log(f"[kernel] stream_block_backward {tag} x{tuple(x.shape)} w{tuple(w.shape)} {act}: "
+        f"gx/gw/gb max abs err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol {tols[0]:.1e}/"
+        f"{tols[1]:.2e}/{tols[2]:.2e}), NaN counts {nans} as the plain version's; two "
+        f"launches bitwise equal: {same}")
+    if not all(np.isfinite(e) and e <= tol for e, tol in zip(errs, tols)):
+        raise RuntimeError(f"stream_block backward[{tag}] disagrees: {errs} vs {tols}")
+    if not same:
+        raise RuntimeError(f"stream_block backward[{tag}] is not deterministic")
+    return max(errs), grads
+
+
 def check_stream_block(rng, dev, names) -> dict:
     errors = {}
     for name in names:
         bsz, t, cin, k, cout, t_out, act = STREAM_BLOCK_CASES[name]
         x, w, b, g = stream_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
-        before = (sb.launches, sb.backward_launches)
+        before = sb.launches
         got = sb.stream_block(x, w, b, t_out, act)
-        grads = sb.stream_block_backward(x, w, b, g, t_out, act)
-        again = sb.stream_block_backward(x, w, b, g, t_out, act)
         torch.cuda.synchronize()
-        if (sb.launches, sb.backward_launches) != (before[0] + 1, before[1] + 2):
-            raise RuntimeError(f"stream_block[{name}]: launch counts did not go up")
+        if sb.launches != before + 1:
+            raise RuntimeError(f"stream_block[{name}]: launch count did not go up")
         err = (got - sb.stream_block_reference(x, w, b, t_out, act)).abs().max().item()
-        want = sb.stream_block_backward_reference(x, w, b, g, t_out, act)
-        errs = [(gk - wk).abs().max().item() for gk, wk in zip(grads, want)]
-        tols = [KERNEL_TOL] + [KERNEL_TOL * max(1.0, wk.abs().max().item()) for wk in want[1:]]
-        same = all(torch.equal(a, c) for a, c in zip(grads, again))
         log(f"[kernel] stream_block {name} x{tuple(x.shape)} k{k} {act}: forward max abs err "
-            f"{err:.3e} (tol {KERNEL_TOL}); backward gx/gw/gb max abs err "
-            f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol {tols[0]:.1e}/{tols[1]:.2e}/"
-            f"{tols[2]:.2e}); two launches bitwise equal: {same}")
+            f"{err:.3e} (tol {KERNEL_TOL})")
         if not np.isfinite(err) or err > KERNEL_TOL:
             raise RuntimeError(f"stream_block[{name}] disagrees with its plain version: {err}")
-        if not all(np.isfinite(e) and e <= tol for e, tol in zip(errs, tols)):
-            raise RuntimeError(f"stream_block backward[{name}] disagrees: {errs} vs {tols}")
-        if not same:
-            raise RuntimeError(f"stream_block backward[{name}] is not deterministic")
-        errors[name] = (err, max(errs))
+        errors[name] = (err, hold_backward(name, x, w, b, g, t_out, act)[0])
     return errors
+
+
+# (case of STREAM_BLOCK_CASES, rows of g set to zero, a NaN put into x at
+# (window, frame, channel) or None): the CAGrad task passes at the main shape
+# (each task's pass gives cotangents to its own third of the rows), zero
+# rows that start and end inside a block's 8 windows, an all-zero g, and a
+# NaN in x of a zero-cotangent window (the kernel must not skip it: 0 * NaN
+# makes gw NaN in the plain version)
+ZERO_ROW_CASES = {
+    "cagrad_walkway_task": ("main", np.r_[N_WINDOWS:3 * N_WINDOWS], None),
+    "cagrad_insole_task": ("main", np.r_[0:N_WINDOWS, 2 * N_WINDOWS:3 * N_WINDOWS], None),
+    "unaligned_zero_rows": ("ragged_batch", np.r_[5:611], None),
+    "unaligned_t101": ("t101_overlapping_bins", np.r_[3:45], None),
+    "unaligned_gelu_k5": ("k5_gelu_cin13", np.r_[10:50], None),
+    "all_zero": ("train_batch64", np.r_[0:3 * 64], None),
+    "nan_in_zero_window": ("main", np.r_[N_WINDOWS:3 * N_WINDOWS], (1500, 20, 5)),
+}
+
+
+def check_zero_rows(rng, dev) -> None:
+    """The backward kernel on cotangents with zero rows: the plain version's
+    result (NaN at the same entries), gx of every zero-cotangent window
+    without a NaN exactly 0, the same bits twice."""
+    for tag, (case, zero, nan_at) in ZERO_ROW_CASES.items():
+        bsz, t, cin, k, cout, t_out, act = STREAM_BLOCK_CASES[case]
+        x, w, b, g = stream_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
+        g[torch.from_numpy(zero).to(dev)] = 0.0
+        if nan_at is not None:
+            x[nan_at] = float("nan")
+        _, grads = hold_backward(tag, x, w, b, g, t_out, act)
+        quiet = np.setdiff1d(zero, [] if nan_at is None else [nan_at[0]])
+        if grads[0][torch.from_numpy(quiet).to(dev)].any():
+            raise RuntimeError(f"stream_block backward[{tag}]: gx of a zero-cotangent "
+                               f"window is not 0")
+        if nan_at is not None and not torch.isnan(grads[1]).any():
+            raise RuntimeError(f"stream_block backward[{tag}]: the NaN did not reach gw")
 
 
 def solver_grams(rng, n, k):
@@ -345,6 +415,45 @@ def check_cheap_xattn(rng, dev, card) -> dict:
             raise RuntimeError(f"cheap_xattn backward[{name}] is not deterministic")
         errors[name] = (err, max(errs))
     return errors
+
+
+# d beyond the kernels' register rows (64): rows in device memory. Checked
+# against the plain version forward and backward; timed at the first shape.
+WIDE_XATTN_CASES = {"d96_train_batch64": (6 * 64, 64, 64, 96), "d65": (2 * 7, 33, 47, 65),
+                    "d200": (6, 64, 130, 200)}
+
+
+def check_wide_xattn(rng, dev, card) -> None:
+    for name, (n, tq, tk, d) in WIDE_XATTN_CASES.items():
+        a, b, g = xattn_inputs(rng, n, tq, tk, d, dev)
+        got = cx.cheap_xattn(a, b)
+        grads = cx.cheap_xattn_backward(a, b, g)
+        again = cx.cheap_xattn_backward(a, b, g)
+        want = cx.cheap_xattn_reference(a, b)
+        atol, rtol = (KERNEL_TOL, 0.0) if tk <= 64 else (XATTN_LONG_ATOL, XATTN_LONG_RTOL)
+        ok = bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+        want_g = cx.cheap_xattn_backward_reference(a, b, g)
+        ok_g = all(bool(((gk - wk).abs() <= XATTN_GRAD_ATOL + XATTN_GRAD_RTOL * wk.abs()).all())
+                   for gk, wk in zip(grads, want_g))
+        same = all(torch.equal(x, y) for x, y in zip(grads, again))
+        errs = [(got - want).abs().max().item()] + [
+            (gk - wk).abs().max().item() for gk, wk in zip(grads, want_g)]
+        log(f"[kernel] {card}: cheap_xattn {name} (N {n}, Tq {tq}, Tk {tk}, d {d}, rows in "
+            f"device memory): forward/dA/dB max abs err {errs[0]:.3e}/{errs[1]:.3e}/"
+            f"{errs[2]:.3e}; two launches bitwise equal: {same}")
+        if not (ok and ok_g and same and all(np.isfinite(errs))):
+            raise RuntimeError(f"cheap_xattn[{name}] at d > 64 disagrees: {errs}, {same}")
+    n, tq, tk, d = WIDE_XATTN_CASES["d96_train_batch64"]
+    a, b, g = xattn_inputs(rng, n, tq, tk, d, dev)
+    with torch.inference_mode():
+        fwd_ms = time_cuda(lambda: cx.cheap_xattn(a, b), warmup=3, reps=20)
+        fwd_plain = time_cuda(lambda: cx.cheap_xattn_reference(a, b), warmup=3, reps=20)
+    bwd_ms = time_cuda(lambda: cx.cheap_xattn_backward(a, b, g), warmup=3, reps=20)
+    bwd_plain = time_cuda(lambda: cx.cheap_xattn_backward_reference(a, b, g), warmup=3, reps=20)
+    log(f"[time] {card}: cheap_xattn at d {d} (N {n}, Tq {tq}, Tk {tk}, rows in device "
+        f"memory): forward kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, bound "
+        f"{cheap_xattn_bound(n, tq, tk, d)[0]:.5f} ms; backward kernel {bwd_ms:.4f} ms, plain "
+        f"{bwd_plain:.4f} ms, bound {cheap_xattn_backward_bound(n, tq, tk, d)[0]:.5f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -639,11 +748,13 @@ def stream_block_bound(bsz, t, cin, k, cout, t_out):
     return _bound(moved, flop)
 
 
-def stream_block_backward_bound(bsz, t, cin, k, cout, t_out):
-    """Read x, w, b, g once, write gx, gw, gb once; recompute z, then gx and
-    gw, each 2*B*T*Cin*Cout*K FLOP, plus g_y, act' and gb, about 4 per z."""
+def stream_block_backward_bound(bsz, t, cin, k, cout, t_out, live=None):
+    """Read x, w, b, g once, write gx, gw, gb once (for every window); on the
+    ``live`` windows (all by default) recompute z, then gx and gw, each
+    2*T*Cin*Cout*K FLOP a window, plus g_y, act' and gb, about 4 per z."""
+    live = bsz if live is None else live
     moved = 4 * (2 * bsz * t * cin + 2 * (k * cin * cout + cout) + bsz * t_out * cout)
-    flop = 3 * 2 * bsz * t * cin * cout * k + 4 * bsz * t * cout
+    flop = 3 * 2 * live * t * cin * cout * k + 4 * live * t * cout
     return _bound(moved, flop)
 
 
@@ -711,18 +822,38 @@ def time_stream_block(rng, dev, card) -> dict:
                             warmup=5, reps=50)
     bwd_library = time_cuda(library_backward, warmup=5, reps=50)
     bwd_bound, bwd_by = stream_block_backward_bound(bsz, t, cin, k, cout, t_out)
-    log(f"[time] {card}: stream_block_backward at x({bsz},{t},{cin}) k{k}: kernel "
-        f"{bwd_kernel:.4f}/{bwd_kernel_2:.4f} ms, plain (autograd of the plain forward) "
+    config = sb.backward_config(t, cin, cout, k, t_out)
+    log(f"[time] {card}: stream_block_backward at x({bsz},{t},{cin}) k{k}, all windows live: "
+        f"kernel {bwd_kernel:.4f}/{bwd_kernel_2:.4f} ms, plain (autograd of the plain forward) "
         f"{bwd_plain:.4f}/{bwd_plain_2:.4f} ms, library (autograd of conv1d+relu+"
         f"adaptive_avg_pool1d, forward included) {bwd_library:.4f} ms, bound "
-        f"{bwd_bound:.5f} ms ({bwd_by})")
+        f"{bwd_bound:.5f} ms ({bwd_by}); launch {config} ({-(-bsz // config['tile'])} blocks "
+        f"on {torch.cuda.get_device_properties(0).multi_processor_count} SMs)")
+
+    # a CAGrad task pass: only the walkway stream's third carries cotangents
+    g_task = g.clone()
+    g_task[N_WINDOWS:] = 0.0
+    task_kernel = time_cuda(lambda: sb.stream_block_backward(x, w, b, g_task, t_out))
+    task_plain = time_cuda(lambda: sb.stream_block_backward_reference(x, w, b, g_task, t_out),
+                           warmup=5, reps=50)
+    task_kernel_2 = time_cuda(lambda: sb.stream_block_backward(x, w, b, g_task, t_out))
+    task_bound, task_by = stream_block_backward_bound(bsz, t, cin, k, cout, t_out,
+                                                      live=N_WINDOWS)
+    log(f"[time] {card}: stream_block_backward at x({bsz},{t},{cin}) k{k}, CAGrad task layout "
+        f"(rows {N_WINDOWS}.. of g zero): kernel {task_kernel:.4f}/{task_kernel_2:.4f} ms, "
+        f"plain {task_plain:.4f} ms, bound {task_bound:.5f} ms ({task_by}: operations on the "
+        f"live third, bytes on all)")
     return {
         "stream_block": {"ms": min(kernel_ms, kernel_ms_2), "plain_ms": min(plain_ms, plain_ms_2),
                          "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by},
         "stream_block_backward": {"ms": min(bwd_kernel, bwd_kernel_2),
                                   "plain_ms": min(bwd_plain, bwd_plain_2),
                                   "library_ms": bwd_library, "bound_ms": bwd_bound,
-                                  "bound_by": bwd_by},
+                                  "bound_by": bwd_by,
+                                  "cagrad_layout_ms": min(task_kernel, task_kernel_2),
+                                  "cagrad_layout_plain_ms": task_plain,
+                                  "cagrad_layout_bound_ms": task_bound,
+                                  "cagrad_layout_bound_by": task_by},
     }
 
 
@@ -955,6 +1086,10 @@ def main() -> int:
     xrng = np.random.default_rng([args.seed, 3])
     check_stream_block(xrng, dev, FUSION_WIDTH_CASES)
     xattn_errors = check_cheap_xattn(xrng, dev, card)
+    # this slice's checks: a stream of their own as well
+    zrng = np.random.default_rng([args.seed, 6])
+    check_zero_rows(zrng, dev)
+    check_wide_xattn(zrng, dev, card)
     fusion, single = phase_fusion_training(args.seed, dev)
     times = time_stream_block(rng, dev, card)
     times["cagrad_solver"] = time_solver(rng, dev, card)
@@ -984,13 +1119,8 @@ def main() -> int:
     ]
     kernels = []
     for name, source, replaces, err in entries:
-        t = times[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-        })
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches[name], "max_abs_err": err, **times[name]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s; serving launches {serve_launches}; "
         f"training {json.dumps(training)}; fusion training {json.dumps(fusion)}; single_mod "
         f"{json.dumps(single)}; serving {json.dumps(serving)}; train steps "

@@ -115,7 +115,7 @@ def cheap_xattn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """softmax(A Bᵀ/√d) B for a (N, Tq, d), b (N, Tk, d) -> (N, Tq, d).
 
     CPU tensors take ``cheap_xattn_reference``; CUDA tensors launch the
-    kernel (f32, contiguous, d <= 64), through ``_CheapXAttnFunction`` where
+    kernel (f32, contiguous), through ``_CheapXAttnFunction`` where
     a gradient is needed, or raise."""
     _check(a, b)
     if a.device.type == "cpu":

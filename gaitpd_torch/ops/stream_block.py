@@ -83,7 +83,10 @@ def _library():
         bwd = lib.stream_block_backward
         bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         bwd.restype = ctypes.c_int
-        _bound = (fwd, rows, bwd)
+        config = lib.stream_block_backward_config
+        config.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
+        config.restype = ctypes.c_int
+        _bound = (fwd, rows, bwd, config)
     return _bound
 
 
@@ -118,7 +121,7 @@ def _forward_kernel(x, w, b, t_out, act):
     bsz, t, cin = x.shape
     k, _, cout = w.shape
     out = torch.empty((bsz, t_out, cout), dtype=torch.float32, device=x.device)
-    fwd, _, _ = _library()
+    fwd = _library()[0]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
@@ -164,6 +167,18 @@ def stream_block(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return _forward_kernel(x, w, b, t_out, act)
 
 
+def backward_config(t: int, cin: int, cout: int, k: int, t_out: int) -> dict:
+    """The backward kernel's launch on the current card for windows of
+    (T, C_in) and w (K, C_in, C_out): windows per block, dynamic shared
+    memory in bytes, and the blocks an SM holds at once (CUDA's occupancy
+    calculator). Needs a card."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    err = _library()[3](t, cin, cout, k, t_out, *(ctypes.byref(v) for v in out))
+    if err != 0:
+        raise RuntimeError(f"stream_block_backward_config failed: cudaError_t {err}")
+    return dict(zip(("tile", "smem_bytes", "blocks_per_sm"), (v.value for v in out)))
+
+
 def stream_block_backward(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
     t_out: int = 8, act: str = "relu",
@@ -172,7 +187,9 @@ def stream_block_backward(
     cotangent g (B, t_out, C_out).
 
     CPU tensors take ``stream_block_backward_reference``; CUDA tensors launch
-    the backward kernel (deterministic: no float atomics) or raise."""
+    the backward kernel (deterministic: no float atomics; windows whose
+    cotangent is all zero and whose x is finite are skipped, exactly) or
+    raise."""
     global backward_launches
     _check(x, w, b, t_out, act)
     bsz, t, cin = x.shape
@@ -184,7 +201,7 @@ def stream_block_backward(
     _check_cuda("stream_block_backward", (x, w, b, g))
     if bsz == 0:
         return torch.zeros_like(x), torch.zeros_like(w), torch.zeros_like(b)
-    _, rows_of, bwd = _library()
+    _, rows_of, bwd, _ = _library()
     rows = rows_of(bsz, t, cin, cout, k, t_out)
     if rows < 1:
         raise ValueError(f"stream_block_backward does not take x {tuple(x.shape)}, "

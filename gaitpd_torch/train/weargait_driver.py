@@ -234,7 +234,10 @@ def run_fold(
     # CAGrad for the flagship only; the baselines train on the mean of the
     # branch losses (gaitpd/train/weargait_driver.py:282)
     use_cagrad = args.baseline is None and args.single_mod is None and args.alpha > 0
-    mtl = make_method(args.mtl_method, 3, c=args.alpha) if use_cagrad else None
+    mtl = None
+    if use_cagrad:  # c is CAGrad's strength; other methods take no c
+        kwargs = {"c": args.alpha} if args.mtl_method in ("cagrad", "log_cagrad") else {}
+        mtl = make_method(args.mtl_method, 3, **kwargs)
     make_optimizer = functools.partial(sgd_torch, lr=args.lr, momentum=0.9, weight_decay=1e-4)
     state, partition = init_train_state(model, make_optimizer, mtl, device)
     runner = EpochRunner(settings, mtl, partition)

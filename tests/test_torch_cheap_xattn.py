@@ -27,9 +27,10 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 PALLAS_TOL = dict(rtol=2e-4, atol=2e-5)
 
 # (N, Tq, Tk, d): tests/test_pallas.py:56-70's shapes, then one query row,
-# one key row, and the 2-mod family's width
+# one key row, the 2-mod family's width, and d beyond the kernels' register
+# rows (--enc_out_ch above 64)
 CASES = [(2, 64, 64, 12), (2, 101, 426, 12), (2, 200, 100, 12), (2, 32, 48, 8),
-         (3, 1, 7, 12), (3, 9, 1, 12), (2, 101, 101, 6)]
+         (3, 1, 7, 12), (3, 9, 1, 12), (2, 101, 101, 6), (2, 17, 23, 65), (2, 40, 70, 96)]
 
 
 def _inputs(case, seed=0):

@@ -16,6 +16,9 @@ forward within 1e-5 absolute up to 64 keys and, over more keys, within
 gaitpd's own Pallas-vs-jnp bound of 2e-5 absolute plus 2e-4 relative
 (tests/test_pallas.py:62); dA and dB within 1e-5 absolute plus 1e-4
 relative (tests/test_pallas.py:70), and two backward launches bitwise equal.
+The stream block's backward skips windows whose cotangent is all zero: with
+zero rows and with a NaN in such a window it must give the plain version's
+result, with NaN at the same entries.
 """
 
 import numpy as np
@@ -109,6 +112,63 @@ def test_backward_kernel_matches_plain_on_card(case):
         assert torch.equal(a, c)
 
 
+# rows of g set to zero: the CAGrad task passes at the main shape (a third
+# of the rows live), zero rows that start and end inside a block's tile, and
+# no live row at all
+ZERO_LAYOUTS = {
+    "cagrad_walkway_task": ((3 * 1024, 64, 12, 3, 16, 8, "relu"), np.r_[1024:3072]),
+    "cagrad_insole_task": ((3 * 1024, 64, 12, 3, 16, 8, "relu"), np.r_[0:1024, 2048:3072]),
+    "unaligned": ((3 * 64 + 1, 64, 12, 3, 16, 8, "relu"), np.r_[5:150]),
+    "unaligned_gelu_t101": ((37, 101, 13, 5, 16, 8, "gelu"), np.r_[3:30]),
+    "all_zero": ((3 * 64, 64, 12, 3, 16, 8, "relu"), np.r_[0:192]),
+}
+
+
+def _backward_close(got, want):
+    """gx within 1e-5; gw, gb within 1e-5 of their largest value; NaN at the
+    same entries."""
+    for i, (gk, wk) in enumerate(zip(got, want)):
+        assert torch.equal(torch.isnan(gk), torch.isnan(wk))
+        ok = ~torch.isnan(wk)
+        if not ok.any():
+            continue
+        tol = 1e-5 if i == 0 else 1e-5 * max(1.0, wk[ok].abs().max().item())
+        assert (gk[ok] - wk[ok]).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(ZERO_LAYOUTS))
+def test_backward_kernel_skips_zero_cotangent_windows_exactly(layout):
+    dev = _cuda()
+    case, zero = ZERO_LAYOUTS[layout]
+    x, w, b, g = _inputs(case, dev)
+    g[torch.from_numpy(zero).to(dev)] = 0.0
+    got = sb.stream_block_backward(x, w, b, g, case[5], case[6])
+    again = sb.stream_block_backward(x, w, b, g, case[5], case[6])
+    want = sb.stream_block_backward_reference(x, w, b, g, case[5], case[6])
+    _backward_close(got, want)
+    assert not got[0][torch.from_numpy(zero).to(dev)].any()  # gx exactly 0
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["relu", "gelu"])
+def test_backward_kernel_keeps_nan_of_a_zero_cotangent_window(act):
+    """A NaN in x of a window whose cotangent is zero makes gw NaN (0 * NaN),
+    and with GELU gb and gx too: the kernel's NaN pattern is the plain
+    version's."""
+    dev = _cuda()
+    case = (3 * 64, 64, 12, 3, 16, 8, act)
+    x, w, b, g = _inputs(case, dev)
+    g[64:] = 0.0
+    x[100, 20, 5] = float("nan")
+    got = sb.stream_block_backward(x, w, b, g, 8, act)
+    want = sb.stream_block_backward_reference(x, w, b, g, 8, act)
+    assert torch.isnan(got[1]).any()
+    _backward_close(got, want)
+
+
 @pytest.mark.gpu
 def test_autograd_goes_through_the_backward_kernel():
     dev = _cuda()
@@ -143,11 +203,12 @@ def test_solver_kernel_matches_plain_on_card(k):
 
 # (N, Tq, Tk, d): the training path's six pairs of 64 window tuples, an odd
 # batch, tests/test_pallas.py:56-70's shapes, the symmetric 2-mod shape, one
-# query row, one key row, d not a multiple of 4, and the largest d
+# query row, one key row, d not a multiple of 4, the largest register row,
+# and wider d (rows in device memory), odd and a multiple of 4
 XATTN_CASES = [
     (6 * 64, 64, 64, 12), (6 * 33 + 1, 64, 64, 12), (2, 101, 426, 12), (2, 200, 100, 12),
     (2, 32, 48, 8), (2 * 64, 101, 101, 12), (5, 1, 64, 12), (5, 64, 1, 12),
-    (3, 37, 53, 6), (2, 130, 257, 64),
+    (3, 37, 53, 6), (2, 130, 257, 64), (2, 8, 8, 65), (3, 37, 70, 96), (2, 20, 130, 200),
 ]
 
 
@@ -212,11 +273,10 @@ def test_kernel_refuses_what_it_does_not_take():
         cs.cagrad_solve(torch.eye(3, device=dev, dtype=torch.float64), 0.5)
     with pytest.raises(ValueError):
         cs.cagrad_solve(torch.eye(9, device=dev), 0.5)
-    a, b, g = _xattn_inputs((2, 8, 8, 65), dev)
-    with pytest.raises(RuntimeError, match="cudaError_t"):  # d > 64
-        cx.cheap_xattn(a, b)
-    with pytest.raises(RuntimeError, match="cudaError_t"):
-        cx.cheap_xattn_backward(a, b, g)
+    a, b, g = _xattn_inputs((2, 8, 8, 65), dev)  # d > 64 is taken, not refused
+    assert (cx.cheap_xattn(a, b) - cx.cheap_xattn_reference(a, b)).abs().max().item() <= 1e-5
+    for gk, wk in zip(cx.cheap_xattn_backward(a, b, g), cx.cheap_xattn_backward_reference(a, b, g)):
+        assert _xattn_close(gk, wk, 1e-5, 1e-4)
     a, b, g = _xattn_inputs((2, 8, 8, 12), dev)
     with pytest.raises(TypeError):
         cx.cheap_xattn(a.double(), b.double())

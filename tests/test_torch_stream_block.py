@@ -7,6 +7,12 @@ holds the CUDA kernels (forward and backward) against that plain version on
 the card. Tolerance: see test_torch_pipeline; gradients within 1e-4
 relative and 1e-5 absolute, as tests/test_pallas.py holds gaitpd's own
 custom_vjp.
+
+The backward kernel skips windows whose cotangent is all zero (and whose x
+is finite): the zero-layout tests hold that premise against gaitpd's VJP.
+Such windows get gx exactly 0 in both packages, and gw, gb equal the VJP of
+the live windows alone (within the gradient tolerance: the sums run over
+fewer terms).
 """
 
 import numpy as np
@@ -147,3 +153,63 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build("stream_block")
+
+
+# rows of g set to zero in a batch of 3 * 4 windows (the three streams of
+# 4 window tuples): the CAGrad task passes' thirds, a range that starts and
+# ends inside a block's 8 windows, and all of them
+ZERO_LAYOUTS = {
+    "walkway_task": np.r_[4:12],
+    "insole_task": np.r_[0:4, 8:12],
+    "unaligned": np.r_[3:10],
+    "all_zero": np.r_[0:12],
+}
+
+
+def _vjp_jax(x, w, b, g, t_out, act):
+    _, vjp = jax.vjp(make_stream_block(act, t_out), *map(jnp.asarray, (x, w, b)))
+    return [np.asarray(v) for v in vjp(jnp.asarray(g))]
+
+
+def _zero_layout_inputs(zero, seed=5):
+    x, w, b = _inputs((12, 64, 12, 3, 16, 8, "relu"), seed=seed)
+    g = np.random.default_rng(seed + 1).normal(size=(12, 8, 16)).astype(np.float32)
+    g[zero] = 0.0
+    return x, w, b, g
+
+
+@pytest.mark.parametrize("layout", sorted(ZERO_LAYOUTS))
+def test_zero_cotangent_windows_add_nothing(layout):
+    zero = ZERO_LAYOUTS[layout]
+    live = np.setdiff1d(np.arange(12), zero)
+    x, w, b, g = _zero_layout_inputs(zero)
+    got = [t.numpy() for t in sb.stream_block_backward(*map(torch.from_numpy, (x, w, b, g)))]
+    ref = _vjp_jax(x, w, b, g, 8, "relu")
+    for name, c, r in zip("xwb", got, ref):
+        np.testing.assert_allclose(c, r, rtol=1e-4, atol=1e-5, err_msg=name)
+    assert not got[0][zero].any() and not ref[0][zero].any()  # gx exactly 0
+    if live.size:
+        only_live = _vjp_jax(x[live], w, b, g[live], 8, "relu")
+    else:
+        only_live = [None, np.zeros_like(w), np.zeros_like(b)]
+    for name, c, r in zip("wb", got[1:], only_live[1:]):
+        np.testing.assert_allclose(c, r, rtol=1e-4, atol=1e-5, err_msg=name)
+    if not live.size:
+        assert not got[1].any() and not got[2].any()
+
+
+def test_nan_in_a_zero_cotangent_window_makes_gw_nan():
+    """A non-finite x keeps its window live: 0 * NaN is NaN in gw, in both
+    packages, at the same entries; gb and gx stay finite (ReLU)."""
+    zero = ZERO_LAYOUTS["walkway_task"]
+    x, w, b, g = _zero_layout_inputs(zero)
+    x[6, 20, 5] = np.nan
+    got = [t.numpy() for t in sb.stream_block_backward(*map(torch.from_numpy, (x, w, b, g)))]
+    ref = _vjp_jax(x, w, b, g, 8, "relu")
+    assert np.isnan(got[1]).any()
+    for name, c, r in zip("xwb", got, ref):
+        np.testing.assert_array_equal(np.isnan(c), np.isnan(r), err_msg=name)
+        ok = ~np.isnan(r)
+        np.testing.assert_allclose(c[ok], r[ok], rtol=1e-4, atol=1e-5, err_msg=name)
+    assert np.isnan(got[1][:, 5, :]).all() and not np.isnan(np.delete(got[1], 5, axis=1)).any()
+    assert np.isfinite(got[0]).all() and np.isfinite(got[2]).all()

@@ -132,3 +132,25 @@ def test_unported_options_raise(option):
     kw = {**CONFIGS["sync_gcl"], "epochs": 1, "device": "cpu", **option}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TD.run_cv(TD.WearGaitArgs(**kw))
+
+
+@pytest.mark.parametrize("method, wants_c", [("cagrad", True), ("log_cagrad", True),
+                                             ("pcgrad", False)])
+def test_make_method_gets_c_only_for_cagrad(monkeypatch, method, wants_c):
+    """CAGrad's strength c (args.alpha) goes to cagrad and log_cagrad only,
+    as gaitpd's driver builds the keywords (gaitpd/train/weargait_driver.py:283-289)."""
+    seen = {}
+
+    class Built(Exception):
+        pass
+
+    def record(name, n_tasks, **kwargs):
+        seen.update(name=name, n_tasks=n_tasks, kwargs=kwargs)
+        raise Built
+
+    monkeypatch.setattr(TD, "make_method", record)
+    kw = {**CONFIGS["sync_gcl"], "epochs": 1, "device": "cpu", "mtl_method": method}
+    with pytest.raises(Built):
+        TD.run_cv(TD.WearGaitArgs(**kw))
+    assert (seen["name"], seen["n_tasks"]) == (method, 3)
+    assert seen["kwargs"] == ({"c": CONFIGS["sync_gcl"]["alpha"]} if wants_c else {})
