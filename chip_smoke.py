@@ -6,7 +6,8 @@
 Phases (each raises on failure, so the script exits non-zero):
   1. device: the card's name, count and power limit; build every kernel in
      gaitpd_torch/csrc with nvcc, one process each, all at once, and print
-     nvcc's -Xptxas -v lines;
+     each kernel's registers, spills and shared memory from nvcc's -Xptxas -v
+     lines;
   2. kernels: each kernel against its plain PyTorch version on the card
      (f32, TF32 off): the stream block's forward (max abs <= 1e-5) and
      backward (gx max abs <= 1e-5; gw, gb <= 1e-5 of the largest reference
@@ -44,7 +45,13 @@ Phases (each raises on failure, so the script exits non-zero):
      against its plain version (NaN at the same entries, gx of the
      zero-cotangent windows exactly 0, two launches bitwise equal); the
      cheap cross-attention at d = 65, 96 and 200 (rows in device memory),
-     forward and backward, timed at d = 96;
+     forward and backward, timed at d = 96 beside scaled_dot_product_attention
+     and its autograd (a yardstick);
+  5c. this slice's checks, from a random stream of their own: the cheap
+     cross-attention at each kernel variant's edges (Tk 64/65, Tq 64/65,
+     masked scores, d = 12 against 8, 16, 36, 64, N odd and N above one round
+     of the persistent grid), as in phase 5; the launch of every variant
+     (threads, shared memory, blocks an SM, grid);
   6. timings: each kernel, its plain version and a PyTorch library call at
      the main path's shape (CUDA events) beside its bound, and the
      stream-block backward also in a CAGrad task pass's layout (two thirds
@@ -67,6 +74,8 @@ import argparse
 import dataclasses
 import itertools
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -201,10 +210,40 @@ def phase_device() -> str:
     log(f"[build] {len(results)} kernel(s) in {time.perf_counter() - t0:.2f} s wall")
     for r in results:
         log(f"[build] {r.name}: nvcc {r.seconds:.2f} s -> {r.path.name}")
-        for line in r.log.splitlines():  # registers, shared memory, spills
-            if line.strip():
+        for kernel, regs, spills, rest in kernel_resources(r.log):
+            log(f"[build]   {kernel}: {regs} registers, spill stores/loads {spills[0]}/"
+                f"{spills[1]} bytes; {rest}")
+        for line in r.log.splitlines():  # anything but ptxas's resource report
+            if line.strip() and not re.match(r"\s*(ptxas info|\d+ bytes stack frame)", line):
                 log(f"[build]   {line.strip()}")
     return card
+
+
+def kernel_resources(log: str) -> list:
+    """(kernel, registers, (spill store, spill load bytes), the rest of
+    ptxas's "Used" line) of each entry function in nvcc's -Xptxas -v output,
+    demangled where c++filt exists."""
+    rows, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers,?\s*(.*)", line)
+        if m and name:
+            rows.append([name, int(m.group(1)), spills, m.group(2).strip()])
+            name = None
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(rows):
+            for r, plain in zip(rows, out):  # drop the namespace and the argument list
+                plain = plain.replace("(anonymous namespace)::", "").removeprefix("void ")
+                r[0] = plain[:plain.find("(")] if "(" in plain else plain
+    return [tuple(r) for r in rows]
 
 
 # ---------------------------------------------------------------------------
@@ -383,9 +422,9 @@ def xattn_inputs(rng, n, tq, tk, d, dev):
             for s in ((n, tq, d), (n, tk, d), (n, tq, d))]
 
 
-def check_cheap_xattn(rng, dev, card) -> dict:
+def check_cheap_xattn(rng, dev, card, cases) -> dict:
     errors = {}
-    for name, (n, tq, tk, d) in XATTN_CASES.items():
+    for name, (n, tq, tk, d) in cases.items():
         a, b, g = xattn_inputs(rng, n, tq, tk, d, dev)
         before = (cx.launches, cx.backward_launches)
         got = cx.cheap_xattn(a, b)
@@ -403,7 +442,9 @@ def check_cheap_xattn(rng, dev, card) -> dict:
         ok_g = all(bool(((gk - wk).abs() <= XATTN_GRAD_ATOL + XATTN_GRAD_RTOL * wk.abs()).all())
                    for gk, wk in zip(grads, want_g))
         same = all(torch.equal(x, y) for x, y in zip(grads, again))
-        log(f"[kernel] {card}: cheap_xattn {name} (N {n}, Tq {tq}, Tk {tk}, d {d}): forward max "
+        variants = "/".join(cx.VARIANT_NAMES[cx._variant(tq, tk, d, bw)] for bw in (False, True))
+        log(f"[kernel] {card}: cheap_xattn {name} (N {n}, Tq {tq}, Tk {tk}, d {d}; variants "
+            f"{variants}): forward max "
             f"abs err {err:.3e} (tol {atol:.0e} + {rtol:.0e} rel); backward dA/dB max abs err "
             f"{errs[0]:.3e}/{errs[1]:.3e} (tol {XATTN_GRAD_ATOL:.0e} + {XATTN_GRAD_RTOL:.0e} "
             f"rel); two launches bitwise equal: {same}")
@@ -445,15 +486,69 @@ def check_wide_xattn(rng, dev, card) -> None:
             raise RuntimeError(f"cheap_xattn[{name}] at d > 64 disagrees: {errs}, {same}")
     n, tq, tk, d = WIDE_XATTN_CASES["d96_train_batch64"]
     a, b, g = xattn_inputs(rng, n, tq, tk, d, dev)
+    leaves = [t.detach().clone().requires_grad_() for t in (a, b)]
+
+    def library():  # a yardstick: the port never calls it
+        return F.scaled_dot_product_attention(a, b, b)
+
+    def library_backward():
+        out = F.scaled_dot_product_attention(leaves[0], leaves[1], leaves[1])
+        return torch.autograd.grad(out, leaves, g)
+
+    lib_errs = [(library() - cx.cheap_xattn_reference(a, b)).abs().max().item()] + [
+        (p - q).abs().max().item()
+        for p, q in zip(library_backward(), cx.cheap_xattn_backward_reference(a, b, g))]
+    if not max(lib_errs) <= 1e-4:
+        raise RuntimeError(f"library yardstick at d {d} computes another function: {lib_errs}")
     with torch.inference_mode():
         fwd_ms = time_cuda(lambda: cx.cheap_xattn(a, b), warmup=3, reps=20)
         fwd_plain = time_cuda(lambda: cx.cheap_xattn_reference(a, b), warmup=3, reps=20)
+        fwd_lib = time_cuda(library, warmup=3, reps=20)
     bwd_ms = time_cuda(lambda: cx.cheap_xattn_backward(a, b, g), warmup=3, reps=20)
     bwd_plain = time_cuda(lambda: cx.cheap_xattn_backward_reference(a, b, g), warmup=3, reps=20)
+    bwd_lib = time_cuda(library_backward, warmup=3, reps=20)
     log(f"[time] {card}: cheap_xattn at d {d} (N {n}, Tq {tq}, Tk {tk}, rows in device "
-        f"memory): forward kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, bound "
+        f"memory): forward kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, library "
+        f"scaled_dot_product_attention {fwd_lib:.4f} ms, bound "
         f"{cheap_xattn_bound(n, tq, tk, d)[0]:.5f} ms; backward kernel {bwd_ms:.4f} ms, plain "
-        f"{bwd_plain:.4f} ms, bound {cheap_xattn_backward_bound(n, tq, tk, d)[0]:.5f} ms")
+        f"{bwd_plain:.4f} ms, library (autograd of scaled_dot_product_attention, forward "
+        f"included) {bwd_lib:.4f} ms, bound {cheap_xattn_backward_bound(n, tq, tk, d)[0]:.5f} "
+        f"ms; library max abs diffs forward/dA/dB {lib_errs[0]:.2e}/{lib_errs[1]:.2e}/"
+        f"{lib_errs[2]:.2e}")
+
+
+# each kernel variant's edges: the sweep kernels at Tk = 64 against 65 (two
+# passes), Tq = 64 against 65 (the backward's two passes; the forward's second
+# 64-row unit), masked scores (Tk 63), d = 12 (the compile-time width) against
+# 8, 16, 36 and 64 (the general widths), N odd (a block's second unit idle in
+# the last round) and N above one round of the persistent grid
+XATTN_EDGE_CASES = {
+    "tk64_n7": (7, 64, 64, 12), "tk65": (7, 64, 65, 12), "tq65": (7, 65, 64, 12),
+    "tq65_tk65": (7, 65, 65, 12), "tk63_masked": (5, 64, 63, 12), "d8": (5, 64, 64, 8),
+    "d16": (5, 64, 64, 16), "d36": (5, 64, 64, 36), "d36_ragged": (3, 33, 47, 36),
+    "d64": (5, 64, 64, 64), "tq130_three_units": (3, 130, 20, 12),
+    "main_plus_one": (6 * N_WINDOWS + 1, 64, 64, 12),
+}
+# one shape a variant for the launch table: the main shape (sweep_d12), then
+# the main shape's N at d = 36 (sweep), at Tk = 65 (two_pass), at d = 96
+CONFIG_SHAPES = {"main": (6 * N_WINDOWS, 64, 64, 12), "d36": (6 * N_WINDOWS, 64, 64, 36),
+                 "tk65": (6 * N_WINDOWS, 64, 65, 12), "d96": (6 * N_WINDOWS, 64, 64, 96)}
+
+
+def xattn_launch(n, tq, tk, d, backward) -> dict:
+    """cx.launch_config plus the waves: blocks over the blocks the card holds
+    at once (the sweep forward's persistent grid is one wave)."""
+    config = cx.launch_config(n, tq, tk, d, backward)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    config["waves"] = config["blocks"] / (config["blocks_per_sm"] * sms)
+    return config
+
+
+def print_xattn_configs(card) -> None:
+    for name, (n, tq, tk, d) in CONFIG_SHAPES.items():
+        for backward in (False, True):
+            log(f"[config] {card}: cheap_xattn{'_backward' if backward else ''} {name} "
+                f"(N {n}, Tq {tq}, Tk {tk}, d {d}): {xattn_launch(n, tq, tk, d, backward)}")
 
 
 # ---------------------------------------------------------------------------
@@ -907,6 +1002,9 @@ def time_cheap_xattn(rng, dev, card) -> dict:
                             warmup=5, reps=50)
     bwd_library = time_cuda(library_backward, warmup=5, reps=50)
     bwd_bound, bwd_by = cheap_xattn_backward_bound(n, tq, tk, d)
+    launch = {bw: xattn_launch(n, tq, tk, d, bw) for bw in (False, True)}
+    log(f"[time] {card}: cheap_xattn launch {launch[False]}; cheap_xattn_backward launch "
+        f"{launch[True]}")
     log(f"[time] {card}: cheap_xattn_backward at N {n}, Tq {tq}, Tk {tk}, d {d}: kernel "
         f"{bwd_kernel:.4f}/{bwd_kernel_2:.4f} ms, plain (autograd of the plain forward) "
         f"{bwd_plain:.4f}/{bwd_plain_2:.4f} ms, library (autograd of "
@@ -914,11 +1012,12 @@ def time_cheap_xattn(rng, dev, card) -> dict:
         f"{bwd_library:.4f} ms, bound {bwd_bound:.5f} ms ({bwd_by})")
     return {
         "cheap_xattn": {"ms": min(kernel_ms, kernel_ms_2), "plain_ms": min(plain_ms, plain_ms_2),
-                        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by},
+                        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "launch": launch[False]},
         "cheap_xattn_backward": {"ms": min(bwd_kernel, bwd_kernel_2),
                                  "plain_ms": min(bwd_plain, bwd_plain_2),
                                  "library_ms": bwd_library, "bound_ms": bwd_bound,
-                                 "bound_by": bwd_by},
+                                 "bound_by": bwd_by, "launch": launch[True]},
     }
 
 
@@ -1085,11 +1184,13 @@ def main() -> int:
     # inputs they always saw
     xrng = np.random.default_rng([args.seed, 3])
     check_stream_block(xrng, dev, FUSION_WIDTH_CASES)
-    xattn_errors = check_cheap_xattn(xrng, dev, card)
-    # this slice's checks: a stream of their own as well
+    xattn_errors = check_cheap_xattn(xrng, dev, card, XATTN_CASES)
+    # later slices' checks: each a stream of its own as well
     zrng = np.random.default_rng([args.seed, 6])
     check_zero_rows(zrng, dev)
     check_wide_xattn(zrng, dev, card)
+    check_cheap_xattn(np.random.default_rng([args.seed, 7]), dev, card, XATTN_EDGE_CASES)
+    print_xattn_configs(card)
     fusion, single = phase_fusion_training(args.seed, dev)
     times = time_stream_block(rng, dev, card)
     times["cagrad_solver"] = time_solver(rng, dev, card)

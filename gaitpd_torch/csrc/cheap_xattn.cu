@@ -7,59 +7,109 @@
 //   A (N, Tq, d), B (N, Tk, d)  ->  O (N, Tq, d), f32, for N independent
 //   problems, any Tq, Tk >= 1 and any d >= 1.
 //
-// FORWARD
+// The main path: the cheap-xattn fusion model sends the six directed stream
+// pairs of a batch of 1024 window tuples through one launch each way, N = 6144
+// problems of Tq = Tk = 64, d = 12. The problems are tiny (a 64 x 64 score
+// matrix, 16 KB), so nothing of the Pallas tiling is carried over: a problem's
+// scores never leave the SM, and the work is spread by problems.
 //
-// What bounds it. On the training path of the cheap-xattn fusion model the
-// six directed stream pairs of a batch of 1024 window tuples go through one
-// launch: N = 6144 problems of Tq = Tk = 64, d = 12. Per problem it must read
-// A and B and write O, 9,216 bytes (56.6 MB in all, 16.9 us at 3.35 TB/s),
-// and do the two products, 2 * 2 * 64 * 64 * 12 FLOP (1.21 GFLOP in all,
-// 18.0 us at the 67 TFLOP/s of f32 on the CUDA cores): operations bound it,
-// barely. The (Tq, Tk) score matrix, 16 KB a problem, never needs to leave
-// the chip.
+// Four variants; gaitpd_torch/ops/cheap_xattn.py::_variant chooses one from
+// (Tq, Tk, d) and the entry points refuse a variant that does not take the
+// sizes:
+//   0  one sweep, d = 12 as a compile-time width: Tk <= 64 (backward also
+//      Tq <= 64); the main path;
+//   1  one sweep, any d <= 64, rows zero-padded to a width of 16, 32 or 64;
+//   2  two passes (the first design): Tk > 64 (backward: Tq or Tk > 64),
+//      d <= 64;
+//   3  rows in device memory: d > 64.
 //
-// What the design does about it. The problems are tiny, so nothing of the
-// Pallas tiling is carried over. A block takes one problem and up to 128
-// query rows; each thread owns one query row and keeps it, and its output
-// row, in registers. B streams through shared memory in tiles of 64 rows;
-// every thread of a warp reads the same B row at once (a broadcast, no bank
-// conflicts), with 16-byte loads where d is a multiple of 4. Two passes over
-// B: the first finds the row's maximum score, the second sums exp(s - max)
-// and exp(s - max) * B_k; the output is that sum divided by the first. So no
-// score is stored and no kv position needs masking. The score is the dot
-// product divided by sqrt(d), as the reference divides (IEEE division and
-// expf: the build has no --use_fast_math). The first pass recomputes the
-// dot products of the second: 1.5 times the forward's minimum operations.
-// No tensor cores yet: at d = 12 a product is 12 deep.
+// THE SCALE. Variants 0 and 1 multiply the dot product by 1/sqrt(d), computed
+// once on the host in double and rounded to f32, as the Pallas kernel does
+// (gaitpd/ops/pallas_blocks.py:201 multiplies by `scale`, :250 sets it to
+// 1.0 / np.sqrt(d)); only the jnp reference divides. Variants 2 and 3 divide,
+// as they always did. expf is the accurate one: the build has no fast math.
 //
-// The register rows hold d <= 64 (arrays of 16, 32 or 64, a template). A
-// wider d takes a variant of both kernels whose per-thread rows stay in
-// device memory: the query and dO rows are read from A and G where they
-// lie, and the running sum is the thread's own output row (of O, dA or dB),
-// which no other thread touches. Its arithmetic and order are the register
-// version's; it is slow (every update of the sum goes through the cache),
-// and no model of the repo's defaults takes it.
+// FORWARD, ONE SWEEP (variants 0, 1)
 //
-// BACKWARD
+// What bounds it. Per problem it reads A and B and writes O, 9,216 bytes
+// (56.6 MB in all, 16.9 us at 3.35 TB/s), and does two products of
+// 2 * 64 * 64 * 12 FLOP: 24 FMAs a score, 1.21 GFLOP in all, 18.0 us at the
+// 67 TFLOP/s of f32 on the CUDA cores. Operations bound it. The score's
+// softmax adds issue slots the bound does not count: a scale, a max, a
+// subtraction, expf (about eight instructions) and the sum of l.
 //
-// For a cotangent dO, with S = A B^T / sqrt(d), P = softmax(S), O = P B:
+// What the design does about it. A thread owns one query row and keeps it in
+// registers. B's rows (64 at most) sit in shared memory; every thread of a warp
+// reads the same row at once (a broadcast, 16-byte loads). The thread computes
+// its row's scores once, into 64 registers, with their maximum; then one
+// sweep over the registers and B gives exp(s - max), their sum l and the
+// weighted sum of B's rows, and O = that sum / l. The scores, the maximum and
+// the order of every sum are the first design's; only the scale differs.
+// About 37 arithmetic instructions and 6 shared loads a score, against the
+// first design's 75 (two passes of dot products and an IEEE division each).
+// With d = 12 as a compile-time width the row loops carry no guard and no
+// dead columns; other d <= 64 read rows zero-padded to 16, 32 or 64, whose
+// padding adds exact zeros. Score registers past Tk hold -inf and add nothing.
+// Fill: a block of 4 warps takes two 64-row units (a problem's query rows, 64
+// at a time) a round, and the grid is as many blocks as the card holds at
+// once (the occupancy calculator), each striding over the units: no half-empty
+// last wave. At W <= 16 the launch bounds cap a thread at 128 registers (4
+// blocks, 16 warps an SM). Strict f32 on the CUDA cores; no TF32.
+//
+// What it reaches (PERF.md, PR 7): about 0.079 ms at the main shape, 4.4x its
+// bound, above the 37 instructions a score of the count above. Two query rows
+// a thread (each row of B read once for two scores) was slower, and so was
+// the uncapped kernel (168 registers, 12 warps an SM); the tensor cores
+// (3xTF32) are the next step.
+//
+// BACKWARD, ONE SWEEP (variants 0, 1)
+//
+// For a cotangent dO, with S = A B^T * scale, P = softmax(S), O = P B:
 //   dP = dO B^T;  D_i = sum_c dO_ic O_ic;  dS = P * (dP - D);
-//   dA = dS B / sqrt(d);  dB = dS^T A / sqrt(d) + P^T dO.
+//   dA = dS B * scale;  dB = dS^T A * scale + P^T dO.
 //
 // What bounds it. Five products of the forward's size at the main shape,
 // 3.02 GFLOP (45 us), against 94 MB of traffic (28 us): operations.
 //
-// What the design does about it. One block owns one problem, so dB needs no
-// sum across blocks and no float atomics: the result is the same bits from
-// run to run. Nothing of the forward is saved; the backward recomputes it.
-// Phase 1, a thread per query row: the row's max and sum (two passes over B
-// in shared memory, as the forward), then D_i from the recomputed O_i, then
-// a third pass for dA_i. The row's (max, sum, D) go to a scratch buffer.
-// Phase 2, a thread per key row k, keeping B_k and dB_k in registers: A, dO
-// and the row statistics stream through shared memory in tiles of 64 query
-// rows, and the thread recomputes P_ik and dS_ik (the same dot products in
-// the same order, so the same bits as phase 1) and accumulates dB_k. About
-// twice the backward's minimum operations; no tensor cores yet.
+// What the design does about it. One block of 4 warps owns one problem, so dB
+// needs no sum across blocks and no float atomics: the result is the same
+// bits from run to run. A, B and dO are staged in shared memory, and so are
+// P and dS * scale of the whole problem (64 x 66 floats each; a row stride of
+// 66 puts the two threads of 16 rows in 32 distinct banks). Phase 1, two
+// threads per query row i (lanes 2i and 2i + 1), each taking every other key:
+// the scores into 32 registers and their max (the pair's by a shuffle); one
+// sweep for exp(s - max), l, O_i and dP_ik = dO_i . B_k; the pair's sums by a
+// shuffle (half 0 + half 1, so both lanes hold the same bits); D_i; then
+// P_ik, dS_ik into shared memory and dA_i = sum_k dS_ik B_k * scale. Phase 2,
+// a thread per (key row k, half of the query rows): dB_k = sum_i dS_ik A_i *
+// scale + P_ik dO_i, reading P and dS by column (consecutive threads on
+// consecutive k: no bank conflicts) and A_i, dO_i by broadcast; the upper
+// half's partial row meets the lower's in shared memory, half 0 + half 1.
+// About 6 row operations a score (the first design: 10), one expf (was 3), no
+// division by sqrt(d), and 4 warps a problem (was 2). Rows past Tq write zero
+// P and dS, so phase 2 runs without guards.
+//
+// TWO PASSES (variant 2), the first design, for Tk > 64 (backward Tq > 64)
+//
+// A block takes one problem and up to 128 query rows; each thread owns one
+// query row. B streams through shared memory in tiles of 64 rows. Forward:
+// the first pass finds the row's maximum score, the second sums exp(s - max)
+// and exp(s - max) * B_k; the score is the dot product divided by sqrt(d).
+// Backward: nothing of the forward is saved. Phase 1, a thread per query row:
+// max and sum (two passes), D_i from the recomputed O_i, a third pass for
+// dA_i; the row's (max, sum, D) go to a scratch buffer. Phase 2, a thread per
+// key row: A, dO and the row statistics stream through shared memory and the
+// thread recomputes P_ik and dS_ik (the same bits as phase 1) and sums dB_k.
+// The register rows hold d <= 64 (arrays of 16, 32 or 64, a template).
+//
+// ROWS IN DEVICE MEMORY (variant 3), d > 64
+//
+// The two-pass kernels with the per-thread rows in device memory: the query
+// and dO rows are read from A and G where they lie, and the running sum is
+// the thread's own output row (of O, dA or dB), which no other thread
+// touches. Its arithmetic and order are the two-pass version's; it is slow
+// (every update of the sum goes through the cache), and no model of the
+// repo's defaults takes it.
 //
 // Plain C interface, bound with ctypes (gaitpd_torch/ops/cheap_xattn.py).
 
@@ -74,6 +124,22 @@ constexpr int kTile = 64;  // rows staged in shared memory at a time
 constexpr int kMaxD = 64;  // the widest register row; wider d runs the *_wide kernels
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
+
+// The variants, numbered as gaitpd_torch/ops/cheap_xattn.py::_variant numbers them.
+enum Variant { kSweepD12 = 0, kSweep = 1, kTwoPass = 2, kWide = 3 };
+
+constexpr int kSweepT = 64;         // keys (backward: and query rows) the sweep kernels hold
+constexpr int kSweepThreads = 128;  // 4 warps
+constexpr int kSlots = kSweepThreads / kSweepT;  // forward: 64-row units a block takes a round
+constexpr int kHalf = kSweepT / 2;               // backward: keys (query rows) a thread takes
+constexpr int kPStride = kSweepT + 2;            // row stride of P and dS in shared memory
+// Blocks an SM the forward sweep's __launch_bounds__ asks for at W <= 16: 4
+// caps it at 128 registers (16 warps an SM; it needs 168 uncapped, 12 warps).
+constexpr int kSweepForwardBlocks = 4;
+
+// Row stride of a staged tile of width w: w, or w + 4 where two rows 2j and
+// 2j + 1 would fall into the same banks (the backward's pair of threads).
+__host__ __device__ constexpr int row_stride(int w) { return w % 32 == 0 ? w + 4 : w; }
 
 // Copies rows [r0, r0 + rows) of a row-major (T, d) matrix into dst:
 // contiguous in device memory, so the reads coalesce.
@@ -137,6 +203,237 @@ __device__ __forceinline__ void axpy_row(float (&acc)[DP], float e, const float*
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// One sweep (variants 0 and 1). W is the register row's width: 12 (d = 12
+// exactly), 16, 32 or 64 (rows zero-padded beyond d). The dot and axpy
+// helpers run over all W columns: the padding adds exact zeros.
+
+// Copies the `rows` rows of a row-major (rows, d) matrix into a kSweepT-row
+// tile of row stride row_stride(W), zero beyond row `rows` and column d.
+// Threads tid, tid + nthreads, ... share the copy.
+template <int W>
+__device__ __forceinline__ void stage_tile(const float* __restrict__ src, float* dst, int rows,
+                                           int d, int tid, int nthreads) {
+  constexpr int kStride = row_stride(W);
+  if (W == 12) {  // d = 12: three 16-byte words a row, contiguous in both
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* d4 = reinterpret_cast<float4*>(dst);
+    for (int e = tid; e < kSweepT * 3; e += nthreads) {
+      d4[e] = e < rows * 3 ? s4[e] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  } else {
+    for (int e = tid; e < kSweepT * kStride; e += nthreads) {
+      const int r = e / kStride, c = e - r * kStride;
+      dst[e] = (r < rows && c < d) ? src[r * d + c] : 0.0f;
+    }
+  }
+}
+
+// Row i of a staged tile into registers.
+template <int W>
+__device__ __forceinline__ void tile_row(float (&r)[W], const float* tile, int i) {
+  const float* row = tile + i * row_stride(W);
+#pragma unroll
+  for (int c = 0; c < W; c += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(row + c);
+    r[c] = v.x;
+    r[c + 1] = v.y;
+    r[c + 2] = v.z;
+    r[c + 3] = v.w;
+  }
+}
+
+// Grid: as many blocks as the card holds at once, at most one per two units.
+// A unit is (problem p, query rows [64 y, 64 y + 64)); block x takes units
+// 2x, 2x + 1, then 2(x + grid), ... The two halves of the block (two warps
+// each) take one unit each, with one tile of B each in static shared memory.
+// FULL: Tk = 64, no score is masked.
+template <int W, bool FULL>
+__global__ void __launch_bounds__(kSweepThreads, W <= 16 ? kSweepForwardBlocks : 1)
+cheap_xattn_forward_sweep_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                                 float* __restrict__ out, int n, int tq, int tk, int d,
+                                 float scale) {
+  constexpr int kStride = row_stride(W);
+  __shared__ __align__(16) float tiles[kSlots][kSweepT * kStride];
+  const int slot = threadIdx.x / kSweepT;
+  const int r = threadIdx.x % kSweepT;
+  float* tile = tiles[slot];
+  const int chunks = (tq + kSweepT - 1) / kSweepT;
+  const long long units = static_cast<long long>(n) * chunks;
+  for (long long u0 = static_cast<long long>(blockIdx.x) * kSlots; u0 < units;
+       u0 += static_cast<long long>(gridDim.x) * kSlots) {
+    const long long u = u0 + slot;
+    const bool live = u < units;
+    const size_t p = live ? static_cast<size_t>(u / chunks) : 0;
+    const int i = (live ? static_cast<int>(u % chunks) : 0) * kSweepT + r;
+    const bool active = live && i < tq;
+    __syncthreads();  // the previous round's reads of the tiles are done
+    stage_tile<W>(b + p * tk * d, tile, live ? tk : 0, d, r, kSweepT);
+    __syncthreads();
+    float q[W];
+    load_row<W>(q, a + p * tq * d, i, d, active);
+    float s[kSweepT];
+    float m = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < kSweepT; ++k) {
+      const float v = dot_row<W, true>(q, tile + k * kStride, W) * scale;
+      s[k] = (FULL || k < tk) ? v : -INFINITY;
+      m = fmaxf(m, s[k]);
+    }
+    // Without a barrier here the compiler keeps the tile's values loaded by
+    // the first loop in registers for the second: 64 W floats a thread (255
+    // registers and 3 KB of spills at W = 12). After it they are loaded again.
+    __syncwarp();
+    float l = 0.0f, acc[W];
+#pragma unroll
+    for (int c = 0; c < W; ++c) acc[c] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kSweepT; ++k) {
+      const float e = expf(s[k] - m);
+      l += e;
+      axpy_row<W, true>(acc, e, tile + k * kStride, W);
+    }
+    if (active) {
+      float* o = out + (p * tq + i) * d;
+#pragma unroll
+      for (int c = 0; c < W; ++c) {
+        if (W == 12 || c < d) o[c] = acc[c] / l;
+      }
+    }
+  }
+}
+
+// Grid (N): block p owns problem p. Dynamic shared memory:
+// sweep_backward_smem(W) bytes (tiles of B, A, dO, then P and dS).
+template <int W, bool FULL>
+__global__ void __launch_bounds__(kSweepThreads)
+cheap_xattn_backward_sweep_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                                  const float* __restrict__ g, float* __restrict__ da,
+                                  float* __restrict__ db, int tq, int tk, int d, float scale) {
+  constexpr int kStride = row_stride(W);
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ float4 smem4[];
+  float* bs = reinterpret_cast<float*>(smem4);
+  float* as = bs + kSweepT * kStride;
+  float* gs = as + kSweepT * kStride;
+  float* ps = gs + kSweepT * kStride;
+  float* ss = ps + kSweepT * kPStride;
+  const size_t p = blockIdx.x;
+  stage_tile<W>(b + p * tk * d, bs, tk, d, threadIdx.x, kSweepThreads);
+  stage_tile<W>(a + p * tq * d, as, tq, d, threadIdx.x, kSweepThreads);
+  stage_tile<W>(g + p * tq * d, gs, tq, d, threadIdx.x, kSweepThreads);
+  __syncthreads();
+
+  // Phase 1: query row i, keys k = 2j + h of the pair's half h.
+  {
+    const int i = threadIdx.x >> 1, h = threadIdx.x & 1;
+    const bool active = i < tq;
+    float* prow = ps + i * kPStride;
+    float* srow = ss + i * kPStride;
+    float q[W];
+    tile_row<W>(q, as, i);
+    float s[kHalf];
+    float m = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kHalf; ++j) {
+      const int k = 2 * j + h;
+      const float v = dot_row<W, true>(q, bs + k * kStride, W) * scale;
+      s[j] = (FULL || k < tk) ? v : -INFINITY;
+      m = fmaxf(m, s[j]);
+    }
+    m = fmaxf(m, __shfl_xor_sync(kAll, m, 1));
+    float go[W], o[W];
+    tile_row<W>(go, gs, i);
+#pragma unroll
+    for (int c = 0; c < W; ++c) o[c] = 0.0f;
+    float l = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kHalf; ++j) {
+      const int k = 2 * j + h;
+      const float* row = bs + k * kStride;
+      const float e = expf(s[j] - m);
+      s[j] = e;
+      l += e;
+      axpy_row<W, true>(o, e, row, W);
+      srow[k] = dot_row<W, true>(go, row, W);  // dP_ik, until dS replaces it
+    }
+    l += __shfl_xor_sync(kAll, l, 1);
+#pragma unroll
+    for (int c = 0; c < W; ++c) o[c] += __shfl_xor_sync(kAll, o[c], 1);
+    float dsum = 0.0f;  // D_i = dO_i . O_i
+#pragma unroll
+    for (int c = 0; c < W; ++c) dsum = fmaf(go[c], o[c] / l, dsum);
+    float acc[W];  // dA_i
+#pragma unroll
+    for (int c = 0; c < W; ++c) acc[c] = 0.0f;
+    if (active) {
+      const float inv_l = 1.0f / l;
+#pragma unroll
+      for (int j = 0; j < kHalf; ++j) {
+        const int k = 2 * j + h;
+        const float pk = s[j] * inv_l;
+        const float ds = pk * (srow[k] - dsum) * scale;
+        prow[k] = pk;
+        srow[k] = ds;
+        axpy_row<W, true>(acc, ds, bs + k * kStride, W);
+      }
+    } else {  // zero rows of P and dS: phase 2 sums all 64 rows
+#pragma unroll
+      for (int j = 0; j < kHalf; ++j) {
+        prow[2 * j + h] = 0.0f;
+        srow[2 * j + h] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < W; ++c) acc[c] += __shfl_xor_sync(kAll, acc[c], 1);
+    if (active && h == 0) {
+      float* o_da = da + (p * tq + i) * d;
+#pragma unroll
+      for (int c = 0; c < W; ++c) {
+        if (W == 12 || c < d) o_da[c] = acc[c];
+      }
+    }
+  }
+  __syncthreads();
+
+  // Phase 2: key row k, query rows [32 h, 32 h + 32).
+  {
+    const int k = threadIdx.x % kSweepT, h = threadIdx.x / kSweepT;
+    float acc[W];
+#pragma unroll
+    for (int c = 0; c < W; ++c) acc[c] = 0.0f;
+#pragma unroll 8
+    for (int j = 0; j < kHalf; ++j) {
+      const int i = h * kHalf + j;
+      const float pk = ps[i * kPStride + k];
+      const float ds = ss[i * kPStride + k];
+      axpy_row<W, true>(acc, pk, gs + i * kStride, W);
+      axpy_row<W, true>(acc, ds, as + i * kStride, W);
+    }
+    float* part = bs + k * kStride;  // B's tile is free: phase 1 is over
+    if (h == 1) {
+#pragma unroll
+      for (int c = 0; c < W; ++c) part[c] = acc[c];
+    }
+    __syncthreads();
+    if (h == 0 && k < tk) {
+      float* o_db = db + (p * tk + k) * d;
+#pragma unroll
+      for (int c = 0; c < W; ++c) {
+        if (W == 12 || c < d) o_db[c] = acc[c] + part[c];
+      }
+    }
+  }
+}
+
+size_t sweep_backward_smem(int w) {
+  return (3 * static_cast<size_t>(kSweepT) * row_stride(w) +
+          2 * static_cast<size_t>(kSweepT) * kPStride) * sizeof(float);
+}
+
+// ---------------------------------------------------------------------------
+// Two passes (variant 2).
 
 // The query row q's max score over all tk rows of bp, and then
 // l = sum_k exp(s_k - max) and acc = sum_k exp(s_k - max) * B_k. Every thread
@@ -302,18 +599,14 @@ cheap_xattn_backward_kernel(const float* __restrict__ a, const float* __restrict
   }
 }
 
-bool valid_sizes(int n, int tq, int tk, int d) {
-  return n >= 1 && tq >= 1 && tk >= 1 && d >= 1;
-}
-
 int threads_for(int rows) {
   const int t = (rows + 31) / 32 * 32;
   return t < kMaxThreads ? t : kMaxThreads;
 }
 
 // ---------------------------------------------------------------------------
-// d > 64: rows in device memory (see the header). The helpers mirror
-// dot_row and axpy_row, in the same order.
+// d > 64 (variant 3): rows in device memory (see the header). The helpers
+// mirror dot_row and axpy_row, in the same order.
 
 template <bool V4>
 __device__ __forceinline__ float dot_mem(const float* q, const float* row, int d) {
@@ -506,109 +799,203 @@ int wide_tile(size_t row_floats, size_t* smem) {
   return *smem > kMaxSmem ? 0 : static_cast<int>(t);
 }
 
+// ---------------------------------------------------------------------------
+// Launches. One function per direction works out a variant's launch, which
+// both the entry point and cheap_xattn_config use.
+
+struct Launch {
+  const void* kernel;
+  dim3 grid;
+  int threads;
+  size_t smem;  // dynamic shared memory, bytes
+  int tile;     // variant 3's rows a tile
+};
+
 template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
+const void* fn(Kernel kernel) {
+  return reinterpret_cast<const void*>(kernel);
+}
+
+bool valid_sizes(int n, int tq, int tk, int d) {
+  return n >= 1 && tq >= 1 && tk >= 1 && d >= 1;
+}
+
+// Whether `variant` takes these sizes.
+bool variant_takes(int variant, bool backward, int tq, int tk, int d) {
+  const bool sweep = tk <= kSweepT && (!backward || tq <= kSweepT);
+  switch (variant) {
+    case kSweepD12: return sweep && d == 12;
+    case kSweep: return sweep && d <= kMaxD;
+    case kTwoPass: return d <= kMaxD;
+    case kWide: return d > kMaxD;
+    default: return false;
+  }
+}
+
+// The sweep kernels' register width for d.
+int sweep_width(int variant, int d) {
+  return variant == kSweepD12 ? 12 : d <= 16 ? 16 : d <= 32 ? 32 : 64;
+}
+
+cudaError_t allow_smem(const void* kernel, size_t smem) {
   if (smem <= kDefaultSmem) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-template <bool V4>
-int forward_wide(const float* a, const float* b, float* out, int n, int tq, int tk, int d,
-                 cudaStream_t s) {
-  size_t smem;
-  const int tile = wide_tile(d, &smem);
-  if (tile == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = allow_smem(cheap_xattn_forward_wide_kernel<V4>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = threads_for(tq);
-  const dim3 grid(n, (tq + threads - 1) / threads);
-  cheap_xattn_forward_wide_kernel<V4><<<grid, threads, smem, s>>>(
-      a, b, out, tq, tk, d, sqrtf(static_cast<float>(d)), tile);
-  return static_cast<int>(cudaGetLastError());
+// Blocks of `kernel` the current card holds at once, over all its SMs.
+cudaError_t resident_blocks(const void* kernel, int threads, size_t smem, int* blocks) {
+  int dev, sms, per_sm;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  }
+  *blocks = sms * per_sm;
+  return err;
 }
 
-template <bool V4>
-int backward_wide(const float* a, const float* b, const float* g, float* da, float* db,
-                  float* stats, int n, int tq, int tk, int d, cudaStream_t s) {
-  size_t smem;
-  const int tile = wide_tile(2 * static_cast<size_t>(d) + 3, &smem);
-  if (tile == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = allow_smem(cheap_xattn_backward_wide_kernel<V4>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = threads_for(tq > tk ? tq : tk);
-  cheap_xattn_backward_wide_kernel<V4><<<n, threads, smem, s>>>(
-      a, b, g, da, db, stats, tq, tk, d, sqrtf(static_cast<float>(d)), tile);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Launches kernel<DP, V4> for the smallest DP in {16, 32, 64} that holds d.
-template <template <int, bool> class Launch, typename... Args>
-int dispatch(int d, Args... args) {
+cudaError_t forward_launch(int variant, int n, int tq, int tk, int d, Launch* out) {
+  if (!valid_sizes(n, tq, tk, d) || !variant_takes(variant, false, tq, tk, d)) {
+    return cudaErrorInvalidValue;
+  }
+  Launch l{nullptr, dim3(1), kSweepThreads, 0, 0};
   const bool v4 = d % 4 == 0;
-  if (d <= 16) return v4 ? Launch<16, true>::run(args...) : Launch<16, false>::run(args...);
-  if (d <= 32) return v4 ? Launch<32, true>::run(args...) : Launch<32, false>::run(args...);
-  return v4 ? Launch<64, true>::run(args...) : Launch<64, false>::run(args...);
+  if (variant == kSweepD12 || variant == kSweep) {
+    const bool full = tk == kSweepT;
+    switch (sweep_width(variant, d)) {
+      case 12: l.kernel = full ? fn(cheap_xattn_forward_sweep_kernel<12, true>)
+                               : fn(cheap_xattn_forward_sweep_kernel<12, false>); break;
+      case 16: l.kernel = fn(cheap_xattn_forward_sweep_kernel<16, false>); break;
+      case 32: l.kernel = fn(cheap_xattn_forward_sweep_kernel<32, false>); break;
+      default: l.kernel = fn(cheap_xattn_forward_sweep_kernel<64, false>); break;
+    }
+    int resident;
+    const cudaError_t err = resident_blocks(l.kernel, kSweepThreads, 0, &resident);
+    if (err != cudaSuccess) return err;
+    const long long units = static_cast<long long>(n) * ((tq + kSweepT - 1) / kSweepT);
+    const long long rounds = (units + kSlots - 1) / kSlots;
+    l.grid = dim3(static_cast<unsigned>(rounds < resident ? rounds : resident));
+  } else if (variant == kTwoPass) {
+    if (d <= 16) {
+      l.kernel = v4 ? fn(cheap_xattn_forward_kernel<16, true>) : fn(cheap_xattn_forward_kernel<16, false>);
+    } else if (d <= 32) {
+      l.kernel = v4 ? fn(cheap_xattn_forward_kernel<32, true>) : fn(cheap_xattn_forward_kernel<32, false>);
+    } else {
+      l.kernel = v4 ? fn(cheap_xattn_forward_kernel<64, true>) : fn(cheap_xattn_forward_kernel<64, false>);
+    }
+    l.threads = threads_for(tq);
+    l.smem = static_cast<size_t>(kTile) * d * sizeof(float);
+    l.grid = dim3(n, (tq + l.threads - 1) / l.threads);
+  } else {
+    l.tile = wide_tile(d, &l.smem);
+    if (l.tile == 0) return cudaErrorInvalidValue;
+    l.kernel = v4 ? fn(cheap_xattn_forward_wide_kernel<true>)
+                  : fn(cheap_xattn_forward_wide_kernel<false>);
+    l.threads = threads_for(tq);
+    l.grid = dim3(n, (tq + l.threads - 1) / l.threads);
+  }
+  *out = l;
+  return allow_smem(l.kernel, l.smem);
 }
 
-template <int DP, bool V4>
-struct ForwardLaunch {
-  static int run(const float* a, const float* b, float* out, int n, int tq, int tk, int d,
-                 cudaStream_t s) {
-    const int threads = threads_for(tq);
-    const dim3 grid(n, (tq + threads - 1) / threads);
-    const size_t smem = static_cast<size_t>(kTile) * d * sizeof(float);
-    cheap_xattn_forward_kernel<DP, V4><<<grid, threads, smem, s>>>(
-        a, b, out, tq, tk, d, sqrtf(static_cast<float>(d)));
-    return static_cast<int>(cudaGetLastError());
+cudaError_t backward_launch(int variant, int n, int tq, int tk, int d, Launch* out) {
+  if (!valid_sizes(n, tq, tk, d) || !variant_takes(variant, true, tq, tk, d)) {
+    return cudaErrorInvalidValue;
   }
-};
-
-template <int DP, bool V4>
-struct BackwardLaunch {
-  static int run(const float* a, const float* b, const float* g, float* da, float* db,
-                 float* stats, int n, int tq, int tk, int d, cudaStream_t s) {
-    const int threads = threads_for(tq > tk ? tq : tk);
-    const size_t smem = (2 * static_cast<size_t>(kTile) * d + 3 * kTile) * sizeof(float);
-    cheap_xattn_backward_kernel<DP, V4><<<n, threads, smem, s>>>(
-        a, b, g, da, db, stats, tq, tk, d, sqrtf(static_cast<float>(d)));
-    return static_cast<int>(cudaGetLastError());
+  Launch l{nullptr, dim3(n), kSweepThreads, 0, 0};
+  const bool v4 = d % 4 == 0;
+  if (variant == kSweepD12 || variant == kSweep) {
+    const int w = sweep_width(variant, d);
+    const bool full = tk == kSweepT;
+    switch (w) {
+      case 12: l.kernel = full ? fn(cheap_xattn_backward_sweep_kernel<12, true>)
+                               : fn(cheap_xattn_backward_sweep_kernel<12, false>); break;
+      case 16: l.kernel = fn(cheap_xattn_backward_sweep_kernel<16, false>); break;
+      case 32: l.kernel = fn(cheap_xattn_backward_sweep_kernel<32, false>); break;
+      default: l.kernel = fn(cheap_xattn_backward_sweep_kernel<64, false>); break;
+    }
+    l.smem = sweep_backward_smem(w);
+  } else if (variant == kTwoPass) {
+    if (d <= 16) {
+      l.kernel = v4 ? fn(cheap_xattn_backward_kernel<16, true>) : fn(cheap_xattn_backward_kernel<16, false>);
+    } else if (d <= 32) {
+      l.kernel = v4 ? fn(cheap_xattn_backward_kernel<32, true>) : fn(cheap_xattn_backward_kernel<32, false>);
+    } else {
+      l.kernel = v4 ? fn(cheap_xattn_backward_kernel<64, true>) : fn(cheap_xattn_backward_kernel<64, false>);
+    }
+    l.threads = threads_for(tq > tk ? tq : tk);
+    l.smem = (2 * static_cast<size_t>(kTile) * d + 3 * kTile) * sizeof(float);
+  } else {
+    l.tile = wide_tile(2 * static_cast<size_t>(d) + 3, &l.smem);
+    if (l.tile == 0) return cudaErrorInvalidValue;
+    l.kernel = v4 ? fn(cheap_xattn_backward_wide_kernel<true>)
+                  : fn(cheap_xattn_backward_wide_kernel<false>);
+    l.threads = threads_for(tq > tk ? tq : tk);
   }
-};
+  *out = l;
+  return allow_smem(l.kernel, l.smem);
+}
 
 }  // namespace
 
 extern "C" {
 
-// Launches the forward on `stream`. Returns a cudaError_t: 0 on success,
-// cudaErrorInvalidValue for sizes the kernel does not take (N, Tq, Tk or d
-// < 1, or a row of B wider than shared memory). a (N, Tq, d), b (N, Tk, d),
-// out (N, Tq, d): contiguous f32 device pointers.
+// Launches the forward of `variant` on `stream`. Returns a cudaError_t: 0 on
+// success, cudaErrorInvalidValue for sizes the variant does not take (N, Tq,
+// Tk or d < 1, see variant_takes, or a row of B wider than shared memory).
+// a (N, Tq, d), b (N, Tk, d), out (N, Tq, d): contiguous, 16-byte aligned f32
+// device pointers.
 int cheap_xattn_forward(const float* a, const float* b, float* out, int n, int tq, int tk,
-                        int d, void* stream) {
-  if (!valid_sizes(n, tq, tk, d)) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d > kMaxD) {
-    return d % 4 == 0 ? forward_wide<true>(a, b, out, n, tq, tk, d, s)
-                      : forward_wide<false>(a, b, out, n, tq, tk, d, s);
-  }
-  return dispatch<ForwardLaunch>(d, a, b, out, n, tq, tk, d, static_cast<cudaStream_t>(stream));
+                        int d, int variant, void* stream) {
+  Launch l;
+  cudaError_t err = forward_launch(variant, n, tq, tk, d, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float sqrt_d = sqrtf(static_cast<float>(d));
+  float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(d)));
+  void* sweep_args[] = {&a, &b, &out, &n, &tq, &tk, &d, &scale};
+  void* two_pass_args[] = {&a, &b, &out, &tq, &tk, &d, &sqrt_d};
+  void* wide_args[] = {&a, &b, &out, &tq, &tk, &d, &sqrt_d, &l.tile};
+  void** args = variant == kTwoPass ? two_pass_args : variant == kWide ? wide_args : sweep_args;
+  return static_cast<int>(cudaLaunchKernel(l.kernel, l.grid, dim3(l.threads), args, l.smem,
+                                           static_cast<cudaStream_t>(stream)));
 }
 
-// Launches the backward on `stream`. Returns a cudaError_t. a, b as the
-// forward; g (N, Tq, d) the cotangent; da (N, Tq, d) and db (N, Tk, d) the
-// outputs; stats a scratch buffer of N * Tq * 3 floats. All contiguous f32
-// device pointers.
+// Launches the backward of `variant` on `stream`. Returns a cudaError_t. a, b
+// as the forward; g (N, Tq, d) the cotangent; da (N, Tq, d) and db (N, Tk, d)
+// the outputs; stats a scratch buffer of N * Tq * 3 floats for variants 2 and
+// 3 (unused by 0 and 1). All contiguous, 16-byte aligned f32 device pointers.
 int cheap_xattn_backward(const float* a, const float* b, const float* g, float* da, float* db,
-                         float* stats, int n, int tq, int tk, int d, void* stream) {
-  if (!valid_sizes(n, tq, tk, d)) return static_cast<int>(cudaErrorInvalidValue);
-  if (d > kMaxD) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return d % 4 == 0 ? backward_wide<true>(a, b, g, da, db, stats, n, tq, tk, d, s)
-                      : backward_wide<false>(a, b, g, da, db, stats, n, tq, tk, d, s);
-  }
-  return dispatch<BackwardLaunch>(d, a, b, g, da, db, stats, n, tq, tk, d,
-                                  static_cast<cudaStream_t>(stream));
+                         float* stats, int n, int tq, int tk, int d, int variant, void* stream) {
+  Launch l;
+  cudaError_t err = backward_launch(variant, n, tq, tk, d, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float sqrt_d = sqrtf(static_cast<float>(d));
+  float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(d)));
+  void* sweep_args[] = {&a, &b, &g, &da, &db, &tq, &tk, &d, &scale};
+  void* two_pass_args[] = {&a, &b, &g, &da, &db, &stats, &tq, &tk, &d, &sqrt_d};
+  void* wide_args[] = {&a, &b, &g, &da, &db, &stats, &tq, &tk, &d, &sqrt_d, &l.tile};
+  void** args = variant == kTwoPass ? two_pass_args : variant == kWide ? wide_args : sweep_args;
+  return static_cast<int>(cudaLaunchKernel(l.kernel, l.grid, dim3(l.threads), args, l.smem,
+                                           static_cast<cudaStream_t>(stream)));
+}
+
+// The launch that cheap_xattn_forward (backward = 0) or cheap_xattn_backward
+// (backward = 1) makes for `variant` at these sizes on the current card:
+// threads a block, dynamic shared memory in bytes, the blocks an SM holds at
+// once (the CUDA occupancy calculator: registers and static shared memory
+// included) and the blocks of the grid. Returns a cudaError_t.
+int cheap_xattn_config(int backward, int variant, int n, int tq, int tk, int d, int* threads,
+                       int* smem_bytes, int* blocks_per_sm, int* blocks) {
+  Launch l;
+  cudaError_t err = backward ? backward_launch(variant, n, tq, tk, d, &l)
+                             : forward_launch(variant, n, tq, tk, d, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *threads = l.threads;
+  *smem_bytes = static_cast<int>(l.smem);
+  *blocks = static_cast<int>(l.grid.x * l.grid.y);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, l.kernel, l.threads, l.smem));
 }
 
 }  // extern "C"

@@ -10,6 +10,10 @@ the hand-written backward kernel of the same file, counted in
 ``backward_launches``. On CPU tensors both take the plain version,
 ``cheap_xattn_reference``, under ordinary autograd. There is no fallback from
 one to the other.
+
+The source holds four variants of each kernel; ``_variant`` chooses one from
+the sizes (Tq, Tk, d) and passes it to the entry points, which refuse a
+variant that does not take the sizes.
 """
 
 from __future__ import annotations
@@ -27,6 +31,24 @@ launches = 0
 backward_launches = 0
 
 _bound = None
+
+# The kernel variants of csrc/cheap_xattn.cu, numbered as its entry points take
+# them: one sweep with d = 12 as a compile-time width, one sweep at any d <= 64,
+# the two-pass kernels (Tk > 64; backward also Tq > 64), rows in device memory
+# (d > 64).
+SWEEP_D12, SWEEP, TWO_PASS, WIDE = range(4)
+VARIANT_NAMES = ("sweep_d12", "sweep", "two_pass", "rows_in_memory")
+SWEEP_T = 64  # the most keys (backward: and query rows) the sweep kernels hold
+REGISTER_D = 64  # the widest row the register kernels hold
+
+
+def _variant(tq: int, tk: int, d: int, backward: bool = False) -> int:
+    """The kernel variant that takes these sizes."""
+    if d > REGISTER_D:
+        return WIDE
+    if tk > SWEEP_T or (backward and tq > SWEEP_T):
+        return TWO_PASS
+    return SWEEP_D12 if d == 12 else SWEEP
 
 
 def cheap_xattn_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -59,13 +81,22 @@ def _library():
 
         lib = _build.load("cheap_xattn")
         fwd = lib.cheap_xattn_forward
-        fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fwd.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fwd.restype = ctypes.c_int
         bwd = lib.cheap_xattn_backward
-        bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         bwd.restype = ctypes.c_int
-        _bound = (fwd, bwd)
+        config = lib.cheap_xattn_config
+        config.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 4
+        config.restype = ctypes.c_int
+        _bound = (fwd, bwd, config)
     return _bound
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data is not 16-byte aligned: the kernels
+    read rows four floats at a time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check(a, b):
@@ -81,13 +112,16 @@ def _check(a, b):
 def _forward_kernel(a, b):
     global launches
     n, tq, d = a.shape
+    tk = b.shape[1]
     out = torch.empty_like(a)
     if n == 0:
         return out
-    fwd, _ = _library()
+    a, b = _aligned(a), _aligned(b)
+    fwd = _library()[0]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fwd(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, tq, b.shape[1], d, stream)
+        err = fwd(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, tq, tk, d,
+                  _variant(tq, tk, d), stream)
     if err != 0:
         raise RuntimeError(f"cheap_xattn kernel launch failed: cudaError_t {err} "
                            f"(a {tuple(a.shape)}, b {tuple(b.shape)})")
@@ -143,17 +177,38 @@ def cheap_xattn_backward(
         return cheap_xattn_backward_reference(a, b, g)
     _check_cuda("cheap_xattn_backward", (a, b, g))
     n, tq, d = a.shape
+    tk = b.shape[1]
     da, db = torch.empty_like(a), torch.empty_like(b)
     if n == 0:
         return da, db
-    stats = torch.empty((n, tq, 3), dtype=torch.float32, device=a.device)
-    _, bwd = _library()
+    a, b, g = _aligned(a), _aligned(b), _aligned(g)
+    variant = _variant(tq, tk, d, backward=True)
+    # row statistics of the two-pass kernels; the sweep kernels keep theirs on chip
+    stats = (torch.empty((n, tq, 3), dtype=torch.float32, device=a.device)
+             if variant in (TWO_PASS, WIDE) else None)
+    bwd = _library()[1]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = bwd(a.data_ptr(), b.data_ptr(), g.data_ptr(), da.data_ptr(), db.data_ptr(),
-                  stats.data_ptr(), n, tq, b.shape[1], d, stream)
+                  None if stats is None else stats.data_ptr(), n, tq, tk, d, variant, stream)
     if err != 0:
         raise RuntimeError(f"cheap_xattn backward kernel launch failed: cudaError_t {err} "
                            f"(a {tuple(a.shape)}, b {tuple(b.shape)})")
     backward_launches += 1
     return da, db
+
+
+def launch_config(n: int, tq: int, tk: int, d: int, backward: bool = False) -> dict:
+    """The launch that ``cheap_xattn`` (or, with ``backward``,
+    ``cheap_xattn_backward``) makes for N problems of (Tq, Tk, d) on the
+    current card: the variant, threads a block, dynamic shared memory in
+    bytes, the blocks an SM holds at once (CUDA's occupancy calculator) and
+    the blocks of the grid. Needs a card."""
+    variant = _variant(tq, tk, d, backward)
+    out = [ctypes.c_int(0) for _ in range(4)]
+    err = _library()[2](int(backward), variant, n, tq, tk, d, *(ctypes.byref(v) for v in out))
+    if err != 0:
+        raise RuntimeError(f"cheap_xattn_config failed: cudaError_t {err}")
+    return dict(variant=VARIANT_NAMES[variant],
+                **dict(zip(("threads", "smem_bytes", "blocks_per_sm", "blocks"),
+                           (v.value for v in out))))

@@ -89,6 +89,32 @@ def test_equal_scores_give_the_mean():
     np.testing.assert_allclose(got, np.broadcast_to(b.mean(1, keepdims=True), b.shape), **TOL)
 
 
+# (Tq, Tk, d) -> (forward, backward) kernel variant, at each variant's edges:
+# the sweep kernels hold 64 keys (the backward also 64 query rows) and rows of
+# d <= 64, d = 12 at a compile-time width; beyond 64 keys the two-pass
+# kernels, beyond d = 64 the rows stay in device memory
+VARIANT_EDGES = {
+    (64, 64, 12): (cx.SWEEP_D12, cx.SWEEP_D12),
+    (64, 65, 12): (cx.TWO_PASS, cx.TWO_PASS),
+    (65, 64, 12): (cx.SWEEP_D12, cx.TWO_PASS),
+    (1, 1, 12): (cx.SWEEP_D12, cx.SWEEP_D12),
+    (64, 63, 12): (cx.SWEEP_D12, cx.SWEEP_D12),
+    (64, 64, 8): (cx.SWEEP, cx.SWEEP),
+    (64, 64, 16): (cx.SWEEP, cx.SWEEP),
+    (33, 47, 36): (cx.SWEEP, cx.SWEEP),
+    (64, 64, 64): (cx.SWEEP, cx.SWEEP),
+    (130, 20, 13): (cx.SWEEP, cx.TWO_PASS),
+    (64, 64, 65): (cx.WIDE, cx.WIDE),
+    (101, 426, 12): (cx.TWO_PASS, cx.TWO_PASS),
+    (37, 70, 96): (cx.WIDE, cx.WIDE),
+}
+
+
+@pytest.mark.parametrize("shape", VARIANT_EDGES, ids=lambda s: "-".join(map(str, s)))
+def test_variant_at_the_edges(shape):
+    assert (cx._variant(*shape), cx._variant(*shape, backward=True)) == VARIANT_EDGES[shape]
+
+
 @pytest.mark.parametrize("bad", ["rank", "batch", "width", "empty_t", "cotangent"])
 def test_wrappers_reject_bad_arguments(bad):
     a, b, g = map(torch.from_numpy, _inputs(CASES[0]))

@@ -210,6 +210,17 @@ XATTN_CASES = [
     (2, 32, 48, 8), (2 * 64, 101, 101, 12), (5, 1, 64, 12), (5, 64, 1, 12),
     (3, 37, 53, 6), (2, 130, 257, 64), (2, 8, 8, 65), (3, 37, 70, 96), (2, 20, 130, 200),
 ]
+# each variant's edges (tests/test_torch_cheap_xattn.py holds the choice): the
+# sweep kernels at Tk = 64 and Tk = 65 (two passes), Tq = 64 and 65 (the
+# backward's two passes; the forward's second 64-row unit), masked scores
+# (Tk = 63), d = 12 (the compile-time width) against 8, 16, 36 and 64 (the
+# general widths), N odd (a block's second unit idle in the last round) and N
+# above one round of the persistent grid, at the main shape plus one problem
+XATTN_EDGE_CASES = [
+    (7, 64, 64, 12), (7, 64, 65, 12), (7, 65, 64, 12), (7, 65, 65, 12), (5, 64, 63, 12),
+    (5, 64, 64, 8), (5, 64, 64, 16), (5, 64, 64, 36), (3, 33, 47, 36), (5, 64, 64, 64),
+    (3, 130, 20, 12), (6 * 1024 + 1, 64, 64, 12),
+]
 
 
 def _xattn_inputs(case, dev, seed=0):
@@ -224,7 +235,8 @@ def _xattn_close(got, want, atol, rtol):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", XATTN_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("case", XATTN_CASES + XATTN_EDGE_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
 def test_cheap_xattn_kernels_match_plain_on_card(case):
     dev = _cuda()
     a, b, g = _xattn_inputs(case, dev)
@@ -242,6 +254,24 @@ def test_cheap_xattn_kernels_match_plain_on_card(case):
     for gk, wk, ak in zip(grads, cx.cheap_xattn_backward_reference(a, b, g), again):
         assert _xattn_close(gk, wk, 1e-5, 1e-4)
         assert torch.equal(gk, ak)  # deterministic: the same bits twice
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("case", XATTN_EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cheap_xattn_launch_config_on_card(case, backward):
+    """The launch of the variant the sizes take: the card holds at least one
+    block an SM, and the sweep forward's persistent grid is no larger than
+    the card holds at once nor than its units of 64 query rows."""
+    _cuda()
+    n, tq, tk, d = case
+    config = cx.launch_config(n, tq, tk, d, backward)
+    assert config["variant"] == cx.VARIANT_NAMES[cx._variant(tq, tk, d, backward)]
+    assert config["threads"] > 0 and config["blocks_per_sm"] >= 1
+    if not backward and config["variant"].startswith("sweep"):
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        units = n * -(-tq // cx.SWEEP_T)
+        assert 1 <= config["blocks"] <= min(units, config["blocks_per_sm"] * sms)
 
 
 @pytest.mark.gpu
