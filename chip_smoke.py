@@ -9,11 +9,12 @@ Phases (each raises on failure, so the script exits non-zero):
      each kernel's registers, spills and shared memory from nvcc's -Xptxas -v
      lines;
   2. kernels: each kernel against its plain PyTorch version on the card
-     (f32, TF32 off): the stream block's forward (max abs <= 1e-5) and
+     (f32, TF32 off): the stream block's forward (max abs <= 1e-5, two
+     launches give the same bits, each line naming its variant) and
      backward (gx max abs <= 1e-5; gw, gb <= 1e-5 of the largest reference
      value; two launches give the same bits), and the CAGrad solver on 104
      Gram matrices, the degenerate ones included (w within 1e-4, objective
-     within 1e-6 relative, w on the simplex);
+     within 1e-6 relative, w on the simplex, w bitwise equal);
   3. serving: WearGaitEngine.predict_streams over all 7 sensor subsets,
      predict_windows at batch 1024 and poll_sessions over 32 streaming
      sessions, for a plain-head and a LayerNorm+cosine-head model made from
@@ -52,8 +53,19 @@ Phases (each raises on failure, so the script exits non-zero):
      masked scores, d = 12 against 8, 16, 36, 64, N odd and N above one round
      of the persistent grid), as in phase 5; the launch of every variant
      (threads, shared memory, blocks an SM, grid);
+  5d. this slice's checks, from a random stream of their own: the stream
+     block's forward at each variant's edges (warp_tile's compiled-in sizes
+     with GELU and a ragged last block; one size off each, generic), as in
+     phase 2; the forward's launch (variant, threads, shared memory, blocks
+     an SM, blocks, waves) at the main shape, the fusion widths and each edge;
+     the CAGrad solver at K = 1..8 on seeded and degenerate Gram matrices, in
+     one launch and one matrix a launch, w bitwise equal to the plain
+     version's (phase 2 holds that too);
   6. timings: each kernel, its plain version and a PyTorch library call at
-     the main path's shape (CUDA events) beside its bound, and the
+     the main path's shape (CUDA events around back-to-back eager calls;
+     the stream block's forward and its library call also as 200 calls
+     replayed from a CUDA graph, the device's time without the host's)
+     beside its bound, and the
      stream-block backward also in a CAGrad task pass's layout (two thirds
      of g zero) with its own bound and its launch (tile, shared memory,
      blocks an SM); serving
@@ -181,6 +193,31 @@ def time_cuda(fn, warmup=20, reps=200) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_cuda_graph(fn, warmup=20, reps=200) -> float:
+    """Milliseconds per call of the device work alone: `reps` calls captured
+    in one CUDA graph and replayed, CUDA events around the replay. A kernel
+    shorter than its wrapper's host cost is timed so, since back-to-back
+    eager calls then measure the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -317,18 +354,63 @@ def check_stream_block(rng, dev, names) -> dict:
     for name in names:
         bsz, t, cin, k, cout, t_out, act = STREAM_BLOCK_CASES[name]
         x, w, b, g = stream_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
-        before = sb.launches
-        got = sb.stream_block(x, w, b, t_out, act)
-        torch.cuda.synchronize()
-        if sb.launches != before + 1:
-            raise RuntimeError(f"stream_block[{name}]: launch count did not go up")
-        err = (got - sb.stream_block_reference(x, w, b, t_out, act)).abs().max().item()
-        log(f"[kernel] stream_block {name} x{tuple(x.shape)} k{k} {act}: forward max abs err "
-            f"{err:.3e} (tol {KERNEL_TOL})")
-        if not np.isfinite(err) or err > KERNEL_TOL:
-            raise RuntimeError(f"stream_block[{name}] disagrees with its plain version: {err}")
+        err = hold_forward(name, x, w, b, t_out, act)
         errors[name] = (err, hold_backward(name, x, w, b, g, t_out, act)[0])
     return errors
+
+
+def hold_forward(tag, x, w, b, t_out, act) -> float:
+    """Two launches of the forward kernel against its plain version: within
+    KERNEL_TOL, and the same bits twice. Returns the largest error."""
+    before = sb.launches
+    got = sb.stream_block(x, w, b, t_out, act)
+    again = sb.stream_block(x, w, b, t_out, act)
+    torch.cuda.synchronize()
+    if sb.launches != before + 2:
+        raise RuntimeError(f"stream_block[{tag}]: launch count did not go up")
+    err = (got - sb.stream_block_reference(x, w, b, t_out, act)).abs().max().item()
+    same = torch.equal(got, again)
+    _, t, cin = x.shape
+    k, _, cout = w.shape
+    variant = sb.VARIANT_NAMES[sb._variant(t, cin, cout, k, t_out)]
+    log(f"[kernel] stream_block {tag} x{tuple(x.shape)} k{k} {act} (variant {variant}): "
+        f"forward max abs err {err:.3e} (tol {KERNEL_TOL}); two launches bitwise equal: {same}")
+    if not np.isfinite(err) or err > KERNEL_TOL:
+        raise RuntimeError(f"stream_block[{tag}] disagrees with its plain version: {err}")
+    if not same:
+        raise RuntimeError(f"stream_block[{tag}] is not deterministic")
+    return err
+
+
+# the forward's variant edges: the warp_tile variant's compiled-in sizes (T
+# 64, C_out 16, K 3, t_out 8, C_in 12/16/36) with GELU and a ragged last
+# block, against one size off each (the generic variant)
+FORWARD_EDGE_CASES = {
+    "tile_cin12_gelu": (4 * 5 + 3, 64, 12, 3, 16, 8, "gelu"),
+    "tile_cin16_gelu": (4 * 5 + 1, 64, 16, 3, 16, 8, "gelu"),
+    "tile_cin36_gelu": (4 * 5 + 2, 64, 36, 3, 16, 8, "gelu"),
+    "tile_one_window": (1, 64, 12, 3, 16, 8, "relu"),
+    "cin13": (9, 64, 13, 3, 16, 8, "relu"), "cin24": (9, 64, 24, 3, 16, 8, "gelu"),
+    "t63": (9, 63, 12, 3, 16, 8, "relu"), "k5": (9, 64, 12, 5, 16, 8, "relu"),
+    "t_out7": (9, 64, 12, 3, 16, 7, "relu"), "cout8": (9, 64, 12, 3, 8, 8, "gelu"),
+}
+
+
+def check_forward_edges(rng, dev, card) -> None:
+    """The forward at each variant's edges, then the launch of the main
+    shape and of each edge: variant, threads, shared memory, blocks an SM,
+    blocks and waves."""
+    for name, (bsz, t, cin, k, cout, t_out, act) in FORWARD_EDGE_CASES.items():
+        x, w, b, _ = stream_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
+        hold_forward(name, x, w, b, t_out, act)
+    for name, (bsz, t, cin, k, cout, t_out, act) in {
+            "main": MAIN_SHAPE, **{n: STREAM_BLOCK_CASES[n] for n in FUSION_WIDTH_CASES},
+            **FORWARD_EDGE_CASES}.items():
+        config = sb.forward_config(bsz, t, cin, cout, k, t_out, act)
+        if config["variant"] != sb.VARIANT_NAMES[sb._variant(t, cin, cout, k, t_out)]:
+            raise RuntimeError(f"stream_block[{name}]: launch of another variant {config}")
+        log(f"[config] {card}: stream_block {name} (B {bsz}, T {t}, C_in {cin}, K {k}, C_out "
+            f"{cout}, t_out {t_out}, {act}): {config}")
 
 
 # (case of STREAM_BLOCK_CASES, rows of g set to zero, a NaN put into x at
@@ -410,9 +492,29 @@ def check_solver(rng, dev) -> float:
             f"{on_simplex}")
         if not (w_err <= SOLVER_W_TOL and f_err <= SOLVER_F_RTOL and on_simplex):
             raise RuntimeError(f"cagrad_solver K={k} disagrees with its plain version")
+        if bitwise != len(gn):
+            raise RuntimeError(f"cagrad_solver K={k}: w not bitwise equal on "
+                               f"{len(gn) - bitwise} of {len(gn)} matrices")
         if k == 3:
             worst = w_err
     return worst
+
+
+def check_solver_each_k(rng, dev) -> None:
+    """The solver at every K it takes (1..8), seeded and degenerate Gram
+    matrices: a batch in one launch, then each matrix alone (the main
+    path's launch), w bitwise equal to the plain version's on every one."""
+    for k in range(1, cs.MAX_TASKS + 1):
+        grams = torch.from_numpy(solver_grams(rng, 12, k)).to(dev)
+        want = cs.cagrad_solve_reference(grams, 0.5)
+        batch = int((cs.cagrad_solve(grams, 0.5) == want).all(-1).sum())
+        alone = sum(bool(torch.equal(cs.cagrad_solve(g, 0.5), want[i]))
+                    for i, g in enumerate(grams))
+        log(f"[kernel] cagrad_solver K={k}, {len(grams)} Gram matrices (4 degenerate): "
+            f"bitwise equal {batch}/{len(grams)} in one launch, {alone}/{len(grams)} one "
+            f"matrix a launch")
+        if batch != len(grams) or alone != len(grams):
+            raise RuntimeError(f"cagrad_solver K={k}: w not bitwise equal to the plain version")
 
 
 def xattn_inputs(rng, n, tq, tk, d, dev):
@@ -888,11 +990,21 @@ def time_stream_block(rng, dev, card) -> dict:
         kernel_ms_2 = time_cuda(lambda: sb.stream_block(x, w, b, t_out))
         plain_ms_2 = time_cuda(lambda: sb.stream_block_reference(x, w, b, t_out))
         library_ms = time_cuda(library)
+        # the same calls without the host: the plain version copies its
+        # pooling matrix from pageable host memory each call, which a graph
+        # cannot capture, so it has no graph time
+        graph_ms = time_cuda_graph(lambda: sb.stream_block(x, w, b, t_out))
+        library_graph_ms = time_cuda_graph(library)
+        graph_ms_2 = time_cuda_graph(lambda: sb.stream_block(x, w, b, t_out))
     bound_ms, bound_by = stream_block_bound(bsz, t, cin, k, cout, t_out)
-    log(f"[time] {card}: stream_block x({bsz},{t},{cin}) k{k} -> ({bsz},{t_out},{cout}): "
-        f"kernel {kernel_ms:.4f}/{kernel_ms_2:.4f} ms, plain {plain_ms:.4f}/{plain_ms_2:.4f} ms, "
-        f"library conv1d+relu+adaptive_avg_pool1d {library_ms:.4f} ms, "
-        f"bound {bound_ms:.5f} ms ({bound_by})")
+    launch = sb.forward_config(bsz, t, cin, cout, k, t_out)
+    log(f"[time] {card}: stream_block x({bsz},{t},{cin}) k{k} -> ({bsz},{t_out},{cout}), "
+        f"variant {launch['variant']}: back-to-back eager calls (host included): kernel "
+        f"{kernel_ms:.4f}/{kernel_ms_2:.4f} ms, plain {plain_ms:.4f}/{plain_ms_2:.4f} ms, "
+        f"library conv1d+relu+adaptive_avg_pool1d {library_ms:.4f} ms; 200 calls replayed "
+        f"from a CUDA graph (device only): kernel {graph_ms:.4f}/{graph_ms_2:.4f} ms, library "
+        f"{library_graph_ms:.4f} ms, plain not capturable; bound {bound_ms:.5f} ms "
+        f"({bound_by}); launch {launch}")
 
     # the backward: (x, w, b, g) -> (gx, gw, gb), each version from scratch
     leaves = [t_.detach().clone().requires_grad_() for t_ in (x, w, b)]
@@ -940,7 +1052,10 @@ def time_stream_block(rng, dev, card) -> dict:
         f"live third, bytes on all)")
     return {
         "stream_block": {"ms": min(kernel_ms, kernel_ms_2), "plain_ms": min(plain_ms, plain_ms_2),
-                         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by},
+                         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "variant": launch["variant"], "launch": launch,
+                         "graph_ms": min(graph_ms, graph_ms_2),
+                         "library_graph_ms": library_graph_ms},
         "stream_block_backward": {"ms": min(bwd_kernel, bwd_kernel_2),
                                   "plain_ms": min(bwd_plain, bwd_plain_2),
                                   "library_ms": bwd_library, "bound_ms": bwd_bound,
@@ -1021,6 +1136,15 @@ def time_cheap_xattn(rng, dev, card) -> dict:
     }
 
 
+# The solver's dependent chain at K = 3, the estimate of
+# csrc/cagrad_solver.cu's header from clock64() readings of the kernel: 84
+# golden-section searches of 6 rounds of about 320 cycles (plus 8 for the
+# midpoint) and about 60,000 cycles of serial outer steps, at the H100 SXM's
+# 1,980 MHz maximum SM clock. An estimate, not a reading of this run: it is
+# printed beside the times and kept out of the kernels line.
+SOLVER_CHAIN_MS = 1e3 * (84 * (6 * 320 + 8) + 60_000) / 1.98e9
+
+
 def time_solver(rng, dev, card) -> dict:
     gram = torch.from_numpy(solver_grams(rng, 1, 3)[0]).to(dev)  # the main path: K = 3
     kernel_ms = time_cuda(lambda: cs.cagrad_solve(gram, 0.5), warmup=10, reps=200)
@@ -1029,8 +1153,9 @@ def time_solver(rng, dev, card) -> dict:
     bound_ms, bound_by = _bound(4 * (9 + 3), solver_ops(3))
     log(f"[time] {card}: cagrad_solver K=3 (one Gram matrix): kernel {kernel_ms:.4f}/"
         f"{kernel_ms_2:.4f} ms, plain (eager torch on the card, 3 calls) {plain_ms:.2f} ms, "
-        f"bound {bound_ms:.3e} ms ({bound_by}: {solver_ops(3)} f32 operations); "
-        f"the dependent chain's latency bound is about 0.14 ms at 1980 MHz")
+        f"bound {bound_ms:.3e} ms ({bound_by}: {solver_ops(3)} f32 operations); the "
+        f"dependent chain's estimate (csrc/cagrad_solver.cu's header, not measured here) "
+        f"{SOLVER_CHAIN_MS:.4f} ms at 1980 MHz")
     return {"ms": min(kernel_ms, kernel_ms_2), "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -1191,6 +1316,8 @@ def main() -> int:
     check_wide_xattn(zrng, dev, card)
     check_cheap_xattn(np.random.default_rng([args.seed, 7]), dev, card, XATTN_EDGE_CASES)
     print_xattn_configs(card)
+    check_forward_edges(np.random.default_rng([args.seed, 8]), dev, card)
+    check_solver_each_k(np.random.default_rng([args.seed, 9]), dev)
     fusion, single = phase_fusion_training(args.seed, dev)
     times = time_stream_block(rng, dev, card)
     times["cagrad_solver"] = time_solver(rng, dev, card)

@@ -1,5 +1,5 @@
 // cagrad_solver: the CAGrad dual on the probability simplex, for NVIDIA
-// Hopper (sm_90a), one Gram matrix per thread, everything in registers.
+// Hopper (sm_90a), one warp per Gram matrix, everything in registers.
 //
 // Not a TPU kernel. The JAX package solves this inside its compiled step
 // (gaitpd/learning/minnorm.py:58-122, cagrad_weights, called from
@@ -28,24 +28,37 @@
 //
 // What bounds it. Neither bytes (K*K + K floats) nor operations (about
 // 2e5 f32 operations at K = 3; nanoseconds at 67 TFLOP/s) but the latency
-// of its chain of dependent scalar operations. Counted from the code at
-// K = 3, with about 4 cycles for an add or multiply and about 36 for a
-// square root or division: a golden-section step is 16 dependent operations
-// and one square root (the interval, the two points, one row of G w, the
-// dot product, the objective, the compare), about 100 cycles, so a search of
-// 30 steps about 3,000; an outer step adds the gradient, the projection and
-// the accept test, about 350 more. 60 outer steps (about 201,000 cycles) and
-// 4 x 6 polish searches (about 74,000) make about 275,000 cycles: about
-// 0.14 ms at the H100 SXM's 1,980 MHz maximum SM clock. No parallelism
-// across threads can shorten it: every step depends on the last.
+// of its chain of dependent scalar operations. Measured on an NVIDIA H100
+// 80GB HBM3 at its 700 W limit, SM clock 1,976 MHz, with clock64() stamps
+// (PERF.md): an add or multiply 4 cycles, __fsqrt_rn about
+// 43, __fdiv_rn about 37, the K = 3 objective 86; a serial golden-section
+// step took about 235 cycles, not one objective's latency, because the two
+// evaluations of a step do not overlap (each square root branches to a slow
+// path for special operands). 84 searches of 30 steps were 91 % of the
+// serial kernel's 652,000 cycles; the rest, about 60,000, is the outer
+// steps' gradient, projection and accept tests.
 //
-// What the design does about it. One thread per Gram matrix, K fixed at
-// compile time (1..8) so that G, w and the search direction stay in
-// registers and every loop over K unrolls; the sort of the projection is a
-// fixed compare-exchange network. The two objective evaluations of each
-// golden-section step are independent and written side by side, so their
-// instructions interleave and the step costs one evaluation's latency.
-// The main path solves one matrix: one block of one busy thread.
+// What the design does about it. The (lo, hi) of a golden-section step
+// depends only on the earlier steps' comparisons, so a warp speculates 5
+// steps at once: lane n < 31 is node n of the depth-5 decision tree (heap
+// order; the children of n are 2n+1 after f1 <= f2, hi = m2, and 2n+2 after
+// f1 > f2, lo = m1). Each lane replays its path's interval updates from the
+// round's (lo, hi) with the serial loop's operations in its order, evaluates
+// f at its node's m1 and m2, and compares; one __ballot_sync gathers the 31
+// decisions, every lane walks the chosen path through the bits, and one pair
+// of __shfl_sync hands the chosen depth-4 node's updated interval to every
+// lane. 30 steps become 6 rounds of about 4 interval updates, two
+// evaluations, a ballot and a shuffle: about 320 cycles a round against 5 x
+// 235 serial. Every floating-point operation that decides w is one the
+// serial loop performs, on the same operands, so w stays the plain
+// version's bit for bit (degenerate matrices make every comparison false and
+// the tree follows its all-"hi" path, as the serial loop). The outer steps
+// stay serial, run alike on every lane. The chain estimate at K = 3: 84
+// searches of about 1,930 cycles and the 60,000 serial cycles, about 222,000
+// cycles, 0.11 ms at 1,980 MHz. G, w and the search direction stay in
+// registers, K fixed at compile time (1..8) so that every loop over K
+// unrolls; the sort of the projection is a fixed compare-exchange network.
+// One warp (one block) a matrix; the main path solves one.
 //
 // Plain C interface, bound with ctypes (gaitpd_torch/ops/cagrad_solver.py).
 
@@ -124,27 +137,54 @@ __device__ __forceinline__ void project_simplex(const float (&v)[K], float (&out
   for (int i = 0; i < K; ++i) out[i] = fmaxf(sub(v[i], theta), 0.0f);
 }
 
-// argmin over g in [0, 1] of f(w + g d), 30 golden-section steps.
+constexpr int kDepth = 5;                   // golden-section steps a round
+constexpr int kNodes = (1 << kDepth) - 1;   // nodes of a round's decision tree
+constexpr int kRounds = kLsIters / kDepth;
+static_assert(kLsIters % kDepth == 0, "whole rounds");
+static_assert(kNodes < kThreads, "a lane a node");
+constexpr unsigned kAll = 0xffffffffu;
+
+// argmin over g in [0, 1] of f(w + g d): 30 golden-section steps, the
+// serial loop
+//   m1 = hi - invphi (hi - lo); m2 = lo + invphi (hi - lo);
+//   if f(w + m1 d) > f(w + m2 d) then lo = m1 else hi = m2,
+// taken 5 steps a round across the warp (see the header). Every lane
+// returns the same value.
 template <int K>
-__device__ float golden(const Problem<K>& p, const float (&w)[K], const float (&d)[K]) {
+__device__ float golden(const Problem<K>& p, const float (&w)[K], const float (&d)[K],
+                        int lane) {
+  const int node = lane < kNodes ? lane : 0;  // lane 31 repeats the root
+  const int path = node + 1;  // below its leading one, the decisions from the root
+  const int depth = 31 - __clz(path);
   float lo = 0.0f, hi = 1.0f;
 #pragma unroll 1
-  for (int it = 0; it < kLsIters; ++it) {
-    const float m1 = sub(hi, mul(kInvPhi, sub(hi, lo)));
-    const float m2 = add(lo, mul(kInvPhi, sub(hi, lo)));
+  for (int round = 0; round < kRounds; ++round) {
+    float a = lo, b = hi;
+#pragma unroll
+    for (int s = 0; s < kDepth - 1; ++s) {
+      const bool right = s < depth && ((path >> (depth - 1 - s)) & 1);
+      const bool left = s < depth && !right;
+      const float span = sub(b, a);
+      const float m1 = sub(b, mul(kInvPhi, span));
+      const float m2 = add(a, mul(kInvPhi, span));
+      a = right ? m1 : a;
+      b = left ? m2 : b;
+    }
+    const float m1 = sub(b, mul(kInvPhi, sub(b, a)));
+    const float m2 = add(a, mul(kInvPhi, sub(b, a)));
     float w1[K], w2[K];
 #pragma unroll
     for (int i = 0; i < K; ++i) {
       w1[i] = add(w[i], mul(m1, d[i]));
       w2[i] = add(w[i], mul(m2, d[i]));
     }
-    const float f1 = objective(p, w1);  // independent of f2: they interleave
-    const float f2 = objective(p, w2);
-    if (f1 > f2) {
-      lo = m1;
-    } else {
-      hi = m2;
-    }
+    const bool go_right = objective(p, w1) > objective(p, w2);
+    const unsigned decided = __ballot_sync(kAll, go_right);
+    int chosen = 0;  // the path's depth-4 node
+#pragma unroll
+    for (int s = 0; s < kDepth - 1; ++s) chosen = 2 * chosen + 1 + ((decided >> chosen) & 1);
+    lo = __shfl_sync(kAll, go_right ? m1 : a, chosen);
+    hi = __shfl_sync(kAll, go_right ? b : m2, chosen);
   }
   return mul(0.5f, add(lo, hi));
 }
@@ -152,8 +192,8 @@ __device__ float golden(const Problem<K>& p, const float (&w)[K], const float (&
 // w <- w + golden(w, d) d, kept only if it lowers the objective.
 template <int K>
 __device__ __forceinline__ void line_step(const Problem<K>& p, float (&w)[K],
-                                          const float (&d)[K]) {
-  const float step = golden(p, w, d);
+                                          const float (&d)[K], int lane) {
+  const float step = golden(p, w, d, lane);
   float wn[K];
 #pragma unroll
   for (int i = 0; i < K; ++i) wn[i] = add(w[i], mul(step, d[i]));
@@ -166,7 +206,9 @@ __device__ __forceinline__ void line_step(const Problem<K>& p, float (&w)[K],
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 cagrad_solver_kernel(const float* __restrict__ gram, int n, float c, float* __restrict__ w_out) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  // one warp a matrix: every lane runs the serial steps alike
+  const int m = blockIdx.x;
+  const int lane = threadIdx.x;
   if (m >= n) return;
   Problem<K> p;
   const float* gm = gram + static_cast<size_t>(m) * K * K;
@@ -201,7 +243,7 @@ cagrad_solver_kernel(const float* __restrict__ gram, int n, float c, float* __re
     project_simplex(v, proj);
 #pragma unroll
     for (int i = 0; i < K; ++i) d[i] = sub(proj[i], w[i]);
-    line_step(p, w, d);
+    line_step(p, w, d, lane);
   }
 
   // Polish along e_i - e_j, scaled by w_j so that w stays >= 0.
@@ -220,18 +262,19 @@ cagrad_solver_kernel(const float* __restrict__ gram, int n, float c, float* __re
         float d[K];
 #pragma unroll
         for (int q = 0; q < K; ++q) d[q] = q == i ? gmax : (q == j ? -gmax : 0.0f);
-        line_step(p, w, d);
+        line_step(p, w, d, lane);
       }
     }
   }
+  if (lane == 0) {
 #pragma unroll
-  for (int i = 0; i < K; ++i) w_out[static_cast<size_t>(m) * K + i] = w[i];
+    for (int i = 0; i < K; ++i) w_out[static_cast<size_t>(m) * K + i] = w[i];
+  }
 }
 
 template <int K>
 void launch(const float* gram, float* w, int n, float c, cudaStream_t stream) {
-  const int grid = (n + kThreads - 1) / kThreads;
-  cagrad_solver_kernel<K><<<grid, kThreads, 0, stream>>>(gram, n, c, w);
+  cagrad_solver_kernel<K><<<n, kThreads, 0, stream>>>(gram, n, c, w);
 }
 
 }  // namespace

@@ -18,16 +18,38 @@
 // 67 TFLOP/s = 3.4 us: both bounds are close, and neither is reached while
 // the conv's intermediate (B, T, Cout) goes through device memory.
 //
-// What the design does about it. One pass: a block stages a tile of whole
-// windows (with a zeroed halo of K/2 frames on each side, so no host-side
-// padding) and the weights in shared memory; each thread owns one
-// (window, bin, c_out) output, computes the conv outputs of the frames in its
-// bin, applies bias and activation, and averages them. The bin is
-// [floor(i*T/t_out), ceil((i+1)*T/t_out)), as torch's AdaptiveAvgPool1d:
-// bins overlap when t_out does not divide T, and a frame on a shared edge is
-// then computed by both bins. Nothing goes through device memory between the
-// input and the pooled output. No tensor cores yet: at Cin = 12 the products
-// are small, and the first aim is a kernel that is right.
+// What the design does about it. One pass, nothing between the input and the
+// pooled output goes through device memory. Two variants, chosen by the
+// sizes alone (gaitpd_torch/ops/stream_block.py::_variant):
+//
+// "warp_tile", the main path's sizes compiled in: T = 64, Cout = 16, K = 3,
+// t_out = 8, Cin in {12, 16, 36} (the flagship's, late fusion's and the
+// cheap cross-attention's backbone; the shared latent; early fusion), ReLU or
+// exact GELU. One warp a window, four windows a block. Lane = (bin 0..7,
+// group of 4 c_out 0..3) keeps the conv outputs of its bin's 8 frames and 4
+// c_out, 32 accumulators, in registers. For each input channel it loads the
+// bin's 8 frames and a halo frame on each side once (two float4 and a
+// float2) and, for each tap, one float4 of w: 6 shared loads for 96 FMAs, so
+// the FMA pipe and not shared memory sets the pace (the generic variant
+// reads x and w for every FMA: two shared loads an FMA, about 27 us of
+// shared-load issue at the main shape). x is staged channel-major per
+// window, each bin's 10 frames in a row of 12 floats (the halo frames
+// duplicated), so that the 8 bins of a warp read 8 x 16 bytes on 32
+// distinct banks; a channel's rows are 100 floats apart, so that the
+// staging stores of neighbouring channels spread over the banks. The lane
+// then applies bias and activation, averages its 8 frames in registers and
+// writes one float4: a warp writes its window's 512 bytes at once.
+//
+// "generic", every other size (T = 101 with overlapping bins, K = 1 or 5,
+// Cin = 13, ...): a block stages a tile of whole windows (with a zeroed halo
+// of K/2 frames on each side, so no host-side padding) and the weights in
+// shared memory; each thread owns one (window, bin, c_out) output, computes
+// the conv outputs of the frames in its bin, applies bias and activation, and
+// averages them. The bin is [floor(i*T/t_out), ceil((i+1)*T/t_out)), as
+// torch's AdaptiveAvgPool1d: bins overlap when t_out does not divide T, and a
+// frame on a shared edge is then computed by both bins.
+//
+// No tensor cores: parity is strict f32 (no TF32).
 //
 // BACKWARD
 //
@@ -89,7 +111,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileWindows = 4;
+constexpr int kGenericWindows = 4;
 constexpr int kBwdTileWindows = 8;
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
@@ -132,8 +154,105 @@ __device__ __forceinline__ void stage_windows(const float* __restrict__ x, float
   }
 }
 
+// The warp_tile variant's sizes.
+constexpr int kTileT = 64;
+constexpr int kTileCout = 16;
+constexpr int kTileK = 3;
+constexpr int kTileTout = 8;
+constexpr int kTileBin = kTileT / kTileTout;     // frames a bin
+constexpr int kTileRow = 12;                     // a bin's row: halo, 8 frames, halo, 2 unused
+constexpr int kTilePitch = kTileTout * kTileRow + 4;  // one channel of a window, in floats
+constexpr int kTileWarps = 4;                    // windows (one a warp) a block
+constexpr int kTileThreads = kTileWarps * 32;
+
+enum Variant { kWarpTile = 0, kGeneric = 1 };
+
+bool tile_sizes(int t_in, int cin, int cout, int k, int t_out) {
+  return t_in == kTileT && cout == kTileCout && k == kTileK && t_out == kTileTout &&
+         (cin == 12 || cin == 16 || cin == 36);
+}
+
+// One window a warp. Shared memory: w as (K, CIN, 16), then each warp's
+// window channel-major, xs[ci * kTilePitch + bin * kTileRow + f] = x[8 bin - 1
+// + f, ci] for f = 0..9 (zero outside the window).
+template <int CIN, int ACT>
+__global__ void __launch_bounds__(kTileThreads)
+stream_block_tile_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                         const float* __restrict__ b, float* __restrict__ out, int batch) {
+  extern __shared__ float4 smem_tile[];
+  float* ws = reinterpret_cast<float*>(smem_tile);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int win = blockIdx.x * kTileWarps + warp;
+  float* xw = ws + kTileK * CIN * kTileCout + warp * CIN * kTilePitch;
+
+  for (int e = threadIdx.x; e < kTileK * CIN * kTileCout; e += kTileThreads) ws[e] = w[e];
+  if (win < batch) {
+    for (int ci = lane; ci < CIN; ci += 32) {
+      xw[ci * kTilePitch] = 0.0f;  // frame -1
+      xw[ci * kTilePitch + (kTileTout - 1) * kTileRow + kTileBin + 1] = 0.0f;  // frame T
+    }
+    // The window is contiguous in device memory: each load of the warp reads
+    // 128 consecutive bytes.
+    const float* xg = x + static_cast<size_t>(win) * kTileT * CIN;
+#pragma unroll 8
+    for (int q = 0; q < kTileT * CIN / 32; ++q) {
+      const int e = q * 32 + lane;
+      const float v = xg[e];
+      const int t = e / CIN, ci = e - t * CIN;
+      const int bin = t / kTileBin, f = t - bin * kTileBin + 1;
+      float* row = xw + ci * kTilePitch + bin * kTileRow;
+      row[f] = v;
+      if (f == kTileBin && bin + 1 < kTileTout) row[kTileRow] = v;  // next bin's halo
+      if (f == 1 && bin > 0) row[kTileBin + 1 - kTileRow] = v;      // previous bin's halo
+    }
+  }
+  __syncthreads();
+  if (win >= batch) return;
+
+  const int bin = lane >> 2, cg = lane & 3;
+  float acc[kTileBin][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float bias = b[cg * 4 + c];
+#pragma unroll
+    for (int j = 0; j < kTileBin; ++j) acc[j][c] = bias;
+  }
+  const float* xr = xw + bin * kTileRow;
+  const float4* w4 = reinterpret_cast<const float4*>(ws) + cg;  // w[i, ci, 4 cg ..]
+#pragma unroll 4
+  for (int ci = 0; ci < CIN; ++ci) {
+    const float* r = xr + ci * kTilePitch;
+    const float4 lo = *reinterpret_cast<const float4*>(r);
+    const float4 mid = *reinterpret_cast<const float4*>(r + 4);
+    const float2 hi = *reinterpret_cast<const float2*>(r + 8);
+    const float xv[kTileBin + 2] = {lo.x, lo.y, lo.z, lo.w, mid.x, mid.y, mid.z, mid.w,
+                                    hi.x, hi.y};
+#pragma unroll
+    for (int i = 0; i < kTileK; ++i) {
+      const float4 wv = w4[(i * CIN + ci) * (kTileCout / 4)];
+#pragma unroll
+      for (int j = 0; j < kTileBin; ++j) {
+        // output frame 8 bin + j reads frame 8 bin + j - 1 + i, at f = j + i
+        acc[j][0] = fmaf(xv[j + i], wv.x, acc[j][0]);
+        acc[j][1] = fmaf(xv[j + i], wv.y, acc[j][1]);
+        acc[j][2] = fmaf(xv[j + i], wv.z, acc[j][2]);
+        acc[j][3] = fmaf(xv[j + i], wv.w, acc[j][3]);
+      }
+    }
+  }
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < kTileBin; ++j) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[c] += activate(acc[j][c], ACT);
+  }
+  constexpr float n = static_cast<float>(kTileBin);
+  reinterpret_cast<float4*>(out)[(static_cast<size_t>(win) * kTileTout + bin) * 4 + cg] =
+      make_float4(s[0] / n, s[1] / n, s[2] / n, s[3] / n);
+}
+
 __global__ void __launch_bounds__(kThreads)
-stream_block_kernel(const float* __restrict__ x, const float* __restrict__ w,
+stream_block_generic_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ b, float* __restrict__ out,
                     int batch, int t_in, int cin, int cout, int k, int t_out,
                     int act, int tile) {
@@ -557,36 +676,112 @@ void backward_tile(int t_in, int cin, int cout, int k, int t_out, int* tile, siz
   *tile = *smem > kMaxSmem ? 0 : t;
 }
 
+using TileKernel = void (*)(const float*, const float*, const float*, float*, int);
+
+template <int CIN>
+TileKernel tile_kernel_for(int act) {
+  return act == kActRelu ? stream_block_tile_kernel<CIN, kActRelu>
+                         : stream_block_tile_kernel<CIN, kActGelu>;
+}
+
+TileKernel tile_kernel(int cin, int act) {
+  switch (cin) {
+    case 12: return tile_kernel_for<12>(act);
+    case 16: return tile_kernel_for<16>(act);
+    default: return tile_kernel_for<36>(act);
+  }
+}
+
+struct ForwardLaunch {
+  const void* fn;   // the kernel, for its attributes
+  TileKernel tile;  // the warp_tile kernel, or null for the generic one
+  int threads, windows, grid;  // windows a block
+  size_t smem;
+};
+
+// The forward launch of `variant` for these sizes; false if the variant does
+// not take them.
+bool forward_launch(int variant, int batch, int t_in, int cin, int cout, int k, int t_out,
+                    int act, ForwardLaunch* L) {
+  if (!valid_sizes(batch, t_in, cin, cout, k, t_out, act)) return false;
+  if (variant == kWarpTile) {
+    if (!tile_sizes(t_in, cin, cout, k, t_out)) return false;
+    L->tile = tile_kernel(cin, act);
+    L->fn = reinterpret_cast<const void*>(L->tile);
+    L->threads = kTileThreads;
+    L->windows = kTileWarps;
+    L->smem = (static_cast<size_t>(kTileK) * cin * kTileCout +
+               static_cast<size_t>(kTileWarps) * cin * kTilePitch) * sizeof(float);
+  } else if (variant == kGeneric) {
+    const size_t fixed = static_cast<size_t>(k * cin * cout + cout) * sizeof(float);
+    const size_t per_window = static_cast<size_t>(t_in + k - 1) * cin * sizeof(float);
+    int tile = kGenericWindows;
+    while (tile > 1 && fixed + tile * per_window > kMaxSmem) tile /= 2;
+    L->tile = nullptr;
+    L->fn = reinterpret_cast<const void*>(stream_block_generic_kernel);
+    L->threads = kThreads;
+    L->windows = tile;
+    L->smem = fixed + tile * per_window;
+    if (L->smem > kMaxSmem) return false;
+  } else {
+    return false;
+  }
+  L->grid = (batch + L->windows - 1) / L->windows;
+  return true;
+}
+
+cudaError_t allow_forward_smem(const ForwardLaunch& L) {
+  if (L.smem <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(L.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(L.smem));
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream`. Returns a cudaError_t: 0 on success,
-// cudaErrorInvalidValue for sizes the kernel does not take. x, w, b, out are
-// contiguous f32 device pointers; act is 0 (ReLU) or 1 (exact GELU).
+// Launches the forward's `variant` (0 warp_tile, 1 generic) on `stream`.
+// Returns a cudaError_t: 0 on success, cudaErrorInvalidValue for sizes the
+// variant does not take. x, w, b, out are contiguous f32 device pointers (out
+// 16-byte aligned); act is 0 (ReLU) or 1 (exact GELU).
 int stream_block_forward(const float* x, const float* w, const float* b, float* out,
                          int batch, int t_in, int cin, int cout, int k, int t_out,
-                         int act, void* stream) {
-  if (!valid_sizes(batch, t_in, cin, cout, k, t_out, act)) {
+                         int act, int variant, void* stream) {
+  ForwardLaunch L;
+  if (!forward_launch(variant, batch, t_in, cin, cout, k, t_out, act, &L)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0) return 0;
-  const size_t fixed = static_cast<size_t>(k * cin * cout + cout) * sizeof(float);
-  const size_t per_window = static_cast<size_t>(t_in + k - 1) * cin * sizeof(float);
-  int tile = kTileWindows;
-  while (tile > 1 && fixed + tile * per_window > kMaxSmem) tile /= 2;
-  const size_t smem = fixed + tile * per_window;
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        stream_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = allow_forward_smem(L);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (L.tile != nullptr) {
+    L.tile<<<L.grid, L.threads, L.smem, s>>>(x, w, b, out, batch);
+  } else {
+    stream_block_generic_kernel<<<L.grid, L.threads, L.smem, s>>>(
+        x, w, b, out, batch, t_in, cin, cout, k, t_out, act, L.windows);
   }
-  const int grid = (batch + tile - 1) / tile;
-  stream_block_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, w, b, out, batch, t_in, cin, cout, k, t_out, act, tile);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The forward's launch of `variant` for these sizes: threads a block, dynamic
+// shared memory in bytes, the blocks an SM holds at once (the CUDA occupancy
+// calculator, registers included) and the blocks of the grid. Returns a
+// cudaError_t.
+int stream_block_forward_config(int variant, int batch, int t_in, int cin, int cout, int k,
+                                int t_out, int act, int* threads, int* smem_bytes,
+                                int* blocks_per_sm, int* blocks) {
+  ForwardLaunch L;
+  if (!forward_launch(variant, batch, t_in, cin, cout, k, t_out, act, &L)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  *threads = L.threads;
+  *smem_bytes = static_cast<int>(L.smem);
+  *blocks = L.grid;
+  cudaError_t err = allow_forward_smem(L);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, L.fn, L.threads, L.smem));
 }
 
 // Rows of the scratch buffer that stream_block_backward needs (one per

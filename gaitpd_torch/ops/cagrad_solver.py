@@ -4,8 +4,9 @@
 matrix of the per-task gradients and the strength c, computing
 c_coef = c·sqrt(mean(G) + EPS) + EPS itself (gaitpd/learning/mtl.py:412-413).
 On a CUDA tensor it launches the hand-written kernel
-gaitpd_torch/csrc/cagrad_solver.cu (one thread per matrix, in registers,
-no host synchronisation), counted in ``launches``; on a CPU tensor it takes
+gaitpd_torch/csrc/cagrad_solver.cu (one warp per matrix, in registers,
+its golden-section searches speculated across the lanes; no host
+synchronisation), counted in ``launches``; on a CPU tensor it takes
 the plain version beside it, ``cagrad_solve_reference``, which is
 gaitpd_torch.learning.minnorm.cagrad_weights in eager torch ops. The two
 run the same IEEE operations in the same order and agree bit for bit.

@@ -11,6 +11,10 @@ the hand-written backward kernel of the same file, counted in
 ``backward_launches``. On CPU tensors both take the plain version,
 ``stream_block_reference``, under ordinary autograd. There is no fallback
 from one to the other.
+
+The forward has two variants: ``_variant`` chooses one from the sizes alone
+and passes it to the entry point, which refuses a variant that does not take
+the sizes.
 """
 
 from __future__ import annotations
@@ -24,6 +28,17 @@ import torch.nn.functional as F
 from gaitpd_torch.models.blocks import adaptive_avg_pool_matrix
 
 ACTIVATIONS = {"relu": 0, "gelu": 1}
+
+# The forward's variants, numbered as csrc/stream_block.cu takes them: one
+# warp a window with the main path's sizes compiled in (TILE_SIZES), and the
+# generic kernel for every other size.
+WARP_TILE, GENERIC = range(2)
+VARIANT_NAMES = ("warp_tile", "generic")
+# (T, C_out, K, t_out) and the C_in of the warp_tile variant: the flagship's,
+# late fusion's and the cheap cross-attention's backbone (12), the shared
+# latent (16) and early fusion (36)
+TILE_SIZES = (64, 16, 3, 8)
+TILE_CIN = (12, 16, 36)
 
 # Kernel launches made by ``stream_block`` and ``stream_block_backward``;
 # callers may reset them to 0.
@@ -68,6 +83,14 @@ def stream_block_backward_reference(
         return torch.autograd.grad(out, leaves, g)
 
 
+def _variant(t: int, cin: int, cout: int, k: int, t_out: int) -> int:
+    """The forward kernel's variant for windows of (T, C_in), w (K, C_in,
+    C_out) and t_out bins."""
+    if (t, cout, k, t_out) == TILE_SIZES and cin in TILE_CIN:
+        return WARP_TILE
+    return GENERIC
+
+
 def _library():
     global _bound
     if _bound is None:
@@ -75,8 +98,11 @@ def _library():
 
         lib = _build.load("stream_block")
         fwd = lib.stream_block_forward
-        fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fwd.restype = ctypes.c_int
+        fwd_config = lib.stream_block_forward_config
+        fwd_config.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)] * 4
+        fwd_config.restype = ctypes.c_int
         rows = lib.stream_block_backward_rows
         rows.argtypes = [ctypes.c_int] * 6
         rows.restype = ctypes.c_int
@@ -86,7 +112,7 @@ def _library():
         config = lib.stream_block_backward_config
         config.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
         config.restype = ctypes.c_int
-        _bound = (fwd, rows, bwd, config)
+        _bound = (fwd, rows, bwd, config, fwd_config)
     return _bound
 
 
@@ -125,7 +151,8 @@ def _forward_kernel(x, w, b, t_out, act):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                  bsz, t, cin, cout, k, t_out, ACTIVATIONS[act], stream)
+                  bsz, t, cin, cout, k, t_out, ACTIVATIONS[act],
+                  _variant(t, cin, cout, k, t_out), stream)
     if err != 0:
         raise RuntimeError(f"stream_block kernel launch failed: cudaError_t {err} "
                            f"(x {tuple(x.shape)}, w {tuple(w.shape)}, t_out {t_out})")
@@ -167,6 +194,27 @@ def stream_block(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return _forward_kernel(x, w, b, t_out, act)
 
 
+def forward_config(bsz: int, t: int, cin: int, cout: int, k: int, t_out: int,
+                   act: str = "relu") -> dict:
+    """The launch that ``stream_block`` makes for x (B, T, C_in), w (K, C_in,
+    C_out) and t_out bins on the current card: the variant, threads a block,
+    dynamic shared memory in bytes, the blocks an SM holds at once (CUDA's
+    occupancy calculator), the blocks of the grid, and the waves (blocks over
+    the blocks the card holds at once). Needs a card."""
+    variant = _variant(t, cin, cout, k, t_out)
+    out = [ctypes.c_int(0) for _ in range(4)]
+    err = _library()[4](variant, bsz, t, cin, cout, k, t_out, ACTIVATIONS[act],
+                        *(ctypes.byref(v) for v in out))
+    if err != 0:
+        raise RuntimeError(f"stream_block_forward_config failed: cudaError_t {err}")
+    config = dict(variant=VARIANT_NAMES[variant],
+                  **dict(zip(("threads", "smem_bytes", "blocks_per_sm", "blocks"),
+                             (v.value for v in out))))
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    config["waves"] = config["blocks"] / (config["blocks_per_sm"] * sms)
+    return config
+
+
 def backward_config(t: int, cin: int, cout: int, k: int, t_out: int) -> dict:
     """The backward kernel's launch on the current card for windows of
     (T, C_in) and w (K, C_in, C_out): windows per block, dynamic shared
@@ -201,7 +249,7 @@ def stream_block_backward(
     _check_cuda("stream_block_backward", (x, w, b, g))
     if bsz == 0:
         return torch.zeros_like(x), torch.zeros_like(w), torch.zeros_like(b)
-    _, rows_of, bwd, _ = _library()
+    _, rows_of, bwd, _, _ = _library()
     rows = rows_of(bsz, t, cin, cout, k, t_out)
     if rows < 1:
         raise ValueError(f"stream_block_backward does not take x {tuple(x.shape)}, "

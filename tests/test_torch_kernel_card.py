@@ -11,10 +11,10 @@ only the order of summation differs); gw and gb within 1e-5 of the largest
 reference value, since they sum over every frame of the batch in another
 order. The CAGrad solver: w within 1e-4 and the objective within 1e-6
 relative (the kernel runs the plain version's IEEE operations in its order,
-so on the card the two agree to the bit). The cheap cross-attention: the
-forward within 1e-5 absolute up to 64 keys and, over more keys, within
-gaitpd's own Pallas-vs-jnp bound of 2e-5 absolute plus 2e-4 relative
-(tests/test_pallas.py:62); dA and dB within 1e-5 absolute plus 1e-4
+so on the card the two agree to the bit, which is held too). The cheap
+cross-attention: the forward within 1e-5 absolute up to 64 keys and, over
+more keys, within gaitpd's own Pallas-vs-jnp bound of 2e-5 absolute plus
+2e-4 relative (tests/test_pallas.py:62); dA and dB within 1e-5 absolute plus 1e-4
 relative (tests/test_pallas.py:70), and two backward launches bitwise equal.
 The stream block's backward skips windows whose cotangent is all zero: with
 zero rows and with a NaN in such a window it must give the plain version's
@@ -80,17 +80,47 @@ def _objective(w, gram, c):
     return (w * gb).sum(-1) + c_coef * np.sqrt(np.einsum("ni,nij,nj->n", w, gram, w) + 1e-8)
 
 
+# the forward's variant edges (tests/test_torch_stream_block.py holds the
+# choice): the warp_tile variant's compiled-in sizes (T 64, C_out 16, K 3,
+# t_out 8, C_in 12/16/36) with both activations and a ragged last block,
+# against one size off each (the generic variant)
+FORWARD_EDGE_CASES = [
+    (4 * 5 + 3, 64, 12, 3, 16, 8, "gelu"), (4 * 5 + 1, 64, 16, 3, 16, 8, "gelu"),
+    (4 * 5 + 2, 64, 36, 3, 16, 8, "gelu"), (9, 64, 13, 3, 16, 8, "relu"),
+    (9, 64, 24, 3, 16, 8, "gelu"), (9, 101, 12, 3, 16, 8, "relu"),
+    (9, 63, 12, 3, 16, 8, "relu"), (9, 64, 12, 1, 16, 8, "gelu"),
+    (9, 64, 12, 5, 16, 8, "relu"), (9, 64, 12, 3, 16, 7, "relu"),
+    (9, 64, 12, 3, 8, 8, "gelu"), (1, 64, 12, 3, 16, 8, "relu"),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("case", CASES + FORWARD_EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_kernel_matches_plain_on_card(case):
     dev = _cuda()
     x, w, b, _ = _inputs(case, dev)
     before = sb.launches
     got = sb.stream_block(x, w, b, case[5], case[6])
+    again = sb.stream_block(x, w, b, case[5], case[6])
     torch.cuda.synchronize()
-    assert sb.launches == before + 1
+    assert sb.launches == before + 2
     want = sb.stream_block_reference(x, w, b, case[5], case[6])
     assert (got - want).abs().max().item() <= 1e-5
+    assert torch.equal(got, again)  # deterministic: the same bits twice
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES + FORWARD_EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_forward_launch_config_on_card(case):
+    """The launch of the variant the sizes take: at least one block an SM,
+    and a grid that covers the windows."""
+    _cuda()
+    bsz, t, cin, k, cout, t_out, act = case
+    config = sb.forward_config(bsz, t, cin, cout, k, t_out, act)
+    assert config["variant"] == sb.VARIANT_NAMES[sb._variant(t, cin, cout, k, t_out)]
+    assert config["threads"] > 0 and config["blocks_per_sm"] >= 1
+    windows = 4  # a block's windows, in either variant at these sizes
+    assert config["blocks"] == -(-bsz // windows)
 
 
 @pytest.mark.gpu
@@ -185,8 +215,11 @@ def test_autograd_goes_through_the_backward_kernel():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [2, 3, 5, 8])
+@pytest.mark.parametrize("k", range(1, 9))
 def test_solver_kernel_matches_plain_on_card(k):
+    """A batch of seeded and degenerate Gram matrices in one launch, then
+    each matrix alone (the main path's launch): w bitwise equal to the plain
+    version's on every matrix."""
     dev = _cuda()
     grams = torch.from_numpy(_grams(np.random.default_rng(k), 40, k)).to(dev)
     before = cs.launches
@@ -194,6 +227,9 @@ def test_solver_kernel_matches_plain_on_card(k):
     torch.cuda.synchronize()
     assert cs.launches == before + 1
     want = cs.cagrad_solve_reference(grams, 0.5)
+    assert torch.equal(got, want)
+    for i in (0, 1, len(grams) - 4, len(grams) - 3, len(grams) - 2, len(grams) - 1):
+        assert torch.equal(cs.cagrad_solve(grams[i], 0.5), want[i])
     gn, wn, gram_np = got.cpu().double().numpy(), want.cpu().double().numpy(), grams.cpu().double().numpy()
     assert np.all(gn >= 0) and np.allclose(gn.sum(-1), 1.0, atol=1e-5)
     f_got, f_want = _objective(gn, gram_np, 0.5), _objective(wn, gram_np, 0.5)

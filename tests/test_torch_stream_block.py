@@ -65,6 +65,38 @@ def test_plain_matches_pallas_and_jnp(case):
     np.testing.assert_allclose(got, ref, **TOL)
 
 
+# the forward's variant by size (T, C_in, C_out, K, t_out): the warp_tile
+# variant's compiled-in sizes (T 64, C_out 16, K 3, t_out 8, C_in 12, 16 or
+# 36) against one size off each; tests/test_torch_kernel_card.py runs the
+# same sizes on the card
+FORWARD_VARIANT_EDGES = {
+    (64, 12, 16, 3, 8): sb.WARP_TILE,
+    (64, 16, 16, 3, 8): sb.WARP_TILE,
+    (64, 36, 16, 3, 8): sb.WARP_TILE,
+    (64, 13, 16, 3, 8): sb.GENERIC,
+    (64, 24, 16, 3, 8): sb.GENERIC,
+    (101, 12, 16, 3, 8): sb.GENERIC,
+    (63, 12, 16, 3, 8): sb.GENERIC,
+    (64, 12, 16, 1, 8): sb.GENERIC,
+    (64, 12, 16, 5, 8): sb.GENERIC,
+    (64, 12, 16, 3, 7): sb.GENERIC,
+    (64, 12, 8, 3, 8): sb.GENERIC,
+}
+
+
+@pytest.mark.parametrize("act", ["relu", "gelu"])
+@pytest.mark.parametrize("sizes", FORWARD_VARIANT_EDGES, ids=lambda s: "-".join(map(str, s)))
+def test_forward_variant_at_the_edges(sizes, act):
+    """The variant follows the sizes alone, whatever the activation, and the
+    plain version at those sizes is gaitpd's jnp reference."""
+    assert sb._variant(*sizes) == FORWARD_VARIANT_EDGES[sizes]
+    t, cin, cout, k, t_out = sizes
+    x, w, b = _inputs((3, t, cin, k, cout, t_out, act))
+    got = sb.stream_block(*map(torch.from_numpy, (x, w, b)), t_out, act).numpy()
+    ref = np.asarray(jax_reference(*map(jnp.asarray, (x, w, b)), t_out=t_out, act_name=act))
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
 def test_cpu_path_counts_no_launch():
     x, w, b = _inputs(CASES[0])
     before = sb.launches
