@@ -61,6 +61,19 @@ Phases (each raises on failure, so the script exits non-zero):
      the CAGrad solver at K = 1..8 on seeded and degenerate Gram matrices, in
      one launch and one matrix a launch, w bitwise equal to the plain
      version's (phase 2 holds that too);
+  5e. the SOTA baselines (DeepAV-Lite, FOCAL, TACA), this slice's main path,
+     from a random stream of its own: the stream block at FOCAL's backbone
+     (320 input channels; batch 64 and 1024 sync, 3 x 64 async; ReLU and
+     GELU) forward and backward against their plain versions as in phase 2,
+     with each launch; dropout on the card (the keep rate of a million
+     entries within 5 sigma, kept entries exactly x / 0.9); one train step
+     card vs CPU for each baseline (DeepAV-Lite and TACA at dropout 0) as in
+     phase 4; run_cv of FOCAL on the card and the CPU (sync 3 epochs, async
+     1; the checks of phase 5, and exactly one stream-block forward and one
+     backward launch a train step, counted in the train epochs alone, no
+     cross-attention or solver launch); run_cv of DeepAV-Lite and TACA on the
+     card at their dropout (sync 1 epoch, async 1: finite losses, the
+     7-subset table, no kernel launch);
   6. timings: each kernel, its plain version and a PyTorch library call at
      the main path's shape (CUDA events around back-to-back eager calls;
      the stream block's forward and its library call also as 200 calls
@@ -70,9 +83,12 @@ Phases (each raises on failure, so the script exits non-zero):
      of g zero) with its own bound and its launch (tile, shared memory,
      blocks an SM); serving
      windows/s and latency; one CAGrad and one cheap-xattn train step at
-     batch 64 and 1024 (host clock around synchronised steps); device time
+     batch 64 and 1024 (host clock around synchronised steps); the stream
+     block's forward and backward at FOCAL's shape (batch 1024, GELU) beside
+     their plain versions, library calls and bounds, and one train step of
+     each SOTA baseline at batch 64 and 1024; device time
      by kernel of batch-1024 predict_windows and of 10 batch-1024 train
-     steps of each (torch.profiler).
+     steps of each (torch.profiler), the SOTA baselines' too.
 
 Every number is printed beside the card's name and power limit. The
 second-to-last line is a JSON object with one entry per kernel; the last
@@ -98,6 +114,8 @@ import torch.nn.functional as F
 
 from gaitpd_torch.data.weargait import prepare_split
 from gaitpd_torch.learning.mtl import build_flat_partition, make_method
+from gaitpd_torch.models import baselines as BL
+from gaitpd_torch.models.blocks import dropout
 from gaitpd_torch.models.multitask import CHANNELS, MODALITIES, WearGaitThreeModal
 from gaitpd_torch.ops import _build
 from gaitpd_torch.ops import cagrad_solver as cs
@@ -814,11 +832,12 @@ def mask_share(args) -> float:
 def check_one_step(seed, dev, baseline=None) -> None:
     """One train step at batch 64 on the card and on the CPU, from equal
     parameters and an equal batch: CAGrad for the flagship, the mean of the
-    branch losses for a fusion baseline."""
+    branch losses for a baseline (DeepAV-Lite and TACA at dropout 0, since
+    the card's masks cannot match the CPU's)."""
     runs = {}
     for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
-        step, state, ctx, batch = make_step_setup(seed, device, 64, baseline)
-        state, metrics = step(state, batch, None, ctx)
+        step, state, ctx, batch, gen = make_step_setup(seed, device, 64, baseline, drop=0.0)
+        state, metrics = step(state, batch, gen, ctx)
         runs[name] = (state, metrics)
     card_state, cpu_state = runs["card"][0], runs["cpu"][0]
     gaps = {}
@@ -838,17 +857,45 @@ def check_one_step(seed, dev, baseline=None) -> None:
         raise RuntimeError(f"one {baseline or 'CAGrad'} train step: card and CPU differ: {gaps}")
 
 
-def compare_run_cv(label, common, modes, per_step, nonzero) -> dict:
+class TrainLaunches:
+    """While entered, run_cv's epoch runners count the launches of their
+    train epochs alone (the eval epochs launch forwards too) into
+    ``.counts``."""
+
+    def __enter__(self):
+        self.counts = dict.fromkeys(COUNTERS, 0)
+        counts, self._runner = self.counts, wg.EpochRunner
+
+        class Counting(wg.EpochRunner):
+            def train_epoch(self, *a, **k):
+                before = read_launches()
+                out = super().train_epoch(*a, **k)
+                for name, n in read_launches().items():
+                    counts[name] += n - before[name]
+                return out
+
+        wg.EpochRunner = Counting
+        return self
+
+    def __exit__(self, *exc):
+        wg.EpochRunner = self._runner
+        return False
+
+
+def compare_run_cv(label, common, modes, per_step, nonzero, train_per_step=None) -> dict:
     """run_cv on the card and on the CPU from one seed, for each (mode,
     epochs) of ``modes``; the card's run is a main path, with every launch
     count set to 0 just before it and read just after. ``per_step``: the
     launches each non-empty train step must make of a kernel; ``nonzero``:
-    the kernels the run must launch at all."""
+    the kernels the run must launch at all; ``train_per_step``: the launches
+    of a kernel each train step must make, counted in the train epochs
+    alone."""
     out = {}
     for mode, epochs in modes:
         args = wg.WearGaitArgs(epochs=epochs, async_loading=mode == "async", **common)
         reset_launches()
-        card_res, card_rec, card_s = run_training(args)
+        with TrainLaunches() as in_train:
+            card_res, card_rec, card_s = run_training(args)
         torch.cuda.synchronize()
         launches = read_launches()
         cpu_res, cpu_rec, cpu_s = run_training(dataclasses.replace(args, device="cpu"))
@@ -897,6 +944,13 @@ def compare_run_cv(label, common, modes, per_step, nonzero) -> dict:
         idle = [k for k in nonzero if launches[k] == 0]
         if idle:
             raise RuntimeError(f"train {tag}: kernel(s) {idle} were not launched")
+        if train_per_step is not None:
+            log(f"[train] {tag}: launches in the train epochs alone {in_train.counts}")
+            wrong = {k: (in_train.counts[k], n * steps) for k, n in train_per_step.items()
+                     if in_train.counts[k] != n * steps}
+            if wrong:
+                raise RuntimeError(f"train {tag}: train-epoch launches (got, want) {wrong} "
+                                   f"for {steps} steps")
         out[mode] = {"launches": launches, "steps": steps}
     return out
 
@@ -932,6 +986,120 @@ def phase_fusion_training(seed, dev) -> tuple:
         {"stream_block_backward": 1, "cagrad_solver": 0, "cheap_xattn": 0,
          "cheap_xattn_backward": 0}, ("stream_block",))
     return xattn, single
+
+
+# ---------------------------------------------------------------------------
+# 5e. the SOTA baselines: DeepAV-Lite, FOCAL, TACA
+# ---------------------------------------------------------------------------
+
+# FOCAL's backbone, (B, T, C_in, K, C_out, t_out) at 128 + 3 * 64 = 320
+# input channels: a sync train step's batch, the timed batch, and an async
+# step's three streams in one launch
+FOCAL_SHAPES = {"sync_batch64": (64, 64, 320, 3, 16, 8),
+                "sync_batch1024": (1024, 64, 320, 3, 16, 8),
+                "async_batch64": (3 * 64, 64, 320, 3, 16, 8)}
+DROPOUT_RATE = 0.1  # DeepAV-Lite's and TACA's default
+DROPOUT_ENTRIES = 1_000_000
+
+
+def focal_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out):
+    """x, w, b, g at the scale of FOCAL's backbone: unit-normal projected
+    frames and a kernel of standard deviation 1/sqrt(K * C_in), so the
+    960-term pre-activations are of unit scale."""
+    x = rng.normal(size=(bsz, t, cin)).astype(np.float32)
+    w = (rng.normal(size=(k, cin, cout)) / np.sqrt(k * cin)).astype(np.float32)
+    b = (rng.normal(size=(cout,)) * 0.1).astype(np.float32)
+    g = rng.normal(size=(bsz, t_out, cout)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (x, w, b, g)]
+
+
+def check_focal_blocks(rng, dev, card) -> dict:
+    """The stream block's forward and backward at FOCAL's shapes, ReLU and
+    GELU, against their plain versions (as phase 2: two launches the same
+    bits), and each launch."""
+    errors = {}
+    for name, (bsz, t, cin, k, cout, t_out) in FOCAL_SHAPES.items():
+        for act in ("relu", "gelu"):
+            x, w, b, g = focal_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
+            tag = f"focal_{name}_{act}"
+            errors[tag] = (hold_forward(tag, x, w, b, t_out, act),
+                           hold_backward(tag, x, w, b, g, t_out, act)[0])
+        log(f"[config] {card}: stream_block focal_{name} (B {bsz}, T {t}, C_in {cin}, K {k}, "
+            f"C_out {cout}, t_out {t_out}): forward {sb.forward_config(bsz, t, cin, cout, k, t_out)}"
+            f"; backward {sb.backward_config(t, cin, cout, k, t_out)}")
+    return errors
+
+
+def check_dropout_on_card(dev) -> None:
+    """The baselines' dropout on the card: the keep rate over a million
+    entries within 5 sigma of 1 - rate, every kept entry exactly x / (1 -
+    rate) (IEEE division, as on the CPU), the identity at eval, and the
+    global CUDA generator untouched."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(DROPOUT_ENTRIES, device=dev, generator=gen) + 4.0  # no entry is 0
+    state = torch.cuda.get_rng_state(dev)
+    y = dropout(x, DROPOUT_RATE, gen, train=True)
+    kept = (y != 0).cpu()
+    keep = 1.0 - DROPOUT_RATE
+    sigma = float(np.sqrt(DROPOUT_ENTRIES * keep * DROPOUT_RATE))
+    n_kept = int(kept.sum())
+    exact = torch.equal(y.cpu()[kept], (x.cpu() / torch.tensor(keep))[kept])
+    untouched = torch.equal(torch.cuda.get_rng_state(dev), state)
+    identity = dropout(x, DROPOUT_RATE, gen, train=False) is x
+    log(f"[kernel] dropout rate {DROPOUT_RATE} on the card: kept {n_kept} of {DROPOUT_ENTRIES} "
+        f"({(n_kept - keep * DROPOUT_ENTRIES) / sigma:+.2f} sigma from {keep}); kept entries "
+        f"exactly x / {keep}: {exact}; identity at eval: {identity}; global generator "
+        f"untouched: {untouched}")
+    if abs(n_kept - keep * DROPOUT_ENTRIES) > 5 * sigma or not (exact and identity and untouched):
+        raise RuntimeError("dropout on the card does not keep its law")
+
+
+def card_only_run_cv(label, common, modes) -> dict:
+    """run_cv on the card alone, at the baseline's own dropout, whose masks
+    the CPU cannot draw alike (phase 5e's one-step check holds the card
+    against the CPU at dropout 0): finite losses, the 7-subset table, and no
+    launch of the stream-block, cross-attention or solver kernels."""
+    out = {}
+    for mode, epochs in modes:
+        args = wg.WearGaitArgs(epochs=epochs, async_loading=mode == "async", **common)
+        reset_launches()
+        res, rec, secs = run_training(args)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        tag = f"{label} {mode}"
+        log(f"[train] {tag}: {epochs} epoch(s), {rec.steps} train steps of batch 64 on the "
+            f"card, {secs:.2f} s; train losses {[np.round(a, 6).tolist() for a in rec.train_loss]};"
+            f" launches {launches}")
+        for mk in wg.MASK_COMBOS:
+            log(f"[train] {tag} mask {mk:5}: card {res['masks'][mk]:.4f} %")
+        losses = np.concatenate(rec.train_loss + rec.eval_loss)
+        if rec.steps == 0 or not np.all(np.isfinite(losses)):
+            raise RuntimeError(f"train {tag}: {rec.steps} steps, losses {losses}")
+        if any(res["masks"][mk] is None or not np.isfinite(res["masks"][mk])
+               for mk in wg.MASK_COMBOS):
+            raise RuntimeError(f"train {tag}: the 7-subset table is incomplete: {res['masks']}")
+        if any(launches.values()):
+            raise RuntimeError(f"train {tag}: launched a kernel it has no use for: {launches}")
+        out[mode] = {"launches": launches, "steps": rec.steps}
+    return out
+
+
+def phase_sota_training(seed, dev) -> dict:
+    """This slice's main path: one step of each SOTA baseline card vs CPU;
+    FOCAL's run_cv on the card and the CPU (one stream-block forward and one
+    backward a train step, sync and async, no other kernel); DeepAV-Lite's
+    and TACA's run_cv on the card at their dropout."""
+    for baseline in wg.SOTA_BASELINES:
+        check_one_step(seed, dev, baseline)
+    out = {"focal": compare_run_cv(
+        "focal", dict(train_common(seed), baseline="focal"), (("sync", 3), ("async", 1)),
+        {"stream_block_backward": 1, "cagrad_solver": 0, "cheap_xattn": 0,
+         "cheap_xattn_backward": 0}, ("stream_block",),
+        train_per_step={"stream_block": 1, "stream_block_backward": 1})}
+    for baseline in wg.DROPOUT_BASELINES:
+        out[baseline] = card_only_run_cv(baseline, dict(train_common(seed), baseline=baseline),
+                                         (("sync", 1), ("async", 1)))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1067,6 +1235,59 @@ def time_stream_block(rng, dev, card) -> dict:
     }
 
 
+def time_focal_block(rng, dev, card) -> dict:
+    """The stream block's forward and backward at FOCAL's shape (batch 1024,
+    320 channels, GELU): kernel, plain version, library call, bound."""
+    bsz, t, cin, k, cout, t_out = FOCAL_SHAPES["sync_batch1024"]
+    x, w, b, g = focal_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
+    leaves = [t_.detach().clone().requires_grad_() for t_ in (x, w, b)]
+
+    def library(xl=x, wl=w, bl=b):
+        y = F.gelu(F.conv1d(xl.transpose(1, 2), wl.permute(2, 1, 0), bl, padding=k // 2))
+        return F.adaptive_avg_pool1d(y, t_out).transpose(1, 2)
+
+    def library_backward():
+        return torch.autograd.grad(library(*leaves), leaves, g)
+
+    want = sb.stream_block_reference(x, w, b, t_out, "gelu")
+    want_b = sb.stream_block_backward_reference(x, w, b, g, t_out, "gelu")
+    lib_err = max([(library() - want).abs().max().item()] + [
+        (p - q).abs().max().item() / max(1.0, q.abs().max().item())
+        for p, q in zip(library_backward(), want_b)])
+    if lib_err > KERNEL_TOL:
+        raise RuntimeError(f"library yardstick at FOCAL's shape computes another function: "
+                           f"{lib_err}")
+    with torch.inference_mode():
+        fwd = {"plain": time_cuda(lambda: sb.stream_block_reference(x, w, b, t_out, "gelu")),
+               "kernel": time_cuda(lambda: sb.stream_block(x, w, b, t_out, "gelu")),
+               "kernel_2": time_cuda(lambda: sb.stream_block(x, w, b, t_out, "gelu")),
+               "plain_2": time_cuda(lambda: sb.stream_block_reference(x, w, b, t_out, "gelu")),
+               "library": time_cuda(library)}
+    bwd = {"plain": time_cuda(lambda: sb.stream_block_backward_reference(
+               x, w, b, g, t_out, "gelu"), warmup=3, reps=20),
+           "kernel": time_cuda(lambda: sb.stream_block_backward(x, w, b, g, t_out, "gelu"),
+                               warmup=3, reps=20),
+           "kernel_2": time_cuda(lambda: sb.stream_block_backward(x, w, b, g, t_out, "gelu"),
+                                 warmup=3, reps=20),
+           "plain_2": time_cuda(lambda: sb.stream_block_backward_reference(
+               x, w, b, g, t_out, "gelu"), warmup=3, reps=20),
+           "library": time_cuda(library_backward, warmup=3, reps=20)}
+    out = {}
+    for what, ms, (bound_ms, bound_by) in (
+            ("stream_block", fwd, stream_block_bound(bsz, t, cin, k, cout, t_out)),
+            ("stream_block_backward", bwd,
+             stream_block_backward_bound(bsz, t, cin, k, cout, t_out))):
+        out[what] = {"ms": min(ms["kernel"], ms["kernel_2"]),
+                     "plain_ms": min(ms["plain"], ms["plain_2"]), "library_ms": ms["library"],
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"[time] {card}: {what} at FOCAL's shape x({bsz},{t},{cin}) k{k} gelu -> "
+            f"({bsz},{t_out},{cout}): kernel {ms['kernel']:.4f}/{ms['kernel_2']:.4f} ms, plain "
+            f"{ms['plain']:.4f}/{ms['plain_2']:.4f} ms, library (conv1d+gelu+"
+            f"adaptive_avg_pool1d{', autograd, forward included' if 'backward' in what else ''})"
+            f" {ms['library']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return out
+
+
 def cheap_xattn_bound(n, tq, tk, d):
     """Read A and B once, write O once; two products of 2*N*Tq*Tk*d FLOP."""
     return _bound(4 * n * d * (2 * tq + tk), 2 * 2 * n * tq * tk * d)
@@ -1187,20 +1408,31 @@ def time_serving(engine, rng, card) -> dict:
     return serving
 
 
-def make_step_setup(seed, dev, bsz, baseline=None):
-    """A flagship model with its SGD and CAGrad step, or a fusion baseline
-    with SGD on the mean of its branch losses (sync), and one card-resident
-    batch of ``bsz`` window tuples."""
-    model = wg.build_model(wg.WearGaitArgs(seed=seed, baseline=baseline), True).to(dev)
+def make_step_setup(seed, dev, bsz, baseline=None, drop=None):
+    """A flagship model with its SGD and CAGrad step, or a baseline with SGD
+    on the mean of its branch losses (sync; DeepAV-Lite and TACA with their
+    dropout, or at ``drop``), one card-resident batch of ``bsz`` window
+    tuples, and the step's generator."""
+    args = wg.WearGaitArgs(seed=seed, baseline=baseline)
+    if drop is not None and baseline in wg.DROPOUT_BASELINES:
+        g = torch.Generator().manual_seed(seed)
+        model = (BL.DeepAVLite3(num_classes=2, drop=drop, generator=g)
+                 if baseline == "deepav_lite" else
+                 BL.TACA3TriWrapper(win_len=WIN, num_classes=2, drop=drop, generator=g))
+    else:
+        model = wg.build_model(args, True)
+    model = model.to(dev)
     settings = StepSettings(n_streams=3, wm="gcl", synchronized=True,
-                            private_grads="sum_plus_own")
+                            private_grads="sum_plus_own",
+                            dropout=baseline in wg.DROPOUT_BASELINES)
     if baseline is None:
         mtl = make_method("cagrad", 3, c=0.5)
         step = make_train_step(settings, mtl, build_flat_partition(
             model, model.shared_modules, model.task_modules))
         mtl_state = mtl.init_state()
     else:
-        step, mtl_state = make_train_step(settings), {}
+        step = make_train_step(settings, train_apply=wg.baseline_adapters(args)[0])
+        mtl_state = {}
     state = TrainState(module=model, optimizer=sgd_torch(model.parameters(), 1e-3),
                        mtl_state=mtl_state)
     ctx = make_loss_ctx(settings, [[900, 700]] * 3, device=dev)
@@ -1212,20 +1444,20 @@ def make_step_setup(seed, dev, bsz, baseline=None):
         "valid": torch.ones(bsz, device=dev),
         "n_valid": bsz,
     }
-    return step, state, ctx, batch
+    return step, state, ctx, batch, torch.Generator(device=dev).manual_seed(seed)
 
 
 def time_train_step(seed, dev, card, baseline=None) -> dict:
     out = {}
     for bsz in TRAIN_BATCHES:
-        step, state, ctx, batch = make_step_setup(seed, dev, bsz, baseline)
+        step, state, ctx, batch, gen = make_step_setup(seed, dev, bsz, baseline)
         for _ in range(3):
-            step(state, batch, None, ctx)
+            step(state, batch, gen, ctx)
         torch.cuda.synchronize()
         reps = 20
         t0 = time.perf_counter()
         for _ in range(reps):
-            _, metrics = step(state, batch, None, ctx)
+            _, metrics = step(state, batch, gen, ctx)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0) / reps
         if not torch.isfinite(metrics["losses"]).all():
@@ -1266,7 +1498,7 @@ def phase_profiles(engine, seed, dev, card) -> None:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     profile_table(prof, f"10 x predict_windows batch {N_WINDOWS}", wall_ms, card)
 
-    step, state, ctx, tbatch = make_step_setup(seed, dev, 1024)
+    step, state, ctx, tbatch, _ = make_step_setup(seed, dev, 1024)
     step(state, tbatch, None, ctx)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1277,7 +1509,7 @@ def phase_profiles(engine, seed, dev, card) -> None:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     profile_table(prof, "10 x CAGrad train step batch 1024", wall_ms, card)
 
-    step, state, ctx, tbatch = make_step_setup(seed, dev, 1024, "cheap_xattn")
+    step, state, ctx, tbatch, _ = make_step_setup(seed, dev, 1024, "cheap_xattn")
     step(state, tbatch, None, ctx)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1287,6 +1519,24 @@ def phase_profiles(engine, seed, dev, card) -> None:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     profile_table(prof, "10 x cheap_xattn train step batch 1024", wall_ms, card)
+
+
+def phase_sota_profiles(seed, dev, card) -> None:
+    """Device time by kernel over 10 batch-1024 train steps of each SOTA
+    baseline, at its dropout."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for baseline in wg.SOTA_BASELINES:
+        step, state, ctx, tbatch, gen = make_step_setup(seed, dev, 1024, baseline)
+        step(state, tbatch, gen, ctx)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(10):
+                step(state, tbatch, gen, ctx)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        profile_table(prof, f"10 x {baseline} train step batch 1024", wall_ms, card)
 
 
 def main() -> int:
@@ -1319,13 +1569,21 @@ def main() -> int:
     check_forward_edges(np.random.default_rng([args.seed, 8]), dev, card)
     check_solver_each_k(np.random.default_rng([args.seed, 9]), dev)
     fusion, single = phase_fusion_training(args.seed, dev)
+    # the SOTA baselines' slice: a stream of its own as well
+    frng = np.random.default_rng([args.seed, 10])
+    focal_errors = check_focal_blocks(frng, dev, card)
+    check_dropout_on_card(dev)
+    sota = phase_sota_training(args.seed, dev)
     times = time_stream_block(rng, dev, card)
     times["cagrad_solver"] = time_solver(rng, dev, card)
     serving = time_serving(engine, rng, card)
     train_steps = time_train_step(args.seed, dev, card)
     times.update(time_cheap_xattn(xrng, dev, card))
     fusion_steps = time_train_step(args.seed, dev, card, "cheap_xattn")
+    focal_times = time_focal_block(frng, dev, card)
+    sota_steps = {b: time_train_step(args.seed, dev, card, b) for b in wg.SOTA_BASELINES}
     phase_profiles(engine, args.seed, dev, card)
+    phase_sota_profiles(args.seed, dev, card)
 
     # launches on each kernel's own main path: the CAGrad training's for the
     # earlier slices' kernels, the cheap-xattn training's for this slice's
@@ -1352,7 +1610,11 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s; serving launches {serve_launches}; "
         f"training {json.dumps(training)}; fusion training {json.dumps(fusion)}; single_mod "
         f"{json.dumps(single)}; serving {json.dumps(serving)}; train steps "
-        f"{json.dumps(train_steps)}; cheap_xattn train steps {json.dumps(fusion_steps)}")
+        f"{json.dumps(train_steps)}; cheap_xattn train steps {json.dumps(fusion_steps)}; "
+        f"SOTA baselines' training {json.dumps(sota)} (FOCAL's stream-block launches in "
+        f"'focal'); FOCAL's stream block (max abs err forward/backward) "
+        f"{json.dumps(focal_errors)} and times {json.dumps(focal_times)}; SOTA train steps "
+        f"{json.dumps(sota_steps)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,7 +6,8 @@ reference. Submodules carry the flax modules' names (``Conv1dSame_0``,
 onto them leaf by leaf.
 
 Initialisers follow torch's defaults, U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for
-kernel and bias, drawn from an explicit ``torch.Generator``.
+kernel and bias, except where the reference names flax's own (``lecun_normal``,
+``normal(0.02)``); every draw comes from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -32,6 +33,26 @@ def uniform_param(shape, bound: float, generator: torch.Generator) -> nn.Paramet
 def torch_bound(fan_in: int) -> float:
     """1/sqrt(fan_in): torch's Linear/Conv1d default scale for kernel and bias."""
     return 1.0 / math.sqrt(max(1, fan_in))
+
+
+# flax's truncated normal keeps draws within two standard deviations; this is
+# the standard deviation of the unit normal so truncated, which flax divides by
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
+def lecun_normal_param(shape, fan_in: int, generator: torch.Generator) -> nn.Parameter:
+    """flax's ``lecun_normal``: a normal truncated at two standard deviations,
+    scaled to standard deviation 1/sqrt(fan_in) (fan_in = K * C_in for a
+    conv kernel)."""
+    std = math.sqrt(1.0 / max(1, fan_in)) / TRUNCATED_NORMAL_STD
+    t = torch.empty(shape)
+    nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+    return nn.Parameter(t)
+
+
+def normal_param(shape, std: float, generator: torch.Generator) -> nn.Parameter:
+    """flax's ``normal(std)``."""
+    return nn.Parameter(torch.empty(shape).normal_(0.0, std, generator=generator))
 
 
 def default_generator(generator: Optional[torch.Generator]) -> torch.Generator:
@@ -74,6 +95,8 @@ class Conv1dSame(nn.Module):
     ``weight`` is stored as torch stores it, (C_out, C_in, K); k must be odd,
     so that 'SAME' pads k//2 frames on each side."""
 
+    FLAX_WRAPPER = "Conv_0"  # the flax module's inner nn.Conv (gaitpd_torch.params)
+
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, *,
                  generator: torch.Generator):
         super().__init__()
@@ -94,14 +117,21 @@ class Conv1dSame(nn.Module):
 
 
 class TorchLinear(nn.Module):
-    """Dense layer with torch-default init scales; ``weight`` is (out, in)."""
+    """Dense layer with torch-default init scales; ``weight`` is (out, in).
+    Without ``use_bias`` it has no ``bias`` parameter, as the flax tree has
+    no such leaf."""
 
-    def __init__(self, in_features: int, out_features: int, *,
+    FLAX_WRAPPER = "Dense_0"
+
+    def __init__(self, in_features: int, out_features: int, use_bias: bool = True, *,
                  generator: torch.Generator):
         super().__init__()
         bound = torch_bound(in_features)
         self.weight = uniform_param((out_features, in_features), bound, generator)
-        self.bias = uniform_param((out_features,), bound, generator)
+        if use_bias:
+            self.bias = uniform_param((out_features,), bound, generator)
+        else:
+            self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)
@@ -157,6 +187,23 @@ class TaskHead(nn.Module):
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU."""
     return F.gelu(x)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            train: bool) -> torch.Tensor:
+    """flax's ``nn.Dropout``: keep each entry with probability 1 - rate and
+    divide the kept ones by 1 - rate. The identity when ``train`` is False or
+    the rate is 0; otherwise the mask is drawn from ``generator`` (on x's
+    device), never from torch's global generator."""
+    if not train or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout at train time draws from a generator; got None")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    # a tensor divisor: CUDA divides by a Python number through its reciprocal
+    return torch.where(mask, x / torch.full((), keep, dtype=x.dtype, device=x.device),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def flatten_features(x: torch.Tensor) -> torch.Tensor:

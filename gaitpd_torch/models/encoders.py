@@ -1,5 +1,5 @@
 """Per-modality encoders and the shared temporal backbone.
-Port of gaitpd/models/encoders.py:25-69,91-135, time-major (B, T, C)
+Port of gaitpd/models/encoders.py:25-135, time-major (B, T, C)
 throughout.
 """
 
@@ -51,6 +51,8 @@ class SharedBackbone(nn.Module):
     The whole block is one ``stream_block`` call: the hand-written kernel on
     the card, its plain version on the CPU."""
 
+    ACT = "relu"
+
     def __init__(self, in_ch: int, shared_out_channels: int = 16, backbone_dim: int = 8,
                  *, generator: torch.Generator):
         super().__init__()
@@ -61,7 +63,14 @@ class SharedBackbone(nn.Module):
         conv = self.Conv1dSame_0
         # (C_out, C_in, K) -> the kernel's (K, C_in, C_out)
         w = conv.weight.permute(2, 1, 0).contiguous()
-        return stream_block(x.contiguous(), w, conv.bias, self.backbone_dim, "relu")
+        return stream_block(x.contiguous(), w, conv.bias, self.backbone_dim, self.ACT)
+
+
+class GELUBackbone(SharedBackbone):
+    """Conv1d(k3) -> exact GELU -> AdaptiveAvgPool1d(bdim), FOCAL's backbone
+    (gaitpd/models/encoders.py:72-83): the stream block's ``gelu`` path."""
+
+    ACT = "gelu"
 
 
 def backbone_streams(backbone: SharedBackbone, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:

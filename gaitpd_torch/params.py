@@ -3,8 +3,9 @@
 The port's submodules carry the flax modules' names, so a flax leaf path maps
 onto a torch parameter name by three rules:
 
-* the inner ``Conv_0`` of ``Conv1dSame`` and ``Dense_0`` of ``TorchLinear``
-  drop out of the path (the port's layers hold their parameters directly);
+* the inner ``Conv_0`` or ``Dense_0`` of a layer that holds its parameters
+  directly (``Conv1dSame``, ``PatchEmbed1D``, ``TorchLinear``: the class's
+  ``FLAX_WRAPPER``) drops out of the path;
 * ``kernel`` becomes ``weight``: a conv kernel (K, C_in, C_out) is stored as
   (C_out, C_in, K), a Dense kernel (in, out) as (out, in);
 * LayerNorm's ``scale`` becomes ``weight``; ``bias`` and CosineLinear's
@@ -80,13 +81,11 @@ def load_flax_params(module: nn.Module, variables: Mapping[str, Any]) -> nn.Modu
 def _flax_leaf(module: nn.Module, name: str, value: torch.Tensor) -> tuple:
     """(flax leaf path, array in the flax layout) of one torch parameter:
     the inverse of ``_torch_leaf``."""
-    from gaitpd_torch.models.blocks import Conv1dSame, TorchLinear
-
     *mods, leaf = name.split(".")
     owner = module.get_submodule(".".join(mods)) if mods else module
     arr = value.detach().cpu().numpy().astype(np.float32, copy=True)
-    if isinstance(owner, (Conv1dSame, TorchLinear)):
-        wrapper = "Conv_0" if isinstance(owner, Conv1dSame) else "Dense_0"
+    wrapper = getattr(owner, "FLAX_WRAPPER", None)
+    if wrapper is not None and leaf in ("weight", "bias"):
         if leaf == "weight":
             leaf = "kernel"
             arr = arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T

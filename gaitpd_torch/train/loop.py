@@ -19,7 +19,14 @@ from torch import nn
 
 from gaitpd_torch.data.sampler import batch_index_matrix
 from gaitpd_torch.learning.mtl import FlatPartition, build_flat_partition
-from gaitpd_torch.train.step import StepSettings, TrainState, make_eval_step, make_train_step
+from gaitpd_torch.train.step import (
+    EvalApply,
+    StepSettings,
+    TrainApply,
+    TrainState,
+    make_eval_step,
+    make_train_step,
+)
 
 
 @dataclasses.dataclass
@@ -56,13 +63,17 @@ def _epoch_indices(pool: np.ndarray, order: np.ndarray, batch_size: int, device)
 
 class EpochRunner:
     """Train and eval epochs for one model configuration: a loop of
-    ``make_train_step`` / ``make_eval_step`` calls."""
+    ``make_train_step`` / ``make_eval_step`` calls. ``train_apply`` and
+    ``eval_apply`` are the model's forwards (gaitpd/train/loop.py:75-91;
+    default: gaitpd_torch.train.step.make_apply_adapters)."""
 
     def __init__(self, settings: StepSettings, mtl_method=None,
-                 partition: Optional[FlatPartition] = None):
+                 partition: Optional[FlatPartition] = None,
+                 train_apply: Optional[TrainApply] = None,
+                 eval_apply: Optional[EvalApply] = None):
         self.settings = settings
-        self.train_step = make_train_step(settings, mtl_method, partition)
-        self.eval_step = make_eval_step(settings)
+        self.train_step = make_train_step(settings, mtl_method, partition, train_apply)
+        self.eval_step = make_eval_step(settings, eval_apply)
 
     def train_epoch(self, state, xs, ys, idx, valid, counts, generator, ctx):
         metrics = []

@@ -8,12 +8,15 @@ Port of gaitpd/train/step.py:33-377.
   K per-task backward passes, the CAGrad solver kernel, then the optimizer.
 * The relaxed-input eval zero-fills the disabled streams and ensembles only
   the enabled heads, for any of the 7 WearGait subsets.
+* The forward goes through apply adapters (``make_apply_adapters``): the
+  train forward of a model with dropout gets ``train=True`` and the step's
+  generator, the eval forward never drops.
 
 Batches carry a ``valid`` mask, so padded batches are exact, and
 ``n_valid``, its count on the host: a fully padded batch is a no-op decided
 without waiting for the device. Options of the reference that the port does
-not have yet (augmentation, modality dropout, rematerialisation, dropout,
-the two-stream consistency term) raise NotImplementedError when set.
+not have yet (augmentation, modality dropout, rematerialisation, the
+two-stream consistency term) raise NotImplementedError when set.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ class StepSettings:
     consistency_lambda: float = 0.0
     private_grads: str = "sum"  # see gaitpd_torch.learning.mtl.mtl_grads
     loss_reduction: str = "mean"  # combined scalar without MTL: mean|sum
-    dropout: bool = False
+    dropout: bool = False  # the train forward gets train=True and the step's generator
     modality_dropout: float = 0.0
     remat: str = "none"
     augment: Optional[Tuple[Any, ...]] = None
@@ -76,10 +79,33 @@ class StepSettings:
         if self.remat != "none":
             raise NotImplementedError(
                 "rematerialisation policies are not ported yet (ROADMAP Queue 1, item 14)")
-        if self.dropout:
-            raise NotImplementedError(
-                "dropout serves only the DeepAV-Lite and TACA baselines, not ported yet "
-                "(ROADMAP Queue 1, item 13)")
+
+
+# train_apply(module, xs, generator, epoch) and eval_apply(module, xs, epoch)
+# -> the model's output: logits, or a tuple of them, one a head
+TrainApply = Callable[[nn.Module, Tuple[torch.Tensor, ...], Optional[torch.Generator], int], Any]
+EvalApply = Callable[[nn.Module, Tuple[torch.Tensor, ...], int], Any]
+
+
+def make_apply_adapters(settings: StepSettings) -> Tuple[TrainApply, EvalApply]:
+    """The standard adapters (gaitpd/train/step.py:84-101): with
+    ``settings.dropout`` the train forward is ``module(*xs, train=True,
+    generator=generator)`` and the eval forward ``module(*xs, train=False)``;
+    otherwise both are ``module(*xs)``."""
+    if settings.dropout:
+        def train_apply(module, xs, generator, epoch):
+            return module(*xs, train=True, generator=generator)
+
+        def eval_apply(module, xs, epoch):
+            return module(*xs, train=False)
+    else:
+        def train_apply(module, xs, generator, epoch):
+            return module(*xs)
+
+        def eval_apply(module, xs, epoch):
+            return module(*xs)
+
+    return train_apply, eval_apply
 
 
 def branch_loss(
@@ -132,12 +158,16 @@ def _resolve_drw(settings: StepSettings, ctx, epoch: int):
     return tuple(resolved)
 
 
-def make_multitask_loss_fn(settings: StepSettings) -> Callable:
+def make_multitask_loss_fn(settings: StepSettings,
+                           train_apply: Optional[TrainApply] = None) -> Callable:
     """loss_fn(module, xs, ys, valid, ctx, generator, epoch) -> ((K,) losses,
-    logits tuple)."""
+    logits tuple). The forward is ``train_apply`` (default: the standard
+    adapter)."""
+    if train_apply is None:
+        train_apply = make_apply_adapters(settings)[0]
 
     def loss_fn(module, xs, ys, valid, ctx, generator, epoch):
-        logits = module(*xs)
+        logits = train_apply(module, xs, generator, epoch)
         if not isinstance(logits, (tuple, list)):
             logits = (logits,)
         ctx_r = _resolve_drw(settings, ctx, epoch)
@@ -165,14 +195,17 @@ def _padded_metrics(settings: StepSettings, device) -> Dict[str, torch.Tensor]:
 
 
 def make_train_step(settings: StepSettings, mtl_method=None,
-                    partition: Optional[FlatPartition] = None) -> Callable:
+                    partition: Optional[FlatPartition] = None,
+                    train_apply: Optional[TrainApply] = None) -> Callable:
     """train_step(state, batch, generator, ctx) -> (state, metrics).
 
     Without ``mtl_method`` the gradient is that of the mean (or sum, per
     ``loss_reduction``) of the branch losses; otherwise it comes from
-    gaitpd_torch.learning.mtl.mtl_grads. A fully padded batch (quantized
-    epoch tails) leaves parameters, momentum and MTL state unchanged."""
-    loss_fn = make_multitask_loss_fn(settings)
+    gaitpd_torch.learning.mtl.mtl_grads. A parameter the forward does not
+    reach gets a zero gradient, so weight decay still moves it. A fully
+    padded batch (quantized epoch tails) leaves parameters, momentum and MTL
+    state unchanged."""
+    loss_fn = make_multitask_loss_fn(settings, train_apply)
     reduce = torch.mean if settings.loss_reduction == "mean" else torch.sum
 
     def train_step(state: TrainState, batch, generator, ctx):
@@ -206,8 +239,9 @@ def make_train_step(settings: StepSettings, mtl_method=None,
     return train_step
 
 
-def make_eval_step(settings: StepSettings) -> Callable:
-    """Masked relaxed-input eval step.
+def make_eval_step(settings: StepSettings, eval_apply: Optional[EvalApply] = None) -> Callable:
+    """Masked relaxed-input eval step; the forward is ``eval_apply``
+    (default: the standard adapter).
 
     ``mask``: one bool per model input, on the host. Disabled streams are
     zero-filled before the forward pass (the model still runs every branch,
@@ -217,12 +251,15 @@ def make_eval_step(settings: StepSettings) -> Callable:
     Returns per-stream losses and correct counts, the ensemble's correct
     count, n, and the predictions."""
 
+    if eval_apply is None:
+        eval_apply = make_apply_adapters(settings)[1]
+
     @torch.no_grad()
     def eval_step(module, batch, ctx, generator, epoch, mask):
         mask = [bool(m) for m in mask]
         xs = tuple(x if mask[k] else torch.zeros_like(x) for k, x in enumerate(batch["xs"]))
         ys, valid = batch["ys"], batch["valid"]
-        logits = module(*xs)
+        logits = eval_apply(module, xs, epoch)
         if not isinstance(logits, (tuple, list)):
             logits = (logits,)
         ctx_r = _resolve_drw(settings, ctx, epoch)

@@ -5,10 +5,12 @@ Port of gaitpd/train/weargait_driver.py:37-47,73-166,169-198,248-533
 
     res = run_cv(WearGaitArgs(synthetic=True, epochs=3))  # on the card
     res = run_cv(WearGaitArgs(synthetic=True, baseline="cheap_xattn"))
+    res = run_cv(WearGaitArgs(synthetic=True, baseline="focal", device="cpu"))
     res = run_cv(WearGaitArgs(synthetic=True, single_mod="imu", device="cpu"))
 
-The flagship model (CAGrad), the four fusion baselines (the mean of the
-branch losses) and the single-modality mode, on synthetic streams. Options
+The flagship model (CAGrad), the seven baselines (the four fusion models and
+DeepAV-Lite, FOCAL and TACA, on the mean of the branch losses) and the
+single-modality mode, on synthetic streams. Options
 of the reference trainer that the port does not have yet raise
 NotImplementedError naming their ROADMAP item; none is silently ignored.
 """
@@ -26,6 +28,7 @@ import torch
 from gaitpd_torch.data import weargait as WG
 from gaitpd_torch.data.synthetic import make_weargait_streams
 from gaitpd_torch.learning.mtl import make_method
+from gaitpd_torch.models import baselines as BL
 from gaitpd_torch.models import fusion as FU
 from gaitpd_torch.models.multitask import WearGaitThreeModal
 from gaitpd_torch.runtime.device import DeviceLike, resolve_device
@@ -41,7 +44,7 @@ from gaitpd_torch.train.loop import (
     run_train_epoch,
 )
 from gaitpd_torch.train.optim import sgd_torch
-from gaitpd_torch.train.step import StepSettings, make_loss_ctx
+from gaitpd_torch.train.step import EvalApply, StepSettings, TrainApply, make_loss_ctx
 
 # reference weargait_train.py:49-57
 MASK_COMBOS = {
@@ -56,14 +59,17 @@ MASK_COMBOS = {
 
 MODALITIES = ("walkway", "insole", "imu")
 
-# the baselines of gaitpd/train/weargait_driver.py:146-153 that the port has
+# the baselines of gaitpd/train/weargait_driver.py:146-165: the fusion
+# models, then the SOTA baselines
 FUSION_BASELINES = {
     "early_fusion": FU.EarlyFusion3,
     "late_fusion": FU.LateFusion3,
     "cheap_xattn": FU.CheapXAttn3,
     "shared_latent": FU.SharedLatent3,
 }
-UNPORTED_BASELINES = ("deepav_lite", "focal", "taca")
+SOTA_BASELINES = ("deepav_lite", "focal", "taca")
+# the baselines that train with dropout (gaitpd/train/weargait_driver.py:291-292)
+DROPOUT_BASELINES = ("deepav_lite", "taca")
 
 # Called after every epoch as on_epoch(fold, epoch, state, train, eval).
 EpochHook = Callable[[int, int, TrainState, EpochResult, EpochResult], None]
@@ -117,8 +123,6 @@ class WearGaitArgs:
 def check_supported(args: WearGaitArgs) -> None:
     """Raise NotImplementedError for an option the port does not have yet."""
     missing = [
-        (args.baseline in UNPORTED_BASELINES or args.baseline_torch_init,
-         "the DeepAV-Lite, FOCAL and TACA baselines (baseline_torch_init)", "Queue 1, item 13"),
         (args.ckpt_dir is not None or args.resume, "checkpoints (ckpt_dir, resume)",
          "Queue 1, item 9"),
         (args.fused, "the fused forward (fused)", "Queue 1, item 15"),
@@ -149,10 +153,11 @@ class SingleBranch(WearGaitThreeModal):
 
 def build_model(args: WearGaitArgs, sync_flag: bool,
                 generator: Optional[torch.Generator] = None) -> torch.nn.Module:
-    """The flagship model, one of the fusion baselines, or with ``single_mod``
-    the flagship's branch (reference weargait_train.py:458-524,
+    """The flagship model, one of the baselines, or with ``single_mod`` the
+    flagship's branch (reference weargait_train.py:458-524,
     gaitpd/train/weargait_driver.py:123-166), its weights drawn from
-    ``generator`` (default: seeded with args.seed)."""
+    ``generator`` (default: seeded with args.seed). ``baseline_torch_init``
+    reaches DeepAV-Lite alone, as in gaitpd."""
     g = generator if generator is not None else torch.Generator().manual_seed(args.seed)
     common = dict(enc_out_ch=args.enc_out_ch, backbone_dim=args.backbone_dim,
                   shared_out_ch=args.shared_out_ch, num_classes=args.num_classes,
@@ -160,6 +165,15 @@ def build_model(args: WearGaitArgs, sync_flag: bool,
     if args.baseline is not None:
         if args.single_mod is not None:
             raise ValueError("single_mod runs the flagship's branch: it takes no baseline")
+        if args.baseline == "deepav_lite":
+            return BL.DeepAVLite3(num_classes=args.num_classes, synchronized=sync_flag,
+                                  torch_init=args.baseline_torch_init, generator=g)
+        if args.baseline == "focal":
+            return BL.FOCALSharedLatent3(num_classes=args.num_classes,
+                                         synchronized=sync_flag, generator=g)
+        if args.baseline == "taca":
+            return BL.TACA3TriWrapper(win_len=args.win_len, num_classes=args.num_classes,
+                                      synchronized=sync_flag, generator=g)
         if args.baseline not in FUSION_BASELINES:
             raise ValueError(args.baseline)
         if args.baseline == "shared_latent":
@@ -200,6 +214,27 @@ def split_to_device(split: WG.WearGaitSplit, async_mode: bool, seed: int,
     )
 
 
+def baseline_adapters(args: WearGaitArgs) -> Tuple[Optional[TrainApply], Optional[EvalApply]]:
+    """The forwards of a baseline that needs its own (gaitpd/train/
+    weargait_driver.py:201-229), or (None, None) for the standard adapters:
+    TACA takes flattened windows and the epoch fraction of its γ schedule,
+    epoch / max(1, epochs) on the 0-based epoch, in train and eval."""
+    if args.baseline != "taca":
+        return None, None
+
+    def flat(xs):
+        return tuple(x.reshape(x.shape[0], -1) for x in xs)
+
+    def train_apply(module, xs, generator, epoch):
+        return module(*flat(xs), train=True, epoch_frac=epoch / max(1, args.epochs),
+                      generator=generator)
+
+    def eval_apply(module, xs, epoch):
+        return module(*flat(xs), train=False, epoch_frac=epoch / max(1, args.epochs))
+
+    return train_apply, eval_apply
+
+
 def run_fold(
     fi: int,
     split: WG.WearGaitSplit,
@@ -227,6 +262,7 @@ def run_fold(
         drw_warmup=args.drw_warmup,
         consistency_lambda=0.0,
         private_grads="sum_plus_own",
+        dropout=args.baseline in DROPOUT_BASELINES,
     )
     ctx = make_loss_ctx(settings, counts, device=device)
 
@@ -240,7 +276,7 @@ def run_fold(
         mtl = make_method(args.mtl_method, 3, **kwargs)
     make_optimizer = functools.partial(sgd_torch, lr=args.lr, momentum=0.9, weight_decay=1e-4)
     state, partition = init_train_state(model, make_optimizer, mtl, device)
-    runner = EpochRunner(settings, mtl, partition)
+    runner = EpochRunner(settings, mtl, partition, *baseline_adapters(args))
 
     rng = np.random.default_rng(args.seed + 1000 * fi)
     generator = torch.Generator(device=device).manual_seed(args.seed + fi)

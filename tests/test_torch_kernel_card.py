@@ -123,6 +123,41 @@ def test_forward_launch_config_on_card(case):
     assert config["blocks"] == -(-bsz // windows)
 
 
+# FOCAL's backbone: 128 + 3 * 64 = 320 input channels, exact GELU (and
+# ReLU), at a train step's batch (sync), the async one-launch batch and a
+# ragged one. The generic forward holds two windows a block at this width
+# (230,464 bytes of shared memory), the backward one
+FOCAL_CASES = [
+    (64, 64, 320, 3, 16, 8, "gelu"), (3 * 64, 64, 320, 3, 16, 8, "gelu"),
+    (37, 64, 320, 3, 16, 8, "relu"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FOCAL_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_kernels_match_plain_at_focal_width_on_card(case):
+    """Forward within 1e-5, gx within 1e-5, gw and gb within 1e-5 of their
+    largest value, two launches of each the same bits; the launch has a
+    block an SM at least and a grid that covers the windows."""
+    dev = _cuda()
+    bsz, t, cin, k, cout, t_out, act = case
+    x, w, b, g = _inputs(case, dev)
+    got = sb.stream_block(x, w, b, t_out, act)
+    assert (got - sb.stream_block_reference(x, w, b, t_out, act)).abs().max().item() <= 1e-5
+    assert torch.equal(got, sb.stream_block(x, w, b, t_out, act))
+    grads = sb.stream_block_backward(x, w, b, g, t_out, act)
+    again = sb.stream_block_backward(x, w, b, g, t_out, act)
+    want = sb.stream_block_backward_reference(x, w, b, g, t_out, act)
+    assert (grads[0] - want[0]).abs().max().item() <= 1e-5
+    for gk, wk in zip(grads[1:], want[1:]):
+        assert (gk - wk).abs().max().item() <= 1e-5 * max(1.0, wk.abs().max().item())
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    config = sb.forward_config(bsz, t, cin, cout, k, t_out, act)
+    assert config["variant"] == "generic" and config["blocks_per_sm"] >= 1
+    assert config["blocks"] >= -(-bsz // 4)
+    assert sb.backward_config(t, cin, cout, k, t_out)["tile"] >= 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
 def test_backward_kernel_matches_plain_on_card(case):

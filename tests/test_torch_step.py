@@ -191,8 +191,28 @@ def test_eval_step_all_masks(sync):
 
 @pytest.mark.parametrize("option", [
     dict(augment=(None, None, None)), dict(modality_dropout=0.1), dict(remat="dots"),
-    dict(dropout=True), dict(consistency_lambda=0.5),
+    dict(consistency_lambda=0.5),
 ])
 def test_unported_settings_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TS.StepSettings(n_streams=3, **option)
+
+
+class _Recorder(torch.nn.Module):
+    def forward(self, *xs, **kw):
+        self.kw = kw
+        return xs
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+def test_apply_adapters_follow_the_dropout_setting(dropout):
+    """With dropout the train forward gets train=True and the step's
+    generator, the eval forward train=False (gaitpd/train/step.py:84-101);
+    without, both call the module on the inputs alone."""
+    train_apply, eval_apply = TS.make_apply_adapters(TS.StepSettings(n_streams=1,
+                                                                     dropout=dropout))
+    module, gen = _Recorder(), torch.Generator()
+    train_apply(module, (torch.ones(1),), gen, 0)
+    assert module.kw == ({"train": True, "generator": gen} if dropout else {})
+    eval_apply(module, (torch.ones(1),), 0)
+    assert module.kw == ({"train": False} if dropout else {})

@@ -32,7 +32,8 @@ from gaitpd_torch.params import load_flax_params  # noqa: E402
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 # (B, T, C_in, K, C_out, t_out, act): tests/test_pallas.py's cases, the main
-# path's shape at a small batch, T = 101 (uneven, overlapping bins) and k = 1
+# path's shape at a small batch, T = 101 (uneven, overlapping bins), k = 1,
+# t_out > T, and FOCAL's backbone (320 channels, GELU)
 CASES = [
     (8, 64, 13, 3, 16, 8, "relu"),
     (8, 64, 13, 5, 16, 8, "gelu"),
@@ -41,6 +42,7 @@ CASES = [
     (3, 101, 13, 5, 16, 8, "gelu"),
     (5, 30, 4, 1, 7, 4, "relu"),
     (3, 5, 4, 3, 6, 8, "gelu"),  # t_out > T: bins repeat frames
+    (3, 64, 320, 3, 16, 8, "gelu"),  # FOCAL's backbone: 128 + 3 * 64 channels
 ]
 
 
@@ -81,6 +83,7 @@ FORWARD_VARIANT_EDGES = {
     (64, 12, 16, 5, 8): sb.GENERIC,
     (64, 12, 16, 3, 7): sb.GENERIC,
     (64, 12, 8, 3, 8): sb.GENERIC,
+    (64, 320, 16, 3, 8): sb.GENERIC,  # FOCAL's backbone
 }
 
 
@@ -120,12 +123,13 @@ def test_shared_backbone_matches_flax(t):
 
 
 # (B, T, C_in, K, C_out, t_out, act): tests/test_pallas.py:45-53's case, then
-# T = 101 (overlapping bins), k5 GELU and k1
+# T = 101 (overlapping bins), k5 GELU, k1 and FOCAL's 320 channels with GELU
 GRAD_CASES = [
     (4, 32, 6, 3, 8, 4, "relu"),
     (4, 101, 12, 3, 16, 8, "relu"),
     (3, 64, 13, 5, 16, 8, "gelu"),
     (5, 30, 4, 1, 7, 4, "relu"),
+    (3, 64, 320, 3, 16, 8, "gelu"),  # FOCAL's backbone
 ]
 
 

@@ -5,14 +5,20 @@ wrapping each package's ``init_train_state`` (here only; gaitpd's
 single-modality driver builds its ``TrainState`` directly, so that is
 wrapped too). The synthetic streams, folds, epoch orders and async pools come
 from the same seeds, so both runs see the same batches. The configurations:
-the flagship with CAGrad, the cheap cross-attention fusion baseline (sync and
-async, the mean of the branch losses) and the single-modality mode.
+the flagship with CAGrad, the cheap cross-attention fusion baseline and the
+SOTA baselines DeepAV-Lite, FOCAL and TACA (sync and async, the mean of the
+branch losses), and the single-modality mode. DeepAV-Lite and TACA train
+with dropout, whose masks cannot match JAX's PRNG: here both packages build
+them at dropout 0 (wrapping each ``build_model``, here only), and the train
+forward still takes its ``train=True`` path.
 
 Tolerances: per-epoch losses within 1e-4 relative (f32 on both sides; the
 sums and the CAGrad solver's golden-section comparisons round differently,
 and a few epochs of SGD carry that forward); each 7-mask accuracy within one
 eval window's share, since an argmax on a near-tie may flip.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -23,6 +29,7 @@ jax = pytest.importorskip("jax")
 import gaitpd.train.step as JS  # noqa: E402
 import gaitpd.train.weargait_driver as JD  # noqa: E402
 import gaitpd_torch.train.weargait_driver as TD  # noqa: E402
+from gaitpd_torch.models import baselines as TB  # noqa: E402
 from gaitpd_torch.params import load_flax_params  # noqa: E402
 
 LOSS_RTOL = 1e-4
@@ -45,10 +52,40 @@ CONFIGS = {
                                synthetic=True, verbose=False, seed=0, n_folds_cap=1,
                                wm="gcl", alpha=0.5, single_mod="imu"),
 }
+# the SOTA baselines, as the cheap-xattn ones: sync 3 epochs of GCL, async 2
+# of class_wt
+for _b in TD.SOTA_BASELINES:
+    CONFIGS[f"{_b}_sync_gcl"] = dict(CONFIGS["cheap_xattn_sync_gcl"], baseline=_b)
+    CONFIGS[f"{_b}_async_class_wt"] = dict(CONFIGS["cheap_xattn_async_class_wt"], baseline=_b)
+CONFIGS["deepav_lite_torch_init_sync_gcl"] = dict(CONFIGS["deepav_lite_sync_gcl"],
+                                                  baseline_torch_init=True)
+
+
+def _without_dropout(monkeypatch):
+    """Both packages' build_model, with DeepAV-Lite and TACA at dropout 0."""
+    orig_j = JD.build_model
+
+    def j_build(args, sync_flag):
+        model = orig_j(args, sync_flag)
+        return model.clone(drop=0.0) if args.baseline in TD.DROPOUT_BASELINES else model
+
+    def t_build(args, sync_flag, generator=None):
+        if args.baseline == "deepav_lite":
+            return TB.DeepAVLite3(num_classes=args.num_classes, synchronized=sync_flag,
+                                  torch_init=args.baseline_torch_init, drop=0.0)
+        if args.baseline == "taca":
+            return TB.TACA3TriWrapper(win_len=args.win_len, num_classes=args.num_classes,
+                                      synchronized=sync_flag, drop=0.0)
+        return orig_t(args, sync_flag, generator)
+
+    orig_t = TD.build_model
+    monkeypatch.setattr(JD, "build_model", j_build)
+    monkeypatch.setattr(TD, "build_model", t_build)
 
 
 def _run_both(monkeypatch, kw):
     record = {"jax_init": None, "jax": [], "port": [], "n_eval": []}
+    _without_dropout(monkeypatch)
 
     orig_j_init = JD.init_train_state
 
@@ -122,8 +159,50 @@ def test_default_device_is_the_card():
         TD.run_cv(args)
 
 
+@pytest.mark.parametrize("baseline", TD.SOTA_BASELINES)
+def test_sota_baselines_default_to_the_card(baseline):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device=None runs there")
+    args = TD.WearGaitArgs(**CONFIGS[f"{baseline}_sync_gcl"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TD.run_cv(args)
+
+
+@pytest.mark.parametrize("baseline, torch_init", [("deepav_lite", False), ("deepav_lite", True),
+                                                  ("focal", True), ("taca", True)])
+def test_build_model_reads_torch_init_for_deepav_only(baseline, torch_init):
+    """baseline_torch_init gives DeepAV-Lite's tokenizers torch's law (a
+    random bias) and leaves the other baselines as they are, as in gaitpd."""
+    args = TD.WearGaitArgs(baseline=baseline, baseline_torch_init=torch_init, seed=0)
+    model = TD.build_model(args, True)
+    plain = TD.build_model(dataclasses.replace(args, baseline_torch_init=False), True)
+    if baseline == "deepav_lite":
+        assert bool(model.core.tk_walkway.bias.any()) == torch_init
+    else:
+        for p, q in zip(model.parameters(), plain.parameters()):
+            assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("baseline, dropout", [("deepav_lite", True), ("taca", True),
+                                               ("focal", False), ("cheap_xattn", False)])
+def test_dropout_baselines_train_with_dropout(monkeypatch, baseline, dropout):
+    """DeepAV-Lite and TACA take the dropout step settings (gaitpd/train/
+    weargait_driver.py:291-292), the other baselines do not."""
+    seen = []
+    orig = TD.EpochRunner
+
+    def runner(settings, *a, **k):
+        seen.append(settings.dropout)
+        return orig(settings, *a, **k)
+
+    monkeypatch.setattr(TD, "EpochRunner", runner)
+    kw = {**CONFIGS["cheap_xattn_sync_gcl"], "epochs": 1, "device": "cpu", "baseline": baseline}
+    TD.run_cv(TD.WearGaitArgs(**kw))
+    assert seen == [dropout]
+
+
 @pytest.mark.parametrize("option", [
-    dict(baseline="deepav_lite"), dict(baseline="taca"), dict(ckpt_dir="ck"),
+    dict(ckpt_dir="ck"),
     dict(resume=True), dict(fused=True), dict(aug_noise_std=0.1),
     dict(modality_dropout=0.2), dict(synthetic=False), dict(mesh=object()),
     dict(mtl_method="mgda"),
