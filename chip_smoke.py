@@ -70,7 +70,7 @@ Phases (each raises on failure, so the script exits non-zero):
      card vs CPU for each baseline (DeepAV-Lite and TACA at dropout 0) as in
      phase 4; run_cv of FOCAL on the card and the CPU (sync 3 epochs, async
      1; the checks of phase 5, and exactly one stream-block forward and one
-     backward launch a train step, counted in the train epochs alone, no
+     backward launch a train step, beside one forward an eval batch, no
      cross-attention or solver launch); run_cv of DeepAV-Lite and TACA on the
      card at their dropout (sync 1 epoch, async 1: finite losses, the
      7-subset table, no kernel launch);
@@ -112,6 +112,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gaitpd_torch.data.sampler import batch_index_matrix
 from gaitpd_torch.data.weargait import prepare_split
 from gaitpd_torch.learning.mtl import build_flat_partition, make_method
 from gaitpd_torch.models import baselines as BL
@@ -812,21 +813,36 @@ def run_training(args) -> tuple:
     return res, rec, time.perf_counter() - t0
 
 
+def first_split(args):
+    """The split of run_cv's first (and, at n_folds_cap 1, only) fold."""
+    streams, pd_ids, hc_ids = wg.get_streams(args)
+    folds = make_fixed_balanced_folds_no_overlap(
+        pd_ids, hc_ids, n_folds=args.n_folds, per_class=args.test_per_class, seed=args.seed)
+    return prepare_split(streams, folds[0][0], folds[0][1], build_subj2label(pd_ids, hc_ids),
+                         win=args.win_len, hop=args.hop_len)
+
+
 def mask_share(args) -> float:
     """One eval window's share of a 7-subset accuracy, in points: the sync
     table pools all eval windows; the async table averages per-batch
     accuracies, where one window weighs most in the smallest batch."""
-    streams, pd_ids, hc_ids = wg.get_streams(args)
-    folds = make_fixed_balanced_folds_no_overlap(
-        pd_ids, hc_ids, n_folds=args.n_folds, per_class=args.test_per_class, seed=args.seed)
-    split = prepare_split(streams, folds[0][0], folds[0][1], build_subj2label(pd_ids, hc_ids),
-                          win=args.win_len, hop=args.hop_len)
+    split = first_split(args)
     n = len(split.test_sync) if not args.async_loading else min(
         len(split.test[m].keys) for m in MODALITIES)
     batches = [min(args.batch_size, n - i) for i in range(0, n, args.batch_size)]
     if not args.async_loading:
         return 100.0 / n
     return 100.0 / (len(batches) * min(batches))
+
+
+def eval_forwards(args, epochs_run: int) -> int:
+    """The model forwards of run_cv's eval epochs: one an eval batch (the
+    fully padded tail batches too) after each epoch and for each of the 7
+    masks at the best epoch."""
+    pool = wg.split_to_device(first_split(args), args.async_loading, args.seed,
+                              torch.device("cpu")).eval_pool
+    n_batches = batch_index_matrix(np.arange(len(pool)), args.batch_size)[0].shape[0]
+    return (epochs_run + len(wg.MASK_COMBOS)) * n_batches
 
 
 def check_one_step(seed, dev, baseline=None) -> None:
@@ -836,7 +852,8 @@ def check_one_step(seed, dev, baseline=None) -> None:
     the card's masks cannot match the CPU's)."""
     runs = {}
     for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
-        step, state, ctx, batch, gen = make_step_setup(seed, device, 64, baseline, drop=0.0)
+        step, state, ctx, batch, gen = make_step_setup(seed, device, 64, baseline,
+                                                       no_dropout=True)
         state, metrics = step(state, batch, gen, ctx)
         runs[name] = (state, metrics)
     card_state, cpu_state = runs["card"][0], runs["cpu"][0]
@@ -857,45 +874,19 @@ def check_one_step(seed, dev, baseline=None) -> None:
         raise RuntimeError(f"one {baseline or 'CAGrad'} train step: card and CPU differ: {gaps}")
 
 
-class TrainLaunches:
-    """While entered, run_cv's epoch runners count the launches of their
-    train epochs alone (the eval epochs launch forwards too) into
-    ``.counts``."""
-
-    def __enter__(self):
-        self.counts = dict.fromkeys(COUNTERS, 0)
-        counts, self._runner = self.counts, wg.EpochRunner
-
-        class Counting(wg.EpochRunner):
-            def train_epoch(self, *a, **k):
-                before = read_launches()
-                out = super().train_epoch(*a, **k)
-                for name, n in read_launches().items():
-                    counts[name] += n - before[name]
-                return out
-
-        wg.EpochRunner = Counting
-        return self
-
-    def __exit__(self, *exc):
-        wg.EpochRunner = self._runner
-        return False
-
-
-def compare_run_cv(label, common, modes, per_step, nonzero, train_per_step=None) -> dict:
+def compare_run_cv(label, common, modes, per_step, nonzero, per_eval_forward=None) -> dict:
     """run_cv on the card and on the CPU from one seed, for each (mode,
     epochs) of ``modes``; the card's run is a main path, with every launch
     count set to 0 just before it and read just after. ``per_step``: the
     launches each non-empty train step must make of a kernel; ``nonzero``:
-    the kernels the run must launch at all; ``train_per_step``: the launches
-    of a kernel each train step must make, counted in the train epochs
-    alone."""
+    the kernels the run must launch at all; ``per_eval_forward``: the
+    launches of a kernel each eval forward makes, beside its ``per_step``
+    ones (default none)."""
     out = {}
     for mode, epochs in modes:
         args = wg.WearGaitArgs(epochs=epochs, async_loading=mode == "async", **common)
         reset_launches()
-        with TrainLaunches() as in_train:
-            card_res, card_rec, card_s = run_training(args)
+        card_res, card_rec, card_s = run_training(args)
         torch.cuda.synchronize()
         launches = read_launches()
         cpu_res, cpu_rec, cpu_s = run_training(dataclasses.replace(args, device="cpu"))
@@ -937,20 +928,19 @@ def compare_run_cv(label, common, modes, per_step, nonzero, train_per_step=None)
             log(f"[train] {tag}: {flips} of 7 subset accuracies differ, each by at most one "
                 f"eval window ({share:.4f} points); macro card {card_res['macro'][0]:.4f} %, "
                 f"CPU {cpu_res['macro'][0]:.4f} %")
-        wrong = {k: (launches[k], n * steps) for k, n in per_step.items()
-                 if launches[k] != n * steps}
+        per_eval_forward = per_eval_forward or {}
+        n_eval = eval_forwards(args, len(card_rec.train_loss)) if per_eval_forward else 0
+        want = {k: n * steps + per_eval_forward.get(k, 0) * n_eval for k, n in per_step.items()}
+        if per_eval_forward:
+            log(f"[train] {tag}: {steps} train steps and {n_eval} eval forwards; want launches "
+                f"{want}")
+        wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
         if wrong:
-            raise RuntimeError(f"train {tag}: launches (got, want) {wrong} for {steps} steps")
+            raise RuntimeError(f"train {tag}: launches (got, want) {wrong} for {steps} steps "
+                               f"and {n_eval} eval forwards")
         idle = [k for k in nonzero if launches[k] == 0]
         if idle:
             raise RuntimeError(f"train {tag}: kernel(s) {idle} were not launched")
-        if train_per_step is not None:
-            log(f"[train] {tag}: launches in the train epochs alone {in_train.counts}")
-            wrong = {k: (in_train.counts[k], n * steps) for k, n in train_per_step.items()
-                     if in_train.counts[k] != n * steps}
-            if wrong:
-                raise RuntimeError(f"train {tag}: train-epoch launches (got, want) {wrong} "
-                                   f"for {steps} steps")
         out[mode] = {"launches": launches, "steps": steps}
     return out
 
@@ -1093,9 +1083,8 @@ def phase_sota_training(seed, dev) -> dict:
         check_one_step(seed, dev, baseline)
     out = {"focal": compare_run_cv(
         "focal", dict(train_common(seed), baseline="focal"), (("sync", 3), ("async", 1)),
-        {"stream_block_backward": 1, "cagrad_solver": 0, "cheap_xattn": 0,
-         "cheap_xattn_backward": 0}, ("stream_block",),
-        train_per_step={"stream_block": 1, "stream_block_backward": 1})}
+        {"stream_block": 1, "stream_block_backward": 1, "cagrad_solver": 0, "cheap_xattn": 0,
+         "cheap_xattn_backward": 0}, ("stream_block",), per_eval_forward={"stream_block": 1})}
     for baseline in wg.DROPOUT_BASELINES:
         out[baseline] = card_only_run_cv(baseline, dict(train_common(seed), baseline=baseline),
                                          (("sync", 1), ("async", 1)))
@@ -1408,19 +1397,15 @@ def time_serving(engine, rng, card) -> dict:
     return serving
 
 
-def make_step_setup(seed, dev, bsz, baseline=None, drop=None):
+def make_step_setup(seed, dev, bsz, baseline=None, no_dropout=False):
     """A flagship model with its SGD and CAGrad step, or a baseline with SGD
     on the mean of its branch losses (sync; DeepAV-Lite and TACA with their
-    dropout, or at ``drop``), one card-resident batch of ``bsz`` window
-    tuples, and the step's generator."""
+    dropout, or at rate 0 with ``no_dropout``), one card-resident batch of
+    ``bsz`` window tuples, and the step's generator."""
     args = wg.WearGaitArgs(seed=seed, baseline=baseline)
-    if drop is not None and baseline in wg.DROPOUT_BASELINES:
-        g = torch.Generator().manual_seed(seed)
-        model = (BL.DeepAVLite3(num_classes=2, drop=drop, generator=g)
-                 if baseline == "deepav_lite" else
-                 BL.TACA3TriWrapper(win_len=WIN, num_classes=2, drop=drop, generator=g))
-    else:
-        model = wg.build_model(args, True)
+    model = wg.build_model(args, True)
+    if no_dropout:
+        BL.without_dropout(model)
     model = model.to(dev)
     settings = StepSettings(n_streams=3, wm="gcl", synchronized=True,
                             private_grads="sum_plus_own",
@@ -1438,7 +1423,7 @@ def make_step_setup(seed, dev, bsz, baseline=None, drop=None):
     ctx = make_loss_ctx(settings, [[900, 700]] * 3, device=dev)
     g = torch.Generator().manual_seed(seed)  # on the host: the same batch on any device
     batch = {
-        "xs": tuple(torch.randn((bsz, WIN, CHANNELS[m]), generator=g).to(dev)
+        "xs": tuple(torch.randn((bsz, args.win_len, CHANNELS[m]), generator=g).to(dev)
                     for m in MODALITIES),
         "ys": tuple(torch.randint(0, 2, (bsz,), generator=g).to(dev) for _ in MODALITIES),
         "valid": torch.ones(bsz, device=dev),

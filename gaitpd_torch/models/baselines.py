@@ -4,10 +4,11 @@ Port of gaitpd/models/baselines.py:36-253,302-332,399-440,448-511,555-608.
 
 Submodules and parameters carry the flax names (``core``, ``tk_walkway``,
 ``blk_walkway_0``, ``Attn_0``, ``w_sh``, ``q_a2b``, ...), so
-gaitpd_torch.params maps a flax variables dict onto them. Input widths, which
-flax infers at init, are constructor arguments. Sync or async is a
-constructor argument, as in gaitpd. Dropout draws its masks from the
-``generator`` a forward is given, and only when ``train`` is True.
+gaitpd_torch.params maps a flax variables dict onto them. The input widths,
+which flax infers at init, are the WearGait streams' (2, 13, 24), as gaitpd's
+3-modality wrappers fix them. Sync or async is a constructor argument, as in
+gaitpd. Dropout draws its masks from the ``generator`` a forward is given,
+and only when ``train`` is True.
 
 Where gaitpd computes a result and drops it (DeepAV's fusion stack and
 TACA's third fuser ``im`` in async mode, TACA's unused directions), the port
@@ -53,6 +54,15 @@ def sinusoid_pos_enc(length: int, dim: int) -> np.ndarray:
     pe[:, 0::2] = np.sin(pos[:, None] * div[0::2])
     pe[:, 1::2] = np.cos(pos[:, None] * div[0::2])
     return pe
+
+
+def without_dropout(model: nn.Module) -> nn.Module:
+    """``model`` with every dropout rate set to 0 in place: each layer reads
+    its ``drop`` at forward time, so the weights stay as drawn."""
+    for m in model.modules():
+        if hasattr(m, "drop"):
+            m.drop = 0.0
+    return model
 
 
 def _divide(x: torch.Tensor, n: float) -> torch.Tensor:
@@ -243,12 +253,11 @@ class DeepAVLite3(nn.Module):
 
     def __init__(self, num_classes: int, embed_dim: int = 96, depth: int = 3, heads: int = 3,
                  mlp_ratio: float = 2.0, patch: int = 8, stride: int = 8, drop: float = 0.1,
-                 synchronized: bool = True, torch_init: bool = False,
-                 in_channels: Sequence[int] = IN_CHANNELS, *,
+                 synchronized: bool = True, torch_init: bool = False, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.core = DeepAVCore(
-            tuple(zip(MODALITIES, in_channels)), num_classes, embed_dim, depth, heads,
+            tuple(zip(MODALITIES, IN_CHANNELS)), num_classes, embed_dim, depth, heads,
             mlp_ratio, patch, stride, drop, synchronized=synchronized, torch_init=torch_init,
             generator=default_generator(generator))
 
@@ -271,16 +280,15 @@ class FOCALSharedLatent3(nn.Module):
     backbone runs the three streams in one launch."""
 
     def __init__(self, d_shared: int = 128, d_private: int = 64, shared_out_ch: int = 16,
-                 backbone_dim: int = 8, num_classes: int = 2, synchronized: bool = True,
-                 in_channels: Sequence[int] = IN_CHANNELS, *,
+                 backbone_dim: int = 8, num_classes: int = 2, synchronized: bool = True, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = default_generator(generator)
         self.synchronized = synchronized
         tags = ("w", "i", "m")
-        for n, c in zip(tags, in_channels):
+        for n, c in zip(tags, IN_CHANNELS):
             setattr(self, f"{n}_sh", TorchLinear(c, d_shared, generator=g))
-        for n, c in zip(tags, in_channels):
+        for n, c in zip(tags, IN_CHANNELS):
             setattr(self, f"{n}_pr", TorchLinear(c, d_private, generator=g))
         self.backbone = GELUBackbone(d_shared + 3 * d_private, shared_out_ch, backbone_dim,
                                      generator=g)
@@ -382,12 +390,11 @@ class TACA3TriWrapper(nn.Module):
     def __init__(self, win_len: int, num_classes: int, d_model: int = 128, n_heads: int = 4,
                  n_tok: int = 8, tau: float = 1.0, gamma: float = 1.5,
                  schedule: str = "const", drop: float = 0.1, allow_async_cross: bool = True,
-                 synchronized: bool = True, in_channels: Sequence[int] = IN_CHANNELS, *,
-                 generator: Optional[torch.Generator] = None):
+                 synchronized: bool = True, *, generator: Optional[torch.Generator] = None):
         super().__init__()
         g = default_generator(generator)
         self.synchronized, self.allow_async_cross = synchronized, allow_async_cross
-        for n, c in zip("wim", in_channels):
+        for n, c in zip("wim", IN_CHANNELS):
             setattr(self, f"tk_{n}", Tokenizer(win_len, c, d_model, n_tok, generator=g))
         if synchronized or allow_async_cross:  # else gaitpd calls no fuser: no parameters
             for name in ("wi", "wm", "im"):

@@ -25,9 +25,6 @@ import numpy as np
 import torch
 from torch import nn
 
-_WRAPPERS = ("Conv_0", "Dense_0")
-
-
 def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, Any]:
     out = {}
     for key, value in tree.items():
@@ -39,10 +36,18 @@ def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, Any]:
     return out
 
 
-def _torch_leaf(path: tuple, value) -> tuple:
-    """(torch parameter name, array in the torch layout) of one flax leaf."""
+def _torch_leaf(module: nn.Module, path: tuple, value) -> tuple:
+    """(torch parameter name, array in the torch layout) of one flax leaf of
+    ``module``'s tree: a path element drops out where it names the
+    ``FLAX_WRAPPER`` of the module that owns it."""
     arr = np.array(value, dtype=np.float32, copy=True)
-    *mods, leaf = [p for p in path if p not in _WRAPPERS]
+    *path_mods, leaf = path
+    mods, owner = [], module
+    for p in path_mods:
+        if owner is not None and getattr(owner, "FLAX_WRAPPER", None) == p:
+            continue
+        mods.append(p)
+        owner = dict(owner.named_children()).get(p) if owner is not None else None
     if leaf == "kernel":
         leaf = "weight"
         if arr.ndim == 3:
@@ -61,7 +66,7 @@ def load_flax_params(module: nn.Module, variables: Mapping[str, Any]) -> nn.Modu
     ``module`` in place and return it."""
     if "params" not in variables:
         raise ValueError("expected a flax variables dict with a 'params' collection")
-    leaves = dict(_torch_leaf(p, v) for p, v in _flatten(variables["params"]).items())
+    leaves = dict(_torch_leaf(module, p, v) for p, v in _flatten(variables["params"]).items())
     own = dict(module.named_parameters())
     missing = sorted(set(own) - set(leaves))
     extra = sorted(set(leaves) - set(own))

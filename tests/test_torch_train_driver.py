@@ -63,22 +63,15 @@ CONFIGS["deepav_lite_torch_init_sync_gcl"] = dict(CONFIGS["deepav_lite_sync_gcl"
 
 def _without_dropout(monkeypatch):
     """Both packages' build_model, with DeepAV-Lite and TACA at dropout 0."""
-    orig_j = JD.build_model
+    orig_j, orig_t = JD.build_model, TD.build_model
 
     def j_build(args, sync_flag):
         model = orig_j(args, sync_flag)
         return model.clone(drop=0.0) if args.baseline in TD.DROPOUT_BASELINES else model
 
     def t_build(args, sync_flag, generator=None):
-        if args.baseline == "deepav_lite":
-            return TB.DeepAVLite3(num_classes=args.num_classes, synchronized=sync_flag,
-                                  torch_init=args.baseline_torch_init, drop=0.0)
-        if args.baseline == "taca":
-            return TB.TACA3TriWrapper(win_len=args.win_len, num_classes=args.num_classes,
-                                      synchronized=sync_flag, drop=0.0)
-        return orig_t(args, sync_flag, generator)
+        return TB.without_dropout(orig_t(args, sync_flag, generator))
 
-    orig_t = TD.build_model
     monkeypatch.setattr(JD, "build_model", j_build)
     monkeypatch.setattr(TD, "build_model", t_build)
 
