@@ -61,11 +61,13 @@ Phases (each raises on failure, so the script exits non-zero):
      the CAGrad solver at K = 1..8 on seeded and degenerate Gram matrices, in
      one launch and one matrix a launch, w bitwise equal to the plain
      version's (phase 2 holds that too);
-  5e. the SOTA baselines (DeepAV-Lite, FOCAL, TACA), this slice's main path,
-     from a random stream of its own: the stream block at FOCAL's backbone
-     (320 input channels; batch 64 and 1024 sync, 3 x 64 async; ReLU and
-     GELU) forward and backward against their plain versions as in phase 2,
-     with each launch; dropout on the card (the keep rate of a million
+  5e. the SOTA baselines (DeepAV-Lite, FOCAL, TACA), from a random stream
+     of their own: the stream block's wide variants at FOCAL's backbone (320
+     input channels; batch 64 and 1024 sync, 3 x 64 async; ReLU and GELU)
+     and at 1024 channels (wider than the generic kernels take), forward and
+     backward against their plain versions as in phase 2, with each launch
+     (variant, threads, shared memory, blocks an SM, blocks, windows a
+     block; the backward's g_z kernel too); dropout on the card (the keep rate of a million
      entries within 5 sigma, kept entries exactly x / 0.9); one train step
      card vs CPU for each baseline (DeepAV-Lite and TACA at dropout 0) as in
      phase 4; run_cv of FOCAL on the card and the CPU (sync 3 epochs, async
@@ -84,9 +86,12 @@ Phases (each raises on failure, so the script exits non-zero):
      blocks an SM); serving
      windows/s and latency; one CAGrad and one cheap-xattn train step at
      batch 64 and 1024 (host clock around synchronised steps); the stream
-     block's forward and backward at FOCAL's shape (batch 1024, GELU) beside
-     their plain versions, library calls and bounds, and one train step of
-     each SOTA baseline at batch 64 and 1024; device time
+     block's wide forward and backward at FOCAL's shape (batch 1024, GELU)
+     beside their plain versions, library calls, bounds, launches and the
+     generic variants that took these sizes before, then at batch 64 and
+     3 x 64 (device time under the profiler, beside the library's) and,
+     both variants, at C_in 32, 48 and 64 (the wrapper's threshold), and one
+     train step of each SOTA baseline at batch 64 and 1024; device time
      by kernel of batch-1024 predict_windows and of 10 batch-1024 train
      steps of each (torch.profiler), the SOTA baselines' too.
 
@@ -185,6 +190,8 @@ XATTN_GRAD_ATOL, XATTN_GRAD_RTOL = 1e-5, 1e-4  # dA, dB: tests/test_pallas.py:70
 COUNTERS = {
     "stream_block": (sb, "launches"),
     "stream_block_backward": (sb, "backward_launches"),
+    "stream_block_wide": (sb, "wide_launches"),
+    "stream_block_backward_wide": (sb, "wide_backward_launches"),
     "cagrad_solver": (cs, "launches"),
     "cheap_xattn": (cx, "launches"),
     "cheap_xattn_backward": (cx, "backward_launches"),
@@ -357,7 +364,10 @@ def hold_backward(tag, x, w, b, g, t_out, act) -> tuple:
     # bit patterns: NaN == NaN there
     same = all(torch.equal(a.view(torch.int32), c.view(torch.int32)) for a, c in zip(grads, again))
     nans = [int(torch.isnan(gk).sum()) for gk in grads]
-    log(f"[kernel] stream_block_backward {tag} x{tuple(x.shape)} w{tuple(w.shape)} {act}: "
+    variant = sb.BACKWARD_VARIANT_NAMES[sb._backward_variant(x.shape[1], x.shape[2], w.shape[2],
+                                                             w.shape[0], t_out)]
+    log(f"[kernel] stream_block_backward {tag} x{tuple(x.shape)} w{tuple(w.shape)} {act} "
+        f"(variant {variant}): "
         f"gx/gw/gb max abs err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol {tols[0]:.1e}/"
         f"{tols[1]:.2e}/{tols[2]:.2e}), NaN counts {nans} as the plain version's; two "
         f"launches bitwise equal: {same}")
@@ -955,7 +965,8 @@ def phase_training(seed, dev) -> dict:
     3 backward and 1 solver launch a step."""
     check_one_step(seed, dev)
     return compare_run_cv("cagrad", train_common(seed), (("sync", 3), ("async", 1)),
-                          {"stream_block_backward": 3, "cagrad_solver": 1}, ("stream_block",))
+                          {"stream_block_backward": 3, "cagrad_solver": 1, "stream_block_wide": 0,
+                           "stream_block_backward_wide": 0}, ("stream_block",))
 
 
 def phase_fusion_training(seed, dev) -> tuple:
@@ -969,7 +980,8 @@ def phase_fusion_training(seed, dev) -> tuple:
     xattn = compare_run_cv(
         "cheap_xattn", dict(train_common(seed), baseline="cheap_xattn"),
         (("sync", 3), ("async", 1)),
-        {"cheap_xattn_backward": 1, "stream_block_backward": 1, "cagrad_solver": 0},
+        {"cheap_xattn_backward": 1, "stream_block_backward": 1, "cagrad_solver": 0,
+         "stream_block_wide": 0, "stream_block_backward_wide": 0},
         ("stream_block", "cheap_xattn"))
     single = compare_run_cv(
         "single_mod imu", dict(train_common(seed), single_mod="imu"), (("sync", 1),),
@@ -988,6 +1000,9 @@ def phase_fusion_training(seed, dev) -> tuple:
 FOCAL_SHAPES = {"sync_batch64": (64, 64, 320, 3, 16, 8),
                 "sync_batch1024": (1024, 64, 320, 3, 16, 8),
                 "async_batch64": (3 * 64, 64, 320, 3, 16, 8)}
+# the wide variants beyond the generic kernels' limit (one window and w in
+# shared memory, about 510 channels)
+WIDE_ONLY_SHAPES = {"cin1024_batch65": (65, 64, 1024, 3, 16, 8)}
 DROPOUT_RATE = 0.1  # DeepAV-Lite's and TACA's default
 DROPOUT_ENTRIES = 1_000_000
 
@@ -1004,19 +1019,23 @@ def focal_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out):
 
 
 def check_focal_blocks(rng, dev, card) -> dict:
-    """The stream block's forward and backward at FOCAL's shapes, ReLU and
-    GELU, against their plain versions (as phase 2: two launches the same
-    bits), and each launch."""
+    """The stream block's wide variants at FOCAL's shapes and beyond the
+    generic kernels' width, ReLU and GELU, against their plain versions (as
+    phase 2: two launches the same bits), and each launch."""
     errors = {}
-    for name, (bsz, t, cin, k, cout, t_out) in FOCAL_SHAPES.items():
+    for name, (bsz, t, cin, k, cout, t_out) in {**FOCAL_SHAPES, **WIDE_ONLY_SHAPES}.items():
         for act in ("relu", "gelu"):
             x, w, b, g = focal_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
             tag = f"focal_{name}_{act}"
             errors[tag] = (hold_forward(tag, x, w, b, t_out, act),
                            hold_backward(tag, x, w, b, g, t_out, act)[0])
+        forward = sb.forward_config(bsz, t, cin, cout, k, t_out, "gelu")
+        backward = sb.backward_config(bsz, t, cin, cout, k, t_out, "gelu")
         log(f"[config] {card}: stream_block focal_{name} (B {bsz}, T {t}, C_in {cin}, K {k}, "
-            f"C_out {cout}, t_out {t_out}): forward {sb.forward_config(bsz, t, cin, cout, k, t_out)}"
-            f"; backward {sb.backward_config(t, cin, cout, k, t_out)}")
+            f"C_out {cout}, t_out {t_out}, gelu): forward {forward}; backward {backward}")
+        if forward["variant"] != "wide" or backward["variant"] != "wide":
+            raise RuntimeError(f"stream_block focal_{name}: not the wide variants: "
+                               f"{forward['variant']}, {backward['variant']}")
     return errors
 
 
@@ -1083,8 +1102,10 @@ def phase_sota_training(seed, dev) -> dict:
         check_one_step(seed, dev, baseline)
     out = {"focal": compare_run_cv(
         "focal", dict(train_common(seed), baseline="focal"), (("sync", 3), ("async", 1)),
-        {"stream_block": 1, "stream_block_backward": 1, "cagrad_solver": 0, "cheap_xattn": 0,
-         "cheap_xattn_backward": 0}, ("stream_block",), per_eval_forward={"stream_block": 1})}
+        {"stream_block": 1, "stream_block_backward": 1, "stream_block_wide": 1,
+         "stream_block_backward_wide": 1, "cagrad_solver": 0, "cheap_xattn": 0,
+         "cheap_xattn_backward": 0}, ("stream_block_wide", "stream_block_backward_wide"),
+        per_eval_forward={"stream_block": 1, "stream_block_wide": 1})}
     for baseline in wg.DROPOUT_BASELINES:
         out[baseline] = card_only_run_cv(baseline, dict(train_common(seed), baseline=baseline),
                                          (("sync", 1), ("async", 1)))
@@ -1186,13 +1207,13 @@ def time_stream_block(rng, dev, card) -> dict:
                             warmup=5, reps=50)
     bwd_library = time_cuda(library_backward, warmup=5, reps=50)
     bwd_bound, bwd_by = stream_block_backward_bound(bsz, t, cin, k, cout, t_out)
-    config = sb.backward_config(t, cin, cout, k, t_out)
+    config = sb.backward_config(bsz, t, cin, cout, k, t_out)
     log(f"[time] {card}: stream_block_backward at x({bsz},{t},{cin}) k{k}, all windows live: "
         f"kernel {bwd_kernel:.4f}/{bwd_kernel_2:.4f} ms, plain (autograd of the plain forward) "
         f"{bwd_plain:.4f}/{bwd_plain_2:.4f} ms, library (autograd of conv1d+relu+"
         f"adaptive_avg_pool1d, forward included) {bwd_library:.4f} ms, bound "
-        f"{bwd_bound:.5f} ms ({bwd_by}); launch {config} ({-(-bsz // config['tile'])} blocks "
-        f"on {torch.cuda.get_device_properties(0).multi_processor_count} SMs)")
+        f"{bwd_bound:.5f} ms ({bwd_by}); launch {config} (on "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs)")
 
     # a CAGrad task pass: only the walkway stream's third carries cotangents
     g_task = g.clone()
@@ -1224,23 +1245,47 @@ def time_stream_block(rng, dev, card) -> dict:
     }
 
 
+def device_ms(fn, reps=20) -> float:
+    """Milliseconds of device time per call: the self time of its kernels
+    under torch.profiler, without the host's cost (which sets the pace of a
+    small launch's back-to-back eager calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    return us / 1e3 / reps
+
+
+def focal_library(x, w, b, k, t_out):
+    """A yardstick: conv1d + GELU + adaptive_avg_pool1d (the port never
+    calls it)."""
+    y = F.gelu(F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0), b, padding=k // 2))
+    return F.adaptive_avg_pool1d(y, t_out).transpose(1, 2)
+
+
 def time_focal_block(rng, dev, card) -> dict:
-    """The stream block's forward and backward at FOCAL's shape (batch 1024,
-    320 channels, GELU): kernel, plain version, library call, bound."""
+    """The stream block's wide forward and backward at FOCAL's shape (batch
+    1024, 320 channels, GELU): kernel, plain version, library call, bound,
+    launch, and the generic variants that took these sizes before, in this
+    call; then at the train steps' batches (64, 3 x 64), and both variants
+    at and below the wrapper's threshold (C_in 32, 48 and 64)."""
     bsz, t, cin, k, cout, t_out = FOCAL_SHAPES["sync_batch1024"]
     x, w, b, g = focal_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
     leaves = [t_.detach().clone().requires_grad_() for t_ in (x, w, b)]
 
-    def library(xl=x, wl=w, bl=b):
-        y = F.gelu(F.conv1d(xl.transpose(1, 2), wl.permute(2, 1, 0), bl, padding=k // 2))
-        return F.adaptive_avg_pool1d(y, t_out).transpose(1, 2)
-
     def library_backward():
-        return torch.autograd.grad(library(*leaves), leaves, g)
+        return torch.autograd.grad(focal_library(*leaves, k, t_out), leaves, g)
 
     want = sb.stream_block_reference(x, w, b, t_out, "gelu")
     want_b = sb.stream_block_backward_reference(x, w, b, g, t_out, "gelu")
-    lib_err = max([(library() - want).abs().max().item()] + [
+    lib_err = max([(focal_library(x, w, b, k, t_out) - want).abs().max().item()] + [
         (p - q).abs().max().item() / max(1.0, q.abs().max().item())
         for p, q in zip(library_backward(), want_b)])
     if lib_err > KERNEL_TOL:
@@ -1249,31 +1294,94 @@ def time_focal_block(rng, dev, card) -> dict:
     with torch.inference_mode():
         fwd = {"plain": time_cuda(lambda: sb.stream_block_reference(x, w, b, t_out, "gelu")),
                "kernel": time_cuda(lambda: sb.stream_block(x, w, b, t_out, "gelu")),
+               "generic": time_cuda(lambda: sb._forward_kernel(x, w, b, t_out, "gelu",
+                                                               sb.GENERIC)),
                "kernel_2": time_cuda(lambda: sb.stream_block(x, w, b, t_out, "gelu")),
                "plain_2": time_cuda(lambda: sb.stream_block_reference(x, w, b, t_out, "gelu")),
-               "library": time_cuda(library)}
+               "library": time_cuda(lambda: focal_library(x, w, b, k, t_out))}
     bwd = {"plain": time_cuda(lambda: sb.stream_block_backward_reference(
                x, w, b, g, t_out, "gelu"), warmup=3, reps=20),
            "kernel": time_cuda(lambda: sb.stream_block_backward(x, w, b, g, t_out, "gelu"),
                                warmup=3, reps=20),
+           "generic": time_cuda(lambda: sb._backward_kernel(x, w, b, g, t_out, "gelu",
+                                                            sb.BWD_GENERIC), warmup=3, reps=20),
            "kernel_2": time_cuda(lambda: sb.stream_block_backward(x, w, b, g, t_out, "gelu"),
                                  warmup=3, reps=20),
            "plain_2": time_cuda(lambda: sb.stream_block_backward_reference(
                x, w, b, g, t_out, "gelu"), warmup=3, reps=20),
            "library": time_cuda(library_backward, warmup=3, reps=20)}
+    launch = {"forward": sb.forward_config(bsz, t, cin, cout, k, t_out, "gelu"),
+              "backward": sb.backward_config(bsz, t, cin, cout, k, t_out, "gelu")}
+    log(f"[config] {card}: stream_block at FOCAL's shape x({bsz},{t},{cin}) k{k} gelu: forward "
+        f"{launch['forward']}; backward {launch['backward']}")
     out = {}
-    for what, ms, (bound_ms, bound_by) in (
-            ("stream_block", fwd, stream_block_bound(bsz, t, cin, k, cout, t_out)),
+    for what, ms, (bound_ms, bound_by), fn in (
+            ("stream_block", fwd, stream_block_bound(bsz, t, cin, k, cout, t_out),
+             lambda: sb.stream_block(x, w, b, t_out, "gelu")),
             ("stream_block_backward", bwd,
-             stream_block_backward_bound(bsz, t, cin, k, cout, t_out))):
+             stream_block_backward_bound(bsz, t, cin, k, cout, t_out),
+             lambda: sb.stream_block_backward(x, w, b, g, t_out, "gelu"))):
+        part = "forward" if what == "stream_block" else "backward"
+        autograd = ", autograd, forward included" if part == "backward" else ""
         out[what] = {"ms": min(ms["kernel"], ms["kernel_2"]),
                      "plain_ms": min(ms["plain"], ms["plain_2"]), "library_ms": ms["library"],
-                     "bound_ms": bound_ms, "bound_by": bound_by}
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "variant": launch[part]["variant"],
+                     "launch": launch[part], "device_ms": device_ms(fn),
+                     "generic_ms": ms["generic"]}
         log(f"[time] {card}: {what} at FOCAL's shape x({bsz},{t},{cin}) k{k} gelu -> "
-            f"({bsz},{t_out},{cout}): kernel {ms['kernel']:.4f}/{ms['kernel_2']:.4f} ms, plain "
-            f"{ms['plain']:.4f}/{ms['plain_2']:.4f} ms, library (conv1d+gelu+"
-            f"adaptive_avg_pool1d{', autograd, forward included' if 'backward' in what else ''})"
-            f" {ms['library']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+            f"({bsz},{t_out},{cout}), variant {launch[part]['variant']}: kernel "
+            f"{ms['kernel']:.4f}/"
+            f"{ms['kernel_2']:.4f} ms (device {out[what]['device_ms']:.4f}), generic variant "
+            f"{ms['generic']:.4f} ms, plain {ms['plain']:.4f}/{ms['plain_2']:.4f} ms, library "
+            f"(conv1d+gelu+adaptive_avg_pool1d{autograd}) {ms['library']:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by})")
+
+    # the train steps' batches: device time, since the eager calls time the host
+    for name in ("sync_batch64", "async_batch64"):
+        bsz, t, cin, k, cout, t_out = FOCAL_SHAPES[name]
+        xb, wb, bb, gb = focal_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
+        lv = [t_.detach().clone().requires_grad_() for t_ in (xb, wb, bb)]
+        with torch.inference_mode():
+            f_ms = {"kernel": device_ms(lambda: sb.stream_block(xb, wb, bb, t_out, "gelu")),
+                    "eager": time_cuda(lambda: sb.stream_block(xb, wb, bb, t_out, "gelu")),
+                    "library": device_ms(lambda: focal_library(xb, wb, bb, k, t_out))}
+        b_ms = {"kernel": device_ms(lambda: sb.stream_block_backward(xb, wb, bb, gb, t_out,
+                                                                     "gelu")),
+                "eager": time_cuda(lambda: sb.stream_block_backward(xb, wb, bb, gb, t_out,
+                                                                    "gelu")),
+                "library": device_ms(lambda: torch.autograd.grad(
+                    focal_library(*lv, k, t_out), lv, gb))}
+        bounds = (stream_block_bound(bsz, t, cin, k, cout, t_out)[0],
+                  stream_block_backward_bound(bsz, t, cin, k, cout, t_out)[0])
+        out[f"{name}_ms"] = {"forward": f_ms, "backward": b_ms, "bound_ms": bounds}
+        log(f"[time] {card}: stream_block wide at FOCAL's {name} x({bsz},{t},{cin}) gelu: "
+            f"forward device {f_ms['kernel']:.4f} ms (eager {f_ms['eager']:.4f}), library "
+            f"device {f_ms['library']:.4f}, bound {bounds[0]:.5f}; backward device "
+            f"{b_ms['kernel']:.4f} ms (eager {b_ms['eager']:.4f}), library autograd device "
+            f"{b_ms['library']:.4f}, bound {bounds[1]:.5f}; launch forward "
+            f"{sb.forward_config(bsz, t, cin, cout, k, t_out, 'gelu')}, backward "
+            f"{sb.backward_config(bsz, t, cin, cout, k, t_out, 'gelu')}")
+
+    # the threshold: both variants at and below the C_in where the wrapper
+    # starts to take the wide ones (36 is warp_tile's)
+    out["threshold_ms"] = {}
+    for cin in (32, 48, sb.WIDE_MIN_CIN):
+        bsz, t, k, cout, t_out = 1024, 64, 3, 16, 8
+        xt, wt, bt, gt = focal_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
+        with torch.inference_mode():
+            edge = {v: device_ms(lambda v=v: sb._forward_kernel(xt, wt, bt, t_out, "gelu", v))
+                    for v in (sb.WIDE, sb.GENERIC)}
+        edge_b = {v: device_ms(lambda v=v: sb._backward_kernel(xt, wt, bt, gt, t_out, "gelu",
+                                                                 v))
+                  for v in (sb.BWD_WIDE, sb.BWD_GENERIC)}
+        out["threshold_ms"][cin] = {
+            "forward_wide": edge[sb.WIDE], "forward_generic": edge[sb.GENERIC],
+            "backward_wide": edge_b[sb.BWD_WIDE], "backward_generic": edge_b[sb.BWD_GENERIC]}
+        log(f"[time] {card}: stream_block at x({bsz},{t},{cin}) gelu (the wrapper's wide "
+            f"variants from C_in {sb.WIDE_MIN_CIN}), device: forward wide "
+            f"{edge[sb.WIDE]:.4f} ms, generic {edge[sb.GENERIC]:.4f} ms; backward wide "
+            f"{edge_b[sb.BWD_WIDE]:.4f} ms, generic {edge_b[sb.BWD_GENERIC]:.4f} ms")
     return out
 
 
@@ -1575,9 +1683,19 @@ def main() -> int:
     launches = dict(training["sync"]["launches"])
     for name in ("cheap_xattn", "cheap_xattn_backward"):
         launches[name] = fusion["sync"]["launches"][name]
+    # the wide variants on their own main path: FOCAL's training, the times
+    # at FOCAL's shape
+    for name in ("stream_block", "stream_block_backward"):
+        launches[f"{name}_wide"] = sota["focal"]["sync"]["launches"][f"{name}_wide"]
+        times[f"{name}_wide"] = focal_times[name]
+    focal_err = focal_errors["focal_sync_batch1024_gelu"]
     entries = [
         ("stream_block", "gaitpd_torch/csrc/stream_block.cu", "gaitpd/ops/pallas_blocks.py:72",
          sb_errors["main"][0]),
+        ("stream_block_wide", "gaitpd_torch/csrc/stream_block.cu",
+         "gaitpd/ops/pallas_blocks.py:72", focal_err[0]),
+        ("stream_block_backward_wide", "gaitpd_torch/csrc/stream_block.cu",
+         "gaitpd/ops/pallas_blocks.py:160", focal_err[1]),
         ("stream_block_backward", "gaitpd_torch/csrc/stream_block.cu",
          "gaitpd/ops/pallas_blocks.py:160", sb_errors["main"][1]),
         # not a TPU kernel: the CAGrad solver that XLA compiles into the step

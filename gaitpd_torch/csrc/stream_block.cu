@@ -19,7 +19,7 @@
 // the conv's intermediate (B, T, Cout) goes through device memory.
 //
 // What the design does about it. One pass, nothing between the input and the
-// pooled output goes through device memory. Two variants, chosen by the
+// pooled output goes through device memory. Three variants, chosen by the
 // sizes alone (gaitpd_torch/ops/stream_block.py::_variant):
 //
 // "warp_tile", the main path's sizes compiled in: T = 64, Cout = 16, K = 3,
@@ -40,6 +40,24 @@
 // then applies bias and activation, averages its 8 frames in registers and
 // writes one float4: a warp writes its window's 512 bytes at once.
 //
+// "wide", warp_tile's T, Cout, K and t_out at any Cin (_variant takes it
+// from ops/stream_block.py::WIDE_MIN_CIN channels; FOCAL's backbone: 128
+// shared + 3 x 64 private channels, GELU). At 1024 windows of Cin 320 it
+// reads 84 MB and does 2.0 GFLOP, 25 us and 30 us at the card's rates:
+// both bound it. Cin is streamed through shared memory 32 channels at
+// a time with cp.async into two buffers, so the next chunk's copies run
+// under this chunk's FMAs, and the chunk of w is staged once a block for all
+// its windows. A block of 8 warps takes 1, 2, 4 or 8 windows (the most that
+// still gives every SM a block: 4 at 1024 windows, 1 at 64) and splits each
+// window's channel quads over the rest of its warps; lane = (bin, 4 c_out)
+// as in warp_tile, 32 accumulators, 10 float4 of x and 12 of w per 384 FMAs;
+// the splits' sums meet in shared memory in a fixed order. Rows of x are
+// skewed 16 bytes every 8 frames and rows of w every 4 channels, so a warp's
+// loads fall on distinct banks. Any Cin: a chunk beyond Cin is zero-filled
+// by the copies. On the H100 (PERF.md) the copies alone take half the
+// kernel's time and the FMAs alone three quarters: they overlap only in
+// part.
+//
 // "generic", every other size (T = 101 with overlapping bins, K = 1 or 5,
 // Cin = 13, ...): a block stages a tile of whole windows (with a zeroed halo
 // of K/2 frames on each side, so no host-side padding) and the weights in
@@ -49,7 +67,8 @@
 // torch's AdaptiveAvgPool1d: bins overlap when t_out does not divide T, and a
 // frame on a shared edge is then computed by both bins.
 //
-// No tensor cores: parity is strict f32 (no TF32).
+// No tensor cores: parity is strict f32 (no TF32). A 3xTF32 tensor-core
+// version of the wide variant's conv is untried.
 //
 // BACKWARD
 //
@@ -101,6 +120,35 @@
 // parity is strict f32. On the H100 (PERF.md) the blocks run in one wave,
 // so the kernel lasts as long as a live block: in a CAGrad task pass the
 // skip frees two thirds of the SMs' work but shortens the launch little.
+//
+// That is the "generic" backward. At the wide forward's sizes (FOCAL's Cin
+// 320) it would stage a whole window and w per block (one window a block at Cin
+// 320, w reloaded by each of 1024 blocks) and write 63 MB of partial rows;
+// above Cin of about 510 one window no longer fits. The "wide" backward
+// (gaitpd_torch/ops/stream_block.py::_backward_variant) takes those sizes,
+// any Cin, in two kernels and the two reductions:
+//  - g_z: the wide forward's conv, with g_y * act'(z) (B, 64, 16) written to
+//    a scratch buffer in place of the pooled output (4 MB at 1024 windows).
+//  - gx and gw: block (window range, chunk of 32 channels), two blocks an
+//    SM and as many ranges as fill the card once (26 x 10 chunks at Cin 320).
+//    A block stages the chunk of w once, then its windows 4 at a time with
+//    their g_z, double-buffered. Each window has a gx warp (lane = 8 frames
+//    x 4 channels, 32 accumulators, per c_out quad 10 float4 of g_z and 12
+//    of w for 384 FMAs; it writes gx) and a gw warp (lane = 4 channels x 4
+//    c_out x 3 taps, 48 accumulators over all the block's windows, one
+//    float4 of x and one of g_z per frame for 48 FMAs; gb beside it in the
+//    chunk-0 blocks): the two are as many FMAs. At the end the gw warps'
+//    tiles are added in a fixed order into the range's row of the scratch
+//    buffer: 26 rows, 1.6 MB, where the generic backward writes 63 MB. The
+//    gx and gw warps of a window are warps w and w + 4, so that each of the
+//    SM's schedulers runs both kinds. The two kinds run loops of their own
+//    that meet at the same barriers: barrier.sync without .aligned, which
+//    PTX allows to be reached from different code (__syncthreads is not).
+//    On the H100 (PERF.md) it reads x again and writes gx, 168 MB, and its
+//    copies, its gx stores and its FMAs overlap only in part: it takes about
+//    twice the 2 x 1.0 GFMA's time.
+// It skips no window (a NaN anywhere reaches gw as in the plain version),
+// uses no float atomics, and gives the same bits from run to run.
 //
 // Plain C interface, bound with ctypes (gaitpd_torch/ops/stream_block.py).
 
@@ -165,7 +213,8 @@ constexpr int kTilePitch = kTileTout * kTileRow + 4;  // one channel of a window
 constexpr int kTileWarps = 4;                    // windows (one a warp) a block
 constexpr int kTileThreads = kTileWarps * 32;
 
-enum Variant { kWarpTile = 0, kGeneric = 1 };
+enum Variant { kWarpTile = 0, kGeneric = 1, kWide = 2 };
+enum BackwardVariant { kBwdGeneric = 0, kBwdWide = 1 };
 
 bool tile_sizes(int t_in, int cin, int cout, int k, int t_out) {
   return t_in == kTileT && cout == kTileCout && k == kTileK && t_out == kTileTout &&
@@ -292,6 +341,460 @@ stream_block_generic_kernel(const float* __restrict__ x, const float* __restrict
       sum += activate(acc, act);
     }
     out[static_cast<size_t>(b0 + wi) * per_win + r] = sum / static_cast<float>(end - start);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The wide variants: warp_tile's T, C_out, K and t_out, any C_in, streamed
+// through shared memory kWideChunk channels at a time with cp.async, two
+// buffers (the next chunk's copies run under this chunk's FMAs).
+
+constexpr int kWideChunk = 32;                   // input channels staged at a time
+constexpr int kWideRows = kTileT + kTileK - 1;   // padded frames of a window
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = kWideWarps * 32;
+// Padded frame r of a window starts at r * row + 4 * (r / 8): the extra 16
+// bytes every 8 frames put the rows that lanes of neighbouring bins read at
+// once (8 frames apart) on distinct banks.
+constexpr int kWideXWin = kWideRows * kWideChunk + 4 * ((kWideRows - 1) >> 3);  // one window of x
+constexpr int kWideZWin = kWideRows * kTileCout + 4 * ((kWideRows - 1) >> 3);   // one window of g_z
+// Row R = tap * kWideChunk + channel of a chunk of w starts at R * 16 + 4 * (R / 4),
+// so that the 4 channel quads a warp reads at once lie on distinct banks.
+constexpr int kWideWRows = kTileK * kWideChunk;
+constexpr int kWideWSize = kWideWRows * kTileCout + 4 * (kWideWRows >> 2);
+constexpr int kWideOut = kWideWRows * kTileCout + kTileCout;  // a chunk's gw, then gb
+
+__device__ __forceinline__ int wide_xrow(int r) { return r * kWideChunk + 4 * (r >> 3); }
+__device__ __forceinline__ int wide_zrow(int r) { return r * kTileCout + 4 * (r >> 3); }
+__device__ __forceinline__ int wide_wrow(int r) { return r * kTileCout + 4 * (r >> 2); }
+
+__device__ __forceinline__ float component(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// Asynchronous copies global -> shared of 4 or 16 bytes; with `full` false
+// the destination is zero-filled and nothing is read.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(full ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// VEC floats at a time: 4 where C_in is a multiple of 4 and x and w lie on
+// 16 bytes, else 1.
+template <int VEC>
+__device__ __forceinline__ void cp_async_vec(float* dst, const float* src, bool full) {
+  if (VEC == 4) {
+    cp_async16(dst, src, full);
+  } else {
+    cp_async4(dst, src, full);
+  }
+}
+
+// Channels [c0, c0 + kWideChunk) of windows b0 .. b0 + nwin - 1 into xs
+// (window i at i * kWideXWin), zero outside the window and beyond C_in.
+template <int VEC>
+__device__ __forceinline__ void wide_stage_x(const float* __restrict__ x, float* xs, int b0,
+                                             int nwin, int cin, int c0) {
+  constexpr int kPerRow = kWideChunk / VEC;
+  for (int e = threadIdx.x; e < nwin * kWideRows * kPerRow; e += blockDim.x) {
+    const int j = (e % kPerRow) * VEC, rw = e / kPerRow;
+    const int wi = rw / kWideRows, r = rw - wi * kWideRows;
+    const int f = r - 1, ci = c0 + j;
+    const bool full = f >= 0 && f < kTileT && ci < cin;
+    const float* src = full ? x + (static_cast<size_t>(b0 + wi) * kTileT + f) * cin + ci : x;
+    cp_async_vec<VEC>(xs + wi * kWideXWin + wide_xrow(r) + j, src, full);
+  }
+}
+
+// Channels [c0, c0 + kWideChunk) of w (K, C_in, 16), zero beyond C_in.
+template <int VEC>
+__device__ __forceinline__ void wide_stage_w(const float* __restrict__ w, float* ws, int cin,
+                                             int c0) {
+  constexpr int kPerRow = kTileCout / VEC;
+  for (int e = threadIdx.x; e < kWideWRows * kPerRow; e += blockDim.x) {
+    const int co = (e % kPerRow) * VEC, r = e / kPerRow;
+    const int i = r / kWideChunk, ci = c0 + r - i * kWideChunk;
+    const bool full = ci < cin;
+    const float* src = full ? w + (static_cast<size_t>(i) * cin + ci) * kTileCout + co : w;
+    cp_async_vec<VEC>(ws + wide_wrow(r) + co, src, full);
+  }
+}
+
+// g_z (B, T, 16) of windows b0 .. b0 + nwin - 1 into zs, with a zero frame
+// on each side.
+__device__ __forceinline__ void wide_stage_gz(const float* __restrict__ gz, float* zs, int b0,
+                                              int nwin) {
+  for (int e = threadIdx.x; e < nwin * kWideRows * 4; e += blockDim.x) {
+    const int q = e & 3, rw = e >> 2;
+    const int wi = rw / kWideRows, r = rw - wi * kWideRows;
+    const int f = r - 1;
+    const bool full = f >= 0 && f < kTileT;
+    const float* src =
+        full ? gz + (static_cast<size_t>(b0 + wi) * kTileT + f) * kTileCout + 4 * q : gz;
+    cp_async16(zs + wi * kWideZWin + wide_zrow(r) + 4 * q, src, full);
+  }
+}
+
+enum WideMode { kWideForward = 0, kWideGradZ = 1 };
+
+// The conv kernel's buffers: two (16-channel chunks, and 3 or 4 buffers,
+// measured slower on the H100 at FOCAL's shape).
+constexpr int kConvStages = 2;
+
+// Shared memory of the wide conv kernel at `windows` windows a block: its
+// buffers of x and w, or the splits' sums at the end, whichever is larger.
+size_t wide_conv_smem(int windows) {
+  const size_t staged = kConvStages * static_cast<size_t>(windows * kWideXWin + kWideWSize);
+  const size_t sums = static_cast<size_t>(kWideWarps - windows) * 32 * 32;
+  return (staged > sums ? staged : sums) * sizeof(float);
+}
+
+// The conv of `windows` windows a block, each on kWideWarps / windows warps
+// (its splits), which take the channel quads of every chunk in turn. Lane =
+// (bin, group of 4 c_out) as in warp_tile: the 8 frames x 4 c_out of its bin
+// in 32 registers; per channel quad it reads 10 float4 of x and, per channel
+// and tap, one float4 of w, for 384 FMAs. The splits' sums meet in shared
+// memory, in split order. Then, by MODE: the pooled activation (B, 8, 16)
+// into out; or, for the cotangent g (B, 8, 16), g_z = g_y * act'(z)
+// (B, 64, 16) into out.
+template <int ACT, int MODE, int VEC>
+__global__ void __launch_bounds__(kWideThreads, 2)
+stream_block_wide_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                         const float* __restrict__ b, const float* __restrict__ g,
+                         float* __restrict__ out, int batch, int cin, int windows) {
+  extern __shared__ float4 smem_wide[];
+  float* smem = reinterpret_cast<float*>(smem_wide);
+  const int splits = kWideWarps / windows;
+  const int stage = windows * kWideXWin + kWideWSize;  // one buffer: x, then w
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wi = warp / splits, s = warp - wi * splits;
+  const int b0 = blockIdx.x * windows;
+  const int nwin = min(windows, batch - b0);
+  const int bin = lane >> 2, cg = lane & 3;
+  const int nchunks = (cin + kWideChunk - 1) / kWideChunk;
+
+  float acc[kTileBin][4];
+#pragma unroll
+  for (int j = 0; j < kTileBin; ++j) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.0f;
+  }
+  // one commit group a chunk (empty past the last), so that waiting for all
+  // but the newest kConvStages - 1 groups waits for chunk c
+  auto stage_chunk = [&](int c) {
+    if (c < nchunks) {
+      float* buf = smem + (c % kConvStages) * stage;
+      wide_stage_x<VEC>(x, buf, b0, nwin, cin, c * kWideChunk);
+      wide_stage_w<VEC>(w, buf + windows * kWideXWin, cin, c * kWideChunk);
+    }
+    cp_async_commit();
+  };
+  for (int c = 0; c < kConvStages - 1; ++c) stage_chunk(c);
+  for (int c = 0; c < nchunks; ++c) {
+    stage_chunk(c + kConvStages - 1);
+    cp_async_wait<kConvStages - 1>();
+    __syncthreads();
+    if (wi < nwin) {
+      const float* xw = smem + (c % kConvStages) * stage + wi * kWideXWin + wide_xrow(kTileBin * bin);
+      const float* ws = smem + (c % kConvStages) * stage + windows * kWideXWin;
+      const int nq = (min(kWideChunk, cin - c * kWideChunk) + 3) >> 2;
+      for (int q = s; q < nq; q += splits) {
+        // padded rows 8 bin .. 8 bin + 9; wide_xrow(8 bin + i) - wide_xrow(8 bin)
+        // = wide_xrow(i)
+        float4 xv[kTileBin + 2];
+#pragma unroll
+        for (int i = 0; i < kTileBin + 2; ++i) {
+          xv[i] = *reinterpret_cast<const float4*>(xw + wide_xrow(i) + 4 * q);
+        }
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+          for (int tap = 0; tap < kTileK; ++tap) {
+            const float4 wv = *reinterpret_cast<const float4*>(
+                ws + wide_wrow(tap * kWideChunk + 4 * q + cc) + 4 * cg);
+#pragma unroll
+            for (int j = 0; j < kTileBin; ++j) {
+              // output frame 8 bin + j reads padded row 8 bin + j + tap
+              const float xs = component(xv[j + tap], cc);
+              acc[j][0] = fmaf(xs, wv.x, acc[j][0]);
+              acc[j][1] = fmaf(xs, wv.y, acc[j][1]);
+              acc[j][2] = fmaf(xs, wv.z, acc[j][2]);
+              acc[j][3] = fmaf(xs, wv.w, acc[j][3]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (splits > 1) {  // the staging buffers are no longer read
+    if (s > 0 && wi < nwin) {
+      float* red = smem + ((wi * (splits - 1) + s - 1) * 32) * 32 + lane;
+#pragma unroll
+      for (int j = 0; j < kTileBin; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) red[(j * 4 + c) * 32] = acc[j][c];
+      }
+    }
+    __syncthreads();
+    if (s == 0 && wi < nwin) {
+      for (int o = 1; o < splits; ++o) {
+        const float* part = smem + ((wi * (splits - 1) + o - 1) * 32) * 32 + lane;
+#pragma unroll
+        for (int j = 0; j < kTileBin; ++j) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[j][c] += part[(j * 4 + c) * 32];
+        }
+      }
+    }
+  }
+  if (s != 0 || wi >= nwin) return;
+  const int win = b0 + wi;
+  const float bv[4] = {b[4 * cg], b[4 * cg + 1], b[4 * cg + 2], b[4 * cg + 3]};
+  if (MODE == kWideForward) {
+    float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < kTileBin; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sum[c] += activate(acc[j][c] + bv[c], ACT);
+    }
+    constexpr float n = static_cast<float>(kTileBin);
+    reinterpret_cast<float4*>(out)[(static_cast<size_t>(win) * kTileTout + bin) * 4 + cg] =
+        make_float4(sum[0] / n, sum[1] / n, sum[2] / n, sum[3] / n);
+  } else {
+    // every frame lies in one bin of 8 frames: g_y = g[bin] / 8
+    const float* gv = g + (static_cast<size_t>(win) * kTileTout + bin) * kTileCout + 4 * cg;
+    constexpr float inv = 1.0f / static_cast<float>(kTileBin);
+    const float gy[4] = {gv[0] * inv, gv[1] * inv, gv[2] * inv, gv[3] * inv};
+    float4* gz = reinterpret_cast<float4*>(out) +
+                 (static_cast<size_t>(win) * kTileT + kTileBin * bin) * 4 + cg;
+#pragma unroll
+    for (int j = 0; j < kTileBin; ++j) {
+      gz[j * 4] = make_float4(gy[0] * activate_grad(acc[j][0] + bv[0], ACT),
+                              gy[1] * activate_grad(acc[j][1] + bv[1], ACT),
+                              gy[2] * activate_grad(acc[j][2] + bv[2], ACT),
+                              gy[3] * activate_grad(acc[j][3] + bv[3], ACT));
+    }
+  }
+}
+
+// A barrier of the whole block that its threads may reach from different
+// code: barrier.sync without .aligned (__syncthreads compiles to the
+// .aligned form, which requires every thread of a warp, and the whole
+// block, to run the same barrier instruction).
+__device__ __forceinline__ void block_barrier() { asm volatile("barrier.sync 0;\n" ::: "memory"); }
+
+constexpr int kWideGradWindows = kWideWarps / 2;  // a round: a gx warp and a gw warp a window
+constexpr size_t kWideGradSmem =
+    (kWideWSize + 2 * static_cast<size_t>(kWideGradWindows) * (kWideXWin + kWideZWin)) *
+    sizeof(float);
+
+// gx and gw of the wide backward, from g_z (B, 64, 16). Block (range,
+// chunk) takes channels [32 chunk, 32 chunk + 32) of the windows of its
+// range, 4 at a time, staged with their g_z while the previous 4 are
+// computed; each window has two warps. Its gx warp computes the window's gx
+// for the chunk (lane = (8 frames, channel quad), 32 accumulators; per c_out
+// quad 10 float4 of g_z and 12 of w for 384 FMAs) and writes it. Its gw warp
+// adds the window's gw into its register tile (lane = (channel quad, c_out
+// quad), 3 taps x 4 x 4 = 48 accumulators; per frame one float4 of x and one
+// of g_z for 48 FMAs) and gb into 4 more: gx and gw are as many FMAs. At the
+// end the gw warps' tiles are added in window-slot order through shared
+// memory into the range's row of `partial` (gw's entries of the chunk; gb
+// by the chunk-0 block).
+template <int VEC>
+__global__ void __launch_bounds__(kWideThreads, 2)
+stream_block_wide_grad_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                              const float* __restrict__ gz, float* __restrict__ gx,
+                              float* __restrict__ partial, int batch, int cin, int ranges) {
+  extern __shared__ float4 smem_wide[];
+  float* ws = reinterpret_cast<float*>(smem_wide);  // kWideWSize: the chunk of w
+  float* bufs = ws + kWideWSize;                    // two buffers: x, then g_z, of 4 windows
+  constexpr int kStage = kWideGradWindows * (kWideXWin + kWideZWin);
+  const int nchunks = (cin + kWideChunk - 1) / kWideChunk;
+  const int range = blockIdx.x / nchunks, chunk = blockIdx.x - range * nchunks;
+  const int c0 = chunk * kWideChunk;
+  const int wb0 = static_cast<int>(static_cast<long long>(range) * batch / ranges);
+  const int wb1 = static_cast<int>(static_cast<long long>(range + 1) * batch / ranges);
+  const int rounds = (wb1 - wb0 + kWideGradWindows - 1) / kWideGradWindows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // warps w and w + 4 share a window and a scheduler: each of the SM's four
+  // schedulers runs gx and gw warps both
+  const int slot = warp & (kWideGradWindows - 1);  // the window of the round
+  const bool gw_warp = warp >= kWideGradWindows;
+  const int hi = lane >> 2, lo = lane & 3;  // gx: (frames 8 hi .., quad lo); gw: (quad hi, c_out quad lo)
+
+  auto stage_round = [&](int rd) {
+    float* buf = bufs + (rd & 1) * kStage;
+    const int r0 = wb0 + rd * kWideGradWindows, n = min(kWideGradWindows, wb1 - r0);
+    wide_stage_x<VEC>(x, buf, r0, n, cin, c0);
+    wide_stage_gz(gz, buf + kWideGradWindows * kWideXWin, r0, n);
+    cp_async_commit();
+  };
+  // Round rd's data in buffer rd & 1, the next round's copies under way.
+  // Every thread stages; both kinds of warp, each in a loop of its own, pass
+  // the same block_barrier()s: two a round.
+  auto begin_round = [&](int rd) {
+    if (rd + 1 < rounds) {
+      stage_round(rd + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    block_barrier();
+  };
+  wide_stage_w<VEC>(w, ws, cin, c0);  // committed with round 0
+  stage_round(0);
+  if (rounds == 0) cp_async_wait<0>();
+
+  float* red = bufs;  // the gw warps' tiles at the end (the staging buffers are no longer read)
+  if (gw_warp) {
+    float gw_acc[kTileK][4][4];
+    float gb_acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < kTileK; ++i) {
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+        for (int co = 0; co < 4; ++co) gw_acc[i][cc][co] = 0.0f;
+      }
+    }
+    for (int rd = 0; rd < rounds; ++rd) {
+      begin_round(rd);
+      if (wb0 + rd * kWideGradWindows + slot < wb1) {
+        // gw[tap, ci, co] += sum_t xp[t + tap, ci] g_z[t, co], padded x row
+        // t + tap, padded g_z row t + 1; gb[co] += sum_t g_z[t, co]
+        const float* xw = bufs + (rd & 1) * kStage + slot * kWideXWin;
+        const float* zw =
+            bufs + (rd & 1) * kStage + kWideGradWindows * kWideXWin + slot * kWideZWin;
+        float4 x0 = *reinterpret_cast<const float4*>(xw + wide_xrow(0) + 4 * hi);
+        float4 x1 = *reinterpret_cast<const float4*>(xw + wide_xrow(1) + 4 * hi);
+#pragma unroll 2
+        for (int t = 0; t < kTileT; ++t) {
+          const float4 x2 = *reinterpret_cast<const float4*>(xw + wide_xrow(t + 2) + 4 * hi);
+          const float4 z = *reinterpret_cast<const float4*>(zw + wide_zrow(t + 1) + 4 * lo);
+          const float4 xt[3] = {x0, x1, x2};
+          const float zc[4] = {z.x, z.y, z.z, z.w};
+#pragma unroll
+          for (int tap = 0; tap < kTileK; ++tap) {
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc) {
+              const float xs = component(xt[tap], cc);
+#pragma unroll
+              for (int co = 0; co < 4; ++co) {
+                gw_acc[tap][cc][co] = fmaf(xs, zc[co], gw_acc[tap][cc][co]);
+              }
+            }
+          }
+          if (chunk == 0) {
+#pragma unroll
+            for (int co = 0; co < 4; ++co) gb_acc[co] += zc[co];
+          }
+          x0 = x1;
+          x1 = x2;
+        }
+      }
+      block_barrier();
+    }
+#pragma unroll
+    for (int tap = 0; tap < kTileK; ++tap) {
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+        for (int co = 0; co < 4; ++co) {
+          red[slot * kWideOut + (tap * kWideChunk + 4 * hi + cc) * kTileCout + 4 * lo + co] =
+              gw_acc[tap][cc][co];
+        }
+      }
+    }
+    if (hi == 0) {
+#pragma unroll
+      for (int co = 0; co < 4; ++co) {
+        red[slot * kWideOut + kWideWRows * kTileCout + 4 * lo + co] = gb_acc[co];
+      }
+    }
+  } else {
+    for (int rd = 0; rd < rounds; ++rd) {
+      begin_round(rd);
+      const int win = wb0 + rd * kWideGradWindows + slot;
+      const float* zw =
+          bufs + (rd & 1) * kStage + kWideGradWindows * kWideXWin + slot * kWideZWin;
+      // gx[f, ci] = sum_tap sum_co g_z[f + 1 - tap, co] w[tap, ci, co]: padded
+      // g_z row f + 2 - tap, for frame f = 8 hi + j at index j + 2 - tap
+      for (int h = 0; h < 2 && win < wb1 && c0 + 16 * h < cin; ++h) {
+        const int q = 4 * h + lo;
+        float a[kTileBin][4];
+#pragma unroll
+        for (int j = 0; j < kTileBin; ++j) {
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) a[j][cc] = 0.0f;
+        }
+#pragma unroll 1
+        for (int cq = 0; cq < 4; ++cq) {
+          float4 zv[kTileBin + 2];
+#pragma unroll
+          for (int i = 0; i < kTileBin + 2; ++i) {
+            zv[i] = *reinterpret_cast<const float4*>(zw + wide_zrow(kTileBin * hi + i) + 4 * cq);
+          }
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+            for (int tap = 0; tap < kTileK; ++tap) {
+              const float4 wv = *reinterpret_cast<const float4*>(
+                  ws + wide_wrow(tap * kWideChunk + 4 * q + cc) + 4 * cq);
+#pragma unroll
+              for (int j = 0; j < kTileBin; ++j) {
+                const float4 z = zv[j + 2 - tap];
+                a[j][cc] = fmaf(z.x, wv.x, a[j][cc]);
+                a[j][cc] = fmaf(z.y, wv.y, a[j][cc]);
+                a[j][cc] = fmaf(z.z, wv.z, a[j][cc]);
+                a[j][cc] = fmaf(z.w, wv.w, a[j][cc]);
+              }
+            }
+          }
+        }
+        float* out = gx + (static_cast<size_t>(win) * kTileT + kTileBin * hi) * cin + c0 + 4 * q;
+        if (VEC == 4) {  // C_in a multiple of 4: the quad lies on 16 bytes, in or out of C_in
+#pragma unroll
+          for (int j = 0; j < kTileBin && c0 + 4 * q < cin; ++j) {
+            *reinterpret_cast<float4*>(out + j * cin) = make_float4(a[j][0], a[j][1], a[j][2], a[j][3]);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < kTileBin; ++j) {
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc) {
+              if (c0 + 4 * q + cc < cin) out[j * cin + cc] = a[j][cc];
+            }
+          }
+        }
+      }
+      block_barrier();
+    }
+  }
+  __syncthreads();
+  const int nw = kTileK * cin * kTileCout;
+  float* row = partial + static_cast<size_t>(range) * (nw + kTileCout);
+  for (int e = threadIdx.x; e < kWideOut; e += blockDim.x) {
+    float sum = red[e];
+    for (int p = 1; p < kWideGradWindows; ++p) sum += red[p * kWideOut + e];
+    if (e < kWideWRows * kTileCout) {
+      const int r = e / kTileCout, co = e - r * kTileCout;
+      const int tap = r / kWideChunk, ci = c0 + r - tap * kWideChunk;
+      if (ci < cin) row[(static_cast<size_t>(tap) * cin + ci) * kTileCout + co] = sum;
+    } else if (chunk == 0) {
+      row[nw + e - kWideWRows * kTileCout] = sum;
+    }
   }
 }
 
@@ -677,6 +1180,8 @@ void backward_tile(int t_in, int cin, int cout, int k, int t_out, int* tile, siz
 }
 
 using TileKernel = void (*)(const float*, const float*, const float*, float*, int);
+using WideKernel = void (*)(const float*, const float*, const float*, const float*, float*, int,
+                            int, int);
 
 template <int CIN>
 TileKernel tile_kernel_for(int act) {
@@ -692,18 +1197,84 @@ TileKernel tile_kernel(int cin, int act) {
   }
 }
 
+template <int VEC>
+WideKernel wide_kernel_for(int act, int mode) {
+  if (mode == kWideForward) {
+    return act == kActRelu ? stream_block_wide_kernel<kActRelu, kWideForward, VEC>
+                           : stream_block_wide_kernel<kActGelu, kWideForward, VEC>;
+  }
+  return act == kActRelu ? stream_block_wide_kernel<kActRelu, kWideGradZ, VEC>
+                         : stream_block_wide_kernel<kActGelu, kWideGradZ, VEC>;
+}
+
+WideKernel wide_kernel(int act, int mode, bool vec4) {
+  return vec4 ? wide_kernel_for<4>(act, mode) : wide_kernel_for<1>(act, mode);
+}
+
+using WideGradKernel = void (*)(const float*, const float*, const float*, float*, float*, int,
+                                int, int);
+
+WideGradKernel wide_grad_kernel(bool vec4) {
+  return vec4 ? stream_block_wide_grad_kernel<4> : stream_block_wide_grad_kernel<1>;
+}
+
+// The wide kernels stage 16 bytes a copy where C_in is a multiple of 4 and
+// x and w lie on 16 bytes (a launch's pointers; the configuration assumes
+// they do), else 4.
+bool wide_vec4(int cin, const float* x = nullptr, const float* w = nullptr) {
+  return cin % 4 == 0 && reinterpret_cast<size_t>(x) % 16 == 0 &&
+         reinterpret_cast<size_t>(w) % 16 == 0;
+}
+
+bool wide_sizes(int t_in, int cin, int cout, int k, int t_out) {
+  return t_in == kTileT && cout == kTileCout && k == kTileK && t_out == kTileTout;
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1) {
+    cudaGetLastError();  // a failed query is not the launch's error
+    return 1;
+  }
+  return n;
+}
+
+// Windows a block of the wide conv kernel: the most (8, 4, 2 or 1) that
+// still gives every SM a block; the rest of the block's 8 warps split each
+// window's channels.
+int wide_windows(int batch) {
+  const int sms = sm_count();
+  for (int w = kWideWarps; w > 1; w /= 2) {
+    if ((batch + w - 1) / w >= sms) return w;
+  }
+  return 1;
+}
+
+// Window ranges of the wide backward's gx/gw kernel: its blocks (two an SM,
+// ranges x chunks of C_in) fill the card once, at most one range a window.
+int wide_ranges(int batch, int cin) {
+  const int chunks = (cin + kWideChunk - 1) / kWideChunk;
+  const int r = 2 * sm_count() / chunks;
+  return r < 1 ? 1 : (r > batch ? (batch > 0 ? batch : 1) : r);
+}
+
 struct ForwardLaunch {
   const void* fn;   // the kernel, for its attributes
-  TileKernel tile;  // the warp_tile kernel, or null for the generic one
+  TileKernel tile;  // the warp_tile kernel, or null
+  WideKernel wide;  // the wide kernel, or null
   int threads, windows, grid;  // windows a block
   size_t smem;
 };
 
 // The forward launch of `variant` for these sizes; false if the variant does
-// not take them.
+// not take them. mode kWideGradZ: the wide backward's first kernel.
 bool forward_launch(int variant, int batch, int t_in, int cin, int cout, int k, int t_out,
-                    int act, ForwardLaunch* L) {
+                    int act, ForwardLaunch* L, int mode = kWideForward,
+                    bool vec4 = true) {
   if (!valid_sizes(batch, t_in, cin, cout, k, t_out, act)) return false;
+  L->tile = nullptr;
+  L->wide = nullptr;
   if (variant == kWarpTile) {
     if (!tile_sizes(t_in, cin, cout, k, t_out)) return false;
     L->tile = tile_kernel(cin, act);
@@ -717,12 +1288,18 @@ bool forward_launch(int variant, int batch, int t_in, int cin, int cout, int k, 
     const size_t per_window = static_cast<size_t>(t_in + k - 1) * cin * sizeof(float);
     int tile = kGenericWindows;
     while (tile > 1 && fixed + tile * per_window > kMaxSmem) tile /= 2;
-    L->tile = nullptr;
     L->fn = reinterpret_cast<const void*>(stream_block_generic_kernel);
     L->threads = kThreads;
     L->windows = tile;
     L->smem = fixed + tile * per_window;
     if (L->smem > kMaxSmem) return false;
+  } else if (variant == kWide) {
+    if (!wide_sizes(t_in, cin, cout, k, t_out)) return false;
+    L->wide = wide_kernel(act, mode, vec4 && wide_vec4(cin));
+    L->fn = reinterpret_cast<const void*>(L->wide);
+    L->threads = kWideThreads;
+    L->windows = wide_windows(batch);
+    L->smem = wide_conv_smem(L->windows);
   } else {
     return false;
   }
@@ -730,47 +1307,56 @@ bool forward_launch(int variant, int batch, int t_in, int cin, int cout, int k, 
   return true;
 }
 
-cudaError_t allow_forward_smem(const ForwardLaunch& L) {
-  if (L.smem <= kDefaultSmem) return cudaSuccess;
-  return cudaFuncSetAttribute(L.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(L.smem));
+cudaError_t allow_smem(const void* fn, size_t smem) {
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+cudaError_t launch_forward(const ForwardLaunch& L, const float* x, const float* w,
+                           const float* b, const float* g, float* out, int batch, int t_in,
+                           int cin, int cout, int k, int t_out, int act, cudaStream_t s) {
+  cudaError_t err = allow_smem(L.fn, L.smem);
+  if (err != cudaSuccess) return err;
+  if (L.tile != nullptr) {
+    L.tile<<<L.grid, L.threads, L.smem, s>>>(x, w, b, out, batch);
+  } else if (L.wide != nullptr) {
+    L.wide<<<L.grid, L.threads, L.smem, s>>>(x, w, b, g, out, batch, cin, L.windows);
+  } else {
+    stream_block_generic_kernel<<<L.grid, L.threads, L.smem, s>>>(
+        x, w, b, out, batch, t_in, cin, cout, k, t_out, act, L.windows);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the forward's `variant` (0 warp_tile, 1 generic) on `stream`.
-// Returns a cudaError_t: 0 on success, cudaErrorInvalidValue for sizes the
-// variant does not take. x, w, b, out are contiguous f32 device pointers (out
-// 16-byte aligned); act is 0 (ReLU) or 1 (exact GELU).
+// Launches the forward's `variant` (0 warp_tile, 1 generic, 2 wide) on
+// `stream`. Returns a cudaError_t: 0 on success, cudaErrorInvalidValue for
+// sizes the variant does not take. x, w, b, out are contiguous f32 device
+// pointers (out 16-byte aligned); act is 0 (ReLU) or 1 (exact GELU).
 int stream_block_forward(const float* x, const float* w, const float* b, float* out,
                          int batch, int t_in, int cin, int cout, int k, int t_out,
                          int act, int variant, void* stream) {
   ForwardLaunch L;
-  if (!forward_launch(variant, batch, t_in, cin, cout, k, t_out, act, &L)) {
+  if (!forward_launch(variant, batch, t_in, cin, cout, k, t_out, act, &L, kWideForward,
+                      wide_vec4(cin, x, w))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0) return 0;
-  cudaError_t err = allow_forward_smem(L);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (L.tile != nullptr) {
-    L.tile<<<L.grid, L.threads, L.smem, s>>>(x, w, b, out, batch);
-  } else {
-    stream_block_generic_kernel<<<L.grid, L.threads, L.smem, s>>>(
-        x, w, b, out, batch, t_in, cin, cout, k, t_out, act, L.windows);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_forward(L, x, w, b, nullptr, out, batch, t_in, cin, cout, k,
+                                         t_out, act, static_cast<cudaStream_t>(stream)));
 }
 
 // The forward's launch of `variant` for these sizes: threads a block, dynamic
 // shared memory in bytes, the blocks an SM holds at once (the CUDA occupancy
-// calculator, registers included) and the blocks of the grid. Returns a
-// cudaError_t.
+// calculator, registers included), the blocks of the grid and the windows a
+// block. Returns a cudaError_t.
 int stream_block_forward_config(int variant, int batch, int t_in, int cin, int cout, int k,
                                 int t_out, int act, int* threads, int* smem_bytes,
-                                int* blocks_per_sm, int* blocks) {
+                                int* blocks_per_sm, int* blocks, int* windows) {
   ForwardLaunch L;
   if (!forward_launch(variant, batch, t_in, cin, cout, k, t_out, act, &L)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -778,80 +1364,133 @@ int stream_block_forward_config(int variant, int batch, int t_in, int cin, int c
   *threads = L.threads;
   *smem_bytes = static_cast<int>(L.smem);
   *blocks = L.grid;
-  cudaError_t err = allow_forward_smem(L);
+  *windows = L.windows;
+  cudaError_t err = allow_smem(L.fn, L.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, L.fn, L.threads, L.smem));
 }
 
-// Rows of the scratch buffer that stream_block_backward needs (one per
-// block, then kReduceSlices for the slices' sums; each row K*Cin*Cout + Cout
-// floats), or -1 for sizes it does not take.
-int stream_block_backward_rows(int batch, int t_in, int cin, int cout, int k, int t_out) {
+// Rows of the scratch buffer `partial` that the backward's `variant` (0
+// generic, 1 wide) needs for these sizes (one per block of the generic
+// kernel, or per window range of the wide one, then kReduceSlices for the
+// slices' sums; each row K*Cin*Cout + Cout floats), or -1 for sizes it does
+// not take.
+int stream_block_backward_rows(int variant, int batch, int t_in, int cin, int cout, int k,
+                               int t_out) {
   if (!valid_sizes(batch, t_in, cin, cout, k, t_out, kActRelu) || batch == 0) return -1;
+  if (variant == kBwdWide) {
+    return wide_sizes(t_in, cin, cout, k, t_out) ? wide_ranges(batch, cin) + kReduceSlices : -1;
+  }
+  if (variant != kBwdGeneric) return -1;
   int tile;
   size_t smem;
   backward_tile(t_in, cin, cout, k, t_out, &tile, &smem);
   return tile == 0 ? -1 : (batch + tile - 1) / tile + kReduceSlices;
 }
 
-static cudaError_t allow_smem(size_t smem) {
-  if (smem <= kDefaultSmem) return cudaSuccess;
-  return cudaFuncSetAttribute(stream_block_backward_kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
-// The backward kernel's launch for these sizes: windows per block, dynamic
-// shared memory in bytes, and the blocks an SM holds at once (the CUDA
-// occupancy calculator, registers included). Returns a cudaError_t.
-int stream_block_backward_config(int t_in, int cin, int cout, int k, int t_out, int* tile,
-                                 int* smem_bytes, int* blocks_per_sm) {
-  if (!valid_sizes(1, t_in, cin, cout, k, t_out, kActRelu)) {
+// The backward's launch of `variant` for these sizes, into out[9]: threads a
+// block, dynamic shared memory in bytes, the blocks an SM holds at once (the
+// CUDA occupancy calculator, registers included), the blocks of the grid and
+// the windows a block (the generic kernel's tile; the wide gx/gw kernel's
+// largest window range); then for the wide variant its first kernel (g_z):
+// windows a block, shared memory, blocks an SM and blocks (0 for the generic
+// variant). Returns a cudaError_t.
+int stream_block_backward_config(int variant, int batch, int t_in, int cin, int cout, int k,
+                                 int t_out, int act, int* out) {
+  if (!valid_sizes(batch, t_in, cin, cout, k, t_out, act)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  size_t smem;
-  backward_tile(t_in, cin, cout, k, t_out, tile, &smem);
-  *smem_bytes = static_cast<int>(smem);
-  if (*tile == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, stream_block_backward_kernel, kThreads, smem));
-}
-
-// Launches the backward (three kernels) on `stream`. Returns a cudaError_t.
-// x, w, b as the forward; g (B, t_out, Cout) the cotangent; gx (B, T, Cin),
-// gw (K, Cin, Cout), gb (Cout) the outputs; partial a scratch buffer of
-// stream_block_backward_rows(...) * (K*Cin*Cout + Cout) floats. All
-// contiguous f32 device pointers.
-int stream_block_backward(const float* x, const float* w, const float* b, const float* g,
-                          float* gx, float* gw, float* gb, float* partial,
-                          int batch, int t_in, int cin, int cout, int k, int t_out,
-                          int act, void* stream) {
-  if (!valid_sizes(batch, t_in, cin, cout, k, t_out, act) || batch == 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  for (int i = 0; i < 9; ++i) out[i] = 0;
+  cudaError_t err;
+  if (variant == kBwdWide) {
+    ForwardLaunch L;
+    if (!forward_launch(kWide, batch, t_in, cin, cout, k, t_out, act, &L, kWideGradZ)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int ranges = wide_ranges(batch, cin);
+    const void* fn = reinterpret_cast<const void*>(wide_grad_kernel(wide_vec4(cin)));
+    out[0] = kWideThreads;
+    out[1] = static_cast<int>(kWideGradSmem);
+    out[3] = ranges * ((cin + kWideChunk - 1) / kWideChunk);
+    out[4] = (batch + ranges - 1) / ranges;
+    out[5] = L.windows;
+    out[6] = static_cast<int>(L.smem);
+    out[8] = L.grid;
+    if ((err = allow_smem(fn, kWideGradSmem)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, kWideThreads,
+                                                             kWideGradSmem)) != cudaSuccess ||
+        (err = allow_smem(L.fn, L.smem)) != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[7], L.fn, L.threads, L.smem));
   }
+  if (variant != kBwdGeneric) return static_cast<int>(cudaErrorInvalidValue);
   int tile;
   size_t smem;
   backward_tile(t_in, cin, cout, k, t_out, &tile, &smem);
+  out[0] = kThreads;
+  out[1] = static_cast<int>(smem);
   if (tile == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = (batch + tile - 1) / tile;
+  out[3] = (batch + tile - 1) / tile;
+  out[4] = tile;
+  const void* fn = reinterpret_cast<const void*>(stream_block_backward_kernel);
+  if ((err = allow_smem(fn, smem)) != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, kThreads, smem));
+}
+
+// Launches the backward's `variant` on `stream` (generic: three kernels;
+// wide: four). Returns a cudaError_t. x, w, b as the forward; g (B, t_out,
+// Cout) the cotangent; gx (B, T, Cin), gw (K, Cin, Cout), gb (Cout) the
+// outputs; partial a scratch buffer of stream_block_backward_rows(...) *
+// (K*Cin*Cout + Cout) floats; gz a scratch buffer of B*T*Cout floats for the
+// wide variant (unused, may be null, for the generic one). All contiguous
+// f32 device pointers; gx and gz 16-byte aligned.
+int stream_block_backward(const float* x, const float* w, const float* b, const float* g,
+                          float* gx, float* gw, float* gb, float* partial, float* gz,
+                          int batch, int t_in, int cin, int cout, int k, int t_out,
+                          int act, int variant, void* stream) {
+  const int rows = stream_block_backward_rows(variant, batch, t_in, cin, cout, k, t_out);
+  if (rows < 0 || !valid_sizes(batch, t_in, cin, cout, k, t_out, act)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = rows - kReduceSlices;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  stream_block_backward_kernel<<<rows, kThreads, smem, s>>>(
-      x, w, b, g, gx, partial, batch, t_in, cin, cout, k, t_out, act, tile);
+  cudaError_t err;
+  if (variant == kBwdWide) {
+    if (gz == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const bool vec4 = wide_vec4(cin, x, w);
+    ForwardLaunch L;
+    forward_launch(kWide, batch, t_in, cin, cout, k, t_out, act, &L, kWideGradZ, vec4);
+    err = launch_forward(L, x, w, b, g, gz, batch, t_in, cin, cout, k, t_out, act, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const WideGradKernel grad = wide_grad_kernel(vec4);
+    err = allow_smem(reinterpret_cast<const void*>(grad), kWideGradSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int chunks = (cin + kWideChunk - 1) / kWideChunk;
+    grad<<<blocks * chunks, kWideThreads, kWideGradSmem, s>>>(x, w, gz, gx, partial, batch, cin,
+                                                               blocks);
+  } else {
+    int tile;
+    size_t smem;
+    backward_tile(t_in, cin, cout, k, t_out, &tile, &smem);
+    err = allow_smem(reinterpret_cast<const void*>(stream_block_backward_kernel), smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    stream_block_backward_kernel<<<blocks, kThreads, smem, s>>>(
+        x, w, b, g, gx, partial, batch, t_in, cin, cout, k, t_out, act, tile);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nw = k * cin * cout;
   const int width = nw + cout;
   const dim3 grid((width + kReduceX - 1) / kReduceX, kReduceSlices);
-  reduce_partials_kernel<<<grid, dim3(kReduceX, kReduceY), 0, s>>>(partial, rows, width);
+  reduce_partials_kernel<<<grid, dim3(kReduceX, kReduceY), 0, s>>>(partial, blocks, width);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_slices_kernel<<<(width + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      partial, rows, nw, cout, gw, gb);
+      partial, blocks, nw, cout, gw, gb);
   return static_cast<int>(cudaGetLastError());
 }
 

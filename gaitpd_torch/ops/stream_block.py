@@ -12,9 +12,9 @@ the hand-written backward kernel of the same file, counted in
 ``stream_block_reference``, under ordinary autograd. There is no fallback
 from one to the other.
 
-The forward has two variants: ``_variant`` chooses one from the sizes alone
-and passes it to the entry point, which refuses a variant that does not take
-the sizes.
+The forward has three variants and the backward two: ``_variant`` and
+``_backward_variant`` choose one from the sizes alone and pass it to the
+entry point, which refuses a variant that does not take the sizes.
 """
 
 from __future__ import annotations
@@ -30,20 +30,30 @@ from gaitpd_torch.models.blocks import adaptive_avg_pool_matrix
 ACTIVATIONS = {"relu": 0, "gelu": 1}
 
 # The forward's variants, numbered as csrc/stream_block.cu takes them: one
-# warp a window with the main path's sizes compiled in (TILE_SIZES), and the
-# generic kernel for every other size.
-WARP_TILE, GENERIC = range(2)
-VARIANT_NAMES = ("warp_tile", "generic")
+# warp a window with the main path's sizes compiled in (TILE_SIZES, C_in in
+# TILE_CIN), the same sizes at any C_in streamed through shared memory in
+# chunks (FOCAL's 320 channels), and the generic kernel for every other size.
+WARP_TILE, GENERIC, WIDE = range(3)
+VARIANT_NAMES = ("warp_tile", "generic", "wide")
+# The backward's: the generic kernel (a tile of whole windows a block,
+# zero-cotangent windows skipped) for every size but the wide ones.
+BWD_GENERIC, BWD_WIDE = range(2)
+BACKWARD_VARIANT_NAMES = ("generic", "wide")
 # (T, C_out, K, t_out) and the C_in of the warp_tile variant: the flagship's,
 # late fusion's and the cheap cross-attention's backbone (12), the shared
 # latent (16) and early fusion (36)
 TILE_SIZES = (64, 16, 3, 8)
 TILE_CIN = (12, 16, 36)
+# The C_in from which ``_variant`` and ``_backward_variant`` take the wide
+# variants; the kernels themselves take any C_in at TILE_SIZES.
+WIDE_MIN_CIN = 64
 
-# Kernel launches made by ``stream_block`` and ``stream_block_backward``;
-# callers may reset them to 0.
+# Kernel launches made by ``stream_block`` and ``stream_block_backward``,
+# and of those the wide variants'; callers may reset them to 0.
 launches = 0
 backward_launches = 0
+wide_launches = 0
+wide_backward_launches = 0
 
 _bound = None
 
@@ -86,9 +96,40 @@ def stream_block_backward_reference(
 def _variant(t: int, cin: int, cout: int, k: int, t_out: int) -> int:
     """The forward kernel's variant for windows of (T, C_in), w (K, C_in,
     C_out) and t_out bins."""
-    if (t, cout, k, t_out) == TILE_SIZES and cin in TILE_CIN:
-        return WARP_TILE
+    if (t, cout, k, t_out) == TILE_SIZES:
+        if cin in TILE_CIN:
+            return WARP_TILE
+        if cin >= WIDE_MIN_CIN:
+            return WIDE
     return GENERIC
+
+
+def _backward_variant(t: int, cin: int, cout: int, k: int, t_out: int) -> int:
+    """The backward's variant for the same sizes."""
+    if (t, cout, k, t_out) == TILE_SIZES and cin >= WIDE_MIN_CIN:
+        return BWD_WIDE
+    return BWD_GENERIC
+
+
+def _bind(lib: ctypes.CDLL):
+    """The C interface of a built csrc/stream_block.cu: (forward, backward
+    rows, backward, backward config, forward config)."""
+    fwd = lib.stream_block_forward
+    fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fwd.restype = ctypes.c_int
+    fwd_config = lib.stream_block_forward_config
+    fwd_config.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)] * 5
+    fwd_config.restype = ctypes.c_int
+    rows = lib.stream_block_backward_rows
+    rows.argtypes = [ctypes.c_int] * 7
+    rows.restype = ctypes.c_int
+    bwd = lib.stream_block_backward
+    bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    bwd.restype = ctypes.c_int
+    config = lib.stream_block_backward_config
+    config.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    config.restype = ctypes.c_int
+    return fwd, rows, bwd, config, fwd_config
 
 
 def _library():
@@ -96,23 +137,7 @@ def _library():
     if _bound is None:
         from gaitpd_torch.ops import _build
 
-        lib = _build.load("stream_block")
-        fwd = lib.stream_block_forward
-        fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fwd.restype = ctypes.c_int
-        fwd_config = lib.stream_block_forward_config
-        fwd_config.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)] * 4
-        fwd_config.restype = ctypes.c_int
-        rows = lib.stream_block_backward_rows
-        rows.argtypes = [ctypes.c_int] * 6
-        rows.restype = ctypes.c_int
-        bwd = lib.stream_block_backward
-        bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        bwd.restype = ctypes.c_int
-        config = lib.stream_block_backward_config
-        config.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
-        config.restype = ctypes.c_int
-        _bound = (fwd, rows, bwd, config, fwd_config)
+        _bound = _bind(_build.load("stream_block"))
     return _bound
 
 
@@ -142,21 +167,24 @@ def _check_cuda(name, tensors):
         raise ValueError(f"{name} takes contiguous tensors")
 
 
-def _forward_kernel(x, w, b, t_out, act):
-    global launches
+def _forward_kernel(x, w, b, t_out, act, variant=None):
+    """The forward kernel of ``variant`` (by default ``_variant``'s)."""
+    global launches, wide_launches
     bsz, t, cin = x.shape
     k, _, cout = w.shape
+    if variant is None:
+        variant = _variant(t, cin, cout, k, t_out)
     out = torch.empty((bsz, t_out, cout), dtype=torch.float32, device=x.device)
     fwd = _library()[0]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                  bsz, t, cin, cout, k, t_out, ACTIVATIONS[act],
-                  _variant(t, cin, cout, k, t_out), stream)
+                  bsz, t, cin, cout, k, t_out, ACTIVATIONS[act], variant, stream)
     if err != 0:
         raise RuntimeError(f"stream_block kernel launch failed: cudaError_t {err} "
                            f"(x {tuple(x.shape)}, w {tuple(w.shape)}, t_out {t_out})")
     launches += 1
+    wide_launches += variant == WIDE
     return out
 
 
@@ -199,32 +227,49 @@ def forward_config(bsz: int, t: int, cin: int, cout: int, k: int, t_out: int,
     """The launch that ``stream_block`` makes for x (B, T, C_in), w (K, C_in,
     C_out) and t_out bins on the current card: the variant, threads a block,
     dynamic shared memory in bytes, the blocks an SM holds at once (CUDA's
-    occupancy calculator), the blocks of the grid, and the waves (blocks over
-    the blocks the card holds at once). Needs a card."""
+    occupancy calculator), the blocks of the grid, the windows a block, and
+    the waves (blocks over the blocks the card holds at once). Needs a card."""
     variant = _variant(t, cin, cout, k, t_out)
-    out = [ctypes.c_int(0) for _ in range(4)]
+    out = [ctypes.c_int(0) for _ in range(5)]
     err = _library()[4](variant, bsz, t, cin, cout, k, t_out, ACTIVATIONS[act],
                         *(ctypes.byref(v) for v in out))
     if err != 0:
         raise RuntimeError(f"stream_block_forward_config failed: cudaError_t {err}")
     config = dict(variant=VARIANT_NAMES[variant],
-                  **dict(zip(("threads", "smem_bytes", "blocks_per_sm", "blocks"),
+                  **dict(zip(("threads", "smem_bytes", "blocks_per_sm", "blocks", "windows"),
                              (v.value for v in out))))
-    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
-    config["waves"] = config["blocks"] / (config["blocks_per_sm"] * sms)
+    config["waves"] = _waves(config["blocks"], config["blocks_per_sm"])
     return config
 
 
-def backward_config(t: int, cin: int, cout: int, k: int, t_out: int) -> dict:
-    """The backward kernel's launch on the current card for windows of
-    (T, C_in) and w (K, C_in, C_out): windows per block, dynamic shared
-    memory in bytes, and the blocks an SM holds at once (CUDA's occupancy
-    calculator). Needs a card."""
-    out = [ctypes.c_int(0) for _ in range(3)]
-    err = _library()[3](t, cin, cout, k, t_out, *(ctypes.byref(v) for v in out))
+def _waves(blocks: int, blocks_per_sm: int) -> float:
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    return blocks / (max(1, blocks_per_sm) * sms)
+
+
+def backward_config(bsz: int, t: int, cin: int, cout: int, k: int, t_out: int,
+                    act: str = "relu") -> dict:
+    """The launch that ``stream_block_backward`` makes for x (B, T, C_in), w
+    (K, C_in, C_out) and t_out bins on the current card: the variant, threads
+    a block, dynamic shared memory in bytes, the blocks an SM holds at once
+    (CUDA's occupancy calculator), the blocks of the grid, the windows a block
+    (the wide variant: of its largest window range), and the waves; for the
+    wide variant also its first kernel's launch (``gz``: the conv and g_z).
+    Needs a card."""
+    variant = _backward_variant(t, cin, cout, k, t_out)
+    out = (ctypes.c_int * 9)()
+    err = _library()[3](variant, bsz, t, cin, cout, k, t_out, ACTIVATIONS[act], out)
     if err != 0:
         raise RuntimeError(f"stream_block_backward_config failed: cudaError_t {err}")
-    return dict(zip(("tile", "smem_bytes", "blocks_per_sm"), (v.value for v in out)))
+    config = dict(variant=BACKWARD_VARIANT_NAMES[variant],
+                  **dict(zip(("threads", "smem_bytes", "blocks_per_sm", "blocks", "windows"),
+                             out[:5])))
+    config["waves"] = _waves(config["blocks"], config["blocks_per_sm"])
+    if variant == BWD_WIDE:
+        gz = dict(zip(("windows", "smem_bytes", "blocks_per_sm", "blocks"), out[5:]))
+        gz["waves"] = _waves(gz["blocks"], gz["blocks_per_sm"])
+        config["gz"] = gz
+    return config
 
 
 def stream_block_backward(
@@ -235,10 +280,9 @@ def stream_block_backward(
     cotangent g (B, t_out, C_out).
 
     CPU tensors take ``stream_block_backward_reference``; CUDA tensors launch
-    the backward kernel (deterministic: no float atomics; windows whose
-    cotangent is all zero and whose x is finite are skipped, exactly) or
-    raise."""
-    global backward_launches
+    the backward kernel of ``_backward_variant`` (deterministic: no float
+    atomics; the generic variant skips windows whose cotangent is all zero
+    and whose x is finite, exactly) or raise."""
     _check(x, w, b, t_out, act)
     bsz, t, cin = x.shape
     k, _, cout = w.shape
@@ -249,8 +293,19 @@ def stream_block_backward(
     _check_cuda("stream_block_backward", (x, w, b, g))
     if bsz == 0:
         return torch.zeros_like(x), torch.zeros_like(w), torch.zeros_like(b)
+    return _backward_kernel(x, w, b, g, t_out, act)
+
+
+def _backward_kernel(x, w, b, g, t_out, act, variant=None):
+    """The backward kernel of ``variant`` (by default ``_backward_variant``'s)
+    on checked CUDA tensors."""
+    global backward_launches, wide_backward_launches
+    bsz, t, cin = x.shape
+    k, _, cout = w.shape
     _, rows_of, bwd, _, _ = _library()
-    rows = rows_of(bsz, t, cin, cout, k, t_out)
+    if variant is None:
+        variant = _backward_variant(t, cin, cout, k, t_out)
+    rows = rows_of(variant, bsz, t, cin, cout, k, t_out)
     if rows < 1:
         raise ValueError(f"stream_block_backward does not take x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, t_out {t_out}")
@@ -258,13 +313,18 @@ def stream_block_backward(
     gw = torch.empty_like(w)
     gb = torch.empty_like(b)
     partial = torch.empty((rows, k * cin * cout + cout), dtype=torch.float32, device=x.device)
+    # the wide variant's g_z (B, T, C_out), between its two kernels
+    gz = (torch.empty((bsz, t, cout), dtype=torch.float32, device=x.device)
+          if variant == BWD_WIDE else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = bwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(), gx.data_ptr(),
                   gw.data_ptr(), gb.data_ptr(), partial.data_ptr(),
-                  bsz, t, cin, cout, k, t_out, ACTIVATIONS[act], stream)
+                  None if gz is None else gz.data_ptr(),
+                  bsz, t, cin, cout, k, t_out, ACTIVATIONS[act], variant, stream)
     if err != 0:
         raise RuntimeError(f"stream_block backward kernel launch failed: cudaError_t {err} "
                            f"(x {tuple(x.shape)}, w {tuple(w.shape)}, t_out {t_out})")
     backward_launches += 1
+    wide_backward_launches += variant == BWD_WIDE
     return gx, gw, gb

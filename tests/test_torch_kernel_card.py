@@ -124,38 +124,96 @@ def test_forward_launch_config_on_card(case):
 
 
 # FOCAL's backbone: 128 + 3 * 64 = 320 input channels, exact GELU (and
-# ReLU), at a train step's batch (sync), the async one-launch batch and a
-# ragged one. The generic forward holds two windows a block at this width
-# (230,464 bytes of shared memory), the backward one
+# ReLU), at a train step's batch (sync), the async one-launch batch, a
+# ragged one and one window; then the wide variants' other widths: C_in 100
+# and 330 (not multiples of the 32-channel chunk; 330 not of 4 either, so
+# copied 4 bytes at a time), the threshold 64, and 1024, wider than the
+# generic forward and backward take
 FOCAL_CASES = [
     (64, 64, 320, 3, 16, 8, "gelu"), (3 * 64, 64, 320, 3, 16, 8, "gelu"),
-    (37, 64, 320, 3, 16, 8, "relu"),
+    (37, 64, 320, 3, 16, 8, "relu"), (1, 64, 320, 3, 16, 8, "gelu"),
+    (37, 64, 100, 3, 16, 8, "gelu"), (3 * 64, 64, 330, 3, 16, 8, "relu"),
+    (1, 64, 330, 3, 16, 8, "gelu"), (64, 64, 64, 3, 16, 8, "relu"),
+    (37, 64, 1024, 3, 16, 8, "gelu"),
 ]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", FOCAL_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_kernels_match_plain_at_focal_width_on_card(case):
-    """Forward within 1e-5, gx within 1e-5, gw and gb within 1e-5 of their
-    largest value, two launches of each the same bits; the launch has a
-    block an SM at least and a grid that covers the windows."""
+    """The wide variants: forward within 1e-5, gx within 1e-5, gw and gb
+    within 1e-5 of their largest value, two launches of each the same bits;
+    the launches have a block an SM at least and grids that cover the
+    windows."""
     dev = _cuda()
     bsz, t, cin, k, cout, t_out, act = case
     x, w, b, g = _inputs(case, dev)
+    before = (sb.launches, sb.backward_launches)
     got = sb.stream_block(x, w, b, t_out, act)
     assert (got - sb.stream_block_reference(x, w, b, t_out, act)).abs().max().item() <= 1e-5
     assert torch.equal(got, sb.stream_block(x, w, b, t_out, act))
     grads = sb.stream_block_backward(x, w, b, g, t_out, act)
     again = sb.stream_block_backward(x, w, b, g, t_out, act)
+    torch.cuda.synchronize()
+    assert (sb.launches, sb.backward_launches) == (before[0] + 2, before[1] + 2)
     want = sb.stream_block_backward_reference(x, w, b, g, t_out, act)
     assert (grads[0] - want[0]).abs().max().item() <= 1e-5
     for gk, wk in zip(grads[1:], want[1:]):
         assert (gk - wk).abs().max().item() <= 1e-5 * max(1.0, wk.abs().max().item())
     assert all(torch.equal(a, c) for a, c in zip(grads, again))
     config = sb.forward_config(bsz, t, cin, cout, k, t_out, act)
-    assert config["variant"] == "generic" and config["blocks_per_sm"] >= 1
-    assert config["blocks"] >= -(-bsz // 4)
-    assert sb.backward_config(t, cin, cout, k, t_out)["tile"] >= 1
+    assert config["variant"] == "wide" and config["blocks_per_sm"] >= 1
+    assert config["blocks"] == -(-bsz // config["windows"])
+    bwd = sb.backward_config(bsz, t, cin, cout, k, t_out, act)
+    assert bwd["variant"] == "wide" and bwd["blocks_per_sm"] >= 1
+    assert bwd["gz"]["blocks_per_sm"] >= 1 and bwd["gz"]["blocks"] == config["blocks"]
+    assert bwd["blocks"] % -(-cin // 32) == 0 and bwd["windows"] >= 1
+
+
+# the wide kernels take any C_in at their T, C_out, K and t_out;
+# stream_block's wrapper picks them from WIDE_MIN_CIN = 64: below it, where
+# the generic kernels run, and at C_in 13 (4-byte copies, one part-filled
+# chunk)
+BELOW_WIDE_CASES = [(37, 64, 13, 3, 16, 8, "gelu"), (3 * 64, 64, 48, 3, 16, 8, "relu")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BELOW_WIDE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_wide_kernels_below_their_threshold_on_card(case):
+    """The wide variants, asked for by name below WIDE_MIN_CIN, within the
+    same tolerances of the plain versions, two launches the same bits."""
+    dev = _cuda()
+    bsz, t, cin, k, cout, t_out, act = case
+    x, w, b, g = _inputs(case, dev)
+    assert sb._variant(t, cin, cout, k, t_out) == sb.GENERIC
+    got = sb._forward_kernel(x, w, b, t_out, act, sb.WIDE)
+    assert (got - sb.stream_block_reference(x, w, b, t_out, act)).abs().max().item() <= 1e-5
+    assert torch.equal(got, sb._forward_kernel(x, w, b, t_out, act, sb.WIDE))
+    grads = sb._backward_kernel(x, w, b, g, t_out, act, sb.BWD_WIDE)
+    _backward_close(grads, sb.stream_block_backward_reference(x, w, b, g, t_out, act))
+    again = sb._backward_kernel(x, w, b, g, t_out, act, sb.BWD_WIDE)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["relu", "gelu"])
+def test_wide_backward_on_zero_cotangent_windows_and_a_nan(act):
+    """The wide backward skips no window: on CAGrad-like zero rows at FOCAL's
+    width it gives the plain version's result, gx of the zero-cotangent
+    windows exactly 0; with a NaN in x of such a window, NaN at the plain
+    version's entries (gw NaN: 0 * NaN)."""
+    dev = _cuda()
+    case = (3 * 64, 64, 320, 3, 16, 8, act)
+    x, w, b, g = _inputs(case, dev)
+    g[64:] = 0.0
+    got = sb.stream_block_backward(x, w, b, g, 8, act)
+    _backward_close(got, sb.stream_block_backward_reference(x, w, b, g, 8, act))
+    assert not got[0][64:].any()
+    assert all(torch.equal(a, c) for a, c in zip(got, sb.stream_block_backward(x, w, b, g, 8, act)))
+    x[100, 20, 5] = float("nan")
+    got = sb.stream_block_backward(x, w, b, g, 8, act)
+    assert torch.isnan(got[1]).any()
+    _backward_close(got, sb.stream_block_backward_reference(x, w, b, g, 8, act))
 
 
 @pytest.mark.gpu

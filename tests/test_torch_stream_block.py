@@ -26,8 +26,10 @@ from gaitpd.models.encoders import SharedBackbone as FlaxBackbone  # noqa: E402
 from gaitpd.ops.pallas_blocks import make_stream_block  # noqa: E402
 from gaitpd.ops.pallas_blocks import stream_block_reference as jax_reference  # noqa: E402
 from gaitpd_torch.models.encoders import SharedBackbone  # noqa: E402
+from gaitpd_torch.ops import _build  # noqa: E402
 from gaitpd_torch.ops import stream_block as sb  # noqa: E402
 from gaitpd_torch.params import load_flax_params  # noqa: E402
+from gaitpd_torch.tools import stream_block_wide_parts as wide_parts  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -69,8 +71,10 @@ def test_plain_matches_pallas_and_jnp(case):
 
 # the forward's variant by size (T, C_in, C_out, K, t_out): the warp_tile
 # variant's compiled-in sizes (T 64, C_out 16, K 3, t_out 8, C_in 12, 16 or
-# 36) against one size off each; tests/test_torch_kernel_card.py runs the
-# same sizes on the card
+# 36) against one size off each; the wide variant's (the same T, C_out, K,
+# t_out, taken from C_in WIDE_MIN_CIN = 64) at its threshold, one below it,
+# FOCAL's 320 and 1024, against a wide C_in at T 101 or K 5 (generic);
+# tests/test_torch_kernel_card.py runs the same sizes on the card
 FORWARD_VARIANT_EDGES = {
     (64, 12, 16, 3, 8): sb.WARP_TILE,
     (64, 16, 16, 3, 8): sb.WARP_TILE,
@@ -83,7 +87,12 @@ FORWARD_VARIANT_EDGES = {
     (64, 12, 16, 5, 8): sb.GENERIC,
     (64, 12, 16, 3, 7): sb.GENERIC,
     (64, 12, 8, 3, 8): sb.GENERIC,
-    (64, 320, 16, 3, 8): sb.GENERIC,  # FOCAL's backbone
+    (64, 320, 16, 3, 8): sb.WIDE,  # FOCAL's backbone
+    (64, 64, 16, 3, 8): sb.WIDE,  # the threshold, WIDE_MIN_CIN
+    (64, 63, 16, 3, 8): sb.GENERIC,
+    (64, 1024, 16, 3, 8): sb.WIDE,  # beyond what the generic kernels take
+    (101, 320, 16, 3, 8): sb.GENERIC,
+    (64, 320, 16, 5, 8): sb.GENERIC,
 }
 
 
@@ -98,6 +107,48 @@ def test_forward_variant_at_the_edges(sizes, act):
     got = sb.stream_block(*map(torch.from_numpy, (x, w, b)), t_out, act).numpy()
     ref = np.asarray(jax_reference(*map(jnp.asarray, (x, w, b)), t_out=t_out, act_name=act))
     np.testing.assert_allclose(got, ref, **TOL)
+
+
+# the backward's variant by the same sizes: the wide variant at the wide
+# forward's sizes, the generic kernel (zero-cotangent windows skipped) for
+# every other, warp_tile's narrow C_in included
+BACKWARD_VARIANT_EDGES = {
+    (64, 12, 16, 3, 8): sb.BWD_GENERIC,
+    (64, 36, 16, 3, 8): sb.BWD_GENERIC,
+    (64, 63, 16, 3, 8): sb.BWD_GENERIC,
+    (64, 64, 16, 3, 8): sb.BWD_WIDE,
+    (64, 320, 16, 3, 8): sb.BWD_WIDE,  # FOCAL's backbone
+    (64, 330, 16, 3, 8): sb.BWD_WIDE,
+    (64, 1024, 16, 3, 8): sb.BWD_WIDE,
+    (101, 320, 16, 3, 8): sb.BWD_GENERIC,
+    (64, 320, 16, 5, 8): sb.BWD_GENERIC,
+    (64, 320, 8, 3, 8): sb.BWD_GENERIC,
+    (64, 320, 16, 3, 7): sb.BWD_GENERIC,
+}
+
+
+@pytest.mark.parametrize("act", ["relu", "gelu"])
+@pytest.mark.parametrize("sizes", BACKWARD_VARIANT_EDGES, ids=lambda s: "-".join(map(str, s)))
+def test_backward_variant_at_the_edges(sizes, act):
+    """The backward's variant follows the sizes alone, and the plain backward
+    at those sizes is gaitpd's custom_vjp."""
+    assert sb._backward_variant(*sizes) == BACKWARD_VARIANT_EDGES[sizes]
+    assert sb.BACKWARD_VARIANT_NAMES[BACKWARD_VARIANT_EDGES[sizes]] in ("generic", "wide")
+    t, cin, cout, k, t_out = sizes
+    x, w, b = _inputs((2, t, cin, k, cout, t_out, act), seed=7)
+    g = np.random.default_rng(8).normal(size=(2, t_out, cout)).astype(np.float32)
+    got = sb.stream_block_backward(*map(torch.from_numpy, (x, w, b, g)), t_out, act)
+    for name, c, r in zip("xwb", got, _vjp_jax(x, w, b, g, t_out, act)):
+        np.testing.assert_allclose(c.numpy(), r, rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("name", sorted(wide_parts.VARIANTS))
+def test_wide_parts_cuts_match_the_source(name):
+    """Each build of the wide kernels' parts tool finds every text it cuts
+    exactly once in csrc/stream_block.cu, and changes the source (all but
+    the full build)."""
+    source = (_build.CSRC / "stream_block.cu").read_text()
+    assert (wide_parts.cut(name, source) == source) == (name == "full")
 
 
 def test_cpu_path_counts_no_launch():
