@@ -76,6 +76,20 @@ Phases (each raises on failure, so the script exits non-zero):
      cross-attention or solver launch); run_cv of DeepAV-Lite and TACA on the
      card at their dropout (sync 1 epoch, async 1: finite losses, the
      7-subset table, no kernel launch);
+  5f. the other 15 MTL methods, from a random stream of their own: the
+     MGDA, FairGrad (alpha 0.5, 1, 2) and NashMTL solver kernels against
+     their plain versions at K = 1..8 on seeded and degenerate Gram
+     matrices, in one launch and one matrix a launch (w bitwise equal,
+     finite, MGDA's on the simplex, each launch counted); each method's
+     host synchronisations in one train step, none more than CAGrad's
+     (torch.cuda's sync debug mode); for the 12 methods that draw nothing,
+     one train step card vs CPU as in phase 4 and run_cv card vs CPU (sync 2
+     epochs, async 1 for FAMO and MGDA; phase 4's checks, 3 stream-block
+     backward launches a step and one of the method's own solver, no other
+     solver); RLW, PCGrad and GradDrop run_cv on the card alone (sync 1
+     epoch: finite losses, the 7-subset table, the same launches) and their
+     draws on the card by their laws (RLW's mean weight 1/K, PCGrad's 6
+     orders, GradDrop's keep rate: each within 5 sigma);
   6. timings: each kernel, its plain version and a PyTorch library call at
      the main path's shape (CUDA events around back-to-back eager calls;
      the stream block's forward and its library call also as 200 calls
@@ -91,7 +105,10 @@ Phases (each raises on failure, so the script exits non-zero):
      generic variants that took these sizes before, then at batch 64 and
      3 x 64 (device time under the profiler, beside the library's) and,
      both variants, at C_in 32, 48 and 64 (the wrapper's threshold), and one
-     train step of each SOTA baseline at batch 64 and 1024; device time
+     train step of each SOTA baseline at batch 64 and 1024; the MGDA,
+     FairGrad and NashMTL solver kernels at K = 3, one matrix (eager and
+     device time, plain version, bound) and one train step of every MTL
+     method at batch 64 and 1024; device time
      by kernel of batch-1024 predict_windows and of 10 batch-1024 train
      steps of each (torch.profiler), the SOTA baselines' too.
 
@@ -112,6 +129,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -119,13 +137,20 @@ import torch.nn.functional as F
 
 from gaitpd_torch.data.sampler import batch_index_matrix
 from gaitpd_torch.data.weargait import prepare_split
-from gaitpd_torch.learning.mtl import build_flat_partition, make_method
+from gaitpd_torch.learning.mtl import (
+    METHODS,
+    _graddrop_mask,
+    _rlw_weights,
+    build_flat_partition,
+    make_method,
+)
 from gaitpd_torch.models import baselines as BL
 from gaitpd_torch.models.blocks import dropout
 from gaitpd_torch.models.multitask import CHANNELS, MODALITIES, WearGaitThreeModal
 from gaitpd_torch.ops import _build
 from gaitpd_torch.ops import cagrad_solver as cs
 from gaitpd_torch.ops import cheap_xattn as cx
+from gaitpd_torch.ops import mtl_solvers as ms
 from gaitpd_torch.ops import stream_block as sb
 from gaitpd_torch.runtime.device import resolve_device
 from gaitpd_torch.serve import StreamingSession, WearGaitEngine, poll_sessions
@@ -195,6 +220,9 @@ COUNTERS = {
     "cagrad_solver": (cs, "launches"),
     "cheap_xattn": (cx, "launches"),
     "cheap_xattn_backward": (cx, "backward_launches"),
+    "min_norm_solver": (ms, "min_norm_launches"),
+    "fairgrad_solver": (ms, "fairgrad_launches"),
+    "nashmtl_solver": (ms, "nashmtl_launches"),
 }
 
 
@@ -855,15 +883,16 @@ def eval_forwards(args, epochs_run: int) -> int:
     return (epochs_run + len(wg.MASK_COMBOS)) * n_batches
 
 
-def check_one_step(seed, dev, baseline=None) -> None:
+def check_one_step(seed, dev, baseline=None, mtl_method="cagrad") -> None:
     """One train step at batch 64 on the card and on the CPU, from equal
-    parameters and an equal batch: CAGrad for the flagship, the mean of the
-    branch losses for a baseline (DeepAV-Lite and TACA at dropout 0, since
-    the card's masks cannot match the CPU's)."""
+    parameters and an equal batch: ``mtl_method`` (CAGrad by default) for
+    the flagship, the mean of the branch losses for a baseline (DeepAV-Lite
+    and TACA at dropout 0, since the card's masks cannot match the CPU's)."""
     runs = {}
+    label = baseline or ("CAGrad" if mtl_method == "cagrad" else mtl_method)
     for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
         step, state, ctx, batch, gen = make_step_setup(seed, device, 64, baseline,
-                                                       no_dropout=True)
+                                                       no_dropout=True, mtl_method=mtl_method)
         state, metrics = step(state, batch, gen, ctx)
         runs[name] = (state, metrics)
     card_state, cpu_state = runs["card"][0], runs["cpu"][0]
@@ -875,13 +904,13 @@ def check_one_step(seed, dev, baseline=None) -> None:
         scale = max(1.0, max(w.abs().max().item() for w in want))
         gaps[what] = (max((g - w).abs().max().item() for g, w in zip(got, want)), scale)
     loss_gap = (runs["card"][1]["losses"].cpu() - runs["cpu"][1]["losses"]).abs().max().item()
-    log(f"[train] one {baseline or 'CAGrad'} step at batch 64, card vs CPU: parameters max abs "
+    log(f"[train] one {label} step at batch 64, card vs CPU: parameters max abs "
         f"gap {gaps['parameters'][0]:.3e} (tol {STEP_PARAM_TOL * gaps['parameters'][1]:.2e}), "
         f"momentum {gaps['momentum'][0]:.3e} (tol {STEP_MOMENTUM_TOL * gaps['momentum'][1]:.2e}), "
         f"losses {loss_gap:.3e}")
     if (gaps["parameters"][0] > STEP_PARAM_TOL * gaps["parameters"][1]
             or gaps["momentum"][0] > STEP_MOMENTUM_TOL * gaps["momentum"][1]):
-        raise RuntimeError(f"one {baseline or 'CAGrad'} train step: card and CPU differ: {gaps}")
+        raise RuntimeError(f"one {label} train step: card and CPU differ: {gaps}")
 
 
 def compare_run_cv(label, common, modes, per_step, nonzero, per_eval_forward=None) -> dict:
@@ -1063,11 +1092,13 @@ def check_dropout_on_card(dev) -> None:
         raise RuntimeError("dropout on the card does not keep its law")
 
 
-def card_only_run_cv(label, common, modes) -> dict:
-    """run_cv on the card alone, at the baseline's own dropout, whose masks
-    the CPU cannot draw alike (phase 5e's one-step check holds the card
-    against the CPU at dropout 0): finite losses, the 7-subset table, and no
-    launch of the stream-block, cross-attention or solver kernels."""
+def card_only_run_cv(label, common, modes, per_step=None) -> dict:
+    """run_cv on the card alone, for what draws random numbers the CPU
+    cannot draw alike (a baseline's dropout: phase 5e's one-step check holds
+    the card against the CPU at dropout 0; an MTL method's draws: phase 5f
+    holds them by their statistics): finite losses, the 7-subset table, and
+    with ``per_step`` the launches each train step must make of a kernel,
+    else no launch of any kernel."""
     out = {}
     for mode, epochs in modes:
         args = wg.WearGaitArgs(epochs=epochs, async_loading=mode == "async", **common)
@@ -1087,8 +1118,12 @@ def card_only_run_cv(label, common, modes) -> dict:
         if any(res["masks"][mk] is None or not np.isfinite(res["masks"][mk])
                for mk in wg.MASK_COMBOS):
             raise RuntimeError(f"train {tag}: the 7-subset table is incomplete: {res['masks']}")
-        if any(launches.values()):
+        if per_step is None and any(launches.values()):
             raise RuntimeError(f"train {tag}: launched a kernel it has no use for: {launches}")
+        wrong = {k: (launches[k], n * rec.steps) for k, n in (per_step or {}).items()
+                 if launches[k] != n * rec.steps}
+        if wrong:
+            raise RuntimeError(f"train {tag}: launches (got, want) {wrong}")
         out[mode] = {"launches": launches, "steps": rec.steps}
     return out
 
@@ -1110,6 +1145,213 @@ def phase_sota_training(seed, dev) -> dict:
         out[baseline] = card_only_run_cv(baseline, dict(train_common(seed), baseline=baseline),
                                          (("sync", 1), ("async", 1)))
     return out
+
+
+# ---------------------------------------------------------------------------
+# 5f. the other MTL methods: MGDA's, FairGrad's and NashMTL's solver kernels
+# ---------------------------------------------------------------------------
+
+# the methods whose weights involve no random draw, and the drawing ones
+DRAWLESS_METHODS = ("stl", "ls", "uw", "scaleinvls", "dwa", "famo", "mgda", "log_mgda",
+                    "imtl", "log_imtl", "nashmtl", "fairgrad")
+DRAWING_METHODS = ("rlw", "pcgrad", "graddrop")
+# the solver kernel each method launches once a train step
+METHOD_SOLVER = {"mgda": "min_norm_solver", "log_mgda": "min_norm_solver",
+                 "fairgrad": "fairgrad_solver", "nashmtl": "nashmtl_solver",
+                 "cagrad": "cagrad_solver", "log_cagrad": "cagrad_solver"}
+MTL_SOLVER_NAMES = ("min_norm_solver", "fairgrad_solver", "nashmtl_solver")
+FAIRGRAD_ALPHAS = (0.5, 1.0, 2.0)  # FairGrad's default 1.0 and tests/test_mtl.py's others
+DRAW_SIGMAS = 5.0
+
+
+def mtl_solver_grams(rng, n, k):
+    """n seeded PSD Gram matrices over four decades of scale, then the
+    degenerate ones: zero, rank one (tasks of one sign: with opposed tasks
+    FairGrad's G w = w^(-1/alpha) has no solution, and gaitpd's solver
+    gives NaN too), all tasks equal, two tasks equal, one zero task."""
+    a = rng.normal(size=(n, k, 6)) * 10.0 ** rng.uniform(-2, 2, size=(n, 1, 1))
+    grams = a @ a.transpose(0, 2, 1) + 1e-4 * np.eye(k)
+    v = np.abs(rng.normal(size=k)) + 0.1
+    zero_task = grams[0].copy()
+    zero_task[0, :] = zero_task[:, 0] = 0.0
+    degenerate = [np.zeros((k, k)), np.outer(v, v), np.full((k, k), 2.0), zero_task]
+    if k > 1:
+        b = rng.normal(size=(k, 6))
+        b[1] = b[0]
+        degenerate.append(b @ b.T)
+    return np.concatenate([grams, np.stack(degenerate)]).astype(np.float32)
+
+
+def nash_normalised(grams: torch.Tensor) -> torch.Tensor:
+    """The Gram matrices as NashMTL's combine hands them to its solver."""
+    return grams / torch.linalg.matrix_norm(grams).clamp(min=1e-8)[..., None, None]
+
+
+def mtl_solver_calls():
+    """(label, kernel call, plain call, counter, input map, weights on the
+    simplex) for each solver, FairGrad at each alpha."""
+    calls = [("min_norm_solver", ms.min_norm_solve, ms.min_norm_solve_reference,
+              "min_norm_solver", lambda g: g, True)]
+    for alpha in FAIRGRAD_ALPHAS:
+        calls.append((f"fairgrad_solver alpha={alpha}",
+                      lambda g, a=alpha: ms.fairgrad_solve(g, a),
+                      lambda g, a=alpha: ms.fairgrad_solve_reference(g, a),
+                      "fairgrad_solver", lambda g: g, False))
+    calls.append(("nashmtl_solver", ms.nashmtl_solve, ms.nashmtl_solve_reference,
+                  "nashmtl_solver", nash_normalised, False))
+    return calls
+
+
+def check_mtl_solvers(rng, dev) -> dict:
+    """Each solver kernel against its plain version at K = 1..8 on seeded
+    and degenerate Gram matrices, in one launch and one matrix a launch:
+    w bitwise equal (FairGrad's too: kernel and plain version call the
+    same device powf); every w finite, MGDA's on the simplex; the launch
+    counter up by one a launch. Returns each solver's max abs error at
+    K = 3 (FairGrad's at its default alpha 1)."""
+    errors = {}
+    for k in range(1, ms.MAX_TASKS + 1):
+        raw = torch.from_numpy(mtl_solver_grams(rng, 12, k)).to(dev)
+        for label, run, plain, counter, prep, simplex in mtl_solver_calls():
+            grams = prep(raw)
+            before = read_launches()[counter]
+            got = run(grams)
+            alone = [run(g) for g in grams]
+            torch.cuda.synchronize()
+            launched = read_launches()[counter] - before
+            want = plain(grams)
+            same = int((got.view(torch.int32) == want.view(torch.int32)).all(-1).sum())
+            same_alone = sum(bool(torch.equal(a.view(torch.int32), w.view(torch.int32)))
+                             for a, w in zip(alone, want))
+            err = (got - want).abs().max().item()
+            finite = bool(torch.isfinite(got).all() and torch.isfinite(want).all())
+            on_simplex = (not simplex) or bool(
+                (got >= 0).all() and (got.sum(-1) - 1).abs().max().item() <= 1e-5)
+            n = len(grams)
+            log(f"[kernel] {label} K={k}, {n} Gram matrices ({n - 12} degenerate): bitwise "
+                f"equal {same}/{n} in one launch, {same_alone}/{n} one matrix a launch; max abs "
+                f"err {err:.3e}; finite {finite}" + (f"; on the simplex {on_simplex}"
+                                                     if simplex else "")
+                + f"; launches {launched}")
+            if launched != 1 + n:
+                raise RuntimeError(f"{label} K={k}: {launched} launches counted, want {1 + n}")
+            if not (finite and on_simplex):
+                raise RuntimeError(f"{label} K={k}: w not finite or off the simplex")
+            if same != n or same_alone != n:
+                raise RuntimeError(f"{label} K={k}: w not bitwise equal to the plain version's "
+                                   f"(max abs err {err:.3e})")
+            if k == 3 and (counter not in errors or "alpha=1.0" in label):
+                errors[counter] = err
+    return errors
+
+
+def step_syncs(seed, dev, mtl_method) -> int:
+    """Synchronisations of the host with the card in one train step at
+    batch 64 (after a warm-up step), as torch.cuda's sync debug mode
+    reports them."""
+    step, state, ctx, batch, gen = make_step_setup(seed, dev, 64, mtl_method=mtl_method)
+    step(state, batch, gen, ctx)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(state, batch, gen, ctx)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def check_step_syncs(seed, dev) -> dict:
+    """No method's train step synchronises more often than CAGrad's. The
+    first count of a process reads one synchronisation more than the same
+    step counted again, so a first count is made and dropped."""
+    first = step_syncs(seed, dev, "cagrad")
+    counts = {m: step_syncs(seed, dev, m) for m in sorted(METHODS)}
+    log(f"[train] host synchronisations in one train step at batch 64, by method: {counts} "
+        f"(the first count of the process, dropped: CAGrad {first})")
+    worse = {m: n for m, n in counts.items() if n > counts["cagrad"]}
+    if worse:
+        raise RuntimeError(f"train steps that synchronise more than CAGrad's "
+                           f"({counts['cagrad']}): {worse}")
+    return counts
+
+
+def check_draws_on_card(dev) -> None:
+    """The drawing methods' draws from a generator on the card, by their
+    laws, each within 5 sigma: RLW's mean weight 1/K, PCGrad's K! orders
+    alike, GradDrop's keep rate of a column against its sign purity p."""
+    k = 3
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ones = torch.ones(k, device=dev)
+    rlw = make_method("rlw", k)
+    n = 4000
+    w = torch.stack([_rlw_weights(rlw.draw(ones, gen)) for _ in range(n)]).double()
+    sigma = (w.std(0) / np.sqrt(n)).cpu().numpy()
+    gap = (w.mean(0) - 1.0 / k).abs().cpu().numpy()
+    log(f"[kernel] RLW on the card: {n} draws, mean weights {w.mean(0).cpu().numpy()}, "
+        f"gap from 1/K in sigmas {np.round(gap / sigma, 2).tolist()}")
+    if np.any(gap > DRAW_SIGMAS * sigma):
+        raise RuntimeError("RLW's draws on the card do not keep their law")
+
+    pc = make_method("pcgrad", k)
+    n = 3000
+    perms = torch.stack([pc.draw(ones, gen) for _ in range(n)]).cpu().numpy()
+    counts = {p: int((perms == np.array(p)).all(-1).sum())
+              for p in itertools.permutations(range(k))}
+    p = 1.0 / len(counts)
+    sigma = np.sqrt(n * p * (1 - p))
+    log(f"[kernel] PCGrad on the card: {n} draws, counts of the {len(counts)} orders "
+        f"{list(counts.values())} (expected {n * p:.0f} each, sigma {sigma:.1f})")
+    if sum(counts.values()) != n or any(abs(c - n * p) > DRAW_SIGMAS * sigma
+                                        for c in counts.values()):
+        raise RuntimeError("PCGrad's draws on the card do not keep their law")
+
+    cols = 1_000_000
+    j = torch.tensor([1.0, 0.5, -0.3], device=dev)[:, None].expand(k, cols).contiguous()
+    gd = make_method("graddrop", k)
+    mask = _graddrop_mask(j, gd.draw(j, gen))
+    purity = 0.5 * (1.0 + 1.2 / 1.8)
+    for row, rate in ((0, purity), (2, 1.0 - purity)):
+        kept = int(mask[row].sum())
+        sigma = np.sqrt(cols * rate * (1 - rate))
+        log(f"[kernel] GradDrop on the card: row {row} of {cols} columns of purity "
+            f"{purity:.4f}: kept {kept} ({(kept - cols * rate) / sigma:+.2f} sigma)")
+        if abs(kept - cols * rate) > DRAW_SIGMAS * sigma:
+            raise RuntimeError("GradDrop's draws on the card do not keep their law")
+
+
+def solver_per_step(method) -> dict:
+    """The solver launches a train step of ``method`` must make: one of its
+    own solver, none of the others."""
+    own = METHOD_SOLVER.get(method)
+    return {name: int(name == own) for name in ("cagrad_solver",) + MTL_SOLVER_NAMES}
+
+
+def phase_mtl_methods(seed, dev, rng) -> dict:
+    """This slice's main path: the 12 drawless methods one step card vs CPU
+    and run_cv card vs CPU (sync 2 epochs; async 1 for FAMO and MGDA), 3
+    stream-block backward launches and one launch of the method's own solver
+    a step; the 3 drawing methods' run_cv on the card alone (sync 1 epoch)
+    and their draws' laws; each method's host synchronisations a step."""
+    solver_errors = check_mtl_solvers(rng, dev)
+    syncs = check_step_syncs(seed, dev)
+    runs = {}
+    for method in DRAWLESS_METHODS:
+        check_one_step(seed, dev, mtl_method=method)
+        modes = (("sync", 2), ("async", 1)) if method in ("famo", "mgda") else (("sync", 2),)
+        per_step = {"stream_block_backward": 3, "stream_block_wide": 0,
+                    "stream_block_backward_wide": 0, **solver_per_step(method)}
+        own = METHOD_SOLVER.get(method)
+        runs[method] = compare_run_cv(method, dict(train_common(seed), mtl_method=method),
+                                      modes, per_step, ("stream_block",) + ((own,) if own else ()))
+    for method in DRAWING_METHODS:
+        per_step = {"stream_block_backward": 3, **solver_per_step(method)}
+        runs[method] = card_only_run_cv(method, dict(train_common(seed), mtl_method=method),
+                                        (("sync", 1),), per_step=per_step)
+    check_draws_on_card(dev)
+    return {"solver_errors": solver_errors, "syncs": syncs, "runs": runs}
 
 
 # ---------------------------------------------------------------------------
@@ -1478,6 +1720,47 @@ def time_solver(rng, dev, card) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def mtl_solver_ops(name, k):
+    """f32 operations of one solve at K tasks, counted from
+    csrc/mtl_solvers.cu, a powf as one."""
+    dot = 2 * k - 1
+    matvec = k * dot
+    newton = (2 * k + sum((k - p - 1) * (3 + 2 * (k - p - 1)) for p in range(k))
+              + sum(2 * (k - p - 1) + 1 for p in range(k)) + 3 * k)
+    if name == "min_norm_solver":
+        return 250 * (2 * matvec + (k - 1) + k + 2 * dot + 5 + 3 * k)
+    if name == "fairgrad_solver":
+        return 3 + 100 * (matvec + 4 * k + newton)
+    return 50 * (matvec + 4 * k + newton)
+
+
+def time_mtl_solvers(rng, dev, card) -> dict:
+    """Each solver kernel at the main path's shape (K = 3, one matrix, a
+    step's launch) beside its plain version on the card and its bound."""
+    raw = torch.from_numpy(mtl_solver_grams(rng, 1, 3)[0]).to(dev)
+    out = {}
+    for name, run, plain, prep in (
+            ("min_norm_solver", ms.min_norm_solve, ms.min_norm_solve_reference, lambda g: g),
+            ("fairgrad_solver", lambda g: ms.fairgrad_solve(g, 1.0),
+             lambda g: ms.fairgrad_solve_reference(g, 1.0), lambda g: g),
+            ("nashmtl_solver", ms.nashmtl_solve, ms.nashmtl_solve_reference, nash_normalised)):
+        gram = prep(raw)
+        kernel_ms = time_cuda(lambda: run(gram), warmup=10, reps=200)
+        plain_ms = time_cuda(lambda: plain(gram), warmup=1, reps=3)
+        kernel_ms_2 = time_cuda(lambda: run(gram), warmup=10, reps=200)
+        dev_ms = device_ms(lambda: run(gram))
+        ops = mtl_solver_ops(name, 3)
+        bound_ms, bound_by = _bound(4 * (9 + 3), ops)
+        log(f"[time] {card}: {name} K=3 (one Gram matrix): kernel {kernel_ms:.4f}/"
+            f"{kernel_ms_2:.4f} ms eager (device {dev_ms:.4f} ms under the profiler), plain "
+            f"(eager torch on the card, 3 calls) {plain_ms:.2f} ms, bound {bound_ms:.3e} ms "
+            f"({bound_by}: {ops} f32 operations)")
+        out[name] = {"ms": min(kernel_ms, kernel_ms_2), "plain_ms": plain_ms,
+                     "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "device_ms": dev_ms}
+    return out
+
+
 def time_serving(engine, rng, card) -> dict:
     batch = {m: rng.normal(size=(N_WINDOWS, WIN, c)).astype(np.float32)
              for m, c in CHANNELS.items()}
@@ -1505,11 +1788,12 @@ def time_serving(engine, rng, card) -> dict:
     return serving
 
 
-def make_step_setup(seed, dev, bsz, baseline=None, no_dropout=False):
-    """A flagship model with its SGD and CAGrad step, or a baseline with SGD
-    on the mean of its branch losses (sync; DeepAV-Lite and TACA with their
-    dropout, or at rate 0 with ``no_dropout``), one card-resident batch of
-    ``bsz`` window tuples, and the step's generator."""
+def make_step_setup(seed, dev, bsz, baseline=None, no_dropout=False, mtl_method="cagrad"):
+    """A flagship model with its SGD and ``mtl_method`` step (CAGrad at
+    c = 0.5 by default), or a baseline with SGD on the mean of its branch
+    losses (sync; DeepAV-Lite and TACA with their dropout, or at rate 0 with
+    ``no_dropout``), one card-resident batch of ``bsz`` window tuples, and
+    the step's generator."""
     args = wg.WearGaitArgs(seed=seed, baseline=baseline)
     model = wg.build_model(args, True)
     if no_dropout:
@@ -1519,10 +1803,11 @@ def make_step_setup(seed, dev, bsz, baseline=None, no_dropout=False):
                             private_grads="sum_plus_own",
                             dropout=baseline in wg.DROPOUT_BASELINES)
     if baseline is None:
-        mtl = make_method("cagrad", 3, c=0.5)
+        kwargs = {"c": 0.5} if mtl_method in ("cagrad", "log_cagrad") else {}
+        mtl = make_method(mtl_method, 3, **kwargs)
         step = make_train_step(settings, mtl, build_flat_partition(
             model, model.shared_modules, model.task_modules))
-        mtl_state = mtl.init_state()
+        mtl_state = mtl.init_state(dev)
     else:
         step = make_train_step(settings, train_apply=wg.baseline_adapters(args)[0])
         mtl_state = {}
@@ -1540,10 +1825,12 @@ def make_step_setup(seed, dev, bsz, baseline=None, no_dropout=False):
     return step, state, ctx, batch, torch.Generator(device=dev).manual_seed(seed)
 
 
-def time_train_step(seed, dev, card, baseline=None) -> dict:
+def time_train_step(seed, dev, card, baseline=None, mtl_method="cagrad") -> dict:
     out = {}
+    label = baseline or ("CAGrad" if mtl_method == "cagrad" else mtl_method)
     for bsz in TRAIN_BATCHES:
-        step, state, ctx, batch, gen = make_step_setup(seed, dev, bsz, baseline)
+        step, state, ctx, batch, gen = make_step_setup(seed, dev, bsz, baseline,
+                                                       mtl_method=mtl_method)
         for _ in range(3):
             step(state, batch, gen, ctx)
         torch.cuda.synchronize()
@@ -1556,7 +1843,7 @@ def time_train_step(seed, dev, card, baseline=None) -> dict:
         if not torch.isfinite(metrics["losses"]).all():
             raise RuntimeError(f"train step at batch {bsz}: non-finite loss")
         out[f"batch{bsz}"] = {"ms": ms, "window_tuples_per_s": 1e3 * bsz / ms}
-        log(f"[time] {card}: {baseline or 'CAGrad'} train step, batch {bsz} window tuples "
+        log(f"[time] {card}: {label} train step, batch {bsz} window tuples "
             f"(card-resident): "
             f"{ms:.3f} ms, {1e3 * bsz / ms:.1f} window tuples/s")
     return out
@@ -1667,6 +1954,9 @@ def main() -> int:
     focal_errors = check_focal_blocks(frng, dev, card)
     check_dropout_on_card(dev)
     sota = phase_sota_training(args.seed, dev)
+    # the other MTL methods' slice: a stream of its own as well
+    mrng = np.random.default_rng([args.seed, 11])
+    mtl = phase_mtl_methods(args.seed, dev, mrng)
     times = time_stream_block(rng, dev, card)
     times["cagrad_solver"] = time_solver(rng, dev, card)
     serving = time_serving(engine, rng, card)
@@ -1675,6 +1965,9 @@ def main() -> int:
     fusion_steps = time_train_step(args.seed, dev, card, "cheap_xattn")
     focal_times = time_focal_block(frng, dev, card)
     sota_steps = {b: time_train_step(args.seed, dev, card, b) for b in wg.SOTA_BASELINES}
+    times.update(time_mtl_solvers(mrng, dev, card))
+    mtl_steps = {m: time_train_step(args.seed, dev, card, mtl_method=m)
+                 for m in sorted(METHODS) if m != "cagrad"}
     phase_profiles(engine, args.seed, dev, card)
     phase_sota_profiles(args.seed, dev, card)
 
@@ -1688,6 +1981,10 @@ def main() -> int:
     for name in ("stream_block", "stream_block_backward"):
         launches[f"{name}_wide"] = sota["focal"]["sync"]["launches"][f"{name}_wide"]
         times[f"{name}_wide"] = focal_times[name]
+    # the MTL solvers on their own methods' main paths: each method's sync run
+    for name, method in (("min_norm_solver", "mgda"), ("fairgrad_solver", "fairgrad"),
+                         ("nashmtl_solver", "nashmtl")):
+        launches[name] = mtl["runs"][method]["sync"]["launches"][name]
     focal_err = focal_errors["focal_sync_batch1024_gelu"]
     entries = [
         ("stream_block", "gaitpd_torch/csrc/stream_block.cu", "gaitpd/ops/pallas_blocks.py:72",
@@ -1705,6 +2002,13 @@ def main() -> int:
          xattn_errors["main"][0]),
         ("cheap_xattn_backward", "gaitpd_torch/csrc/cheap_xattn.cu",
          "gaitpd/ops/pallas_blocks.py:275", xattn_errors["main"][1]),
+        # not TPU kernels either: the MGDA, FairGrad and NashMTL solvers
+        ("min_norm_solver", "gaitpd_torch/csrc/mtl_solvers.cu", "gaitpd/learning/minnorm.py:35",
+         mtl["solver_errors"]["min_norm_solver"]),
+        ("fairgrad_solver", "gaitpd_torch/csrc/mtl_solvers.cu",
+         "gaitpd/learning/minnorm.py:125", mtl["solver_errors"]["fairgrad_solver"]),
+        ("nashmtl_solver", "gaitpd_torch/csrc/mtl_solvers.cu", "gaitpd/learning/minnorm.py:144",
+         mtl["solver_errors"]["nashmtl_solver"]),
     ]
     kernels = []
     for name, source, replaces, err in entries:
@@ -1717,7 +2021,9 @@ def main() -> int:
         f"SOTA baselines' training {json.dumps(sota)} (FOCAL's stream-block launches in "
         f"'focal'); FOCAL's stream block (max abs err forward/backward) "
         f"{json.dumps(focal_errors)} and times {json.dumps(focal_times)}; SOTA train steps "
-        f"{json.dumps(sota_steps)}")
+        f"{json.dumps(sota_steps)}; the other MTL methods' runs and syncs "
+        f"{json.dumps({k: mtl[k] for k in ('runs', 'syncs')})} and train steps "
+        f"{json.dumps(mtl_steps)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -168,7 +168,7 @@ def init_train_state(
     and build its optimizer, MTL state and flat partition."""
     model = model.to(device)
     optimizer = make_optimizer(model.parameters())
-    mtl_state = mtl_method.init_state() if mtl_method is not None else {}
+    mtl_state = mtl_method.init_state(device) if mtl_method is not None else {}
     partition = None
     if mtl_method is not None:
         partition = build_flat_partition(model, model.shared_modules, model.task_modules)

@@ -5,7 +5,10 @@ Port of gaitpd/train/step.py:33-377.
   per-fold class statistics (margins, weights) are tensors in ``ctx``, and
   the DRW switch is a comparison with the host-side epoch.
 * Multitask weighting goes through gaitpd_torch.learning.mtl: one forward,
-  K per-task backward passes, the CAGrad solver kernel, then the optimizer.
+  K per-task backward passes, the method's combine (a solver kernel for
+  CAGrad, MGDA, FairGrad and NashMTL), then the optimizer. The step's
+  generator serves the forward (dropout), the loss (GCL noise) and then
+  the methods that draw (RLW, PCGrad, GradDrop), in that order.
 * The relaxed-input eval zero-fills the disabled streams and ensembles only
   the enabled heads, for any of the 7 WearGait subsets.
 * The forward goes through apply adapters (``make_apply_adapters``): the
@@ -229,6 +232,7 @@ def make_train_step(settings: StepSettings, mtl_method=None,
                 partition,
                 state.mtl_state,
                 private_grads=settings.private_grads,
+                generator=generator,
             )
         for p, g in zip(params, grads):
             p.grad = torch.zeros_like(p) if g is None else g

@@ -18,7 +18,9 @@ more keys, within gaitpd's own Pallas-vs-jnp bound of 2e-5 absolute plus
 relative (tests/test_pallas.py:70), and two backward launches bitwise equal.
 The stream block's backward skips windows whose cotangent is all zero: with
 zero rows and with a NaN in such a window it must give the plain version's
-result, with NaN at the same entries.
+result, with NaN at the same entries. The MGDA, FairGrad and NashMTL
+solvers: w bitwise equal to the plain version's (the same IEEE operations
+in the same order, the same device powf), finite, MGDA's on the simplex.
 """
 
 import numpy as np
@@ -441,3 +443,56 @@ def test_kernel_refuses_what_it_does_not_take():
         cx.cheap_xattn(a.double(), b.double())
     with pytest.raises(ValueError):
         cx.cheap_xattn(a.transpose(1, 2).contiguous().transpose(1, 2), b)
+
+
+# the MGDA, FairGrad and NashMTL solvers: seeded Gram matrices at every K
+# the kernel takes, and the degenerate ones (zero, rank one with tasks of
+# one sign, identical tasks, one zero task); NashMTL's normalised as its
+# caller does. The kernel runs the plain version's IEEE operations in its
+# order: w bitwise equal, in one launch and one matrix a launch.
+def _solver_grams(rng, n, k):
+    a = rng.normal(size=(n, k, 6)) * rng.uniform(0.1, 10.0, size=(n, 1, 1))
+    grams = a @ a.transpose(0, 2, 1) + 1e-4 * np.eye(k)
+    v = np.abs(rng.normal(size=k)) + 0.1
+    z = grams[0].copy()
+    z[0, :] = z[:, 0] = 0.0
+    degenerate = [np.zeros((k, k)), np.outer(v, v), np.full((k, k), 2.0), z]
+    return np.concatenate([grams, np.stack(degenerate)]).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["min_norm", "fairgrad_0.5", "fairgrad_1", "fairgrad_2",
+                                    "nashmtl"])
+@pytest.mark.parametrize("k", range(1, 9))
+def test_mtl_solver_matches_plain_on_card(solver, k):
+    from gaitpd_torch.ops import mtl_solvers as ms
+
+    dev = _cuda()
+    grams = torch.from_numpy(_solver_grams(np.random.default_rng(k), 12, k)).to(dev)
+    if solver == "nashmtl":
+        norm = torch.linalg.matrix_norm(grams).clamp(min=1e-8)[:, None, None]
+        grams = grams / norm
+        run, plain, counter = ms.nashmtl_solve, ms.nashmtl_solve_reference, "nashmtl_launches"
+    elif solver == "min_norm":
+        run, plain, counter = ms.min_norm_solve, ms.min_norm_solve_reference, "min_norm_launches"
+    else:
+        alpha = float(solver.split("_")[1])
+        counter = "fairgrad_launches"
+
+        def run(g):
+            return ms.fairgrad_solve(g, alpha)
+
+        def plain(g):
+            return ms.fairgrad_solve_reference(g, alpha)
+
+    before = getattr(ms, counter)
+    got = run(grams)
+    torch.cuda.synchronize()
+    assert getattr(ms, counter) == before + 1
+    want = plain(grams)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for g, w in zip(grams, want):
+        assert torch.equal(run(g), w)
+    if solver == "min_norm":
+        assert (got >= 0).all() and ((got.sum(-1) - 1).abs() <= 1e-5).all()

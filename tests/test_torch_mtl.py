@@ -136,11 +136,7 @@ def test_log_cagrad_and_unported_methods():
                              [p for _, p in tm.named_parameters()], tp, {})
     _assert_trees_close(export_flax_params(tm, dict(zip(tp.names, grads))), ref,
                         atol=GRAD_ATOL, what="log")
-    assert set(TM.METHODS) == {"cagrad", "log_cagrad"}
-    assert set(TM.NOT_PORTED) | set(TM.METHODS) == set(JM.METHODS)
-    for name in TM.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="item 10"):
-            TM.make_method(name, 3)
+    assert set(TM.METHODS) == set(JM.METHODS)
     with pytest.raises(ValueError):
         TM.make_method("nope", 3)
 

@@ -124,16 +124,18 @@ def _run_both(monkeypatch, kw):
     return ref, got, record
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_run_cv_matches_gaitpd(monkeypatch, name):
-    ref, got, rec = _run_both(monkeypatch, CONFIGS[name])
-    assert len(rec["port"]) == len(rec["jax"]) == CONFIGS[name]["epochs"]
+def assert_run_cv_matches_gaitpd(monkeypatch, kw):
+    """Both packages' run_cv from one init: per-epoch train losses within
+    LOSS_RTOL, the 7-subset table, macro and per-modality accuracies within
+    one eval window's share."""
+    ref, got, rec = _run_both(monkeypatch, kw)
+    assert len(rec["port"]) == len(rec["jax"]) == kw["epochs"]
     for ep, (p, j) in enumerate(zip(rec["port"], rec["jax"]), 1):
         np.testing.assert_allclose(p, j, rtol=LOSS_RTOL, err_msg=f"epoch {ep} train losses")
     share = 100.0 / max(rec["n_eval"])
     assert set(got["masks"]) == set(ref["masks"]) == set(TD.MASK_COMBOS)
     for mk in TD.MASK_COMBOS:
-        if "single_mod" in CONFIGS[name]:  # no masked table
+        if "single_mod" in kw:  # no masked table
             assert got["masks"][mk] is None and ref["masks"][mk] is None
             continue
         assert abs(got["masks"][mk] - ref["masks"][mk]) <= share + 1e-4, (
@@ -141,6 +143,11 @@ def test_run_cv_matches_gaitpd(monkeypatch, name):
     assert abs(got["macro"][0] - ref["macro"][0]) <= share + 1e-4
     for mod in TD.MODALITIES:
         assert abs(got["per_mod"][mod] - ref["per_mod"][mod]) <= share + 1e-4, mod
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_run_cv_matches_gaitpd(monkeypatch, name):
+    assert_run_cv_matches_gaitpd(monkeypatch, CONFIGS[name])
 
 
 def test_default_device_is_the_card():
@@ -198,7 +205,6 @@ def test_dropout_baselines_train_with_dropout(monkeypatch, baseline, dropout):
     dict(ckpt_dir="ck"),
     dict(resume=True), dict(fused=True), dict(aug_noise_std=0.1),
     dict(modality_dropout=0.2), dict(synthetic=False), dict(mesh=object()),
-    dict(mtl_method="mgda"),
 ])
 def test_unported_options_raise(option):
     kw = {**CONFIGS["sync_gcl"], "epochs": 1, "device": "cpu", **option}
