@@ -90,6 +90,22 @@ Phases (each raises on failure, so the script exits non-zero):
      epoch: finite losses, the 7-subset table, the same launches) and their
      draws on the card by their laws (RLW's mean weight 1/K, PCGrad's 6
      orders, GradDrop's keep rate: each within 5 sigma);
+  5g. the WearGait recipe (augmentation, modality dropout, checkpoints),
+     from seeds of its own, at the flagship's widths on synthetic streams:
+     the draws on the card by their laws (gaitpd_torch.tools.recipe_laws:
+     the identity at zero strengths, the noise's std over 10^6 entries, the
+     axis-mask gate's rate, one zeroed channel a gated sample and the
+     channels uniform by chi-squared, modality dropout's keep rate
+     (1 - p) + p^3 / 3 over 2 x 10^4 draws and never all three dropped);
+     0 host synchronisations in one CAGrad step with aug_noise_std 0.05,
+     aug_axis_p 0.2, modality_dropout 0.3; run_cv (sync, CAGrad, that
+     recipe) for 3 epochs against the same run again and against 2 epochs
+     with ckpt_dir resumed to 3 (phase 4's tolerances, and whether losses,
+     parameters and the 7-subset table are bitwise equal; 3 stream-block
+     backward and 1 solver launch a step); a resumed card run with the recipe off against the uninterrupted
+     CPU run (phase 4's checks); WearGaitEngine.from_checkpoint on the card
+     bitwise equal to an engine on the run's best module and within 1e-5 of
+     the checkpoint served on the CPU (predict_windows, batch 1024);
   6. timings: each kernel, its plain version and a PyTorch library call at
      the main path's shape (CUDA events around back-to-back eager calls;
      the stream block's forward and its library call also as 200 calls
@@ -108,7 +124,10 @@ Phases (each raises on failure, so the script exits non-zero):
      train step of each SOTA baseline at batch 64 and 1024; the MGDA,
      FairGrad and NashMTL solver kernels at K = 3, one matrix (eager and
      device time, plain version, bound) and one train step of every MTL
-     method at batch 64 and 1024; device time
+     method at batch 64 and 1024; one CAGrad train step with the recipe on
+     at batch 64 and 1024, beside the plain one, with both steps' device
+     time and kernel launches at batch 1024 (torch.profiler, in turns), and
+     the host time to save one fold checkpoint; device time
      by kernel of batch-1024 predict_windows and of 10 batch-1024 train
      steps of each (torch.profiler), the SOTA baselines' too.
 
@@ -128,6 +147,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -154,7 +174,9 @@ from gaitpd_torch.ops import mtl_solvers as ms
 from gaitpd_torch.ops import stream_block as sb
 from gaitpd_torch.runtime.device import resolve_device
 from gaitpd_torch.serve import StreamingSession, WearGaitEngine, poll_sessions
+from gaitpd_torch.tools import recipe_laws
 from gaitpd_torch.train import weargait_driver as wg
+from gaitpd_torch.train.checkpoint import save_fold_checkpoint
 from gaitpd_torch.train.cv import build_subj2label, make_fixed_balanced_folds_no_overlap
 from gaitpd_torch.train.optim import sgd_torch
 from gaitpd_torch.train.step import StepSettings, TrainState, make_loss_ctx, make_train_step
@@ -1245,11 +1267,12 @@ def check_mtl_solvers(rng, dev) -> dict:
     return errors
 
 
-def step_syncs(seed, dev, mtl_method) -> int:
+def step_syncs(seed, dev, mtl_method, recipe=False) -> int:
     """Synchronisations of the host with the card in one train step at
     batch 64 (after a warm-up step), as torch.cuda's sync debug mode
     reports them."""
-    step, state, ctx, batch, gen = make_step_setup(seed, dev, 64, mtl_method=mtl_method)
+    step, state, ctx, batch, gen = make_step_setup(seed, dev, 64, mtl_method=mtl_method,
+                                                   recipe=recipe)
     step(state, batch, gen, ctx)
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
@@ -1352,6 +1375,165 @@ def phase_mtl_methods(seed, dev, rng) -> dict:
                                         (("sync", 1),), per_step=per_step)
     check_draws_on_card(dev)
     return {"solver_errors": solver_errors, "syncs": syncs, "runs": runs}
+
+
+# ---------------------------------------------------------------------------
+# 5g. the WearGait recipe: augmentation, modality dropout, checkpoints
+# ---------------------------------------------------------------------------
+
+RECIPE = dict(aug_noise_std=0.05, aug_axis_p=0.2, modality_dropout=0.3)
+RESUME_EPOCHS = 3  # the interrupted run stops one epoch before, then resumes
+
+
+class StateRecorder(EpochRecorder):
+    """EpochRecorder that also keeps each epoch's module state and eval
+    ensemble accuracy, over one run or an interrupted run and its resume."""
+
+    def __init__(self):
+        super().__init__()
+        self.states, self.ens = [], []
+
+    def __call__(self, fold, epoch, state, tr, ev):
+        super().__call__(fold, epoch, state, tr, ev)
+        self.states.append({k: v.detach().clone() for k, v in state.module.state_dict().items()})
+        self.ens.append(ev.ens_acc)
+
+    def best_state(self) -> dict:
+        """The state of the sync run's best epoch: the ensemble accuracy
+        improves strictly, as the driver's early stopper reads it."""
+        best, out = 0.0, None
+        for ens, st in zip(self.ens, self.states):
+            if ens > best:
+                best, out = ens, st
+        return out
+
+
+def recipe_run(common, epochs, ckpt_dir=None) -> tuple:
+    """run_cv for ``epochs``, or with ``ckpt_dir`` for ``epochs`` - 1 and
+    then resumed to ``epochs``; every launch count set to 0 just before and
+    read just after. Returns (the last run's result, one recorder over both
+    runs, launches, seconds)."""
+    rec = StateRecorder()
+    reset_launches()
+    t0 = time.perf_counter()
+    if ckpt_dir is not None:
+        wg.run_cv(wg.WearGaitArgs(epochs=epochs - 1, ckpt_dir=ckpt_dir, **common), on_epoch=rec)
+        res = wg.run_cv(wg.WearGaitArgs(epochs=epochs, ckpt_dir=ckpt_dir, resume=True, **common),
+                        on_epoch=rec)
+    else:
+        res = wg.run_cv(wg.WearGaitArgs(epochs=epochs, **common), on_epoch=rec)
+    torch.cuda.synchronize()
+    return res, rec, read_launches(), time.perf_counter() - t0
+
+
+def check_recipe_launches(tag, launches, steps) -> None:
+    """The CAGrad flagship's launches: 3 stream-block backward and 1 solver
+    a train step, no wide variant."""
+    want = {"stream_block_backward": 3 * steps, "cagrad_solver": steps, "stream_block_wide": 0,
+            "stream_block_backward_wide": 0}
+    wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    log(f"[recipe] {tag}: {steps} train steps, launches {launches}")
+    if steps == 0 or wrong or launches["stream_block"] == 0:
+        raise RuntimeError(f"recipe {tag}: launches (got, want) {wrong} for {steps} steps")
+
+
+def compare_runs(tag, got, want, share, params_epoch) -> dict:
+    """Two runs, each (result, StateRecorder): per-epoch train losses within
+    1e-4 relative, the module state after epoch ``params_epoch`` (1-based)
+    within 1e-4 of its largest entry, the 7-subset table within one eval
+    window's share; and whether each is bitwise equal."""
+    (got_res, got_rec), (want_res, want_rec) = got, want
+    if len(got_rec.train_loss) != len(want_rec.train_loss):
+        raise RuntimeError(f"recipe {tag}: {len(got_rec.train_loss)} epochs vs "
+                           f"{len(want_rec.train_loss)}")
+    loss_gap = max(float((np.abs(a - b) / np.abs(b)).max())
+                   for a, b in zip(got_rec.train_loss, want_rec.train_loss))
+    a_state = {k: v.cpu() for k, v in got_rec.states[params_epoch - 1].items()}
+    b_state = {k: v.cpu() for k, v in want_rec.states[params_epoch - 1].items()}
+    scale = max(1.0, max(v.abs().max().item() for v in b_state.values()))
+    p_gap = max((a_state[k] - v).abs().max().item() for k, v in b_state.items())
+    mask_gap = max(abs(got_res["masks"][mk] - want_res["masks"][mk]) for mk in wg.MASK_COMBOS)
+    bitwise = {
+        "losses": all(np.array_equal(a, b) for a, b in zip(got_rec.train_loss,
+                                                            want_rec.train_loss)),
+        "params": all(torch.equal(a_state[k], v) for k, v in b_state.items()),
+        "masks": got_res["masks"] == want_res["masks"],
+    }
+    log(f"[recipe] {tag}: per-epoch train losses max rel gap {loss_gap:.3e} (tol "
+        f"{TRAIN_LOSS_RTOL}), state after epoch {params_epoch} max abs gap {p_gap:.3e} (tol "
+        f"{TRAIN_PARAM_TOL * scale:.2e}), 7-subset table max gap {mask_gap:.4f} points (one "
+        f"eval window {share:.4f}); bitwise equal {bitwise}")
+    if (not all(np.all(np.isfinite(a)) for a in got_rec.train_loss) or loss_gap > TRAIN_LOSS_RTOL
+            or p_gap > TRAIN_PARAM_TOL * scale or mask_gap > share + 1e-4):
+        raise RuntimeError(f"recipe {tag}: the runs differ beyond phase 4's tolerances")
+    return {"bitwise": bitwise, "loss_gap": loss_gap, "param_gap": p_gap, "mask_gap": mask_gap}
+
+
+def check_from_checkpoint(ckpt_dir, rec, seed) -> dict:
+    """WearGaitEngine.from_checkpoint on the card against an engine on the
+    run's best module (bitwise) and the same checkpoint on the CPU (within
+    serving's 1e-5), predict_windows at batch 1024."""
+    module = WearGaitThreeModal(synchronized=True)
+    module.load_state_dict(rec.best_state())
+    rng = np.random.default_rng([seed, 12])
+    windows = {m: rng.normal(size=(N_WINDOWS, WIN, c)).astype(np.float32)
+               for m, c in CHANNELS.items()}
+    engine = WearGaitEngine.from_checkpoint(ckpt_dir, fold=1)
+    if engine.device.type != "cuda":
+        raise RuntimeError("from_checkpoint's default engine is not on the card")
+    got = engine.predict_windows(windows)
+    want = WearGaitEngine(module).predict_windows(windows)
+    cpu = WearGaitEngine.from_checkpoint(ckpt_dir, fold=1, device="cpu").predict_windows(windows)
+    bitwise = bool(np.array_equal(got, want))
+    gap = float(np.abs(got - cpu).max())
+    log(f"[recipe] from_checkpoint on the card, predict_windows batch {N_WINDOWS}: bitwise "
+        f"equal to the best module's engine: {bitwise}; max abs gap to the CPU {gap:.3e} "
+        f"(tol {SERVE_TOL})")
+    if not bitwise or not np.all(np.isfinite(got)) or gap > SERVE_TOL:
+        raise RuntimeError("from_checkpoint's engine differs from the best module's or the CPU's")
+    return {"bitwise": bitwise, "cpu_gap": gap}
+
+
+def phase_recipe(seed, dev) -> dict:
+    """The recipe on the card: the draws' laws; 0 host synchronisations in a
+    CAGrad step with the recipe on; run_cv with the recipe uninterrupted
+    against itself run again and against interrupted and resumed; a resumed card run against the
+    uninterrupted CPU run with the augmentation off; from_checkpoint."""
+    laws = {**recipe_laws.check_augment_laws(dev, seed, noise_std=RECIPE["aug_noise_std"],
+                                             axis_p=RECIPE["aug_axis_p"]),
+            **recipe_laws.check_modality_dropout_law(dev, seed, p=RECIPE["modality_dropout"])}
+    log(f"[recipe] draws on the card hold their laws (sigmas, chi-squared): "
+        f"{ {k: round(v, 3) for k, v in laws.items()} }")
+    syncs = {"plain": step_syncs(seed, dev, "cagrad"),
+             "recipe": step_syncs(seed, dev, "cagrad", recipe=True)}
+    log(f"[recipe] host synchronisations in one CAGrad train step at batch 64: {syncs}")
+    if syncs["recipe"] != 0:
+        raise RuntimeError(f"the recipe's train step synchronises the host: {syncs}")
+    common = dict(train_common(seed), **RECIPE)
+    share = mask_share(wg.WearGaitArgs(**common))
+    out = {"laws": laws, "syncs": syncs}
+    with tempfile.TemporaryDirectory() as tmp:
+        full = recipe_run(common, RESUME_EPOCHS)
+        check_recipe_launches("uninterrupted", full[2], full[1].steps)
+        # the same run again: whether the card's run is bitwise repeatable
+        # at all says whether a resume can be
+        again = recipe_run(common, RESUME_EPOCHS)
+        out["repeat"] = compare_runs("card uninterrupted, run twice", again[:2], full[:2],
+                                     share, RESUME_EPOCHS)
+        resumed = recipe_run(common, RESUME_EPOCHS, ckpt_dir=f"{tmp}/recipe")
+        check_recipe_launches("interrupted and resumed", resumed[2], resumed[1].steps)
+        out["resume"] = compare_runs("card resumed vs card uninterrupted", resumed[:2], full[:2],
+                                     share, RESUME_EPOCHS)
+        out["from_checkpoint"] = check_from_checkpoint(f"{tmp}/recipe", resumed[1], seed)
+        plain = train_common(seed)
+        card = recipe_run(plain, RESUME_EPOCHS, ckpt_dir=f"{tmp}/plain")
+        check_recipe_launches("plain, interrupted and resumed", card[2], card[1].steps)
+        cpu = recipe_run(dict(plain, device="cpu"), RESUME_EPOCHS)
+        out["card_vs_cpu"] = compare_runs("plain card resumed vs CPU uninterrupted", card[:2],
+                                          cpu[:2], mask_share(wg.WearGaitArgs(**plain)), 1)
+    out["seconds"] = {"uninterrupted": full[3], "resumed": resumed[3], "plain_card": card[3],
+                      "plain_cpu": cpu[3]}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1788,20 +1970,24 @@ def time_serving(engine, rng, card) -> dict:
     return serving
 
 
-def make_step_setup(seed, dev, bsz, baseline=None, no_dropout=False, mtl_method="cagrad"):
+def make_step_setup(seed, dev, bsz, baseline=None, no_dropout=False, mtl_method="cagrad",
+                    recipe=False):
     """A flagship model with its SGD and ``mtl_method`` step (CAGrad at
     c = 0.5 by default), or a baseline with SGD on the mean of its branch
     losses (sync; DeepAV-Lite and TACA with their dropout, or at rate 0 with
     ``no_dropout``), one card-resident batch of ``bsz`` window tuples, and
-    the step's generator."""
-    args = wg.WearGaitArgs(seed=seed, baseline=baseline)
+    the step's generator. With ``recipe`` the step augments and drops
+    modalities as RECIPE sets them."""
+    args = wg.WearGaitArgs(seed=seed, baseline=baseline, **(RECIPE if recipe else {}))
     model = wg.build_model(args, True)
     if no_dropout:
         BL.without_dropout(model)
     model = model.to(dev)
+    aug_specs, aug_params = wg.weargait_aug_config(args)
     settings = StepSettings(n_streams=3, wm="gcl", synchronized=True,
                             private_grads="sum_plus_own",
-                            dropout=baseline in wg.DROPOUT_BASELINES)
+                            dropout=baseline in wg.DROPOUT_BASELINES,
+                            modality_dropout=args.modality_dropout, augment=aug_specs)
     if baseline is None:
         kwargs = {"c": 0.5} if mtl_method in ("cagrad", "log_cagrad") else {}
         mtl = make_method(mtl_method, 3, **kwargs)
@@ -1813,7 +1999,7 @@ def make_step_setup(seed, dev, bsz, baseline=None, no_dropout=False, mtl_method=
         mtl_state = {}
     state = TrainState(module=model, optimizer=sgd_torch(model.parameters(), 1e-3),
                        mtl_state=mtl_state)
-    ctx = make_loss_ctx(settings, [[900, 700]] * 3, device=dev)
+    ctx = make_loss_ctx(settings, [[900, 700]] * 3, device=dev, aug_params=aug_params)
     g = torch.Generator().manual_seed(seed)  # on the host: the same batch on any device
     batch = {
         "xs": tuple(torch.randn((bsz, args.win_len, CHANNELS[m]), generator=g).to(dev)
@@ -1825,12 +2011,13 @@ def make_step_setup(seed, dev, bsz, baseline=None, no_dropout=False, mtl_method=
     return step, state, ctx, batch, torch.Generator(device=dev).manual_seed(seed)
 
 
-def time_train_step(seed, dev, card, baseline=None, mtl_method="cagrad") -> dict:
+def time_train_step(seed, dev, card, baseline=None, mtl_method="cagrad", recipe=False) -> dict:
     out = {}
     label = baseline or ("CAGrad" if mtl_method == "cagrad" else mtl_method)
+    label += " recipe" if recipe else ""
     for bsz in TRAIN_BATCHES:
         step, state, ctx, batch, gen = make_step_setup(seed, dev, bsz, baseline,
-                                                       mtl_method=mtl_method)
+                                                       mtl_method=mtl_method, recipe=recipe)
         for _ in range(3):
             step(state, batch, gen, ctx)
         torch.cuda.synchronize()
@@ -1846,6 +2033,54 @@ def time_train_step(seed, dev, card, baseline=None, mtl_method="cagrad") -> dict
         log(f"[time] {card}: {label} train step, batch {bsz} window tuples "
             f"(card-resident): "
             f"{ms:.3f} ms, {1e3 * bsz / ms:.1f} window tuples/s")
+    return out
+
+
+def time_recipe_step(seed, dev, card) -> dict:
+    """Device time and kernel launches of one batch-1024 CAGrad train step,
+    plain and with the recipe (torch.profiler over 10 steps each, in turns:
+    plain, recipe, recipe, plain)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = {"plain": [], "recipe": []}
+    for label in ("plain", "recipe", "recipe", "plain"):
+        step, state, ctx, batch, gen = make_step_setup(seed, dev, 1024, recipe=label == "recipe")
+        step(state, batch, gen, ctx)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                step(state, batch, gen, ctx)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        runs[label].append((sum(e.self_device_time_total for e in kernels) / 1e4,
+                            sum(e.count for e in kernels) / 10))
+    out = {label: {"device_ms": [r[0] for r in rs], "kernels": [r[1] for r in rs]}
+           for label, rs in runs.items()}
+    log(f"[time] {card}: CAGrad train step batch 1024, device time (ms) and kernel launches a "
+        f"step, plain {out['plain']}, recipe {out['recipe']}")
+    return out
+
+
+def time_checkpoint_save(seed, dev, card) -> dict:
+    """Host time to save one fold checkpoint of the flagship (module,
+    momentum, CAGrad state, generators) from the card, 20 saves after one."""
+    step, state, ctx, batch, gen = make_step_setup(seed, dev, 64)
+    step(state, batch, gen, ctx)
+    rng = np.random.default_rng(seed)
+    lat = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(21):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = save_fold_checkpoint(tmp, 1, state, best_metric=50.0, rng=rng, generator=gen)
+            if i:
+                lat.append(1e3 * (time.perf_counter() - t0))
+        size = path.stat().st_size
+    out = {"ms_p50": float(np.percentile(lat, 50)), "ms_max": float(max(lat)), "bytes": size}
+    log(f"[time] {card}: save one fold checkpoint from the card ({size} bytes): p50 "
+        f"{out['ms_p50']:.3f} ms, max {out['ms_max']:.3f} ms over {len(lat)} saves")
     return out
 
 
@@ -1957,10 +2192,15 @@ def main() -> int:
     # the other MTL methods' slice: a stream of its own as well
     mrng = np.random.default_rng([args.seed, 11])
     mtl = phase_mtl_methods(args.seed, dev, mrng)
+    # the recipe's slice: a stream of its own as well
+    recipe = phase_recipe(args.seed, dev)
     times = time_stream_block(rng, dev, card)
     times["cagrad_solver"] = time_solver(rng, dev, card)
     serving = time_serving(engine, rng, card)
     train_steps = time_train_step(args.seed, dev, card)
+    recipe_times = {"steps": time_train_step(args.seed, dev, card, recipe=True),
+                    "profile": time_recipe_step(args.seed, dev, card),
+                    "checkpoint_save": time_checkpoint_save(args.seed, dev, card)}
     times.update(time_cheap_xattn(xrng, dev, card))
     fusion_steps = time_train_step(args.seed, dev, card, "cheap_xattn")
     focal_times = time_focal_block(frng, dev, card)
@@ -2023,7 +2263,8 @@ def main() -> int:
         f"{json.dumps(focal_errors)} and times {json.dumps(focal_times)}; SOTA train steps "
         f"{json.dumps(sota_steps)}; the other MTL methods' runs and syncs "
         f"{json.dumps({k: mtl[k] for k in ('runs', 'syncs')})} and train steps "
-        f"{json.dumps(mtl_steps)}")
+        f"{json.dumps(mtl_steps)}; the recipe {json.dumps(recipe)} and its times "
+        f"{json.dumps(recipe_times)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,19 +1,21 @@
 """WearGait fold preparation: per-subject streams -> train-only z-stats ->
 strict full windows -> sync/async index pools, on the host in numpy.
-The port's own copy of gaitpd/data/weargait.py:25-180.
+The port's own copy of gaitpd/data/weargait.py:25-204.
 
-Reading the preprocessed pickles of real recordings (``load_pkl_streams``)
-waits for the readers (ROADMAP Queue 1, item 5).
+``load_pkl_streams`` reads the preprocessed pickles of real recordings; it
+needs pandas, which it imports when it runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
 from gaitpd_torch.data.pipeline import window_stream_np
+from gaitpd_torch.data.readers import expand_imu_df, expand_insole_df, walkway_df_to_array
 
 MIN_STD = 1e-6  # reference dataloader_weargait.py:28
 MODALITIES = ("walkway", "insole", "imu")
@@ -171,3 +173,27 @@ def async_pool(
     min_len = min(lens)
     perms = [rng.permutation(n)[:min_len] for n in lens]
     return np.stack(perms, axis=1).astype(np.int32)
+
+
+def load_pkl_streams(
+    data_dir: Path, subjects: Sequence[str]
+) -> Dict[str, Dict[str, np.ndarray]]:
+    """Per subject, the three 30 Hz streams of the pickles written by
+    gaitpd_torch.data.preprocess_weargait (``<sid>_<modality>.pkl``,
+    lowercased id), expanded to 2/13/24 channels; a missing pickle gives an
+    empty stream (gaitpd/data/weargait.py:182-204)."""
+    import pandas as pd
+
+    out = {}
+    for sid in subjects:
+        sub = {}
+        for m, loader in (
+            ("walkway", walkway_df_to_array),
+            ("insole", expand_insole_df),
+            ("imu", expand_imu_df),
+        ):
+            p = Path(data_dir) / f"{sid.lower()}_{m}.pkl"
+            df = pd.read_pickle(p) if p.exists() else pd.DataFrame()
+            sub[m] = loader(df)
+        out[sid] = sub
+    return out

@@ -8,11 +8,13 @@ input): absent streams are zero-filled and their heads left out of the
 ensemble.
 
     engine = WearGaitEngine(module_or_flax_params, stats, win=64, hop=64)
+    engine = WearGaitEngine.from_checkpoint("ck", fold=1)  # the port's training
     probs = engine.predict_streams({"imu": imu_array})   # walkway/insole absent
 
-Restoring orbax checkpoints (gaitpd's ``from_checkpoint`` and
-``from_vmap_checkpoint``) is not ported: it needs orbax and tensorstore.
-Pass the restored flax variables dict, or a port module, to the engine.
+``from_checkpoint`` reads the port's own checkpoints
+(gaitpd_torch.train.checkpoint). Restoring gaitpd's orbax checkpoints needs
+orbax and tensorstore and is not ported: pass the restored flax variables
+dict to the engine. ``from_vmap_checkpoint`` waits for the vmapped CV.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from gaitpd_torch.data.pipeline import window_stream, zscore
 from gaitpd_torch.models.multitask import CHANNELS, MODALITIES, WearGaitThreeModal
 from gaitpd_torch.params import load_flax_params
 from gaitpd_torch.runtime.device import DeviceLike, resolve_device
+from gaitpd_torch.train.checkpoint import fold_path, load_snapshot
 
 
 class WearGaitEngine:
@@ -75,6 +78,22 @@ class WearGaitEngine:
             self.stats[m] = (mean, std)
             self._dev_stats[m] = (torch.as_tensor(mean, device=self.device),
                                   torch.as_tensor(std, device=self.device))
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_root, fold: int = 1, which: str = "best", *,
+                        model: Optional[nn.Module] = None, num_classes: int = 2, **kw):
+        """An engine on the fold's ``which`` ("best" or "latest") parameters
+        saved by the port's training (``ckpt_dir``), copied into ``model``
+        (default: a synchronized ``WearGaitThreeModal``), with the z-score
+        stats of ``<ckpt_root>/stats.json`` where that exists
+        (gaitpd/serve.py:81-90)."""
+        payload = load_snapshot(ckpt_root, fold, which)
+        if payload is None:
+            raise FileNotFoundError(f"no checkpoint at {fold_path(ckpt_root, fold, which)}")
+        module = copy.deepcopy(model) if model is not None else WearGaitThreeModal(
+            synchronized=True, num_classes=num_classes)
+        module.load_state_dict(payload["module"])
+        return cls(module, cls._load_stats(ckpt_root), **kw)
 
     @staticmethod
     def _load_stats(ckpt_root):

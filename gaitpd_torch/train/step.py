@@ -6,20 +6,31 @@ Port of gaitpd/train/step.py:33-377.
   the DRW switch is a comparison with the host-side epoch.
 * Multitask weighting goes through gaitpd_torch.learning.mtl: one forward,
   K per-task backward passes, the method's combine (a solver kernel for
-  CAGrad, MGDA, FairGrad and NashMTL), then the optimizer. The step's
-  generator serves the forward (dropout), the loss (GCL noise) and then
-  the methods that draw (RLW, PCGrad, GradDrop), in that order.
+  CAGrad, MGDA, FairGrad and NashMTL), then the optimizer.
+* Relaxed-input training: with ``augment`` each input stream is augmented
+  (gaitpd_torch.data.augment; the strengths ride in ``ctx[0]["aug"]``), then
+  with ``modality_dropout`` p each stream is zero-filled with probability
+  p, one draw a stream a batch; when every stream is dropped, one chosen
+  uniformly is kept. Both stay on the device, with no host
+  synchronisation.
 * The relaxed-input eval zero-fills the disabled streams and ensembles only
   the enabled heads, for any of the 7 WearGait subsets.
 * The forward goes through apply adapters (``make_apply_adapters``): the
   train forward of a model with dropout gets ``train=True`` and the step's
   generator, the eval forward never drops.
 
+Randomness. A train step draws from its one ``torch.Generator`` in this
+order: the augmentation (stream by stream: gate, channel, noise), the
+modality dropout (keep, forced), the forward's dropout, the GCL noise, then
+the MTL methods that draw (RLW, PCGrad, GradDrop). The draws happen once a
+step: ``mtl_grads`` calls the loss once, so all K per-task backward passes
+see the same augmented inputs.
+
 Batches carry a ``valid`` mask, so padded batches are exact, and
 ``n_valid``, its count on the host: a fully padded batch is a no-op decided
 without waiting for the device. Options of the reference that the port does
-not have yet (augmentation, modality dropout, rematerialisation, the
-two-stream consistency term) raise NotImplementedError when set.
+not have yet (rematerialisation, the two-stream consistency term) raise
+NotImplementedError when set.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from gaitpd_torch.data.augment import augment_stream
 from gaitpd_torch.learning import losses as L
 from gaitpd_torch.learning.mtl import FlatPartition, mtl_grads
 
@@ -64,8 +76,12 @@ class StepSettings:
     private_grads: str = "sum"  # see gaitpd_torch.learning.mtl.mtl_grads
     loss_reduction: str = "mean"  # combined scalar without MTL: mean|sum
     dropout: bool = False  # the train forward gets train=True and the step's generator
+    # relaxed-input training: zero-fill each input stream with this
+    # probability, one draw a stream a batch; one stream always stays on
     modality_dropout: float = 0.0
     remat: str = "none"
+    # one AugmentSpec (or None) per input stream; the strengths are tensors
+    # in ctx[0]["aug"] (make_loss_ctx's aug_params)
     augment: Optional[Tuple[Any, ...]] = None
 
     def __post_init__(self):
@@ -75,10 +91,6 @@ class StepSettings:
             raise NotImplementedError(
                 "the symmetric-KL consistency term serves the two-stream FBG/FoG "
                 "models, not ported yet (ROADMAP Queue 1, item 11)")
-        if self.augment is not None or self.modality_dropout:
-            raise NotImplementedError(
-                "train-time augmentation and modality dropout are not ported yet "
-                "(ROADMAP Queue 1, item 8)")
         if self.remat != "none":
             raise NotImplementedError(
                 "rematerialisation policies are not ported yet (ROADMAP Queue 1, item 14)")
@@ -137,10 +149,15 @@ def make_loss_ctx(
     settings: StepSettings,
     counts: Sequence[Sequence[int]],
     device=None,
+    aug_params: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
 ) -> Tuple[Dict[str, torch.Tensor], ...]:
     """Per-stream loss-context tensors from training class counts. The DRW
     weights (``drw_base``) replace ones once the epoch reaches
-    ``drw_warmup`` (reference train/utilities.py:197-202)."""
+    ``drw_warmup`` (reference train/utilities.py:197-202).
+
+    aug_params: one dict of augmentation strengths per input stream
+    (gaitpd_torch.data.augment.make_aug_params), moved to ``device`` into
+    ``ctx[0]["aug"]``."""
     out = []
     for c in counts:
         out.append({
@@ -149,6 +166,9 @@ def make_loss_ctx(
             "gcl_m": L.gcl_margins(c).to(device),
             "drw_base": L.inv_freq_weights(c).to(device),
         })
+    if aug_params is not None:
+        out[0]["aug"] = tuple({k: torch.as_tensor(v, dtype=torch.float32).to(device)
+                               for k, v in p.items()} for p in aug_params)
     return tuple(out)
 
 
@@ -161,15 +181,45 @@ def _resolve_drw(settings: StepSettings, ctx, epoch: int):
     return tuple(resolved)
 
 
+def draw_modality_dropout(n_in: int, p: float, generator: torch.Generator,
+                          device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Modality dropout's draws, in this order: ``keep`` (n_in,) bool, each
+    True with probability 1 - p, and ``forced`` () int64 uniform in
+    [0, n_in), the stream kept when ``keep`` has none."""
+    if generator is None:
+        raise ValueError("modality dropout draws from the step's generator: pass one")
+    keep = torch.rand((n_in,), generator=generator, device=device) < 1.0 - p
+    forced = torch.randint(0, n_in, (), generator=generator, device=device)
+    return keep, forced
+
+
+def modality_dropout(xs: Sequence[torch.Tensor], keep: torch.Tensor,
+                     forced: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Zero-fill the streams ``keep`` drops; if it drops all, keep stream
+    ``forced`` alone (gaitpd/train/step.py:213-223). ``keep.any()`` stays a
+    tensor: no host synchronisation."""
+    n_in = len(xs)
+    forced_mask = torch.arange(n_in, device=keep.device) == forced
+    keep = torch.where(keep.any(), keep, forced_mask)
+    return tuple(torch.where(keep[i], x, torch.zeros_like(x)) for i, x in enumerate(xs))
+
+
 def make_multitask_loss_fn(settings: StepSettings,
                            train_apply: Optional[TrainApply] = None) -> Callable:
     """loss_fn(module, xs, ys, valid, ctx, generator, epoch) -> ((K,) losses,
-    logits tuple). The forward is ``train_apply`` (default: the standard
+    logits tuple). The inputs are augmented, then dropped by modality, as
+    the settings ask; the forward is ``train_apply`` (default: the standard
     adapter)."""
     if train_apply is None:
         train_apply = make_apply_adapters(settings)[0]
 
     def loss_fn(module, xs, ys, valid, ctx, generator, epoch):
+        if settings.augment is not None:
+            xs = tuple(x if spec is None else augment_stream(x, generator, spec, params)
+                       for x, spec, params in zip(xs, settings.augment, ctx[0]["aug"]))
+        if settings.modality_dropout > 0:
+            xs = modality_dropout(xs, *draw_modality_dropout(
+                len(xs), settings.modality_dropout, generator, xs[0].device))
         logits = train_apply(module, xs, generator, epoch)
         if not isinstance(logits, (tuple, list)):
             logits = (logits,)

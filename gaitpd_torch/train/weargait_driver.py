@@ -1,5 +1,5 @@
 """WearGait three-stream training with CAGrad and relaxed-input evaluation.
-Port of gaitpd/train/weargait_driver.py:37-47,73-166,169-198,248-533
+Port of gaitpd/train/weargait_driver.py:37-47,49-68,73-198,248-533
 (reference train/weargait_train.py: run_cv :533-645, train/eval epochs
 :300-352, masked eval :355-433, single-modality sub-driver :250-297).
 
@@ -7,12 +7,20 @@ Port of gaitpd/train/weargait_driver.py:37-47,73-166,169-198,248-533
     res = run_cv(WearGaitArgs(synthetic=True, baseline="cheap_xattn"))
     res = run_cv(WearGaitArgs(synthetic=True, baseline="focal", device="cpu"))
     res = run_cv(WearGaitArgs(synthetic=True, single_mod="imu", device="cpu"))
+    # the recipe: augmentation, modality dropout, per-fold checkpoints
+    res = run_cv(WearGaitArgs(data_dir="data/WearGait/WearGait_preproc_SPmT_30Hz",
+                              aug_noise_std=0.05, aug_axis_p=0.2, modality_dropout=0.3,
+                              ckpt_dir="ck", resume=True))
 
 The flagship model (CAGrad), the seven baselines (the four fusion models and
 DeepAV-Lite, FOCAL and TACA, on the mean of the branch losses) and the
-single-modality mode, on synthetic streams. Options
-of the reference trainer that the port does not have yet raise
-NotImplementedError naming their ROADMAP item; none is silently ignored.
+single-modality mode, on synthetic streams or the preprocessed pickles of
+real recordings (``synthetic=False``; reading them needs pandas). With
+``ckpt_dir`` each fold but a single-modality one saves ``latest`` every
+epoch and ``best`` on improvement (gaitpd_torch.train.checkpoint), and
+``resume`` continues a fold from its ``latest``. Options of the reference
+trainer that the port does not have yet raise NotImplementedError naming
+their ROADMAP item; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -20,18 +28,28 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from gaitpd_torch.data import weargait as WG
+from gaitpd_torch.data.augment import AugmentSpec, make_aug_params
+from gaitpd_torch.data.cache import count_weargait_pickles
+from gaitpd_torch.data.paths import weargait_paths
+from gaitpd_torch.data.readers import discover_weargait_subjects
 from gaitpd_torch.data.synthetic import make_weargait_streams
 from gaitpd_torch.learning.mtl import make_method
 from gaitpd_torch.models import baselines as BL
 from gaitpd_torch.models import fusion as FU
 from gaitpd_torch.models.multitask import WearGaitThreeModal
 from gaitpd_torch.runtime.device import DeviceLike, resolve_device
+from gaitpd_torch.train.checkpoint import (
+    load_snapshot,
+    restore_fold_checkpoint,
+    save_fold_checkpoint,
+)
 from gaitpd_torch.train.cv import build_subj2label, make_fixed_balanced_folds_no_overlap
 from gaitpd_torch.train.loop import (
     DeviceFoldData,
@@ -120,17 +138,24 @@ class WearGaitArgs:
     device: DeviceLike = None  # None: the card; "cpu" for the plain versions
 
 
+def weargait_aug_config(args, n_streams: int = 3):
+    """Per-stream (AugmentSpec, strengths) for the WearGait sensor streams
+    (gaitpd/train/weargait_driver.py:49-68): noise and the channel mask
+    only; ``n_streams=1`` for the single-modality fold. (None, None) when
+    every strength is zero."""
+    noise, axis = args.aug_noise_std, args.aug_axis_p
+    if noise <= 0 and axis <= 0:
+        return None, None
+    specs = (AugmentSpec(noise=noise > 0, axis_mask=axis > 0),) * n_streams
+    params = tuple(make_aug_params(noise_std=noise, axis_p=axis) for _ in range(n_streams))
+    return specs, params
+
+
 def check_supported(args: WearGaitArgs) -> None:
     """Raise NotImplementedError for an option the port does not have yet."""
     missing = [
-        (args.ckpt_dir is not None or args.resume, "checkpoints (ckpt_dir, resume)",
-         "Queue 1, item 9"),
         (args.fused, "the fused forward (fused)", "Queue 1, item 15"),
-        (args.aug_noise_std > 0 or args.aug_axis_p > 0 or args.modality_dropout > 0,
-         "augmentation and modality dropout", "Queue 1, item 8"),
         (args.mesh is not None, "data-parallel meshes (mesh)", "Queue 1, item 14"),
-        (not args.synthetic or args.data_dir is not None,
-         "real WearGait data (synthetic=False, data_dir)", "Queue 1, item 5"),
     ]
     for unsupported, what, item in missing:
         if unsupported:
@@ -186,9 +211,20 @@ def build_model(args: WearGaitArgs, sync_flag: bool,
 
 
 def get_streams(args: WearGaitArgs):
-    """Synthetic streams, the same as gaitpd's for the same seed."""
-    n = args.n_folds * args.test_per_class + 4
-    return make_weargait_streams(n_pd=n, n_hc=n, seed=args.seed)
+    """(streams, PD ids, HC ids): synthetic streams, the same as gaitpd's for
+    the same seed, or the per-subject pickles in ``args.data_dir`` (default:
+    gaitpd_torch.data.paths.weargait_paths()["output_dir"]), written by
+    gaitpd_torch.data.preprocess_weargait."""
+    if args.synthetic:
+        n = args.n_folds * args.test_per_class + 4
+        return make_weargait_streams(n_pd=n, n_hc=n, seed=args.seed)
+    data_dir = Path(args.data_dir or weargait_paths()["output_dir"])
+    if count_weargait_pickles(data_dir) == 0:
+        raise FileNotFoundError(
+            f"no WearGait pickles in {data_dir}: run "
+            "python -m gaitpd_torch.data.preprocess_weargait, or pass synthetic=True")
+    pd_ids, hc_ids = discover_weargait_subjects(data_dir)
+    return WG.load_pkl_streams(data_dir, pd_ids + hc_ids), pd_ids, hc_ids
 
 
 def split_to_device(split: WG.WearGaitSplit, async_mode: bool, seed: int,
@@ -252,6 +288,7 @@ def run_fold(
         np.bincount(split.train[m].y[data.train_pool[:, k]], minlength=args.num_classes)
         for k, m in enumerate(MODALITIES)
     ]
+    aug_specs, aug_params = weargait_aug_config(args)
     settings = StepSettings(
         n_streams=3,
         wm=args.wm,
@@ -263,8 +300,10 @@ def run_fold(
         consistency_lambda=0.0,
         private_grads="sum_plus_own",
         dropout=args.baseline in DROPOUT_BASELINES,
+        modality_dropout=args.modality_dropout,
+        augment=aug_specs,
     )
-    ctx = make_loss_ctx(settings, counts, device=device)
+    ctx = make_loss_ctx(settings, counts, device=device, aug_params=aug_params)
 
     model = build_model(args, sync_flag)
     # CAGrad for the flagship only; the baselines train on the mean of the
@@ -284,7 +323,21 @@ def run_fold(
     best_params = None
     best_w = best_i = best_m = 0.0
 
-    for ep in range(1, args.epochs + 1):
+    start_epoch = 1
+    if args.ckpt_dir and args.resume:
+        meta = restore_fold_checkpoint(args.ckpt_dir, fi, state, rng=rng, generator=generator)
+        if meta is not None:
+            start_epoch = meta["epoch"] + 2  # stored 0-based
+            stopper.best = meta["best_metric"]
+            stopper.no_improve = meta["no_improve"]
+            # best_w/i/m are not in the json, as in gaitpd: they stay 0
+            # unless a later epoch improves
+            best = load_snapshot(args.ckpt_dir, fi, "best", map_location=device)
+            if best is not None:
+                best_params = best["module"]
+            print(f"[Fold {fi}] resumed from epoch {start_epoch}")
+
+    for ep in range(start_epoch, args.epochs + 1):
         state.epoch = ep - 1
         if async_mode:
             # per-epoch reseed of the modality permutations
@@ -300,6 +353,12 @@ def run_fold(
             best_w, best_i, best_m = float(vaw), float(vai), float(vam)
             # a snapshot, never an alias of the live parameters
             best_params = {k: v.detach().clone() for k, v in state.module.state_dict().items()}
+        if args.ckpt_dir:
+            save = functools.partial(save_fold_checkpoint, args.ckpt_dir, fi, state,
+                                     best_metric=stopper.best, rng=rng, generator=generator)
+            save(no_improve=stopper.no_improve)
+            if improved:
+                save(latest=False)
         if on_epoch is not None:
             on_epoch(fi, ep, state, tr, ev)
         if args.verbose:
@@ -352,7 +411,8 @@ def run_single_mod_fold(
     """Single-modality sub-driver (gaitpd/train/weargait_driver.py:400-476,
     reference weargait_train.py:250-297, 579-588): only that branch through
     the shared backbone and its head, a fresh SGD state every epoch, pooled
-    eval accuracy, no masked table. Returns (best, per-mod accs, {})."""
+    eval accuracy, no masked table, augmentation but no modality dropout and
+    no checkpoint, as in gaitpd. Returns (best, per-mod accs, {})."""
     check_supported(args)
     device = resolve_device(args.device)
     async_mode = args.async_loading
@@ -368,11 +428,12 @@ def run_single_mod_fold(
     )
     counts = [np.bincount(split.train[args.single_mod].y[data.train_pool[:, 0]],
                           minlength=args.num_classes)]
+    aug_specs, aug_params = weargait_aug_config(args, n_streams=1)
     settings = StepSettings(
         n_streams=1, wm=args.wm, synchronized=False, gcl_m=args.gcl_m, gcl_s=args.gcl_s,
-        noise_mul=args.noise_mul, drw_warmup=args.drw_warmup,
+        noise_mul=args.noise_mul, drw_warmup=args.drw_warmup, augment=aug_specs,
     )
-    ctx = make_loss_ctx(settings, counts, device=device)
+    ctx = make_loss_ctx(settings, counts, device=device, aug_params=aug_params)
     make_optimizer = functools.partial(sgd_torch, lr=args.lr, momentum=0.9, weight_decay=1e-4)
     state, _ = init_train_state(build_model(args, not async_mode), make_optimizer, None, device)
     runner = EpochRunner(settings)

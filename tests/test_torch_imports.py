@@ -1,7 +1,11 @@
 """The port stands alone: no module of gaitpd_torch, nor chip_smoke.py,
-imports JAX, flax, optax, orbax or anything of the JAX package gaitpd."""
+imports JAX, flax, optax, orbax or anything of the JAX package gaitpd; and
+every one of them imports without pandas, which the card's machine lacks
+(the real-data readers import it when they run)."""
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -37,5 +41,21 @@ def test_scan_sees_the_whole_port():
                  "gaitpd_torch/data/weargait.py", "gaitpd_torch/data/synthetic.py",
                  "gaitpd_torch/data/sampler.py", "gaitpd_torch/train/cv.py",
                  "gaitpd_torch/ops/attention.py", "gaitpd_torch/ops/cheap_xattn.py",
-                 "gaitpd_torch/models/fusion.py", "chip_smoke.py"):
+                 "gaitpd_torch/models/fusion.py", "gaitpd_torch/data/augment.py",
+                 "gaitpd_torch/train/checkpoint.py", "gaitpd_torch/data/readers.py",
+                 "gaitpd_torch/data/paths.py", "gaitpd_torch/data/cache.py",
+                 "gaitpd_torch/data/preprocess_weargait.py",
+                 "gaitpd_torch/tools/recipe_laws.py", "chip_smoke.py"):
         assert must in names
+
+
+def test_port_imports_without_pandas():
+    modules = [p.relative_to(ROOT).with_suffix("").as_posix().replace("/", ".")
+               for p in FILES]
+    code = ("import importlib, sys\n"
+            "sys.modules['pandas'] = None  # import pandas now raises ImportError\n"
+            f"for name in {modules!r}:\n"
+            "    importlib.import_module(name)\n")
+    done = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert done.returncode == 0, done.stderr

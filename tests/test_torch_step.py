@@ -189,10 +189,7 @@ def test_eval_step_all_masks(sync):
                                           err_msg=f"{name} {key}")
 
 
-@pytest.mark.parametrize("option", [
-    dict(augment=(None, None, None)), dict(modality_dropout=0.1), dict(remat="dots"),
-    dict(consistency_lambda=0.5),
-])
+@pytest.mark.parametrize("option", [dict(remat="dots"), dict(consistency_lambda=0.5)])
 def test_unported_settings_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TS.StepSettings(n_streams=3, **option)
