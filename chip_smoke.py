@@ -106,10 +106,31 @@ Phases (each raises on failure, so the script exits non-zero):
      CPU run (phase 4's checks); WearGaitEngine.from_checkpoint on the card
      bitwise equal to an engine on the run's best module and within 1e-5 of
      the checkpoint served on the CPU (predict_windows, batch 1024);
+  5h. the FBG/FoG driver (skeleton + sensor multitask training, CAGrad at
+     K = 2), from a random stream of its own, on synthetic readers (the
+     card's machine has no pandas): the stream block at the path's shapes
+     (T 101 pooled to 8 overlapping bins, C_in 6 and 3, both streams of 256
+     and of 1024 window pairs in one launch), forward and backward against
+     their plain versions as in phase 2, the backward also with either
+     stream's half of g zero (an async task pass), each launch printed; one
+     train step card vs CPU as in phase 4 (FoG multimodal async; FoG sync
+     with the consistency term); 0 host synchronisations in a FoG CAGrad
+     step; one fold of the driver's main (n_folds_cap 1, verbose on the
+     card: the reports print without sklearn) card vs CPU for FoG
+     multimodal async 3 epochs, FoG sync with consistency 2, FBG multimodal
+     async 1 and FoG sensor-only (CE) 1: per-epoch losses within 1e-4
+     relative, parameters after epoch 1 within 1e-4 of the largest, the
+     skeleton, sensor and average accuracies within one eval sample's
+     share, and launches a multimodal step of 1 stream-block forward, 2
+     backward and 1 solver (a single-modality step 1 and 1, no solver; an
+     eval batch 1 forward); one FoG fold at the data's real scale (30
+     subjects of 36 segments) on the card alone: finite losses, the same
+     launches;
   6. timings: each kernel, its plain version and a PyTorch library call at
      the main path's shape (CUDA events around back-to-back eager calls;
-     the stream block's forward and its library call also as 200 calls
-     replayed from a CUDA graph, the device's time without the host's)
+     the stream block's forward, its plain version and its library call,
+     and its backward and the library's, also as 200 calls replayed from a
+     CUDA graph, the device's time without the host's)
      beside its bound, and the
      stream-block backward also in a CAGrad task pass's layout (two thirds
      of g zero) with its own bound and its launch (tile, shared memory,
@@ -127,7 +148,13 @@ Phases (each raises on failure, so the script exits non-zero):
      method at batch 64 and 1024; one CAGrad train step with the recipe on
      at batch 64 and 1024, beside the plain one, with both steps' device
      time and kernel launches at batch 1024 (torch.profiler, in turns), and
-     the host time to save one fold checkpoint; device time
+     the host time to save one fold checkpoint; the FoG multimodal CAGrad
+     train step at batch 256 and 1024 beside the WearGait one, its device
+     time and kernel launches (profiler), and the stream block's forward
+     and backward at FoG's shape (2 x 256 windows, C_in 6), eager and from a
+     CUDA graph, beside the plain versions, the library calls and the
+     bounds (the backward also in the async skeleton task's layout); device
+     time
      by kernel of batch-1024 predict_windows and of 10 batch-1024 train
      steps of each (torch.profiler), the SOTA baselines' too.
 
@@ -155,6 +182,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gaitpd_torch.config import FBG_FOG_DIMS
+from gaitpd_torch.data import synthetic as syn
 from gaitpd_torch.data.sampler import batch_index_matrix
 from gaitpd_torch.data.weargait import prepare_split
 from gaitpd_torch.learning.mtl import (
@@ -175,6 +204,7 @@ from gaitpd_torch.ops import stream_block as sb
 from gaitpd_torch.runtime.device import resolve_device
 from gaitpd_torch.serve import StreamingSession, WearGaitEngine, poll_sessions
 from gaitpd_torch.tools import recipe_laws
+from gaitpd_torch.train import fbg_fog_driver as ff
 from gaitpd_torch.train import weargait_driver as wg
 from gaitpd_torch.train.checkpoint import save_fold_checkpoint
 from gaitpd_torch.train.cv import build_subj2label, make_fixed_balanced_folds_no_overlap
@@ -910,11 +940,18 @@ def check_one_step(seed, dev, baseline=None, mtl_method="cagrad") -> None:
     parameters and an equal batch: ``mtl_method`` (CAGrad by default) for
     the flagship, the mean of the branch losses for a baseline (DeepAV-Lite
     and TACA at dropout 0, since the card's masks cannot match the CPU's)."""
-    runs = {}
     label = baseline or ("CAGrad" if mtl_method == "cagrad" else mtl_method)
+    compare_one_step(f"{label} step at batch 64", dev, lambda device: make_step_setup(
+        seed, device, 64, baseline, no_dropout=True, mtl_method=mtl_method))
+
+
+def compare_one_step(label, dev, make) -> None:
+    """One train step of ``make(device)``'s (step, state, ctx, batch,
+    generator) on the card and on the CPU: parameters within STEP_PARAM_TOL
+    and momentum within STEP_MOMENTUM_TOL of their largest value."""
+    runs = {}
     for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
-        step, state, ctx, batch, gen = make_step_setup(seed, device, 64, baseline,
-                                                       no_dropout=True, mtl_method=mtl_method)
+        step, state, ctx, batch, gen = make(device)
         state, metrics = step(state, batch, gen, ctx)
         runs[name] = (state, metrics)
     card_state, cpu_state = runs["card"][0], runs["cpu"][0]
@@ -926,13 +963,13 @@ def check_one_step(seed, dev, baseline=None, mtl_method="cagrad") -> None:
         scale = max(1.0, max(w.abs().max().item() for w in want))
         gaps[what] = (max((g - w).abs().max().item() for g, w in zip(got, want)), scale)
     loss_gap = (runs["card"][1]["losses"].cpu() - runs["cpu"][1]["losses"]).abs().max().item()
-    log(f"[train] one {label} step at batch 64, card vs CPU: parameters max abs "
+    log(f"[train] one {label}, card vs CPU: parameters max abs "
         f"gap {gaps['parameters'][0]:.3e} (tol {STEP_PARAM_TOL * gaps['parameters'][1]:.2e}), "
         f"momentum {gaps['momentum'][0]:.3e} (tol {STEP_MOMENTUM_TOL * gaps['momentum'][1]:.2e}), "
         f"losses {loss_gap:.3e}")
     if (gaps["parameters"][0] > STEP_PARAM_TOL * gaps["parameters"][1]
             or gaps["momentum"][0] > STEP_MOMENTUM_TOL * gaps["momentum"][1]):
-        raise RuntimeError(f"one {label} train step: card and CPU differ: {gaps}")
+        raise RuntimeError(f"one {label}: card and CPU differ: {gaps}")
 
 
 def compare_run_cv(label, common, modes, per_step, nonzero, per_eval_forward=None) -> dict:
@@ -1271,8 +1308,12 @@ def step_syncs(seed, dev, mtl_method, recipe=False) -> int:
     """Synchronisations of the host with the card in one train step at
     batch 64 (after a warm-up step), as torch.cuda's sync debug mode
     reports them."""
-    step, state, ctx, batch, gen = make_step_setup(seed, dev, 64, mtl_method=mtl_method,
-                                                   recipe=recipe)
+    return count_syncs(*make_step_setup(seed, dev, 64, mtl_method=mtl_method, recipe=recipe))
+
+
+def count_syncs(step, state, ctx, batch, gen) -> int:
+    """Synchronisations of the host with the card in one call of ``step``
+    after a warm-up call, as torch.cuda's sync debug mode reports them."""
     step(state, batch, gen, ctx)
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
@@ -1537,6 +1578,231 @@ def phase_recipe(seed, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 5h. the FBG/FoG driver: skeleton + sensor multitask training at K = 2
+# ---------------------------------------------------------------------------
+
+FF_BATCH = 256  # FBG_FOG_TRAIN's batch: window pairs a train step
+# (B, T, C_in, K, C_out, t_out, act) of the FBG/FoG backbone: both streams'
+# windows in one launch, T 101 pooled to 8 overlapping bins, C_in 6 (FoG) and
+# 3 (FBG), at the driver's batch and at 1024
+FF_BLOCK_CASES = {
+    "fog_batch256": (2 * FF_BATCH, 101, 6, 3, 16, 8, "relu"),
+    "fbg_batch256": (2 * FF_BATCH, 101, 3, 3, 16, 8, "relu"),
+    "fog_batch1024": (2 * 1024, 101, 6, 3, 16, 8, "relu"),
+    "fbg_batch1024": (2 * 1024, 101, 3, 3, 16, 8, "relu"),
+}
+FF_SHAPE = FF_BLOCK_CASES["fog_batch256"]
+# the compared runs' synthetic readers: 2 train steps of 256 an epoch
+FF_READERS = {"fog": dict(n_subjects=12, segments=36),
+              "fbg": dict(n_subjects=12, walks=30, trials=30)}
+# real FoG recordings are cut into 36 equal segments (FoGReader)
+FF_REAL_SCALE = dict(n_subjects=30, segments=36)
+
+
+def check_ff_blocks(rng, dev) -> dict:
+    """The stream block at the FBG/FoG path's shapes, forward and backward
+    against their plain versions as in phase 2, the backward also in the
+    async task passes' layouts (the other stream's half of g zero: its gx
+    exactly 0); each launch printed. Returns (forward, backward) errors."""
+    errors = {}
+    for name, (bsz, t, cin, k, cout, t_out, act) in FF_BLOCK_CASES.items():
+        x, w, b, g = stream_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
+        fwd = hold_forward(f"fbg_fog {name}", x, w, b, t_out, act)
+        bwd = hold_backward(f"fbg_fog {name}", x, w, b, g, t_out, act)[0]
+        half = bsz // 2
+        for task, zero in (("skeleton task", slice(half, bsz)), ("sensor task", slice(0, half))):
+            g_task = g.clone()
+            g_task[zero] = 0.0
+            err, grads = hold_backward(
+                f"fbg_fog {name} {task} (rows {zero.start}..{zero.stop - 1} of g zero)",
+                x, w, b, g_task, t_out, act)
+            if grads[0][zero].abs().max().item() != 0.0:
+                raise RuntimeError(f"stream_block backward fbg_fog {name} {task}: gx of a "
+                                   "zero-cotangent window is not 0")
+            bwd = max(bwd, err)
+        log(f"[config] fbg_fog {name}: forward {sb.forward_config(bsz, t, cin, cout, k, t_out, act)}"
+            f"; backward {sb.backward_config(bsz, t, cin, cout, k, t_out, act)}")
+        errors[name] = (fwd, bwd)
+    return errors
+
+
+def ff_step_setup(seed, dev, bsz, dataset="fog", modality="multimodal", sync=False,
+                  wm="gcl", consistency_lambda=1.0):
+    """The FBG/FoG driver's model (choose_model, weights from ``seed``), its
+    SGD and, multimodal, its CAGrad step at K = 2 (c 0.1, max_norm 1,
+    private grads "sum"), one card-resident batch of ``bsz`` window pairs
+    (skeleton in [0, 1) as the min-max poses, sensor N(0, 1)), and the
+    step's generator."""
+    args = ff.FbgFogArgs(dataset=dataset, modality=modality, synchronized_loading=sync,
+                         seed=seed, wm=wm, consistency_lambda=consistency_lambda,
+                         use_norm_and_cos=wm == "gcl")
+    dims = FBG_FOG_DIMS[dataset]
+    multimodal = modality == "multimodal"
+    model = ff.choose_model(args, dims).to(dev)
+    settings = StepSettings(n_streams=2 if multimodal else 1, wm=wm, synchronized=sync,
+                            consistency_lambda=consistency_lambda if multimodal else 0.0,
+                            private_grads="sum")
+    if multimodal:
+        mtl = make_method("cagrad", 2, c=args.alpha, max_norm=args.max_norm)
+        step = make_train_step(settings, mtl, build_flat_partition(
+            model, model.shared_modules, model.task_modules))
+        mtl_state = mtl.init_state(dev)
+    else:
+        step, mtl_state = make_train_step(settings), {}
+    state = TrainState(module=model, optimizer=sgd_torch(model.parameters(), 1e-3, 0.9, 1e-4),
+                       mtl_state=mtl_state)
+    ctx = make_loss_ctx(settings, [[300, 200, 120]] * settings.n_streams, device=dev)
+    g = torch.Generator().manual_seed(seed)  # on the host: the same batch on any device
+    xs = {"skeleton": torch.rand((bsz, dims.pose_length, dims.skeleton_input_dim), generator=g),
+          "sensor": torch.randn((bsz, dims.sensor_length, dims.sensor_in_channels), generator=g)}
+    streams = ("skeleton", "sensor") if multimodal else (modality,)
+    ys = torch.randint(0, dims.num_classes, (bsz,), generator=g)
+    batch = {"xs": tuple(xs[s].to(dev) for s in streams),
+             "ys": tuple(ys.to(dev) for _ in streams),
+             "valid": torch.ones(bsz, device=dev), "n_valid": bsz}
+    return step, state, ctx, batch, torch.Generator(device=dev).manual_seed(seed)
+
+
+class FoldRecorder(EpochRecorder):
+    """on_epoch hook of the FBG/FoG driver (0-based epochs): per-epoch
+    losses, non-empty train steps, the parameters after the first epoch and
+    the eval samples' count."""
+
+    def __init__(self):
+        super().__init__()
+        self.n_eval = 0
+
+    def __call__(self, fold, epoch, state, tr, ev):
+        super().__call__(fold, epoch + 1, state, tr, ev)
+        self.n_eval = len(ev.trues[0])
+
+
+def ff_launches_wanted(kw, steps, eval_forwards) -> dict:
+    """A multimodal train step launches 1 stream-block forward, 2 backward
+    (one a task pass) and 1 solver; a single-modality step 1 forward and 1
+    backward; an eval batch 1 forward. No other kernel."""
+    multimodal = kw["modality"] == "multimodal"
+    want = {name: 0 for name in COUNTERS}
+    want.update(stream_block=steps + eval_forwards,
+                stream_block_backward=(2 if multimodal else 1) * steps,
+                cagrad_solver=steps if multimodal else 0)
+    return want
+
+
+def ff_run(kw, epochs, reader, device, seed):
+    """The driver's main (n_folds_cap 1) on ``reader``; every launch count
+    set to 0 just before and read just after. Returns (summary of the mode,
+    recorder, launches, seconds)."""
+    args = ff.FbgFogArgs(epochs=epochs, n_folds_cap=1, seed=seed, device=device,
+                         verbose=device is None, **kw)
+    rec = FoldRecorder()
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = ff.main(args, on_epoch=rec, reader=reader)
+    if device is None:
+        torch.cuda.synchronize()
+    return summary[kw["modality"]], rec, read_launches(), time.perf_counter() - t0
+
+
+def check_ff_launches(tag, kw, rec, launches, epochs) -> int:
+    n_eval_batches = batch_index_matrix(np.arange(rec.n_eval), FF_BATCH)[0].shape[0]
+    want = ff_launches_wanted(kw, rec.steps, epochs * n_eval_batches)
+    log(f"[fbg_fog] {tag}: {rec.steps} train steps and {epochs * n_eval_batches} eval "
+        f"forwards; launches {launches}")
+    wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    if rec.steps == 0 or wrong:
+        raise RuntimeError(f"fbg_fog {tag}: launches (got, want) {wrong} for {rec.steps} steps")
+    return rec.steps
+
+
+def compare_ff_fold(label, kw, epochs, seed) -> dict:
+    """One fold of the driver on the card and on the CPU from one seed and
+    one reader (FF_READERS): per-epoch train losses within 1e-4 relative,
+    parameters after epoch 1 within 1e-4 of the largest, the skeleton,
+    sensor and average accuracies within one eval sample's share; the
+    card's launches as ff_launches_wanted counts them."""
+    dataset = kw["dataset"]
+    make = syn.make_fbg_reader if dataset == "fbg" else syn.make_fog_reader
+    reader = make(seed=seed, **FF_READERS[dataset])
+    card, card_rec, launches, card_s = ff_run(kw, epochs, reader, None, seed)
+    cpu, cpu_rec, _, cpu_s = ff_run(kw, epochs, reader, "cpu", seed)
+    tag = f"{label}, {epochs} epoch(s)"
+    steps = check_ff_launches(tag, kw, card_rec, launches, epochs)
+    if steps != cpu_rec.steps:
+        raise RuntimeError(f"fbg_fog {tag}: {steps} card steps vs {cpu_rec.steps} on the CPU")
+    gaps = []
+    for ep, (a, b) in enumerate(zip(card_rec.train_loss, cpu_rec.train_loss), 1):
+        gap = float((np.abs(a - b) / np.abs(b)).max())
+        gaps.append(gap)
+        log(f"[fbg_fog] {tag} epoch {ep}: train losses card {np.round(a, 6).tolist()} CPU "
+            f"{np.round(b, 6).tolist()}, max rel gap {gap:.3e} (tol {TRAIN_LOSS_RTOL})")
+        if not np.all(np.isfinite(a)) or gap > TRAIN_LOSS_RTOL:
+            raise RuntimeError(f"fbg_fog {tag} epoch {ep}: card losses differ from the CPU's")
+    scale = max(1.0, max(p.abs().max().item() for p in cpu_rec.first_epoch_params.values()))
+    p_gap = max((card_rec.first_epoch_params[n] - p).abs().max().item()
+                for n, p in cpu_rec.first_epoch_params.items())
+    share = 100.0 / card_rec.n_eval
+    acc_gap = max(abs(card[k] - cpu[k]) for k in ("skel", "sensor", "avg"))
+    log(f"[fbg_fog] {tag}: card {card_s:.2f} s, CPU {cpu_s:.2f} s; parameters after epoch 1 "
+        f"max abs gap {p_gap:.3e} (tol {TRAIN_PARAM_TOL * scale:.2e}); accuracies card "
+        f"{ {k: round(float(v), 4) for k, v in card.items()} }, CPU "
+        f"{ {k: round(float(v), 4) for k, v in cpu.items()} } (one eval sample {share:.4f} "
+        f"points)")
+    if p_gap > TRAIN_PARAM_TOL * scale or acc_gap > share + 1e-4:
+        raise RuntimeError(f"fbg_fog {tag}: card and CPU differ beyond phase 4's tolerances")
+    return {"launches": launches, "steps": steps, "loss_gap": max(gaps), "param_gap": p_gap,
+            "acc_gap": acc_gap, "seconds": {"card": card_s, "cpu": cpu_s}}
+
+
+FF_RUNS = {
+    "fog multimodal async (CAGrad, GCL)": (dict(dataset="fog", modality="multimodal",
+                                                use_norm_and_cos=True), 3),
+    "fog multimodal sync (consistency 1.0)": (dict(dataset="fog", modality="multimodal",
+                                                   synchronized_loading=True,
+                                                   consistency_lambda=1.0), 2),
+    "fbg multimodal async": (dict(dataset="fbg", modality="multimodal"), 1),
+    "fog sensor-only (CE)": (dict(dataset="fog", modality="sensor", wm="ce"), 1),
+}
+
+
+def phase_fbg_fog(seed, dev, rng) -> dict:
+    """The FBG/FoG driver: the stream block at its shapes; one train step
+    card vs CPU (FoG multimodal async, and sync with the consistency term);
+    0 host synchronisations in a multimodal CAGrad step; one fold card vs
+    CPU for each of FF_RUNS; one FoG fold at the data's real scale on the
+    card alone."""
+    t0 = time.perf_counter()
+    errors = check_ff_blocks(rng, dev)
+    compare_one_step("FoG multimodal async CAGrad step at batch 256", dev,
+                     lambda device: ff_step_setup(seed, device, FF_BATCH))
+    compare_one_step("FoG multimodal sync CAGrad step with consistency 1.0 at batch 256", dev,
+                     lambda device: ff_step_setup(seed, device, FF_BATCH, sync=True))
+    # the first count of a process reads one more than the same step counted
+    # again (check_step_syncs): made and dropped
+    first = count_syncs(*ff_step_setup(seed, dev, FF_BATCH))
+    syncs = count_syncs(*ff_step_setup(seed, dev, FF_BATCH))
+    log(f"[fbg_fog] host synchronisations in one FoG multimodal CAGrad train step at batch "
+        f"{FF_BATCH}: {syncs} (a first count, dropped: {first})")
+    if syncs != 0:
+        raise RuntimeError(f"the FoG CAGrad train step synchronises the host {syncs} times")
+    runs = {label: compare_ff_fold(label, kw, epochs, seed)
+            for label, (kw, epochs) in FF_RUNS.items()}
+    kw = dict(dataset="fog", modality="multimodal", use_norm_and_cos=True)
+    reader = syn.make_fog_reader(seed=seed, **FF_REAL_SCALE)
+    _, rec, launches, secs = ff_run(kw, 1, reader, None, seed)
+    tag = f"real scale ({len(reader.pose_dict)} FoG segment pairs), card only, 1 epoch"
+    check_ff_launches(tag, kw, rec, launches, 1)
+    losses = np.concatenate(rec.train_loss + rec.eval_loss)
+    log(f"[fbg_fog] {tag}: {secs:.2f} s; train losses {rec.train_loss[0].tolist()}, eval "
+        f"losses {rec.eval_loss[0].tolist()}")
+    if not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"fbg_fog {tag}: non-finite losses")
+    runs["real scale"] = {"launches": launches, "steps": rec.steps, "seconds": secs}
+    log(f"[fbg_fog] phase 5h: {time.perf_counter() - t0:.1f} s")
+    return {"errors": errors, "syncs": syncs, "runs": runs}
+
+
+# ---------------------------------------------------------------------------
 # 5. timings
 # ---------------------------------------------------------------------------
 
@@ -1574,8 +1840,13 @@ def _bound(moved, flop):
     return 1e3 * max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
-def time_stream_block(rng, dev, card) -> dict:
-    bsz, t, cin, k, cout, t_out, _ = MAIN_SHAPE
+def time_stream_block(rng, dev, card, shape=MAIN_SHAPE, task_zero=slice(N_WINDOWS, None),
+                      task="CAGrad task layout") -> dict:
+    """The stream block's forward and backward at ``shape``: eager and from
+    a CUDA graph, beside the plain version, the library call and the bound;
+    the backward also with the rows ``task_zero`` of g zero (a task pass's
+    layout: at the main shape only the walkway stream's third is live)."""
+    bsz, t, cin, k, cout, t_out, _ = shape
     x, w, b, g = stream_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
     w_torch = w.permute(2, 1, 0).contiguous()  # (C_out, C_in, K) for F.conv1d
 
@@ -1592,11 +1863,10 @@ def time_stream_block(rng, dev, card) -> dict:
         kernel_ms_2 = time_cuda(lambda: sb.stream_block(x, w, b, t_out))
         plain_ms_2 = time_cuda(lambda: sb.stream_block_reference(x, w, b, t_out))
         library_ms = time_cuda(library)
-        # the same calls without the host: the plain version copies its
-        # pooling matrix from pageable host memory each call, which a graph
-        # cannot capture, so it has no graph time
+        # the same calls without the host
         graph_ms = time_cuda_graph(lambda: sb.stream_block(x, w, b, t_out))
         library_graph_ms = time_cuda_graph(library)
+        plain_graph_ms = time_cuda_graph(lambda: sb.stream_block_reference(x, w, b, t_out))
         graph_ms_2 = time_cuda_graph(lambda: sb.stream_block(x, w, b, t_out))
     bound_ms, bound_by = stream_block_bound(bsz, t, cin, k, cout, t_out)
     launch = sb.forward_config(bsz, t, cin, cout, k, t_out)
@@ -1605,7 +1875,7 @@ def time_stream_block(rng, dev, card) -> dict:
         f"{kernel_ms:.4f}/{kernel_ms_2:.4f} ms, plain {plain_ms:.4f}/{plain_ms_2:.4f} ms, "
         f"library conv1d+relu+adaptive_avg_pool1d {library_ms:.4f} ms; 200 calls replayed "
         f"from a CUDA graph (device only): kernel {graph_ms:.4f}/{graph_ms_2:.4f} ms, library "
-        f"{library_graph_ms:.4f} ms, plain not capturable; bound {bound_ms:.5f} ms "
+        f"{library_graph_ms:.4f} ms, plain {plain_graph_ms:.4f} ms; bound {bound_ms:.5f} ms "
         f"({bound_by}); launch {launch}")
 
     # the backward: (x, w, b, g) -> (gx, gw, gb), each version from scratch
@@ -1630,38 +1900,42 @@ def time_stream_block(rng, dev, card) -> dict:
     bwd_plain_2 = time_cuda(lambda: sb.stream_block_backward_reference(x, w, b, g, t_out),
                             warmup=5, reps=50)
     bwd_library = time_cuda(library_backward, warmup=5, reps=50)
+    bwd_graph = time_cuda_graph(lambda: sb.stream_block_backward(x, w, b, g, t_out))
+    bwd_library_graph = time_cuda_graph(library_backward, warmup=5, reps=50)
     bwd_bound, bwd_by = stream_block_backward_bound(bsz, t, cin, k, cout, t_out)
     config = sb.backward_config(bsz, t, cin, cout, k, t_out)
     log(f"[time] {card}: stream_block_backward at x({bsz},{t},{cin}) k{k}, all windows live: "
         f"kernel {bwd_kernel:.4f}/{bwd_kernel_2:.4f} ms, plain (autograd of the plain forward) "
         f"{bwd_plain:.4f}/{bwd_plain_2:.4f} ms, library (autograd of conv1d+relu+"
-        f"adaptive_avg_pool1d, forward included) {bwd_library:.4f} ms, bound "
+        f"adaptive_avg_pool1d, forward included) {bwd_library:.4f} ms; from a CUDA graph "
+        f"(device only): kernel {bwd_graph:.4f} ms, library {bwd_library_graph:.4f} ms; bound "
         f"{bwd_bound:.5f} ms ({bwd_by}); launch {config} (on "
         f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs)")
 
-    # a CAGrad task pass: only the walkway stream's third carries cotangents
+    # a task pass: only the task's own stream carries cotangents
     g_task = g.clone()
-    g_task[N_WINDOWS:] = 0.0
+    g_task[task_zero] = 0.0
+    live = bsz - len(range(bsz)[task_zero])
     task_kernel = time_cuda(lambda: sb.stream_block_backward(x, w, b, g_task, t_out))
     task_plain = time_cuda(lambda: sb.stream_block_backward_reference(x, w, b, g_task, t_out),
                            warmup=5, reps=50)
     task_kernel_2 = time_cuda(lambda: sb.stream_block_backward(x, w, b, g_task, t_out))
-    task_bound, task_by = stream_block_backward_bound(bsz, t, cin, k, cout, t_out,
-                                                      live=N_WINDOWS)
-    log(f"[time] {card}: stream_block_backward at x({bsz},{t},{cin}) k{k}, CAGrad task layout "
-        f"(rows {N_WINDOWS}.. of g zero): kernel {task_kernel:.4f}/{task_kernel_2:.4f} ms, "
-        f"plain {task_plain:.4f} ms, bound {task_bound:.5f} ms ({task_by}: operations on the "
-        f"live third, bytes on all)")
+    task_bound, task_by = stream_block_backward_bound(bsz, t, cin, k, cout, t_out, live=live)
+    log(f"[time] {card}: stream_block_backward at x({bsz},{t},{cin}) k{k}, {task} "
+        f"(rows {range(bsz)[task_zero].start}..{range(bsz)[task_zero].stop - 1} of g zero): "
+        f"kernel {task_kernel:.4f}/{task_kernel_2:.4f} ms, plain {task_plain:.4f} ms, bound "
+        f"{task_bound:.5f} ms ({task_by}: operations on the {live} live rows, bytes on all)")
     return {
         "stream_block": {"ms": min(kernel_ms, kernel_ms_2), "plain_ms": min(plain_ms, plain_ms_2),
                          "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                          "variant": launch["variant"], "launch": launch,
                          "graph_ms": min(graph_ms, graph_ms_2),
-                         "library_graph_ms": library_graph_ms},
+                         "library_graph_ms": library_graph_ms, "plain_graph_ms": plain_graph_ms},
         "stream_block_backward": {"ms": min(bwd_kernel, bwd_kernel_2),
                                   "plain_ms": min(bwd_plain, bwd_plain_2),
                                   "library_ms": bwd_library, "bound_ms": bwd_bound,
-                                  "bound_by": bwd_by,
+                                  "bound_by": bwd_by, "graph_ms": bwd_graph,
+                                  "library_graph_ms": bwd_library_graph,
                                   "cagrad_layout_ms": min(task_kernel, task_kernel_2),
                                   "cagrad_layout_plain_ms": task_plain,
                                   "cagrad_layout_bound_ms": task_bound,
@@ -2036,6 +2310,60 @@ def time_train_step(seed, dev, card, baseline=None, mtl_method="cagrad", recipe=
     return out
 
 
+def time_ff_train_step(seed, dev, card) -> dict:
+    """The FoG multimodal CAGrad train step (async, GCL, LayerNorm + cosine
+    heads) at batch 256 and 1024, host clock around 20 synchronised steps
+    after 3, as time_train_step times the WearGait step."""
+    out = {}
+    for bsz in (FF_BATCH, 1024):
+        step, state, ctx, batch, gen = ff_step_setup(seed, dev, bsz)
+        for _ in range(3):
+            step(state, batch, gen, ctx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            _, metrics = step(state, batch, gen, ctx)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / 20
+        if not torch.isfinite(metrics["losses"]).all():
+            raise RuntimeError(f"FoG train step at batch {bsz}: non-finite loss")
+        out[f"batch{bsz}"] = {"ms": ms, "window_pairs_per_s": 1e3 * bsz / ms}
+        log(f"[time] {card}: FoG multimodal CAGrad train step, batch {bsz} window pairs "
+            f"(card-resident): {ms:.3f} ms, {1e3 * bsz / ms:.1f} window pairs/s")
+    return out
+
+
+def time_ff_step_profile(seed, dev, card) -> dict:
+    """Device time, kernel launches and wall time a step of the FoG
+    multimodal CAGrad train step at batch 256 and 1024 (torch.profiler over
+    10 steps after one), and the device time by kernel at batch 256."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for bsz in (FF_BATCH, 1024):
+        step, state, ctx, batch, gen = ff_step_setup(seed, dev, bsz)
+        step(state, batch, gen, ctx)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(10):
+                step(state, batch, gen, ctx)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        out[f"batch{bsz}"] = {
+            "device_ms": sum(e.self_device_time_total for e in kernels) / 1e4,
+            "kernels": sum(e.count for e in kernels) / 10, "wall_ms_profiled": wall_ms / 10}
+        if bsz == FF_BATCH:
+            profile_table(prof, f"10 x FoG multimodal CAGrad train step batch {bsz}", wall_ms,
+                          card)
+    log(f"[time] {card}: FoG multimodal CAGrad train step, device time (ms), kernel "
+        f"launches and profiled wall time (ms) a step: {out}")
+    return out
+
+
 def time_recipe_step(seed, dev, card) -> dict:
     """Device time and kernel launches of one batch-1024 CAGrad train step,
     plain and with the recipe (torch.profiler over 10 steps each, in turns:
@@ -2194,10 +2522,17 @@ def main() -> int:
     mtl = phase_mtl_methods(args.seed, dev, mrng)
     # the recipe's slice: a stream of its own as well
     recipe = phase_recipe(args.seed, dev)
+    # the FBG/FoG driver's slice: a stream of its own as well
+    ff_rng = np.random.default_rng([args.seed, 13])
+    fbg_fog = phase_fbg_fog(args.seed, dev, ff_rng)
     times = time_stream_block(rng, dev, card)
     times["cagrad_solver"] = time_solver(rng, dev, card)
     serving = time_serving(engine, rng, card)
     train_steps = time_train_step(args.seed, dev, card)
+    ff_steps = time_ff_train_step(args.seed, dev, card)
+    ff_profile = time_ff_step_profile(args.seed, dev, card)
+    ff_times = time_stream_block(ff_rng, dev, card, FF_SHAPE, slice(FF_BATCH, None),
+                                 "FoG async skeleton task layout")
     recipe_times = {"steps": time_train_step(args.seed, dev, card, recipe=True),
                     "profile": time_recipe_step(args.seed, dev, card),
                     "checkpoint_save": time_checkpoint_save(args.seed, dev, card)}
@@ -2225,6 +2560,13 @@ def main() -> int:
     for name, method in (("min_norm_solver", "mgda"), ("fairgrad_solver", "fairgrad"),
                          ("nashmtl_solver", "nashmtl")):
         launches[name] = mtl["runs"][method]["sync"]["launches"][name]
+    # the generic variants at the FBG/FoG path's shape: the FoG multimodal
+    # async run's launches, the times at FoG's shape
+    ff_main = fbg_fog["runs"]["fog multimodal async (CAGrad, GCL)"]["launches"]
+    for name in ("stream_block", "stream_block_backward"):
+        launches[f"{name}_fbg_fog"] = ff_main[name]
+        times[f"{name}_fbg_fog"] = ff_times[name]
+    ff_err = fbg_fog["errors"]["fog_batch256"]
     focal_err = focal_errors["focal_sync_batch1024_gelu"]
     entries = [
         ("stream_block", "gaitpd_torch/csrc/stream_block.cu", "gaitpd/ops/pallas_blocks.py:72",
@@ -2235,6 +2577,10 @@ def main() -> int:
          "gaitpd/ops/pallas_blocks.py:160", focal_err[1]),
         ("stream_block_backward", "gaitpd_torch/csrc/stream_block.cu",
          "gaitpd/ops/pallas_blocks.py:160", sb_errors["main"][1]),
+        ("stream_block_fbg_fog", "gaitpd_torch/csrc/stream_block.cu",
+         "gaitpd/ops/pallas_blocks.py:72", ff_err[0]),
+        ("stream_block_backward_fbg_fog", "gaitpd_torch/csrc/stream_block.cu",
+         "gaitpd/ops/pallas_blocks.py:160", ff_err[1]),
         # not a TPU kernel: the CAGrad solver that XLA compiles into the step
         ("cagrad_solver", "gaitpd_torch/csrc/cagrad_solver.cu", "gaitpd/learning/minnorm.py:58",
          solver_err),
@@ -2264,7 +2610,8 @@ def main() -> int:
         f"{json.dumps(sota_steps)}; the other MTL methods' runs and syncs "
         f"{json.dumps({k: mtl[k] for k in ('runs', 'syncs')})} and train steps "
         f"{json.dumps(mtl_steps)}; the recipe {json.dumps(recipe)} and its times "
-        f"{json.dumps(recipe_times)}")
+        f"{json.dumps(recipe_times)}; the FBG/FoG driver {json.dumps(fbg_fog)}, its train steps "
+        f"{json.dumps(ff_steps)} and profile {json.dumps(ff_profile)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
-"""Preprocessing on tensors: z-score and strict sliding windows.
+"""Preprocessing on tensors: pose normalisation, z-score and strict
+sliding windows.
 
-Port of gaitpd/data/pipeline.py (the device half, :93-157, plus its own
+Port of gaitpd/data/pipeline.py (the device half, :73-157, plus its own
 copies of the numpy helpers :29-65). Every transform is a batched function
 on a tensor, so it runs wherever the stream lies: on the card in serving,
 on the CPU in the tests.
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+MIN_STD_POSE = 1e-4  # reference dataloader_fbg_fog.py:20
 MIN_STD_WG = 1e-6  # reference dataloader_weargait.py:28
 
 
@@ -62,6 +64,28 @@ def window_stream_np(x: np.ndarray, win: int, hop: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # Batched transforms on tensors
 # ---------------------------------------------------------------------------
+
+
+def center_poses(poses: torch.Tensor, root: int = 0) -> torch.Tensor:
+    """(N, T, J, 3) minus the root joint a frame (reference
+    dataloader_fbg_fog.py:93-99)."""
+    return poses - poses[:, :, root : root + 1, :]
+
+
+def minmax_poses(poses: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Per-sample min-max over (T, J) into [0, 1] a coordinate (reference
+    dataloader_fbg_fog.py:107-113)."""
+    mins = poses.amin(dim=(1, 2), keepdim=True)
+    maxs = poses.amax(dim=(1, 2), keepdim=True)
+    return (poses - mins) / (maxs - mins + eps)
+
+
+def zscore_poses(poses: torch.Tensor, mean, std, min_std: float = MIN_STD_POSE):
+    """Global z-score, a std below ``min_std`` taken as 1 (reference
+    dataloader_fbg_fog.py:114-119)."""
+    std = torch.as_tensor(std, dtype=poses.dtype, device=poses.device)
+    std = torch.where(std < min_std, torch.ones_like(std), std)
+    return (poses - torch.as_tensor(mean, dtype=poses.dtype, device=poses.device)) / std
 
 
 def zscore(

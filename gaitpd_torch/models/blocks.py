@@ -1,4 +1,4 @@
-"""Layers shared by the port's models. Port of gaitpd/models/blocks.py:34-191.
+"""Layers shared by the port's models. Port of gaitpd/models/blocks.py:34-190.
 
 Streams stay time-major, (B, T, C), at every public function, as in the
 reference. Submodules carry the flax modules' names (``Conv1dSame_0``,
@@ -69,13 +69,15 @@ def adaptive_avg_pool_matrix(t_in: int, t_out: int, device=None) -> torch.Tensor
     """(t_in, t_out) matrix P with x_pooled = x^T P, matching
     torch.nn.AdaptiveAvgPool1d: bin i averages frames
     [floor(i*t_in/t_out), ceil((i+1)*t_in/t_out)). Bins overlap when t_out
-    does not divide t_in."""
-    p = torch.zeros(t_in, t_out, dtype=torch.float32)
-    for i in range(t_out):
-        start = (i * t_in) // t_out
-        end = -(-((i + 1) * t_in) // t_out)  # ceil
-        p[start:end, i] = 1.0 / (end - start)
-    return p.to(device)
+    does not divide t_in. Built with tensor ops on ``device`` (entries
+    1 / bin length, a float32 division): no copy from the host, so a train
+    step on the card does not wait for one."""
+    i = torch.arange(t_out, device=device)
+    start = (i * t_in) // t_out
+    end = -((-(i + 1) * t_in) // t_out)  # ceil
+    t = torch.arange(t_in, device=device)[:, None]
+    inside = ((t >= start) & (t < end)).to(torch.float32)
+    return inside / (end - start).to(torch.float32)
 
 
 def adaptive_avg_pool1d(x: torch.Tensor, t_out: int) -> torch.Tensor:
@@ -210,3 +212,12 @@ def flatten_features(x: torch.Tensor) -> torch.Tensor:
     """(B, bdim, C) -> (B, bdim*C), in (bdim, C) order as the reference, so
     head weights need no permutation."""
     return x.reshape(x.shape[0], -1)
+
+
+def flatten_skel(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, J, C) -> (B, T, J*C); a 3-D input passes through
+    (reference train/utilities.py:28-32)."""
+    if x.dim() == 4:
+        b, t, j, c = x.shape
+        return x.reshape(b, t, j * c)
+    return x

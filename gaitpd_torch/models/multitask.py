@@ -1,4 +1,12 @@
-"""WearGait three-modality model. Port of gaitpd/models/multitask.py:174-243."""
+"""Multi-stream multitask models. Port of gaitpd/models/multitask.py:64-243:
+the FBG/FoG skeleton + sensor model and its two single-modality stacks, and
+the WearGait three-modality model.
+
+Submodules carry the flax modules' names and ``shared_modules`` /
+``task_modules`` name the same partitions as gaitpd's, so
+gaitpd_torch.params.load_flax_params and
+gaitpd_torch.learning.mtl.build_flat_partition take them unchanged.
+"""
 
 from __future__ import annotations
 
@@ -11,13 +19,139 @@ from gaitpd_torch.models.blocks import TaskHead, default_generator, flatten_feat
 from gaitpd_torch.models.encoders import (
     IMUEncoderShallow,
     InsoleEncoderDeep,
+    SensorEncoder,
     SharedBackbone,
+    SkeletonMLP,
     WalkwayEncoder,
     backbone_streams,
 )
 
 MODALITIES = ("walkway", "insole", "imu")
 CHANNELS = {"walkway": 2, "insole": 13, "imu": 24}
+
+
+class MultiModalMultiTask(nn.Module):
+    """Skeleton + sensor branches over one shared backbone
+    (reference train/feature_encoder.py:149-265). Returns (logits_skel,
+    logits_sens). Synchronized mode has one head for both streams, async
+    mode a head per stream.
+
+    ``skeleton_input_dim`` and ``sensor_in_channels`` are the input widths,
+    which the flax module infers at init. Both encoders give
+    ``pose_length`` frames (the sensor encoder pools its ``sensor_length``
+    frames to them), so the two streams reach the backbone through one
+    kernel launch over their concatenated batch; gaitpd calls the backbone
+    once a stream, and the result per window is the same."""
+
+    def __init__(
+        self,
+        skeleton_input_dim: int,
+        skeleton_output_dim: int,
+        sensor_in_channels: int,
+        sensor_out_channels: int,
+        sensor_length: int,
+        pose_length: int = 101,
+        shared_out_channels: int = 16,
+        backbone_dim: int = 8,
+        num_classes: int = 3,
+        use_norm: bool = False,
+        use_cosine: bool = False,
+        synchronized_loading: bool = False,
+        *,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        g = default_generator(generator)
+        self.synchronized_loading = synchronized_loading
+        self.skeleton_encoder = SkeletonMLP(skeleton_input_dim, skeleton_output_dim,
+                                            generator=g)
+        self.sensor_encoder = SensorEncoder(sensor_in_channels, sensor_out_channels,
+                                            sensor_length=sensor_length,
+                                            output_length=pose_length, generator=g)
+        if skeleton_output_dim != sensor_out_channels:
+            raise ValueError("the shared backbone takes one width: skeleton_output_dim "
+                             f"{skeleton_output_dim} != sensor_out_channels "
+                             f"{sensor_out_channels}")
+        self.backbone = SharedBackbone(sensor_out_channels, shared_out_channels, backbone_dim,
+                                       generator=g)
+        feat = shared_out_channels * backbone_dim
+
+        def head():
+            return TaskHead(feat, num_classes, use_norm=use_norm, use_cosine=use_cosine,
+                            generator=g)
+
+        if synchronized_loading:
+            self.task_head_shared = head()
+        else:
+            self.task_head_skel = head()
+            self.task_head_sensor = head()
+
+    def forward(self, x_skel: torch.Tensor, x_sensor: torch.Tensor):
+        feats = [self.skeleton_encoder(x_skel), self.sensor_encoder(x_sensor)]
+        skel_repr, sens_repr = (flatten_features(p)
+                                for p in backbone_streams(self.backbone, feats))
+        if self.synchronized_loading:
+            return self.task_head_shared(skel_repr), self.task_head_shared(sens_repr)
+        return self.task_head_skel(skel_repr), self.task_head_sensor(sens_repr)
+
+    @property
+    def shared_modules(self) -> Tuple[str, ...]:
+        """reference train/feature_encoder.py:256-265."""
+        if self.synchronized_loading:
+            return ("backbone", "task_head_shared")
+        return ("backbone",)
+
+    @property
+    def task_modules(self) -> Tuple[Tuple[str, ...], ...]:
+        """The private module groups of the skeleton and the sensor task."""
+        if self.synchronized_loading:
+            return (("skeleton_encoder",), ("sensor_encoder",))
+        return (("skeleton_encoder", "task_head_skel"), ("sensor_encoder", "task_head_sensor"))
+
+
+class _SingleModality(nn.Module):
+    """encoder -> shared backbone -> head; the head has a LayerNorm unless
+    ``use_norm`` is False, as the flax modules' default."""
+
+    def __init__(self, encoder: nn.Module, enc_out: int, shared_out_channels: int,
+                 backbone_dim: int, num_classes: int, use_norm: bool,
+                 generator: torch.Generator):
+        super().__init__()
+        self.encoder = encoder
+        self.backbone = SharedBackbone(enc_out, shared_out_channels, backbone_dim,
+                                       generator=generator)
+        self.task_head = TaskHead(shared_out_channels * backbone_dim, num_classes,
+                                  use_norm=use_norm, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.task_head(flatten_features(self.backbone(self.encoder(x))))
+
+
+class SensorModalityModel(_SingleModality):
+    """Sensor-only stack (reference train/feature_encoder.py:268-305)."""
+
+    def __init__(self, sensor_in_channels: int, sensor_out_channels: int, sensor_length: int,
+                 pose_length: int = 101, shared_out_channels: int = 16, backbone_dim: int = 8,
+                 num_classes: int = 3, use_norm: bool = True, *,
+                 generator: Optional[torch.Generator] = None):
+        g = default_generator(generator)
+        encoder = SensorEncoder(sensor_in_channels, sensor_out_channels,
+                                sensor_length=sensor_length, output_length=pose_length,
+                                generator=g)
+        super().__init__(encoder, sensor_out_channels, shared_out_channels, backbone_dim,
+                         num_classes, use_norm, g)
+
+
+class SkelModalityModel(_SingleModality):
+    """Skeleton-only stack (reference train/feature_encoder.py:308-344)."""
+
+    def __init__(self, skeleton_input_dim: int, skeleton_output_dim: int,
+                 shared_out_channels: int = 16, backbone_dim: int = 8, num_classes: int = 3,
+                 use_norm: bool = True, *, generator: Optional[torch.Generator] = None):
+        g = default_generator(generator)
+        encoder = SkeletonMLP(skeleton_input_dim, skeleton_output_dim, generator=g)
+        super().__init__(encoder, skeleton_output_dim, shared_out_channels, backbone_dim,
+                         num_classes, use_norm, g)
 
 
 class WearGaitThreeModal(nn.Module):

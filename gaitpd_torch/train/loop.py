@@ -5,13 +5,14 @@ relaxed-input evaluation. Port of gaitpd/train/loop.py:32-268.
 Where gaitpd scans a compiled step over the epoch, the port runs a Python
 loop of eager steps. The epoch's (n_batches, B, K) index matrix goes to the
 device in one copy; each step gathers its batch there. Metrics stay on the
-device until the epoch ends and are read back in one copy.
+device until the epoch ends and are read back in one copy a metric; with
+``collect`` the eval epoch's predictions come back the same way.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,11 +42,13 @@ class DeviceFoldData:
     eval_ys: Tuple[torch.Tensor, ...]
 
 
-def _gather_batch(xs, ys, idx, valid, n_valid):
-    """idx: (B, K) tensor of per-stream indices -> batch dict."""
+def _gather_batch(xs, ys, idx, valid, n_valid, head_inputs):
+    """idx: (B, n_inputs) tensor of per-stream indices -> batch dict; head
+    i's labels come from input ``head_inputs[i]`` (gaitpd/train/loop.py:
+    52-61)."""
     return {
         "xs": tuple(x[idx[:, i]] for i, x in enumerate(xs)),
-        "ys": tuple(y[idx[:, i]] for i, y in enumerate(ys)),
+        "ys": tuple(ys[i][idx[:, i]] for i in head_inputs),
         "valid": valid,
         "n_valid": n_valid,
     }
@@ -65,28 +68,35 @@ class EpochRunner:
     """Train and eval epochs for one model configuration: a loop of
     ``make_train_step`` / ``make_eval_step`` calls. ``train_apply`` and
     ``eval_apply`` are the model's forwards (gaitpd/train/loop.py:75-91;
-    default: gaitpd_torch.train.step.make_apply_adapters)."""
+    default: gaitpd_torch.train.step.make_apply_adapters). ``head_inputs``
+    names the input each head's labels come from: the identity for the
+    N-stream models (the default), ``(0,)`` for a model whose one joint head
+    takes the first input's label."""
 
     def __init__(self, settings: StepSettings, mtl_method=None,
                  partition: Optional[FlatPartition] = None,
                  train_apply: Optional[TrainApply] = None,
-                 eval_apply: Optional[EvalApply] = None):
+                 eval_apply: Optional[EvalApply] = None,
+                 head_inputs: Optional[Sequence[int]] = None):
         self.settings = settings
+        self.head_inputs = tuple(head_inputs or range(settings.n_streams))
         self.train_step = make_train_step(settings, mtl_method, partition, train_apply)
         self.eval_step = make_eval_step(settings, eval_apply)
 
     def train_epoch(self, state, xs, ys, idx, valid, counts, generator, ctx):
         metrics = []
         for b, n in enumerate(counts):
-            state, m = self.train_step(state, _gather_batch(xs, ys, idx[b], valid[b], n),
-                                       generator, ctx)
+            state, m = self.train_step(
+                state, _gather_batch(xs, ys, idx[b], valid[b], n, self.head_inputs),
+                generator, ctx)
             metrics.append(m)
         return state, metrics
 
     def eval_epoch(self, module, xs, ys, idx, valid, counts, generator, ctx, epoch, mask):
         module.eval()
-        return [self.eval_step(module, _gather_batch(xs, ys, idx[b], valid[b], n), ctx,
-                               generator, epoch, mask)
+        return [self.eval_step(module,
+                               _gather_batch(xs, ys, idx[b], valid[b], n, self.head_inputs),
+                               ctx, generator, epoch, mask)
                 for b, n in enumerate(counts)]
 
 
@@ -97,6 +107,11 @@ class EpochResult:
     acc_batchmean: np.ndarray  # (K,) mean of per-batch accs (weargait style)
     steps: int = 0  # batches with at least one valid sample
     ens_acc: Optional[float] = None
+    # run_eval_epoch(collect=True): per head, the valid samples' labels and
+    # predictions in eval order, and the ensemble's predictions
+    trues: Optional[List[np.ndarray]] = None
+    preds: Optional[List[np.ndarray]] = None
+    preds_ens: Optional[np.ndarray] = None
 
 
 def _to_host(outs: Sequence[Dict[str, torch.Tensor]], keys) -> Dict[str, np.ndarray]:
@@ -144,7 +159,11 @@ def run_eval_epoch(
     generator: Optional[torch.Generator],
     ctx,
     mask: Optional[Sequence[bool]] = None,
+    collect: bool = False,
 ) -> EpochResult:
+    """One pass over the eval pool. With ``collect`` the result also holds
+    the labels and predictions of every valid sample (gaitpd/train/loop.py:
+    211-221), the predictions read back with the metrics."""
     order = np.arange(len(data.eval_pool))
     idx, valid, counts = _epoch_indices(data.eval_pool, order, batch_size,
                                         data.eval_xs[0].device)
@@ -152,9 +171,19 @@ def run_eval_epoch(
         mask = [True] * len(data.eval_xs)
     outs = runner.eval_epoch(state.module, data.eval_xs, data.eval_ys, idx, valid, counts,
                              generator, ctx, state.epoch, mask)
-    host = _to_host(outs, ("losses", "correct", "n", "ens_correct"))
+    keys = ("losses", "correct", "n", "ens_correct")
+    host = _to_host(outs, keys + (("preds", "pred_ens") if collect else ()))
     res = _aggregate(host)
     res.ens_acc = float(host["ens_correct"].sum() / max(1.0, host["n"].sum()) * 100.0)
+    if collect:
+        idx_flat, valid_flat = batch_index_matrix(order, batch_size)
+        vmask = valid_flat.reshape(-1) > 0
+        preds = host["preds"]  # (n_batches, K, B)
+        res.preds = [preds[:, i, :].reshape(-1)[vmask] for i in range(preds.shape[1])]
+        pool = data.eval_pool[idx_flat.reshape(-1)][vmask]
+        res.trues = [data.eval_ys[src].cpu().numpy()[pool[:, src]]
+                     for src in runner.head_inputs]
+        res.preds_ens = host["pred_ens"].reshape(-1)[vmask]
     return res
 
 
@@ -183,11 +212,14 @@ class EarlyStopper:
         self.patience = patience
         self.best = 0.0
         self.no_improve = 0
+        self.best_payload = None
 
-    def update(self, metric: float) -> bool:
-        """Returns True if improved; sets .stop when patience exhausted."""
+    def update(self, metric: float, payload=None) -> bool:
+        """Returns True if improved, keeping ``payload`` as ``best_payload``;
+        sets .stop when patience exhausted."""
         if metric > self.best:
             self.best = metric
+            self.best_payload = payload
             self.no_improve = 0
             return True
         self.no_improve += 1

@@ -26,11 +26,18 @@ the MTL methods that draw (RLW, PCGrad, GradDrop). The draws happen once a
 step: ``mtl_grads`` calls the loss once, so all K per-task backward passes
 see the same augmented inputs.
 
+The two-stream consistency term: in synchronized GCL mode with two heads
+(the FBG/FoG model), ``0.5 * consistency_lambda`` times the symmetric KL
+between the heads' predictions is added to each branch loss
+(gaitpd/train/step.py:233-243). It couples the heads, so each task pass of
+``mtl_grads`` reaches both streams: both halves of the backbone's
+cotangent are live, where without it (async mode) each task's rows of the
+other stream are zero.
+
 Batches carry a ``valid`` mask, so padded batches are exact, and
 ``n_valid``, its count on the host: a fully padded batch is a no-op decided
-without waiting for the device. Options of the reference that the port does
-not have yet (rematerialisation, the two-stream consistency term) raise
-NotImplementedError when set.
+without waiting for the device. Rematerialisation, which the port does not
+have yet, raises NotImplementedError when set.
 """
 
 from __future__ import annotations
@@ -72,7 +79,7 @@ class StepSettings:
     gcl_s: float = 25.0
     noise_mul: float = 0.0
     drw_warmup: int = 0
-    consistency_lambda: float = 0.0
+    consistency_lambda: float = 0.0  # > 0 adds the symmetric KL in sync GCL mode
     private_grads: str = "sum"  # see gaitpd_torch.learning.mtl.mtl_grads
     loss_reduction: str = "mean"  # combined scalar without MTL: mean|sum
     dropout: bool = False  # the train forward gets train=True and the step's generator
@@ -87,10 +94,6 @@ class StepSettings:
     def __post_init__(self):
         if self.wm not in WEIGHTING_MODES:
             raise ValueError(f"wm must be one of {WEIGHTING_MODES}, got {self.wm!r}")
-        if self.consistency_lambda:
-            raise NotImplementedError(
-                "the symmetric-KL consistency term serves the two-stream FBG/FoG "
-                "models, not ported yet (ROADMAP Queue 1, item 11)")
         if self.remat != "none":
             raise NotImplementedError(
                 "rematerialisation policies are not ported yet (ROADMAP Queue 1, item 14)")
@@ -150,10 +153,12 @@ def make_loss_ctx(
     counts: Sequence[Sequence[int]],
     device=None,
     aug_params: Optional[Sequence[Dict[str, torch.Tensor]]] = None,
+    ldam_max_m: float = 0.5,
 ) -> Tuple[Dict[str, torch.Tensor], ...]:
     """Per-stream loss-context tensors from training class counts. The DRW
     weights (``drw_base``) replace ones once the epoch reaches
-    ``drw_warmup`` (reference train/utilities.py:197-202).
+    ``drw_warmup`` (reference train/utilities.py:197-202); the LDAM margins
+    top out at ``ldam_max_m``.
 
     aug_params: one dict of augmentation strengths per input stream
     (gaitpd_torch.data.augment.make_aug_params), moved to ``device`` into
@@ -162,7 +167,7 @@ def make_loss_ctx(
     for c in counts:
         out.append({
             "cls_w": L.inv_freq_weights(c).to(device),
-            "ldam_m": L.ldam_margins(c, max_m=0.5).to(device),
+            "ldam_m": L.ldam_margins(c, max_m=ldam_max_m).to(device),
             "gcl_m": L.gcl_margins(c).to(device),
             "drw_base": L.inv_freq_weights(c).to(device),
         })
@@ -228,6 +233,12 @@ def make_multitask_loss_fn(settings: StepSettings,
             branch_loss(settings, logits[k], ys[k], ctx_r[k], generator, valid)
             for k in range(settings.n_streams)
         ]
+        if (settings.synchronized and settings.consistency_lambda > 0
+                and settings.n_streams == 2 and settings.wm == "gcl"):
+            # symmetric-KL prediction consistency, half to each branch
+            # (reference train/fbg_fog_train.py:80-89,121-124)
+            cons = L.symmetric_kl_consistency(logits[0], logits[1], valid)
+            ls = [l + 0.5 * settings.consistency_lambda * cons for l in ls]
         return torch.stack(ls), tuple(logits)
 
     return loss_fn

@@ -25,7 +25,8 @@ def _perturbed(variables, rng, scale=0.1):
     )
 
 
-@pytest.mark.parametrize("t_in,t_out", [(64, 8), (101, 8), (10, 3), (5, 8), (7, 7)])
+@pytest.mark.parametrize("t_in,t_out", [(64, 8), (101, 8), (10, 3), (5, 8), (7, 7),
+                                       (426, 101), (65, 101)])
 def test_pool_matrix_exact(t_in, t_out):
     got = tb.adaptive_avg_pool_matrix(t_in, t_out).numpy()
     np.testing.assert_array_equal(got, jb.adaptive_avg_pool_matrix(t_in, t_out))

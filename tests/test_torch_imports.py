@@ -1,7 +1,8 @@
 """The port stands alone: no module of gaitpd_torch, nor chip_smoke.py,
 imports JAX, flax, optax, orbax or anything of the JAX package gaitpd; and
-every one of them imports without pandas, which the card's machine lacks
-(the real-data readers import it when they run)."""
+every one of them imports without pandas, sklearn, matplotlib or openpyxl,
+which the card's machine lacks (the real-data readers import pandas when
+they run, the loss plots matplotlib)."""
 
 import ast
 import subprocess
@@ -45,7 +46,9 @@ def test_scan_sees_the_whole_port():
                  "gaitpd_torch/train/checkpoint.py", "gaitpd_torch/data/readers.py",
                  "gaitpd_torch/data/paths.py", "gaitpd_torch/data/cache.py",
                  "gaitpd_torch/data/preprocess_weargait.py",
-                 "gaitpd_torch/tools/recipe_laws.py", "chip_smoke.py"):
+                 "gaitpd_torch/tools/recipe_laws.py", "gaitpd_torch/config.py",
+                 "gaitpd_torch/data/fbg_fog.py", "gaitpd_torch/train/metrics.py",
+                 "gaitpd_torch/train/fbg_fog_driver.py", "chip_smoke.py"):
         assert must in names
 
 
@@ -56,6 +59,21 @@ def test_port_imports_without_pandas():
             "sys.modules['pandas'] = None  # import pandas now raises ImportError\n"
             f"for name in {modules!r}:\n"
             "    importlib.import_module(name)\n")
+    done = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert done.returncode == 0, done.stderr
+
+
+def test_port_imports_without_sklearn_matplotlib_openpyxl():
+    modules = [p.relative_to(ROOT).with_suffix("").as_posix().replace("/", ".")
+               for p in FILES]
+    code = ("import importlib, sys\n"
+            "for blocked in ('pandas', 'sklearn', 'matplotlib', 'openpyxl'):\n"
+            "    sys.modules[blocked] = None\n"
+            f"for name in {modules!r}:\n"
+            "    importlib.import_module(name)\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'gaitpd')], 'the port imported JAX or gaitpd'\n")
     done = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert done.returncode == 0, done.stderr

@@ -34,8 +34,10 @@ from gaitpd_torch.runtime.device import resolve_device
 
 # (B, T, C_in, K, C_out, t_out, act): the cases of test_torch_stream_block,
 # the serving path's shape (3 streams x 1024 windows, plus a ragged tail),
-# and the fusion baselines' backbone widths: the early fusion's concatenated
-# 36 channels and the shared latent's 16
+# the fusion baselines' backbone widths: the early fusion's concatenated
+# 36 channels and the shared latent's 16, and the FBG/FoG backbone at its
+# train batch: both streams of 256 windows in one launch, T 101 pooled to 8
+# overlapping bins, C_in 3 (FBG) and 6 (FoG)
 CASES = [
     (3 * 64, 64, 36, 3, 16, 8, "relu"),
     (3 * 64 + 1, 64, 16, 3, 16, 8, "relu"),
@@ -46,6 +48,8 @@ CASES = [
     (5, 30, 4, 1, 7, 4, "relu"),
     (3, 5, 4, 3, 6, 8, "gelu"),
     (3 * 1024 + 3, 64, 12, 3, 16, 8, "relu"),
+    (2 * 256, 101, 3, 3, 16, 8, "relu"),
+    (2 * 256, 101, 6, 3, 16, 8, "relu"),
 ]
 
 
@@ -246,6 +250,9 @@ ZERO_LAYOUTS = {
     "unaligned": ((3 * 64 + 1, 64, 12, 3, 16, 8, "relu"), np.r_[5:150]),
     "unaligned_gelu_t101": ((37, 101, 13, 5, 16, 8, "gelu"), np.r_[3:30]),
     "all_zero": ((3 * 64, 64, 12, 3, 16, 8, "relu"), np.r_[0:192]),
+    # the FBG/FoG async CAGrad task passes: one stream's 256 windows live
+    "fog_skeleton_task": ((2 * 256, 101, 6, 3, 16, 8, "relu"), np.r_[256:512]),
+    "fbg_sensor_task": ((2 * 256, 101, 3, 3, 16, 8, "relu"), np.r_[0:256]),
 }
 
 

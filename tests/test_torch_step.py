@@ -189,10 +189,97 @@ def test_eval_step_all_masks(sync):
                                           err_msg=f"{name} {key}")
 
 
-@pytest.mark.parametrize("option", [dict(remat="dots"), dict(consistency_lambda=0.5)])
+@pytest.mark.parametrize("option", [dict(remat="dots"), dict(remat="nothing")])
 def test_unported_settings_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TS.StepSettings(n_streams=3, **option)
+
+
+# --- the two-stream consistency term (FBG/FoG, synchronized GCL) ----------
+
+FOG_COUNTS = [[30, 20, 12], [30, 20, 12]]
+
+
+def _fog_pair(sync, seed=0):
+    """gaitpd's and the port's FoG MultiModalMultiTask from one flax init."""
+    from gaitpd.config import FOG
+    from gaitpd.models.multitask import MultiModalMultiTask as FlaxFoG
+    from gaitpd_torch.models.multitask import MultiModalMultiTask
+
+    rng = np.random.default_rng(seed)
+    xs = [rng.normal(size=(6, 101, 21)).astype(np.float32),
+          rng.normal(size=(6, 426, 6)).astype(np.float32)]
+    ys = [rng.integers(0, 3, size=6).astype(np.int32)] * 2
+    valid = np.ones(6, np.float32)
+    valid[-1] = 0.0
+    fm = FlaxFoG(skeleton_output_dim=6, sensor_out_channels=6, sensor_length=426,
+                 use_norm=True, use_cosine=True, synchronized_loading=sync)
+    params = fm.init(jax.random.PRNGKey(seed), *map(jnp.asarray, xs))
+    tm = load_flax_params(MultiModalMultiTask(
+        FOG.skeleton_input_dim, 6, FOG.sensor_in_channels, 6, 426, use_norm=True,
+        use_cosine=True, synchronized_loading=sync), params)
+    return fm, params, tm, (xs, ys, valid)
+
+
+@pytest.mark.parametrize("lam", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("sync", [True, False], ids=["sync", "async"])
+def test_consistency_term_losses_match_gaitpd(sync, lam):
+    """In sync GCL mode each branch loss carries 0.5 * lam * the symmetric
+    KL of the two heads; in async mode none does (gaitpd/train/
+    step.py:233-243)."""
+    fm, params, tm, (xs, ys, valid) = _fog_pair(sync)
+    kw = dict(n_streams=2, wm="gcl", synchronized=sync, consistency_lambda=lam)
+    js, ts = JS.StepSettings(**kw), TS.StepSettings(**kw)
+    train_apply, _ = JS.make_apply_adapters(fm.apply, js)
+    want, _ = JS.make_multitask_loss_fn(train_apply, js)(
+        params, *_j_batch(xs, ys, valid).values(), JS.make_loss_ctx(js, FOG_COUNTS),
+        jax.random.PRNGKey(0), jnp.asarray(0))
+    tb = _t_batch(xs, ys, valid)
+    with torch.no_grad():
+        got, logits = TS.make_multitask_loss_fn(ts)(tm, tb["xs"], tb["ys"], tb["valid"],
+                                                    TS.make_loss_ctx(ts, FOG_COUNTS), None, 0)
+        plain, _ = TS.make_multitask_loss_fn(TS.StepSettings(**{**kw, "consistency_lambda": 0}))(
+            tm, tb["xs"], tb["ys"], tb["valid"], TS.make_loss_ctx(ts, FOG_COUNTS), None, 0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+    from gaitpd_torch.learning.losses import symmetric_kl_consistency
+
+    with torch.no_grad():
+        cons = symmetric_kl_consistency(logits[0], logits[1], tb["valid"])
+    assert float(cons) > 0
+    if sync and lam > 0:
+        assert torch.equal(got, plain + 0.5 * lam * cons) and not torch.equal(got, plain)
+    else:
+        assert torch.equal(got, plain)
+
+
+def test_consistency_cagrad_step_matches_gaitpd():
+    """One CAGrad step at K = 2 (c 0.1, max_norm 1, private grads "sum") of
+    the synchronized FoG model with the consistency term: the parameters
+    within 1e-6 and the momentum within 1e-5 of the largest value, as the
+    three-stream steps above."""
+    fm, params, tm, (xs, ys, valid) = _fog_pair(True, seed=3)
+    kw = dict(n_streams=2, wm="gcl", synchronized=True, consistency_lambda=1.0,
+              private_grads="sum")
+    js, ts = JS.StepSettings(**kw), TS.StepSettings(**kw)
+    tx = JO.sgd_torch(LR, 0.9, 1e-4)
+    bound = fm.bind(params)
+    jp = JM.build_flat_partition(params, bound.shared_modules, bound.task_modules)
+    train_apply, _ = JS.make_apply_adapters(fm.apply, js)
+    j_step = jax.jit(JS.make_train_step(train_apply, tx, js,
+                                        JM.make_method("cagrad", 2, c=0.1, max_norm=1.0), jp))
+    j_state = JS.TrainState(params=params, opt_state=tx.init(params), mtl_state={},
+                            epoch=jnp.asarray(0, jnp.int32))
+    j_state, j_m = j_step(j_state, _j_batch(xs, ys, valid), jax.random.PRNGKey(0),
+                          JS.make_loss_ctx(js, FOG_COUNTS))
+    t_state = TS.TrainState(module=tm, optimizer=TO.sgd_torch(tm.parameters(), LR, 0.9, 1e-4),
+                            mtl_state={})
+    t_step = TS.make_train_step(ts, TM.make_method("cagrad", 2, c=0.1, max_norm=1.0),
+                                TM.build_flat_partition(tm, tm.shared_modules, tm.task_modules))
+    t_state, t_m = t_step(t_state, _t_batch(xs, ys, valid), None, TS.make_loss_ctx(ts, FOG_COUNTS))
+    np.testing.assert_allclose(t_m["losses"].numpy(), np.asarray(j_m["losses"]), rtol=1e-5)
+    np.testing.assert_array_equal(t_m["correct"].numpy(), np.asarray(j_m["correct"]))
+    _assert_close(export_flax_params(tm), j_state.params, atol=1e-6)
+    _assert_close(_momentum(tm, t_state.optimizer), j_state.opt_state[1].trace, atol=1e-5)
 
 
 class _Recorder(torch.nn.Module):
