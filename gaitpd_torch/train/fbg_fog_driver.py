@@ -19,6 +19,7 @@ epoch and ``best`` on improvement (gaitpd_torch.train.checkpoint), and
 generators restored, not replayed. The reports print through the port's
 numpy metrics, so no run needs sklearn. Options of the reference that the
 port does not have yet raise NotImplementedError naming their ROADMAP item.
+The fusion and SOTA baselines train in gaitpd_torch.train.baseline_drivers.
 """
 
 from __future__ import annotations
@@ -415,17 +416,3 @@ def main(args: FbgFogArgs, on_epoch=None, reader=None):
         summary[mod] = dict(skel=mean_sk, sensor=mean_se, avg=mean_av)
     return summary
 
-
-BASELINES_ITEM = "ROADMAP Queue 1, item 11, slice B"
-
-
-def run_baseline(*args, **kwargs):
-    """gaitpd/train/baseline_drivers.py:284: the FBG/FoG SOTA baselines."""
-    raise NotImplementedError(
-        f"the FBG/FoG baseline drivers: not ported yet ({BASELINES_ITEM})")
-
-
-def run_fusion(*args, **kwargs):
-    """gaitpd/train/baseline_drivers.py:302: the FBG/FoG fusion baselines."""
-    raise NotImplementedError(
-        f"the FBG/FoG fusion-baseline driver: not ported yet ({BASELINES_ITEM})")

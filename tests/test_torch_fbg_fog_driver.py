@@ -178,9 +178,6 @@ def test_unported_options_raise(option):
     error = NotImplementedError if "mesh" in option else ValueError
     with pytest.raises(error, match="ROADMAP" if "mesh" in option else "modality"):
         TD.main(args)
-    for entry in (TD.run_baseline, TD.run_fusion):
-        with pytest.raises(NotImplementedError, match="slice B"):
-            entry(args)
 
 
 def test_default_device_is_the_card():

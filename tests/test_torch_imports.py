@@ -48,7 +48,9 @@ def test_scan_sees_the_whole_port():
                  "gaitpd_torch/data/preprocess_weargait.py",
                  "gaitpd_torch/tools/recipe_laws.py", "gaitpd_torch/config.py",
                  "gaitpd_torch/data/fbg_fog.py", "gaitpd_torch/train/metrics.py",
-                 "gaitpd_torch/train/fbg_fog_driver.py", "chip_smoke.py"):
+                 "gaitpd_torch/train/fbg_fog_driver.py",
+                 "gaitpd_torch/train/baseline_drivers.py",
+                 "gaitpd_torch/data/preprocess_fbg_raw.py", "chip_smoke.py"):
         assert must in names
 
 

@@ -37,7 +37,10 @@ from gaitpd_torch.runtime.device import resolve_device
 # the fusion baselines' backbone widths: the early fusion's concatenated
 # 36 channels and the shared latent's 16, and the FBG/FoG backbone at its
 # train batch: both streams of 256 windows in one launch, T 101 pooled to 8
-# overlapping bins, C_in 3 (FBG) and 6 (FoG)
+# overlapping bins, C_in 3 (FBG) and 6 (FoG); the FBG/FoG baseline drivers'
+# backbones at T 101: early fusion (C_in 12), the shared latent (2 x 256
+# windows, C_in 16) and FOCAL's 2-modality one (2 x 256 windows, C_in 32,
+# C_out 4 pooled to 4 overlapping bins)
 CASES = [
     (3 * 64, 64, 36, 3, 16, 8, "relu"),
     (3 * 64 + 1, 64, 16, 3, 16, 8, "relu"),
@@ -50,6 +53,9 @@ CASES = [
     (3 * 1024 + 3, 64, 12, 3, 16, 8, "relu"),
     (2 * 256, 101, 3, 3, 16, 8, "relu"),
     (2 * 256, 101, 6, 3, 16, 8, "relu"),
+    (256, 101, 12, 3, 16, 8, "relu"),
+    (2 * 256, 101, 16, 3, 16, 8, "relu"),
+    (2 * 256, 101, 32, 3, 4, 4, "relu"),
 ]
 
 
@@ -342,11 +348,14 @@ def test_solver_kernel_matches_plain_on_card(k):
 # (N, Tq, Tk, d): the training path's six pairs of 64 window tuples, an odd
 # batch, tests/test_pallas.py:56-70's shapes, the symmetric 2-mod shape, one
 # query row, one key row, d not a multiple of 4, the largest register row,
-# and wider d (rows in device memory), odd and a multiple of 4
+# wider d (rows in device memory), odd and a multiple of 4, and the FBG/FoG
+# cross-attention fusion's two directions at T 101 (two passes): FoG's d = 6
+# at batch 256, FBG's d = 3 at batch 32
 XATTN_CASES = [
     (6 * 64, 64, 64, 12), (6 * 33 + 1, 64, 64, 12), (2, 101, 426, 12), (2, 200, 100, 12),
     (2, 32, 48, 8), (2 * 64, 101, 101, 12), (5, 1, 64, 12), (5, 64, 1, 12),
     (3, 37, 53, 6), (2, 130, 257, 64), (2, 8, 8, 65), (3, 37, 70, 96), (2, 20, 130, 200),
+    (2 * 256, 101, 101, 6), (2 * 32, 101, 101, 3),
 ]
 # each variant's edges (tests/test_torch_cheap_xattn.py holds the choice): the
 # sweep kernels at Tk = 64 and Tk = 65 (two passes), Tq = 64 and 65 (the
