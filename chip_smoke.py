@@ -45,9 +45,12 @@ Phases (each raises on failure, so the script exits non-zero):
      a block's tile, an all-zero g, a NaN in x of a zero-cotangent window),
      against its plain version (NaN at the same entries, gx of the
      zero-cotangent windows exactly 0, two launches bitwise equal); the
-     cheap cross-attention at d = 65, 96 and 200 (rows in device memory),
-     forward and backward, timed at d = 96 beside scaled_dot_product_attention
-     and its autograd (a yardstick);
+     cheap cross-attention at d = 65, 96 and 200 (the forward tiled up to 64
+     keys, else and backward rows in device memory), forward and backward,
+     timed at d = 96 (eager and from a CUDA graph, the rows-in-memory forward
+     too) beside scaled_dot_product_attention and its autograd (a
+     yardstick); then, from a stream of their own, the tiled forward at d
+     128 and 256, Tq 65 and Tq 1 against Tk 63, each launch printed;
   5c. this slice's checks, from a random stream of their own: the cheap
      cross-attention at each kernel variant's edges (Tk 64/65, Tq 64/65,
      masked scores, d = 12 against 8, 16, 36, 64, N odd and N above one round
@@ -146,6 +149,9 @@ Phases (each raises on failure, so the script exits non-zero):
      batch one forward of each kernel it uses; TACA at its dropout of 0.1
      and the cheap-xattn fusion at FoG's real scale on the card alone:
      finite losses, the same launches;
+  5j. the kernel redesigns: the cheap-xattn fusion at enc_out_ch 96 (the
+     cross-attention at d 96 on the tiled forward), one sync epoch card vs
+     CPU as in phase 5;
   6. timings: each kernel, its plain version and a PyTorch library call at
      the main path's shape (CUDA events around back-to-back eager calls;
      the stream block's forward, its plain version and its library call,
@@ -180,9 +186,12 @@ Phases (each raises on failure, so the script exits non-zero):
      cross-attention forward and backward at the FoG fusion's shape (2 x 256,
      T 101, d 6), eager and from a CUDA graph, beside the plain versions,
      scaled_dot_product_attention and its autograd, and the bounds; the
-     generic stream block at FOCAL's 2-mod shape beside conv1d + ReLU +
-     pool; the FoG cheap-xattn fusion train step at batch 256 and 1024 with
-     its device time and launches.
+     stream block at FOCAL's 2-mod shape beside conv1d + ReLU + pool; every
+     T 101 forward shape of phases 5h and 5i (C_in 3, 6, 12, 16, 32) from a
+     CUDA graph: per_frame, the generic variant it replaces, the library
+     call and the plain version, in turns; the wide threshold's shapes also
+     with per_frame; the FoG cheap-xattn fusion train step at batch 256 and
+     1024 with its device time and launches.
 
 Every number is printed beside the card's name and power limit. The
 second-to-last line is a JSON object with one entry per kernel; the last
@@ -696,16 +705,25 @@ def check_cheap_xattn(rng, dev, card, cases) -> dict:
     return errors
 
 
-# d beyond the kernels' register rows (64): rows in device memory. Checked
-# against the plain version forward and backward; timed at the first shape.
+# d beyond the kernels' register rows (64): the forward's tiles in shared
+# memory up to 64 keys, else rows in device memory (and every backward).
+# Checked against the plain version forward and backward; timed at the first
+# shape.
 WIDE_XATTN_CASES = {"d96_train_batch64": (6 * 64, 64, 64, 96), "d65": (2 * 7, 33, 47, 65),
                     "d200": (6, 64, 130, 200)}
+# the tiled forward's widths and units, from a stream of their own: d 128
+# (one chunk of 128 columns) and 256 (two) at the fusion's train batch, two
+# 64-row units (Tq 65), one query row against a masked key (Tk 63)
+TILED_XATTN_CASES = {"d128_train_batch64": (6 * 64, 64, 64, 128),
+                     "d256_train_batch64": (6 * 64, 64, 64, 256),
+                     "d96_tq65": (2 * 7, 65, 64, 96), "d96_tq1_tk63": (5, 1, 63, 96)}
 
 
-def check_wide_xattn(rng, dev, card) -> None:
-    for name, (n, tq, tk, d) in WIDE_XATTN_CASES.items():
+def check_wide_xattn(rng, dev, card, cases) -> None:
+    for name, (n, tq, tk, d) in cases.items():
         a, b, g = xattn_inputs(rng, n, tq, tk, d, dev)
         got = cx.cheap_xattn(a, b)
+        same_f = torch.equal(got, cx.cheap_xattn(a, b))
         grads = cx.cheap_xattn_backward(a, b, g)
         again = cx.cheap_xattn_backward(a, b, g)
         want = cx.cheap_xattn_reference(a, b)
@@ -714,14 +732,25 @@ def check_wide_xattn(rng, dev, card) -> None:
         want_g = cx.cheap_xattn_backward_reference(a, b, g)
         ok_g = all(bool(((gk - wk).abs() <= XATTN_GRAD_ATOL + XATTN_GRAD_RTOL * wk.abs()).all())
                    for gk, wk in zip(grads, want_g))
-        same = all(torch.equal(x, y) for x, y in zip(grads, again))
+        same = same_f and all(torch.equal(x, y) for x, y in zip(grads, again))
         errs = [(got - want).abs().max().item()] + [
             (gk - wk).abs().max().item() for gk, wk in zip(grads, want_g)]
-        log(f"[kernel] {card}: cheap_xattn {name} (N {n}, Tq {tq}, Tk {tk}, d {d}, rows in "
-            f"device memory): forward/dA/dB max abs err {errs[0]:.3e}/{errs[1]:.3e}/"
-            f"{errs[2]:.3e}; two launches bitwise equal: {same}")
+        launch = {bw: xattn_launch(n, tq, tk, d, bw) for bw in (False, True)}
+        log(f"[kernel] {card}: cheap_xattn {name} (N {n}, Tq {tq}, Tk {tk}, d {d}, variants "
+            f"{launch[False]['variant']}/{launch[True]['variant']}): forward/dA/dB max abs err "
+            f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (forward tol {atol:.0e} + {rtol:.0e} "
+            f"rel); two launches of each bitwise equal: {same}")
+        log(f"[config] {card}: cheap_xattn {name}: forward {launch[False]}; backward "
+            f"{launch[True]}")
         if not (ok and ok_g and same and all(np.isfinite(errs))):
             raise RuntimeError(f"cheap_xattn[{name}] at d > 64 disagrees: {errs}, {same}")
+
+
+def time_wide_xattn(rng, dev, card) -> dict:
+    """The cross-attention at d 96 (the fusion's train batch): the tiled
+    forward and the rows-in-memory variant it replaces, eager and from a
+    CUDA graph, beside the plain version and scaled_dot_product_attention;
+    the backward (rows in memory) beside SDPA's autograd."""
     n, tq, tk, d = WIDE_XATTN_CASES["d96_train_batch64"]
     a, b, g = xattn_inputs(rng, n, tq, tk, d, dev)
     leaves = [t.detach().clone().requires_grad_() for t in (a, b)]
@@ -733,26 +762,51 @@ def check_wide_xattn(rng, dev, card) -> None:
         out = F.scaled_dot_product_attention(leaves[0], leaves[1], leaves[1])
         return torch.autograd.grad(out, leaves, g)
 
+    def rows_in_memory():
+        return cx._forward_kernel(a, b, cx.WIDE)
+
     lib_errs = [(library() - cx.cheap_xattn_reference(a, b)).abs().max().item()] + [
         (p - q).abs().max().item()
         for p, q in zip(library_backward(), cx.cheap_xattn_backward_reference(a, b, g))]
     if not max(lib_errs) <= 1e-4:
         raise RuntimeError(f"library yardstick at d {d} computes another function: {lib_errs}")
+    old_err = (rows_in_memory() - cx.cheap_xattn_reference(a, b)).abs().max().item()
     with torch.inference_mode():
-        fwd_ms = time_cuda(lambda: cx.cheap_xattn(a, b), warmup=3, reps=20)
-        fwd_plain = time_cuda(lambda: cx.cheap_xattn_reference(a, b), warmup=3, reps=20)
-        fwd_lib = time_cuda(library, warmup=3, reps=20)
-    bwd_ms = time_cuda(lambda: cx.cheap_xattn_backward(a, b, g), warmup=3, reps=20)
-    bwd_plain = time_cuda(lambda: cx.cheap_xattn_backward_reference(a, b, g), warmup=3, reps=20)
-    bwd_lib = time_cuda(library_backward, warmup=3, reps=20)
-    log(f"[time] {card}: cheap_xattn at d {d} (N {n}, Tq {tq}, Tk {tk}, rows in device "
-        f"memory): forward kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, library "
-        f"scaled_dot_product_attention {fwd_lib:.4f} ms, bound "
-        f"{cheap_xattn_bound(n, tq, tk, d)[0]:.5f} ms; backward kernel {bwd_ms:.4f} ms, plain "
-        f"{bwd_plain:.4f} ms, library (autograd of scaled_dot_product_attention, forward "
-        f"included) {bwd_lib:.4f} ms, bound {cheap_xattn_backward_bound(n, tq, tk, d)[0]:.5f} "
-        f"ms; library max abs diffs forward/dA/dB {lib_errs[0]:.2e}/{lib_errs[1]:.2e}/"
-        f"{lib_errs[2]:.2e}")
+        fwd = {"kernel": time_cuda(lambda: cx.cheap_xattn(a, b), warmup=3, reps=20),
+               "plain": time_cuda(lambda: cx.cheap_xattn_reference(a, b), warmup=3, reps=20),
+               "library": time_cuda(library, warmup=3, reps=20),
+               "rows_in_memory": time_cuda(rows_in_memory, warmup=3, reps=20),
+               "graph": time_cuda_graph(lambda: cx.cheap_xattn(a, b)),
+               "library_graph": time_cuda_graph(library),
+               "plain_graph": time_cuda_graph(lambda: cx.cheap_xattn_reference(a, b)),
+               "rows_in_memory_graph": time_cuda_graph(rows_in_memory, warmup=3, reps=20),
+               "graph_2": time_cuda_graph(lambda: cx.cheap_xattn(a, b)),
+               "kernel_2": time_cuda(lambda: cx.cheap_xattn(a, b), warmup=3, reps=20)}
+    bwd = {"kernel": time_cuda(lambda: cx.cheap_xattn_backward(a, b, g), warmup=3, reps=20),
+           "plain": time_cuda(lambda: cx.cheap_xattn_backward_reference(a, b, g), warmup=3,
+                              reps=20),
+           "library": time_cuda(library_backward, warmup=3, reps=20),
+           "graph": time_cuda_graph(lambda: cx.cheap_xattn_backward(a, b, g), warmup=3, reps=20),
+           "library_graph": time_cuda_graph(library_backward, warmup=3, reps=20)}
+    bound = {"forward": cheap_xattn_bound(n, tq, tk, d),
+             "backward": cheap_xattn_backward_bound(n, tq, tk, d)}
+    launch = {bw: xattn_launch(n, tq, tk, d, bw) for bw in (False, True)}
+    log(f"[time] {card}: cheap_xattn at d {d} (N {n}, Tq {tq}, Tk {tk}), forward variant "
+        f"{launch[False]['variant']}: eager kernel {fwd['kernel']:.4f}/{fwd['kernel_2']:.4f} ms, "
+        f"plain {fwd['plain']:.4f} ms, library scaled_dot_product_attention "
+        f"{fwd['library']:.4f} ms, the rows-in-memory variant {fwd['rows_in_memory']:.4f} ms "
+        f"(max abs err {old_err:.3e}); from a CUDA graph (device only): kernel "
+        f"{fwd['graph']:.4f}/{fwd['graph_2']:.4f} ms, library {fwd['library_graph']:.4f} ms, "
+        f"plain {fwd['plain_graph']:.4f} ms, rows in memory {fwd['rows_in_memory_graph']:.4f} "
+        f"ms; bound {bound['forward'][0]:.5f} ms ({bound['forward'][1]}); launch {launch[False]}")
+    log(f"[time] {card}: cheap_xattn_backward at d {d} (N {n}, Tq {tq}, Tk {tk}), variant "
+        f"{launch[True]['variant']}: kernel {bwd['kernel']:.4f} ms, plain {bwd['plain']:.4f} "
+        f"ms, library (autograd of scaled_dot_product_attention, forward included) "
+        f"{bwd['library']:.4f} ms; from a CUDA graph: kernel {bwd['graph']:.4f} ms, library "
+        f"{bwd['library_graph']:.4f} ms; bound {bound['backward'][0]:.5f} ms "
+        f"({bound['backward'][1]}); library max abs diffs forward/dA/dB {lib_errs[0]:.2e}/"
+        f"{lib_errs[1]:.2e}/{lib_errs[2]:.2e}")
+    return {"forward": fwd, "backward": bwd, "bound": bound, "launch": launch}
 
 
 # each kernel variant's edges: the sweep kernels at Tk = 64 against 65 (two
@@ -1156,6 +1210,24 @@ def phase_fusion_training(seed, dev) -> tuple:
         {"stream_block_backward": 1, "cagrad_solver": 0, "cheap_xattn": 0,
          "cheap_xattn_backward": 0}, ("stream_block",))
     return xattn, single
+
+
+# the encoders' width at which the cheap-xattn fusion's cross-attention runs
+# at d 96 (gaitpd/cli.py's --enc_out_ch; 12 by default)
+WIDE_FUSION_CH = 96
+
+
+def phase_wide_fusion_training(seed, dev) -> dict:
+    """The cheap-xattn fusion at enc_out_ch 96: the cross-attention at d 96,
+    its forward on the tiled variant, the backbone at C_in 96 on the wide
+    one; one sync epoch card vs CPU as in phase 5, one cross-attention and
+    one stream-block backward launch a train step."""
+    return compare_run_cv(
+        f"cheap_xattn enc_out_ch {WIDE_FUSION_CH}",
+        dict(train_common(seed), baseline="cheap_xattn", enc_out_ch=WIDE_FUSION_CH),
+        (("sync", 1),),
+        {"cheap_xattn_backward": 1, "stream_block_backward": 1, "cagrad_solver": 0},
+        ("stream_block", "cheap_xattn"))
 
 
 # ---------------------------------------------------------------------------
@@ -1904,6 +1976,9 @@ BB_BLOCK_CASES = {"early_fog_batch256": (FF_BATCH, 101, 12, 3, 16, 8, "relu"),
                   "focal_fog_batch256": (2 * FF_BATCH, 101, 32, 3, 4, 4, "relu")}
 BB_XATTN_SHAPE = BB_XATTN_CASES["fog_batch256"]
 BB_FOCAL_SHAPE = BB_BLOCK_CASES["focal_fog_batch256"]
+# every T 101 forward shape of phases 5h and 5i, timed against the library
+T101_FORWARD_SHAPES = {"fbg_batch256": FF_BLOCK_CASES["fbg_batch256"], "fog_batch256": FF_SHAPE,
+                       **BB_BLOCK_CASES}
 # the one-step comparisons: each kind on FoG async, and the two fusions
 # whose sync mode differs (one joint head; the shared latent's two)
 BB_STEPS = [("fusion", dict(fusion_type=t)) for t in ("early", "late", "share_latent",
@@ -2203,6 +2278,55 @@ def time_stream_block(rng, dev, card, shape=MAIN_SHAPE, task_zero=slice(N_WINDOW
     }
 
 
+def time_t101_forwards(rng, dev, card) -> dict:
+    """The stream block's forward at every T 101 shape of phases 5h and 5i
+    (C_in 3, 6, 12, 16, and 32 -> 4 channels in 4 bins), each from a CUDA
+    graph: the kernel the wrapper takes (per_frame), the generic variant
+    that took these sizes before, the library call and the plain version,
+    in turns, beside the bound."""
+    out = {}
+    for name, shape in T101_FORWARD_SHAPES.items():
+        bsz, t, cin, k, cout, t_out, act = shape
+        x, w, b, _ = stream_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
+        w_torch = w.permute(2, 1, 0).contiguous()
+
+        def library():
+            y = torch.relu(F.conv1d(x.transpose(1, 2), w_torch, b, padding=k // 2))
+            return F.adaptive_avg_pool1d(y, t_out).transpose(1, 2)
+
+        def kernel():
+            return sb.stream_block(x, w, b, t_out, act)
+
+        def generic():
+            return sb._forward_kernel(x, w, b, t_out, act, sb.GENERIC)
+
+        want = sb.stream_block_reference(x, w, b, t_out, act)
+        errs = {"library": (library() - want).abs().max().item(),
+                "generic": (generic() - want).abs().max().item()}
+        if act != "relu" or max(errs.values()) > KERNEL_TOL:
+            raise RuntimeError(f"stream_block {name}: a yardstick computes another function: "
+                               f"{errs}")
+        with torch.inference_mode():
+            ms = {"kernel": time_cuda_graph(kernel), "generic": time_cuda_graph(generic),
+                  "library": time_cuda_graph(library),
+                  "plain": time_cuda_graph(lambda: sb.stream_block_reference(x, w, b, t_out,
+                                                                             act)),
+                  "generic_2": time_cuda_graph(generic), "kernel_2": time_cuda_graph(kernel)}
+        bound_ms, bound_by = stream_block_bound(bsz, t, cin, k, cout, t_out)
+        launch = sb.forward_config(bsz, t, cin, cout, k, t_out, act)
+        out[name] = {"graph_ms": min(ms["kernel"], ms["kernel_2"]),
+                     "generic_graph_ms": min(ms["generic"], ms["generic_2"]),
+                     "library_graph_ms": ms["library"], "plain_graph_ms": ms["plain"],
+                     "bound_ms": bound_ms, "bound_by": bound_by, "launch": launch}
+        log(f"[time] {card}: stream_block {name} x({bsz},{t},{cin}) k{k} -> ({bsz},{t_out},"
+            f"{cout}), 200 calls from a CUDA graph (device only), in turns: {launch['variant']} "
+            f"{ms['kernel']:.4f}/{ms['kernel_2']:.4f} ms, the generic variant "
+            f"{ms['generic']:.4f}/{ms['generic_2']:.4f} ms, library conv1d+relu+"
+            f"adaptive_avg_pool1d {ms['library']:.4f} ms, plain {ms['plain']:.4f} ms; bound "
+            f"{bound_ms:.5f} ms ({bound_by}); launch {launch}")
+    return out
+
+
 def device_ms(fn, reps=20) -> float:
     """Milliseconds of device time per call: the self time of its kernels
     under torch.profiler, without the host's cost (which sets the pace of a
@@ -2329,16 +2453,18 @@ def time_focal_block(rng, dev, card) -> dict:
         xt, wt, bt, gt = focal_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
         with torch.inference_mode():
             edge = {v: device_ms(lambda v=v: sb._forward_kernel(xt, wt, bt, t_out, "gelu", v))
-                    for v in (sb.WIDE, sb.GENERIC)}
+                    for v in (sb.WIDE, sb.PER_FRAME, sb.GENERIC)}
         edge_b = {v: device_ms(lambda v=v: sb._backward_kernel(xt, wt, bt, gt, t_out, "gelu",
                                                                  v))
                   for v in (sb.BWD_WIDE, sb.BWD_GENERIC)}
         out["threshold_ms"][cin] = {
-            "forward_wide": edge[sb.WIDE], "forward_generic": edge[sb.GENERIC],
+            "forward_wide": edge[sb.WIDE], "forward_per_frame": edge[sb.PER_FRAME],
+            "forward_generic": edge[sb.GENERIC],
             "backward_wide": edge_b[sb.BWD_WIDE], "backward_generic": edge_b[sb.BWD_GENERIC]}
         log(f"[time] {card}: stream_block at x({bsz},{t},{cin}) gelu (the wrapper's wide "
             f"variants from C_in {sb.WIDE_MIN_CIN}), device: forward wide "
-            f"{edge[sb.WIDE]:.4f} ms, generic {edge[sb.GENERIC]:.4f} ms; backward wide "
+            f"{edge[sb.WIDE]:.4f} ms, per_frame {edge[sb.PER_FRAME]:.4f} ms, generic "
+            f"{edge[sb.GENERIC]:.4f} ms; backward wide "
             f"{edge_b[sb.BWD_WIDE]:.4f} ms, generic {edge_b[sb.BWD_GENERIC]:.4f} ms")
     return out
 
@@ -2783,7 +2909,9 @@ def main() -> int:
     # later slices' checks: each a stream of its own as well
     zrng = np.random.default_rng([args.seed, 6])
     check_zero_rows(zrng, dev)
-    check_wide_xattn(zrng, dev, card)
+    check_wide_xattn(zrng, dev, card, WIDE_XATTN_CASES)
+    wide_xattn_times = time_wide_xattn(zrng, dev, card)
+    check_wide_xattn(np.random.default_rng([args.seed, 15]), dev, card, TILED_XATTN_CASES)
     check_cheap_xattn(np.random.default_rng([args.seed, 7]), dev, card, XATTN_EDGE_CASES)
     print_xattn_configs(card)
     check_forward_edges(np.random.default_rng([args.seed, 8]), dev, card)
@@ -2805,6 +2933,9 @@ def main() -> int:
     # the FBG/FoG baseline drivers' slice: a stream of its own as well
     bb_rng = np.random.default_rng([args.seed, 14])
     baselines = phase_baselines(args.seed, dev, card, bb_rng)
+    # the kernel redesigns' slice: the tiled cross-attention on the fusion's
+    # path at enc_out_ch 96
+    wide_fusion = phase_wide_fusion_training(args.seed, dev)
     times = time_stream_block(rng, dev, card)
     times["cagrad_solver"] = time_solver(rng, dev, card)
     serving = time_serving(engine, rng, card)
@@ -2828,6 +2959,7 @@ def main() -> int:
     bb_xattn_times = time_cheap_xattn(bb_rng, dev, card, BB_XATTN_SHAPE)
     bb_focal_times = time_stream_block(bb_rng, dev, card, BB_FOCAL_SHAPE, slice(FF_BATCH, None),
                                        "FOCAL async skeleton stream's layout")
+    t101_times = time_t101_forwards(np.random.default_rng([args.seed, 16]), dev, card)
 
     def bb_xattn_setup(seed, device, bsz):
         return bb_step_setup(seed, device, bsz, "fusion", fusion_type="cheap_xattn")
@@ -2862,6 +2994,11 @@ def main() -> int:
     for name in ("cheap_xattn", "cheap_xattn_backward"):
         launches[f"{name}_fbg_fog"] = bb_main[name]
         times[f"{name}_fbg_fog"] = bb_xattn_times[name]
+    # the per_frame forward at FOCAL's 2-mod shape: the FOCAL FoG run's
+    # launches, the times at its shape
+    launches["stream_block_focal_fbg_fog"] = (
+        baselines["runs"]["focal fog async"]["launches"]["stream_block"])
+    times["stream_block_focal_fbg_fog"] = bb_focal_times["stream_block"]
     bb_err = baselines["errors"]["xattn"]["fog_batch256"]
     ff_err = fbg_fog["errors"]["fog_batch256"]
     focal_err = focal_errors["focal_sync_batch1024_gelu"]
@@ -2878,6 +3015,8 @@ def main() -> int:
          "gaitpd/ops/pallas_blocks.py:72", ff_err[0]),
         ("stream_block_backward_fbg_fog", "gaitpd_torch/csrc/stream_block.cu",
          "gaitpd/ops/pallas_blocks.py:160", ff_err[1]),
+        ("stream_block_focal_fbg_fog", "gaitpd_torch/csrc/stream_block.cu",
+         "gaitpd/ops/pallas_blocks.py:72", baselines["errors"]["focal_fog_batch256"][0]),
         # not a TPU kernel: the CAGrad solver that XLA compiles into the step
         ("cagrad_solver", "gaitpd_torch/csrc/cagrad_solver.cu", "gaitpd/learning/minnorm.py:58",
          solver_err),
@@ -2915,7 +3054,9 @@ def main() -> int:
         f"{json.dumps(ff_steps)} and profile {json.dumps(ff_profile)}; the baseline drivers "
         f"{json.dumps(baselines)}, the stream block at FOCAL's 2-mod shape "
         f"{json.dumps(bb_focal_times)}, the cheap-xattn fusion's train steps "
-        f"{json.dumps(bb_steps)} and profile {json.dumps(bb_profile)}")
+        f"{json.dumps(bb_steps)} and profile {json.dumps(bb_profile)}; the cross-attention at "
+        f"d 96 {json.dumps(wide_xattn_times)} and the fusion at enc_out_ch {WIDE_FUSION_CH} "
+        f"{json.dumps(wide_fusion)}; the T 101 forwards {json.dumps(t101_times)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,7 +13,7 @@
 // matrix, 16 KB), so nothing of the Pallas tiling is carried over: a problem's
 // scores never leave the SM, and the work is spread by problems.
 //
-// Four variants; gaitpd_torch/ops/cheap_xattn.py::_variant chooses one from
+// Five variants; gaitpd_torch/ops/cheap_xattn.py::_variant chooses one from
 // (Tq, Tk, d) and the entry points refuse a variant that does not take the
 // sizes:
 //   0  one sweep, d = 12 as a compile-time width: Tk <= 64 (backward also
@@ -21,13 +21,15 @@
 //   1  one sweep, any d <= 64, rows zero-padded to a width of 16, 32 or 64;
 //   2  two passes (the first design): Tk > 64 (backward: Tq or Tk > 64),
 //      d <= 64;
-//   3  rows in device memory: d > 64.
+//   3  rows in device memory: d > 64 (the forward only where Tk > 64);
+//   4  tiles in shared memory, forward only: d > 64, Tk <= 64, any Tq.
 //
 // THE SCALE. Variants 0 and 1 multiply the dot product by 1/sqrt(d), computed
 // once on the host in double and rounded to f32, as the Pallas kernel does
 // (gaitpd/ops/pallas_blocks.py:201 multiplies by `scale`, :250 sets it to
-// 1.0 / np.sqrt(d)); only the jnp reference divides. Variants 2 and 3 divide,
-// as they always did. expf is the accurate one: the build has no fast math.
+// 1.0 / np.sqrt(d)); only the jnp reference divides. Variants 2, 3 and 4
+// divide, as the first design did. expf is the accurate one: the build has
+// no fast math.
 //
 // FORWARD, ONE SWEEP (variants 0, 1)
 //
@@ -102,14 +104,50 @@
 // thread recomputes P_ik and dS_ik (the same bits as phase 1) and sums dB_k.
 // The register rows hold d <= 64 (arrays of 16, 32 or 64, a template).
 //
-// ROWS IN DEVICE MEMORY (variant 3), d > 64
+// ROWS IN DEVICE MEMORY (variant 3), d > 64: the backward, and the forward
+// beyond 64 keys
 //
 // The two-pass kernels with the per-thread rows in device memory: the query
 // and dO rows are read from A and G where they lie, and the running sum is
 // the thread's own output row (of O, dA or dB), which no other thread
 // touches. Its arithmetic and order are the two-pass version's; it is slow
-// (every update of the sum goes through the cache), and no model of the
-// repo's defaults takes it.
+// (every update of the sum goes through the cache, and each score is
+// computed in both passes), and no model of the repo's defaults takes it.
+//
+// FORWARD, TILES IN SHARED MEMORY (variant 4), d > 64 and Tk <= 64
+//
+// _xattn_kernel's forward (gaitpd/ops/pallas_blocks.py:184-222) at these
+// sizes.
+//
+// What bounds it. At d = 96, N = 384, Tq = Tk = 64 (the cheap-xattn fusion
+// with enc_out_ch 96 at a train batch of 64) it reads A and B and writes O,
+// 28.3 MB (8.4 us at 3.35 TB/s), and does two products of 2 * 64 * 64 * 96
+// FLOP a problem, 604 MFLOP (9.0 us at 67 TFLOP/s): both bounds are close.
+// Variant 3 keeps each query row and its running sum in device memory, so
+// every FMA goes through the cache.
+//
+// What the design does about it. A block of 4 warps takes units of (problem,
+// 64 query rows) in turn, on a grid of as many blocks as the card holds at
+// once (the occupancy calculator): at 4 blocks an SM (51 KB each at d 96)
+// the card holds 528, so 384 units run in one wave. A unit's A rows and B's (at most 64) are copied into shared
+// memory with cp.async, up to 128 columns of d at a time (a wider d in
+// chunks), rows zero-filled beyond Tq, Tk and d, at a row stride of an odd
+// number of float4 so that a quarter warp's 8 rows lie on distinct banks.
+// S = A B^T is computed once: a thread keeps a 4 x 8 tile of scores in
+// registers (rows ty + 16 ii, keys tx + 8 jj) and reads per 4 columns four
+// float4 of A (a broadcast) and eight of B for 128 FMAs; each dot product
+// sums in ascending column over the chunks, as variant 3 does. The scores,
+// divided by sqrt(d) and -inf past Tk, take A's place in shared memory; a
+// warp a row takes its max and sum l by butterflies (every lane the same
+// bits) and writes exp(s - max). Then O = P B: a thread keeps a 4 x 4 tile of
+// outputs (4 rows, 4 columns) and reads per 4 keys four float4 of P and four
+// of B for 64 FMAs, keys in ascending order, and writes O / l. Only l is
+// summed in another order than variant 3's. Strict f32; no atomics: the
+// same bits from run to run.
+//
+// What it reaches (PERF.md): 0.030 ms at d 96 from a CUDA graph, 3.4x its
+// bound, against 0.067 for scaled_dot_product_attention and 1.196 for
+// variant 3 (H100 80GB HBM3 at 700 W).
 //
 // Plain C interface, bound with ctypes (gaitpd_torch/ops/cheap_xattn.py).
 
@@ -126,7 +164,7 @@ constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
 // The variants, numbered as gaitpd_torch/ops/cheap_xattn.py::_variant numbers them.
-enum Variant { kSweepD12 = 0, kSweep = 1, kTwoPass = 2, kWide = 3 };
+enum Variant { kSweepD12 = 0, kSweep = 1, kTwoPass = 2, kWide = 3, kTiled = 4 };
 
 constexpr int kSweepT = 64;         // keys (backward: and query rows) the sweep kernels hold
 constexpr int kSweepThreads = 128;  // 4 warps
@@ -788,6 +826,220 @@ cheap_xattn_backward_wide_kernel(const float* __restrict__ a, const float* __res
   }
 }
 
+// ---------------------------------------------------------------------------
+// d > 64 with Tk <= 64 (variant 4): tiles in shared memory (see the header).
+
+constexpr int kTiledThreads = 128;          // 4 warps
+constexpr int kTiledChunk = 128;            // columns of d staged at a time
+constexpr int kTiledPStride = kSweepT + 4;  // row stride of P: 17 float4, odd
+
+__host__ __device__ constexpr int round4(int v) { return (v + 3) / 4 * 4; }
+// The widest chunk of d that is staged, rounded up to 4.
+__host__ __device__ constexpr int tiled_width(int d) {
+  return round4(d) < kTiledChunk ? round4(d) : kTiledChunk;
+}
+// Row stride of a staged chunk of width w4 (a multiple of 4): an odd number
+// of float4, so that the 8 rows a quarter warp reads 16 bytes of at once lie
+// on distinct banks. At d > 64 it is at least kTiledPStride: P fits in A's
+// place.
+__host__ __device__ constexpr int tiled_stride(int w4) {
+  return (w4 / 4) % 2 == 1 ? w4 : w4 + 4;
+}
+// A's chunk (then P), B's chunk, and each query row's sum l, in bytes.
+size_t tiled_smem(int d) {
+  return (2 * static_cast<size_t>(kSweepT) * tiled_stride(tiled_width(d)) + kSweepT) *
+         sizeof(float);
+}
+
+// Asynchronous copy global -> shared of 4 or 16 bytes; with `full` false the
+// destination is zero-filled and nothing is read.
+template <bool V4>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (V4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(full ? 16 : 0));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(full ? 4 : 0));
+  }
+}
+
+// Columns [c0, c0 + w4) of the first `rows` rows of a row-major (rows, d)
+// matrix into a kSweepT-row tile of stride ld; zero beyond row `rows` and
+// column d. Then waits for the copies and the block.
+template <bool V4>
+__device__ __forceinline__ void tiled_stage(const float* __restrict__ src, float* dst, int rows,
+                                            int d, int c0, int w4, int ld) {
+  constexpr int kVec = V4 ? 4 : 1;
+  const int per_row = w4 / kVec;
+  for (int e = threadIdx.x; e < kSweepT * per_row; e += blockDim.x) {
+    const int r = e / per_row, c = (e - r * per_row) * kVec;
+    const bool full = r < rows && c0 + c < d;
+    cp_async<V4>(dst + r * ld + c, full ? src + static_cast<size_t>(r) * d + c0 + c : src, full);
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// A block takes units of (problem, 64 query rows) in turn. V4: d is a
+// multiple of 4 (the rows lie on 16 bytes).
+template <bool V4>
+__global__ void __launch_bounds__(kTiledThreads)
+cheap_xattn_forward_tiled_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                                 float* __restrict__ out, int n, int tq, int tk, int d,
+                                 float sqrt_d) {
+  extern __shared__ float4 smem4[];
+  const int ld = tiled_stride(tiled_width(d));
+  float* as = reinterpret_cast<float*>(smem4);  // A's chunk; then P (64 x kTiledPStride)
+  float* bs = as + kSweepT * ld;                // B's chunk
+  float* ls = bs + kSweepT * ld;                // l of each query row
+  float* ps = as;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ty = tid >> 3, tx = tid & 7;  // scores: rows ty + 16 ii, keys tx + 8 jj
+  const int per_problem = (tq + kSweepT - 1) / kSweepT;
+  const long long units = static_cast<long long>(n) * per_problem;
+  const int chunks = (d + kTiledChunk - 1) / kTiledChunk;
+  const int tk4 = round4(tk);
+
+  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+    const long long p = u / per_problem;
+    const int r0 = static_cast<int>(u - p * per_problem) * kSweepT;
+    const int rows = min(kSweepT, tq - r0);
+    const float* ap = a + (static_cast<size_t>(p) * tq + r0) * d;
+    const float* bp = b + static_cast<size_t>(p) * tk * d;
+
+    // S = A B^T: a 4 x 8 register tile a thread, each dot product in
+    // ascending c over the chunks
+    float s[4][8];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) s[ii][jj] = 0.0f;
+    }
+    for (int ch = 0; ch < chunks; ++ch) {
+      const int c0 = ch * kTiledChunk;
+      const int w4 = min(round4(d - c0), kTiledChunk);
+      __syncthreads();  // the last unit's or chunk's reads are done
+      tiled_stage<V4>(ap, as, rows, d, c0, w4, ld);
+      tiled_stage<V4>(bp, bs, tk, d, c0, w4, ld);
+      cp_async_wait_all();
+      __syncthreads();
+      for (int c = 0; c < w4; c += 4) {
+        float4 av[4], bv[8];
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          av[ii] = *reinterpret_cast<const float4*>(as + (ty + 16 * ii) * ld + c);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          bv[jj] = *reinterpret_cast<const float4*>(bs + (tx + 8 * jj) * ld + c);
+        }
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            float v = s[ii][jj];
+            v = fmaf(av[ii].x, bv[jj].x, v);
+            v = fmaf(av[ii].y, bv[jj].y, v);
+            v = fmaf(av[ii].z, bv[jj].z, v);
+            s[ii][jj] = fmaf(av[ii].w, bv[jj].w, v);
+          }
+        }
+      }
+    }
+    __syncthreads();  // A is read for the last time: P takes its place
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int key = tx + 8 * jj;
+        ps[(ty + 16 * ii) * kTiledPStride + key] = key < tk ? s[ii][jj] / sqrt_d : -INFINITY;
+      }
+    }
+    __syncthreads();
+
+    // softmax numerators: a warp a row, lanes on keys lane and lane + 32;
+    // the butterflies leave every lane with the same m and l
+    for (int i = warp; i < kSweepT; i += kTiledThreads / 32) {
+      float* pr = ps + i * kTiledPStride;
+      const float v0 = pr[lane], v1 = pr[lane + 32];
+      float m = fmaxf(v0, v1);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      const float e0 = expf(v0 - m), e1 = expf(v1 - m);
+      float l = e0 + e1;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+      pr[lane] = e0;
+      pr[lane + 32] = e1;
+      if (lane == 0) ls[i] = l;
+    }
+
+    // O = P B / l: a 4 x 4 register tile a thread (rows oy + 16 ii, columns
+    // 4q .. 4q + 3), keys in ascending order; the last chunk of B staged
+    // is taken first
+    for (int ch = chunks - 1; ch >= 0; --ch) {
+      const int c0 = ch * kTiledChunk;
+      const int w4 = min(round4(d - c0), kTiledChunk);
+      if (ch != chunks - 1) {
+        __syncthreads();
+        tiled_stage<V4>(bp, bs, tk, d, c0, w4, ld);
+        cp_async_wait_all();
+      }
+      __syncthreads();
+      const int quads = w4 / 4;
+      for (int t = tid; t < (kSweepT / 4) * quads; t += kTiledThreads) {
+        const int oy = t / quads, q = t - oy * quads;
+        float4 acc[4];
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) acc[ii] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int k = 0; k < tk4; k += 4) {
+          float4 pv[4], bv[4];
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii) {
+            pv[ii] = *reinterpret_cast<const float4*>(ps + (oy + 16 * ii) * kTiledPStride + k);
+          }
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            bv[kk] = *reinterpret_cast<const float4*>(bs + (k + kk) * ld + 4 * q);
+          }
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii) {
+            const float pk[4] = {pv[ii].x, pv[ii].y, pv[ii].z, pv[ii].w};
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              acc[ii].x = fmaf(pk[kk], bv[kk].x, acc[ii].x);
+              acc[ii].y = fmaf(pk[kk], bv[kk].y, acc[ii].y);
+              acc[ii].z = fmaf(pk[kk], bv[kk].z, acc[ii].z);
+              acc[ii].w = fmaf(pk[kk], bv[kk].w, acc[ii].w);
+            }
+          }
+        }
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          const int i = oy + 16 * ii;
+          if (i >= rows) continue;
+          const float l = ls[i];
+          const float o[4] = {acc[ii].x / l, acc[ii].y / l, acc[ii].z / l, acc[ii].w / l};
+          float* orow = out + (static_cast<size_t>(p) * tq + r0 + i) * d + c0 + 4 * q;
+          if (V4) {
+            *reinterpret_cast<float4*>(orow) = make_float4(o[0], o[1], o[2], o[3]);
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              if (c0 + 4 * q + c < d) orow[c] = o[c];
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
 // Rows of a tile for the wide kernels, `row_floats` floats each: as many as
 // the default 48 KB hold, at most kTile and at least one; 0 if one row
 // exceeds the block's shared memory.
@@ -828,6 +1080,7 @@ bool variant_takes(int variant, bool backward, int tq, int tk, int d) {
     case kSweep: return sweep && d <= kMaxD;
     case kTwoPass: return d <= kMaxD;
     case kWide: return d > kMaxD;
+    case kTiled: return !backward && d > kMaxD && tk <= kSweepT;
     default: return false;
   }
 }
@@ -887,6 +1140,18 @@ cudaError_t forward_launch(int variant, int n, int tq, int tk, int d, Launch* ou
     l.threads = threads_for(tq);
     l.smem = static_cast<size_t>(kTile) * d * sizeof(float);
     l.grid = dim3(n, (tq + l.threads - 1) / l.threads);
+  } else if (variant == kTiled) {
+    l.kernel = v4 ? fn(cheap_xattn_forward_tiled_kernel<true>)
+                  : fn(cheap_xattn_forward_tiled_kernel<false>);
+    l.threads = kTiledThreads;
+    l.smem = tiled_smem(d);
+    int resident;
+    cudaError_t err = allow_smem(l.kernel, l.smem);  // before the occupancy query
+    if (err == cudaSuccess) err = resident_blocks(l.kernel, l.threads, l.smem, &resident);
+    if (err != cudaSuccess) return err;
+    if (resident < 1) return cudaErrorInvalidValue;
+    const long long units = static_cast<long long>(n) * ((tq + kSweepT - 1) / kSweepT);
+    l.grid = dim3(static_cast<unsigned>(units < resident ? units : resident));
   } else {
     l.tile = wide_tile(d, &l.smem);
     if (l.tile == 0) return cudaErrorInvalidValue;
@@ -956,7 +1221,11 @@ int cheap_xattn_forward(const float* a, const float* b, float* out, int n, int t
   void* sweep_args[] = {&a, &b, &out, &n, &tq, &tk, &d, &scale};
   void* two_pass_args[] = {&a, &b, &out, &tq, &tk, &d, &sqrt_d};
   void* wide_args[] = {&a, &b, &out, &tq, &tk, &d, &sqrt_d, &l.tile};
-  void** args = variant == kTwoPass ? two_pass_args : variant == kWide ? wide_args : sweep_args;
+  void* tiled_args[] = {&a, &b, &out, &n, &tq, &tk, &d, &sqrt_d};
+  void** args = variant == kTwoPass ? two_pass_args
+                : variant == kWide  ? wide_args
+                : variant == kTiled ? tiled_args
+                                    : sweep_args;
   return static_cast<int>(cudaLaunchKernel(l.kernel, l.grid, dim3(l.threads), args, l.smem,
                                            static_cast<cudaStream_t>(stream)));
 }

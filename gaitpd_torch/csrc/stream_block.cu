@@ -19,7 +19,7 @@
 // the conv's intermediate (B, T, Cout) goes through device memory.
 //
 // What the design does about it. One pass, nothing between the input and the
-// pooled output goes through device memory. Three variants, chosen by the
+// pooled output goes through device memory. Four variants, chosen by the
 // sizes alone (gaitpd_torch/ops/stream_block.py::_variant):
 //
 // "warp_tile", the main path's sizes compiled in: T = 64, Cout = 16, K = 3,
@@ -58,14 +58,35 @@
 // kernel's time and the FMAs alone three quarters: they overlap only in
 // part.
 //
-// "generic", every other size (T = 101 with overlapping bins, K = 1 or 5,
-// Cin = 13, ...): a block stages a tile of whole windows (with a zeroed halo
-// of K/2 frames on each side, so no host-side padding) and the weights in
-// shared memory; each thread owns one (window, bin, c_out) output, computes
-// the conv outputs of the frames in its bin, applies bias and activation, and
-// averages them. The bin is [floor(i*T/t_out), ceil((i+1)*T/t_out)), as
+// "per_frame", _stream_block_kernel's forward (gaitpd/ops/pallas_blocks.py:
+// 72-94) at every other size whose window fits a block's shared memory
+// (T = 101 with overlapping bins, K = 1 or 5, Cin = 13, C_out 4, ...). The
+// FBG/FoG models' backbones: 2 x 256 windows of T 101 at Cin 3, 6, 12, 16 or
+// 32. At FOCAL's 2-modality shape, (512, 101, 32) -> C_out 4, t_out 4, the
+// kernel must read 6.6 MB and does 40 MFLOP: 2.0 us of bytes against 0.6 us
+// of operations, so bytes bound it, and at FoG's (512, 101, 6) -> (8, 16) the
+// 1.5 MB bound it at 0.45 us. The window is small, so what sets the time is
+// how many SMs load at once and how long the chain of FMAs after the load
+// is. The design: one window a block, so 512 blocks of at most 18 KB spread
+// over every SM and all load at once (cp.async, 16 bytes a copy where Cin is
+// a multiple of 4); each conv output z[t, c_out] is computed once, by a
+// thread a (frame, 4 c_out) item (101 to 404 items a window, in blocks of
+// 64 to 256 threads), which reads per 4 channels one float4 of x and four
+// of w (broadcast) for 16 FMAs, in the generic variant's order (tap-major,
+// channel-minor); bias and activation go into y (T, C_out) in shared
+// memory; then a thread a (bin, c_out) sums the bin's frames in ascending
+// order and divides by the bin's length. The bin is [floor(i*T/t_out), ceil((i+1)*T/t_out)), as
 // torch's AdaptiveAvgPool1d: bins overlap when t_out does not divide T, and a
-// frame on a shared edge is then computed by both bins.
+// frame on a shared edge is read by both bins but computed once.
+//
+// "generic", the first design, kept for the sizes whose window, w
+// and y do not fit per_frame's 227 KB but whose window and w do (a long T at
+// few channels: per_frame pads C_in and C_out to 4 and keeps y). A block
+// stages a tile of whole windows (with a zeroed halo of K/2 frames on each
+// side, so no host-side padding) and the weights in shared memory; each
+// thread owns one (window, bin, c_out) output, computes the conv outputs of
+// the frames in its bin, applies bias and activation, and averages them: a
+// frame on a shared bin edge is computed by both bins.
 //
 // No tensor cores: parity is strict f32 (no TF32). A 3xTF32 tensor-core
 // version of the wide variant's conv is untried.
@@ -213,7 +234,7 @@ constexpr int kTilePitch = kTileTout * kTileRow + 4;  // one channel of a window
 constexpr int kTileWarps = 4;                    // windows (one a warp) a block
 constexpr int kTileThreads = kTileWarps * 32;
 
-enum Variant { kWarpTile = 0, kGeneric = 1, kWide = 2 };
+enum Variant { kWarpTile = 0, kGeneric = 1, kWide = 2, kPerFrame = 3 };
 enum BackwardVariant { kBwdGeneric = 0, kBwdWide = 1 };
 
 bool tile_sizes(int t_in, int cin, int cout, int k, int t_out) {
@@ -398,6 +419,111 @@ __device__ __forceinline__ void cp_async_vec(float* dst, const float* src, bool 
     cp_async16(dst, src, full);
   } else {
     cp_async4(dst, src, full);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The per_frame variant: one window a block; each conv output computed once,
+// kept in shared memory, then pooled (see the header).
+
+// At most 8 warps a block: FoG's 404 items a window in 416 threads held 3
+// blocks an SM (registers), so 512 windows took 1.3 waves; at 256 threads a
+// thread takes one or two items and they fit in one (0.0090 against 0.0073
+// ms from a CUDA graph, H100 80GB HBM3 at 700 W).
+constexpr int kFrameMaxThreads = 256;
+
+// Shared memory of a per_frame block, in floats from its start: x (T + K - 1
+// padded frames of `stride` floats), w (K, cin4, cout4), b (cout4), y (T,
+// cout4). C_in and C_out are padded to multiples of 4 with zeros; a frame's
+// stride is an odd number of float4, so that the 8 frames a quarter warp
+// reads 16 bytes of at once lie on distinct banks.
+struct FrameLayout {
+  long long cin4, cout4, stride, w, b, y, floats;
+  __host__ __device__ FrameLayout(int t_in, int cin, int cout, int k) {
+    cin4 = (cin + 3LL) / 4 * 4;
+    cout4 = (cout + 3LL) / 4 * 4;
+    stride = (cin4 / 4) % 2 == 1 ? cin4 : cin4 + 4;
+    w = (t_in + k - 1LL) * stride;
+    b = w + k * cin4 * cout4;
+    y = b + cout4;
+    floats = y + static_cast<long long>(t_in) * cout4;
+  }
+};
+
+template <int VEC, int ACT>
+__global__ void __launch_bounds__(kFrameMaxThreads)
+stream_block_frame_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                          const float* __restrict__ b, float* __restrict__ out, int t_in,
+                          int cin, int cout, int k, int t_out) {
+  extern __shared__ float4 smem_frame[];
+  const FrameLayout L(t_in, cin, cout, k);
+  const int cin4 = static_cast<int>(L.cin4), cout4 = static_cast<int>(L.cout4);
+  const int stride = static_cast<int>(L.stride);
+  float* xs = reinterpret_cast<float*>(smem_frame);
+  float* ws = xs + L.w;
+  float* bs = xs + L.b;
+  float* ys = xs + L.y;
+  const int pad = k / 2;
+  const size_t win = blockIdx.x;
+
+  // padded frame r holds frame r - pad: zero outside the window and beyond C_in
+  const float* xg = x + win * t_in * cin;
+  const int per_row = cin4 / VEC;
+  for (int e = threadIdx.x; e < (t_in + k - 1) * per_row; e += blockDim.x) {
+    const int r = e / per_row, c = (e - r * per_row) * VEC;
+    const int f = r - pad;
+    const bool full = f >= 0 && f < t_in && c < cin;
+    cp_async_vec<VEC>(xs + r * stride + c, full ? xg + static_cast<size_t>(f) * cin + c : x, full);
+  }
+  cp_async_commit();
+  for (int e = threadIdx.x; e < k * cin4 * cout4; e += blockDim.x) {
+    const int co = e % cout4, r = e / cout4;  // r = tap * cin4 + channel
+    const int i = r / cin4, ci = r - i * cin4;
+    ws[e] = ci < cin && co < cout ? w[(static_cast<size_t>(i) * cin + ci) * cout + co] : 0.0f;
+  }
+  for (int e = threadIdx.x; e < cout4; e += blockDim.x) bs[e] = e < cout ? b[e] : 0.0f;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // z[t, 4q .. 4q + 3], once: per 4 channels one float4 of x and four of w
+  // (the same for the threads of a q: a broadcast) for 16 FMAs, taps in the
+  // order tap-major, channel-minor
+  const int quads = cout4 / 4;
+  for (int item = threadIdx.x; item < t_in * quads; item += blockDim.x) {
+    const int t = item / quads, q = item - t * quads;
+    float4 acc = reinterpret_cast<const float4*>(bs)[q];
+    for (int i = 0; i < k; ++i) {
+      const float4* xr = reinterpret_cast<const float4*>(xs + (t + i) * stride);
+      const float4* wr = reinterpret_cast<const float4*>(ws + i * cin4 * cout4) + q;
+#pragma unroll 2
+      for (int c = 0; c < cin4 / 4; ++c) {
+        const float4 xv = xr[c];
+        const float xc[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 wv = wr[(4 * c + j) * quads];
+          acc.x = fmaf(xc[j], wv.x, acc.x);
+          acc.y = fmaf(xc[j], wv.y, acc.y);
+          acc.z = fmaf(xc[j], wv.z, acc.z);
+          acc.w = fmaf(xc[j], wv.w, acc.w);
+        }
+      }
+    }
+    reinterpret_cast<float4*>(ys)[item] =
+        make_float4(activate(acc.x, ACT), activate(acc.y, ACT), activate(acc.z, ACT),
+                    activate(acc.w, ACT));
+  }
+  __syncthreads();
+
+  // each (bin, c_out): its frames in ascending order, over the bin's length;
+  // consecutive threads on consecutive c_out, so the writes coalesce
+  for (int o = threadIdx.x; o < t_out * cout; o += blockDim.x) {
+    const int bin = o / cout, co = o - bin * cout;
+    const int start = (bin * t_in) / t_out;
+    const int end = ((bin + 1) * t_in + t_out - 1) / t_out;
+    float sum = 0.0f;
+    for (int t = start; t < end; ++t) sum += ys[t * cout4 + co];
+    out[win * t_out * cout + o] = sum / static_cast<float>(end - start);
   }
 }
 
@@ -1213,6 +1339,21 @@ WideKernel wide_kernel(int act, int mode, bool vec4) {
 
 using WideGradKernel = void (*)(const float*, const float*, const float*, float*, float*, int,
                                 int, int);
+using FrameKernel = void (*)(const float*, const float*, const float*, float*, int, int, int, int,
+                             int);
+
+template <int VEC>
+FrameKernel frame_kernel_for(int act) {
+  return act == kActRelu ? stream_block_frame_kernel<VEC, kActRelu>
+                         : stream_block_frame_kernel<VEC, kActGelu>;
+}
+
+// 16-byte copies of x where C_in is a multiple of 4 and x lies on 16 bytes
+// (a launch's pointer; the configuration assumes it does), else 4-byte ones.
+FrameKernel frame_kernel(int act, int cin, const float* x = nullptr) {
+  return cin % 4 == 0 && reinterpret_cast<size_t>(x) % 16 == 0 ? frame_kernel_for<4>(act)
+                                                                 : frame_kernel_for<1>(act);
+}
 
 WideGradKernel wide_grad_kernel(bool vec4) {
   return vec4 ? stream_block_wide_grad_kernel<4> : stream_block_wide_grad_kernel<1>;
@@ -1260,9 +1401,10 @@ int wide_ranges(int batch, int cin) {
 }
 
 struct ForwardLaunch {
-  const void* fn;   // the kernel, for its attributes
-  TileKernel tile;  // the warp_tile kernel, or null
-  WideKernel wide;  // the wide kernel, or null
+  const void* fn;    // the kernel, for its attributes
+  TileKernel tile;   // the warp_tile kernel, or null
+  WideKernel wide;   // the wide kernel, or null
+  FrameKernel frame; // the per_frame kernel, or null
   int threads, windows, grid;  // windows a block
   size_t smem;
 };
@@ -1271,10 +1413,11 @@ struct ForwardLaunch {
 // not take them. mode kWideGradZ: the wide backward's first kernel.
 bool forward_launch(int variant, int batch, int t_in, int cin, int cout, int k, int t_out,
                     int act, ForwardLaunch* L, int mode = kWideForward,
-                    bool vec4 = true) {
+                    bool vec4 = true, const float* x = nullptr) {
   if (!valid_sizes(batch, t_in, cin, cout, k, t_out, act)) return false;
   L->tile = nullptr;
   L->wide = nullptr;
+  L->frame = nullptr;
   if (variant == kWarpTile) {
     if (!tile_sizes(t_in, cin, cout, k, t_out)) return false;
     L->tile = tile_kernel(cin, act);
@@ -1300,6 +1443,19 @@ bool forward_launch(int variant, int batch, int t_in, int cin, int cout, int k, 
     L->threads = kWideThreads;
     L->windows = wide_windows(batch);
     L->smem = wide_conv_smem(L->windows);
+  } else if (variant == kPerFrame) {
+    const long long floats = FrameLayout(t_in, cin, cout, k).floats;
+    if (floats > static_cast<long long>(kMaxSmem / sizeof(float))) return false;
+    L->frame = frame_kernel(act, cin, x);
+    L->fn = reinterpret_cast<const void*>(L->frame);
+    // a thread an output item (frame, 4 c_out) where they fit in one block
+    const long long items = static_cast<long long>(t_in) * ((cout + 3) / 4);
+    const long long warps = (items + 31) / 32;
+    L->threads = static_cast<int>(warps < 2                       ? 64
+                                  : warps > kFrameMaxThreads / 32 ? kFrameMaxThreads
+                                                                  : 32 * warps);
+    L->windows = 1;
+    L->smem = static_cast<size_t>(floats) * sizeof(float);
   } else {
     return false;
   }
@@ -1322,6 +1478,8 @@ cudaError_t launch_forward(const ForwardLaunch& L, const float* x, const float* 
     L.tile<<<L.grid, L.threads, L.smem, s>>>(x, w, b, out, batch);
   } else if (L.wide != nullptr) {
     L.wide<<<L.grid, L.threads, L.smem, s>>>(x, w, b, g, out, batch, cin, L.windows);
+  } else if (L.frame != nullptr) {
+    L.frame<<<L.grid, L.threads, L.smem, s>>>(x, w, b, out, t_in, cin, cout, k, t_out);
   } else {
     stream_block_generic_kernel<<<L.grid, L.threads, L.smem, s>>>(
         x, w, b, out, batch, t_in, cin, cout, k, t_out, act, L.windows);
@@ -1333,16 +1491,17 @@ cudaError_t launch_forward(const ForwardLaunch& L, const float* x, const float* 
 
 extern "C" {
 
-// Launches the forward's `variant` (0 warp_tile, 1 generic, 2 wide) on
-// `stream`. Returns a cudaError_t: 0 on success, cudaErrorInvalidValue for
-// sizes the variant does not take. x, w, b, out are contiguous f32 device
-// pointers (out 16-byte aligned); act is 0 (ReLU) or 1 (exact GELU).
+// Launches the forward's `variant` (0 warp_tile, 1 generic, 2 wide, 3
+// per_frame) on `stream`. Returns a cudaError_t: 0 on success,
+// cudaErrorInvalidValue for sizes the variant does not take. x, w, b, out are
+// contiguous f32 device pointers (out 16-byte aligned); act is 0 (ReLU) or 1
+// (exact GELU).
 int stream_block_forward(const float* x, const float* w, const float* b, float* out,
                          int batch, int t_in, int cin, int cout, int k, int t_out,
                          int act, int variant, void* stream) {
   ForwardLaunch L;
   if (!forward_launch(variant, batch, t_in, cin, cout, k, t_out, act, &L, kWideForward,
-                      wide_vec4(cin, x, w))) {
+                      wide_vec4(cin, x, w), x)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0) return 0;

@@ -11,9 +11,9 @@ the hand-written backward kernel of the same file, counted in
 ``cheap_xattn_reference``, under ordinary autograd. There is no fallback from
 one to the other.
 
-The source holds four variants of each kernel; ``_variant`` chooses one from
-the sizes (Tq, Tk, d) and passes it to the entry points, which refuse a
-variant that does not take the sizes.
+The source holds five variants of the forward kernel and four of the
+backward; ``_variant`` chooses one from the sizes (Tq, Tk, d) and passes it
+to the entry points, which refuse a variant that does not take the sizes.
 """
 
 from __future__ import annotations
@@ -35,9 +35,10 @@ _bound = None
 # The kernel variants of csrc/cheap_xattn.cu, numbered as its entry points take
 # them: one sweep with d = 12 as a compile-time width, one sweep at any d <= 64,
 # the two-pass kernels (Tk > 64; backward also Tq > 64), rows in device memory
-# (d > 64).
-SWEEP_D12, SWEEP, TWO_PASS, WIDE = range(4)
-VARIANT_NAMES = ("sweep_d12", "sweep", "two_pass", "rows_in_memory")
+# (d > 64: the backward, and the forward beyond 64 keys), and the forward's
+# tiles in shared memory (d > 64, Tk <= 64, any Tq).
+SWEEP_D12, SWEEP, TWO_PASS, WIDE, TILED = range(5)
+VARIANT_NAMES = ("sweep_d12", "sweep", "two_pass", "rows_in_memory", "tiled")
 SWEEP_T = 64  # the most keys (backward: and query rows) the sweep kernels hold
 REGISTER_D = 64  # the widest row the register kernels hold
 
@@ -45,7 +46,7 @@ REGISTER_D = 64  # the widest row the register kernels hold
 def _variant(tq: int, tk: int, d: int, backward: bool = False) -> int:
     """The kernel variant that takes these sizes."""
     if d > REGISTER_D:
-        return WIDE
+        return TILED if tk <= SWEEP_T and not backward else WIDE
     if tk > SWEEP_T or (backward and tq > SWEEP_T):
         return TWO_PASS
     return SWEEP_D12 if d == 12 else SWEEP
@@ -109,10 +110,13 @@ def _check(a, b):
         raise ValueError(f"need Tq, Tk, d >= 1, got a {tuple(a.shape)}, b {tuple(b.shape)}")
 
 
-def _forward_kernel(a, b):
+def _forward_kernel(a, b, variant=None):
+    """The forward kernel of ``variant`` (by default ``_variant``'s)."""
     global launches
     n, tq, d = a.shape
     tk = b.shape[1]
+    if variant is None:
+        variant = _variant(tq, tk, d)
     out = torch.empty_like(a)
     if n == 0:
         return out
@@ -120,8 +124,7 @@ def _forward_kernel(a, b):
     fwd = _library()[0]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fwd(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, tq, tk, d,
-                  _variant(tq, tk, d), stream)
+        err = fwd(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, tq, tk, d, variant, stream)
     if err != 0:
         raise RuntimeError(f"cheap_xattn kernel launch failed: cudaError_t {err} "
                            f"(a {tuple(a.shape)}, b {tuple(b.shape)})")

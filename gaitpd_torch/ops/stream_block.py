@@ -12,7 +12,7 @@ the hand-written backward kernel of the same file, counted in
 ``stream_block_reference``, under ordinary autograd. There is no fallback
 from one to the other.
 
-The forward has three variants and the backward two: ``_variant`` and
+The forward has four variants and the backward two: ``_variant`` and
 ``_backward_variant`` choose one from the sizes alone and pass it to the
 entry point, which refuses a variant that does not take the sizes.
 """
@@ -32,9 +32,11 @@ ACTIVATIONS = {"relu": 0, "gelu": 1}
 # The forward's variants, numbered as csrc/stream_block.cu takes them: one
 # warp a window with the main path's sizes compiled in (TILE_SIZES, C_in in
 # TILE_CIN), the same sizes at any C_in streamed through shared memory in
-# chunks (FOCAL's 320 channels), and the generic kernel for every other size.
-WARP_TILE, GENERIC, WIDE = range(3)
-VARIANT_NAMES = ("warp_tile", "generic", "wide")
+# chunks (FOCAL's 320 channels), one window a block with each conv output
+# computed once (per_frame) for every other size whose block fits
+# MAX_SMEM_BYTES, and the first design (generic) for the rest.
+WARP_TILE, GENERIC, WIDE, PER_FRAME = range(4)
+VARIANT_NAMES = ("warp_tile", "generic", "wide", "per_frame")
 # The backward's: the generic kernel (a tile of whole windows a block,
 # zero-cotangent windows skipped) for every size but the wide ones.
 BWD_GENERIC, BWD_WIDE = range(2)
@@ -47,6 +49,8 @@ TILE_CIN = (12, 16, 36)
 # The C_in from which ``_variant`` and ``_backward_variant`` take the wide
 # variants; the kernels themselves take any C_in at TILE_SIZES.
 WIDE_MIN_CIN = 64
+# the shared memory a block may use on the H100 (227 KB)
+MAX_SMEM_BYTES = 227 * 1024
 
 # Kernel launches made by ``stream_block`` and ``stream_block_backward``,
 # and of those the wide variants'; callers may reset them to 0.
@@ -93,6 +97,15 @@ def stream_block_backward_reference(
         return torch.autograd.grad(out, leaves, g)
 
 
+def _per_frame_bytes(t: int, cin: int, cout: int, k: int) -> int:
+    """Shared memory of a per_frame block (csrc/stream_block.cu::FrameLayout):
+    the window's T + K - 1 padded frames, w, b and y (T, C_out), C_in and
+    C_out padded to multiples of 4, a frame's stride an odd number of float4."""
+    cin4, cout4 = -(-cin // 4) * 4, -(-cout // 4) * 4
+    stride = cin4 if (cin4 // 4) % 2 else cin4 + 4
+    return 4 * ((t + k - 1) * stride + k * cin4 * cout4 + cout4 + t * cout4)
+
+
 def _variant(t: int, cin: int, cout: int, k: int, t_out: int) -> int:
     """The forward kernel's variant for windows of (T, C_in), w (K, C_in,
     C_out) and t_out bins."""
@@ -101,7 +114,7 @@ def _variant(t: int, cin: int, cout: int, k: int, t_out: int) -> int:
             return WARP_TILE
         if cin >= WIDE_MIN_CIN:
             return WIDE
-    return GENERIC
+    return PER_FRAME if _per_frame_bytes(t, cin, cout, k) <= MAX_SMEM_BYTES else GENERIC
 
 
 def _backward_variant(t: int, cin: int, cout: int, k: int, t_out: int) -> int:

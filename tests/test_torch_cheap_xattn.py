@@ -92,7 +92,9 @@ def test_equal_scores_give_the_mean():
 # (Tq, Tk, d) -> (forward, backward) kernel variant, at each variant's edges:
 # the sweep kernels hold 64 keys (the backward also 64 query rows) and rows of
 # d <= 64, d = 12 at a compile-time width; beyond 64 keys the two-pass
-# kernels, beyond d = 64 the rows stay in device memory
+# kernels; beyond d = 64 the forward's tiles in shared memory up to 64 keys
+# (any Tq, in 64-row units), and rows in device memory for the backward and
+# beyond 64 keys
 VARIANT_EDGES = {
     (64, 64, 12): (cx.SWEEP_D12, cx.SWEEP_D12),
     (64, 65, 12): (cx.TWO_PASS, cx.TWO_PASS),
@@ -104,9 +106,14 @@ VARIANT_EDGES = {
     (33, 47, 36): (cx.SWEEP, cx.SWEEP),
     (64, 64, 64): (cx.SWEEP, cx.SWEEP),
     (130, 20, 13): (cx.SWEEP, cx.TWO_PASS),
-    (64, 64, 65): (cx.WIDE, cx.WIDE),
+    (64, 64, 65): (cx.TILED, cx.WIDE),
     (101, 426, 12): (cx.TWO_PASS, cx.TWO_PASS),
     (37, 70, 96): (cx.WIDE, cx.WIDE),
+    (64, 64, 96): (cx.TILED, cx.WIDE),
+    (1, 64, 128): (cx.TILED, cx.WIDE),
+    (65, 63, 256): (cx.TILED, cx.WIDE),
+    (64, 65, 96): (cx.WIDE, cx.WIDE),
+    (64, 130, 200): (cx.WIDE, cx.WIDE),
 }
 
 

@@ -95,7 +95,10 @@ def _objective(w, gram, c):
 # the forward's variant edges (tests/test_torch_stream_block.py holds the
 # choice): the warp_tile variant's compiled-in sizes (T 64, C_out 16, K 3,
 # t_out 8, C_in 12/16/36) with both activations and a ragged last block,
-# against one size off each (the generic variant)
+# against one size off each (the per_frame variant); per_frame at T 101:
+# t_out 7 (no bin edge shared with t_out 8), K 1 and 5, C_out 3 (a part-filled
+# quad), C_in 13 and 30 (4-byte copies), one window; per_frame's
+# shared-memory edge and one frame beyond it (the generic variant)
 FORWARD_EDGE_CASES = [
     (4 * 5 + 3, 64, 12, 3, 16, 8, "gelu"), (4 * 5 + 1, 64, 16, 3, 16, 8, "gelu"),
     (4 * 5 + 2, 64, 36, 3, 16, 8, "gelu"), (9, 64, 13, 3, 16, 8, "relu"),
@@ -103,6 +106,11 @@ FORWARD_EDGE_CASES = [
     (9, 63, 12, 3, 16, 8, "relu"), (9, 64, 12, 1, 16, 8, "gelu"),
     (9, 64, 12, 5, 16, 8, "relu"), (9, 64, 12, 3, 16, 7, "relu"),
     (9, 64, 12, 3, 8, 8, "gelu"), (1, 64, 12, 3, 16, 8, "relu"),
+    (5, 101, 16, 3, 16, 7, "gelu"), (4, 101, 6, 1, 16, 8, "relu"),
+    (4, 101, 32, 5, 4, 4, "gelu"), (6, 101, 6, 3, 3, 8, "relu"),
+    (5, 101, 13, 3, 16, 8, "relu"), (3, 101, 30, 3, 4, 4, "gelu"),
+    (1, 101, 32, 3, 4, 4, "relu"), (1, 101, 6, 3, 16, 8, "gelu"),
+    (2, 7261, 1, 1, 1, 8, "relu"), (2, 7262, 1, 1, 1, 8, "relu"),
 ]
 
 
@@ -125,14 +133,29 @@ def test_kernel_matches_plain_on_card(case):
 @pytest.mark.parametrize("case", CASES + FORWARD_EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_forward_launch_config_on_card(case):
     """The launch of the variant the sizes take: at least one block an SM,
-    and a grid that covers the windows."""
+    and a grid that covers the windows (per_frame: one a block)."""
     _cuda()
     bsz, t, cin, k, cout, t_out, act = case
     config = sb.forward_config(bsz, t, cin, cout, k, t_out, act)
     assert config["variant"] == sb.VARIANT_NAMES[sb._variant(t, cin, cout, k, t_out)]
     assert config["threads"] > 0 and config["blocks_per_sm"] >= 1
-    windows = 4  # a block's windows, in either variant at these sizes
-    assert config["blocks"] == -(-bsz // windows)
+    assert config["windows"] == (1 if config["variant"] == "per_frame" else 4)
+    assert config["blocks"] == -(-bsz // config["windows"])
+    assert config["smem_bytes"] <= sb.MAX_SMEM_BYTES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin", [6, 32])
+def test_per_frame_forward_on_unaligned_x_on_card(cin):
+    """x one float past a 16-byte boundary: per_frame copies it 4 bytes at a
+    time, within 1e-5 of the plain version, the same bits twice."""
+    dev = _cuda()
+    x, w, b, _ = _inputs((7, 101, cin, 3, 4, 4, "relu"), dev)
+    x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(x.shape)
+    assert x.data_ptr() % 16 != 0 and sb._variant(101, cin, 4, 3, 4) == sb.PER_FRAME
+    got = sb.stream_block(x, w, b, 4)
+    assert (got - sb.stream_block_reference(x, w, b, 4)).abs().max().item() <= 1e-5
+    assert torch.equal(got, sb.stream_block(x, w, b, 4))
 
 
 # FOCAL's backbone: 128 + 3 * 64 = 320 input channels, exact GELU (and
@@ -197,7 +220,7 @@ def test_wide_kernels_below_their_threshold_on_card(case):
     dev = _cuda()
     bsz, t, cin, k, cout, t_out, act = case
     x, w, b, g = _inputs(case, dev)
-    assert sb._variant(t, cin, cout, k, t_out) == sb.GENERIC
+    assert sb._variant(t, cin, cout, k, t_out) == sb.PER_FRAME
     got = sb._forward_kernel(x, w, b, t_out, act, sb.WIDE)
     assert (got - sb.stream_block_reference(x, w, b, t_out, act)).abs().max().item() <= 1e-5
     assert torch.equal(got, sb._forward_kernel(x, w, b, t_out, act, sb.WIDE))
@@ -419,6 +442,40 @@ def test_cheap_xattn_launch_config_on_card(case, backward):
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         units = n * -(-tq // cx.SWEEP_T)
         assert 1 <= config["blocks"] <= min(units, config["blocks_per_sm"] * sms)
+
+
+# the forward's tiles in shared memory (d > 64, Tk <= 64): d 65 (not a
+# multiple of 4: 4-byte copies), 96, 128 (one chunk), 130 and 200 (a second,
+# part-filled chunk), 256 (two chunks); Tk 63 (a masked key) and 64; Tq 1, 64
+# and 65 (a second 64-row unit); N above one round of the persistent grid
+TILED_CASES = [
+    (3, 64, 64, 96), (2, 64, 63, 96), (2, 1, 64, 96), (2, 65, 64, 96), (2, 64, 64, 65),
+    (2, 65, 63, 65), (2, 1, 1, 65), (2, 64, 64, 128), (2, 1, 63, 128), (2, 64, 64, 256),
+    (2, 65, 64, 256), (3, 33, 47, 200), (2, 70, 20, 130), (6 * 64, 64, 64, 96),
+    (2000, 64, 64, 96),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TILED_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cheap_xattn_tiled_forward_on_card(case):
+    """Within 1e-5 of the plain version, the same bits from two launches, and
+    a persistent grid no larger than the card holds at once nor than the
+    units of 64 query rows."""
+    dev = _cuda()
+    n, tq, tk, d = case
+    a, b, _ = _xattn_inputs(case, dev)
+    before = cx.launches
+    got = cx.cheap_xattn(a, b)
+    again = cx.cheap_xattn(a, b)
+    torch.cuda.synchronize()
+    assert cx.launches == before + 2
+    assert (got - cx.cheap_xattn_reference(a, b)).abs().max().item() <= 1e-5
+    assert torch.equal(got, again)
+    config = cx.launch_config(n, tq, tk, d)
+    assert config["variant"] == "tiled" and config["blocks_per_sm"] >= 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert 1 <= config["blocks"] <= min(n * -(-tq // cx.SWEEP_T), config["blocks_per_sm"] * sms)
 
 
 @pytest.mark.gpu

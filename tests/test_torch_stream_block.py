@@ -73,26 +73,36 @@ def test_plain_matches_pallas_and_jnp(case):
 # variant's compiled-in sizes (T 64, C_out 16, K 3, t_out 8, C_in 12, 16 or
 # 36) against one size off each; the wide variant's (the same T, C_out, K,
 # t_out, taken from C_in WIDE_MIN_CIN = 64) at its threshold, one below it,
-# FOCAL's 320 and 1024, against a wide C_in at T 101 or K 5 (generic);
+# FOCAL's 320 and 1024, against a wide C_in at T 101 or K 5 (per_frame); the
+# FBG/FoG backbones at T 101 (C_in 3, 6, 12, 16, and FOCAL's 32 -> 4 channels
+# in 4 bins; C_out 3); per_frame's shared-memory edge, one frame beyond which
+# the first design (generic) takes the window;
 # tests/test_torch_kernel_card.py runs the same sizes on the card
 FORWARD_VARIANT_EDGES = {
     (64, 12, 16, 3, 8): sb.WARP_TILE,
     (64, 16, 16, 3, 8): sb.WARP_TILE,
     (64, 36, 16, 3, 8): sb.WARP_TILE,
-    (64, 13, 16, 3, 8): sb.GENERIC,
-    (64, 24, 16, 3, 8): sb.GENERIC,
-    (101, 12, 16, 3, 8): sb.GENERIC,
-    (63, 12, 16, 3, 8): sb.GENERIC,
-    (64, 12, 16, 1, 8): sb.GENERIC,
-    (64, 12, 16, 5, 8): sb.GENERIC,
-    (64, 12, 16, 3, 7): sb.GENERIC,
-    (64, 12, 8, 3, 8): sb.GENERIC,
+    (64, 13, 16, 3, 8): sb.PER_FRAME,
+    (64, 24, 16, 3, 8): sb.PER_FRAME,
+    (101, 12, 16, 3, 8): sb.PER_FRAME,
+    (63, 12, 16, 3, 8): sb.PER_FRAME,
+    (64, 12, 16, 1, 8): sb.PER_FRAME,
+    (64, 12, 16, 5, 8): sb.PER_FRAME,
+    (64, 12, 16, 3, 7): sb.PER_FRAME,
+    (64, 12, 8, 3, 8): sb.PER_FRAME,
     (64, 320, 16, 3, 8): sb.WIDE,  # FOCAL's backbone
     (64, 64, 16, 3, 8): sb.WIDE,  # the threshold, WIDE_MIN_CIN
-    (64, 63, 16, 3, 8): sb.GENERIC,
+    (64, 63, 16, 3, 8): sb.PER_FRAME,
     (64, 1024, 16, 3, 8): sb.WIDE,  # beyond what the generic kernels take
-    (101, 320, 16, 3, 8): sb.GENERIC,
-    (64, 320, 16, 5, 8): sb.GENERIC,
+    (101, 320, 16, 3, 8): sb.PER_FRAME,
+    (64, 320, 16, 5, 8): sb.PER_FRAME,
+    (101, 3, 16, 3, 8): sb.PER_FRAME,  # FBG
+    (101, 6, 16, 3, 8): sb.PER_FRAME,  # FoG
+    (101, 16, 16, 3, 8): sb.PER_FRAME,  # the shared latent
+    (101, 32, 4, 3, 4): sb.PER_FRAME,  # FOCAL's 2-modality backbone
+    (101, 6, 3, 3, 8): sb.PER_FRAME,
+    (7261, 1, 1, 1, 8): sb.PER_FRAME,  # 232,432 of 232,448 bytes
+    (7262, 1, 1, 1, 8): sb.GENERIC,
 }
 
 
