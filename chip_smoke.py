@@ -45,12 +45,14 @@ Phases (each raises on failure, so the script exits non-zero):
      a block's tile, an all-zero g, a NaN in x of a zero-cotangent window),
      against its plain version (NaN at the same entries, gx of the
      zero-cotangent windows exactly 0, two launches bitwise equal); the
-     cheap cross-attention at d = 65, 96 and 200 (the forward tiled up to 64
-     keys, else and backward rows in device memory), forward and backward,
-     timed at d = 96 (eager and from a CUDA graph, the rows-in-memory forward
-     too) beside scaled_dot_product_attention and its autograd (a
-     yardstick); then, from a stream of their own, the tiled forward at d
-     128 and 256, Tq 65 and Tq 1 against Tk 63, each launch printed;
+     cheap cross-attention at d = 65, 96 and 200 and at d 96, Tq = Tk = 128
+     (tiles in shared memory both ways), forward and backward, timed at d =
+     96, Tq = Tk = 64 and 128, both ways (eager and from a CUDA graph, the
+     rows-in-memory variants they replaced too, by name) beside
+     scaled_dot_product_attention and its autograd (a yardstick); then,
+     from a stream of their own, the tiled kernels at d 128 and 256, Tq 65,
+     Tq 1 against Tk 63, and over several key tiles (Tk 65, 128, 130),
+     each launch printed;
   5c. this slice's checks, from a random stream of their own: the cheap
      cross-attention at each kernel variant's edges (Tk 64/65, Tq 64/65,
      masked scores, d = 12 against 8, 16, 36, 64, N odd and N above one round
@@ -150,8 +152,10 @@ Phases (each raises on failure, so the script exits non-zero):
      and the cheap-xattn fusion at FoG's real scale on the card alone:
      finite losses, the same launches;
   5j. the kernel redesigns: the cheap-xattn fusion at enc_out_ch 96 (the
-     cross-attention at d 96 on the tiled forward), one sync epoch card vs
-     CPU as in phase 5;
+     cross-attention at d 96 on the tiled kernels both ways), one sync
+     epoch card vs CPU as in phase 5, then one train step at win_len 128
+     card vs CPU as in phase 4 (both tiled kernels over two key tiles, one
+     launch each);
   6. timings: each kernel, its plain version and a PyTorch library call at
      the main path's shape (CUDA events around back-to-back eager calls;
      the stream block's forward, its plain version and its library call,
@@ -705,21 +709,30 @@ def check_cheap_xattn(rng, dev, card, cases) -> dict:
     return errors
 
 
-# d beyond the kernels' register rows (64): the forward's tiles in shared
-# memory up to 64 keys, else rows in device memory (and every backward).
-# Checked against the plain version forward and backward; timed at the first
-# shape.
+# d beyond the kernels' register rows (64): the tiles in shared memory, both
+# ways, at every length. Checked against the plain version forward and
+# backward; the first and last shapes timed (the fusion's train batch at
+# win_len 64 and 128)
 WIDE_XATTN_CASES = {"d96_train_batch64": (6 * 64, 64, 64, 96), "d65": (2 * 7, 33, 47, 65),
-                    "d200": (6, 64, 130, 200)}
-# the tiled forward's widths and units, from a stream of their own: d 128
-# (one chunk of 128 columns) and 256 (two) at the fusion's train batch, two
-# 64-row units (Tq 65), one query row against a masked key (Tk 63)
+                    "d200": (6, 64, 130, 200), "d96_win128_batch64": (6 * 64, 128, 128, 96)}
+WIDE_XATTN_TIMED = ("d96_train_batch64", "d96_win128_batch64")
+# the tiled kernels' widths, units and key tiles, from a stream of their
+# own: d 128 (one forward chunk of 128 columns) and 256 (two) at the fusion's
+# train batch, two 64-row units (Tq 65), one query row against a masked key
+# (Tk 63); then a second key tile (Tk 65), a part-filled third (Tk 130) at
+# Tq 65, one query row against two key tiles, two query tiles against a
+# second key tile of one key, at d 96, 200, 256 and 65
 TILED_XATTN_CASES = {"d128_train_batch64": (6 * 64, 64, 64, 128),
                      "d256_train_batch64": (6 * 64, 64, 64, 256),
-                     "d96_tq65": (2 * 7, 65, 64, 96), "d96_tq1_tk63": (5, 1, 63, 96)}
+                     "d96_tq65": (2 * 7, 65, 64, 96), "d96_tq1_tk63": (5, 1, 63, 96),
+                     "d96_tk65": (2 * 7, 64, 65, 96), "d200_tq65_tk130": (6, 65, 130, 200),
+                     "d256_tq1_tk128": (5, 1, 128, 256), "d65_tq128_tk65": (2 * 7, 128, 65, 65)}
 
 
-def check_wide_xattn(rng, dev, card, cases) -> None:
+def check_wide_xattn(rng, dev, card, cases) -> dict:
+    """Each case's forward, dA and dB max abs errors against the plain
+    version, within their tolerances, two launches of each the same bits."""
+    errors = {}
     for name, (n, tq, tk, d) in cases.items():
         a, b, g = xattn_inputs(rng, n, tq, tk, d, dev)
         got = cx.cheap_xattn(a, b)
@@ -744,69 +757,88 @@ def check_wide_xattn(rng, dev, card, cases) -> None:
             f"{launch[True]}")
         if not (ok and ok_g and same and all(np.isfinite(errs))):
             raise RuntimeError(f"cheap_xattn[{name}] at d > 64 disagrees: {errs}, {same}")
+        errors[name] = (errs[0], max(errs[1:]))
+    return errors
 
 
 def time_wide_xattn(rng, dev, card) -> dict:
-    """The cross-attention at d 96 (the fusion's train batch): the tiled
-    forward and the rows-in-memory variant it replaces, eager and from a
-    CUDA graph, beside the plain version and scaled_dot_product_attention;
-    the backward (rows in memory) beside SDPA's autograd."""
-    n, tq, tk, d = WIDE_XATTN_CASES["d96_train_batch64"]
-    a, b, g = xattn_inputs(rng, n, tq, tk, d, dev)
-    leaves = [t.detach().clone().requires_grad_() for t in (a, b)]
+    """The cross-attention at d 96 (the fusion's train batch at win_len 64
+    and 128), both ways: the tiled kernels and the rows-in-memory variants
+    they replace, eager and from a CUDA graph, beside the plain versions and
+    scaled_dot_product_attention (and its autograd). Rows in memory take
+    milliseconds a call: they are timed over few calls."""
+    out = {}
+    for name in WIDE_XATTN_TIMED:
+        n, tq, tk, d = WIDE_XATTN_CASES[name]
+        a, b, g = xattn_inputs(rng, n, tq, tk, d, dev)
+        leaves = [t.detach().clone().requires_grad_() for t in (a, b)]
 
-    def library():  # a yardstick: the port never calls it
-        return F.scaled_dot_product_attention(a, b, b)
+        def library():  # a yardstick: the port never calls it
+            return F.scaled_dot_product_attention(a, b, b)
 
-    def library_backward():
-        out = F.scaled_dot_product_attention(leaves[0], leaves[1], leaves[1])
-        return torch.autograd.grad(out, leaves, g)
+        def library_backward():
+            o = F.scaled_dot_product_attention(leaves[0], leaves[1], leaves[1])
+            return torch.autograd.grad(o, leaves, g)
 
-    def rows_in_memory():
-        return cx._forward_kernel(a, b, cx.WIDE)
+        def rows_in_memory():
+            return cx._forward_kernel(a, b, cx.WIDE)
 
-    lib_errs = [(library() - cx.cheap_xattn_reference(a, b)).abs().max().item()] + [
-        (p - q).abs().max().item()
-        for p, q in zip(library_backward(), cx.cheap_xattn_backward_reference(a, b, g))]
-    if not max(lib_errs) <= 1e-4:
-        raise RuntimeError(f"library yardstick at d {d} computes another function: {lib_errs}")
-    old_err = (rows_in_memory() - cx.cheap_xattn_reference(a, b)).abs().max().item()
-    with torch.inference_mode():
-        fwd = {"kernel": time_cuda(lambda: cx.cheap_xattn(a, b), warmup=3, reps=20),
-               "plain": time_cuda(lambda: cx.cheap_xattn_reference(a, b), warmup=3, reps=20),
-               "library": time_cuda(library, warmup=3, reps=20),
-               "rows_in_memory": time_cuda(rows_in_memory, warmup=3, reps=20),
-               "graph": time_cuda_graph(lambda: cx.cheap_xattn(a, b)),
-               "library_graph": time_cuda_graph(library),
-               "plain_graph": time_cuda_graph(lambda: cx.cheap_xattn_reference(a, b)),
-               "rows_in_memory_graph": time_cuda_graph(rows_in_memory, warmup=3, reps=20),
-               "graph_2": time_cuda_graph(lambda: cx.cheap_xattn(a, b)),
-               "kernel_2": time_cuda(lambda: cx.cheap_xattn(a, b), warmup=3, reps=20)}
-    bwd = {"kernel": time_cuda(lambda: cx.cheap_xattn_backward(a, b, g), warmup=3, reps=20),
-           "plain": time_cuda(lambda: cx.cheap_xattn_backward_reference(a, b, g), warmup=3,
-                              reps=20),
-           "library": time_cuda(library_backward, warmup=3, reps=20),
-           "graph": time_cuda_graph(lambda: cx.cheap_xattn_backward(a, b, g), warmup=3, reps=20),
-           "library_graph": time_cuda_graph(library_backward, warmup=3, reps=20)}
-    bound = {"forward": cheap_xattn_bound(n, tq, tk, d),
-             "backward": cheap_xattn_backward_bound(n, tq, tk, d)}
-    launch = {bw: xattn_launch(n, tq, tk, d, bw) for bw in (False, True)}
-    log(f"[time] {card}: cheap_xattn at d {d} (N {n}, Tq {tq}, Tk {tk}), forward variant "
-        f"{launch[False]['variant']}: eager kernel {fwd['kernel']:.4f}/{fwd['kernel_2']:.4f} ms, "
-        f"plain {fwd['plain']:.4f} ms, library scaled_dot_product_attention "
-        f"{fwd['library']:.4f} ms, the rows-in-memory variant {fwd['rows_in_memory']:.4f} ms "
-        f"(max abs err {old_err:.3e}); from a CUDA graph (device only): kernel "
-        f"{fwd['graph']:.4f}/{fwd['graph_2']:.4f} ms, library {fwd['library_graph']:.4f} ms, "
-        f"plain {fwd['plain_graph']:.4f} ms, rows in memory {fwd['rows_in_memory_graph']:.4f} "
-        f"ms; bound {bound['forward'][0]:.5f} ms ({bound['forward'][1]}); launch {launch[False]}")
-    log(f"[time] {card}: cheap_xattn_backward at d {d} (N {n}, Tq {tq}, Tk {tk}), variant "
-        f"{launch[True]['variant']}: kernel {bwd['kernel']:.4f} ms, plain {bwd['plain']:.4f} "
-        f"ms, library (autograd of scaled_dot_product_attention, forward included) "
-        f"{bwd['library']:.4f} ms; from a CUDA graph: kernel {bwd['graph']:.4f} ms, library "
-        f"{bwd['library_graph']:.4f} ms; bound {bound['backward'][0]:.5f} ms "
-        f"({bound['backward'][1]}); library max abs diffs forward/dA/dB {lib_errs[0]:.2e}/"
-        f"{lib_errs[1]:.2e}/{lib_errs[2]:.2e}")
-    return {"forward": fwd, "backward": bwd, "bound": bound, "launch": launch}
+        def rows_in_memory_backward():
+            return cx._backward_kernel(a, b, g, cx.WIDE)
+
+        want = cx.cheap_xattn_reference(a, b)
+        want_g = cx.cheap_xattn_backward_reference(a, b, g)
+        lib_errs = [(library() - want).abs().max().item()] + [
+            (p - q).abs().max().item() for p, q in zip(library_backward(), want_g)]
+        if not max(lib_errs) <= 1e-4:
+            raise RuntimeError(f"library yardstick at {name} computes another function: "
+                               f"{lib_errs}")
+        old_errs = {False: (rows_in_memory() - want).abs().max().item(), True: max(
+            (p - q).abs().max().item() for p, q in zip(rows_in_memory_backward(), want_g))}
+        slow = dict(warmup=1, reps=3 if tq > 64 else 5)
+        with torch.inference_mode():
+            fwd = {"kernel": time_cuda(lambda: cx.cheap_xattn(a, b), warmup=3, reps=20),
+                   "plain": time_cuda(lambda: cx.cheap_xattn_reference(a, b), warmup=3, reps=20),
+                   "library": time_cuda(library, warmup=3, reps=20),
+                   "rows_in_memory": time_cuda(rows_in_memory, **slow),
+                   "graph": time_cuda_graph(lambda: cx.cheap_xattn(a, b)),
+                   "library_graph": time_cuda_graph(library),
+                   "plain_graph": time_cuda_graph(lambda: cx.cheap_xattn_reference(a, b)),
+                   "rows_in_memory_graph": time_cuda_graph(rows_in_memory, **slow),
+                   "graph_2": time_cuda_graph(lambda: cx.cheap_xattn(a, b)),
+                   "kernel_2": time_cuda(lambda: cx.cheap_xattn(a, b), warmup=3, reps=20)}
+        bwd = {"kernel": time_cuda(lambda: cx.cheap_xattn_backward(a, b, g), warmup=3, reps=20),
+               "plain": time_cuda(lambda: cx.cheap_xattn_backward_reference(a, b, g), warmup=3,
+                                  reps=20),
+               "library": time_cuda(library_backward, warmup=3, reps=20),
+               "rows_in_memory": time_cuda(rows_in_memory_backward, **slow),
+               "graph": time_cuda_graph(lambda: cx.cheap_xattn_backward(a, b, g)),
+               "library_graph": time_cuda_graph(library_backward, warmup=3, reps=20),
+               "rows_in_memory_graph": time_cuda_graph(rows_in_memory_backward, **slow),
+               "graph_2": time_cuda_graph(lambda: cx.cheap_xattn_backward(a, b, g)),
+               "kernel_2": time_cuda(lambda: cx.cheap_xattn_backward(a, b, g), warmup=3,
+                                     reps=20)}
+        bound = {"forward": cheap_xattn_bound(n, tq, tk, d),
+                 "backward": cheap_xattn_backward_bound(n, tq, tk, d)}
+        launch = {bw: xattn_launch(n, tq, tk, d, bw) for bw in (False, True)}
+        for way, t, (bound_ms, bound_by), lib in (
+                ("cheap_xattn", fwd, bound["forward"], "scaled_dot_product_attention"),
+                ("cheap_xattn_backward", bwd, bound["backward"],
+                 "autograd of scaled_dot_product_attention, forward included")):
+            bw = way.endswith("backward")
+            log(f"[time] {card}: {way} {name} (N {n}, Tq {tq}, Tk {tk}, d {d}), variant "
+                f"{launch[bw]['variant']}: eager kernel {t['kernel']:.4f}/{t['kernel_2']:.4f} "
+                f"ms, plain {t['plain']:.4f} ms, library ({lib}) {t['library']:.4f} ms, rows in "
+                f"memory {t['rows_in_memory']:.4f} ms (max abs err {old_errs[bw]:.3e}); from a "
+                f"CUDA graph (device only): kernel {t['graph']:.4f}/{t['graph_2']:.4f} ms, "
+                f"library {t['library_graph']:.4f} ms, rows in memory "
+                f"{t['rows_in_memory_graph']:.4f} ms"
+                + (f", plain {t['plain_graph']:.4f} ms" if not bw else "")
+                + f"; bound {bound_ms:.5f} ms ({bound_by}); launch {launch[bw]}")
+        log(f"[time] {card}: cheap_xattn {name}: library max abs diffs forward/dA/dB "
+            f"{lib_errs[0]:.2e}/{lib_errs[1]:.2e}/{lib_errs[2]:.2e}")
+        out[name] = {"forward": fwd, "backward": bwd, "bound": bound, "launch": launch}
+    return out
 
 
 # each kernel variant's edges: the sweep kernels at Tk = 64 against 65 (two
@@ -1217,17 +1249,36 @@ def phase_fusion_training(seed, dev) -> tuple:
 WIDE_FUSION_CH = 96
 
 
+# a window of 128 frames (gaitpd/cli.py's --win_len; 64 by default): the
+# cross-attention at Tq = Tk = 128, two key tiles of the tiled kernels
+LONG_WINDOW = 128
+
+
 def phase_wide_fusion_training(seed, dev) -> dict:
     """The cheap-xattn fusion at enc_out_ch 96: the cross-attention at d 96,
-    its forward on the tiled variant, the backbone at C_in 96 on the wide
+    on the tiled variants both ways, the backbone at C_in 96 on the wide
     one; one sync epoch card vs CPU as in phase 5, one cross-attention and
-    one stream-block backward launch a train step."""
-    return compare_run_cv(
+    one stream-block backward launch a train step. Then one train step at
+    win_len 128 card vs CPU, where both tiled kernels take two key tiles
+    inside the model: one launch each."""
+    out = compare_run_cv(
         f"cheap_xattn enc_out_ch {WIDE_FUSION_CH}",
         dict(train_common(seed), baseline="cheap_xattn", enc_out_ch=WIDE_FUSION_CH),
         (("sync", 1),),
         {"cheap_xattn_backward": 1, "stream_block_backward": 1, "cagrad_solver": 0},
         ("stream_block", "cheap_xattn"))
+    widths = dict(enc_out_ch=WIDE_FUSION_CH, win_len=LONG_WINDOW)
+    reset_launches()
+    compare_one_step(f"cheap_xattn step at batch 64, enc_out_ch {WIDE_FUSION_CH}, win_len "
+                     f"{LONG_WINDOW}", dev, lambda device: make_step_setup(
+                         seed, device, 64, "cheap_xattn", no_dropout=True, **widths))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[train] cheap_xattn step at win_len {LONG_WINDOW}: launches {launches}")
+    if (launches["cheap_xattn"], launches["cheap_xattn_backward"]) != (1, 1):
+        raise RuntimeError(f"win_len {LONG_WINDOW} step: cross-attention launches {launches}")
+    out["win_len_128_step"] = {"launches": launches}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2645,14 +2696,15 @@ def time_serving(engine, rng, card) -> dict:
 
 
 def make_step_setup(seed, dev, bsz, baseline=None, no_dropout=False, mtl_method="cagrad",
-                    recipe=False):
+                    recipe=False, **widths):
     """A flagship model with its SGD and ``mtl_method`` step (CAGrad at
     c = 0.5 by default), or a baseline with SGD on the mean of its branch
     losses (sync; DeepAV-Lite and TACA with their dropout, or at rate 0 with
     ``no_dropout``), one card-resident batch of ``bsz`` window tuples, and
     the step's generator. With ``recipe`` the step augments and drops
-    modalities as RECIPE sets them."""
-    args = wg.WearGaitArgs(seed=seed, baseline=baseline, **(RECIPE if recipe else {}))
+    modalities as RECIPE sets them; ``widths`` sets WearGaitArgs' sizes
+    (enc_out_ch, win_len)."""
+    args = wg.WearGaitArgs(seed=seed, baseline=baseline, **(RECIPE if recipe else {}), **widths)
     model = wg.build_model(args, True)
     if no_dropout:
         BL.without_dropout(model)
@@ -2909,7 +2961,7 @@ def main() -> int:
     # later slices' checks: each a stream of its own as well
     zrng = np.random.default_rng([args.seed, 6])
     check_zero_rows(zrng, dev)
-    check_wide_xattn(zrng, dev, card, WIDE_XATTN_CASES)
+    wide_errors = check_wide_xattn(zrng, dev, card, WIDE_XATTN_CASES)
     wide_xattn_times = time_wide_xattn(zrng, dev, card)
     check_wide_xattn(np.random.default_rng([args.seed, 15]), dev, card, TILED_XATTN_CASES)
     check_cheap_xattn(np.random.default_rng([args.seed, 7]), dev, card, XATTN_EDGE_CASES)
@@ -2999,6 +3051,19 @@ def main() -> int:
     launches["stream_block_focal_fbg_fog"] = (
         baselines["runs"]["focal fog async"]["launches"]["stream_block"])
     times["stream_block_focal_fbg_fog"] = bb_focal_times["stream_block"]
+    # the tiled cross-attention at d 96 on its own main path: phase 5j's run
+    # at enc_out_ch 96, the times at its train batch (win_len 64)
+    for name, way in (("cheap_xattn", "forward"), ("cheap_xattn_backward", "backward")):
+        launches[f"{name}_tiled"] = wide_fusion["sync"]["launches"][name]
+        timed = wide_xattn_times[WIDE_XATTN_TIMED[0]]
+        t, (bound_ms, bound_by) = timed[way], timed["bound"][way]
+        times[f"{name}_tiled"] = {
+            "ms": min(t["kernel"], t["kernel_2"]), "plain_ms": t["plain"],
+            "library_ms": t["library"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "graph_ms": min(t["graph"], t["graph_2"]), "library_graph_ms": t["library_graph"],
+            "rows_in_memory_graph_ms": t["rows_in_memory_graph"],
+            "variant": timed["launch"][way == "backward"]["variant"]}
+    wide_err = wide_errors[WIDE_XATTN_TIMED[0]]
     bb_err = baselines["errors"]["xattn"]["fog_batch256"]
     ff_err = fbg_fog["errors"]["fog_batch256"]
     focal_err = focal_errors["focal_sync_batch1024_gelu"]
@@ -3028,6 +3093,10 @@ def main() -> int:
          "gaitpd/ops/pallas_blocks.py:184", bb_err[0]),
         ("cheap_xattn_backward_fbg_fog", "gaitpd_torch/csrc/cheap_xattn.cu",
          "gaitpd/ops/pallas_blocks.py:275", bb_err[1]),
+        ("cheap_xattn_tiled", "gaitpd_torch/csrc/cheap_xattn.cu",
+         "gaitpd/ops/pallas_blocks.py:184", wide_err[0]),
+        ("cheap_xattn_backward_tiled", "gaitpd_torch/csrc/cheap_xattn.cu",
+         "gaitpd/ops/pallas_blocks.py:275", wide_err[1]),
         # not TPU kernels either: the MGDA, FairGrad and NashMTL solvers
         ("min_norm_solver", "gaitpd_torch/csrc/mtl_solvers.cu", "gaitpd/learning/minnorm.py:35",
          mtl["solver_errors"]["min_norm_solver"]),
@@ -3056,6 +3125,7 @@ def main() -> int:
         f"{json.dumps(bb_focal_times)}, the cheap-xattn fusion's train steps "
         f"{json.dumps(bb_steps)} and profile {json.dumps(bb_profile)}; the cross-attention at "
         f"d 96 {json.dumps(wide_xattn_times)} and the fusion at enc_out_ch {WIDE_FUSION_CH} "
+        f"(and its step at win_len {LONG_WINDOW}) "
         f"{json.dumps(wide_fusion)}; the T 101 forwards {json.dumps(t101_times)}")
     log(card)
     print(json.dumps({"kernels": kernels}))

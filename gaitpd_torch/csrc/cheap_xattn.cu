@@ -21,8 +21,9 @@
 //   1  one sweep, any d <= 64, rows zero-padded to a width of 16, 32 or 64;
 //   2  two passes (the first design): Tk > 64 (backward: Tq or Tk > 64),
 //      d <= 64;
-//   3  rows in device memory: d > 64 (the forward only where Tk > 64);
-//   4  tiles in shared memory, forward only: d > 64, Tk <= 64, any Tq.
+//   3  rows in device memory: any d > 64, but chosen for no size: kept,
+//      callable by name, as the yardstick of variant 4;
+//   4  tiles in shared memory: d > 64, any Tq and Tk, forward and backward.
 //
 // THE SCALE. Variants 0 and 1 multiply the dot product by 1/sqrt(d), computed
 // once on the host in double and rounded to f32, as the Pallas kernel does
@@ -104,20 +105,21 @@
 // thread recomputes P_ik and dS_ik (the same bits as phase 1) and sums dB_k.
 // The register rows hold d <= 64 (arrays of 16, 32 or 64, a template).
 //
-// ROWS IN DEVICE MEMORY (variant 3), d > 64: the backward, and the forward
-// beyond 64 keys
+// ROWS IN DEVICE MEMORY (variant 3), any d > 64, chosen for no size
 //
 // The two-pass kernels with the per-thread rows in device memory: the query
 // and dO rows are read from A and G where they lie, and the running sum is
 // the thread's own output row (of O, dA or dB), which no other thread
 // touches. Its arithmetic and order are the two-pass version's; it is slow
 // (every update of the sum goes through the cache, and each score is
-// computed in both passes), and no model of the repo's defaults takes it.
+// computed in both passes): at d 96, N 384, Tq = Tk = 64 it takes 1.22 ms
+// forward and 3.80 backward against variant 4's 0.032 and 0.066 (PERF.md).
+// chip_smoke.py times it beside variant 4 by name.
 //
-// FORWARD, TILES IN SHARED MEMORY (variant 4), d > 64 and Tk <= 64
+// FORWARD, TILES IN SHARED MEMORY (variant 4), d > 64
 //
 // _xattn_kernel's forward (gaitpd/ops/pallas_blocks.py:184-222) at these
-// sizes.
+// sizes, with its online softmax over key tiles of 64.
 //
 // What bounds it. At d = 96, N = 384, Tq = Tk = 64 (the cheap-xattn fusion
 // with enc_out_ch 96 at a train batch of 64) it reads A and B and writes O,
@@ -145,9 +147,54 @@
 // summed in another order than variant 3's. Strict f32; no atomics: the
 // same bits from run to run.
 //
-// What it reaches (PERF.md): 0.030 ms at d 96 from a CUDA graph, 3.4x its
-// bound, against 0.067 for scaled_dot_product_attention and 1.196 for
-// variant 3 (H100 80GB HBM3 at 700 W).
+// Beyond 64 keys the unit walks B in key tiles of 64, as the Pallas kernel
+// walks its kv tiles: each tile's scores raise the row's running maximum m,
+// l becomes l * exp(m_old - m) + the tile's sum, and the running sum of P B
+// waits in the unit's own output rows (only the thread that wrote an entry
+// reads it back), multiplied by that factor before the tile's P B is added;
+// the last tile divides by l. Up to 64 keys this is the arithmetic above,
+// bit for bit. At Tq = Tk = 128 (N 384: 768 units) the card holds 528
+// blocks at once: 1.45 waves.
+//
+// What it reaches (PERF.md): 0.032 ms at d 96, Tq = Tk = 64 from a CUDA
+// graph, 3.6x its bound, against 0.067 for scaled_dot_product_attention and
+// 1.22 for variant 3 (H100 80GB HBM3 at 700 W); 0.138 at Tq = Tk = 128,
+// 3.8x its bound, against 0.188 and 5.06: the 1.45 waves cost little, each
+// unit's staging round trips and barriers hold it back at both lengths.
+//
+// BACKWARD, TILES IN SHARED MEMORY (variant 4), d > 64
+//
+// What bounds it. At d = 96, N = 384, Tq = Tk = 64 (the fusion's train
+// step at enc_out_ch 96) five products of 2 * 64 * 64 * 96 FLOP a problem,
+// 1.51 GFLOP (22.5 us at 67 TFLOP/s), against 47 MB of traffic (14 us):
+// operations. Variant 3 computed each score three times over, with its
+// rows and sums in device memory.
+//
+// What the design does about it. One block of 4 warps owns one problem, so
+// dB takes no sum across blocks and no atomics: the same bits from run to
+// run. The problem is cut into tiles of 64 query rows and 64 keys. For each
+// (query tile, key tile) pair, S and dP = dO B^T come from two 4 x 8
+// register tiles a thread (rows ty + 16 ii, keys tx + 8 jj), over chunks of
+// 32 columns of A, B and dO staged with cp.async at a row stride of 9
+// float4 (each dot product in ascending column); they go to shared memory
+// (S / sqrt(d), -inf past Tk). A warp a row takes m, l = sum exp(s - m)
+// and t = sum exp(s - m) dP by butterflies, D = t / l (= dO . O: O is never
+// formed), and writes P = exp(s - m) / l and dS / sqrt(d) = P (dP - D) /
+// sqrt(d) in their place. Then, chunk by chunk (the last one, still staged,
+// first), a thread sums dA's 4 x 4 tile (4 query rows, 4 columns) over the
+// keys, dS B, and dB's (4 keys, 4 columns) over the query rows, dS^T A +
+// P^T dO. With one key tile (Tk <= 64) that is all, and each query tile's
+// dB adds to the last in the problem's own rows of dB. Beyond 64 keys a
+// first phase walks every query tile's key tiles for its rows' (m, l, t),
+// rescaled online as the forward does, into the stats scratch, and the
+// pairs are then taken key tile by key tile, each recomputing S and dP:
+// seven products a pair against five. Shared memory 63,232 bytes, 3 blocks
+// an SM (396 at once), 168 registers, no spills.
+//
+// What it reaches (PERF.md): 0.066 ms at d 96, Tq = Tk = 64 from a CUDA
+// graph, 2.9x its bound, against 0.172 for the autograd of
+// scaled_dot_product_attention and 3.80 for variant 3; 0.363 at Tq = Tk =
+// 128, 4.0x its bound, against 0.471 and 15.4.
 //
 // Plain C interface, bound with ctypes (gaitpd_torch/ops/cheap_xattn.py).
 
@@ -643,8 +690,8 @@ int threads_for(int rows) {
 }
 
 // ---------------------------------------------------------------------------
-// d > 64 (variant 3): rows in device memory (see the header). The helpers
-// mirror dot_row and axpy_row, in the same order.
+// Variant 3: rows in device memory, any d > 64, chosen for no size (see the
+// header). The helpers mirror dot_row and axpy_row, in the same order.
 
 template <bool V4>
 __device__ __forceinline__ float dot_mem(const float* q, const float* row, int d) {
@@ -827,11 +874,13 @@ cheap_xattn_backward_wide_kernel(const float* __restrict__ a, const float* __res
 }
 
 // ---------------------------------------------------------------------------
-// d > 64 with Tk <= 64 (variant 4): tiles in shared memory (see the header).
+// d > 64 (variant 4): tiles in shared memory, forward and backward (see the
+// header).
 
 constexpr int kTiledThreads = 128;          // 4 warps
-constexpr int kTiledChunk = 128;            // columns of d staged at a time
-constexpr int kTiledPStride = kSweepT + 4;  // row stride of P: 17 float4, odd
+constexpr int kTiledChunk = 128;            // forward: columns of d staged at a time
+constexpr int kTiledPStride = kSweepT + 4;  // row stride of P (and dS): 17 float4, odd
+constexpr unsigned kFullWarp = 0xffffffffu;
 
 __host__ __device__ constexpr int round4(int v) { return (v + 3) / 4 * 4; }
 // The widest chunk of d that is staged, rounded up to 4.
@@ -845,11 +894,20 @@ __host__ __device__ constexpr int tiled_width(int d) {
 __host__ __device__ constexpr int tiled_stride(int w4) {
   return (w4 / 4) % 2 == 1 ? w4 : w4 + 4;
 }
-// A's chunk (then P), B's chunk, and each query row's sum l, in bytes.
+// A's chunk (then P), B's chunk, and each query row's sum l, running maximum
+// m and rescale factor, in bytes.
 size_t tiled_smem(int d) {
-  return (2 * static_cast<size_t>(kSweepT) * tiled_stride(tiled_width(d)) + kSweepT) *
+  return (2 * static_cast<size_t>(kSweepT) * tiled_stride(tiled_width(d)) + 3 * kSweepT) *
          sizeof(float);
 }
+
+constexpr int kBwdChunk = 32;                            // backward: columns of d a stage
+constexpr int kBwdStride = tiled_stride(kBwdChunk);      // 36 floats, 9 float4
+// The backward's chunks of A, B and dO, the tiles P and dS, and each query
+// row's m, l and D, in bytes: 63,232, 3 blocks an SM.
+constexpr size_t kTiledBackwardSmem =
+    (3 * kSweepT * kBwdStride + 2 * kSweepT * kTiledPStride + 3 * kSweepT) * sizeof(float);
+constexpr int kTiledBackwardBlocks = 3;  // blocks an SM the launch bounds ask for
 
 // Asynchronous copy global -> shared of 4 or 16 bytes; with `full` false the
 // destination is zero-filled and nothing is read.
@@ -867,7 +925,7 @@ __device__ __forceinline__ void cp_async(float* dst, const float* src, bool full
 
 // Columns [c0, c0 + w4) of the first `rows` rows of a row-major (rows, d)
 // matrix into a kSweepT-row tile of stride ld; zero beyond row `rows` and
-// column d. Then waits for the copies and the block.
+// column d. The caller waits for the copies (cp_async_wait_all).
 template <bool V4>
 __device__ __forceinline__ void tiled_stage(const float* __restrict__ src, float* dst, int rows,
                                             int d, int c0, int w4, int ld) {
@@ -885,7 +943,44 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// A block takes units of (problem, 64 query rows) in turn. V4: d is a
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullWarp, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullWarp, v, off);
+  return v;
+}
+
+// The four floats of a float4, for loops over them.
+__device__ __forceinline__ float lane4(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// Stores (first) or adds (a later tile) four floats at row[0..3], the
+// columns past d left out where d is not a multiple of 4 (!V4). Only this
+// thread touches these entries: a later tile reads back its own store.
+template <bool V4>
+__device__ __forceinline__ void store_or_add4(float* row, float4 v, bool first, int cols) {
+  if (V4) {
+    if (!first) {
+      const float4 o = *reinterpret_cast<const float4*>(row);
+      v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+    }
+    *reinterpret_cast<float4*>(row) = v;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (c < cols) row[c] = first ? lane4(v, c) : row[c] + lane4(v, c);
+    }
+  }
+}
+
+// A block takes units of (problem, 64 query rows) in turn, and each unit
+// walks B's rows in key tiles of 64 with an online softmax. V4: d is a
 // multiple of 4 (the rows lie on 16 bytes).
 template <bool V4>
 __global__ void __launch_bounds__(kTiledThreads)
@@ -897,145 +992,473 @@ cheap_xattn_forward_tiled_kernel(const float* __restrict__ a, const float* __res
   float* as = reinterpret_cast<float*>(smem4);  // A's chunk; then P (64 x kTiledPStride)
   float* bs = as + kSweepT * ld;                // B's chunk
   float* ls = bs + kSweepT * ld;                // l of each query row
+  float* ms = ls + kSweepT;                     // the running maximum m of each query row
+  float* cs = ms + kSweepT;                     // exp(m_old - m_new) of the key tile
   float* ps = as;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ty = tid >> 3, tx = tid & 7;  // scores: rows ty + 16 ii, keys tx + 8 jj
   const int per_problem = (tq + kSweepT - 1) / kSweepT;
   const long long units = static_cast<long long>(n) * per_problem;
   const int chunks = (d + kTiledChunk - 1) / kTiledChunk;
-  const int tk4 = round4(tk);
+  const int key_tiles = (tk + kSweepT - 1) / kSweepT;
 
   for (long long u = blockIdx.x; u < units; u += gridDim.x) {
     const long long p = u / per_problem;
     const int r0 = static_cast<int>(u - p * per_problem) * kSweepT;
     const int rows = min(kSweepT, tq - r0);
     const float* ap = a + (static_cast<size_t>(p) * tq + r0) * d;
-    const float* bp = b + static_cast<size_t>(p) * tk * d;
 
-    // S = A B^T: a 4 x 8 register tile a thread, each dot product in
-    // ascending c over the chunks
-    float s[4][8];
+    for (int kt = 0; kt < key_tiles; ++kt) {
+      const int k0 = kt * kSweepT, keys = min(kSweepT, tk - k0);
+      const bool first = kt == 0, last = kt == key_tiles - 1;
+      const float* bp = b + (static_cast<size_t>(p) * tk + k0) * d;
+      const int keys4 = round4(keys);
+
+      // S = A B^T: a 4 x 8 register tile a thread, each dot product in
+      // ascending c over the chunks
+      float s[4][8];
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
+      for (int ii = 0; ii < 4; ++ii) {
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) s[ii][jj] = 0.0f;
-    }
-    for (int ch = 0; ch < chunks; ++ch) {
-      const int c0 = ch * kTiledChunk;
-      const int w4 = min(round4(d - c0), kTiledChunk);
-      __syncthreads();  // the last unit's or chunk's reads are done
-      tiled_stage<V4>(ap, as, rows, d, c0, w4, ld);
-      tiled_stage<V4>(bp, bs, tk, d, c0, w4, ld);
-      cp_async_wait_all();
-      __syncthreads();
-      for (int c = 0; c < w4; c += 4) {
-        float4 av[4], bv[8];
+        for (int jj = 0; jj < 8; ++jj) s[ii][jj] = 0.0f;
+      }
+      for (int ch = 0; ch < chunks; ++ch) {
+        const int c0 = ch * kTiledChunk;
+        const int w4 = min(round4(d - c0), kTiledChunk);
+        __syncthreads();  // the last tile's or chunk's reads are done
+        tiled_stage<V4>(ap, as, rows, d, c0, w4, ld);
+        tiled_stage<V4>(bp, bs, keys, d, c0, w4, ld);
+        cp_async_wait_all();
+        __syncthreads();
+        for (int c = 0; c < w4; c += 4) {
+          float4 av[4], bv[8];
 #pragma unroll
-        for (int ii = 0; ii < 4; ++ii) {
-          av[ii] = *reinterpret_cast<const float4*>(as + (ty + 16 * ii) * ld + c);
-        }
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-          bv[jj] = *reinterpret_cast<const float4*>(bs + (tx + 8 * jj) * ld + c);
-        }
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii) {
+          for (int ii = 0; ii < 4; ++ii) {
+            av[ii] = *reinterpret_cast<const float4*>(as + (ty + 16 * ii) * ld + c);
+          }
 #pragma unroll
           for (int jj = 0; jj < 8; ++jj) {
-            float v = s[ii][jj];
-            v = fmaf(av[ii].x, bv[jj].x, v);
-            v = fmaf(av[ii].y, bv[jj].y, v);
-            v = fmaf(av[ii].z, bv[jj].z, v);
-            s[ii][jj] = fmaf(av[ii].w, bv[jj].w, v);
+            bv[jj] = *reinterpret_cast<const float4*>(bs + (tx + 8 * jj) * ld + c);
+          }
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+              float v = s[ii][jj];
+              v = fmaf(av[ii].x, bv[jj].x, v);
+              v = fmaf(av[ii].y, bv[jj].y, v);
+              v = fmaf(av[ii].z, bv[jj].z, v);
+              s[ii][jj] = fmaf(av[ii].w, bv[jj].w, v);
+            }
+          }
+        }
+      }
+      __syncthreads();  // A is read for the last time: P takes its place
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int key = tx + 8 * jj;
+          ps[(ty + 16 * ii) * kTiledPStride + key] = key < keys ? s[ii][jj] / sqrt_d : -INFINITY;
+        }
+      }
+      __syncthreads();
+
+      // softmax numerators: a warp a row, lanes on keys lane and lane + 32;
+      // the butterflies leave every lane with the same m and l. A later key
+      // tile raises m to the tile's maximum and rescales l by exp(m_old - m).
+      for (int i = warp; i < kSweepT; i += kTiledThreads / 32) {
+        float* pr = ps + i * kTiledPStride;
+        const float v0 = pr[lane], v1 = pr[lane + 32];
+        const float m_old = first ? -INFINITY : ms[i];
+        const float m = fmaxf(warp_max(fmaxf(v0, v1)), m_old);
+        const float e0 = expf(v0 - m), e1 = expf(v1 - m);
+        const float l = warp_sum(e0 + e1);
+        pr[lane] = e0;
+        pr[lane + 32] = e1;
+        __syncwarp();  // every lane has read ms[i]
+        if (lane == 0) {
+          if (first) {
+            ls[i] = l;
+          } else {
+            const float corr = expf(m_old - m);
+            ls[i] = fmaf(ls[i], corr, l);
+            cs[i] = corr;
+          }
+          ms[i] = m;
+        }
+      }
+
+      // O = P B: a 4 x 4 register tile a thread (rows oy + 16 ii, columns
+      // 4q .. 4q + 3), keys in ascending order; the last chunk of B staged
+      // is taken first. Over several key tiles the unit's own output rows
+      // hold the running sum, which only this thread touches: a later tile
+      // multiplies it by the rescale factor and adds; the last divides by l.
+      for (int ch = chunks - 1; ch >= 0; --ch) {
+        const int c0 = ch * kTiledChunk;
+        const int w4 = min(round4(d - c0), kTiledChunk);
+        if (ch != chunks - 1) {
+          __syncthreads();
+          tiled_stage<V4>(bp, bs, keys, d, c0, w4, ld);
+          cp_async_wait_all();
+        }
+        __syncthreads();
+        const int quads = w4 / 4;
+        for (int t = tid; t < (kSweepT / 4) * quads; t += kTiledThreads) {
+          const int oy = t / quads, q = t - oy * quads;
+          float4 acc[4];
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii) acc[ii] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          for (int k = 0; k < keys4; k += 4) {
+            float4 pv[4], bv[4];
+#pragma unroll
+            for (int ii = 0; ii < 4; ++ii) {
+              pv[ii] = *reinterpret_cast<const float4*>(ps + (oy + 16 * ii) * kTiledPStride + k);
+            }
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              bv[kk] = *reinterpret_cast<const float4*>(bs + (k + kk) * ld + 4 * q);
+            }
+#pragma unroll
+            for (int ii = 0; ii < 4; ++ii) {
+              const float pk[4] = {pv[ii].x, pv[ii].y, pv[ii].z, pv[ii].w};
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                acc[ii].x = fmaf(pk[kk], bv[kk].x, acc[ii].x);
+                acc[ii].y = fmaf(pk[kk], bv[kk].y, acc[ii].y);
+                acc[ii].z = fmaf(pk[kk], bv[kk].z, acc[ii].z);
+                acc[ii].w = fmaf(pk[kk], bv[kk].w, acc[ii].w);
+              }
+            }
+          }
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii) {
+            const int i = oy + 16 * ii;
+            if (i >= rows) continue;
+            float* orow = out + (static_cast<size_t>(p) * tq + r0 + i) * d + c0 + 4 * q;
+            const int cols = d - c0 - 4 * q;
+            float o[4] = {acc[ii].x, acc[ii].y, acc[ii].z, acc[ii].w};
+            if (!first) {  // this thread's store of the earlier key tiles
+              const float corr = cs[i];
+              float old[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+              if (V4) {
+                const float4 v = *reinterpret_cast<const float4*>(orow);
+                old[0] = v.x, old[1] = v.y, old[2] = v.z, old[3] = v.w;
+              } else {
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                  if (c < cols) old[c] = orow[c];
+                }
+              }
+#pragma unroll
+              for (int c = 0; c < 4; ++c) o[c] = fmaf(old[c], corr, o[c]);
+            }
+            if (last) {
+              const float l = ls[i];
+#pragma unroll
+              for (int c = 0; c < 4; ++c) o[c] = o[c] / l;
+            }
+            if (V4) {
+              *reinterpret_cast<float4*>(orow) = make_float4(o[0], o[1], o[2], o[3]);
+            } else {
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                if (c < cols) orow[c] = o[c];
+              }
+            }
           }
         }
       }
     }
-    __syncthreads();  // A is read for the last time: P takes its place
+  }
+}
+
+// The backward's S = A B^T / sqrt(d) and dP = dO B^T of one (query tile,
+// key tile) pair into P's and dS's places in shared memory (S -inf past the
+// tile's keys), from 4 x 8 register tiles a thread over chunks of 32
+// columns, each dot product in ascending c. Leaves the last chunk of A, B
+// and dO staged.
+template <bool V4>
+__device__ __forceinline__ void backward_scores(const float* __restrict__ ap,
+                                                const float* __restrict__ bp,
+                                                const float* __restrict__ gp, int rows, int keys,
+                                                int d, float sqrt_d, float* as, float* bs,
+                                                float* gs, float* ps, float* ss) {
+  const int ty = threadIdx.x >> 3, tx = threadIdx.x & 7;  // rows ty + 16 ii, keys tx + 8 jj
+  float s[4][8], dp[4][8];
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
+  for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) s[ii][jj] = dp[ii][jj] = 0.0f;
+  }
+  for (int c0 = 0; c0 < d; c0 += kBwdChunk) {
+    const int w4 = min(round4(d - c0), kBwdChunk);
+    __syncthreads();  // the last pair's or chunk's reads are done
+    tiled_stage<V4>(ap, as, rows, d, c0, w4, kBwdStride);
+    tiled_stage<V4>(bp, bs, keys, d, c0, w4, kBwdStride);
+    tiled_stage<V4>(gp, gs, rows, d, c0, w4, kBwdStride);
+    cp_async_wait_all();
+    __syncthreads();
+    for (int c = 0; c < w4; c += 4) {
+      float4 av[4], gv[4], bv[8];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        av[ii] = *reinterpret_cast<const float4*>(as + (ty + 16 * ii) * kBwdStride + c);
+        gv[ii] = *reinterpret_cast<const float4*>(gs + (ty + 16 * ii) * kBwdStride + c);
+      }
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
-        const int key = tx + 8 * jj;
-        ps[(ty + 16 * ii) * kTiledPStride + key] = key < tk ? s[ii][jj] / sqrt_d : -INFINITY;
+        bv[jj] = *reinterpret_cast<const float4*>(bs + (tx + 8 * jj) * kBwdStride + c);
       }
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          float v = s[ii][jj], w = dp[ii][jj];
+          v = fmaf(av[ii].x, bv[jj].x, v);
+          w = fmaf(gv[ii].x, bv[jj].x, w);
+          v = fmaf(av[ii].y, bv[jj].y, v);
+          w = fmaf(gv[ii].y, bv[jj].y, w);
+          v = fmaf(av[ii].z, bv[jj].z, v);
+          w = fmaf(gv[ii].z, bv[jj].z, w);
+          s[ii][jj] = fmaf(av[ii].w, bv[jj].w, v);
+          dp[ii][jj] = fmaf(gv[ii].w, bv[jj].w, w);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int i = ty + 16 * ii, key = tx + 8 * jj;
+      ps[i * kTiledPStride + key] = key < keys ? s[ii][jj] / sqrt_d : -INFINITY;
+      ss[i * kTiledPStride + key] = dp[ii][jj];
+    }
+  }
+  __syncthreads();
+}
+
+// Each query row's softmax statistics over one more key tile, a warp a row:
+// the running maximum m (st[i]), l = sum exp(s - m) (st[64 + i]) and
+// t = sum exp(s - m) dP (st[128 + i]), the earlier tiles' l and t rescaled
+// by exp(m_old - m); after the last tile t becomes D = t / l (= dO . O).
+__device__ __forceinline__ void backward_row_stats(const float* ps, const float* ss, float* st,
+                                                   bool first, bool last) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = warp; i < kSweepT; i += kTiledThreads / 32) {
+    const float* pr = ps + i * kTiledPStride;
+    const float* sr = ss + i * kTiledPStride;
+    const float v0 = pr[lane], v1 = pr[lane + 32];
+    const float m_old = first ? -INFINITY : st[i];
+    const float m = fmaxf(warp_max(fmaxf(v0, v1)), m_old);
+    const float e0 = expf(v0 - m), e1 = expf(v1 - m);
+    float l = warp_sum(e0 + e1);
+    float t = warp_sum(fmaf(e0, sr[lane], e1 * sr[lane + 32]));
+    __syncwarp();  // every lane has read st[i]
+    if (lane == 0) {
+      if (!first) {
+        const float corr = expf(m_old - m);
+        l = fmaf(st[kSweepT + i], corr, l);
+        t = fmaf(st[2 * kSweepT + i], corr, t);
+      }
+      st[i] = m;
+      st[kSweepT + i] = l;
+      st[2 * kSweepT + i] = last ? t / l : t;
+    }
+  }
+}
+
+// P = exp(s - m) / l and dS / sqrt(d) = P (dP - D) / sqrt(d) in place of S
+// and dP, a warp a row, from the rows' final (m, l, D) in st.
+__device__ __forceinline__ void backward_probs(float* ps, float* ss, const float* st,
+                                               float sqrt_d) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = warp; i < kSweepT; i += kTiledThreads / 32) {
+    const float m = st[i], l = st[kSweepT + i], dsum = st[2 * kSweepT + i];
+    float* pr = ps + i * kTiledPStride;
+    float* sr = ss + i * kTiledPStride;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = lane + 32 * h;
+      const float pk = expf(pr[k] - m) / l;
+      pr[k] = pk;
+      sr[k] = pk * (sr[k] - dsum) / sqrt_d;
+    }
+  }
+}
+
+// One (query tile, key tile) pair's share of dA and dB, from P and dS / sqrt(d)
+// in shared memory, over chunks of 32 columns, the last chunk (still staged)
+// first. A thread takes (oy, q) with oy < 16, q < w4 / 4:
+//   dA rows oy + 16 ii, columns 4q .. 4q + 3: sum over keys k in ascending
+//     order of dS_ik B_k;
+//   dB keys 4 oy .. 4 oy + 3, the same columns: sum over query rows i in
+//     ascending order of dS_ik A_i + P_ik dO_i.
+// The first key tile stores dA's rows, a later one adds to them; likewise
+// the first query tile for dB. Only this thread touches those entries.
+template <bool V4>
+__device__ __forceinline__ void backward_grads(const float* __restrict__ ap,
+                                               const float* __restrict__ bp,
+                                               const float* __restrict__ gp, float* da_rows,
+                                               float* db_rows, int rows, int keys, int d,
+                                               bool first_key_tile, bool first_query_tile,
+                                               float* as, float* bs, float* gs, const float* ps,
+                                               const float* ss) {
+  const int tid = threadIdx.x;
+  const int keys4 = round4(keys);
+  const int last_c0 = (d - 1) / kBwdChunk * kBwdChunk;
+  for (int c0 = last_c0; c0 >= 0; c0 -= kBwdChunk) {
+    const int w4 = min(round4(d - c0), kBwdChunk);
+    if (c0 != last_c0) {
+      __syncthreads();  // the last chunk's reads are done
+      tiled_stage<V4>(ap, as, rows, d, c0, w4, kBwdStride);
+      tiled_stage<V4>(bp, bs, keys, d, c0, w4, kBwdStride);
+      tiled_stage<V4>(gp, gs, rows, d, c0, w4, kBwdStride);
+      cp_async_wait_all();
     }
     __syncthreads();
-
-    // softmax numerators: a warp a row, lanes on keys lane and lane + 32;
-    // the butterflies leave every lane with the same m and l
-    for (int i = warp; i < kSweepT; i += kTiledThreads / 32) {
-      float* pr = ps + i * kTiledPStride;
-      const float v0 = pr[lane], v1 = pr[lane + 32];
-      float m = fmaxf(v0, v1);
+    const int quads = w4 / 4;
+    if (tid >= (kSweepT / 4) * quads) continue;
+    const int oy = tid / quads, q = tid - oy * quads;
+    const int cols = d - c0 - 4 * q;
+    {  // dA
+      float4 acc[4];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      const float e0 = expf(v0 - m), e1 = expf(v1 - m);
-      float l = e0 + e1;
+      for (int ii = 0; ii < 4; ++ii) acc[ii] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int k = 0; k < keys4; k += 4) {
+        float4 sv[4], bv[4];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
-      pr[lane] = e0;
-      pr[lane + 32] = e1;
-      if (lane == 0) ls[i] = l;
-    }
-
-    // O = P B / l: a 4 x 4 register tile a thread (rows oy + 16 ii, columns
-    // 4q .. 4q + 3), keys in ascending order; the last chunk of B staged
-    // is taken first
-    for (int ch = chunks - 1; ch >= 0; --ch) {
-      const int c0 = ch * kTiledChunk;
-      const int w4 = min(round4(d - c0), kTiledChunk);
-      if (ch != chunks - 1) {
-        __syncthreads();
-        tiled_stage<V4>(bp, bs, tk, d, c0, w4, ld);
-        cp_async_wait_all();
-      }
-      __syncthreads();
-      const int quads = w4 / 4;
-      for (int t = tid; t < (kSweepT / 4) * quads; t += kTiledThreads) {
-        const int oy = t / quads, q = t - oy * quads;
-        float4 acc[4];
+        for (int ii = 0; ii < 4; ++ii) {
+          sv[ii] = *reinterpret_cast<const float4*>(ss + (oy + 16 * ii) * kTiledPStride + k);
+        }
 #pragma unroll
-        for (int ii = 0; ii < 4; ++ii) acc[ii] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        for (int k = 0; k < tk4; k += 4) {
-          float4 pv[4], bv[4];
-#pragma unroll
-          for (int ii = 0; ii < 4; ++ii) {
-            pv[ii] = *reinterpret_cast<const float4*>(ps + (oy + 16 * ii) * kTiledPStride + k);
-          }
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) {
-            bv[kk] = *reinterpret_cast<const float4*>(bs + (k + kk) * ld + 4 * q);
-          }
-#pragma unroll
-          for (int ii = 0; ii < 4; ++ii) {
-            const float pk[4] = {pv[ii].x, pv[ii].y, pv[ii].z, pv[ii].w};
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk) {
-              acc[ii].x = fmaf(pk[kk], bv[kk].x, acc[ii].x);
-              acc[ii].y = fmaf(pk[kk], bv[kk].y, acc[ii].y);
-              acc[ii].z = fmaf(pk[kk], bv[kk].z, acc[ii].z);
-              acc[ii].w = fmaf(pk[kk], bv[kk].w, acc[ii].w);
-            }
-          }
+        for (int kk = 0; kk < 4; ++kk) {
+          bv[kk] = *reinterpret_cast<const float4*>(bs + (k + kk) * kBwdStride + 4 * q);
         }
 #pragma unroll
         for (int ii = 0; ii < 4; ++ii) {
-          const int i = oy + 16 * ii;
-          if (i >= rows) continue;
-          const float l = ls[i];
-          const float o[4] = {acc[ii].x / l, acc[ii].y / l, acc[ii].z / l, acc[ii].w / l};
-          float* orow = out + (static_cast<size_t>(p) * tq + r0 + i) * d + c0 + 4 * q;
-          if (V4) {
-            *reinterpret_cast<float4*>(orow) = make_float4(o[0], o[1], o[2], o[3]);
-          } else {
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              if (c0 + 4 * q + c < d) orow[c] = o[c];
-            }
+          for (int kk = 0; kk < 4; ++kk) {
+            const float w = lane4(sv[ii], kk);
+            acc[ii].x = fmaf(w, bv[kk].x, acc[ii].x);
+            acc[ii].y = fmaf(w, bv[kk].y, acc[ii].y);
+            acc[ii].z = fmaf(w, bv[kk].z, acc[ii].z);
+            acc[ii].w = fmaf(w, bv[kk].w, acc[ii].w);
           }
         }
       }
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        const int i = oy + 16 * ii;
+        if (i < rows) {
+          store_or_add4<V4>(da_rows + static_cast<size_t>(i) * d + c0 + 4 * q, acc[ii],
+                            first_key_tile, cols);
+        }
+      }
+    }
+    {  // dB
+      float4 acc[4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc[kk] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int i = 0; i < rows; ++i) {
+        const float4 sv = *reinterpret_cast<const float4*>(ss + i * kTiledPStride + 4 * oy);
+        const float4 pv = *reinterpret_cast<const float4*>(ps + i * kTiledPStride + 4 * oy);
+        const float4 av = *reinterpret_cast<const float4*>(as + i * kBwdStride + 4 * q);
+        const float4 gv = *reinterpret_cast<const float4*>(gs + i * kBwdStride + 4 * q);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float w = lane4(sv, kk), pk = lane4(pv, kk);
+          acc[kk].x = fmaf(pk, gv.x, fmaf(w, av.x, acc[kk].x));
+          acc[kk].y = fmaf(pk, gv.y, fmaf(w, av.y, acc[kk].y));
+          acc[kk].z = fmaf(pk, gv.z, fmaf(w, av.z, acc[kk].z));
+          acc[kk].w = fmaf(pk, gv.w, fmaf(w, av.w, acc[kk].w));
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int k = 4 * oy + kk;
+        if (k < keys) {
+          store_or_add4<V4>(db_rows + static_cast<size_t>(k) * d + c0 + 4 * q, acc[kk],
+                            first_query_tile, cols);
+        }
+      }
+    }
+  }
+}
+
+// Grid (N): block p owns problem p, so dA's and dB's rows take no sum
+// across blocks. With one key tile (Tk <= 64) a query tile's softmax
+// statistics come from the tile itself; with more, a first phase walks the
+// query tiles and their key tiles for each row's (m, l, D), kept in the
+// stats scratch (N * Tq * 3 floats), and the second recomputes S and dP of
+// every pair. Dynamic shared memory: kTiledBackwardSmem bytes.
+template <bool V4>
+__global__ void __launch_bounds__(kTiledThreads, kTiledBackwardBlocks)
+cheap_xattn_backward_tiled_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                                  const float* __restrict__ g, float* __restrict__ da,
+                                  float* __restrict__ db, float* __restrict__ stats, int tq,
+                                  int tk, int d, float sqrt_d) {
+  extern __shared__ float4 smem4[];
+  float* as = reinterpret_cast<float*>(smem4);  // A's chunk
+  float* bs = as + kSweepT * kBwdStride;        // B's chunk
+  float* gs = bs + kSweepT * kBwdStride;        // dO's chunk
+  float* ps = gs + kSweepT * kBwdStride;        // S, then P (64 x kTiledPStride)
+  float* ss = ps + kSweepT * kTiledPStride;     // dP, then dS / sqrt(d)
+  float* st = ss + kSweepT * kTiledPStride;     // m, l, D of each query row
+  const size_t p = blockIdx.x;
+  const float* ap = a + p * tq * d;
+  const float* bp = b + p * tk * d;
+  const float* gp = g + p * tq * d;
+  const int query_tiles = (tq + kSweepT - 1) / kSweepT;
+  const int key_tiles = (tk + kSweepT - 1) / kSweepT;
+  float* sp = key_tiles > 1 ? stats + p * tq * 3 : nullptr;  // unused with one key tile
+
+  if (key_tiles > 1) {  // phase 1: each query row's (m, l, D) over all key tiles
+    for (int qt = 0; qt < query_tiles; ++qt) {
+      const int q0 = qt * kSweepT, rows = min(kSweepT, tq - q0);
+      for (int kt = 0; kt < key_tiles; ++kt) {
+        const int k0 = kt * kSweepT;
+        backward_scores<V4>(ap + static_cast<size_t>(q0) * d, bp + static_cast<size_t>(k0) * d,
+                            gp + static_cast<size_t>(q0) * d, rows, min(kSweepT, tk - k0), d,
+                            sqrt_d, as, bs, gs, ps, ss);
+        backward_row_stats(ps, ss, st, kt == 0, kt == key_tiles - 1);
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < rows; i += kTiledThreads) {
+        float* r = sp + 3 * (q0 + i);
+        r[0] = st[i];
+        r[1] = st[kSweepT + i];
+        r[2] = st[2 * kSweepT + i];
+      }
+    }
+  }
+
+  // phase 2: key tiles, and within each the query tiles, in ascending order
+  for (int kt = 0; kt < key_tiles; ++kt) {
+    const int k0 = kt * kSweepT, keys = min(kSweepT, tk - k0);
+    for (int qt = 0; qt < query_tiles; ++qt) {
+      const int q0 = qt * kSweepT, rows = min(kSweepT, tq - q0);
+      if (key_tiles > 1) {
+        // the barriers in backward_scores order these loads after the last
+        // pair's reads of st and before this pair's
+        for (int i = threadIdx.x; i < kSweepT; i += kTiledThreads) {
+          const float* r = sp + 3 * (q0 + i);
+          st[i] = i < rows ? r[0] : 0.0f;
+          st[kSweepT + i] = i < rows ? r[1] : 1.0f;
+          st[2 * kSweepT + i] = i < rows ? r[2] : 0.0f;
+        }
+      }
+      const float* aq = ap + static_cast<size_t>(q0) * d;
+      const float* bk = bp + static_cast<size_t>(k0) * d;
+      const float* gq = gp + static_cast<size_t>(q0) * d;
+      backward_scores<V4>(aq, bk, gq, rows, keys, d, sqrt_d, as, bs, gs, ps, ss);
+      if (key_tiles == 1) backward_row_stats(ps, ss, st, true, true);
+      __syncthreads();
+      backward_probs(ps, ss, st, sqrt_d);
+      __syncthreads();
+      backward_grads<V4>(aq, bk, gq, da + (p * tq + q0) * d, db + (p * tk + k0) * d, rows, keys,
+                         d, kt == 0, qt == 0, as, bs, gs, ps, ss);
     }
   }
 }
@@ -1080,7 +1503,7 @@ bool variant_takes(int variant, bool backward, int tq, int tk, int d) {
     case kSweep: return sweep && d <= kMaxD;
     case kTwoPass: return d <= kMaxD;
     case kWide: return d > kMaxD;
-    case kTiled: return !backward && d > kMaxD && tk <= kSweepT;
+    case kTiled: return d > kMaxD;
     default: return false;
   }
 }
@@ -1191,6 +1614,11 @@ cudaError_t backward_launch(int variant, int n, int tq, int tk, int d, Launch* o
     }
     l.threads = threads_for(tq > tk ? tq : tk);
     l.smem = (2 * static_cast<size_t>(kTile) * d + 3 * kTile) * sizeof(float);
+  } else if (variant == kTiled) {
+    l.kernel = v4 ? fn(cheap_xattn_backward_tiled_kernel<true>)
+                  : fn(cheap_xattn_backward_tiled_kernel<false>);
+    l.threads = kTiledThreads;
+    l.smem = kTiledBackwardSmem;
   } else {
     l.tile = wide_tile(2 * static_cast<size_t>(d) + 3, &l.smem);
     if (l.tile == 0) return cudaErrorInvalidValue;
@@ -1233,7 +1661,8 @@ int cheap_xattn_forward(const float* a, const float* b, float* out, int n, int t
 // Launches the backward of `variant` on `stream`. Returns a cudaError_t. a, b
 // as the forward; g (N, Tq, d) the cotangent; da (N, Tq, d) and db (N, Tk, d)
 // the outputs; stats a scratch buffer of N * Tq * 3 floats for variants 2 and
-// 3 (unused by 0 and 1). All contiguous, 16-byte aligned f32 device pointers.
+// 3, and for 4 beyond 64 keys (unused otherwise: may be null). All
+// contiguous, 16-byte aligned f32 device pointers.
 int cheap_xattn_backward(const float* a, const float* b, const float* g, float* da, float* db,
                          float* stats, int n, int tq, int tk, int d, int variant, void* stream) {
   Launch l;
@@ -1244,7 +1673,9 @@ int cheap_xattn_backward(const float* a, const float* b, const float* g, float* 
   void* sweep_args[] = {&a, &b, &g, &da, &db, &tq, &tk, &d, &scale};
   void* two_pass_args[] = {&a, &b, &g, &da, &db, &stats, &tq, &tk, &d, &sqrt_d};
   void* wide_args[] = {&a, &b, &g, &da, &db, &stats, &tq, &tk, &d, &sqrt_d, &l.tile};
-  void** args = variant == kTwoPass ? two_pass_args : variant == kWide ? wide_args : sweep_args;
+  void** args = variant == kTwoPass || variant == kTiled ? two_pass_args
+                : variant == kWide                     ? wide_args
+                                                       : sweep_args;
   return static_cast<int>(cudaLaunchKernel(l.kernel, l.grid, dim3(l.threads), args, l.smem,
                                            static_cast<cudaStream_t>(stream)));
 }

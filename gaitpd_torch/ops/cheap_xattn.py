@@ -11,9 +11,11 @@ the hand-written backward kernel of the same file, counted in
 ``cheap_xattn_reference``, under ordinary autograd. There is no fallback from
 one to the other.
 
-The source holds five variants of the forward kernel and four of the
-backward; ``_variant`` chooses one from the sizes (Tq, Tk, d) and passes it
-to the entry points, which refuse a variant that does not take the sizes.
+The source holds five variants of each kernel; ``_variant`` chooses one from
+the sizes (Tq, Tk, d) and passes it to the entry points, which refuse a
+variant that does not take the sizes. Rows in device memory (``WIDE``) is
+chosen for no size: it stays callable by name, through ``_forward_kernel``
+and ``_backward_kernel``, as the yardstick the tiled kernels replaced.
 """
 
 from __future__ import annotations
@@ -33,10 +35,12 @@ backward_launches = 0
 _bound = None
 
 # The kernel variants of csrc/cheap_xattn.cu, numbered as its entry points take
-# them: one sweep with d = 12 as a compile-time width, one sweep at any d <= 64,
-# the two-pass kernels (Tk > 64; backward also Tq > 64), rows in device memory
-# (d > 64: the backward, and the forward beyond 64 keys), and the forward's
-# tiles in shared memory (d > 64, Tk <= 64, any Tq).
+# them: one sweep with d = 12 as a compile-time width (Tk <= 64; backward also
+# Tq <= 64), one sweep at any d <= 64 (the same lengths), the two-pass kernels
+# (d <= 64 beyond those lengths), rows in device memory (any d > 64; chosen
+# for no size), and tiles in shared memory (d > 64, any Tq and Tk, both ways:
+# key tiles of 64 with an online softmax forward, one block a problem
+# backward). Operations bound each at the repo's shapes (csrc header).
 SWEEP_D12, SWEEP, TWO_PASS, WIDE, TILED = range(5)
 VARIANT_NAMES = ("sweep_d12", "sweep", "two_pass", "rows_in_memory", "tiled")
 SWEEP_T = 64  # the most keys (backward: and query rows) the sweep kernels hold
@@ -46,7 +50,7 @@ REGISTER_D = 64  # the widest row the register kernels hold
 def _variant(tq: int, tk: int, d: int, backward: bool = False) -> int:
     """The kernel variant that takes these sizes."""
     if d > REGISTER_D:
-        return TILED if tk <= SWEEP_T and not backward else WIDE
+        return TILED
     if tk > SWEEP_T or (backward and tq > SWEEP_T):
         return TWO_PASS
     return SWEEP_D12 if d == 12 else SWEEP
@@ -172,23 +176,30 @@ def cheap_xattn_backward(
     CPU tensors take ``cheap_xattn_backward_reference``; CUDA tensors launch
     the backward kernel (deterministic: one block per problem, no float
     atomics) or raise."""
-    global backward_launches
     _check(a, b)
     if g.shape != a.shape:
         raise ValueError(f"cotangent shape {tuple(g.shape)} != {tuple(a.shape)}")
     if a.device.type == "cpu":
         return cheap_xattn_backward_reference(a, b, g)
     _check_cuda("cheap_xattn_backward", (a, b, g))
+    return _backward_kernel(a, b, g)
+
+
+def _backward_kernel(a, b, g, variant=None):
+    """The backward kernel of ``variant`` (by default ``_variant``'s)."""
+    global backward_launches
     n, tq, d = a.shape
     tk = b.shape[1]
+    if variant is None:
+        variant = _variant(tq, tk, d, backward=True)
     da, db = torch.empty_like(a), torch.empty_like(b)
     if n == 0:
         return da, db
     a, b, g = _aligned(a), _aligned(b), _aligned(g)
-    variant = _variant(tq, tk, d, backward=True)
-    # row statistics of the two-pass kernels; the sweep kernels keep theirs on chip
+    # row statistics of the two-pass kernels and of the tiled one beyond 64
+    # keys; the others keep theirs on chip
     stats = (torch.empty((n, tq, 3), dtype=torch.float32, device=a.device)
-             if variant in (TWO_PASS, WIDE) else None)
+             if variant in (TWO_PASS, WIDE) or (variant == TILED and tk > SWEEP_T) else None)
     bwd = _library()[1]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
