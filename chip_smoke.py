@@ -32,7 +32,7 @@ Phases (each raises on failure, so the script exits non-zero):
      fusion baselines' backbone widths (36 and 16 input channels) and the
      cheap cross-attention kernels against their plain versions (forward within 1e-5 up to 64
      keys, else 2e-5 + 2e-4 relative; dA, dB within 1e-5 + 1e-4 relative;
-     two backward launches bitwise equal) at the training path's shape (six
+     two launches each way bitwise equal) at the training path's shape (six
      directed pairs of 1024 window tuples), the long and edge cases and the
      symmetric 2-mod shape; one train step card vs CPU for each of the four
      fusion baselines; run_cv of the cheap-xattn baseline on the card and
@@ -47,9 +47,8 @@ Phases (each raises on failure, so the script exits non-zero):
      zero-cotangent windows exactly 0, two launches bitwise equal); the
      cheap cross-attention at d = 65, 96 and 200 and at d 96, Tq = Tk = 128
      (tiles in shared memory both ways), forward and backward, timed at d =
-     96, Tq = Tk = 64 and 128, both ways (eager and from a CUDA graph, the
-     rows-in-memory variants they replaced too, by name) beside
-     scaled_dot_product_attention and its autograd (a yardstick); then,
+     96, Tq = Tk = 64 and 128, both ways (eager and from a CUDA graph)
+     beside scaled_dot_product_attention and its autograd (a yardstick); then,
      from a stream of their own, the tiled kernels at d 128 and 256, Tq 65,
      Tq 1 against Tk 63, and over several key tiles (Tk 65, 128, 130),
      each launch printed;
@@ -57,7 +56,12 @@ Phases (each raises on failure, so the script exits non-zero):
      cross-attention at each kernel variant's edges (Tk 64/65, Tq 64/65,
      masked scores, d = 12 against 8, 16, 36, 64, N odd and N above one round
      of the persistent grid), as in phase 5; the launch of every variant
-     (threads, shared memory, blocks an SM, grid);
+     (threads, shared memory, blocks an SM, grid); then, from a stream of
+     their own, the sweep over 128 keys at FoG's (2 x 256 and 2 x 1024
+     window pairs, d 6), FBG's (2 x 32, d 3), the symmetric 2-mod (2 x 64,
+     d 12) and --win_len 128's (Tq = Tk = 128, d 12) shapes and at its edges
+     (d 8 and 9 at T 101, d 64 over 128 keys; 129 keys and 129 query rows
+     on the two-pass kernels), each launch printed;
   5d. this slice's checks, from a random stream of their own: the stream
      block's forward at each variant's edges (warp_tile's compiled-in sizes
      with GELU and a ragged last block; one size off each, generic), as in
@@ -132,8 +136,8 @@ Phases (each raises on failure, so the script exits non-zero):
      subjects of 36 segments) on the card alone: finite losses, the same
      launches;
   5i. the FBG/FoG baseline drivers (the 2-mod fusions, DeepAV-Lite, FOCAL,
-     TACA), from a random stream of their own: the cheap cross-attention's
-     two-pass variants at the fusion's shapes (2 x 256 and 2 x 1024 window
+     TACA), from a random stream of their own: the cheap cross-attention
+     (the sweep over 128 keys) at the fusion's shapes (2 x 256 and 2 x 1024 window
      pairs at d = 6, 2 x 32 at d = 3; T 101 both ways) and the generic
      stream block at the early (C_in 12), shared-latent (2 x 256, C_in 16)
      and FOCAL (2 x 256, C_in 32 -> C_out 4, t_out 4) shapes, forward and
@@ -186,10 +190,12 @@ Phases (each raises on failure, so the script exits non-zero):
      bounds (the backward also in the async skeleton task's layout); device
      time
      by kernel of batch-1024 predict_windows and of 10 batch-1024 train
-     steps of each (torch.profiler), the SOTA baselines' too; the two-pass
+     steps of each (torch.profiler), the SOTA baselines' too; the
      cross-attention forward and backward at the FoG fusion's shape (2 x 256,
-     T 101, d 6), eager and from a CUDA graph, beside the plain versions,
-     scaled_dot_product_attention and its autograd, and the bounds; the
+     T 101, d 6) and at Tq = Tk = 128, d 12, eager and from a CUDA graph,
+     beside the two-pass kernels they replaced (by name, in turns), the
+     plain versions, scaled_dot_product_attention and its autograd, and the
+     bounds; the
      stream block at FOCAL's 2-mod shape beside conv1d + ReLU + pool; every
      T 101 forward shape of phases 5h and 5i (C_in 3, 6, 12, 16, 32) from a
      CUDA graph: per_frame, the generic variant it replaces, the library
@@ -679,10 +685,11 @@ def check_cheap_xattn(rng, dev, card, cases) -> dict:
         a, b, g = xattn_inputs(rng, n, tq, tk, d, dev)
         before = (cx.launches, cx.backward_launches)
         got = cx.cheap_xattn(a, b)
+        same_f = torch.equal(got, cx.cheap_xattn(a, b))
         grads = cx.cheap_xattn_backward(a, b, g)
         again = cx.cheap_xattn_backward(a, b, g)
         torch.cuda.synchronize()
-        if (cx.launches, cx.backward_launches) != (before[0] + 1, before[1] + 2):
+        if (cx.launches, cx.backward_launches) != (before[0] + 2, before[1] + 2):
             raise RuntimeError(f"cheap_xattn[{name}]: launch counts did not go up")
         want = cx.cheap_xattn_reference(a, b)
         atol, rtol = (KERNEL_TOL, 0.0) if tk <= 64 else (XATTN_LONG_ATOL, XATTN_LONG_RTOL)
@@ -692,19 +699,19 @@ def check_cheap_xattn(rng, dev, card, cases) -> dict:
         errs = [(gk - wk).abs().max().item() for gk, wk in zip(grads, want_g)]
         ok_g = all(bool(((gk - wk).abs() <= XATTN_GRAD_ATOL + XATTN_GRAD_RTOL * wk.abs()).all())
                    for gk, wk in zip(grads, want_g))
-        same = all(torch.equal(x, y) for x, y in zip(grads, again))
+        same = same_f and all(torch.equal(x, y) for x, y in zip(grads, again))
         variants = "/".join(cx.VARIANT_NAMES[cx._variant(tq, tk, d, bw)] for bw in (False, True))
         log(f"[kernel] {card}: cheap_xattn {name} (N {n}, Tq {tq}, Tk {tk}, d {d}; variants "
             f"{variants}): forward max "
             f"abs err {err:.3e} (tol {atol:.0e} + {rtol:.0e} rel); backward dA/dB max abs err "
             f"{errs[0]:.3e}/{errs[1]:.3e} (tol {XATTN_GRAD_ATOL:.0e} + {XATTN_GRAD_RTOL:.0e} "
-            f"rel); two launches bitwise equal: {same}")
+            f"rel); two launches of each bitwise equal: {same}")
         if not (np.isfinite(err) and ok):
             raise RuntimeError(f"cheap_xattn[{name}] disagrees with its plain version: {err}")
         if not (all(np.isfinite(errs)) and ok_g):
             raise RuntimeError(f"cheap_xattn backward[{name}] disagrees: {errs}")
         if not same:
-            raise RuntimeError(f"cheap_xattn backward[{name}] is not deterministic")
+            raise RuntimeError(f"cheap_xattn[{name}] is not deterministic")
         errors[name] = (err, max(errs))
     return errors
 
@@ -763,10 +770,9 @@ def check_wide_xattn(rng, dev, card, cases) -> dict:
 
 def time_wide_xattn(rng, dev, card) -> dict:
     """The cross-attention at d 96 (the fusion's train batch at win_len 64
-    and 128), both ways: the tiled kernels and the rows-in-memory variants
-    they replace, eager and from a CUDA graph, beside the plain versions and
-    scaled_dot_product_attention (and its autograd). Rows in memory take
-    milliseconds a call: they are timed over few calls."""
+    and 128), both ways: the tiled kernels, eager and from a CUDA graph,
+    beside the plain versions and scaled_dot_product_attention (and its
+    autograd)."""
     out = {}
     for name in WIDE_XATTN_TIMED:
         n, tq, tk, d = WIDE_XATTN_CASES[name]
@@ -780,12 +786,6 @@ def time_wide_xattn(rng, dev, card) -> dict:
             o = F.scaled_dot_product_attention(leaves[0], leaves[1], leaves[1])
             return torch.autograd.grad(o, leaves, g)
 
-        def rows_in_memory():
-            return cx._forward_kernel(a, b, cx.WIDE)
-
-        def rows_in_memory_backward():
-            return cx._backward_kernel(a, b, g, cx.WIDE)
-
         want = cx.cheap_xattn_reference(a, b)
         want_g = cx.cheap_xattn_backward_reference(a, b, g)
         lib_errs = [(library() - want).abs().max().item()] + [
@@ -793,28 +793,21 @@ def time_wide_xattn(rng, dev, card) -> dict:
         if not max(lib_errs) <= 1e-4:
             raise RuntimeError(f"library yardstick at {name} computes another function: "
                                f"{lib_errs}")
-        old_errs = {False: (rows_in_memory() - want).abs().max().item(), True: max(
-            (p - q).abs().max().item() for p, q in zip(rows_in_memory_backward(), want_g))}
-        slow = dict(warmup=1, reps=3 if tq > 64 else 5)
         with torch.inference_mode():
             fwd = {"kernel": time_cuda(lambda: cx.cheap_xattn(a, b), warmup=3, reps=20),
                    "plain": time_cuda(lambda: cx.cheap_xattn_reference(a, b), warmup=3, reps=20),
                    "library": time_cuda(library, warmup=3, reps=20),
-                   "rows_in_memory": time_cuda(rows_in_memory, **slow),
                    "graph": time_cuda_graph(lambda: cx.cheap_xattn(a, b)),
                    "library_graph": time_cuda_graph(library),
                    "plain_graph": time_cuda_graph(lambda: cx.cheap_xattn_reference(a, b)),
-                   "rows_in_memory_graph": time_cuda_graph(rows_in_memory, **slow),
                    "graph_2": time_cuda_graph(lambda: cx.cheap_xattn(a, b)),
                    "kernel_2": time_cuda(lambda: cx.cheap_xattn(a, b), warmup=3, reps=20)}
         bwd = {"kernel": time_cuda(lambda: cx.cheap_xattn_backward(a, b, g), warmup=3, reps=20),
                "plain": time_cuda(lambda: cx.cheap_xattn_backward_reference(a, b, g), warmup=3,
                                   reps=20),
                "library": time_cuda(library_backward, warmup=3, reps=20),
-               "rows_in_memory": time_cuda(rows_in_memory_backward, **slow),
                "graph": time_cuda_graph(lambda: cx.cheap_xattn_backward(a, b, g)),
                "library_graph": time_cuda_graph(library_backward, warmup=3, reps=20),
-               "rows_in_memory_graph": time_cuda_graph(rows_in_memory_backward, **slow),
                "graph_2": time_cuda_graph(lambda: cx.cheap_xattn_backward(a, b, g)),
                "kernel_2": time_cuda(lambda: cx.cheap_xattn_backward(a, b, g), warmup=3,
                                      reps=20)}
@@ -828,11 +821,9 @@ def time_wide_xattn(rng, dev, card) -> dict:
             bw = way.endswith("backward")
             log(f"[time] {card}: {way} {name} (N {n}, Tq {tq}, Tk {tk}, d {d}), variant "
                 f"{launch[bw]['variant']}: eager kernel {t['kernel']:.4f}/{t['kernel_2']:.4f} "
-                f"ms, plain {t['plain']:.4f} ms, library ({lib}) {t['library']:.4f} ms, rows in "
-                f"memory {t['rows_in_memory']:.4f} ms (max abs err {old_errs[bw]:.3e}); from a "
+                f"ms, plain {t['plain']:.4f} ms, library ({lib}) {t['library']:.4f} ms; from a "
                 f"CUDA graph (device only): kernel {t['graph']:.4f}/{t['graph_2']:.4f} ms, "
-                f"library {t['library_graph']:.4f} ms, rows in memory "
-                f"{t['rows_in_memory_graph']:.4f} ms"
+                f"library {t['library_graph']:.4f} ms"
                 + (f", plain {t['plain_graph']:.4f} ms" if not bw else "")
                 + f"; bound {bound_ms:.5f} ms ({bound_by}); launch {launch[bw]}")
         log(f"[time] {card}: cheap_xattn {name}: library max abs diffs forward/dA/dB "
@@ -841,8 +832,8 @@ def time_wide_xattn(rng, dev, card) -> dict:
     return out
 
 
-# each kernel variant's edges: the sweep kernels at Tk = 64 against 65 (two
-# passes), Tq = 64 against 65 (the backward's two passes; the forward's second
+# each kernel variant's edges: the sweep kernels at Tk = 64 against 65 (the
+# sweep over 128 keys), Tq = 64 against 65 (its backward; the forward's second
 # 64-row unit), masked scores (Tk 63), d = 12 (the compile-time width) against
 # 8, 16, 36 and 64 (the general widths), N odd (a block's second unit idle in
 # the last round) and N above one round of the persistent grid
@@ -853,10 +844,25 @@ XATTN_EDGE_CASES = {
     "d64": (5, 64, 64, 64), "tq130_three_units": (3, 130, 20, 12),
     "main_plus_one": (6 * N_WINDOWS + 1, 64, 64, 12),
 }
+# the sweep over 128 keys at the shapes that reach it, from a stream of their
+# own: FoG's cheap-xattn fusion at the driver's batch and at 1024, FBG's at
+# its batch of 32, the symmetric 2-mod shape (WearGait's d 12) and
+# --win_len 128 at d 12; then its edges: its width 8 at d 8 against 16 at
+# d 9, d 64 over 128 keys, and the two-pass kernels beyond it (129 keys;
+# 129 query rows, whose forward is the sweep's)
+SWEEP128_XATTN_CASES = {
+    "fog_batch256": (2 * 256, 101, 101, 6), "fog_batch1024": (2 * 1024, 101, 101, 6),
+    "fbg_batch32": (2 * 32, 101, 101, 3), "sym_t101": (2 * 64, 101, 101, 12),
+    "t128_d12": (2 * 64, 128, 128, 12), "d8_t101": (5, 101, 101, 8), "d9_t101": (5, 101, 101, 9),
+    "d64_tq65_tk128": (5, 65, 128, 64), "tk129": (5, 128, 129, 12),
+    "tq129_tk64": (5, 129, 64, 12),
+}
 # one shape a variant for the launch table: the main shape (sweep_d12), then
-# the main shape's N at d = 36 (sweep), at Tk = 65 (two_pass), at d = 96
+# the main shape's N at d = 36 (sweep), at Tk = 65 (sweep_128), at d = 96,
+# FoG's fusion (sweep_128 at W 8) and 129 keys (two_pass)
 CONFIG_SHAPES = {"main": (6 * N_WINDOWS, 64, 64, 12), "d36": (6 * N_WINDOWS, 64, 64, 36),
-                 "tk65": (6 * N_WINDOWS, 64, 65, 12), "d96": (6 * N_WINDOWS, 64, 64, 96)}
+                 "tk65": (6 * N_WINDOWS, 64, 65, 12), "d96": (6 * N_WINDOWS, 64, 64, 96),
+                 "fog_batch256": (2 * 256, 101, 101, 6), "tk129": (2 * 64, 128, 129, 12)}
 
 
 def xattn_launch(n, tq, tk, d, backward) -> dict:
@@ -873,6 +879,15 @@ def print_xattn_configs(card) -> None:
         for backward in (False, True):
             log(f"[config] {card}: cheap_xattn{'_backward' if backward else ''} {name} "
                 f"(N {n}, Tq {tq}, Tk {tk}, d {d}): {xattn_launch(n, tq, tk, d, backward)}")
+
+
+def check_sweep128_xattn(rng, dev, card) -> dict:
+    """SWEEP128_XATTN_CASES as in phase 5, each launch printed."""
+    errors = check_cheap_xattn(rng, dev, card, SWEEP128_XATTN_CASES)
+    for name, (n, tq, tk, d) in SWEEP128_XATTN_CASES.items():
+        log(f"[config] {card}: cheap_xattn {name} (N {n}, Tq {tq}, Tk {tk}, d {d}): forward "
+            f"{xattn_launch(n, tq, tk, d, False)}; backward {xattn_launch(n, tq, tk, d, True)}")
+    return errors
 
 
 # ---------------------------------------------------------------------------
@@ -2014,7 +2029,7 @@ def phase_fbg_fog(seed, dev, rng) -> dict:
 # ---------------------------------------------------------------------------
 
 # (N, Tq, Tk, d) of the cheap-xattn fusion's two directions at T 101 (the
-# two-pass variants): FoG's d = 6 at the driver's batch and at 1024, FBG's
+# sweep over 128 keys): FoG's d = 6 at the driver's batch and at 1024, FBG's
 # d = 3 at its batch of 32
 BB_XATTN_CASES = {"fog_batch256": (2 * FF_BATCH, 101, 101, 6),
                   "fog_batch1024": (2 * 1024, 101, 101, 6),
@@ -2050,7 +2065,7 @@ BB_RUNS = {
 
 
 def check_bb_kernels(rng, dev, card) -> dict:
-    """The two-pass cheap cross-attention and the generic stream block at
+    """The cheap cross-attention (the sweep over 128 keys) and the stream block at
     the drivers' shapes against their plain versions as in phase 5 and
     phase 2, with each launch's variant and configuration."""
     errors = {"xattn": check_cheap_xattn(rng, dev, card, BB_XATTN_CASES)}
@@ -2531,13 +2546,16 @@ def cheap_xattn_backward_bound(n, tq, tk, d):
     return _bound(4 * n * d * (3 * tq + 2 * tk), 5 * 2 * n * tq * tk * d)
 
 
-def time_cheap_xattn(rng, dev, card, shape=XATTN_CASES["main"]) -> dict:
+def time_cheap_xattn(rng, dev, card, shape=XATTN_CASES["main"], old=None) -> dict:
     """The cross-attention's forward and backward at ``shape``: kernel,
     plain version, library call (scaled_dot_product_attention and its
     autograd) and bound, eager and each replayed from a CUDA graph, the
-    device's time without the host's."""
+    device's time without the host's. With ``old``, also that variant's
+    kernels by name, held against the plain versions and timed in turns
+    with the chosen ones (new, old, new from a graph)."""
     n, tq, tk, d = shape
     a, b, g = xattn_inputs(rng, n, tq, tk, d, dev)
+    old_name = None if old is None else cx.VARIANT_NAMES[old]
 
     def library():  # its default scale is 1/sqrt(d): the same function
         return F.scaled_dot_product_attention(a, b, b)
@@ -2554,13 +2572,29 @@ def time_cheap_xattn(rng, dev, card, shape=XATTN_CASES["main"]) -> dict:
         graph = {"graph_ms": time_cuda_graph(lambda: cx.cheap_xattn(a, b)),
                  "library_graph_ms": time_cuda_graph(library),
                  "plain_graph_ms": time_cuda_graph(lambda: cx.cheap_xattn_reference(a, b))}
+        if old is not None:
+            def old_forward():
+                return cx._forward_kernel(a, b, old)
+
+            old_err = (old_forward() - cx.cheap_xattn_reference(a, b)).abs().max().item()
+            if old_err > XATTN_LONG_ATOL:
+                raise RuntimeError(f"{old_name} forward disagrees with its plain version: "
+                                   f"{old_err}")
+            graph[f"{old_name}_ms"] = time_cuda(old_forward)
+            graph[f"{old_name}_graph_ms"] = time_cuda_graph(old_forward)
+            graph["graph_ms_2"] = time_cuda_graph(lambda: cx.cheap_xattn(a, b))
     bound_ms, bound_by = cheap_xattn_bound(n, tq, tk, d)
-    log(f"[time] {card}: cheap_xattn N {n}, Tq {tq}, Tk {tk}, d {d}: kernel "
+    variant = cx.VARIANT_NAMES[cx._variant(tq, tk, d)]
+    log(f"[time] {card}: cheap_xattn N {n}, Tq {tq}, Tk {tk}, d {d} (variant {variant}): kernel "
         f"{kernel_ms:.4f}/{kernel_ms_2:.4f} ms, plain {plain_ms:.4f}/{plain_ms_2:.4f} ms, "
         f"library scaled_dot_product_attention {library_ms:.4f} ms (max abs diff "
         f"{lib_err:.2e}), bound {bound_ms:.5f} ms ({bound_by})"
         f"; from a CUDA graph (device only): kernel {graph['graph_ms']:.4f} ms, library "
-        f"{graph['library_graph_ms']:.4f} ms, plain {graph['plain_graph_ms']:.4f} ms")
+        f"{graph['library_graph_ms']:.4f} ms, plain {graph['plain_graph_ms']:.4f} ms"
+        + ("" if old is None else
+           f"; {old_name} by name: eager {graph[f'{old_name}_ms']:.4f} ms, from a graph "
+           f"{graph[f'{old_name}_graph_ms']:.4f} ms (max abs err {old_err:.2e}), then the "
+           f"kernel again {graph['graph_ms_2']:.4f} ms"))
 
     leaves = [t.detach().clone().requires_grad_() for t in (a, b)]
 
@@ -2580,6 +2614,17 @@ def time_cheap_xattn(rng, dev, card, shape=XATTN_CASES["main"]) -> dict:
     bwd_library = time_cuda(library_backward, warmup=5, reps=50)
     bwd_graph = {"graph_ms": time_cuda_graph(lambda: cx.cheap_xattn_backward(a, b, g)),
                  "library_graph_ms": time_cuda_graph(library_backward, warmup=5, reps=50)}
+    if old is not None:
+        def old_backward():
+            return cx._backward_kernel(a, b, g, old)
+
+        old_b_err = max((p - q).abs().max().item() for p, q in zip(old_backward(), want))
+        if old_b_err > XATTN_GRAD_ATOL + XATTN_GRAD_RTOL * max(q.abs().max().item() for q in want):
+            raise RuntimeError(f"{old_name} backward disagrees with its plain version: "
+                               f"{old_b_err}")
+        bwd_graph[f"{old_name}_ms"] = time_cuda(old_backward)
+        bwd_graph[f"{old_name}_graph_ms"] = time_cuda_graph(old_backward)
+        bwd_graph["graph_ms_2"] = time_cuda_graph(lambda: cx.cheap_xattn_backward(a, b, g))
     bwd_bound, bwd_by = cheap_xattn_backward_bound(n, tq, tk, d)
     launch = {bw: xattn_launch(n, tq, tk, d, bw) for bw in (False, True)}
     log(f"[time] {card}: cheap_xattn launch {launch[False]}; cheap_xattn_backward launch "
@@ -2590,7 +2635,11 @@ def time_cheap_xattn(rng, dev, card, shape=XATTN_CASES["main"]) -> dict:
         f"scaled_dot_product_attention, forward included; max abs diff {lib_b_err:.2e}) "
         f"{bwd_library:.4f} ms, bound {bwd_bound:.5f} ms ({bwd_by})"
         f"; from a CUDA graph (device only): kernel {bwd_graph['graph_ms']:.4f} ms, "
-        f"library {bwd_graph['library_graph_ms']:.4f} ms")
+        f"library {bwd_graph['library_graph_ms']:.4f} ms"
+        + ("" if old is None else
+           f"; {old_name} by name: eager {bwd_graph[f'{old_name}_ms']:.4f} ms, from a graph "
+           f"{bwd_graph[f'{old_name}_graph_ms']:.4f} ms (max abs err {old_b_err:.2e}), then "
+           f"the kernel again {bwd_graph['graph_ms_2']:.4f} ms"))
     return {
         "cheap_xattn": {"ms": min(kernel_ms, kernel_ms_2), "plain_ms": min(plain_ms, plain_ms_2),
                         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2965,6 +3014,7 @@ def main() -> int:
     wide_xattn_times = time_wide_xattn(zrng, dev, card)
     check_wide_xattn(np.random.default_rng([args.seed, 15]), dev, card, TILED_XATTN_CASES)
     check_cheap_xattn(np.random.default_rng([args.seed, 7]), dev, card, XATTN_EDGE_CASES)
+    check_sweep128_xattn(np.random.default_rng([args.seed, 17]), dev, card)
     print_xattn_configs(card)
     check_forward_edges(np.random.default_rng([args.seed, 8]), dev, card)
     check_solver_each_k(np.random.default_rng([args.seed, 9]), dev)
@@ -3008,7 +3058,9 @@ def main() -> int:
                  for m in sorted(METHODS) if m != "cagrad"}
     phase_profiles(engine, args.seed, dev, card)
     phase_sota_profiles(args.seed, dev, card)
-    bb_xattn_times = time_cheap_xattn(bb_rng, dev, card, BB_XATTN_SHAPE)
+    bb_xattn_times = time_cheap_xattn(bb_rng, dev, card, BB_XATTN_SHAPE, old=cx.TWO_PASS)
+    t128_xattn_times = time_cheap_xattn(np.random.default_rng([args.seed, 18]), dev, card,
+                                        SWEEP128_XATTN_CASES["t128_d12"], old=cx.TWO_PASS)
     bb_focal_times = time_stream_block(bb_rng, dev, card, BB_FOCAL_SHAPE, slice(FF_BATCH, None),
                                        "FOCAL async skeleton stream's layout")
     t101_times = time_t101_forwards(np.random.default_rng([args.seed, 16]), dev, card)
@@ -3040,8 +3092,8 @@ def main() -> int:
     for name in ("stream_block", "stream_block_backward"):
         launches[f"{name}_fbg_fog"] = ff_main[name]
         times[f"{name}_fbg_fog"] = ff_times[name]
-    # the two-pass cross-attention at the FBG/FoG fusion's shape: the FoG
-    # cheap-xattn fusion run's launches, the times at its shape
+    # the cross-attention over up to 128 keys at the FBG/FoG fusion's shape:
+    # the FoG cheap-xattn fusion run's launches, the times at its shape
     bb_main = baselines["runs"]["fusion cheap_xattn fog async"]["launches"]
     for name in ("cheap_xattn", "cheap_xattn_backward"):
         launches[f"{name}_fbg_fog"] = bb_main[name]
@@ -3061,7 +3113,6 @@ def main() -> int:
             "ms": min(t["kernel"], t["kernel_2"]), "plain_ms": t["plain"],
             "library_ms": t["library"], "bound_ms": bound_ms, "bound_by": bound_by,
             "graph_ms": min(t["graph"], t["graph_2"]), "library_graph_ms": t["library_graph"],
-            "rows_in_memory_graph_ms": t["rows_in_memory_graph"],
             "variant": timed["launch"][way == "backward"]["variant"]}
     wide_err = wide_errors[WIDE_XATTN_TIMED[0]]
     bb_err = baselines["errors"]["xattn"]["fog_batch256"]
@@ -3126,7 +3177,8 @@ def main() -> int:
         f"{json.dumps(bb_steps)} and profile {json.dumps(bb_profile)}; the cross-attention at "
         f"d 96 {json.dumps(wide_xattn_times)} and the fusion at enc_out_ch {WIDE_FUSION_CH} "
         f"(and its step at win_len {LONG_WINDOW}) "
-        f"{json.dumps(wide_fusion)}; the T 101 forwards {json.dumps(t101_times)}")
+        f"{json.dumps(wide_fusion)}; the T 101 forwards {json.dumps(t101_times)}; the "
+        f"cross-attention at Tq = Tk = 128, d 12 {json.dumps(t128_xattn_times)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

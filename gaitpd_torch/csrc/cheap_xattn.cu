@@ -19,18 +19,20 @@
 //   0  one sweep, d = 12 as a compile-time width: Tk <= 64 (backward also
 //      Tq <= 64); the main path;
 //   1  one sweep, any d <= 64, rows zero-padded to a width of 16, 32 or 64;
-//   2  two passes (the first design): Tk > 64 (backward: Tq or Tk > 64),
-//      d <= 64;
-//   3  rows in device memory: any d > 64, but chosen for no size: kept,
-//      callable by name, as the yardstick of variant 4;
+//   2  two passes (the first design): d <= 64, chosen only beyond variant
+//      3's lengths, Tk > 128 (backward: Tq or Tk > 128), which no model's
+//      default path reaches; callable by name at every length;
+//   3  one sweep over up to 128 keys, two lanes a query row: d <= 64,
+//      64 < Tk <= 128 (backward: Tq and Tk <= 128, one of them > 64): the
+//      FBG/FoG cheap-xattn fusion at T 101 and --win_len 128;
 //   4  tiles in shared memory: d > 64, any Tq and Tk, forward and backward.
 //
-// THE SCALE. Variants 0 and 1 multiply the dot product by 1/sqrt(d), computed
-// once on the host in double and rounded to f32, as the Pallas kernel does
-// (gaitpd/ops/pallas_blocks.py:201 multiplies by `scale`, :250 sets it to
-// 1.0 / np.sqrt(d)); only the jnp reference divides. Variants 2, 3 and 4
-// divide, as the first design did. expf is the accurate one: the build has
-// no fast math.
+// THE SCALE. Variants 0, 1 and 3 multiply the dot product by 1/sqrt(d),
+// computed once on the host in double and rounded to f32, as the Pallas
+// kernel does (gaitpd/ops/pallas_blocks.py:201 multiplies by `scale`, :250
+// sets it to 1.0 / np.sqrt(d)); only the jnp reference divides. Variants 2
+// and 4 divide, as the first design did. expf is the accurate one: the build
+// has no fast math.
 //
 // FORWARD, ONE SWEEP (variants 0, 1)
 //
@@ -92,7 +94,54 @@
 // division by sqrt(d), and 4 warps a problem (was 2). Rows past Tq write zero
 // P and dS, so phase 2 runs without guards.
 //
-// TWO PASSES (variant 2), the first design, for Tk > 64 (backward Tq > 64)
+// ONE SWEEP OVER UP TO 128 KEYS (variant 3), d <= 64
+//
+// The FBG/FoG cheap-xattn fusion (gaitpd_torch/models/fusion.py,
+// cheap_cross_attention_sym) sends both directions of 256 window pairs
+// through one launch each way: N = 512 problems of Tq = Tk = 101 at d = 6
+// (FBG: 64 at d = 3).
+//
+// What bounds it. Forward: 2 * 2 * 512 * 101 * 101 * 6 FLOP = 125 MFLOP, 1.87
+// us at 67 TFLOP/s, against 3.7 MB of traffic (1.1 us): operations. Backward:
+// five products, 4.68 us, against 6.2 MB: operations. Each score also costs
+// its softmax's issue slots (a scale, a max, expf, the sum of l), which at
+// d = 6 outnumber its FMAs.
+//
+// What the design does about it. The sweep kernels' scheme, at twice the
+// keys: a problem's scores stay on chip and each is computed once, forward
+// and backward, with one expf. Two lanes a query row, lane 2r + h taking the
+// keys 2j + h (j < 64), so a thread holds at most 64 scores in registers; the
+// pair's maximum, l and partial sums meet by one shuffle each, half 0 + half
+// 1, so both lanes hold the same bits. A W of 8 (d <= 8) keeps the padding of
+// FoG's d = 6 and FBG's 3 at most 2.7x (16 was 5.3x at d = 3). The key loops
+// stop at the last pair of keys, and a warp whose 16 query rows all lie past
+// Tq does no work: at Tq = 101, 7 of 8 warps run.
+// Forward: a block of 4 warps takes a unit of 64 query rows (a problem's
+// rows, 64 at a time) a round, B's rows (at most 128) staged in static shared
+// memory at row_stride(W), on a persistent grid of as many blocks as the card
+// holds at once, each striding over the units. At T 101 a problem is two
+// units, of 64 and 37 rows.
+// Backward: a block of 8 warps owns a problem, so dB takes no sum across
+// blocks and no atomics: the same bits from run to run. A, B and dO are
+// staged in shared memory, and so are P and dS * scale of the whole problem,
+// sized to its own Tq and Tk (101,824 bytes at T 101, W 8: 2 blocks an SM).
+// Phase 1, two lanes a query row: the scores and their max, one sweep for
+// e = exp(s - m), l, t = sum e dP (dP_ik = dO_i . B_k into shared memory),
+// D = t / l (= dO_i . O_i, O never formed), then P_ik, dS_ik into shared
+// memory and dA_i = sum_k dS_ik B_k. Phase 2, a thread per (key row k, half
+// of the query rows): dB_k = sum_i dS_ik A_i + P_ik dO_i, reading P and dS by
+// column and A_i, dO_i by broadcast, half 0 + half 1. No row statistics go
+// to device memory. Strict f32 on the CUDA cores; no TF32.
+//
+// What it reaches (PERF.md): at the FoG shape from a CUDA graph, 0.0162 ms
+// forward and 0.0330 backward, 8.7x and 7.1x their bounds, against 0.0611
+// and 0.1816 for variant 2 and 0.1017 and 0.2164 for
+// scaled_dot_product_attention and its autograd (H100 80GB HBM3 at 700 W).
+// A score's fixed issue slots (scale, max, expf, sums) match its 16 FMAs at
+// W 8; the forward holds 16 warps an SM at 109 registers.
+//
+// TWO PASSES (variant 2), the first design, for Tk > 128 (backward Tq or
+// Tk > 128), d <= 64
 //
 // A block takes one problem and up to 128 query rows; each thread owns one
 // query row. B streams through shared memory in tiles of 64 rows. Forward:
@@ -103,18 +152,10 @@
 // dA_i; the row's (max, sum, D) go to a scratch buffer. Phase 2, a thread per
 // key row: A, dO and the row statistics stream through shared memory and the
 // thread recomputes P_ik and dS_ik (the same bits as phase 1) and sums dB_k.
-// The register rows hold d <= 64 (arrays of 16, 32 or 64, a template).
-//
-// ROWS IN DEVICE MEMORY (variant 3), any d > 64, chosen for no size
-//
-// The two-pass kernels with the per-thread rows in device memory: the query
-// and dO rows are read from A and G where they lie, and the running sum is
-// the thread's own output row (of O, dA or dB), which no other thread
-// touches. Its arithmetic and order are the two-pass version's; it is slow
-// (every update of the sum goes through the cache, and each score is
-// computed in both passes): at d 96, N 384, Tq = Tk = 64 it takes 1.22 ms
-// forward and 3.80 backward against variant 4's 0.032 and 0.066 (PERF.md).
-// chip_smoke.py times it beside variant 4 by name.
+// The register rows hold d <= 64 (arrays of 16, 32 or 64, a template). At
+// the FoG shape above it took 0.0612 ms forward and 0.1831 backward from a
+// CUDA graph, 33x and 39x its bounds (PERF.md, PR 14): it computes each
+// score twice forward and four times backward, a thread a row.
 //
 // FORWARD, TILES IN SHARED MEMORY (variant 4), d > 64
 //
@@ -125,8 +166,6 @@
 // with enc_out_ch 96 at a train batch of 64) it reads A and B and writes O,
 // 28.3 MB (8.4 us at 3.35 TB/s), and does two products of 2 * 64 * 64 * 96
 // FLOP a problem, 604 MFLOP (9.0 us at 67 TFLOP/s): both bounds are close.
-// Variant 3 keeps each query row and its running sum in device memory, so
-// every FMA goes through the cache.
 //
 // What the design does about it. A block of 4 warps takes units of (problem,
 // 64 query rows) in turn, on a grid of as many blocks as the card holds at
@@ -138,13 +177,13 @@
 // S = A B^T is computed once: a thread keeps a 4 x 8 tile of scores in
 // registers (rows ty + 16 ii, keys tx + 8 jj) and reads per 4 columns four
 // float4 of A (a broadcast) and eight of B for 128 FMAs; each dot product
-// sums in ascending column over the chunks, as variant 3 does. The scores,
+// sums in ascending column over the chunks, as variant 2 does. The scores,
 // divided by sqrt(d) and -inf past Tk, take A's place in shared memory; a
 // warp a row takes its max and sum l by butterflies (every lane the same
 // bits) and writes exp(s - max). Then O = P B: a thread keeps a 4 x 4 tile of
 // outputs (4 rows, 4 columns) and reads per 4 keys four float4 of P and four
 // of B for 64 FMAs, keys in ascending order, and writes O / l. Only l is
-// summed in another order than variant 3's. Strict f32; no atomics: the
+// summed in another order than variant 2's. Strict f32; no atomics: the
 // same bits from run to run.
 //
 // Beyond 64 keys the unit walks B in key tiles of 64, as the Pallas kernel
@@ -158,17 +197,18 @@
 //
 // What it reaches (PERF.md): 0.032 ms at d 96, Tq = Tk = 64 from a CUDA
 // graph, 3.6x its bound, against 0.067 for scaled_dot_product_attention and
-// 1.22 for variant 3 (H100 80GB HBM3 at 700 W); 0.138 at Tq = Tk = 128,
-// 3.8x its bound, against 0.188 and 5.06: the 1.45 waves cost little, each
-// unit's staging round trips and barriers hold it back at both lengths.
+// 1.22 for the rows-in-device-memory design it replaced (H100 80GB HBM3 at
+// 700 W); 0.138 at Tq = Tk = 128, 3.8x its bound, against 0.188 and 5.06:
+// the 1.45 waves cost little, each unit's staging round trips and barriers
+// hold it back at both lengths.
 //
 // BACKWARD, TILES IN SHARED MEMORY (variant 4), d > 64
 //
 // What bounds it. At d = 96, N = 384, Tq = Tk = 64 (the fusion's train
 // step at enc_out_ch 96) five products of 2 * 64 * 64 * 96 FLOP a problem,
 // 1.51 GFLOP (22.5 us at 67 TFLOP/s), against 47 MB of traffic (14 us):
-// operations. Variant 3 computed each score three times over, with its
-// rows and sums in device memory.
+// operations. The design it replaced computed each score three times over,
+// with its rows and sums in device memory.
 //
 // What the design does about it. One block of 4 warps owns one problem, so
 // dB takes no sum across blocks and no atomics: the same bits from run to
@@ -193,8 +233,8 @@
 //
 // What it reaches (PERF.md): 0.066 ms at d 96, Tq = Tk = 64 from a CUDA
 // graph, 2.9x its bound, against 0.172 for the autograd of
-// scaled_dot_product_attention and 3.80 for variant 3; 0.363 at Tq = Tk =
-// 128, 4.0x its bound, against 0.471 and 15.4.
+// scaled_dot_product_attention and 3.80 for rows in device memory; 0.363
+// at Tq = Tk = 128, 4.0x its bound, against 0.471 and 15.4.
 //
 // Plain C interface, bound with ctypes (gaitpd_torch/ops/cheap_xattn.py).
 
@@ -206,12 +246,12 @@ namespace {
 
 constexpr int kMaxThreads = 128;
 constexpr int kTile = 64;  // rows staged in shared memory at a time
-constexpr int kMaxD = 64;  // the widest register row; wider d runs the *_wide kernels
+constexpr int kMaxD = 64;  // the widest register row; wider d runs the tiled kernels
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
 // The variants, numbered as gaitpd_torch/ops/cheap_xattn.py::_variant numbers them.
-enum Variant { kSweepD12 = 0, kSweep = 1, kTwoPass = 2, kWide = 3, kTiled = 4 };
+enum Variant { kSweepD12 = 0, kSweep = 1, kTwoPass = 2, kSweep128 = 3, kTiled = 4 };
 
 constexpr int kSweepT = 64;         // keys (backward: and query rows) the sweep kernels hold
 constexpr int kSweepThreads = 128;  // 4 warps
@@ -294,31 +334,31 @@ __device__ __forceinline__ void axpy_row(float (&acc)[DP], float e, const float*
 // exactly), 16, 32 or 64 (rows zero-padded beyond d). The dot and axpy
 // helpers run over all W columns: the padding adds exact zeros.
 
-// Copies the `rows` rows of a row-major (rows, d) matrix into a kSweepT-row
-// tile of row stride row_stride(W), zero beyond row `rows` and column d.
-// Threads tid, tid + nthreads, ... share the copy.
-template <int W>
+// Copies the `rows` rows of a row-major (rows, d) matrix into a tile of
+// `tile_rows` rows (kSweepT by default) and row stride S, zero beyond row
+// `rows` and column d. Threads tid, tid + nthreads, ... share the copy.
+template <int W, int S = row_stride(W)>
 __device__ __forceinline__ void stage_tile(const float* __restrict__ src, float* dst, int rows,
-                                           int d, int tid, int nthreads) {
-  constexpr int kStride = row_stride(W);
-  if (W == 12) {  // d = 12: three 16-byte words a row, contiguous in both
+                                           int d, int tid, int nthreads,
+                                           int tile_rows = kSweepT) {
+  if (W == 12 && S == 12) {  // d = 12: three 16-byte words a row, contiguous in both
     const float4* s4 = reinterpret_cast<const float4*>(src);
     float4* d4 = reinterpret_cast<float4*>(dst);
-    for (int e = tid; e < kSweepT * 3; e += nthreads) {
+    for (int e = tid; e < tile_rows * 3; e += nthreads) {
       d4[e] = e < rows * 3 ? s4[e] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
   } else {
-    for (int e = tid; e < kSweepT * kStride; e += nthreads) {
-      const int r = e / kStride, c = e - r * kStride;
+    for (int e = tid; e < tile_rows * S; e += nthreads) {
+      const int r = e / S, c = e - r * S;
       dst[e] = (r < rows && c < d) ? src[r * d + c] : 0.0f;
     }
   }
 }
 
-// Row i of a staged tile into registers.
-template <int W>
+// Row i of a staged tile of row stride S into registers.
+template <int W, int S = row_stride(W)>
 __device__ __forceinline__ void tile_row(float (&r)[W], const float* tile, int i) {
-  const float* row = tile + i * row_stride(W);
+  const float* row = tile + i * S;
 #pragma unroll
   for (int c = 0; c < W; c += 4) {
     const float4 v = *reinterpret_cast<const float4*>(row + c);
@@ -518,6 +558,225 @@ size_t sweep_backward_smem(int w) {
 }
 
 // ---------------------------------------------------------------------------
+// One sweep over up to 128 keys (variant 3). W is the register row's width:
+// 8, 12 (d = 12 exactly), 16, 32 or 64, rows zero-padded beyond d. Two lanes
+// a query row: lane 2r + h takes the keys k = 2j + h, j < 64, so a thread
+// holds at most 64 scores, as in the sweep kernels.
+
+constexpr int kLongT = 128;              // keys (backward: and query rows) variant 3 holds
+constexpr int kLongSlots = kLongT / 2;   // score registers a thread: the keys of its parity
+constexpr int kLongBwdThreads = 2 * kLongT;  // backward: two lanes for each of 128 query rows
+// Blocks an SM the backward's launch bounds ask for at W <= 16 (shared
+// memory allows 2 at T 101, d <= 8); they cap a thread at 128 registers.
+constexpr int kLongBwdBlocks = 2;
+
+__host__ __device__ constexpr int even_up(int v) { return (v + 1) / 2 * 2; }
+__host__ __device__ constexpr int round16(int v) { return (v + 15) / 16 * 16; }
+// The backward's row stride of A, B and dO: row_stride(w), but w at W = 64,
+// where padded rows would not fit 227 KB at Tq = Tk = 128 (the pair's two
+// rows then share banks: a two-way conflict, off every default path).
+__host__ __device__ constexpr int long_stride(int w) { return w == 64 ? w : row_stride(w); }
+// The row stride of P and dS: the least 2 x (odd) >= Tk, so that the 16
+// rows a warp stores at once, two keys each, lie on 32 distinct banks.
+__host__ __device__ constexpr int long_pstride(int tk) {
+  return even_up(tk) / 2 % 2 == 1 ? even_up(tk) : even_up(tk) + 2;
+}
+
+// Grid: as many blocks as the card holds at once, at most one a unit. A
+// unit is (problem p, query rows [64 y, 64 y + 64)); block x takes units x,
+// x + grid, ... B's rows (Tk rounded up to even, zero beyond Tk: the odd lane
+// of the last pair reads a zero row, its score masked) sit in static shared
+// memory. A warp whose 16 query rows all lie past Tq skips the unit.
+template <int W>
+__global__ void __launch_bounds__(kSweepThreads, W <= 16 ? kSweepForwardBlocks : 1)
+cheap_xattn_forward_sweep128_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                                    float* __restrict__ out, int n, int tq, int tk, int d,
+                                    float scale) {
+  constexpr int kStride = row_stride(W);
+  constexpr unsigned kAll = 0xffffffffu;
+  __shared__ __align__(16) float bs[kLongT * kStride];
+  const int r = threadIdx.x >> 1, h = threadIdx.x & 1;
+  const int row0 = (threadIdx.x >> 5) * 16;  // the warp's first query row in the unit
+  const int chunks = (tq + kSweepT - 1) / kSweepT;
+  const long long units = static_cast<long long>(n) * chunks;
+  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+    const size_t p = static_cast<size_t>(u / chunks);
+    const int r0 = static_cast<int>(u % chunks) * kSweepT;
+    const int i = r0 + r;
+    __syncthreads();  // the previous unit's reads of the tile are done
+    stage_tile<W>(b + p * tk * d, bs, tk, d, threadIdx.x, kSweepThreads, even_up(tk));
+    __syncthreads();
+    if (r0 + row0 >= tq) continue;
+    const bool active = i < tq;
+    float q[W];
+    load_row<W>(q, a + p * tq * d, i, d, active);
+    float s[kLongSlots];
+    float m = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kLongSlots; ++j) {
+      if (2 * j >= tk) break;
+      const int k = 2 * j + h;
+      const float v = dot_row<W, true>(q, bs + k * kStride, W) * scale;
+      s[j] = k < tk ? v : -INFINITY;
+      m = fmaxf(m, s[j]);
+    }
+    m = fmaxf(m, __shfl_xor_sync(kAll, m, 1));
+    __syncwarp();  // as in the sweep forward: B's rows are loaded again below
+    float l = 0.0f, acc[W];
+#pragma unroll
+    for (int c = 0; c < W; ++c) acc[c] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kLongSlots; ++j) {
+      if (2 * j >= tk) break;
+      const float e = expf(s[j] - m);
+      l += e;
+      axpy_row<W, true>(acc, e, bs + (2 * j + h) * kStride, W);
+    }
+    // the pair's sums, half 0 + half 1: both lanes hold the same bits
+    l += __shfl_xor_sync(kAll, l, 1);
+#pragma unroll
+    for (int c = 0; c < W; ++c) acc[c] += __shfl_xor_sync(kAll, acc[c], 1);
+    if (active && h == 0) {
+      float* o = out + (p * tq + i) * d;
+#pragma unroll
+      for (int c = 0; c < W; ++c) {
+        if (W == 12 || c < d) o[c] = acc[c] / l;
+      }
+    }
+  }
+}
+
+// Grid (N): block p owns problem p, 256 threads. Dynamic shared memory:
+// sweep128_backward_smem(W, Tq, Tk) bytes: A and dO (Tq rounded up to 16
+// rows, a warp's worth, zero beyond Tq), B (Tk rounded up to even), then P
+// and dS * scale for those query rows at a row stride of long_pstride(Tk).
+// Lanes past Tq in a warp with a live row compute on zero rows and store
+// into the padding, which phase 2 does not read.
+template <int W>
+__global__ void __launch_bounds__(kLongBwdThreads, W <= 16 ? kLongBwdBlocks : 1)
+cheap_xattn_backward_sweep128_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                                     const float* __restrict__ g, float* __restrict__ da,
+                                     float* __restrict__ db, int tq, int tk, int d,
+                                     float scale) {
+  constexpr int kStride = long_stride(W);
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ float4 smem4[];
+  const int rows = round16(tq), pstride = long_pstride(tk);
+  float* as = reinterpret_cast<float*>(smem4);
+  float* gs = as + rows * kStride;
+  float* bs = gs + rows * kStride;
+  float* ps = bs + even_up(tk) * kStride;
+  float* ss = ps + rows * pstride;
+  const size_t p = blockIdx.x;
+  stage_tile<W, kStride>(b + p * tk * d, bs, tk, d, threadIdx.x, kLongBwdThreads, even_up(tk));
+  stage_tile<W, kStride>(a + p * tq * d, as, tq, d, threadIdx.x, kLongBwdThreads, rows);
+  stage_tile<W, kStride>(g + p * tq * d, gs, tq, d, threadIdx.x, kLongBwdThreads, rows);
+  __syncthreads();
+
+  // Phase 1: query row i, keys k = 2j + h of the pair's half h; warps whose
+  // 16 rows all lie past Tq idle.
+  if ((threadIdx.x >> 5) * 16 < tq) {
+    const int i = threadIdx.x >> 1, h = threadIdx.x & 1;
+    float* prow = ps + i * pstride;
+    float* srow = ss + i * pstride;
+    float q[W];
+    tile_row<W, kStride>(q, as, i);
+    float s[kLongSlots];
+    float m = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kLongSlots; ++j) {
+      if (2 * j >= tk) break;
+      const int k = 2 * j + h;
+      const float v = dot_row<W, true>(q, bs + k * kStride, W) * scale;
+      s[j] = k < tk ? v : -INFINITY;
+      m = fmaxf(m, s[j]);
+    }
+    m = fmaxf(m, __shfl_xor_sync(kAll, m, 1));
+    __syncwarp();
+    float go[W];
+    tile_row<W, kStride>(go, gs, i);
+    float l = 0.0f, t = 0.0f;  // l = sum_k e_k, t = sum_k e_k dP_ik
+#pragma unroll
+    for (int j = 0; j < kLongSlots; ++j) {
+      if (2 * j >= tk) break;
+      const int k = 2 * j + h;
+      const float e = expf(s[j] - m);
+      const float dp = dot_row<W, true>(go, bs + k * kStride, W);
+      s[j] = e;
+      l += e;
+      t = fmaf(e, dp, t);
+      srow[k] = dp;  // dP_ik, until dS replaces it
+    }
+    l += __shfl_xor_sync(kAll, l, 1);
+    t += __shfl_xor_sync(kAll, t, 1);
+    const float dsum = t / l;  // D_i = sum_k P_ik dP_ik = dO_i . O_i
+    const float inv_l = 1.0f / l;
+    __syncwarp();
+    float acc[W];  // dA_i
+#pragma unroll
+    for (int c = 0; c < W; ++c) acc[c] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kLongSlots; ++j) {
+      if (2 * j >= tk) break;
+      const int k = 2 * j + h;
+      const float pk = s[j] * inv_l;
+      const float ds = pk * (srow[k] - dsum) * scale;
+      prow[k] = pk;
+      srow[k] = ds;
+      axpy_row<W, true>(acc, ds, bs + k * kStride, W);
+    }
+#pragma unroll
+    for (int c = 0; c < W; ++c) acc[c] += __shfl_xor_sync(kAll, acc[c], 1);
+    if (i < tq && h == 0) {
+      float* o_da = da + (p * tq + i) * d;
+#pragma unroll
+      for (int c = 0; c < W; ++c) {
+        if (W == 12 || c < d) o_da[c] = acc[c];
+      }
+    }
+  }
+  __syncthreads();
+
+  // Phase 2: key row k, query rows [0, ceil(Tq / 2)) (h = 0) or the rest (h = 1).
+  {
+    const int k = threadIdx.x % kLongT, h = threadIdx.x / kLongT;
+    const int half = (tq + 1) / 2;
+    const int i1 = h == 0 ? half : tq;
+    float acc[W];
+#pragma unroll
+    for (int c = 0; c < W; ++c) acc[c] = 0.0f;
+    if (k < tk) {
+#pragma unroll 4
+      for (int i = h * half; i < i1; ++i) {
+        const float pk = ps[i * pstride + k];
+        const float ds = ss[i * pstride + k];
+        axpy_row<W, true>(acc, pk, gs + i * kStride, W);
+        axpy_row<W, true>(acc, ds, as + i * kStride, W);
+      }
+    }
+    float* part = bs + k * kStride;  // B's rows are free: phase 1 is over
+    if (h == 1 && k < tk) {
+#pragma unroll
+      for (int c = 0; c < W; ++c) part[c] = acc[c];
+    }
+    __syncthreads();
+    if (h == 0 && k < tk) {
+      float* o_db = db + (p * tk + k) * d;
+#pragma unroll
+      for (int c = 0; c < W; ++c) {
+        if (W == 12 || c < d) o_db[c] = acc[c] + part[c];
+      }
+    }
+  }
+}
+
+size_t sweep128_backward_smem(int w, int tq, int tk) {
+  const size_t rows = round16(tq);
+  return ((2 * rows + even_up(tk)) * long_stride(w) + 2 * rows * long_pstride(tk)) *
+         sizeof(float);
+}
+
+// ---------------------------------------------------------------------------
 // Two passes (variant 2).
 
 // The query row q's max score over all tk rows of bp, and then
@@ -687,190 +946,6 @@ cheap_xattn_backward_kernel(const float* __restrict__ a, const float* __restrict
 int threads_for(int rows) {
   const int t = (rows + 31) / 32 * 32;
   return t < kMaxThreads ? t : kMaxThreads;
-}
-
-// ---------------------------------------------------------------------------
-// Variant 3: rows in device memory, any d > 64, chosen for no size (see the
-// header). The helpers mirror dot_row and axpy_row, in the same order.
-
-template <bool V4>
-__device__ __forceinline__ float dot_mem(const float* q, const float* row, int d) {
-  float s = 0.0f;
-  if (V4) {
-    for (int c = 0; c < d; c += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(q + c);
-      const float4 r = *reinterpret_cast<const float4*>(row + c);
-      s = fmaf(a.x, r.x, s);
-      s = fmaf(a.y, r.y, s);
-      s = fmaf(a.z, r.z, s);
-      s = fmaf(a.w, r.w, s);
-    }
-  } else {
-    for (int c = 0; c < d; ++c) s = fmaf(q[c], row[c], s);
-  }
-  return s;
-}
-
-template <bool V4>
-__device__ __forceinline__ void axpy_mem(float* acc, float e, const float* row, int d) {
-  if (V4) {
-    for (int c = 0; c < d; c += 4) {
-      float4 a = *reinterpret_cast<float4*>(acc + c);
-      const float4 r = *reinterpret_cast<const float4*>(row + c);
-      a.x = fmaf(e, r.x, a.x);
-      a.y = fmaf(e, r.y, a.y);
-      a.z = fmaf(e, r.z, a.z);
-      a.w = fmaf(e, r.w, a.w);
-      *reinterpret_cast<float4*>(acc + c) = a;
-    }
-  } else {
-    for (int c = 0; c < d; ++c) acc[c] = fmaf(e, row[c], acc[c]);
-  }
-}
-
-// softmax_pass with q and acc rows in device memory and B in tiles of
-// `tile` rows.
-template <bool V4>
-__device__ __forceinline__ void softmax_pass_wide(const float* q, const float* __restrict__ bp,
-                                                  float* bs, int tk, int d, int tile,
-                                                  float sqrt_d, bool active, float* m_out,
-                                                  float* l_out, float* acc) {
-  float m = -INFINITY;
-  for (int k0 = 0; k0 < tk; k0 += tile) {
-    const int rows = min(tile, tk - k0);
-    __syncthreads();
-    stage_rows(bp, bs, k0, rows, d);
-    __syncthreads();
-    if (active) {
-      for (int k = 0; k < rows; ++k) m = fmaxf(m, dot_mem<V4>(q, bs + k * d, d) / sqrt_d);
-    }
-  }
-  float l = 0.0f;
-  if (active) {
-    for (int c = 0; c < d; ++c) acc[c] = 0.0f;
-  }
-  for (int k0 = 0; k0 < tk; k0 += tile) {
-    const int rows = min(tile, tk - k0);
-    __syncthreads();
-    stage_rows(bp, bs, k0, rows, d);
-    __syncthreads();
-    if (active) {
-      for (int k = 0; k < rows; ++k) {
-        const float* row = bs + k * d;
-        const float e = expf(dot_mem<V4>(q, row, d) / sqrt_d - m);
-        l += e;
-        axpy_mem<V4>(acc, e, row, d);
-      }
-    }
-  }
-  *m_out = m;
-  *l_out = l;
-}
-
-// As cheap_xattn_forward_kernel; shared memory: tile * d floats.
-template <bool V4>
-__global__ void __launch_bounds__(kMaxThreads)
-cheap_xattn_forward_wide_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                                float* __restrict__ out, int tq, int tk, int d, float sqrt_d,
-                                int tile) {
-  extern __shared__ float4 smem4[];
-  float* bs = reinterpret_cast<float*>(smem4);
-  const size_t p = blockIdx.x;
-  const int i = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool active = i < tq;
-  const size_t row = (p * tq + (active ? i : 0)) * d;
-  float* o = out + row;
-  float m, l;
-  softmax_pass_wide<V4>(a + row, b + p * tk * d, bs, tk, d, tile, sqrt_d, active, &m, &l, o);
-  if (active) {
-    for (int c = 0; c < d; ++c) o[c] = o[c] / l;
-  }
-}
-
-// As cheap_xattn_backward_kernel; shared memory: tile * (2 d + 3) floats.
-template <bool V4>
-__global__ void __launch_bounds__(kMaxThreads)
-cheap_xattn_backward_wide_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                                 const float* __restrict__ g, float* __restrict__ da,
-                                 float* __restrict__ db, float* stats, int tq, int tk, int d,
-                                 float sqrt_d, int tile) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const size_t p = blockIdx.x;
-  const float* ap = a + p * tq * d;
-  const float* bp = b + p * tk * d;
-  const float* gp = g + p * tq * d;
-  float* st = stats + p * tq * 3;
-
-  // Phase 1: a thread per query row i; dA_i is its running sum.
-  for (int i0 = 0; i0 < tq; i0 += blockDim.x) {
-    const int i = i0 + threadIdx.x;
-    const bool active = i < tq;
-    const size_t row = static_cast<size_t>(active ? i : 0) * d;
-    const float* q = ap + row;
-    const float* go = gp + row;
-    float* acc = da + p * tq * d + row;
-    float m, l;
-    softmax_pass_wide<V4>(q, bp, smem, tk, d, tile, sqrt_d, active, &m, &l, acc);
-    float dsum = 0.0f;
-    if (active) {
-      for (int c = 0; c < d; ++c) dsum = fmaf(go[c], acc[c] / l, dsum);
-      for (int c = 0; c < d; ++c) acc[c] = 0.0f;  // now dS_i B
-    }
-    for (int k0 = 0; k0 < tk; k0 += tile) {
-      const int rows = min(tile, tk - k0);
-      __syncthreads();
-      stage_rows(bp, smem, k0, rows, d);
-      __syncthreads();
-      if (active) {
-        for (int k = 0; k < rows; ++k) {
-          const float* brow = smem + k * d;
-          const float pk = expf(dot_mem<V4>(q, brow, d) / sqrt_d - m) / l;
-          const float ds = pk * (dot_mem<V4>(go, brow, d) - dsum);
-          axpy_mem<V4>(acc, ds, brow, d);
-        }
-      }
-    }
-    if (active) {
-      for (int c = 0; c < d; ++c) acc[c] = acc[c] / sqrt_d;
-      st[3 * i] = m;
-      st[3 * i + 1] = l;
-      st[3 * i + 2] = dsum;
-    }
-  }
-
-  // Phase 2: a thread per key row k; dB_k is its running sum.
-  float* as = smem;
-  float* gs = as + tile * d;
-  float* ss = gs + tile * d;
-  for (int k0 = 0; k0 < tk; k0 += blockDim.x) {
-    const int k = k0 + threadIdx.x;
-    const bool active = k < tk;
-    const size_t row = static_cast<size_t>(active ? k : 0) * d;
-    const float* kb = bp + row;
-    float* acc = db + p * tk * d + row;
-    if (active) {
-      for (int c = 0; c < d; ++c) acc[c] = 0.0f;
-    }
-    for (int j0 = 0; j0 < tq; j0 += tile) {
-      const int rows = min(tile, tq - j0);
-      __syncthreads();
-      stage_rows(ap, as, j0, rows, d);
-      stage_rows(gp, gs, j0, rows, d);
-      for (int e = threadIdx.x; e < 3 * rows; e += blockDim.x) ss[e] = st[3 * j0 + e];
-      __syncthreads();
-      if (active) {
-        for (int j = 0; j < rows; ++j) {
-          const float* arow = as + j * d;
-          const float* grow = gs + j * d;
-          const float pk = expf(dot_mem<V4>(kb, arow, d) / sqrt_d - ss[3 * j]) / ss[3 * j + 1];
-          const float ds = pk * (dot_mem<V4>(kb, grow, d) - ss[3 * j + 2]);
-          axpy_mem<V4>(acc, pk, grow, d);
-          axpy_mem<V4>(acc, ds / sqrt_d, arow, d);
-        }
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1463,17 +1538,6 @@ cheap_xattn_backward_tiled_kernel(const float* __restrict__ a, const float* __re
   }
 }
 
-// Rows of a tile for the wide kernels, `row_floats` floats each: as many as
-// the default 48 KB hold, at most kTile and at least one; 0 if one row
-// exceeds the block's shared memory.
-int wide_tile(size_t row_floats, size_t* smem) {
-  const size_t row_bytes = row_floats * sizeof(float);
-  size_t t = kDefaultSmem / row_bytes;
-  t = t > static_cast<size_t>(kTile) ? kTile : (t < 1 ? 1 : t);
-  *smem = t * row_bytes;
-  return *smem > kMaxSmem ? 0 : static_cast<int>(t);
-}
-
 // ---------------------------------------------------------------------------
 // Launches. One function per direction works out a variant's launch, which
 // both the entry point and cheap_xattn_config use.
@@ -1483,7 +1547,6 @@ struct Launch {
   dim3 grid;
   int threads;
   size_t smem;  // dynamic shared memory, bytes
-  int tile;     // variant 3's rows a tile
 };
 
 template <class Kernel>
@@ -1502,14 +1565,16 @@ bool variant_takes(int variant, bool backward, int tq, int tk, int d) {
     case kSweepD12: return sweep && d == 12;
     case kSweep: return sweep && d <= kMaxD;
     case kTwoPass: return d <= kMaxD;
-    case kWide: return d > kMaxD;
+    case kSweep128: return d <= kMaxD && tk <= kLongT && (!backward || tq <= kLongT);
     case kTiled: return d > kMaxD;
     default: return false;
   }
 }
 
-// The sweep kernels' register width for d.
+// The sweep kernels' register width for d; variant 3 also takes 8 (d <= 8)
+// and 12 (d = 12).
 int sweep_width(int variant, int d) {
+  if (variant == kSweep128 && (d <= 8 || d == 12)) return d <= 8 ? 8 : 12;
   return variant == kSweepD12 ? 12 : d <= 16 ? 16 : d <= 32 ? 32 : 64;
 }
 
@@ -1535,22 +1600,33 @@ cudaError_t forward_launch(int variant, int n, int tq, int tk, int d, Launch* ou
   if (!valid_sizes(n, tq, tk, d) || !variant_takes(variant, false, tq, tk, d)) {
     return cudaErrorInvalidValue;
   }
-  Launch l{nullptr, dim3(1), kSweepThreads, 0, 0};
+  Launch l{nullptr, dim3(1), kSweepThreads, 0};
   const bool v4 = d % 4 == 0;
-  if (variant == kSweepD12 || variant == kSweep) {
+  if (variant == kSweepD12 || variant == kSweep || variant == kSweep128) {
     const bool full = tk == kSweepT;
-    switch (sweep_width(variant, d)) {
-      case 12: l.kernel = full ? fn(cheap_xattn_forward_sweep_kernel<12, true>)
-                               : fn(cheap_xattn_forward_sweep_kernel<12, false>); break;
-      case 16: l.kernel = fn(cheap_xattn_forward_sweep_kernel<16, false>); break;
-      case 32: l.kernel = fn(cheap_xattn_forward_sweep_kernel<32, false>); break;
-      default: l.kernel = fn(cheap_xattn_forward_sweep_kernel<64, false>); break;
+    if (variant == kSweep128) {
+      switch (sweep_width(variant, d)) {
+        case 8: l.kernel = fn(cheap_xattn_forward_sweep128_kernel<8>); break;
+        case 12: l.kernel = fn(cheap_xattn_forward_sweep128_kernel<12>); break;
+        case 16: l.kernel = fn(cheap_xattn_forward_sweep128_kernel<16>); break;
+        case 32: l.kernel = fn(cheap_xattn_forward_sweep128_kernel<32>); break;
+        default: l.kernel = fn(cheap_xattn_forward_sweep128_kernel<64>); break;
+      }
+    } else {
+      switch (sweep_width(variant, d)) {
+        case 12: l.kernel = full ? fn(cheap_xattn_forward_sweep_kernel<12, true>)
+                                 : fn(cheap_xattn_forward_sweep_kernel<12, false>); break;
+        case 16: l.kernel = fn(cheap_xattn_forward_sweep_kernel<16, false>); break;
+        case 32: l.kernel = fn(cheap_xattn_forward_sweep_kernel<32, false>); break;
+        default: l.kernel = fn(cheap_xattn_forward_sweep_kernel<64, false>); break;
+      }
     }
     int resident;
     const cudaError_t err = resident_blocks(l.kernel, kSweepThreads, 0, &resident);
     if (err != cudaSuccess) return err;
     const long long units = static_cast<long long>(n) * ((tq + kSweepT - 1) / kSweepT);
-    const long long rounds = (units + kSlots - 1) / kSlots;
+    const int per_round = variant == kSweep128 ? 1 : kSlots;  // units a block takes a round
+    const long long rounds = (units + per_round - 1) / per_round;
     l.grid = dim3(static_cast<unsigned>(rounds < resident ? rounds : resident));
   } else if (variant == kTwoPass) {
     if (d <= 16) {
@@ -1575,13 +1651,6 @@ cudaError_t forward_launch(int variant, int n, int tq, int tk, int d, Launch* ou
     if (resident < 1) return cudaErrorInvalidValue;
     const long long units = static_cast<long long>(n) * ((tq + kSweepT - 1) / kSweepT);
     l.grid = dim3(static_cast<unsigned>(units < resident ? units : resident));
-  } else {
-    l.tile = wide_tile(d, &l.smem);
-    if (l.tile == 0) return cudaErrorInvalidValue;
-    l.kernel = v4 ? fn(cheap_xattn_forward_wide_kernel<true>)
-                  : fn(cheap_xattn_forward_wide_kernel<false>);
-    l.threads = threads_for(tq);
-    l.grid = dim3(n, (tq + l.threads - 1) / l.threads);
   }
   *out = l;
   return allow_smem(l.kernel, l.smem);
@@ -1591,7 +1660,7 @@ cudaError_t backward_launch(int variant, int n, int tq, int tk, int d, Launch* o
   if (!valid_sizes(n, tq, tk, d) || !variant_takes(variant, true, tq, tk, d)) {
     return cudaErrorInvalidValue;
   }
-  Launch l{nullptr, dim3(n), kSweepThreads, 0, 0};
+  Launch l{nullptr, dim3(n), kSweepThreads, 0};
   const bool v4 = d % 4 == 0;
   if (variant == kSweepD12 || variant == kSweep) {
     const int w = sweep_width(variant, d);
@@ -1604,6 +1673,18 @@ cudaError_t backward_launch(int variant, int n, int tq, int tk, int d, Launch* o
       default: l.kernel = fn(cheap_xattn_backward_sweep_kernel<64, false>); break;
     }
     l.smem = sweep_backward_smem(w);
+  } else if (variant == kSweep128) {
+    const int w = sweep_width(variant, d);
+    switch (w) {
+      case 8: l.kernel = fn(cheap_xattn_backward_sweep128_kernel<8>); break;
+      case 12: l.kernel = fn(cheap_xattn_backward_sweep128_kernel<12>); break;
+      case 16: l.kernel = fn(cheap_xattn_backward_sweep128_kernel<16>); break;
+      case 32: l.kernel = fn(cheap_xattn_backward_sweep128_kernel<32>); break;
+      default: l.kernel = fn(cheap_xattn_backward_sweep128_kernel<64>); break;
+    }
+    l.threads = kLongBwdThreads;
+    l.smem = sweep128_backward_smem(w, tq, tk);
+    if (l.smem > kMaxSmem) return cudaErrorInvalidValue;
   } else if (variant == kTwoPass) {
     if (d <= 16) {
       l.kernel = v4 ? fn(cheap_xattn_backward_kernel<16, true>) : fn(cheap_xattn_backward_kernel<16, false>);
@@ -1619,12 +1700,6 @@ cudaError_t backward_launch(int variant, int n, int tq, int tk, int d, Launch* o
                   : fn(cheap_xattn_backward_tiled_kernel<false>);
     l.threads = kTiledThreads;
     l.smem = kTiledBackwardSmem;
-  } else {
-    l.tile = wide_tile(2 * static_cast<size_t>(d) + 3, &l.smem);
-    if (l.tile == 0) return cudaErrorInvalidValue;
-    l.kernel = v4 ? fn(cheap_xattn_backward_wide_kernel<true>)
-                  : fn(cheap_xattn_backward_wide_kernel<false>);
-    l.threads = threads_for(tq > tk ? tq : tk);
   }
   *out = l;
   return allow_smem(l.kernel, l.smem);
@@ -1636,7 +1711,7 @@ extern "C" {
 
 // Launches the forward of `variant` on `stream`. Returns a cudaError_t: 0 on
 // success, cudaErrorInvalidValue for sizes the variant does not take (N, Tq,
-// Tk or d < 1, see variant_takes, or a row of B wider than shared memory).
+// Tk or d < 1: see variant_takes).
 // a (N, Tq, d), b (N, Tk, d), out (N, Tq, d): contiguous, 16-byte aligned f32
 // device pointers.
 int cheap_xattn_forward(const float* a, const float* b, float* out, int n, int tq, int tk,
@@ -1648,20 +1723,16 @@ int cheap_xattn_forward(const float* a, const float* b, float* out, int n, int t
   float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(d)));
   void* sweep_args[] = {&a, &b, &out, &n, &tq, &tk, &d, &scale};
   void* two_pass_args[] = {&a, &b, &out, &tq, &tk, &d, &sqrt_d};
-  void* wide_args[] = {&a, &b, &out, &tq, &tk, &d, &sqrt_d, &l.tile};
   void* tiled_args[] = {&a, &b, &out, &n, &tq, &tk, &d, &sqrt_d};
-  void** args = variant == kTwoPass ? two_pass_args
-                : variant == kWide  ? wide_args
-                : variant == kTiled ? tiled_args
-                                    : sweep_args;
+  void** args = variant == kTwoPass ? two_pass_args : variant == kTiled ? tiled_args : sweep_args;
   return static_cast<int>(cudaLaunchKernel(l.kernel, l.grid, dim3(l.threads), args, l.smem,
                                            static_cast<cudaStream_t>(stream)));
 }
 
 // Launches the backward of `variant` on `stream`. Returns a cudaError_t. a, b
 // as the forward; g (N, Tq, d) the cotangent; da (N, Tq, d) and db (N, Tk, d)
-// the outputs; stats a scratch buffer of N * Tq * 3 floats for variants 2 and
-// 3, and for 4 beyond 64 keys (unused otherwise: may be null). All
+// the outputs; stats a scratch buffer of N * Tq * 3 floats for variant 2,
+// and for 4 beyond 64 keys (unused otherwise: may be null). All
 // contiguous, 16-byte aligned f32 device pointers.
 int cheap_xattn_backward(const float* a, const float* b, const float* g, float* da, float* db,
                          float* stats, int n, int tq, int tk, int d, int variant, void* stream) {
@@ -1672,10 +1743,7 @@ int cheap_xattn_backward(const float* a, const float* b, const float* g, float* 
   float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(d)));
   void* sweep_args[] = {&a, &b, &g, &da, &db, &tq, &tk, &d, &scale};
   void* two_pass_args[] = {&a, &b, &g, &da, &db, &stats, &tq, &tk, &d, &sqrt_d};
-  void* wide_args[] = {&a, &b, &g, &da, &db, &stats, &tq, &tk, &d, &sqrt_d, &l.tile};
-  void** args = variant == kTwoPass || variant == kTiled ? two_pass_args
-                : variant == kWide                     ? wide_args
-                                                       : sweep_args;
+  void** args = variant == kTwoPass || variant == kTiled ? two_pass_args : sweep_args;
   return static_cast<int>(cudaLaunchKernel(l.kernel, l.grid, dim3(l.threads), args, l.smem,
                                            static_cast<cudaStream_t>(stream)));
 }

@@ -13,9 +13,11 @@ one to the other.
 
 The source holds five variants of each kernel; ``_variant`` chooses one from
 the sizes (Tq, Tk, d) and passes it to the entry points, which refuse a
-variant that does not take the sizes. Rows in device memory (``WIDE``) is
-chosen for no size: it stays callable by name, through ``_forward_kernel``
-and ``_backward_kernel``, as the yardstick the tiled kernels replaced.
+variant that does not take the sizes. The two-pass kernels (``TWO_PASS``)
+are chosen only beyond 128 keys (backward: or query rows), which no model's
+default path reaches; they stay callable by name at every length, through
+``_forward_kernel`` and ``_backward_kernel``, as the yardstick the one-sweep
+kernels over 128 keys replaced.
 """
 
 from __future__ import annotations
@@ -37,13 +39,15 @@ _bound = None
 # The kernel variants of csrc/cheap_xattn.cu, numbered as its entry points take
 # them: one sweep with d = 12 as a compile-time width (Tk <= 64; backward also
 # Tq <= 64), one sweep at any d <= 64 (the same lengths), the two-pass kernels
-# (d <= 64 beyond those lengths), rows in device memory (any d > 64; chosen
-# for no size), and tiles in shared memory (d > 64, any Tq and Tk, both ways:
-# key tiles of 64 with an online softmax forward, one block a problem
-# backward). Operations bound each at the repo's shapes (csrc header).
-SWEEP_D12, SWEEP, TWO_PASS, WIDE, TILED = range(5)
-VARIANT_NAMES = ("sweep_d12", "sweep", "two_pass", "rows_in_memory", "tiled")
+# (d <= 64 beyond 128 keys or, backward, query rows), one sweep over up to 128
+# keys with two lanes a query row (d <= 64 between the two), and tiles in
+# shared memory (d > 64, any Tq and Tk, both ways: key tiles of 64 with an
+# online softmax forward, one block a problem backward). Operations bound
+# each at the repo's shapes (csrc header).
+SWEEP_D12, SWEEP, TWO_PASS, SWEEP_128, TILED = range(5)
+VARIANT_NAMES = ("sweep_d12", "sweep", "two_pass", "sweep_128", "tiled")
 SWEEP_T = 64  # the most keys (backward: and query rows) the sweep kernels hold
+SWEEP_128_T = 128  # the same for the sweep over 128 keys
 REGISTER_D = 64  # the widest row the register kernels hold
 
 
@@ -51,9 +55,11 @@ def _variant(tq: int, tk: int, d: int, backward: bool = False) -> int:
     """The kernel variant that takes these sizes."""
     if d > REGISTER_D:
         return TILED
-    if tk > SWEEP_T or (backward and tq > SWEEP_T):
-        return TWO_PASS
-    return SWEEP_D12 if d == 12 else SWEEP
+    if tk <= SWEEP_T and (not backward or tq <= SWEEP_T):
+        return SWEEP_D12 if d == 12 else SWEEP
+    if tk <= SWEEP_128_T and (not backward or tq <= SWEEP_128_T):
+        return SWEEP_128
+    return TWO_PASS
 
 
 def cheap_xattn_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -196,10 +202,10 @@ def _backward_kernel(a, b, g, variant=None):
     if n == 0:
         return da, db
     a, b, g = _aligned(a), _aligned(b), _aligned(g)
-    # row statistics of the two-pass kernels and of the tiled one beyond 64
+    # row statistics of the two-pass kernel and of the tiled one beyond 64
     # keys; the others keep theirs on chip
     stats = (torch.empty((n, tq, 3), dtype=torch.float32, device=a.device)
-             if variant in (TWO_PASS, WIDE) or (variant == TILED and tk > SWEEP_T) else None)
+             if variant == TWO_PASS or (variant == TILED and tk > SWEEP_T) else None)
     bwd = _library()[1]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream

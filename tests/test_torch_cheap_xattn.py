@@ -27,12 +27,13 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 PALLAS_TOL = dict(rtol=2e-4, atol=2e-5)
 
 # (N, Tq, Tk, d): tests/test_pallas.py:56-70's shapes, then one query row,
-# one key row, the 2-mod family's width, and d beyond the kernels' register
-# rows (--enc_out_ch above 64), also at a window of 128 frames (--win_len 128:
-# two key tiles and two query tiles of the tiled kernels)
+# one key row, the 2-mod family's widths at T 101 (FoG's d 6, FBG's d 3), and
+# d beyond the kernels' register rows (--enc_out_ch above 64), also at a
+# window of 128 frames (--win_len 128: two key tiles and two query tiles of
+# the tiled kernels)
 CASES = [(2, 64, 64, 12), (2, 101, 426, 12), (2, 200, 100, 12), (2, 32, 48, 8),
-         (3, 1, 7, 12), (3, 9, 1, 12), (2, 101, 101, 6), (2, 17, 23, 65), (2, 40, 70, 96),
-         (2, 128, 128, 96)]
+         (3, 1, 7, 12), (3, 9, 1, 12), (2, 101, 101, 6), (2, 101, 101, 3), (2, 17, 23, 65),
+         (2, 40, 70, 96), (2, 128, 128, 96)]
 
 
 def _inputs(case, seed=0):
@@ -93,13 +94,24 @@ def test_equal_scores_give_the_mean():
 
 # (Tq, Tk, d) -> (forward, backward) kernel variant, at each variant's edges:
 # the sweep kernels hold 64 keys (the backward also 64 query rows) and rows of
-# d <= 64, d = 12 at a compile-time width; beyond 64 keys the two-pass
-# kernels; beyond d = 64 the tiles in shared memory both ways at every Tq
-# and Tk (rows in device memory is chosen for no size)
+# d <= 64, d = 12 at a compile-time width; up to 128 keys (the backward also
+# 128 query rows) the sweep over 128 keys, its W 8 up to d 8; beyond that
+# the two-pass kernels; beyond d = 64 the tiles in shared memory both ways
+# at every Tq and Tk
 VARIANT_EDGES = {
     (64, 64, 12): (cx.SWEEP_D12, cx.SWEEP_D12),
-    (64, 65, 12): (cx.TWO_PASS, cx.TWO_PASS),
-    (65, 64, 12): (cx.SWEEP_D12, cx.TWO_PASS),
+    (64, 65, 12): (cx.SWEEP_128, cx.SWEEP_128),
+    (65, 64, 12): (cx.SWEEP_D12, cx.SWEEP_128),
+    (101, 101, 6): (cx.SWEEP_128, cx.SWEEP_128),
+    (101, 101, 3): (cx.SWEEP_128, cx.SWEEP_128),
+    (101, 101, 8): (cx.SWEEP_128, cx.SWEEP_128),
+    (101, 101, 9): (cx.SWEEP_128, cx.SWEEP_128),
+    (128, 128, 12): (cx.SWEEP_128, cx.SWEEP_128),
+    (128, 129, 12): (cx.TWO_PASS, cx.TWO_PASS),
+    (129, 64, 12): (cx.SWEEP_D12, cx.TWO_PASS),
+    (129, 65, 12): (cx.SWEEP_128, cx.TWO_PASS),
+    (65, 128, 64): (cx.SWEEP_128, cx.SWEEP_128),
+    (65, 128, 65): (cx.TILED, cx.TILED),
     (1, 1, 12): (cx.SWEEP_D12, cx.SWEEP_D12),
     (64, 63, 12): (cx.SWEEP_D12, cx.SWEEP_D12),
     (64, 64, 8): (cx.SWEEP, cx.SWEEP),
@@ -107,6 +119,7 @@ VARIANT_EDGES = {
     (33, 47, 36): (cx.SWEEP, cx.SWEEP),
     (64, 64, 64): (cx.SWEEP, cx.SWEEP),
     (130, 20, 13): (cx.SWEEP, cx.TWO_PASS),
+    (200, 100, 12): (cx.SWEEP_128, cx.TWO_PASS),
     (64, 64, 65): (cx.TILED, cx.TILED),
     (101, 426, 12): (cx.TWO_PASS, cx.TWO_PASS),
     (37, 70, 96): (cx.TILED, cx.TILED),

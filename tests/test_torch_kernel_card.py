@@ -431,8 +431,8 @@ def test_solver_kernel_matches_plain_on_card(k):
 # batch, tests/test_pallas.py:56-70's shapes, the symmetric 2-mod shape, one
 # query row, one key row, d not a multiple of 4, the largest register row,
 # wider d (tiles in shared memory), odd and a multiple of 4, and the FBG/FoG
-# cross-attention fusion's two directions at T 101 (two passes): FoG's d = 6
-# at batch 256, FBG's d = 3 at batch 32
+# cross-attention fusion's two directions at T 101 (the sweep over 128 keys):
+# FoG's d = 6 at batch 256, FBG's d = 3 at batch 32
 XATTN_CASES = [
     (6 * 64, 64, 64, 12), (6 * 33 + 1, 64, 64, 12), (2, 101, 426, 12), (2, 200, 100, 12),
     (2, 32, 48, 8), (2 * 64, 101, 101, 12), (5, 1, 64, 12), (5, 64, 1, 12),
@@ -440,15 +440,22 @@ XATTN_CASES = [
     (2 * 256, 101, 101, 6), (2 * 32, 101, 101, 3),
 ]
 # each variant's edges (tests/test_torch_cheap_xattn.py holds the choice): the
-# sweep kernels at Tk = 64 and Tk = 65 (two passes), Tq = 64 and 65 (the
-# backward's two passes; the forward's second 64-row unit), masked scores
-# (Tk = 63), d = 12 (the compile-time width) against 8, 16, 36 and 64 (the
-# general widths), N odd (a block's second unit idle in the last round) and N
-# above one round of the persistent grid, at the main shape plus one problem
+# sweep kernels at Tk = 64 and Tk = 65 (the sweep over 128 keys), Tq = 64 and
+# 65 (its backward; the forward's second 64-row unit), masked scores (Tk =
+# 63), d = 12 (the compile-time width) against 8, 16, 36 and 64 (the general
+# widths), N odd (a block's second unit idle in the last round) and N above
+# one round of the persistent grid, at the main shape plus one problem; then
+# the sweep over 128 keys at T 101 (d 6 and 3, its width 8 at d 8 against 16
+# at d 9), at 128 and 129 keys (the two-pass kernels beyond 128), 129 query
+# rows against 64 keys (the backward's two passes), d 64 over 128 keys, and
+# N above one round of its persistent grid at FoG's shape
 XATTN_EDGE_CASES = [
     (7, 64, 64, 12), (7, 64, 65, 12), (7, 65, 64, 12), (7, 65, 65, 12), (5, 64, 63, 12),
     (5, 64, 64, 8), (5, 64, 64, 16), (5, 64, 64, 36), (3, 33, 47, 36), (5, 64, 64, 64),
     (3, 130, 20, 12), (6 * 1024 + 1, 64, 64, 12),
+    (7, 101, 101, 6), (7, 101, 101, 3), (5, 101, 101, 8), (5, 101, 101, 9),
+    (5, 128, 128, 12), (5, 128, 129, 12), (5, 129, 64, 12), (5, 65, 128, 64),
+    (2 * 1024 + 1, 101, 101, 6),
 ]
 
 
@@ -471,18 +478,36 @@ def test_cheap_xattn_kernels_match_plain_on_card(case):
     a, b, g = _xattn_inputs(case, dev)
     before = (cx.launches, cx.backward_launches)
     got = cx.cheap_xattn(a, b)
+    got_again = cx.cheap_xattn(a, b)
     grads = cx.cheap_xattn_backward(a, b, g)
     again = cx.cheap_xattn_backward(a, b, g)
     torch.cuda.synchronize()
-    assert (cx.launches, cx.backward_launches) == (before[0] + 1, before[1] + 2)
+    assert (cx.launches, cx.backward_launches) == (before[0] + 2, before[1] + 2)
     want = cx.cheap_xattn_reference(a, b)
     if case[2] <= 64:
         assert (got - want).abs().max().item() <= 1e-5
     else:
         assert _xattn_close(got, want, 2e-5, 2e-4)
+    assert torch.equal(got, got_again)
     for gk, wk, ak in zip(grads, cx.cheap_xattn_backward_reference(a, b, g), again):
         assert _xattn_close(gk, wk, 1e-5, 1e-4)
         assert torch.equal(gk, ak)  # deterministic: the same bits twice
+
+
+# the two-pass kernels, chosen only beyond 128 keys, stay callable by name at
+# every length: chip_smoke.py times them beside the sweep over 128 keys
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(7, 101, 101, 6), (5, 64, 64, 12), (3, 65, 128, 64)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_two_pass_by_name_on_card(case):
+    dev = _cuda()
+    a, b, g = _xattn_inputs(case, dev)
+    got = cx._forward_kernel(a, b, cx.TWO_PASS)
+    grads = cx._backward_kernel(a, b, g, cx.TWO_PASS)
+    torch.cuda.synchronize()
+    assert _xattn_close(got, cx.cheap_xattn_reference(a, b), 2e-5, 2e-4)
+    for gk, wk in zip(grads, cx.cheap_xattn_backward_reference(a, b, g)):
+        assert _xattn_close(gk, wk, 1e-5, 1e-4)
 
 
 @pytest.mark.gpu
@@ -490,8 +515,9 @@ def test_cheap_xattn_kernels_match_plain_on_card(case):
 @pytest.mark.parametrize("case", XATTN_EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_cheap_xattn_launch_config_on_card(case, backward):
     """The launch of the variant the sizes take: the card holds at least one
-    block an SM, and the sweep forward's persistent grid is no larger than
-    the card holds at once nor than its units of 64 query rows."""
+    block an SM, and the sweep forwards' persistent grid is no larger than
+    the card holds at once nor than their units of 64 query rows; the
+    backward of the sweep over 128 keys takes a block a problem."""
     _cuda()
     n, tq, tk, d = case
     config = cx.launch_config(n, tq, tk, d, backward)
@@ -501,6 +527,8 @@ def test_cheap_xattn_launch_config_on_card(case, backward):
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         units = n * -(-tq // cx.SWEEP_T)
         assert 1 <= config["blocks"] <= min(units, config["blocks_per_sm"] * sms)
+    if backward and config["variant"] == "sweep_128":
+        assert config["blocks"] == n
 
 
 # the tiles in shared memory (d > 64, both ways): d 65 (not a multiple of
