@@ -88,8 +88,10 @@ Phases (each raises on failure, so the script exits non-zero):
   5f. the other 15 MTL methods, from a random stream of their own: the
      MGDA, FairGrad (alpha 0.5, 1, 2) and NashMTL solver kernels against
      their plain versions at K = 1..8 on seeded and degenerate Gram
-     matrices, in one launch and one matrix a launch (w bitwise equal,
-     finite, MGDA's on the simplex, each launch counted); each method's
+     matrices, in one launch, one matrix a launch and 257 matrices in one
+     launch (w bitwise equal, finite, MGDA's on the simplex, each launch
+     counted), FairGrad's and NashMTL's one-thread design by name too (w
+     bitwise equal); each method's
      host synchronisations in one train step, none more than CAGrad's
      (torch.cuda's sync debug mode); for the 12 methods that draw nothing,
      one train step card vs CPU as in phase 4 and run_cv card vs CPU (sync 2
@@ -178,7 +180,9 @@ Phases (each raises on failure, so the script exits non-zero):
      both variants, at C_in 32, 48 and 64 (the wrapper's threshold), and one
      train step of each SOTA baseline at batch 64 and 1024; the MGDA,
      FairGrad and NashMTL solver kernels at K = 3, one matrix (eager and
-     device time, plain version, bound) and one train step of every MTL
+     device time, plain version, bound; FairGrad's and NashMTL's warp
+     design from a CUDA graph in turns with their one-thread design, and
+     each design's launch, registers and spills) and one train step of every MTL
      method at batch 64 and 1024; one CAGrad train step with the recipe on
      at batch 64 and 1024, beside the plain one, with both steps' device
      time and kernel launches at batch 1024 (torch.profiler, in turns), and
@@ -197,6 +201,9 @@ Phases (each raises on failure, so the script exits non-zero):
      plain versions, scaled_dot_product_attention and its autograd, and the
      bounds; the
      stream block at FOCAL's 2-mod shape beside conv1d + ReLU + pool; every
+     the two-pass cross-attention beyond 128 keys (N 5, Tq 128, Tk 129 and
+     N 128, Tq = Tk = 129, d 12), as the FoG shape above but without an
+     older variant; every
      T 101 forward shape of phases 5h and 5i (C_in 3, 6, 12, 16, 32) from a
      CUDA graph: per_frame, the generic variant it replaces, the library
      call and the plain version, in turns; the wide threshold's shapes also
@@ -431,7 +438,8 @@ def kernel_resources(log: str) -> list:
         if len(out) == len(rows):
             for r, plain in zip(rows, out):  # drop the namespace and the argument list
                 plain = plain.replace("(anonymous namespace)::", "").removeprefix("void ")
-                r[0] = plain[:plain.find("(")] if "(" in plain else plain
+                cut = plain.rfind(">(") + 1 if ">(" in plain else plain.find("(")
+                r[0] = plain[:cut] if cut > 0 else plain
     return [tuple(r) for r in rows]
 
 
@@ -857,6 +865,10 @@ SWEEP128_XATTN_CASES = {
     "d64_tq65_tk128": (5, 65, 128, 64), "tk129": (5, 128, 129, 12),
     "tq129_tk64": (5, 129, 64, 12),
 }
+# the two-pass kernels' timed shapes: the 129-key case above, and
+# --win_len 129's Tq = Tk = 129 at d 12 over the symmetric 2-mod model's two
+# directions of 64 windows
+TWO_PASS_TIMED = {"tk129": SWEEP128_XATTN_CASES["tk129"], "t129_d12": (2 * 64, 129, 129, 12)}
 # one shape a variant for the launch table: the main shape (sweep_d12), then
 # the main shape's N at d = 36 (sweep), at Tk = 65 (sweep_128), at d = 96,
 # FoG's fusion (sweep_128 at W 8) and 129 keys (two_pass)
@@ -1479,47 +1491,81 @@ def mtl_solver_calls():
     return calls
 
 
+NEWTON_BATCH = 257  # matrices in one launch: a grid that 4 warps a block does not divide
+
+
 def check_mtl_solvers(rng, dev) -> dict:
     """Each solver kernel against its plain version at K = 1..8 on seeded
-    and degenerate Gram matrices, in one launch and one matrix a launch:
-    w bitwise equal (FairGrad's too: kernel and plain version call the
-    same device powf); every w finite, MGDA's on the simplex; the launch
-    counter up by one a launch. Returns each solver's max abs error at
+    and degenerate Gram matrices, in one launch and one matrix a launch,
+    then NEWTON_BATCH of them in one launch; FairGrad's and NashMTL's
+    one-thread design by name on both batches: w bitwise equal (FairGrad's
+    too: kernel and plain version call the same device powf); every w
+    finite, MGDA's on the simplex; the launch counter up by one a launch
+    (none for the design by name). Returns each solver's max abs error at
     K = 3 (FairGrad's at its default alpha 1)."""
     errors = {}
     for k in range(1, ms.MAX_TASKS + 1):
         raw = torch.from_numpy(mtl_solver_grams(rng, 12, k)).to(dev)
+        n_degenerate = len(raw) - 12
+        raw_batch = torch.from_numpy(
+            mtl_solver_grams(rng, NEWTON_BATCH - n_degenerate, k)).to(dev)
         for label, run, plain, counter, prep, simplex in mtl_solver_calls():
-            grams = prep(raw)
+            grams, batch = prep(raw), prep(raw_batch)
             before = read_launches()[counter]
             got = run(grams)
             alone = [run(g) for g in grams]
+            got_batch = run(batch)
             torch.cuda.synchronize()
             launched = read_launches()[counter] - before
-            want = plain(grams)
-            same = int((got.view(torch.int32) == want.view(torch.int32)).all(-1).sum())
+            want, want_batch = plain(grams), plain(batch)
+            same = bitwise_rows(got, want)
             same_alone = sum(bool(torch.equal(a.view(torch.int32), w.view(torch.int32)))
                              for a, w in zip(alone, want))
+            same_batch = bitwise_rows(got_batch, want_batch)
             err = (got - want).abs().max().item()
             finite = bool(torch.isfinite(got).all() and torch.isfinite(want).all())
-            on_simplex = (not simplex) or bool(
-                (got >= 0).all() and (got.sum(-1) - 1).abs().max().item() <= 1e-5)
+            # the seeded batch may hold problems whose w the plain version
+            # leaves non-finite too (FairGrad at alpha 2, K 7): bitwise
+            # equality holds those
+            batch_nonfinite = int((~torch.isfinite(want_batch)).any(-1).sum())
+            on_simplex = (not simplex) or all(
+                bool((t >= 0).all()) and (t.sum(-1) - 1).abs().max().item() <= 1e-5
+                for t in (got, got_batch[torch.isfinite(want_batch).all(-1)]))
             n = len(grams)
+            thread = ""
+            if counter != "min_norm_solver":  # the one-thread design, by name
+                alpha = [float(label.split("=")[1])] if "alpha" in label else []
+                by_name = [ms._solve_kernel(counter, t, *alpha, variant="thread")
+                           for t in (grams, batch)]
+                torch.cuda.synchronize()
+                same_thread = (bitwise_rows(by_name[0], want), bitwise_rows(by_name[1], want_batch))
+                thread = (f"; the thread design by name {same_thread[0]}/{n} and "
+                          f"{same_thread[1]}/{NEWTON_BATCH}")
+                if same_thread != (n, NEWTON_BATCH):
+                    raise RuntimeError(f"{label} K={k}: the thread design is not bitwise equal "
+                                       f"to the plain version")
             log(f"[kernel] {label} K={k}, {n} Gram matrices ({n - 12} degenerate): bitwise "
-                f"equal {same}/{n} in one launch, {same_alone}/{n} one matrix a launch; max abs "
+                f"equal {same}/{n} in one launch, {same_alone}/{n} one matrix a launch, "
+                f"{same_batch}/{NEWTON_BATCH} in one launch of {NEWTON_BATCH} (non-finite in "
+                f"the plain version: {batch_nonfinite}); max abs "
                 f"err {err:.3e}; finite {finite}" + (f"; on the simplex {on_simplex}"
                                                      if simplex else "")
-                + f"; launches {launched}")
-            if launched != 1 + n:
-                raise RuntimeError(f"{label} K={k}: {launched} launches counted, want {1 + n}")
+                + f"; launches {launched}" + thread)
+            if launched != 2 + n:
+                raise RuntimeError(f"{label} K={k}: {launched} launches counted, want {2 + n}")
             if not (finite and on_simplex):
                 raise RuntimeError(f"{label} K={k}: w not finite or off the simplex")
-            if same != n or same_alone != n:
+            if same != n or same_alone != n or same_batch != NEWTON_BATCH:
                 raise RuntimeError(f"{label} K={k}: w not bitwise equal to the plain version's "
                                    f"(max abs err {err:.3e})")
             if k == 3 and (counter not in errors or "alpha=1.0" in label):
                 errors[counter] = err
     return errors
+
+
+def bitwise_rows(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Rows of w whose bits all equal the plain version's."""
+    return int((got.view(torch.int32) == want.view(torch.int32)).all(-1).sum())
 
 
 def step_syncs(seed, dev, mtl_method, recipe=False) -> int:
@@ -2402,12 +2448,16 @@ def device_ms(fn, reps=20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    for attempt in range(3):  # the profiler has come back without device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+        if us > 0:
+            break
+        log(f"[time] the profiler recorded no device time (attempt {attempt + 1})")
     return us / 1e3 / reps
 
 
@@ -2690,16 +2740,37 @@ def mtl_solver_ops(name, k):
     return 50 * (matvec + 4 * k + newton)
 
 
+def mtl_solver_resources() -> dict:
+    """Registers and spills of each solver kernel at K = 3, from nvcc's
+    -Xptxas -v lines: {kernel name: (registers, (spill stores, loads))}."""
+    rows = kernel_resources(_build.build("mtl_solvers").log)
+    return {name: (regs, spills) for name, regs, spills, _ in rows
+            if "<3, " in name or "ILi3E" in name}
+
+
 def time_mtl_solvers(rng, dev, card) -> dict:
     """Each solver kernel at the main path's shape (K = 3, one matrix, a
-    step's launch) beside its plain version on the card and its bound."""
+    step's launch) beside its plain version on the card and its bound:
+    eager, device time under the profiler and from a CUDA graph; FairGrad's
+    and NashMTL's one-thread design by name in the same call, in turns
+    (warp, thread, warp, thread), with each design's launch (threads a
+    block, lanes a matrix, registers and spills)."""
     raw = torch.from_numpy(mtl_solver_grams(rng, 1, 3)[0]).to(dev)
+    resources = mtl_solver_resources()
+    for name, (regs, spills) in sorted(resources.items()):
+        log(f"[config] {card}: {name}: {regs} registers, spill stores/loads {spills[0]}/"
+            f"{spills[1]} bytes")
+    for variant in ms.VARIANTS:
+        log(f"[config] {card}: FairGrad/NashMTL solver, {variant} design: "
+            f"{ms.launch_config(variant)}")
     out = {}
-    for name, run, plain, prep in (
-            ("min_norm_solver", ms.min_norm_solve, ms.min_norm_solve_reference, lambda g: g),
+    for name, run, plain, prep, alpha in (
+            ("min_norm_solver", ms.min_norm_solve, ms.min_norm_solve_reference, lambda g: g,
+             ()),
             ("fairgrad_solver", lambda g: ms.fairgrad_solve(g, 1.0),
-             lambda g: ms.fairgrad_solve_reference(g, 1.0), lambda g: g),
-            ("nashmtl_solver", ms.nashmtl_solve, ms.nashmtl_solve_reference, nash_normalised)):
+             lambda g: ms.fairgrad_solve_reference(g, 1.0), lambda g: g, (1.0,)),
+            ("nashmtl_solver", ms.nashmtl_solve, ms.nashmtl_solve_reference, nash_normalised,
+             ())):
         gram = prep(raw)
         kernel_ms = time_cuda(lambda: run(gram), warmup=10, reps=200)
         plain_ms = time_cuda(lambda: plain(gram), warmup=1, reps=3)
@@ -2707,13 +2778,30 @@ def time_mtl_solvers(rng, dev, card) -> dict:
         dev_ms = device_ms(lambda: run(gram))
         ops = mtl_solver_ops(name, 3)
         bound_ms, bound_by = _bound(4 * (9 + 3), ops)
+        entry = {"ms": min(kernel_ms, kernel_ms_2), "plain_ms": plain_ms,
+                 "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "device_ms": dev_ms}
+        turns = ""
+        if name != "min_norm_solver":
+            def thread():
+                return ms._solve_kernel(name, gram, *alpha, variant="thread")
+
+            graph = [time_cuda_graph(lambda: run(gram), reps=100),
+                     time_cuda_graph(thread, reps=100),
+                     time_cuda_graph(lambda: run(gram), reps=100),
+                     time_cuda_graph(thread, reps=100)]
+            entry.update(graph_ms=min(graph[0], graph[2]), thread_graph_ms=min(graph[1], graph[3]),
+                         thread_ms=time_cuda(thread, warmup=10, reps=200),
+                         thread_device_ms=device_ms(thread))
+            turns = (f"; from a CUDA graph in turns warp/thread/warp/thread {graph[0]:.4f}/"
+                     f"{graph[1]:.4f}/{graph[2]:.4f}/{graph[3]:.4f} ms; the thread design "
+                     f"eager {entry['thread_ms']:.4f} ms, device {entry['thread_device_ms']:.4f} "
+                     f"ms under the profiler")
         log(f"[time] {card}: {name} K=3 (one Gram matrix): kernel {kernel_ms:.4f}/"
             f"{kernel_ms_2:.4f} ms eager (device {dev_ms:.4f} ms under the profiler), plain "
             f"(eager torch on the card, 3 calls) {plain_ms:.2f} ms, bound {bound_ms:.3e} ms "
-            f"({bound_by}: {ops} f32 operations)")
-        out[name] = {"ms": min(kernel_ms, kernel_ms_2), "plain_ms": plain_ms,
-                     "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-                     "device_ms": dev_ms}
+            f"({bound_by}: {ops} f32 operations)" + turns)
+        out[name] = entry
     return out
 
 
@@ -3061,6 +3149,11 @@ def main() -> int:
     bb_xattn_times = time_cheap_xattn(bb_rng, dev, card, BB_XATTN_SHAPE, old=cx.TWO_PASS)
     t128_xattn_times = time_cheap_xattn(np.random.default_rng([args.seed, 18]), dev, card,
                                         SWEEP128_XATTN_CASES["t128_d12"], old=cx.TWO_PASS)
+    # the two-pass kernels beyond 128 keys (--win_len above 128), off every
+    # default path: timed at the 129-key case phase 5c holds and at T 129
+    two_pass_rng = np.random.default_rng([args.seed, 19])
+    two_pass_times = {name: time_cheap_xattn(two_pass_rng, dev, card, shape)
+                      for name, shape in TWO_PASS_TIMED.items()}
     bb_focal_times = time_stream_block(bb_rng, dev, card, BB_FOCAL_SHAPE, slice(FF_BATCH, None),
                                        "FOCAL async skeleton stream's layout")
     t101_times = time_t101_forwards(np.random.default_rng([args.seed, 16]), dev, card)
@@ -3178,7 +3271,8 @@ def main() -> int:
         f"d 96 {json.dumps(wide_xattn_times)} and the fusion at enc_out_ch {WIDE_FUSION_CH} "
         f"(and its step at win_len {LONG_WINDOW}) "
         f"{json.dumps(wide_fusion)}; the T 101 forwards {json.dumps(t101_times)}; the "
-        f"cross-attention at Tq = Tk = 128, d 12 {json.dumps(t128_xattn_times)}")
+        f"cross-attention at Tq = Tk = 128, d 12 {json.dumps(t128_xattn_times)}; the "
+        f"two-pass kernels {json.dumps(two_pass_times)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
 // mtl_solvers: the simplex and fixed-point solvers of MGDA, FairGrad and
-// NashMTL, for NVIDIA Hopper (sm_90a), one thread per Gram matrix,
-// everything in registers.
+// NashMTL, for NVIDIA Hopper (sm_90a), everything in registers: MGDA's
+// Frank-Wolfe one thread a Gram matrix, FairGrad's and NashMTL's damped
+// Newton iterations one warp a Gram matrix.
 //
 // Not TPU kernels. The JAX package solves these inside its compiled step as
 // XLA loops (gaitpd/learning/minnorm.py: min_norm_element :35-55,
@@ -33,22 +34,57 @@
 // nearly equal, is decided by rounding; any other order of operations would
 // take other vertices there.
 //
-// What bounds it. Neither bytes (K*K + K floats) nor operations (about
+// What bounds them. Neither bytes (K*K + K floats) nor operations (about
 // 14,750 f32 operations for MGDA at K = 3, 7,000 for FairGrad, 3,500 for
 // NashMTL: a fraction of a microsecond at 67 TFLOP/s) but the latency of
-// each solve's chain of dependent scalar operations: at K = 3 one
-// Frank-Wolfe step is about 30 dependent operations, one with a division;
-// one Newton step about 20 with 6 divisions (and FairGrad's powf). Estimated
-// from the CAGrad solver's clock64() readings on the same card (PERF.md:
-// 4 cycles an add or multiply, about 37 a division): about 120 cycles a
-// Frank-Wolfe step, 400 a FairGrad and 300 a NashMTL step, so 15, 20 and 8
-// microseconds at 1,980 MHz.
+// each solve's chain of dependent scalar operations. clock64() readings on
+// an NVIDIA H100 80GB HBM3 at 700 W, SM clock 1,975-1,986 MHz (python -m
+// gaitpd_torch.tools.mtl_solver_clock; cycles a link of a dependent chain):
+// an add 4.9; __fdiv_rn 58.2; powf 254.5 at each of FairGrad's exponents
+// for alpha 0.5, 1 and 2; __frcp_rn 76.9; __shfl_sync 26.3. Independent
+// calls in one thread do not overlap at all: two divisions take 115.9
+// cycles, three 173.2, two powf 504.4 (each branches to a slow path for
+// special operands, and nothing is scheduled across that branch).
 //
-// What the design does about it. A solve is serial by nature; the kernel
-// keeps it in one thread's registers (K fixed at compile time, 1..8, so that
-// every loop over K unrolls and G, J, w and the right-hand side stay in
-// registers), so each step costs its chain's latency and nothing else. The
-// main path solves one matrix a step; a batch of N runs N threads.
+// The Newton designs. One thread a matrix (the `thread` design, kept by
+// name for comparison: the *_solver_variant entries) runs a step as one
+// chain: at K = 3 the right-hand side's 2K = 6 powf calls (NashMTL: 6
+// divisions) one after another, then the elimination's 3 multipliers and
+// the 3 back-substitution divisions; 1,550 cycles a FairGrad step and 614 a
+// NashMTL step. The `warp` design (the default) gives each of those calls
+// that is independent of the others a lane of its own:
+//   - right-hand side: lane i < K forms w_i^(-1/alpha) (NashMTL 1/w_i), lane
+//     K + i forms w_i^(-1/alpha - 1) (1/(w_i w_i)): the 2K calls take one
+//     latency, and 2K shuffles, issued back to back, bring them to every
+//     lane, which holds G and w and forms G w, F and J + EPS I itself;
+//   - elimination on every lane alike, in the serial loop's order; where two
+//     or more rows lie below a pivot, lane r forms row r's multiplier and
+//     shuffles bring them to every lane, one division latency and a shuffle
+//     in place of K - p - 1 divisions (at K = 3, pivot 0's two);
+//   - back substitution and the clamp on every lane alike, so w stays
+//     replicated with no shuffle inside that chain.
+// A lane performs exactly the IEEE operations the serial loop performs, on
+// the same operands, in the same order for every entry; shuffles move bits
+// unchanged. So w is the plain version's bit for bit, the degenerate
+// matrices' NaNs included. Steps at K = 3 / K = 8, cycles: FairGrad 752 /
+// 1,990, NashMTL 479 / 1,713 (thread design 1,550 / 5,139 and 614 / 2,789).
+// Two layouts were measured and not taken: every multiplier in one lane
+// (695 and 488 at K = 3, but 2,348 and 2,453 at K = 8), and a lane a row of
+// J with each pivot row shuffled out before its lanes divide (891 and 647
+// at K = 3: a shuffle round on the chain at every pivot).
+//
+// The floor. Under bitwise equality a step's chain at K = 3 still holds
+// one powf (or a multiply and a division), the 2 pivot divisions and the 3
+// dependent back-substitution divisions, about 254 + 5 x 58 cycles for
+// FairGrad and 62 + 5 x 58 for NashMTL, plus two shuffle latencies and the
+// adds; no order of operations that keeps the bits shortens it, so the
+// operations bound, some 10^5 times shorter, is out of reach.
+//
+// Launch: the Newton solvers take blocks of kWarpsPerBlock warps, a warp a
+// matrix, ceil(N / kWarpsPerBlock) blocks; MGDA blocks of 32 threads, a
+// thread a matrix. K is fixed at compile time, 1..8, so that every loop over
+// K unrolls and G, J, w and the right-hand side stay in registers; 2K <= 16
+// lanes do the right-hand side.
 //
 // Plain C interface, bound with ctypes (gaitpd_torch/ops/mtl_solvers.py).
 
@@ -62,9 +98,12 @@ constexpr int kMinNormIters = 250;
 constexpr int kFairGradIters = 100;
 constexpr int kNashMtlIters = 50;
 constexpr int kMaxK = 8;
-constexpr int kThreads = 32;
+constexpr int kThreads = 32;        // the thread design: a block of 32 matrices
+constexpr int kWarpsPerBlock = 4;   // the warp design: a block of 4 matrices
+constexpr unsigned kFullMask = 0xffffffffu;
 
 enum Method { kMinNorm, kFairGrad, kNashMtl };
+enum Variant { kThreadVariant = 0, kWarpVariant = 1 };
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
@@ -92,6 +131,15 @@ __device__ __forceinline__ void matvec(const float (&g)[K][K], const float (&w)[
                                        float (&out)[K]) {
 #pragma unroll
   for (int i = 0; i < K; ++i) out[i] = dot(g[i], w);
+}
+
+// v[i] for an index known only at run time, without local memory
+template <int K>
+__device__ __forceinline__ float pick(const float (&v)[K], int i) {
+  float r = v[0];
+#pragma unroll
+  for (int j = 1; j < K; ++j) r = i == j ? v[j] : r;
+  return r;
 }
 
 // Frank-Wolfe with the exact line search (minnorm.py:35-55)
@@ -124,6 +172,9 @@ __device__ void min_norm(const float (&g)[K][K], float (&w)[K]) {
     for (int i = 0; i < K; ++i) w[i] = add(mul(keep, w[i]), mul(gamma, e[i]));
   }
 }
+
+// ---------------------------------------------------------------------------
+// The thread design: one thread runs a whole Newton solve.
 
 // x with a x = b: Gaussian elimination without pivoting, back substitution
 template <int K>
@@ -203,6 +254,102 @@ __device__ void nashmtl(const float (&g)[K][K], float (&w)[K]) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The warp design: the lanes of one warp share a Newton solve; every lane
+// holds G and w, and ends each step with the same w.
+
+// The right-hand side's transcendental or division calls, one a lane: lane
+// i < K its task's t1 (FairGrad w_i^e1, NashMTL 1/w_i), lane K + i its t2
+// (w_i^e2, 1/(w_i w_i)); the lanes above 2K repeat lane K's.
+template <int K, Method M>
+__device__ __forceinline__ float rhs_on_lanes(const float (&w)[K], float e1, float e2,
+                                              int lane) {
+  const bool first = lane < K;
+  const float wt = pick(w, first ? lane : lane - K);
+  if constexpr (M == kFairGrad) {
+    return powf(wt, first ? e1 : e2);
+  } else {
+    return div(1.0f, first ? wt : mul(wt, wt));
+  }
+}
+
+// One damped Newton step: w <- max(w - damping (J + EPS I)^-1 F, 1e-6) with
+// F_i = (G w)_i - t1_i and J = G + diag(scale t2_i) (FairGrad's scale
+// 1/alpha, NashMTL's none), solved as newton_step solves it.
+template <int K, Method M>
+__device__ __forceinline__ void warp_newton_step(const float (&g)[K][K], float inv_a, float e1,
+                                                 float e2, float damping, int lane,
+                                                 float (&w)[K]) {
+  const float t = rhs_on_lanes<K, M>(w, e1, e2, lane);
+  float gw[K], a[K][K], b[K];
+  matvec(g, w, gw);
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    b[i] = sub(gw[i], __shfl_sync(kFullMask, t, i));
+    const float t2 = __shfl_sync(kFullMask, t, K + i);
+    const float diag = M == kFairGrad ? mul(inv_a, t2) : t2;
+#pragma unroll
+    for (int j = 0; j < K; ++j) a[i][j] = g[i][j];
+    a[i][i] = add(add(g[i][i], diag), kEps);
+  }
+  // elimination on every lane alike; where two or more rows lie below a
+  // pivot, lane r forms row r's multiplier (the other lanes divide the pivot
+  // by itself) and shuffles bring them to every lane
+#pragma unroll
+  for (int p = 0; p < K; ++p) {
+    float m[K];
+    if (K - p - 1 >= 2) {
+      float num = a[p][p];
+#pragma unroll
+      for (int r = p + 1; r < K; ++r) num = lane == r ? a[r][p] : num;
+      const float mine = div(num, a[p][p]);
+#pragma unroll
+      for (int r = p + 1; r < K; ++r) m[r] = __shfl_sync(kFullMask, mine, r);
+    } else {
+#pragma unroll
+      for (int r = p + 1; r < K; ++r) m[r] = div(a[r][p], a[p][p]);
+    }
+#pragma unroll
+    for (int r = p + 1; r < K; ++r) {
+#pragma unroll
+      for (int c = p + 1; c < K; ++c) a[r][c] = sub(a[r][c], mul(m[r], a[p][c]));
+      b[r] = sub(b[r], mul(m[r], b[p]));
+    }
+  }
+  // back substitution and the clamp, on every lane alike
+  float x[K];
+#pragma unroll
+  for (int p = K - 1; p >= 0; --p) {
+    float s = b[p];
+#pragma unroll
+    for (int c = p + 1; c < K; ++c) s = sub(s, mul(a[p][c], x[c]));
+    x[p] = div(s, a[p][p]);
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) w[i] = clamp_min(sub(w[i], mul(damping, x[i])), kFloor);
+}
+
+// A whole FairGrad (minnorm.py:125-141) or NashMTL (:144-158) solve on one
+// warp; every lane ends with the same w.
+template <int K, Method M>
+__device__ void warp_newton(const float (&g)[K][K], float alpha, int lane, float (&w)[K]) {
+  float inv_a = 0.0f, e1 = 0.0f, e2 = 0.0f;
+  if constexpr (M == kFairGrad) {
+    inv_a = div(1.0f, alpha);
+    e1 = -inv_a;
+    e2 = sub(e1, 1.0f);
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) w[i] = M == kFairGrad ? static_cast<float>(1.0 / K) : 1.0f;
+  const int iters = M == kFairGrad ? kFairGradIters : kNashMtlIters;
+  const float damping = M == kFairGrad ? 0.5f : 0.8f;
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) warp_newton_step<K, M>(g, inv_a, e1, e2, damping, lane, w);
+}
+
+// ---------------------------------------------------------------------------
+// Kernels
+
 template <int K, Method M>
 __global__ void __launch_bounds__(kThreads)
 mtl_solver_kernel(const float* __restrict__ gram, int n, float alpha, float* __restrict__ out) {
@@ -226,28 +373,56 @@ mtl_solver_kernel(const float* __restrict__ gram, int n, float alpha, float* __r
   for (int i = 0; i < K; ++i) out[static_cast<size_t>(m) * K + i] = w[i];
 }
 
+template <int K, Method M>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+mtl_solver_warp_kernel(const float* __restrict__ gram, int n, float alpha,
+                       float* __restrict__ out) {
+  const int m = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (m >= n) return;  // the whole warp: the shuffles need all 32 lanes
+  float g[K][K], w[K];
+  const float* gm = gram + static_cast<size_t>(m) * K * K;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) g[i][j] = gm[i * K + j];
+  }
+  warp_newton<K, M>(g, alpha, lane, w);
+  if (lane < K) out[static_cast<size_t>(m) * K + lane] = pick(w, lane);
+}
+
 // Host side: one launch for n matrices, K picked at run time.
 
 template <int K, Method M>
-void launch_k(const float* gram, float* out, int n, float alpha, cudaStream_t s) {
+void launch_k(const float* gram, float* out, int n, float alpha, int variant, cudaStream_t s) {
+  if constexpr (M != kMinNorm) {
+    if (variant == kWarpVariant) {
+      const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+      mtl_solver_warp_kernel<K, M><<<blocks, kWarpsPerBlock * 32, 0, s>>>(gram, n, alpha, out);
+      return;
+    }
+  }
   const int blocks = (n + kThreads - 1) / kThreads;
   mtl_solver_kernel<K, M><<<blocks, kThreads, 0, s>>>(gram, n, alpha, out);
 }
 
 template <Method M>
-int launch(const float* gram, float* out, int n, int k, float alpha, void* stream) {
-  if (n < 0 || k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+int launch(const float* gram, float* out, int n, int k, float alpha, int variant, void* stream) {
+  if (n < 0 || k < 1 || k > kMaxK || (variant != kThreadVariant && variant != kWarpVariant) ||
+      (M == kMinNorm && variant != kThreadVariant)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
-    case 1: launch_k<1, M>(gram, out, n, alpha, s); break;
-    case 2: launch_k<2, M>(gram, out, n, alpha, s); break;
-    case 3: launch_k<3, M>(gram, out, n, alpha, s); break;
-    case 4: launch_k<4, M>(gram, out, n, alpha, s); break;
-    case 5: launch_k<5, M>(gram, out, n, alpha, s); break;
-    case 6: launch_k<6, M>(gram, out, n, alpha, s); break;
-    case 7: launch_k<7, M>(gram, out, n, alpha, s); break;
-    default: launch_k<8, M>(gram, out, n, alpha, s); break;
+    case 1: launch_k<1, M>(gram, out, n, alpha, variant, s); break;
+    case 2: launch_k<2, M>(gram, out, n, alpha, variant, s); break;
+    case 3: launch_k<3, M>(gram, out, n, alpha, variant, s); break;
+    case 4: launch_k<4, M>(gram, out, n, alpha, variant, s); break;
+    case 5: launch_k<5, M>(gram, out, n, alpha, variant, s); break;
+    case 6: launch_k<6, M>(gram, out, n, alpha, variant, s); break;
+    case 7: launch_k<7, M>(gram, out, n, alpha, variant, s); break;
+    default: launch_k<8, M>(gram, out, n, alpha, variant, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -259,16 +434,38 @@ extern "C" {
 // Each solves n problems on `stream`: gram (n, k, k) -> out (n, k),
 // contiguous f32 device pointers, 1 <= k <= 8. Returns a cudaError_t: 0 on
 // success, cudaErrorInvalidValue for sizes the kernel does not take.
+// fairgrad_solver and nashmtl_solver run the warp design; the *_variant
+// entries take the design by number (0 thread, 1 warp).
 int min_norm_solver(const float* gram, float* out, int n, int k, void* stream) {
-  return launch<kMinNorm>(gram, out, n, k, 0.0f, stream);
+  return launch<kMinNorm>(gram, out, n, k, 0.0f, kThreadVariant, stream);
 }
 
 int fairgrad_solver(const float* gram, float* out, int n, int k, float alpha, void* stream) {
-  return launch<kFairGrad>(gram, out, n, k, alpha, stream);
+  return launch<kFairGrad>(gram, out, n, k, alpha, kWarpVariant, stream);
 }
 
 int nashmtl_solver(const float* gram, float* out, int n, int k, void* stream) {
-  return launch<kNashMtl>(gram, out, n, k, 0.0f, stream);
+  return launch<kNashMtl>(gram, out, n, k, 0.0f, kWarpVariant, stream);
+}
+
+int fairgrad_solver_variant(const float* gram, float* out, int n, int k, float alpha,
+                            int variant, void* stream) {
+  return launch<kFairGrad>(gram, out, n, k, alpha, variant, stream);
+}
+
+int nashmtl_solver_variant(const float* gram, float* out, int n, int k, int variant,
+                           void* stream) {
+  return launch<kNashMtl>(gram, out, n, k, 0.0f, variant, stream);
+}
+
+// The launch of a design: threads a block and lanes a matrix.
+int mtl_solver_launch_config(int variant, int* threads, int* lanes) {
+  if (variant != kThreadVariant && variant != kWarpVariant) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  *threads = variant == kWarpVariant ? kWarpsPerBlock * 32 : kThreads;
+  *lanes = variant == kWarpVariant ? 32 : 1;
+  return 0;
 }
 
 }  // extern "C"

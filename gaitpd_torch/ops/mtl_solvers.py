@@ -5,13 +5,18 @@
 and ``nashmtl_solve(gram)`` the Nash-MTL weights (G a = 1/a, on the Gram
 matrix the caller has normalised), for a (K, K) Gram matrix or a batch
 (N, K, K) of them. On a CUDA tensor each launches its entry of the
-hand-written kernel gaitpd_torch/csrc/mtl_solvers.cu (one thread per matrix,
-in registers; no host synchronisation), counted in its own counter
-(``min_norm_launches``, ``fairgrad_launches``, ``nashmtl_launches``); on a
-CPU tensor it takes the plain version beside it (``*_reference``), which is
-the eager-torch solver of gaitpd_torch.learning.minnorm. Kernel and plain
-version run the same IEEE operations in the same order and agree bit for
-bit. There is no fallback from one to the other.
+hand-written kernel gaitpd_torch/csrc/mtl_solvers.cu (no host
+synchronisation), counted in its own counter (``min_norm_launches``,
+``fairgrad_launches``, ``nashmtl_launches``): MGDA's Frank-Wolfe runs one
+thread a matrix; FairGrad's and NashMTL's damped Newton iterations run one
+warp a matrix, the K tasks' powers or reciprocals and the multipliers below
+a pivot on lanes of their own, the rest on every lane alike (the ``warp``
+design; the one-thread ``thread`` design stays reachable through
+``_solve_kernel`` for comparison on the card). On a CPU tensor each takes
+the plain version beside it (``*_reference``), the eager-torch solver of
+gaitpd_torch.learning.minnorm. Kernel and plain version run the same IEEE
+operations on the same operands, in the same order for every entry, and
+agree bit for bit. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -23,6 +28,9 @@ import torch
 from gaitpd_torch.learning.minnorm import fairgrad_weights, min_norm_element, nashmtl_weights
 
 MAX_TASKS = 8  # K is a compile-time constant of the kernel, 1..8
+# the designs of fairgrad_solver and nashmtl_solver, numbered as the
+# *_solver_variant entries take them; the public wrappers launch "warp"
+VARIANTS = ("thread", "warp")
 
 # Kernel launches of each solver; callers may reset them to 0.
 min_norm_launches = 0
@@ -44,12 +52,26 @@ def _function(name: str):
         from gaitpd_torch.ops import _build
 
         fn = getattr(_build.load("mtl_solvers"), name)
-        alpha = [ctypes.c_float] if name == "fairgrad_solver" else []
+        alpha = [ctypes.c_float] if name.startswith("fairgrad_solver") else []
+        variant = [ctypes.c_int] if name.endswith("_variant") else []
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       *alpha, ctypes.c_void_p]
+                       *alpha, *variant, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _bound[name] = fn
     return fn
+
+
+def launch_config(variant: str = "warp") -> dict:
+    """Threads a block and lanes a matrix of a Newton design, as the source
+    launches it."""
+    from gaitpd_torch.ops import _build
+
+    fn = _build.load("mtl_solvers").mtl_solver_launch_config
+    threads, lanes = ctypes.c_int(), ctypes.c_int()
+    err = fn(ctypes.c_int(VARIANTS.index(variant)), ctypes.byref(threads), ctypes.byref(lanes))
+    if err != 0:
+        raise RuntimeError(f"mtl_solver_launch_config: cudaError_t {err}")
+    return {"variant": variant, "threads": threads.value, "lanes_per_matrix": lanes.value}
 
 
 def _check(gram: torch.Tensor, what: str) -> None:
@@ -63,8 +85,9 @@ def _check(gram: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: unsupported device {gram.device}")
 
 
-def _launch(name: str, gram: torch.Tensor, *alpha: float) -> torch.Tensor:
-    """One launch of csrc/mtl_solvers.cu's ``name`` on a CUDA tensor."""
+def _launch(name: str, gram: torch.Tensor, *args) -> torch.Tensor:
+    """One launch of csrc/mtl_solvers.cu's entry ``name`` on a CUDA tensor;
+    ``args`` are the entry's scalars after k (alpha, the design)."""
     if gram.dtype != torch.float32:
         raise TypeError(f"{name} takes float32, got {gram.dtype}")
     g = gram.detach().contiguous()
@@ -73,11 +96,22 @@ def _launch(name: str, gram: torch.Tensor, *alpha: float) -> torch.Tensor:
     fn = _function(name)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(g.data_ptr(), out.data_ptr(), n, g.shape[-1], *map(float, alpha), stream)
+        err = fn(g.data_ptr(), out.data_ptr(), n, g.shape[-1], *args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err} "
                            f"(gram {tuple(gram.shape)})")
     return out
+
+
+def _solve_kernel(name: str, gram: torch.Tensor, *alpha: float, variant: str = "warp"
+                  ) -> torch.Tensor:
+    """One launch of ``name`` ("fairgrad_solver" or "nashmtl_solver") in the
+    design ``variant`` ("thread" or "warp") on a CUDA tensor, counted by no
+    counter: the card's comparison of the two designs."""
+    _check(gram, name)
+    if gram.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes a CUDA tensor, got {gram.device}")
+    return _launch(f"{name}_variant", gram, *map(float, alpha), VARIANTS.index(variant))
 
 
 def min_norm_solve(gram: torch.Tensor) -> torch.Tensor:
@@ -101,7 +135,7 @@ def fairgrad_solve(gram: torch.Tensor, alpha: float) -> torch.Tensor:
     _check(gram, "fairgrad_solve")
     if gram.device.type == "cpu":
         return fairgrad_solve_reference(gram, alpha)
-    out = _launch("fairgrad_solver", gram, alpha)
+    out = _launch("fairgrad_solver", gram, float(alpha))
     fairgrad_launches += 1
     return out
 

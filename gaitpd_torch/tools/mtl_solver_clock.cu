@@ -1,0 +1,297 @@
+// clock64() probes of the Newton solvers' dependent chains, for
+// gaitpd_torch/tools/mtl_solver_clock.py: the latency of one operation of
+// the chain (a dependent chain of `reps` of them, stamped before and after),
+// and the cycles of a whole solve of each design of csrc/mtl_solvers.cu, run
+// by its own device functions (this file includes that source).
+//
+// Plain C interface, bound with ctypes.
+
+#include "../csrc/mtl_solvers.cu"
+
+namespace {
+
+enum Probe {
+  kCarrier = 0,  // x = base + x * zero: the carrier the powf chain needs
+  kPowf = 1,     // x = powf(base + x * zero, e)
+  kDiv = 2,      // x = c / x (__fdiv_rn): x and c / x take turns
+  kShfl = 3,     // x = __shfl_sync(x, lane + 1)
+  kAdd = 4,      // x = x + c
+  kDiv2 = 5,     // two independent kDiv chains in one thread
+  kDiv3 = 6,     // three
+  kPowf2 = 7,    // two independent kPowf chains in one thread
+  kRcp = 8,      // x = 1 / x (__frcp_rn)
+};
+
+// Two more layouts of a Newton step, beside csrc/mtl_solvers.cu's thread and
+// warp designs (variant numbers 2 and 3 of probe_solve):
+//   gather: the warp design with every multiplier formed in one lane (the
+//     right-hand side's 2K calls on lanes, then newton_step on every lane);
+//   rows: lane r < K owns row r of J + EPS I and F_r; each pivot row goes
+//     to every lane by shuffles and the lanes below it form their
+//     multipliers at once; every lane runs the back substitution.
+constexpr int kGatherVariant = 2;
+constexpr int kRowsVariant = 3;
+
+template <int K, Method M>
+__device__ void gather_newton(const float (&g)[K][K], float alpha, int lane, float (&w)[K]) {
+  float inv_a = 0.0f, e1 = 0.0f, e2 = 0.0f;
+  if constexpr (M == kFairGrad) {
+    inv_a = div(1.0f, alpha);
+    e1 = -inv_a;
+    e2 = sub(e1, 1.0f);
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) w[i] = M == kFairGrad ? static_cast<float>(1.0 / K) : 1.0f;
+  const int iters = M == kFairGrad ? kFairGradIters : kNashMtlIters;
+  const float damping = M == kFairGrad ? 0.5f : 0.8f;
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+    const float t = rhs_on_lanes<K, M>(w, e1, e2, lane);
+    float gw[K], f[K], diag[K];
+    matvec(g, w, gw);
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      f[i] = sub(gw[i], __shfl_sync(kFullMask, t, i));
+      const float t2 = __shfl_sync(kFullMask, t, K + i);
+      diag[i] = M == kFairGrad ? mul(inv_a, t2) : t2;
+    }
+    newton_step(g, w, f, diag, damping);
+  }
+}
+
+template <int K, Method M>
+__device__ void rows_newton(const float (&g)[K][K], float alpha, int lane, float (&w)[K]) {
+  float grow[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) grow[c] = lane < K ? g[0][c] : 0.0f;
+#pragma unroll
+  for (int r = 1; r < K; ++r) {
+#pragma unroll
+    for (int c = 0; c < K; ++c) grow[c] = lane == r ? g[r][c] : grow[c];
+  }
+  float inv_a = 0.0f, e1 = 0.0f, e2 = 0.0f;
+  if constexpr (M == kFairGrad) {
+    inv_a = div(1.0f, alpha);
+    e1 = -inv_a;
+    e2 = sub(e1, 1.0f);
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) w[i] = M == kFairGrad ? static_cast<float>(1.0 / K) : 1.0f;
+  const int iters = M == kFairGrad ? kFairGradIters : kNashMtlIters;
+  const float damping = M == kFairGrad ? 0.5f : 0.8f;
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+    float t = 0.0f;
+    if (lane < 2 * K) t = rhs_on_lanes<K, M>(w, e1, e2, lane);
+    const float gw = dot(grow, w);
+    const float t2 = __shfl_down_sync(kFullMask, t, K);
+    float b = sub(gw, t);
+    const float diag = M == kFairGrad ? mul(inv_a, t2) : t2;
+    float a[K];
+#pragma unroll
+    for (int c = 0; c < K; ++c) a[c] = c == lane ? add(add(grow[c], diag), kEps) : grow[c];
+    float u[K][K], v[K];
+#pragma unroll
+    for (int p = 0; p < K; ++p) {
+#pragma unroll
+      for (int c = p; c < K; ++c) u[p][c] = __shfl_sync(kFullMask, a[c], p);
+      v[p] = __shfl_sync(kFullMask, b, p);
+      if (lane > p && lane < K) {
+        const float m = div(a[p], u[p][p]);
+#pragma unroll
+        for (int c = p + 1; c < K; ++c) a[c] = sub(a[c], mul(m, u[p][c]));
+        b = sub(b, mul(m, v[p]));
+      }
+    }
+    float x[K];
+#pragma unroll
+    for (int p = K - 1; p >= 0; --p) {
+      float s = v[p];
+#pragma unroll
+      for (int c = p + 1; c < K; ++c) s = sub(s, mul(u[p][c], x[c]));
+      x[p] = div(s, u[p][p]);
+    }
+#pragma unroll
+    for (int i = 0; i < K; ++i) w[i] = clamp_min(sub(w[i], mul(damping, x[i])), kFloor);
+  }
+}
+
+// One warp; lane 0 stamps. `zero` is a kernel argument, so that the compiler
+// cannot fold x * zero away.
+__global__ void op_chain_kernel(int probe, int reps, float base, float e, float zero,
+                                long long* cycles, float* sink) {
+  const int lane = threadIdx.x;
+  float x = base + lane * zero;
+  __syncwarp();
+  const long long t0 = clock64();
+  switch (probe) {
+    case kCarrier:
+#pragma unroll 16
+      for (int i = 0; i < reps; ++i) x = add(base, mul(x, zero));
+      break;
+    case kPowf:
+#pragma unroll 16
+      for (int i = 0; i < reps; ++i) x = powf(add(base, mul(x, zero)), e);
+      break;
+    case kDiv:
+#pragma unroll 16
+      for (int i = 0; i < reps; ++i) x = div(e, x);
+      break;
+    case kShfl:
+#pragma unroll 16
+      for (int i = 0; i < reps; ++i) x = __shfl_sync(kFullMask, x, (lane + 1) % 32);
+      break;
+    case kDiv2: {
+      float y = base + 0.5f;
+#pragma unroll 16
+      for (int i = 0; i < reps; ++i) {
+        x = div(e, x);
+        y = div(e, y);
+      }
+      x = add(x, y);
+      break;
+    }
+    case kDiv3: {
+      float y = base + 0.5f, z = base + 0.25f;
+#pragma unroll 16
+      for (int i = 0; i < reps; ++i) {
+        x = div(e, x);
+        y = div(e, y);
+        z = div(e, z);
+      }
+      x = add(add(x, y), z);
+      break;
+    }
+    case kPowf2: {
+      float y = base;
+#pragma unroll 16
+      for (int i = 0; i < reps; ++i) {
+        x = powf(add(base, mul(x, zero)), e);
+        y = powf(add(base, mul(y, zero)), e);
+      }
+      x = add(x, y);
+      break;
+    }
+    case kRcp:
+#pragma unroll 16
+      for (int i = 0; i < reps; ++i) x = __frcp_rn(x);
+      break;
+    default:
+#pragma unroll 16
+      for (int i = 0; i < reps; ++i) x = add(x, e);
+      break;
+  }
+  sink[lane] = x;  // the stamp after the chain waits for its last link
+  __syncwarp();
+  const long long t1 = clock64();
+  if (lane == 0) *cycles = t1 - t0;
+}
+
+// One solve of `method` in `variant` at K tasks, stamped around by lane 0.
+template <int K, Method M, int V>
+__global__ void solve_clock_kernel(const float* __restrict__ gram, float alpha,
+                                   float* __restrict__ out, long long* cycles) {
+  const int lane = threadIdx.x;
+  float g[K][K], w[K];
+  __syncwarp();
+  const long long t0 = clock64();
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) g[i][j] = gram[i * K + j];
+  }
+  if constexpr (M == kMinNorm) {
+    min_norm(g, w);
+  } else if constexpr (V == kThreadVariant) {
+    if constexpr (M == kFairGrad) {
+      fairgrad(g, alpha, w);
+    } else {
+      nashmtl(g, w);
+    }
+  } else if constexpr (V == kWarpVariant) {
+    warp_newton<K, M>(g, alpha, lane, w);
+  } else if constexpr (V == kGatherVariant) {
+    gather_newton<K, M>(g, alpha, lane, w);
+  } else {
+    rows_newton<K, M>(g, alpha, lane, w);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) out[i] = w[i];
+  }
+  __syncwarp();
+  const long long t1 = clock64();
+  if (lane == 0) *cycles = t1 - t0;
+}
+
+template <int K, Method M>
+int launch_solve(int variant, const float* gram, float alpha, float* out, long long* cycles) {
+  switch (variant) {
+    case kThreadVariant:
+      solve_clock_kernel<K, M, kThreadVariant><<<1, 32>>>(gram, alpha, out, cycles);
+      break;
+    case kWarpVariant:
+      solve_clock_kernel<K, M, kWarpVariant><<<1, 32>>>(gram, alpha, out, cycles);
+      break;
+    case kGatherVariant:
+      solve_clock_kernel<K, M, kGatherVariant><<<1, 32>>>(gram, alpha, out, cycles);
+      break;
+    default:
+      solve_clock_kernel<K, M, kRowsVariant><<<1, 32>>>(gram, alpha, out, cycles);
+      break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int K>
+int probe_solve_k(int method, int variant, const float* gram, float alpha, float* out,
+                  long long* cycles) {
+  if (variant < kThreadVariant || variant > kRowsVariant ||
+      (method == kMinNorm && variant != kThreadVariant)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (method) {
+    case kMinNorm: return launch_solve<K, kMinNorm>(variant, gram, alpha, out, cycles);
+    case kFairGrad: return launch_solve<K, kFairGrad>(variant, gram, alpha, out, cycles);
+    case kNashMtl: return launch_solve<K, kNashMtl>(variant, gram, alpha, out, cycles);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+__global__ void spin_kernel(long long cycles, long long* done) {
+  const long long t0 = clock64();
+  long long t = t0;
+  while (t - t0 < cycles) t = clock64();
+  *done = t - t0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// probe: a Probe; one warp of 32 lanes (the thread design's solves run on
+// every lane alike). cycles and sink are device pointers (1 and 32 entries).
+int probe_op(int probe, int reps, float base, float e, float zero, long long* cycles,
+             float* sink) {
+  op_chain_kernel<<<1, 32>>>(probe, reps, base, e, zero, cycles, sink);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// method: 0 MGDA, 1 FairGrad, 2 NashMTL; variant: 0 thread, 1 warp, 2
+// gather, 3 rows (MGDA: thread only); k: 3 or 8. gram: k * k floats on the
+// device, out: k.
+int probe_solve(int method, int variant, int k, const float* gram, float alpha, float* out,
+                long long* cycles) {
+  if (k == 3) return probe_solve_k<3>(method, variant, gram, alpha, out, cycles);
+  if (k == 8) return probe_solve_k<8>(method, variant, gram, alpha, out, cycles);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One thread spinning for `cycles` SM cycles: its time under CUDA events
+// gives the SM clock.
+int probe_spin(long long cycles, long long* done) {
+  spin_kernel<<<1, 1>>>(cycles, done);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

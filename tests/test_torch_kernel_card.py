@@ -23,7 +23,8 @@ rounding of 0 may take ReLU' on either side in the kernel and in the plain
 version, both right: gx leaves out such windows (at most two a case, found
 from the inputs in f64) and gw and gb allow what their flips may move. The MGDA, FairGrad and NashMTL
 solvers: w bitwise equal to the plain version's (the same IEEE operations
-in the same order, the same device powf), finite, MGDA's on the simplex.
+in the same order, the same device powf), finite, MGDA's on the simplex;
+FairGrad's and NashMTL's one-thread design, by name, bitwise equal too.
 """
 
 import numpy as np
@@ -651,7 +652,12 @@ def test_kernel_refuses_what_it_does_not_take():
 # the kernel takes, and the degenerate ones (zero, rank one with tasks of
 # one sign, identical tasks, one zero task); NashMTL's normalised as its
 # caller does. The kernel runs the plain version's IEEE operations in its
-# order: w bitwise equal, in one launch and one matrix a launch.
+# order: w bitwise equal, in one launch and one matrix a launch, and for
+# NEWTON_BATCH matrices in one launch (a grid that 4 warps a block does not
+# divide); FairGrad's and NashMTL's one-thread design, by name, too.
+NEWTON_BATCH = 257
+
+
 def _solver_grams(rng, n, k):
     a = rng.normal(size=(n, k, 6)) * rng.uniform(0.1, 10.0, size=(n, 1, 1))
     grams = a @ a.transpose(0, 2, 1) + 1e-4 * np.eye(k)
@@ -662,6 +668,10 @@ def _solver_grams(rng, n, k):
     return np.concatenate([grams, np.stack(degenerate)]).astype(np.float32)
 
 
+def _bitwise(got, want):
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("solver", ["min_norm", "fairgrad_0.5", "fairgrad_1", "fairgrad_2",
                                     "nashmtl"])
@@ -670,31 +680,45 @@ def test_mtl_solver_matches_plain_on_card(solver, k):
     from gaitpd_torch.ops import mtl_solvers as ms
 
     dev = _cuda()
-    grams = torch.from_numpy(_solver_grams(np.random.default_rng(k), 12, k)).to(dev)
+    rng = np.random.default_rng(k)
+    grams = torch.from_numpy(_solver_grams(rng, 12, k)).to(dev)
+    batch = torch.from_numpy(_solver_grams(rng, NEWTON_BATCH - 4, k)).to(dev)
+    alpha = []
     if solver == "nashmtl":
-        norm = torch.linalg.matrix_norm(grams).clamp(min=1e-8)[:, None, None]
-        grams = grams / norm
+        def norm(g):
+            return g / torch.linalg.matrix_norm(g).clamp(min=1e-8)[:, None, None]
+
+        grams, batch = norm(grams), norm(batch)
         run, plain, counter = ms.nashmtl_solve, ms.nashmtl_solve_reference, "nashmtl_launches"
     elif solver == "min_norm":
         run, plain, counter = ms.min_norm_solve, ms.min_norm_solve_reference, "min_norm_launches"
     else:
-        alpha = float(solver.split("_")[1])
+        alpha = [float(solver.split("_")[1])]
         counter = "fairgrad_launches"
 
         def run(g):
-            return ms.fairgrad_solve(g, alpha)
+            return ms.fairgrad_solve(g, *alpha)
 
         def plain(g):
-            return ms.fairgrad_solve_reference(g, alpha)
+            return ms.fairgrad_solve_reference(g, *alpha)
 
     before = getattr(ms, counter)
     got = run(grams)
+    got_batch = run(batch)
     torch.cuda.synchronize()
-    assert getattr(ms, counter) == before + 1
-    want = plain(grams)
-    assert torch.isfinite(got).all()
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert getattr(ms, counter) == before + 2
+    want, want_batch = plain(grams), plain(batch)
+    assert torch.isfinite(got).all() and torch.isfinite(got_batch).all()
+    assert _bitwise(got, want)
+    assert _bitwise(got_batch, want_batch)
     for g, w in zip(grams, want):
         assert torch.equal(run(g), w)
     if solver == "min_norm":
         assert (got >= 0).all() and ((got.sum(-1) - 1).abs() <= 1e-5).all()
+    else:
+        name = counter.replace("_launches", "_solver")
+        before = getattr(ms, counter)
+        for g, w in ((grams, want), (batch, want_batch)):
+            assert _bitwise(ms._solve_kernel(name, g, *alpha, variant="thread"), w)
+            assert _bitwise(ms._solve_kernel(name, g, *alpha, variant="warp"), w)
+        assert getattr(ms, counter) == before  # the designs by name count nothing

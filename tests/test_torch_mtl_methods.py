@@ -333,3 +333,13 @@ def test_solver_wrappers_take_the_plain_version_on_cpu():
     for bad in (torch.eye(9), torch.zeros(3, 4), torch.zeros(2, 3, 3, 3)):
         with pytest.raises(ValueError):
             MS.min_norm_solve(bad)
+
+
+@pytest.mark.parametrize("name, alpha", [("fairgrad_solver", (1.0,)), ("nashmtl_solver", ())])
+@pytest.mark.parametrize("variant", MS.VARIANTS)
+def test_solver_designs_by_name_take_a_cuda_tensor_only(name, alpha, variant):
+    """The thread and warp designs by name are the card's comparison of the
+    two: a CPU tensor has no kernel to run and no plain version to fall
+    back on there."""
+    with pytest.raises(ValueError, match="CUDA"):
+        MS._solve_kernel(name, torch.from_numpy(grams(3, n=2)), *alpha, variant=variant)

@@ -5,12 +5,13 @@ wrapping each package's ``init_train_state`` (here only; gaitpd's
 single-modality driver builds its ``TrainState`` directly, so that is
 wrapped too). The synthetic streams, folds, epoch orders and async pools come
 from the same seeds, so both runs see the same batches. The configurations:
-the flagship with CAGrad, the cheap cross-attention fusion baseline and the
-SOTA baselines DeepAV-Lite, FOCAL and TACA (sync and async, the mean of the
-branch losses), and the single-modality mode. DeepAV-Lite and TACA train
-with dropout, whose masks cannot match JAX's PRNG: here both packages build
-them at dropout 0 (wrapping each ``build_model``, here only), and the train
-forward still takes its ``train=True`` path.
+the flagship with CAGrad, the cheap cross-attention fusion baseline (sync and
+async, the mean of the branch losses) and the single-modality mode; the SOTA
+baselines' cases (DeepAV-Lite, FOCAL, TACA) are in
+test_torch_train_driver_sota.py, on the same helper. DeepAV-Lite and TACA
+train with dropout, whose masks cannot match JAX's PRNG: here both packages
+build them at dropout 0 (wrapping each ``build_model``, here only), and the
+train forward still takes its ``train=True`` path.
 
 Tolerances: per-epoch losses within 1e-4 relative (f32 on both sides; the
 sums and the CAGrad solver's golden-section comparisons round differently,
@@ -52,13 +53,6 @@ CONFIGS = {
                                synthetic=True, verbose=False, seed=0, n_folds_cap=1,
                                wm="gcl", alpha=0.5, single_mod="imu"),
 }
-# the SOTA baselines, as the cheap-xattn ones: sync 3 epochs of GCL, async 2
-# of class_wt
-for _b in TD.SOTA_BASELINES:
-    CONFIGS[f"{_b}_sync_gcl"] = dict(CONFIGS["cheap_xattn_sync_gcl"], baseline=_b)
-    CONFIGS[f"{_b}_async_class_wt"] = dict(CONFIGS["cheap_xattn_async_class_wt"], baseline=_b)
-CONFIGS["deepav_lite_torch_init_sync_gcl"] = dict(CONFIGS["deepav_lite_sync_gcl"],
-                                                  baseline_torch_init=True)
 
 
 def _without_dropout(monkeypatch):
@@ -163,7 +157,7 @@ def test_default_device_is_the_card():
 def test_sota_baselines_default_to_the_card(baseline):
     if torch.cuda.is_available():
         pytest.skip("a card is present: device=None runs there")
-    args = TD.WearGaitArgs(**CONFIGS[f"{baseline}_sync_gcl"])
+    args = TD.WearGaitArgs(**dict(CONFIGS["cheap_xattn_sync_gcl"], baseline=baseline))
     with pytest.raises(RuntimeError, match="CUDA"):
         TD.run_cv(args)
 
