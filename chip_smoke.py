@@ -57,11 +57,12 @@ Phases (each raises on failure, so the script exits non-zero):
      masked scores, d = 12 against 8, 16, 36, 64, N odd and N above one round
      of the persistent grid), as in phase 5; the launch of every variant
      (threads, shared memory, blocks an SM, grid); then, from a stream of
-     their own, the sweep over 128 keys at FoG's (2 x 256 and 2 x 1024
+     their own, 65-128 keys (the sweep over key tiles forward, the sweep
+     over 128 keys backward) at FoG's (2 x 256 and 2 x 1024
      window pairs, d 6), FBG's (2 x 32, d 3), the symmetric 2-mod (2 x 64,
      d 12) and --win_len 128's (Tq = Tk = 128, d 12) shapes and at its edges
      (d 8 and 9 at T 101, d 64 over 128 keys; 129 keys and 129 query rows
-     on the two-pass kernels), each launch printed;
+     on the sweep over key tiles), each launch printed;
   5d. this slice's checks, from a random stream of their own: the stream
      block's forward at each variant's edges (warp_tile's compiled-in sizes
      with GELU and a ragged last block; one size off each, generic), as in
@@ -139,7 +140,8 @@ Phases (each raises on failure, so the script exits non-zero):
      launches;
   5i. the FBG/FoG baseline drivers (the 2-mod fusions, DeepAV-Lite, FOCAL,
      TACA), from a random stream of their own: the cheap cross-attention
-     (the sweep over 128 keys) at the fusion's shapes (2 x 256 and 2 x 1024 window
+     (65-128 keys: the sweep over key tiles forward, over 128 keys backward)
+     at the fusion's shapes (2 x 256 and 2 x 1024 window
      pairs at d = 6, 2 x 32 at d = 3; T 101 both ways) and the generic
      stream block at the early (C_in 12), shared-latent (2 x 256, C_in 16)
      and FOCAL (2 x 256, C_in 32 -> C_out 4, t_out 4) shapes, forward and
@@ -162,6 +164,17 @@ Phases (each raises on failure, so the script exits non-zero):
      epoch card vs CPU as in phase 5, then one train step at win_len 128
      card vs CPU as in phase 4 (both tiled kernels over two key tiles, one
      launch each);
+  5k. the sweep over key tiles (d <= 64 beyond 128 keys or, backward, query
+     rows), from a random stream of its own: the cross-attention at
+     --win_len 256's shapes (6 x 64 and 6 x 1024 problems of 256 x 256, d
+     12), at --win_len 129's (2 x 64 of 129 x 129), at 129 keys (N 5) and at
+     its edges (257 keys at d 8, one query row, d 3, 13 and 64, query rows
+     beyond 128 against 100 and 131 keys), as in phase 5, each launch
+     printed; the backbone's kernels at the --win_len 256 step's shape
+     (3 x 64 windows of 256 frames, C_in 12) as in phase 2, with their
+     launches; one cheap-xattn train step at batch 64, win_len 256, card vs
+     CPU as in phase 4, with one launch of each cross-attention kernel and
+     of the stream block's forward and backward;
   6. timings: each kernel, its plain version and a PyTorch library call at
      the main path's shape (CUDA events around back-to-back eager calls;
      the stream block's forward, its plain version and its library call,
@@ -200,10 +213,12 @@ Phases (each raises on failure, so the script exits non-zero):
      beside the two-pass kernels they replaced (by name, in turns), the
      plain versions, scaled_dot_product_attention and its autograd, and the
      bounds; the
-     stream block at FOCAL's 2-mod shape beside conv1d + ReLU + pool; every
-     the two-pass cross-attention beyond 128 keys (N 5, Tq 128, Tk 129 and
-     N 128, Tq = Tk = 129, d 12), as the FoG shape above but without an
-     older variant; every
+     stream block at FOCAL's 2-mod shape beside conv1d + ReLU + pool; the
+     sweep over key tiles at --win_len 256's shapes (batch 64 and 1024), at
+     N 128, Tq = Tk = 129 and at N 5, Tq 128, Tk 129, d 12, as the FoG shape
+     above, beside the two-pass kernels by name (at N 5 also its forward at
+     units of 32 query rows); the cheap-xattn train step at win_len 256,
+     batch 64 and 1024; every
      T 101 forward shape of phases 5h and 5i (C_in 3, 6, 12, 16, 32) from a
      CUDA graph: per_frame, the generic variant it replaces, the library
      call and the plain version, in turns; the wide threshold's shapes also
@@ -841,8 +856,8 @@ def time_wide_xattn(rng, dev, card) -> dict:
 
 
 # each kernel variant's edges: the sweep kernels at Tk = 64 against 65 (the
-# sweep over 128 keys), Tq = 64 against 65 (its backward; the forward's second
-# 64-row unit), masked scores (Tk 63), d = 12 (the compile-time width) against
+# sweep over key tiles forward, over 128 keys backward), Tq = 64 against 65
+# (the backward's; the forward's second 64-row unit), masked scores (Tk 63), d = 12 (the compile-time width) against
 # 8, 16, 36 and 64 (the general widths), N odd (a block's second unit idle in
 # the last round) and N above one round of the persistent grid
 XATTN_EDGE_CASES = {
@@ -852,12 +867,13 @@ XATTN_EDGE_CASES = {
     "d64": (5, 64, 64, 64), "tq130_three_units": (3, 130, 20, 12),
     "main_plus_one": (6 * N_WINDOWS + 1, 64, 64, 12),
 }
-# the sweep over 128 keys at the shapes that reach it, from a stream of their
+# 65-128 keys (the sweep over 128 keys' backward, the sweep over key tiles'
+# forward over one tile) at the shapes that reach them, from a stream of their
 # own: FoG's cheap-xattn fusion at the driver's batch and at 1024, FBG's at
 # its batch of 32, the symmetric 2-mod shape (WearGait's d 12) and
 # --win_len 128 at d 12; then its edges: its width 8 at d 8 against 16 at
-# d 9, d 64 over 128 keys, and the two-pass kernels beyond it (129 keys;
-# 129 query rows, whose forward is the sweep's)
+# d 9, d 64 over 128 keys, and the sweep over key tiles beyond it (129
+# keys; 129 query rows, whose forward is the sweep's)
 SWEEP128_XATTN_CASES = {
     "fog_batch256": (2 * 256, 101, 101, 6), "fog_batch1024": (2 * 1024, 101, 101, 6),
     "fbg_batch32": (2 * 32, 101, 101, 3), "sym_t101": (2 * 64, 101, 101, 12),
@@ -865,16 +881,41 @@ SWEEP128_XATTN_CASES = {
     "d64_tq65_tk128": (5, 65, 128, 64), "tk129": (5, 128, 129, 12),
     "tq129_tk64": (5, 129, 64, 12),
 }
-# the two-pass kernels' timed shapes: the 129-key case above, and
-# --win_len 129's Tq = Tk = 129 at d 12 over the symmetric 2-mod model's two
-# directions of 64 windows
-TWO_PASS_TIMED = {"tk129": SWEEP128_XATTN_CASES["tk129"], "t129_d12": (2 * 64, 129, 129, 12)}
+# a window of 256 frames (gaitpd/cli.py's --win_len; 8.5 s at 30 Hz) at the
+# published widths (enc_out_ch 12): the cheap-xattn fusion's six directed
+# pairs through the sweep over key tiles, both ways
+WIN256 = 256
+# the sweep over key tiles (d <= 64 beyond 128 keys; backward also beyond 128
+# query rows), from a stream of its own: the fusion at --win_len 256 at the
+# train batch of 64 and at 1024, --win_len 129's Tq = Tk = 129 over the
+# symmetric 2-mod model's two directions of 64 windows, 129 keys at N 5
+# (the edge where the two-pass kernels lost most to SDPA); then its edges:
+# 257 keys (a third tile of one key) at width 8, one query row over 300 keys,
+# d 3 and 13 (4-byte copies) with query rows beyond 128, d 64 over 300 keys,
+# 200 query rows against 100 keys (the backward alone)
+SWEEP_LONG_XATTN_CASES = {
+    "win256_batch64": (6 * 64, WIN256, WIN256, 12),
+    "win256_batch1024": (6 * 1024, WIN256, WIN256, 12),
+    "t129_d12": (2 * 64, 129, 129, 12), "tk129": (5, 128, 129, 12),
+    "tk257_d8": (5, 65, 257, 8), "tq1_tk300": (5, 1, 300, 12), "d3_tq129_tk256": (5, 129, 256, 3),
+    "d13_tq300_tk131": (5, 300, 131, 13), "d64_tk300": (3, 70, 300, 64),
+    "tq200_tk100": (5, 200, 100, 12),
+}
+# the timed shapes, each beside the two-pass kernels by name, and the calls
+# a timing there: the two-pass backward at batch 1024 takes some 8 ms a call
+SWEEP_LONG_TIMED = {"win256_batch64": 200, "win256_batch1024": 20, "t129_d12": 200, "tk129": 200}
+# the backbone of the --win_len 256 step: three streams of 64 windows of 256
+# frames at enc_out_ch 12, pooled to 8 bins
+WIN256_BLOCK_SHAPE = (3 * 64, WIN256, 12, 3, 16, 8, "relu")
 # one shape a variant for the launch table: the main shape (sweep_d12), then
-# the main shape's N at d = 36 (sweep), at Tk = 65 (sweep_128), at d = 96,
-# FoG's fusion (sweep_128 at W 8) and 129 keys (two_pass)
+# the main shape's N at d = 36 (sweep), at Tk = 65 (sweep_long forward,
+# sweep_128 backward), at d = 96, FoG's fusion (the same at W 8), 129 keys
+# and --win_len 256's shape
+# (sweep_long)
 CONFIG_SHAPES = {"main": (6 * N_WINDOWS, 64, 64, 12), "d36": (6 * N_WINDOWS, 64, 64, 36),
                  "tk65": (6 * N_WINDOWS, 64, 65, 12), "d96": (6 * N_WINDOWS, 64, 64, 96),
-                 "fog_batch256": (2 * 256, 101, 101, 6), "tk129": (2 * 64, 128, 129, 12)}
+                 "fog_batch256": (2 * 256, 101, 101, 6), "tk129": (2 * 64, 128, 129, 12),
+                 "win256_batch64": SWEEP_LONG_XATTN_CASES["win256_batch64"]}
 
 
 def xattn_launch(n, tq, tk, d, backward) -> dict:
@@ -893,10 +934,11 @@ def print_xattn_configs(card) -> None:
                 f"(N {n}, Tq {tq}, Tk {tk}, d {d}): {xattn_launch(n, tq, tk, d, backward)}")
 
 
-def check_sweep128_xattn(rng, dev, card) -> dict:
-    """SWEEP128_XATTN_CASES as in phase 5, each launch printed."""
-    errors = check_cheap_xattn(rng, dev, card, SWEEP128_XATTN_CASES)
-    for name, (n, tq, tk, d) in SWEEP128_XATTN_CASES.items():
+def check_xattn_with_launches(rng, dev, card, cases=SWEEP128_XATTN_CASES) -> dict:
+    """``cases`` (those of 65-128 keys by default) as in phase 5, each
+    launch printed."""
+    errors = check_cheap_xattn(rng, dev, card, cases)
+    for name, (n, tq, tk, d) in cases.items():
         log(f"[config] {card}: cheap_xattn {name} (N {n}, Tq {tq}, Tk {tk}, d {d}): forward "
             f"{xattn_launch(n, tq, tk, d, False)}; backward {xattn_launch(n, tq, tk, d, True)}")
     return errors
@@ -1306,6 +1348,38 @@ def phase_wide_fusion_training(seed, dev) -> dict:
         raise RuntimeError(f"win_len {LONG_WINDOW} step: cross-attention launches {launches}")
     out["win_len_128_step"] = {"launches": launches}
     return out
+
+
+def phase_win256(seed, dev, rng, card) -> dict:
+    """The cheap-xattn fusion at --win_len 256 and its published widths: the
+    backbone's kernels at the step's shape (per_frame forward, generic
+    backward) against their plain versions as in phase 2, each launch
+    printed; then one train step at batch 64 card vs CPU as in phase 4,
+    with one launch of each cross-attention kernel (the sweep over key
+    tiles, N 384 of 256 x 256 at d 12) and of the stream block's forward and
+    backward."""
+    bsz, t, cin, k, cout, t_out, act = WIN256_BLOCK_SHAPE
+    x, w, b, g = stream_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
+    tag = f"win{WIN256}_batch64"
+    errors = (hold_forward(tag, x, w, b, t_out, act), hold_backward(tag, x, w, b, g, t_out, act)[0])
+    log(f"[config] {card}: stream_block {tag} (B {bsz}, T {t}, C_in {cin}): forward "
+        f"{sb.forward_config(bsz, t, cin, cout, k, t_out, act)}; backward "
+        f"{sb.backward_config(bsz, t, cin, cout, k, t_out, act)}")
+    n, tq, tk, d = SWEEP_LONG_XATTN_CASES[tag]
+    log(f"[config] {card}: cheap_xattn {tag} (N {n}, Tq {tq}, Tk {tk}, d {d}): forward "
+        f"{xattn_launch(n, tq, tk, d, False)}; backward {xattn_launch(n, tq, tk, d, True)}")
+    reset_launches()
+    compare_one_step(f"cheap_xattn step at batch 64, win_len {WIN256}", dev,
+                     lambda device: make_step_setup(seed, device, 64, "cheap_xattn",
+                                                    no_dropout=True, win_len=WIN256))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    log(f"[train] cheap_xattn step at win_len {WIN256}: launches {launches}")
+    want = {"cheap_xattn": 1, "cheap_xattn_backward": 1, "stream_block": 1,
+            "stream_block_backward": 1}
+    if any(launches[name] != v for name, v in want.items()):
+        raise RuntimeError(f"win_len {WIN256} step: launches {launches}, want {want}")
+    return {"launches": launches, "stream_block_errors": errors}
 
 
 # ---------------------------------------------------------------------------
@@ -2075,7 +2149,7 @@ def phase_fbg_fog(seed, dev, rng) -> dict:
 # ---------------------------------------------------------------------------
 
 # (N, Tq, Tk, d) of the cheap-xattn fusion's two directions at T 101 (the
-# sweep over 128 keys): FoG's d = 6 at the driver's batch and at 1024, FBG's
+# sweep over key tiles forward, over 128 keys backward): FoG's d = 6 at the driver's batch and at 1024, FBG's
 # d = 3 at its batch of 32
 BB_XATTN_CASES = {"fog_batch256": (2 * FF_BATCH, 101, 101, 6),
                   "fog_batch1024": (2 * 1024, 101, 101, 6),
@@ -2111,7 +2185,7 @@ BB_RUNS = {
 
 
 def check_bb_kernels(rng, dev, card) -> dict:
-    """The cheap cross-attention (the sweep over 128 keys) and the stream block at
+    """The cheap cross-attention (65-128 keys) and the stream block at
     the drivers' shapes against their plain versions as in phase 5 and
     phase 2, with each launch's variant and configuration."""
     errors = {"xattn": check_cheap_xattn(rng, dev, card, BB_XATTN_CASES)}
@@ -2596,16 +2670,20 @@ def cheap_xattn_backward_bound(n, tq, tk, d):
     return _bound(4 * n * d * (3 * tq + 2 * tk), 5 * 2 * n * tq * tk * d)
 
 
-def time_cheap_xattn(rng, dev, card, shape=XATTN_CASES["main"], old=None) -> dict:
+def time_cheap_xattn(rng, dev, card, shape=XATTN_CASES["main"], old=None, reps=200) -> dict:
     """The cross-attention's forward and backward at ``shape``: kernel,
     plain version, library call (scaled_dot_product_attention and its
     autograd) and bound, eager and each replayed from a CUDA graph, the
-    device's time without the host's. With ``old``, also that variant's
-    kernels by name, held against the plain versions and timed in turns
-    with the chosen ones (new, old, new from a graph)."""
+    device's time without the host's; ``reps`` calls a timing (a quarter of
+    them for the plain backward and the library's; warm-up a tenth). With
+    ``old``, also that variant's kernels by name, held against the plain
+    versions and timed in turns with the chosen ones (new, old, new from a
+    graph)."""
     n, tq, tk, d = shape
     a, b, g = xattn_inputs(rng, n, tq, tk, d, dev)
     old_name = None if old is None else cx.VARIANT_NAMES[old]
+    few = dict(warmup=max(2, reps // 10), reps=reps)
+    fewer = dict(warmup=max(2, reps // 40), reps=max(5, reps // 4))
 
     def library():  # its default scale is 1/sqrt(d): the same function
         return F.scaled_dot_product_attention(a, b, b)
@@ -2614,14 +2692,15 @@ def time_cheap_xattn(rng, dev, card, shape=XATTN_CASES["main"], old=None) -> dic
     if lib_err > (KERNEL_TOL if tk <= 64 else XATTN_LONG_ATOL):
         raise RuntimeError(f"library yardstick computes another function: {lib_err}")
     with torch.inference_mode():
-        plain_ms = time_cuda(lambda: cx.cheap_xattn_reference(a, b))
-        kernel_ms = time_cuda(lambda: cx.cheap_xattn(a, b))
-        kernel_ms_2 = time_cuda(lambda: cx.cheap_xattn(a, b))
-        plain_ms_2 = time_cuda(lambda: cx.cheap_xattn_reference(a, b))
-        library_ms = time_cuda(library)
-        graph = {"graph_ms": time_cuda_graph(lambda: cx.cheap_xattn(a, b)),
-                 "library_graph_ms": time_cuda_graph(library),
-                 "plain_graph_ms": time_cuda_graph(lambda: cx.cheap_xattn_reference(a, b))}
+        plain_ms = time_cuda(lambda: cx.cheap_xattn_reference(a, b), **few)
+        kernel_ms = time_cuda(lambda: cx.cheap_xattn(a, b), **few)
+        kernel_ms_2 = time_cuda(lambda: cx.cheap_xattn(a, b), **few)
+        plain_ms_2 = time_cuda(lambda: cx.cheap_xattn_reference(a, b), **few)
+        library_ms = time_cuda(library, **few)
+        graph = {"graph_ms": time_cuda_graph(lambda: cx.cheap_xattn(a, b), **few),
+                 "library_graph_ms": time_cuda_graph(library, **few),
+                 "plain_graph_ms": time_cuda_graph(lambda: cx.cheap_xattn_reference(a, b),
+                                                   **few)}
         if old is not None:
             def old_forward():
                 return cx._forward_kernel(a, b, old)
@@ -2630,9 +2709,9 @@ def time_cheap_xattn(rng, dev, card, shape=XATTN_CASES["main"], old=None) -> dic
             if old_err > XATTN_LONG_ATOL:
                 raise RuntimeError(f"{old_name} forward disagrees with its plain version: "
                                    f"{old_err}")
-            graph[f"{old_name}_ms"] = time_cuda(old_forward)
-            graph[f"{old_name}_graph_ms"] = time_cuda_graph(old_forward)
-            graph["graph_ms_2"] = time_cuda_graph(lambda: cx.cheap_xattn(a, b))
+            graph[f"{old_name}_ms"] = time_cuda(old_forward, **few)
+            graph[f"{old_name}_graph_ms"] = time_cuda_graph(old_forward, **few)
+            graph["graph_ms_2"] = time_cuda_graph(lambda: cx.cheap_xattn(a, b), **few)
     bound_ms, bound_by = cheap_xattn_bound(n, tq, tk, d)
     variant = cx.VARIANT_NAMES[cx._variant(tq, tk, d)]
     log(f"[time] {card}: cheap_xattn N {n}, Tq {tq}, Tk {tk}, d {d} (variant {variant}): kernel "
@@ -2656,14 +2735,13 @@ def time_cheap_xattn(rng, dev, card, shape=XATTN_CASES["main"], old=None) -> dic
     lib_b_err = max((p - q).abs().max().item() for p, q in zip(library_backward(), want))
     if lib_b_err > XATTN_GRAD_ATOL + XATTN_GRAD_RTOL * max(q.abs().max().item() for q in want):
         raise RuntimeError(f"library backward computes another function: {lib_b_err}")
-    bwd_plain = time_cuda(lambda: cx.cheap_xattn_backward_reference(a, b, g), warmup=5, reps=50)
-    bwd_kernel = time_cuda(lambda: cx.cheap_xattn_backward(a, b, g))
-    bwd_kernel_2 = time_cuda(lambda: cx.cheap_xattn_backward(a, b, g))
-    bwd_plain_2 = time_cuda(lambda: cx.cheap_xattn_backward_reference(a, b, g),
-                            warmup=5, reps=50)
-    bwd_library = time_cuda(library_backward, warmup=5, reps=50)
-    bwd_graph = {"graph_ms": time_cuda_graph(lambda: cx.cheap_xattn_backward(a, b, g)),
-                 "library_graph_ms": time_cuda_graph(library_backward, warmup=5, reps=50)}
+    bwd_plain = time_cuda(lambda: cx.cheap_xattn_backward_reference(a, b, g), **fewer)
+    bwd_kernel = time_cuda(lambda: cx.cheap_xattn_backward(a, b, g), **few)
+    bwd_kernel_2 = time_cuda(lambda: cx.cheap_xattn_backward(a, b, g), **few)
+    bwd_plain_2 = time_cuda(lambda: cx.cheap_xattn_backward_reference(a, b, g), **fewer)
+    bwd_library = time_cuda(library_backward, **fewer)
+    bwd_graph = {"graph_ms": time_cuda_graph(lambda: cx.cheap_xattn_backward(a, b, g), **few),
+                 "library_graph_ms": time_cuda_graph(library_backward, **fewer)}
     if old is not None:
         def old_backward():
             return cx._backward_kernel(a, b, g, old)
@@ -2672,9 +2750,10 @@ def time_cheap_xattn(rng, dev, card, shape=XATTN_CASES["main"], old=None) -> dic
         if old_b_err > XATTN_GRAD_ATOL + XATTN_GRAD_RTOL * max(q.abs().max().item() for q in want):
             raise RuntimeError(f"{old_name} backward disagrees with its plain version: "
                                f"{old_b_err}")
-        bwd_graph[f"{old_name}_ms"] = time_cuda(old_backward)
-        bwd_graph[f"{old_name}_graph_ms"] = time_cuda_graph(old_backward)
-        bwd_graph["graph_ms_2"] = time_cuda_graph(lambda: cx.cheap_xattn_backward(a, b, g))
+        bwd_graph[f"{old_name}_ms"] = time_cuda(old_backward, **few)
+        bwd_graph[f"{old_name}_graph_ms"] = time_cuda_graph(old_backward, **few)
+        bwd_graph["graph_ms_2"] = time_cuda_graph(lambda: cx.cheap_xattn_backward(a, b, g),
+                                                  **few)
     bwd_bound, bwd_by = cheap_xattn_backward_bound(n, tq, tk, d)
     launch = {bw: xattn_launch(n, tq, tk, d, bw) for bw in (False, True)}
     log(f"[time] {card}: cheap_xattn launch {launch[False]}; cheap_xattn_backward launch "
@@ -2874,13 +2953,18 @@ def make_step_setup(seed, dev, bsz, baseline=None, no_dropout=False, mtl_method=
     return step, state, ctx, batch, torch.Generator(device=dev).manual_seed(seed)
 
 
-def time_train_step(seed, dev, card, baseline=None, mtl_method="cagrad", recipe=False) -> dict:
+def time_train_step(seed, dev, card, baseline=None, mtl_method="cagrad", recipe=False,
+                    **widths) -> dict:
+    """One train step at each of TRAIN_BATCHES: host clock around 20
+    synchronised steps after 3; ``widths`` as make_step_setup takes them."""
     out = {}
     label = baseline or ("CAGrad" if mtl_method == "cagrad" else mtl_method)
     label += " recipe" if recipe else ""
+    label += "".join(f", {k} {v}" for k, v in widths.items())
     for bsz in TRAIN_BATCHES:
         step, state, ctx, batch, gen = make_step_setup(seed, dev, bsz, baseline,
-                                                       mtl_method=mtl_method, recipe=recipe)
+                                                       mtl_method=mtl_method, recipe=recipe,
+                                                       **widths)
         for _ in range(3):
             step(state, batch, gen, ctx)
         torch.cuda.synchronize()
@@ -3102,7 +3186,7 @@ def main() -> int:
     wide_xattn_times = time_wide_xattn(zrng, dev, card)
     check_wide_xattn(np.random.default_rng([args.seed, 15]), dev, card, TILED_XATTN_CASES)
     check_cheap_xattn(np.random.default_rng([args.seed, 7]), dev, card, XATTN_EDGE_CASES)
-    check_sweep128_xattn(np.random.default_rng([args.seed, 17]), dev, card)
+    check_xattn_with_launches(np.random.default_rng([args.seed, 17]), dev, card)
     print_xattn_configs(card)
     check_forward_edges(np.random.default_rng([args.seed, 8]), dev, card)
     check_solver_each_k(np.random.default_rng([args.seed, 9]), dev)
@@ -3126,6 +3210,11 @@ def main() -> int:
     # the kernel redesigns' slice: the tiled cross-attention on the fusion's
     # path at enc_out_ch 96
     wide_fusion = phase_wide_fusion_training(args.seed, dev)
+    # the sweep over key tiles' slice: its kernels' shapes and edges, then the
+    # fusion's step at --win_len 256, from a stream of its own
+    long_rng = np.random.default_rng([args.seed, 20])
+    long_errors = check_xattn_with_launches(long_rng, dev, card, SWEEP_LONG_XATTN_CASES)
+    win256 = phase_win256(args.seed, dev, long_rng, card)
     times = time_stream_block(rng, dev, card)
     times["cagrad_solver"] = time_solver(rng, dev, card)
     serving = time_serving(engine, rng, card)
@@ -3139,6 +3228,7 @@ def main() -> int:
                     "checkpoint_save": time_checkpoint_save(args.seed, dev, card)}
     times.update(time_cheap_xattn(xrng, dev, card))
     fusion_steps = time_train_step(args.seed, dev, card, "cheap_xattn")
+    win256_steps = time_train_step(args.seed, dev, card, "cheap_xattn", win_len=WIN256)
     focal_times = time_focal_block(frng, dev, card)
     sota_steps = {b: time_train_step(args.seed, dev, card, b) for b in wg.SOTA_BASELINES}
     times.update(time_mtl_solvers(mrng, dev, card))
@@ -3149,11 +3239,12 @@ def main() -> int:
     bb_xattn_times = time_cheap_xattn(bb_rng, dev, card, BB_XATTN_SHAPE, old=cx.TWO_PASS)
     t128_xattn_times = time_cheap_xattn(np.random.default_rng([args.seed, 18]), dev, card,
                                         SWEEP128_XATTN_CASES["t128_d12"], old=cx.TWO_PASS)
-    # the two-pass kernels beyond 128 keys (--win_len above 128), off every
-    # default path: timed at the 129-key case phase 5c holds and at T 129
-    two_pass_rng = np.random.default_rng([args.seed, 19])
-    two_pass_times = {name: time_cheap_xattn(two_pass_rng, dev, card, shape)
-                      for name, shape in TWO_PASS_TIMED.items()}
+    # the sweep over key tiles beyond 128 keys (--win_len above 128), beside
+    # the two-pass kernels it replaced, by name, in turns
+    long_time_rng = np.random.default_rng([args.seed, 19])
+    long_times = {name: time_cheap_xattn(long_time_rng, dev, card, SWEEP_LONG_XATTN_CASES[name],
+                                         old=cx.TWO_PASS, reps=reps)
+                  for name, reps in SWEEP_LONG_TIMED.items()}
     bb_focal_times = time_stream_block(bb_rng, dev, card, BB_FOCAL_SHAPE, slice(FF_BATCH, None),
                                        "FOCAL async skeleton stream's layout")
     t101_times = time_t101_forwards(np.random.default_rng([args.seed, 16]), dev, card)
@@ -3207,6 +3298,12 @@ def main() -> int:
             "library_ms": t["library"], "bound_ms": bound_ms, "bound_by": bound_by,
             "graph_ms": min(t["graph"], t["graph_2"]), "library_graph_ms": t["library_graph"],
             "variant": timed["launch"][way == "backward"]["variant"]}
+    # the sweep over key tiles on its own main path: the --win_len 256 step's
+    # launches, the times and errors at its shape
+    for name in ("cheap_xattn", "cheap_xattn_backward"):
+        launches[f"{name}_long"] = win256["launches"][name]
+        times[f"{name}_long"] = long_times["win256_batch64"][name]
+    long_err = long_errors["win256_batch64"]
     wide_err = wide_errors[WIDE_XATTN_TIMED[0]]
     bb_err = baselines["errors"]["xattn"]["fog_batch256"]
     ff_err = fbg_fog["errors"]["fog_batch256"]
@@ -3241,6 +3338,10 @@ def main() -> int:
          "gaitpd/ops/pallas_blocks.py:184", wide_err[0]),
         ("cheap_xattn_backward_tiled", "gaitpd_torch/csrc/cheap_xattn.cu",
          "gaitpd/ops/pallas_blocks.py:275", wide_err[1]),
+        ("cheap_xattn_long", "gaitpd_torch/csrc/cheap_xattn.cu",
+         "gaitpd/ops/pallas_blocks.py:184", long_err[0]),
+        ("cheap_xattn_backward_long", "gaitpd_torch/csrc/cheap_xattn.cu",
+         "gaitpd/ops/pallas_blocks.py:275", long_err[1]),
         # not TPU kernels either: the MGDA, FairGrad and NashMTL solvers
         ("min_norm_solver", "gaitpd_torch/csrc/mtl_solvers.cu", "gaitpd/learning/minnorm.py:35",
          mtl["solver_errors"]["min_norm_solver"]),
@@ -3272,7 +3373,8 @@ def main() -> int:
         f"(and its step at win_len {LONG_WINDOW}) "
         f"{json.dumps(wide_fusion)}; the T 101 forwards {json.dumps(t101_times)}; the "
         f"cross-attention at Tq = Tk = 128, d 12 {json.dumps(t128_xattn_times)}; the "
-        f"two-pass kernels {json.dumps(two_pass_times)}")
+        f"sweep over key tiles {json.dumps(long_times)}, the step at win_len {WIN256} "
+        f"{json.dumps(win256)} and its train steps {json.dumps(win256_steps)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,21 +13,24 @@
 // matrix, 16 KB), so nothing of the Pallas tiling is carried over: a problem's
 // scores never leave the SM, and the work is spread by problems.
 //
-// Five variants; gaitpd_torch/ops/cheap_xattn.py::_variant chooses one from
+// Six variants; gaitpd_torch/ops/cheap_xattn.py::_variant chooses one from
 // (Tq, Tk, d) and the entry points refuse a variant that does not take the
 // sizes:
 //   0  one sweep, d = 12 as a compile-time width: Tk <= 64 (backward also
 //      Tq <= 64); the main path;
 //   1  one sweep, any d <= 64, rows zero-padded to a width of 16, 32 or 64;
-//   2  two passes (the first design): d <= 64, chosen only beyond variant
-//      3's lengths, Tk > 128 (backward: Tq or Tk > 128), which no model's
-//      default path reaches; callable by name at every length;
-//   3  one sweep over up to 128 keys, two lanes a query row: d <= 64,
-//      64 < Tk <= 128 (backward: Tq and Tk <= 128, one of them > 64): the
-//      FBG/FoG cheap-xattn fusion at T 101 and --win_len 128;
-//   4  tiles in shared memory: d > 64, any Tq and Tk, forward and backward.
+//   2  two passes (the first design): d <= 64, on no path since variant 5;
+//      callable by name at every length, as its yardstick;
+//   3  one sweep over up to 128 keys, two lanes a query row, backward
+//      only: d <= 64, Tq and Tk <= 128, one of them > 64: the FBG/FoG
+//      cheap-xattn fusion at T 101 and --win_len 128;
+//   4  tiles in shared memory: d > 64, any Tq and Tk, forward and backward;
+//   5  one sweep over key tiles of 128, two lanes a query row: d <= 64,
+//      Tk > 64 forward (one key tile up to 128: the forward of variant 3's
+//      lengths), Tq or Tk > 128 backward (it takes any Tq and Tk by name):
+//      T 101, --win_len 128 and above, e.g. the WearGait fusion at 256.
 //
-// THE SCALE. Variants 0, 1 and 3 multiply the dot product by 1/sqrt(d),
+// THE SCALE. Variants 0, 1, 3 and 5 multiply the dot product by 1/sqrt(d),
 // computed once on the host in double and rounded to f32, as the Pallas
 // kernel does (gaitpd/ops/pallas_blocks.py:201 multiplies by `scale`, :250
 // sets it to 1.0 / np.sqrt(d)); only the jnp reference divides. Variants 2
@@ -94,7 +97,8 @@
 // division by sqrt(d), and 4 warps a problem (was 2). Rows past Tq write zero
 // P and dS, so phase 2 runs without guards.
 //
-// ONE SWEEP OVER UP TO 128 KEYS (variant 3), d <= 64
+// ONE SWEEP OVER UP TO 128 KEYS (variant 3), d <= 64; the forward at these
+// lengths is variant 5's over one key tile
 //
 // The FBG/FoG cheap-xattn fusion (gaitpd_torch/models/fusion.py,
 // cheap_cross_attention_sym) sends both directions of 256 window pairs
@@ -116,11 +120,10 @@
 // FoG's d = 6 and FBG's 3 at most 2.7x (16 was 5.3x at d = 3). The key loops
 // stop at the last pair of keys, and a warp whose 16 query rows all lie past
 // Tq does no work: at Tq = 101, 7 of 8 warps run.
-// Forward: a block of 4 warps takes a unit of 64 query rows (a problem's
-// rows, 64 at a time) a round, B's rows (at most 128) staged in static shared
-// memory at row_stride(W), on a persistent grid of as many blocks as the card
-// holds at once, each striding over the units. At T 101 a problem is two
-// units, of 64 and 37 rows.
+// Forward: variant 5's kernel, which over one key tile does the same FMAs,
+// expf and shuffles in the same order as a forward of this scheme would,
+// and copies the next unit's B while it computes (PERF.md: no slower
+// beyond noise than a forward of this variant's own).
 // Backward: a block of 8 warps owns a problem, so dB takes no sum across
 // blocks and no atomics: the same bits from run to run. A, B and dO are
 // staged in shared memory, and so are P and dS * scale of the whole problem,
@@ -133,15 +136,80 @@
 // column and A_i, dO_i by broadcast, half 0 + half 1. No row statistics go
 // to device memory. Strict f32 on the CUDA cores; no TF32.
 //
-// What it reaches (PERF.md): at the FoG shape from a CUDA graph, 0.0162 ms
-// forward and 0.0330 backward, 8.7x and 7.1x their bounds, against 0.0611
-// and 0.1816 for variant 2 and 0.1017 and 0.2164 for
-// scaled_dot_product_attention and its autograd (H100 80GB HBM3 at 700 W).
+// What it reaches (PERF.md): at the FoG shape from a CUDA graph, 0.0330 ms
+// backward, 7.1x its bound, against 0.1816 for variant 2 and 0.2164 for
+// the autograd of scaled_dot_product_attention (H100 80GB HBM3 at 700 W).
 // A score's fixed issue slots (scale, max, expf, sums) match its 16 FMAs at
-// W 8; the forward holds 16 warps an SM at 109 registers.
+// W 8.
 //
-// TWO PASSES (variant 2), the first design, for Tk > 128 (backward Tq or
-// Tk > 128), d <= 64
+// ONE SWEEP OVER KEY TILES (variant 5), d <= 64, Tk > 64 (backward: Tq or
+// Tk > 128)
+//
+// _xattn_kernel (gaitpd/ops/pallas_blocks.py:184-222) walks its kv tiles
+// with an online softmax "so long windows stay memory-linear"; this is that
+// regime. The WearGait cheap-xattn fusion at --win_len 256 sends the six
+// directed pairs of a train batch of 64 through one launch each way: N =
+// 384 problems of Tq = Tk = 256 at d = 12 (6144 at batch 1024).
+//
+// What bounds it. Forward: 2 * 2 * 384 * 256 * 256 * 12 FLOP = 1.21 GFLOP,
+// 18.0 us at 67 TFLOP/s, against 14.2 MB of traffic (4.2 us): operations.
+// Backward: five products, 45.1 us, against 23.6 MB: operations. As at
+// T 101 each score adds its softmax's instruction slots (a scale, a max,
+// expf, the sums), about half as many as its 24 FMAs at d = 12.
+//
+// What the design does about it. The first design took a thread a query
+// row on a grid of (N, ceil(Tq / 128)) blocks and computed each score
+// twice forward and about four times backward, the backward one block a
+// problem. Here, as in variant 3, two lanes take a query row, lane 2r + h
+// the keys 2j + h of each key tile of 128, so a thread holds at most 64
+// scores in registers. Forward: a block of 4 warps takes units of (problem,
+// 64 query rows) on a persistent grid of as many blocks as the card holds
+// at once (the occupancy calculator); a unit walks B's key tiles in order,
+// each staged into shared memory with cp.async and double-buffered: the
+// block's (unit, tile) items form one stream, and the next item's tile is
+// copied while the current one's scores are computed. Per tile the pair's
+// maximum raises the row's running m, and l and the sum of e B_k are
+// multiplied by exp(m_old - m) before the tile's e = exp(s - m) are added:
+// each score is computed once, with one expf. At the unit's last tile the
+// pair's sums meet by one shuffle each, half 0 + half 1, so both lanes hold
+// the same bits, and O = sum e B_k / l. Units of 32 query rows filled no
+// more of the card at N 5 (each lane's chain of work is the same) and were
+// no faster there (PERF.md), so units stay at 64.
+// Backward, two launches in one call of the entry point (the Python
+// wrapper counts one call), deterministic (no float atomics: each output
+// row is summed by one lane pair in a fixed order):
+//  1. query rows, the forward's kernel and stream with dO_i in registers
+//     too: besides l and Y = sum e B_k it sums, with the same rescales,
+//     t = sum e dP_ik and X = sum e dP_ik B_k (dP_ik = dO_i . B_k), so one
+//     walk gives D = t / l (= dO_i . O_i: O is never formed) and dA_i =
+//     (X - D Y) / l * scale = sum_k dS_ik B_k, and (m, 1/l, D) go to the
+//     stats scratch: two dot products and two row updates a score, one
+//     expf (the suggested second walk for dA would recompute S and dP);
+//  2. key rows: units of (problem, 64 keys), lane 2r + h holding key k's
+//     row of B and taking the query rows 2j + h of each query tile of 128,
+//     whose A and dO rows and (m, 1/l, D) are staged and double-buffered
+//     as B is in the first launch; P_ik = exp(S_ik - m_i) / l_i and dS_ik
+//     = P_ik (dP_ik - D_i) * scale from the recomputed S_ik (the first
+//     launch's bits) and dP_ik, and dB_k = sum_i dS_ik A_i + P_ik dO_i.
+// Rows and keys past Tq and Tk are zero-filled in shared memory (scores
+// past Tk are -inf; query rows past Tq have zero statistics and add exact
+// zeros), and a warp whose 16 rows (keys) all lie past the end skips the
+// unit. Per score the backward does 8 row operations and 2 expf against
+// the bound's 5 products. Strict f32 on the CUDA cores; no TF32.
+//
+// What it reaches (PERF.md): at --win_len 256's batch of 64, from a
+// CUDA graph, 0.0648 ms forward and 0.1854 backward, 3.6x and 4.1x their
+// bounds, against 0.1280 and 0.4786 for variant 2 and 0.3786 and 0.8312
+// for scaled_dot_product_attention and its autograd; at N 128, Tq = Tk =
+// 129, 0.0124 and 0.0292 (variant 2: 0.0378 and 0.2015); forward over one
+// key tile, 0.0167 at the FoG shape and 0.0108 at N 128, Tq = Tk = 128,
+// against 0.0162-0.0164 and 0.0110-0.0111 for variant 3's own forward in
+// the same run (H100 80GB HBM3 at 700 W). 122 registers forward at W 12
+// (16 warps an SM), 153 and 115 in the backward's two launches (12 and
+// 16).
+//
+// TWO PASSES (variant 2), the first design, d <= 64, by name only (variant 5
+// took its lengths, Tk > 128 and, backward, Tq > 128)
 //
 // A block takes one problem and up to 128 query rows; each thread owns one
 // query row. B streams through shared memory in tiles of 64 rows. Forward:
@@ -251,7 +319,7 @@ constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
 // The variants, numbered as gaitpd_torch/ops/cheap_xattn.py::_variant numbers them.
-enum Variant { kSweepD12 = 0, kSweep = 1, kTwoPass = 2, kSweep128 = 3, kTiled = 4 };
+enum Variant { kSweepD12 = 0, kSweep = 1, kTwoPass = 2, kSweep128 = 3, kTiled = 4, kSweepLong = 5 };
 
 constexpr int kSweepT = 64;         // keys (backward: and query rows) the sweep kernels hold
 constexpr int kSweepThreads = 128;  // 4 warps
@@ -580,70 +648,6 @@ __host__ __device__ constexpr int long_stride(int w) { return w == 64 ? w : row_
 // rows a warp stores at once, two keys each, lie on 32 distinct banks.
 __host__ __device__ constexpr int long_pstride(int tk) {
   return even_up(tk) / 2 % 2 == 1 ? even_up(tk) : even_up(tk) + 2;
-}
-
-// Grid: as many blocks as the card holds at once, at most one a unit. A
-// unit is (problem p, query rows [64 y, 64 y + 64)); block x takes units x,
-// x + grid, ... B's rows (Tk rounded up to even, zero beyond Tk: the odd lane
-// of the last pair reads a zero row, its score masked) sit in static shared
-// memory. A warp whose 16 query rows all lie past Tq skips the unit.
-template <int W>
-__global__ void __launch_bounds__(kSweepThreads, W <= 16 ? kSweepForwardBlocks : 1)
-cheap_xattn_forward_sweep128_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                                    float* __restrict__ out, int n, int tq, int tk, int d,
-                                    float scale) {
-  constexpr int kStride = row_stride(W);
-  constexpr unsigned kAll = 0xffffffffu;
-  __shared__ __align__(16) float bs[kLongT * kStride];
-  const int r = threadIdx.x >> 1, h = threadIdx.x & 1;
-  const int row0 = (threadIdx.x >> 5) * 16;  // the warp's first query row in the unit
-  const int chunks = (tq + kSweepT - 1) / kSweepT;
-  const long long units = static_cast<long long>(n) * chunks;
-  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
-    const size_t p = static_cast<size_t>(u / chunks);
-    const int r0 = static_cast<int>(u % chunks) * kSweepT;
-    const int i = r0 + r;
-    __syncthreads();  // the previous unit's reads of the tile are done
-    stage_tile<W>(b + p * tk * d, bs, tk, d, threadIdx.x, kSweepThreads, even_up(tk));
-    __syncthreads();
-    if (r0 + row0 >= tq) continue;
-    const bool active = i < tq;
-    float q[W];
-    load_row<W>(q, a + p * tq * d, i, d, active);
-    float s[kLongSlots];
-    float m = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kLongSlots; ++j) {
-      if (2 * j >= tk) break;
-      const int k = 2 * j + h;
-      const float v = dot_row<W, true>(q, bs + k * kStride, W) * scale;
-      s[j] = k < tk ? v : -INFINITY;
-      m = fmaxf(m, s[j]);
-    }
-    m = fmaxf(m, __shfl_xor_sync(kAll, m, 1));
-    __syncwarp();  // as in the sweep forward: B's rows are loaded again below
-    float l = 0.0f, acc[W];
-#pragma unroll
-    for (int c = 0; c < W; ++c) acc[c] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kLongSlots; ++j) {
-      if (2 * j >= tk) break;
-      const float e = expf(s[j] - m);
-      l += e;
-      axpy_row<W, true>(acc, e, bs + (2 * j + h) * kStride, W);
-    }
-    // the pair's sums, half 0 + half 1: both lanes hold the same bits
-    l += __shfl_xor_sync(kAll, l, 1);
-#pragma unroll
-    for (int c = 0; c < W; ++c) acc[c] += __shfl_xor_sync(kAll, acc[c], 1);
-    if (active && h == 0) {
-      float* o = out + (p * tq + i) * d;
-#pragma unroll
-      for (int c = 0; c < W; ++c) {
-        if (W == 12 || c < d) o[c] = acc[c] / l;
-      }
-    }
-  }
 }
 
 // Grid (N): block p owns problem p, 256 threads. Dynamic shared memory:
@@ -1539,6 +1543,316 @@ cheap_xattn_backward_tiled_kernel(const float* __restrict__ a, const float* __re
 }
 
 // ---------------------------------------------------------------------------
+// One sweep over key tiles (variant 5), d <= 64, any Tq and Tk (see the
+// header). W as variant 3's: 8, 12 (d = 12 exactly), 16, 32 or 64, rows
+// zero-padded beyond d. Lane 2r + h of a query row (a key row in the
+// backward's second launch) takes the keys (query rows) 2j + h of each tile
+// of 128, so a thread holds at most 64 scores.
+
+constexpr int kSweepLongThreads = 128;  // 4 warps
+constexpr int kSweepLongBlocks = 4;     // blocks an SM the launch bounds ask for at W <= 16
+constexpr int kSweepLongRowsBlocks = 3;  // the same for the backward's query-row launch
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Waits until at most `N` of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [0, rows) of a row-major (., d) matrix at src, columns [0, W), into
+// a tile of `tile_rows` rows and row stride S in shared memory with
+// cp.async, zero beyond row `rows` and column d; 16-byte copies where d is
+// a multiple of 4 (v4). The caller commits and waits.
+template <int W, int S>
+__device__ __forceinline__ void stage_async(const float* __restrict__ src, float* dst, int rows,
+                                            int tile_rows, int d, bool v4) {
+  if (v4) {
+    constexpr int kPer = W / 4;
+    for (int e = threadIdx.x; e < tile_rows * kPer; e += blockDim.x) {
+      const int r = e / kPer, c = (e - r * kPer) * 4;
+      const bool full = r < rows && c < d;
+      cp_async<true>(dst + r * S + c, full ? src + static_cast<size_t>(r) * d + c : src, full);
+    }
+  } else {
+    for (int e = threadIdx.x; e < tile_rows * W; e += blockDim.x) {
+      const int r = e / W, c = e - r * W;
+      const bool full = r < rows && c < d;
+      cp_async<false>(dst + r * S + c, full ? src + static_cast<size_t>(r) * d + c : src, full);
+    }
+  }
+}
+
+// Dynamic shared memory of the query-row kernel: two tiles of 128 rows of B.
+size_t long_rows_smem(int w) {
+  return 2 * static_cast<size_t>(kLongT) * row_stride(w) * sizeof(float);
+}
+
+// Floats of one buffer of the key-row kernel: A's and dO's tiles of 128
+// query rows, then their rows' (m, 1/l, D).
+__host__ __device__ constexpr int long_keys_buffer(int w) {
+  return 2 * kLongT * row_stride(w) + 3 * kLongT;
+}
+
+size_t long_keys_smem(int w) {
+  return 2 * static_cast<size_t>(long_keys_buffer(w)) * sizeof(float);
+}
+
+// The forward, and (BWD) the backward's first launch: query rows.
+// Grid: as many blocks as the card holds at once, at most one a unit. A
+// unit is (problem p, query rows [64 y, 64 y + 64)); block x takes units
+// x, x + grid, ..., and each unit walks
+// B's key tiles of 128 in order. The block's (unit, key tile) items form
+// one stream: while it computes on one tile of B in shared memory, the
+// next item's tile is copied into the other buffer. A warp whose 16 query
+// rows all lie past Tq skips the unit's tiles but stages and waits with
+// the block.
+// The online softmax: each tile's maximum over the pair raises the row's m,
+// and l, the sum of e B (and with BWD t = sum e dP and the sum of e dP B)
+// are multiplied by exp(m_old - m) before the tile's terms are added. At
+// the unit's last tile the pair's sums meet by one shuffle each, half 0 +
+// half 1, so both lanes hold the same bits. The forward writes O = sum e B /
+// l. BWD writes dA = (sum e dP B - D sum e B) / l * scale with D = t / l (=
+// dO . O) and the row's (m, 1/l, D) into stats for the second launch.
+template <int W, bool BWD>
+__global__ void __launch_bounds__(kSweepLongThreads,
+                                  W <= 16 ? (BWD ? kSweepLongRowsBlocks : kSweepLongBlocks) : 1)
+cheap_xattn_sweep_long_rows_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                                   const float* __restrict__ g, float* __restrict__ out,
+                                   float* __restrict__ stats, int n, int tq, int tk, int d,
+                                   float scale) {
+  constexpr int kStride = row_stride(W);
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ float4 smem4[];
+  float* tiles = reinterpret_cast<float*>(smem4);
+  const int r = threadIdx.x >> 1, h = threadIdx.x & 1;
+  const int row0 = (threadIdx.x >> 5) * 16;  // the warp's first query row in the unit
+  const bool v4 = d % 4 == 0;
+  const int chunks = (tq + kSweepT - 1) / kSweepT;
+  const int key_tiles = (tk + kLongT - 1) / kLongT;
+  const long long units = static_cast<long long>(n) * chunks;
+
+  long long u = blockIdx.x;
+  int kt = 0, buf = 0;
+  stage_async<W, kStride>(b + static_cast<size_t>(u / chunks) * tk * d, tiles, min(kLongT, tk),
+                          kLongT, d, v4);
+  cp_async_commit();
+  float q[W], go[W], y[W], x[W];  // A_i, dO_i; sum e B_k, sum e dP B_k
+  float m = -INFINITY, l = 0.0f, t = 0.0f;
+  while (u < units) {
+    const size_t p = static_cast<size_t>(u / chunks);
+    const int r0 = static_cast<int>(u % chunks) * kSweepT;
+    const int i = r0 + r;
+    const int keys = min(kLongT, tk - kt * kLongT);
+    long long nu = u;
+    int nkt = kt + 1;
+    if (nkt == key_tiles) {
+      nkt = 0;
+      nu += gridDim.x;
+    }
+    if (nu < units) {
+      stage_async<W, kStride>(
+          b + (static_cast<size_t>(nu / chunks) * tk + static_cast<size_t>(nkt) * kLongT) * d,
+          tiles + (buf ^ 1) * kLongT * kStride, min(kLongT, tk - nkt * kLongT), kLongT, d, v4);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this item's tile has landed (this thread's copies)
+    __syncthreads();     // ... and every thread's
+    const float* bs = tiles + buf * kLongT * kStride;
+    if (r0 + row0 < tq) {
+      const bool active = i < tq;
+      if (kt == 0) {
+        load_row<W>(q, a + p * tq * d, i, d, active);
+        if (BWD) load_row<W>(go, g + p * tq * d, i, d, active);
+        m = -INFINITY;
+        l = 0.0f;
+        t = 0.0f;
+#pragma unroll
+        for (int c = 0; c < W; ++c) {
+          y[c] = 0.0f;
+          x[c] = 0.0f;
+        }
+      }
+      float s[kLongSlots];
+      float mt = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kLongSlots; ++j) {
+        if (2 * j >= keys) break;
+        const int k = 2 * j + h;
+        const float v = dot_row<W, true>(q, bs + k * kStride, W) * scale;
+        s[j] = k < keys ? v : -INFINITY;
+        mt = fmaxf(mt, s[j]);
+      }
+      mt = fmaxf(mt, __shfl_xor_sync(kAll, mt, 1));
+      const float m_new = fmaxf(m, mt);  // finite: key 0 of every tile is live
+      const float rescale = expf(m - m_new);  // 0 at the first tile, 1 if m holds
+      m = m_new;
+      l *= rescale;
+      t *= rescale;
+#pragma unroll
+      for (int c = 0; c < W; ++c) {
+        y[c] *= rescale;
+        x[c] *= rescale;
+      }
+      __syncwarp();  // as in the sweep forward: B's rows are loaded again below
+#pragma unroll
+      for (int j = 0; j < kLongSlots; ++j) {
+        if (2 * j >= keys) break;
+        const float* row = bs + (2 * j + h) * kStride;
+        const float e = expf(s[j] - m);
+        l += e;
+        if (BWD) {
+          const float dp = dot_row<W, true>(go, row, W);
+          t = fmaf(e, dp, t);
+          axpy_row<W, true>(x, e * dp, row, W);
+        }
+        axpy_row<W, true>(y, e, row, W);
+      }
+      if (kt == key_tiles - 1) {  // the unit's last tile: the pair's sums
+        l += __shfl_xor_sync(kAll, l, 1);
+#pragma unroll
+        for (int c = 0; c < W; ++c) y[c] += __shfl_xor_sync(kAll, y[c], 1);
+        if (BWD) {
+          t += __shfl_xor_sync(kAll, t, 1);
+#pragma unroll
+          for (int c = 0; c < W; ++c) x[c] += __shfl_xor_sync(kAll, x[c], 1);
+        }
+        if (active && h == 0) {
+          float* o = out + (p * tq + i) * d;
+          if (BWD) {
+            const float dsum = t / l;  // D_i = sum_k P_ik dP_ik = dO_i . O_i
+            const float inv_l = 1.0f / l;
+#pragma unroll
+            for (int c = 0; c < W; ++c) {
+              if (W == 12 || c < d) o[c] = fmaf(-dsum, y[c], x[c]) * inv_l * scale;
+            }
+            float* st = stats + 3 * (p * tq + i);
+            st[0] = m;
+            st[1] = inv_l;
+            st[2] = dsum;
+          } else {
+#pragma unroll
+            for (int c = 0; c < W; ++c) {
+              if (W == 12 || c < d) o[c] = y[c] / l;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // this tile's reads are done before the next copy overwrites it
+    buf ^= 1;
+    u = nu;
+    kt = nkt;
+  }
+}
+
+// The backward's second launch: key rows. Grid: as many blocks as the card
+// holds at once, at most one a unit. A unit is (problem p, keys [64 y, 64 y
+// + 64)); lane 2r + h holds key k = 64 y + r's row of B and takes the query
+// rows 2j + h of each query tile of 128, in order, its A and dO rows and
+// their (m, 1/l, D) staged with cp.async and double-buffered as the first
+// launch stages B. Per pair (i, k) it recomputes S_ik (the first launch's
+// bits: the same products in the same order) and dP_ik, then P_ik =
+// exp(S_ik - m_i) / l_i and dS_ik = P_ik (dP_ik - D_i) * scale, and sums
+// dB_k += dS_ik A_i + P_ik dO_i; the pair's halves meet by one shuffle,
+// half 0 + half 1. Rows past Tq are zero, with zero (m, 1/l, D): they add
+// exact zeros.
+template <int W>
+__global__ void __launch_bounds__(kSweepLongThreads, W <= 16 ? kSweepLongBlocks : 1)
+cheap_xattn_sweep_long_keys_kernel(const float* __restrict__ a, const float* __restrict__ g,
+                                   const float* __restrict__ b, float* __restrict__ db,
+                                   const float* __restrict__ stats, int n, int tq, int tk,
+                                   int d, float scale) {
+  constexpr int kStride = row_stride(W);
+  constexpr int kBuffer = long_keys_buffer(W);
+  constexpr unsigned kAll = 0xffffffffu;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int r = threadIdx.x >> 1, h = threadIdx.x & 1;
+  const int row0 = (threadIdx.x >> 5) * 16;  // the warp's first key in the unit
+  const bool v4 = d % 4 == 0;
+  const int key_units = (tk + kSweepT - 1) / kSweepT;
+  const int query_tiles = (tq + kLongT - 1) / kLongT;
+  const long long units = static_cast<long long>(n) * key_units;
+
+  // stages query tile qt of problem p into buffer `to`
+  auto stage = [&](long long unit, int qt, int to) {
+    const size_t pp = static_cast<size_t>(unit / key_units);
+    const int q0 = qt * kLongT, rows = min(kLongT, tq - q0);
+    float* as = smem + to * kBuffer;
+    const size_t off = (pp * tq + q0) * d;
+    stage_async<W, kStride>(a + off, as, rows, kLongT, d, v4);
+    stage_async<W, kStride>(g + off, as + kLongT * kStride, rows, kLongT, d, v4);
+    const float* sp = stats + 3 * (pp * tq + q0);
+    float* st = as + 2 * kLongT * kStride;
+    for (int e = threadIdx.x; e < 3 * kLongT; e += blockDim.x) {
+      cp_async<false>(st + e, e < 3 * rows ? sp + e : sp, e < 3 * rows);
+    }
+  };
+
+  long long u = blockIdx.x;
+  int qt = 0, buf = 0;
+  stage(u, 0, 0);
+  cp_async_commit();
+  float kb[W], acc[W];
+  while (u < units) {
+    const size_t p = static_cast<size_t>(u / key_units);
+    const int k0 = static_cast<int>(u % key_units) * kSweepT;
+    const int k = k0 + r;
+    const int rows = min(kLongT, tq - qt * kLongT);
+    long long nu = u;
+    int nqt = qt + 1;
+    if (nqt == query_tiles) {
+      nqt = 0;
+      nu += gridDim.x;
+    }
+    if (nu < units) stage(nu, nqt, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* as = smem + buf * kBuffer;
+    const float* gs = as + kLongT * kStride;
+    const float* st = gs + kLongT * kStride;
+    if (k0 + row0 < tk) {
+      if (qt == 0) {
+        load_row<W>(kb, b + p * tk * d, k, d, k < tk);
+#pragma unroll
+        for (int c = 0; c < W; ++c) acc[c] = 0.0f;
+      }
+#pragma unroll 4
+      for (int j = 0; j < kLongSlots; ++j) {
+        if (2 * j >= rows) break;
+        const int i = 2 * j + h;
+        const float* arow = as + i * kStride;
+        const float* grow = gs + i * kStride;
+        const float s = dot_row<W, true>(kb, arow, W) * scale;
+        const float dp = dot_row<W, true>(kb, grow, W);
+        const float pk = expf(s - st[3 * i]) * st[3 * i + 1];
+        const float ds = pk * (dp - st[3 * i + 2]) * scale;
+        axpy_row<W, true>(acc, ds, arow, W);
+        axpy_row<W, true>(acc, pk, grow, W);
+      }
+      if (qt == query_tiles - 1) {
+#pragma unroll
+        for (int c = 0; c < W; ++c) acc[c] += __shfl_xor_sync(kAll, acc[c], 1);
+        if (k < tk && h == 0) {
+          float* o = db + (p * tk + k) * d;
+#pragma unroll
+          for (int c = 0; c < W; ++c) {
+            if (W == 12 || c < d) o[c] = acc[c];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    buf ^= 1;
+    u = nu;
+    qt = nqt;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launches. One function per direction works out a variant's launch, which
 // both the entry point and cheap_xattn_config use.
 
@@ -1565,16 +1879,19 @@ bool variant_takes(int variant, bool backward, int tq, int tk, int d) {
     case kSweepD12: return sweep && d == 12;
     case kSweep: return sweep && d <= kMaxD;
     case kTwoPass: return d <= kMaxD;
-    case kSweep128: return d <= kMaxD && tk <= kLongT && (!backward || tq <= kLongT);
+    case kSweep128: return backward && d <= kMaxD && tk <= kLongT && tq <= kLongT;
     case kTiled: return d > kMaxD;
+    case kSweepLong: return d <= kMaxD;
     default: return false;
   }
 }
 
-// The sweep kernels' register width for d; variant 3 also takes 8 (d <= 8)
-// and 12 (d = 12).
+// The sweep kernels' register width for d; variants 3 and 5 also take 8
+// (d <= 8) and 12 (d = 12).
 int sweep_width(int variant, int d) {
-  if (variant == kSweep128 && (d <= 8 || d == 12)) return d <= 8 ? 8 : 12;
+  if ((variant == kSweep128 || variant == kSweepLong) && (d <= 8 || d == 12)) {
+    return d <= 8 ? 8 : 12;
+  }
   return variant == kSweepD12 ? 12 : d <= 16 ? 16 : d <= 32 ? 32 : 64;
 }
 
@@ -1596,37 +1913,81 @@ cudaError_t resident_blocks(const void* kernel, int threads, size_t smem, int* b
   return err;
 }
 
+// The kernels of variant 5 for width w: the query-row kernel (forward, or
+// the backward's first launch) and the backward's key-row kernel.
+const void* sweep_long_rows(int w, bool backward) {
+  switch (w) {
+    case 8: return backward ? fn(cheap_xattn_sweep_long_rows_kernel<8, true>)
+                            : fn(cheap_xattn_sweep_long_rows_kernel<8, false>);
+    case 12: return backward ? fn(cheap_xattn_sweep_long_rows_kernel<12, true>)
+                             : fn(cheap_xattn_sweep_long_rows_kernel<12, false>);
+    case 16: return backward ? fn(cheap_xattn_sweep_long_rows_kernel<16, true>)
+                             : fn(cheap_xattn_sweep_long_rows_kernel<16, false>);
+    case 32: return backward ? fn(cheap_xattn_sweep_long_rows_kernel<32, true>)
+                             : fn(cheap_xattn_sweep_long_rows_kernel<32, false>);
+    default: return backward ? fn(cheap_xattn_sweep_long_rows_kernel<64, true>)
+                             : fn(cheap_xattn_sweep_long_rows_kernel<64, false>);
+  }
+}
+
+const void* sweep_long_keys(int w) {
+  switch (w) {
+    case 8: return fn(cheap_xattn_sweep_long_keys_kernel<8>);
+    case 12: return fn(cheap_xattn_sweep_long_keys_kernel<12>);
+    case 16: return fn(cheap_xattn_sweep_long_keys_kernel<16>);
+    case 32: return fn(cheap_xattn_sweep_long_keys_kernel<32>);
+    default: return fn(cheap_xattn_sweep_long_keys_kernel<64>);
+  }
+}
+
+// A persistent grid for `kernel`: as many blocks as the card holds at once,
+// at most `units`.
+cudaError_t persistent_grid(Launch* l, long long units) {
+  int resident;
+  cudaError_t err = allow_smem(l->kernel, l->smem);  // before the occupancy query
+  if (err == cudaSuccess) err = resident_blocks(l->kernel, l->threads, l->smem, &resident);
+  if (err != cudaSuccess) return err;
+  if (resident < 1) return cudaErrorInvalidValue;
+  l->grid = dim3(static_cast<unsigned>(units < resident ? units : resident));
+  return cudaSuccess;
+}
+
+// Variant 5's query-row launch: the forward or the backward's first launch,
+// units of 64 query rows.
+cudaError_t sweep_long_rows_launch(bool backward, int n, int tq, int d, Launch* l) {
+  const int w = sweep_width(kSweepLong, d);
+  *l = Launch{sweep_long_rows(w, backward), dim3(1), kSweepLongThreads, long_rows_smem(w)};
+  return persistent_grid(l, static_cast<long long>(n) * ((tq + kSweepT - 1) / kSweepT));
+}
+
+// Variant 5's second backward launch: units of 64 keys.
+cudaError_t sweep_long_keys_launch(int n, int tk, int d, Launch* l) {
+  const int w = sweep_width(kSweepLong, d);
+  *l = Launch{sweep_long_keys(w), dim3(1), kSweepLongThreads, long_keys_smem(w)};
+  return persistent_grid(l, static_cast<long long>(n) * ((tk + kSweepT - 1) / kSweepT));
+}
+
 cudaError_t forward_launch(int variant, int n, int tq, int tk, int d, Launch* out) {
   if (!valid_sizes(n, tq, tk, d) || !variant_takes(variant, false, tq, tk, d)) {
     return cudaErrorInvalidValue;
   }
+  if (variant == kSweepLong) return sweep_long_rows_launch(false, n, tq, d, out);
   Launch l{nullptr, dim3(1), kSweepThreads, 0};
   const bool v4 = d % 4 == 0;
-  if (variant == kSweepD12 || variant == kSweep || variant == kSweep128) {
+  if (variant == kSweepD12 || variant == kSweep) {
     const bool full = tk == kSweepT;
-    if (variant == kSweep128) {
-      switch (sweep_width(variant, d)) {
-        case 8: l.kernel = fn(cheap_xattn_forward_sweep128_kernel<8>); break;
-        case 12: l.kernel = fn(cheap_xattn_forward_sweep128_kernel<12>); break;
-        case 16: l.kernel = fn(cheap_xattn_forward_sweep128_kernel<16>); break;
-        case 32: l.kernel = fn(cheap_xattn_forward_sweep128_kernel<32>); break;
-        default: l.kernel = fn(cheap_xattn_forward_sweep128_kernel<64>); break;
-      }
-    } else {
-      switch (sweep_width(variant, d)) {
-        case 12: l.kernel = full ? fn(cheap_xattn_forward_sweep_kernel<12, true>)
-                                 : fn(cheap_xattn_forward_sweep_kernel<12, false>); break;
-        case 16: l.kernel = fn(cheap_xattn_forward_sweep_kernel<16, false>); break;
-        case 32: l.kernel = fn(cheap_xattn_forward_sweep_kernel<32, false>); break;
-        default: l.kernel = fn(cheap_xattn_forward_sweep_kernel<64, false>); break;
-      }
+    switch (sweep_width(variant, d)) {
+      case 12: l.kernel = full ? fn(cheap_xattn_forward_sweep_kernel<12, true>)
+                               : fn(cheap_xattn_forward_sweep_kernel<12, false>); break;
+      case 16: l.kernel = fn(cheap_xattn_forward_sweep_kernel<16, false>); break;
+      case 32: l.kernel = fn(cheap_xattn_forward_sweep_kernel<32, false>); break;
+      default: l.kernel = fn(cheap_xattn_forward_sweep_kernel<64, false>); break;
     }
     int resident;
     const cudaError_t err = resident_blocks(l.kernel, kSweepThreads, 0, &resident);
     if (err != cudaSuccess) return err;
     const long long units = static_cast<long long>(n) * ((tq + kSweepT - 1) / kSweepT);
-    const int per_round = variant == kSweep128 ? 1 : kSlots;  // units a block takes a round
-    const long long rounds = (units + per_round - 1) / per_round;
+    const long long rounds = (units + kSlots - 1) / kSlots;  // kSlots units a block a round
     l.grid = dim3(static_cast<unsigned>(rounds < resident ? rounds : resident));
   } else if (variant == kTwoPass) {
     if (d <= 16) {
@@ -1644,21 +2005,25 @@ cudaError_t forward_launch(int variant, int n, int tq, int tk, int d, Launch* ou
                   : fn(cheap_xattn_forward_tiled_kernel<false>);
     l.threads = kTiledThreads;
     l.smem = tiled_smem(d);
-    int resident;
-    cudaError_t err = allow_smem(l.kernel, l.smem);  // before the occupancy query
-    if (err == cudaSuccess) err = resident_blocks(l.kernel, l.threads, l.smem, &resident);
+    const cudaError_t err =
+        persistent_grid(&l, static_cast<long long>(n) * ((tq + kSweepT - 1) / kSweepT));
     if (err != cudaSuccess) return err;
-    if (resident < 1) return cudaErrorInvalidValue;
-    const long long units = static_cast<long long>(n) * ((tq + kSweepT - 1) / kSweepT);
-    l.grid = dim3(static_cast<unsigned>(units < resident ? units : resident));
   }
   *out = l;
   return allow_smem(l.kernel, l.smem);
 }
 
-cudaError_t backward_launch(int variant, int n, int tq, int tk, int d, Launch* out) {
+// The backward's launch, and in `second` the one that follows it (variant
+// 5's key rows), or a null kernel where there is none.
+cudaError_t backward_launch(int variant, int n, int tq, int tk, int d, Launch* out,
+                            Launch* second) {
+  second->kernel = nullptr;
   if (!valid_sizes(n, tq, tk, d) || !variant_takes(variant, true, tq, tk, d)) {
     return cudaErrorInvalidValue;
+  }
+  if (variant == kSweepLong) {
+    const cudaError_t err = sweep_long_keys_launch(n, tk, d, second);
+    return err != cudaSuccess ? err : sweep_long_rows_launch(true, n, tq, d, out);
   }
   Launch l{nullptr, dim3(n), kSweepThreads, 0};
   const bool v4 = d % 4 == 0;
@@ -1721,49 +2086,70 @@ int cheap_xattn_forward(const float* a, const float* b, float* out, int n, int t
   if (err != cudaSuccess) return static_cast<int>(err);
   float sqrt_d = sqrtf(static_cast<float>(d));
   float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(d)));
+  const float* none = nullptr;
+  float* no_stats = nullptr;
   void* sweep_args[] = {&a, &b, &out, &n, &tq, &tk, &d, &scale};
   void* two_pass_args[] = {&a, &b, &out, &tq, &tk, &d, &sqrt_d};
   void* tiled_args[] = {&a, &b, &out, &n, &tq, &tk, &d, &sqrt_d};
-  void** args = variant == kTwoPass ? two_pass_args : variant == kTiled ? tiled_args : sweep_args;
+  void* long_args[] = {&a, &b, &none, &out, &no_stats, &n, &tq, &tk, &d, &scale};
+  void** args = variant == kTwoPass ? two_pass_args
+                : variant == kTiled ? tiled_args
+                : variant == kSweepLong ? long_args : sweep_args;
   return static_cast<int>(cudaLaunchKernel(l.kernel, l.grid, dim3(l.threads), args, l.smem,
                                            static_cast<cudaStream_t>(stream)));
 }
 
-// Launches the backward of `variant` on `stream`. Returns a cudaError_t. a, b
-// as the forward; g (N, Tq, d) the cotangent; da (N, Tq, d) and db (N, Tk, d)
-// the outputs; stats a scratch buffer of N * Tq * 3 floats for variant 2,
-// and for 4 beyond 64 keys (unused otherwise: may be null). All
-// contiguous, 16-byte aligned f32 device pointers.
+// Launches the backward of `variant` on `stream` (variant 5: two launches,
+// query rows then key rows). Returns a cudaError_t. a, b as the forward; g
+// (N, Tq, d) the cotangent; da (N, Tq, d) and db (N, Tk, d) the outputs;
+// stats a scratch buffer of N * Tq * 3 floats for variants 2 and 5, and for
+// 4 beyond 64 keys (unused otherwise: may be null). All contiguous, 16-byte
+// aligned f32 device pointers.
 int cheap_xattn_backward(const float* a, const float* b, const float* g, float* da, float* db,
                          float* stats, int n, int tq, int tk, int d, int variant, void* stream) {
-  Launch l;
-  cudaError_t err = backward_launch(variant, n, tq, tk, d, &l);
+  Launch l, keys;
+  cudaError_t err = backward_launch(variant, n, tq, tk, d, &l, &keys);
   if (err != cudaSuccess) return static_cast<int>(err);
   float sqrt_d = sqrtf(static_cast<float>(d));
   float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(d)));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == kSweepLong) {
+    void* rows_args[] = {&a, &b, &g, &da, &stats, &n, &tq, &tk, &d, &scale};
+    err = cudaLaunchKernel(l.kernel, l.grid, dim3(l.threads), rows_args, l.smem, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    void* keys_args[] = {&a, &g, &b, &db, &stats, &n, &tq, &tk, &d, &scale};
+    return static_cast<int>(
+        cudaLaunchKernel(keys.kernel, keys.grid, dim3(keys.threads), keys_args, keys.smem, s));
+  }
   void* sweep_args[] = {&a, &b, &g, &da, &db, &tq, &tk, &d, &scale};
   void* two_pass_args[] = {&a, &b, &g, &da, &db, &stats, &tq, &tk, &d, &sqrt_d};
   void** args = variant == kTwoPass || variant == kTiled ? two_pass_args : sweep_args;
-  return static_cast<int>(cudaLaunchKernel(l.kernel, l.grid, dim3(l.threads), args, l.smem,
-                                           static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(cudaLaunchKernel(l.kernel, l.grid, dim3(l.threads), args, l.smem, s));
 }
 
-// The launch that cheap_xattn_forward (backward = 0) or cheap_xattn_backward
-// (backward = 1) makes for `variant` at these sizes on the current card:
-// threads a block, dynamic shared memory in bytes, the blocks an SM holds at
-// once (the CUDA occupancy calculator: registers and static shared memory
-// included) and the blocks of the grid. Returns a cudaError_t.
-int cheap_xattn_config(int backward, int variant, int n, int tq, int tk, int d, int* threads,
-                       int* smem_bytes, int* blocks_per_sm, int* blocks) {
-  Launch l;
-  cudaError_t err = backward ? backward_launch(variant, n, tq, tk, d, &l)
-                             : forward_launch(variant, n, tq, tk, d, &l);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *threads = l.threads;
-  *smem_bytes = static_cast<int>(l.smem);
-  *blocks = static_cast<int>(l.grid.x * l.grid.y);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, l.kernel, l.threads, l.smem));
+// The launches that cheap_xattn_forward (backward = 0) or
+// cheap_xattn_backward (backward = 1) makes for `variant` at these sizes on
+// the current card. config[0..3] hold the first launch's threads a block,
+// dynamic shared memory in bytes, blocks an SM holds at once (the CUDA
+// occupancy calculator: registers and static shared memory included) and
+// blocks of the grid; config[4..7] the same of the second launch (variant
+// 5's backward key rows), or zeros. Returns a cudaError_t.
+int cheap_xattn_config(int backward, int variant, int n, int tq, int tk, int d, int* config) {
+  Launch launch[2];
+  launch[1].kernel = nullptr;
+  cudaError_t err = backward ? backward_launch(variant, n, tq, tk, d, &launch[0], &launch[1])
+                             : forward_launch(variant, n, tq, tk, d, &launch[0]);
+  for (int k = 0; k < 2 && err == cudaSuccess; ++k) {
+    const Launch& l = launch[k];
+    int* c = config + 4 * k;
+    c[0] = c[1] = c[2] = c[3] = 0;
+    if (l.kernel == nullptr) continue;
+    c[0] = l.threads;
+    c[1] = static_cast<int>(l.smem);
+    c[3] = static_cast<int>(l.grid.x * l.grid.y);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&c[2], l.kernel, l.threads, l.smem);
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -11,13 +11,15 @@ the hand-written backward kernel of the same file, counted in
 ``cheap_xattn_reference``, under ordinary autograd. There is no fallback from
 one to the other.
 
-The source holds five variants of each kernel; ``_variant`` chooses one from
-the sizes (Tq, Tk, d) and passes it to the entry points, which refuse a
-variant that does not take the sizes. The two-pass kernels (``TWO_PASS``)
-are chosen only beyond 128 keys (backward: or query rows), which no model's
-default path reaches; they stay callable by name at every length, through
+The source holds six variants (the sweep over 128 keys backward only);
+``_variant`` chooses one from the sizes (Tq, Tk, d) and passes it to the
+entry points, which refuse a variant that does not take the sizes. Beyond
+64 keys forward and beyond 128 keys or query rows backward at d <= 64
+(T 101, ``--win_len`` 128 and above), the one sweep over key tiles
+(``SWEEP_LONG``) runs. The two-pass kernels (``TWO_PASS``), the first design
+there, are on no path; they stay callable by name at every length, through
 ``_forward_kernel`` and ``_backward_kernel``, as the yardstick the one-sweep
-kernels over 128 keys replaced.
+kernels replaced.
 """
 
 from __future__ import annotations
@@ -39,15 +41,18 @@ _bound = None
 # The kernel variants of csrc/cheap_xattn.cu, numbered as its entry points take
 # them: one sweep with d = 12 as a compile-time width (Tk <= 64; backward also
 # Tq <= 64), one sweep at any d <= 64 (the same lengths), the two-pass kernels
-# (d <= 64 beyond 128 keys or, backward, query rows), one sweep over up to 128
-# keys with two lanes a query row (d <= 64 between the two), and tiles in
-# shared memory (d > 64, any Tq and Tk, both ways: key tiles of 64 with an
-# online softmax forward, one block a problem backward). Operations bound
+# (the first design, by name only), one sweep over up to 128 keys and query
+# rows with two lanes a query row (backward only, d <= 64 between the two),
+# tiles in shared memory (d > 64, any Tq and Tk, both ways: key tiles of 64
+# with an online softmax forward, one block a problem backward), and one
+# sweep over key tiles of 128 with an online softmax, two lanes a query row
+# (d <= 64: forward beyond 64 keys, backward beyond 128 keys or query rows;
+# the backward in two launches, query rows then key rows). Operations bound
 # each at the repo's shapes (csrc header).
-SWEEP_D12, SWEEP, TWO_PASS, SWEEP_128, TILED = range(5)
-VARIANT_NAMES = ("sweep_d12", "sweep", "two_pass", "sweep_128", "tiled")
+SWEEP_D12, SWEEP, TWO_PASS, SWEEP_128, TILED, SWEEP_LONG = range(6)
+VARIANT_NAMES = ("sweep_d12", "sweep", "two_pass", "sweep_128", "tiled", "sweep_long")
 SWEEP_T = 64  # the most keys (backward: and query rows) the sweep kernels hold
-SWEEP_128_T = 128  # the same for the sweep over 128 keys
+SWEEP_128_T = 128  # the same for the sweep over 128 keys (backward)
 REGISTER_D = 64  # the widest row the register kernels hold
 
 
@@ -57,9 +62,9 @@ def _variant(tq: int, tk: int, d: int, backward: bool = False) -> int:
         return TILED
     if tk <= SWEEP_T and (not backward or tq <= SWEEP_T):
         return SWEEP_D12 if d == 12 else SWEEP
-    if tk <= SWEEP_128_T and (not backward or tq <= SWEEP_128_T):
+    if backward and tk <= SWEEP_128_T and tq <= SWEEP_128_T:
         return SWEEP_128
-    return TWO_PASS
+    return SWEEP_LONG
 
 
 def cheap_xattn_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -98,7 +103,7 @@ def _library():
         bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         bwd.restype = ctypes.c_int
         config = lib.cheap_xattn_config
-        config.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 4
+        config.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
         config.restype = ctypes.c_int
         _bound = (fwd, bwd, config)
     return _bound
@@ -180,8 +185,9 @@ def cheap_xattn_backward(
     g (N, Tq, d).
 
     CPU tensors take ``cheap_xattn_backward_reference``; CUDA tensors launch
-    the backward kernel (deterministic: one block per problem, no float
-    atomics) or raise."""
+    the backward kernel (deterministic: no float atomics, each output row
+    summed by one block in a fixed order) or raise. ``backward_launches``
+    counts calls: ``SWEEP_LONG``'s call is two kernel launches."""
     _check(a, b)
     if g.shape != a.shape:
         raise ValueError(f"cotangent shape {tuple(g.shape)} != {tuple(a.shape)}")
@@ -202,10 +208,12 @@ def _backward_kernel(a, b, g, variant=None):
     if n == 0:
         return da, db
     a, b, g = _aligned(a), _aligned(b), _aligned(g)
-    # row statistics of the two-pass kernel and of the tiled one beyond 64
-    # keys; the others keep theirs on chip
+    # row statistics of the two-pass kernel, of the sweep over key tiles
+    # (its first launch writes them for its second) and of the tiled one
+    # beyond 64 keys; the others keep theirs on chip
     stats = (torch.empty((n, tq, 3), dtype=torch.float32, device=a.device)
-             if variant == TWO_PASS or (variant == TILED and tk > SWEEP_T) else None)
+             if variant in (TWO_PASS, SWEEP_LONG) or (variant == TILED and tk > SWEEP_T)
+             else None)
     bwd = _library()[1]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -223,12 +231,15 @@ def launch_config(n: int, tq: int, tk: int, d: int, backward: bool = False) -> d
     ``cheap_xattn_backward``) makes for N problems of (Tq, Tk, d) on the
     current card: the variant, threads a block, dynamic shared memory in
     bytes, the blocks an SM holds at once (CUDA's occupancy calculator) and
-    the blocks of the grid. Needs a card."""
+    the blocks of the grid; ``SWEEP_LONG``'s backward also its second launch
+    under ``keys``. Needs a card."""
     variant = _variant(tq, tk, d, backward)
-    out = [ctypes.c_int(0) for _ in range(4)]
-    err = _library()[2](int(backward), variant, n, tq, tk, d, *(ctypes.byref(v) for v in out))
+    out = (ctypes.c_int * 8)()
+    err = _library()[2](int(backward), variant, n, tq, tk, d, out)
     if err != 0:
         raise RuntimeError(f"cheap_xattn_config failed: cudaError_t {err}")
-    return dict(variant=VARIANT_NAMES[variant],
-                **dict(zip(("threads", "smem_bytes", "blocks_per_sm", "blocks"),
-                           (v.value for v in out))))
+    names = ("threads", "smem_bytes", "blocks_per_sm", "blocks")
+    config = dict(variant=VARIANT_NAMES[variant], **dict(zip(names, out[:4])))
+    if out[4]:  # a second launch
+        config["keys"] = dict(zip(names, out[4:]))
+    return config

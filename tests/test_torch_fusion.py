@@ -104,6 +104,18 @@ def test_cheap_xattn3_mask_matches_flax(sync, mask):
              t_kw=dict(mask=torch.tensor(mask)))
 
 
+def test_cheap_xattn3_matches_flax_at_win_len_256():
+    """Windows of 256 frames (--win_len 256): the six directed pairs' cross-
+    attention over 256 keys, which the card runs on the sweep over key
+    tiles (its plain version here), at batch 2."""
+    rng = np.random.default_rng(SEED + 12)
+    xs = [rng.normal(size=(2, 256, c)).astype(np.float32) for c in (2, 13, 24)]
+    fm = JF.CheapXAttn3(synchronized=True)
+    v = _perturbed_init(fm, xs, rng)
+    tm = load_flax_params(TF.CheapXAttn3(synchronized=True), v)
+    _compare(fm, v, tm, xs, rng)
+
+
 @pytest.mark.parametrize("sync", [True, False])
 @pytest.mark.parametrize("name", TWO_MOD)
 def test_two_mod_fusion_matches_flax(name, sync):

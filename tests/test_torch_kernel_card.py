@@ -447,9 +447,9 @@ XATTN_CASES = [
 # widths), N odd (a block's second unit idle in the last round) and N above
 # one round of the persistent grid, at the main shape plus one problem; then
 # the sweep over 128 keys at T 101 (d 6 and 3, its width 8 at d 8 against 16
-# at d 9), at 128 and 129 keys (the two-pass kernels beyond 128), 129 query
-# rows against 64 keys (the backward's two passes), d 64 over 128 keys, and
-# N above one round of its persistent grid at FoG's shape
+# at d 9), at 128 and 129 keys (the sweep over key tiles beyond 128), 129
+# query rows against 64 keys (its backward), d 64 over 128 keys, and N above
+# one round of its persistent grid at FoG's shape
 XATTN_EDGE_CASES = [
     (7, 64, 64, 12), (7, 64, 65, 12), (7, 65, 64, 12), (7, 65, 65, 12), (5, 64, 63, 12),
     (5, 64, 64, 8), (5, 64, 64, 16), (5, 64, 64, 36), (3, 33, 47, 36), (5, 64, 64, 64),
@@ -457,6 +457,19 @@ XATTN_EDGE_CASES = [
     (7, 101, 101, 6), (7, 101, 101, 3), (5, 101, 101, 8), (5, 101, 101, 9),
     (5, 128, 128, 12), (5, 128, 129, 12), (5, 129, 64, 12), (5, 65, 128, 64),
     (2 * 1024 + 1, 101, 101, 6),
+]
+# the sweep over key tiles (d <= 64 beyond 128 keys; backward also beyond
+# 128 query rows): Tk 129 (a second tile of one key), 192, 255 (an odd
+# last key), 256, 257 and 426; Tq > 128 against Tk <= 64 and <= 128 (the
+# backward alone); one query row; d 3, 6, 8 (width 8), 12 (the compile-time
+# width), 13 (4-byte copies), 33 and 64 (width 64); N 5, 128 and 384, the
+# --win_len 256 fusion's 384 problems of 256 x 256 at d 12 (several rounds
+# of both persistent grids), and N above one round at T 129
+SWEEP_LONG_CASES = [
+    (5, 128, 129, 12), (5, 64, 192, 12), (5, 100, 255, 6), (5, 129, 256, 3), (5, 65, 257, 8),
+    (5, 101, 426, 12), (5, 1, 300, 12), (5, 129, 64, 12), (5, 130, 20, 13), (5, 200, 100, 8),
+    (5, 129, 129, 64), (3, 70, 300, 64), (3, 140, 200, 33), (5, 300, 131, 13),
+    (128, 129, 129, 12), (384, 256, 256, 12), (1000, 129, 130, 6),
 ]
 
 
@@ -472,7 +485,7 @@ def _xattn_close(got, want, atol, rtol):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", XATTN_CASES + XATTN_EDGE_CASES,
+@pytest.mark.parametrize("case", XATTN_CASES + XATTN_EDGE_CASES + SWEEP_LONG_CASES,
                          ids=lambda c: "-".join(map(str, c)))
 def test_cheap_xattn_kernels_match_plain_on_card(case):
     dev = _cuda()
@@ -495,8 +508,9 @@ def test_cheap_xattn_kernels_match_plain_on_card(case):
         assert torch.equal(gk, ak)  # deterministic: the same bits twice
 
 
-# the two-pass kernels, chosen only beyond 128 keys, stay callable by name at
-# every length: chip_smoke.py times them beside the sweep over 128 keys
+# the two-pass kernels, on no path since the sweep over key tiles, stay
+# callable by name at every length: chip_smoke.py times them beside the
+# sweeps over 128 keys and over key tiles
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", [(7, 101, 101, 6), (5, 64, 64, 12), (3, 65, 128, 64)],
                          ids=lambda c: "-".join(map(str, c)))
@@ -513,23 +527,35 @@ def test_two_pass_by_name_on_card(case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
-@pytest.mark.parametrize("case", XATTN_EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("case", XATTN_EDGE_CASES + SWEEP_LONG_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
 def test_cheap_xattn_launch_config_on_card(case, backward):
     """The launch of the variant the sizes take: the card holds at least one
     block an SM, and the sweep forwards' persistent grid is no larger than
     the card holds at once nor than their units of 64 query rows; the
-    backward of the sweep over 128 keys takes a block a problem."""
+    backward of the sweep over 128 keys takes a block a problem; the sweep
+    over key tiles' backward makes two launches on persistent grids, units
+    of 64 query rows, then of 64 keys."""
     _cuda()
     n, tq, tk, d = case
     config = cx.launch_config(n, tq, tk, d, backward)
     assert config["variant"] == cx.VARIANT_NAMES[cx._variant(tq, tk, d, backward)]
     assert config["threads"] > 0 and config["blocks_per_sm"] >= 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def persistent(c, units):
+        return 1 <= c["blocks"] <= min(units, c["blocks_per_sm"] * sms)
+
     if not backward and config["variant"].startswith("sweep"):
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        units = n * -(-tq // cx.SWEEP_T)
-        assert 1 <= config["blocks"] <= min(units, config["blocks_per_sm"] * sms)
+        assert persistent(config, n * -(-tq // cx.SWEEP_T))
     if backward and config["variant"] == "sweep_128":
         assert config["blocks"] == n
+    if backward and config["variant"] == "sweep_long":
+        assert persistent(config, n * -(-tq // cx.SWEEP_T))
+        assert config["keys"]["blocks_per_sm"] >= 1
+        assert persistent(config["keys"], n * -(-tk // cx.SWEEP_T))
+    else:
+        assert "keys" not in config
 
 
 # the tiles in shared memory (d > 64, both ways): d 65 (not a multiple of
@@ -642,6 +668,8 @@ def test_kernel_refuses_what_it_does_not_take():
     for gk, wk in zip(cx.cheap_xattn_backward(a, b, g), cx.cheap_xattn_backward_reference(a, b, g)):
         assert _xattn_close(gk, wk, 1e-5, 1e-4)
     a, b, g = _xattn_inputs((2, 8, 8, 12), dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cx._forward_kernel(a, b, cx.SWEEP_128)  # the sweep over 128 keys is backward only
     with pytest.raises(TypeError):
         cx.cheap_xattn(a.double(), b.double())
     with pytest.raises(ValueError):
