@@ -189,8 +189,10 @@ Phases (each raises on failure, so the script exits non-zero):
      block's wide forward and backward at FOCAL's shape (batch 1024, GELU)
      beside their plain versions, library calls, bounds, launches and the
      generic variants that took these sizes before, then at batch 64 and
-     3 x 64 (device time under the profiler, beside the library's) and,
-     both variants, at C_in 32, 48 and 64 (the wrapper's threshold), and one
+     3 x 64 (device time under the profiler, beside the library's); the
+     wide variants against per_frame and the generic backward at every C_in
+     17..63 of TILE_SIZES, ReLU and GELU, from a CUDA graph in turns (the
+     wrapper's thresholds); one
      train step of each SOTA baseline at batch 64 and 1024; the MGDA,
      FairGrad and NashMTL solver kernels at K = 3, one matrix (eager and
      device time, plain version, bound; FairGrad's and NashMTL's warp
@@ -253,6 +255,8 @@ from gaitpd_torch.config import FBG_FOG_DIMS
 from gaitpd_torch.data import synthetic as syn
 from gaitpd_torch.data.sampler import batch_index_matrix
 from gaitpd_torch.data.weargait import prepare_split
+from gaitpd_torch.learning import mtl as mtl_lib
+from gaitpd_torch.learning.minnorm import min_norm_element_stop, min_norm_every
 from gaitpd_torch.learning.mtl import (
     METHODS,
     _graddrop_mask,
@@ -1550,6 +1554,78 @@ def nash_normalised(grams: torch.Tensor) -> torch.Tensor:
     return grams / torch.linalg.matrix_norm(grams).clamp(min=1e-8)[..., None, None]
 
 
+def correlated_grams(rng, n, k):
+    """n Gram matrices of K task gradients around one shared direction, each
+    task at its own scale over two decades: MGDA's optimum then mostly lies
+    at a vertex, and its Frank-Wolfe steps reach their fixed point early."""
+    base = rng.normal(size=(n, 1, 6))
+    a = (base + 0.3 * rng.normal(size=(n, k, 6))) * 10.0 ** rng.uniform(-1, 1, size=(n, k, 1))
+    return (a @ a.transpose(0, 2, 1)).astype(np.float32)
+
+
+def check_min_norm_stop(rng, dev) -> dict:
+    """MGDA's kernel on NEWTON_BATCH matrices in one launch that mix early
+    and 250-step solves (half of mtl_solver_grams' law, half correlated, a
+    NaN entry in one) at K = 1..8: its default design (counted) and its
+    thread design by name bitwise equal to the 250-step plain version; the
+    stop steps (min_norm_element_stop) hold both kinds from K = 2 on."""
+    out = {}
+    for k in range(1, ms.MAX_TASKS + 1):
+        half = NEWTON_BATCH // 2
+        grams = np.concatenate([mtl_solver_grams(rng, half, k)[:half],
+                                correlated_grams(rng, NEWTON_BATCH - half, k)])
+        grams[half, 0, k - 1] = np.nan
+        grams = torch.from_numpy(grams).to(dev)
+        before = read_launches()["min_norm_solver"]
+        got = ms.min_norm_solve(grams)
+        thread = ms._solve_kernel("min_norm_solver", grams, variant="thread")
+        torch.cuda.synchronize()
+        launched = read_launches()["min_norm_solver"] - before
+        want = ms.min_norm_solve_reference(grams)
+        stops = min_norm_element_stop(grams)[1].cpu().numpy()
+        early, full = int((stops < 250).sum()), int((stops == 250).sum())
+        same, same_thread = bitwise_rows(got, want), bitwise_rows(thread, want)
+        log(f"[kernel] min_norm_solver K={k}, {NEWTON_BATCH} mixed Gram matrices in one launch "
+            f"(stop steps min/median/max {stops.min()}/{np.median(stops):g}/{stops.max()}: "
+            f"{early} stop early, {full} run 250 steps): bitwise equal {same}/{NEWTON_BATCH}, "
+            f"the thread design by name {same_thread}/{NEWTON_BATCH}; launches {launched}")
+        if same != NEWTON_BATCH or same_thread != NEWTON_BATCH or launched != 1:
+            raise RuntimeError(f"min_norm_solver K={k}: the mixed batch is not bitwise equal to "
+                               f"the plain version, or {launched} launches were counted")
+        if k > 1 and not (early and full):
+            raise RuntimeError(f"min_norm_solver K={k}: the batch does not mix early and "
+                               f"250-step solves")
+        config = ms.launch_config("min_norm_solver", "stop", k)
+        if config["stop_every"] != min_norm_every(k):
+            raise RuntimeError(f"min_norm_solver K={k}: the kernel compares every "
+                               f"{config['stop_every']} steps, the plain stop every "
+                               f"{min_norm_every(k)}")
+        out[k] = {"early": early, "full": full}
+    return out
+
+
+class GramRecorder:
+    """Within ``with``: keeps a copy of each Gram matrix that MGDA's combine
+    (gaitpd_torch.learning.mtl) hands to min_norm_solve on the card."""
+
+    def __init__(self):
+        self.grams = []
+
+    def __enter__(self):
+        self._solve = mtl_lib.min_norm_solve
+
+        def solve(gram):
+            if gram.is_cuda:
+                self.grams.append(gram.detach().clone())
+            return self._solve(gram)
+
+        mtl_lib.min_norm_solve = solve
+        return self
+
+    def __exit__(self, *exc):
+        mtl_lib.min_norm_solve = self._solve
+
+
 def mtl_solver_calls():
     """(label, kernel call, plain call, counter, input map, weights on the
     simplex) for each solver, FairGrad at each alpha."""
@@ -1571,8 +1647,8 @@ NEWTON_BATCH = 257  # matrices in one launch: a grid that 4 warps a block does n
 def check_mtl_solvers(rng, dev) -> dict:
     """Each solver kernel against its plain version at K = 1..8 on seeded
     and degenerate Gram matrices, in one launch and one matrix a launch,
-    then NEWTON_BATCH of them in one launch; FairGrad's and NashMTL's
-    one-thread design by name on both batches: w bitwise equal (FairGrad's
+    then NEWTON_BATCH of them in one launch; each solver's one-thread
+    design by name on both batches: w bitwise equal (FairGrad's
     too: kernel and plain version call the same device powf); every w
     finite, MGDA's on the simplex; the launch counter up by one a launch
     (none for the design by name). Returns each solver's max abs error at
@@ -1606,18 +1682,17 @@ def check_mtl_solvers(rng, dev) -> dict:
                 bool((t >= 0).all()) and (t.sum(-1) - 1).abs().max().item() <= 1e-5
                 for t in (got, got_batch[torch.isfinite(want_batch).all(-1)]))
             n = len(grams)
-            thread = ""
-            if counter != "min_norm_solver":  # the one-thread design, by name
-                alpha = [float(label.split("=")[1])] if "alpha" in label else []
-                by_name = [ms._solve_kernel(counter, t, *alpha, variant="thread")
-                           for t in (grams, batch)]
-                torch.cuda.synchronize()
-                same_thread = (bitwise_rows(by_name[0], want), bitwise_rows(by_name[1], want_batch))
-                thread = (f"; the thread design by name {same_thread[0]}/{n} and "
-                          f"{same_thread[1]}/{NEWTON_BATCH}")
-                if same_thread != (n, NEWTON_BATCH):
-                    raise RuntimeError(f"{label} K={k}: the thread design is not bitwise equal "
-                                       f"to the plain version")
+            # the one-thread design, by name
+            alpha = [float(label.split("=")[1])] if "alpha" in label else []
+            by_name = [ms._solve_kernel(counter, t, *alpha, variant="thread")
+                       for t in (grams, batch)]
+            torch.cuda.synchronize()
+            same_thread = (bitwise_rows(by_name[0], want), bitwise_rows(by_name[1], want_batch))
+            thread = (f"; the thread design by name {same_thread[0]}/{n} and "
+                      f"{same_thread[1]}/{NEWTON_BATCH}")
+            if same_thread != (n, NEWTON_BATCH):
+                raise RuntimeError(f"{label} K={k}: the thread design is not bitwise equal "
+                                   f"to the plain version")
             log(f"[kernel] {label} K={k}, {n} Gram matrices ({n - 12} degenerate): bitwise "
                 f"equal {same}/{n} in one launch, {same_alone}/{n} one matrix a launch, "
                 f"{same_batch}/{NEWTON_BATCH} in one launch of {NEWTON_BATCH} (non-finite in "
@@ -1738,22 +1813,31 @@ def phase_mtl_methods(seed, dev, rng) -> dict:
     a step; the 3 drawing methods' run_cv on the card alone (sync 1 epoch)
     and their draws' laws; each method's host synchronisations a step."""
     solver_errors = check_mtl_solvers(rng, dev)
+    stop_mix = check_min_norm_stop(np.random.default_rng([seed, 22]), dev)
     syncs = check_step_syncs(seed, dev)
     runs = {}
+    training_grams = []  # those of the MGDA and LOG_MGDA sync runs on the card
     for method in DRAWLESS_METHODS:
         check_one_step(seed, dev, mtl_method=method)
         modes = (("sync", 2), ("async", 1)) if method in ("famo", "mgda") else (("sync", 2),)
         per_step = {"stream_block_backward": 3, "stream_block_wide": 0,
                     "stream_block_backward_wide": 0, **solver_per_step(method)}
         own = METHOD_SOLVER.get(method)
-        runs[method] = compare_run_cv(method, dict(train_common(seed), mtl_method=method),
-                                      modes, per_step, ("stream_block",) + ((own,) if own else ()))
+        runs[method] = {}
+        for mode in modes:
+            with GramRecorder() as rec:
+                runs[method].update(compare_run_cv(
+                    method, dict(train_common(seed), mtl_method=method), (mode,), per_step,
+                    ("stream_block",) + ((own,) if own else ())))
+            if own == "min_norm_solver" and mode[0] == "sync":
+                training_grams += rec.grams
     for method in DRAWING_METHODS:
         per_step = {"stream_block_backward": 3, **solver_per_step(method)}
         runs[method] = card_only_run_cv(method, dict(train_common(seed), mtl_method=method),
                                         (("sync", 1),), per_step=per_step)
     check_draws_on_card(dev)
-    return {"solver_errors": solver_errors, "syncs": syncs, "runs": runs}
+    return {"solver_errors": solver_errors, "syncs": syncs, "runs": runs,
+            "stop_mix": stop_mix, "training_grams": training_grams}
 
 
 # ---------------------------------------------------------------------------
@@ -2546,8 +2630,7 @@ def time_focal_block(rng, dev, card) -> dict:
     """The stream block's wide forward and backward at FOCAL's shape (batch
     1024, 320 channels, GELU): kernel, plain version, library call, bound,
     launch, and the generic variants that took these sizes before, in this
-    call; then at the train steps' batches (64, 3 x 64), and both variants
-    at and below the wrapper's threshold (C_in 32, 48 and 64)."""
+    call; then at the train steps' batches (64, 3 x 64)."""
     bsz, t, cin, k, cout, t_out = FOCAL_SHAPES["sync_batch1024"]
     x, w, b, g = focal_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
     leaves = [t_.detach().clone().requires_grad_() for t_ in (x, w, b)]
@@ -2635,27 +2718,66 @@ def time_focal_block(rng, dev, card) -> dict:
             f"{sb.forward_config(bsz, t, cin, cout, k, t_out, 'gelu')}, backward "
             f"{sb.backward_config(bsz, t, cin, cout, k, t_out, 'gelu')}")
 
-    # the threshold: both variants at and below the C_in where the wrapper
-    # starts to take the wide ones (36 is warp_tile's)
-    out["threshold_ms"] = {}
-    for cin in (32, 48, sb.WIDE_MIN_CIN):
-        bsz, t, k, cout, t_out = 1024, 64, 3, 16, 8
-        xt, wt, bt, gt = focal_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
-        with torch.inference_mode():
-            edge = {v: device_ms(lambda v=v: sb._forward_kernel(xt, wt, bt, t_out, "gelu", v))
-                    for v in (sb.WIDE, sb.PER_FRAME, sb.GENERIC)}
-        edge_b = {v: device_ms(lambda v=v: sb._backward_kernel(xt, wt, bt, gt, t_out, "gelu",
-                                                                 v))
-                  for v in (sb.BWD_WIDE, sb.BWD_GENERIC)}
-        out["threshold_ms"][cin] = {
-            "forward_wide": edge[sb.WIDE], "forward_per_frame": edge[sb.PER_FRAME],
-            "forward_generic": edge[sb.GENERIC],
-            "backward_wide": edge_b[sb.BWD_WIDE], "backward_generic": edge_b[sb.BWD_GENERIC]}
-        log(f"[time] {card}: stream_block at x({bsz},{t},{cin}) gelu (the wrapper's wide "
-            f"variants from C_in {sb.WIDE_MIN_CIN}), device: forward wide "
-            f"{edge[sb.WIDE]:.4f} ms, per_frame {edge[sb.PER_FRAME]:.4f} ms, generic "
-            f"{edge[sb.GENERIC]:.4f} ms; backward wide "
-            f"{edge_b[sb.BWD_WIDE]:.4f} ms, generic {edge_b[sb.BWD_GENERIC]:.4f} ms")
+    return out
+
+
+# the wide variants' thresholds: every C_in from just above warp_tile's 16
+# to just below the old threshold 64, at TILE_SIZES
+WIDE_THRESHOLD_CINS = tuple(range(17, 64))
+WIDE_THRESHOLD_BATCH = 1024
+
+
+def time_wide_threshold(rng, dev, card) -> dict:
+    """The wide forward and backward against what the wrapper takes without
+    them (per_frame, warp_tile at C_in 36; the generic backward) at every C_in
+    of WIDE_THRESHOLD_CINS, batch 1024 at TILE_SIZES, ReLU and GELU: device
+    ms from a CUDA graph of 50 calls, in turns (wide, other, wide, other).
+    Prints for each direction the least C_in from which wide is no slower at
+    every larger C_in under both activations (the smaller of each design's
+    two readings), beside the wrapper's constants."""
+    t, cout, k, t_out = sb.TILE_SIZES
+    out = {}
+    for cin in WIDE_THRESHOLD_CINS:
+        x, w, b, g = focal_block_inputs(rng, WIDE_THRESHOLD_BATCH, t, cin, k, cout, dev, t_out)
+        other = sb.WARP_TILE if cin in sb.TILE_CIN else sb.PER_FRAME
+        for act in ("relu", "gelu"):
+            fwd = {v: (lambda v=v: sb._forward_kernel(x, w, b, t_out, act, v))
+                   for v in (sb.WIDE, other)}
+            bwd = {v: (lambda v=v: sb._backward_kernel(x, w, b, g, t_out, act, v))
+                   for v in (sb.BWD_WIDE, sb.BWD_GENERIC)}
+            row = {}
+            with torch.inference_mode():
+                turns = [time_cuda_graph(fwd[v], warmup=5, reps=50)
+                         for v in (sb.WIDE, other, sb.WIDE, other)]
+            row["forward"] = {"wide": turns[0::2], sb.VARIANT_NAMES[other]: turns[1::2]}
+            turns = [time_cuda_graph(bwd[v], warmup=5, reps=50)
+                     for v in (sb.BWD_WIDE, sb.BWD_GENERIC, sb.BWD_WIDE, sb.BWD_GENERIC)]
+            row["backward"] = {"wide": turns[0::2], "generic": turns[1::2]}
+            out[f"{cin} {act}"] = row
+            log(f"[time] {card}: stream_block threshold x({WIDE_THRESHOLD_BATCH},{t},{cin}) "
+                f"{act}, graph ms in turns: forward wide {row['forward']['wide']} "
+                f"{sb.VARIANT_NAMES[other]} {row['forward'][sb.VARIANT_NAMES[other]]}; backward "
+                f"wide {row['backward']['wide']} generic {row['backward']['generic']}")
+
+    def no_slower(row):  # {"wide": [ms, ms], other: [ms, ms]}
+        return min(row["wide"]) <= min(v for name, ms_ in row.items() if name != "wide"
+                                       for v in ms_)
+
+    found = {}
+    for way in ("forward", "backward"):
+        wins = {cin: all(no_slower(out[f"{cin} {act}"][way]) for act in ("relu", "gelu"))
+                for cin in WIDE_THRESHOLD_CINS if not (way == "forward" and cin in sb.TILE_CIN)}
+        least = 64
+        for cin in sorted(wins, reverse=True):
+            if not wins[cin]:
+                break
+            least = cin
+        found[way] = least
+    log(f"[time] {card}: stream_block wide thresholds read (least C_in in "
+        f"{WIDE_THRESHOLD_CINS[0]}..{WIDE_THRESHOLD_CINS[-1]} from which wide is no slower "
+        f"under both activations): forward {found['forward']}, backward {found['backward']}; "
+        f"the wrapper's: {sb.WIDE_MIN_CIN} both ways")
+    out["thresholds_read"] = found
     return out
 
 
@@ -2827,21 +2949,68 @@ def mtl_solver_resources() -> dict:
             if "<3, " in name or "ILi3E" in name}
 
 
-def time_mtl_solvers(rng, dev, card) -> dict:
+def graph_turns(new, old, reps=100) -> list:
+    """Device ms a call of `new` and of `old` from CUDA graphs of `reps`
+    calls, in turns: new, old, new, old."""
+    return [time_cuda_graph(fn, reps=reps) for fn in (new, old, new, old)]
+
+
+def time_min_norm_cases(dev, card, gram, worst_rng, training_grams) -> dict:
+    """MGDA's kernel beside its thread design by name, from CUDA graphs in
+    turns, on two more cases than the main path's matrix: the worst case
+    (the first of mtl_solver_grams(worst_rng, 12, 3) that runs all 250
+    steps) and the Gram matrices that phase 5f's MGDA and LOG_MGDA sync runs
+    handed to the solver on the card (their solves' summed device time,
+    one launch a matrix, as in training), with each case's stop steps."""
+    out = {"stop_step": int(min_norm_element_stop(gram)[1])}
+    worst_set = torch.from_numpy(mtl_solver_grams(worst_rng, 12, 3)).to(dev)
+    stops = min_norm_element_stop(worst_set)[1].tolist()
+    if ms.MIN_NORM_STEPS not in stops:
+        raise RuntimeError(f"min_norm_solver: no seeded matrix runs all 250 steps ({stops})")
+    worst = worst_set[stops.index(ms.MIN_NORM_STEPS)]
+    graph = graph_turns(lambda: ms.min_norm_solve(worst),
+                        lambda: ms._solve_kernel("min_norm_solver", worst, variant="thread"))
+    out["worst_case"] = {"matrix": stops.index(ms.MIN_NORM_STEPS), "graph_turns": graph,
+                         "graph_ms": min(graph[0], graph[2]),
+                         "thread_graph_ms": min(graph[1], graph[3])}
+    log(f"[time] {card}: min_norm_solver K=3, the worst case (matrix "
+        f"{out['worst_case']['matrix']} of 12, 250 steps): from a CUDA graph in turns "
+        f"new/thread/new/thread {graph[0]:.4f}/{graph[1]:.4f}/{graph[2]:.4f}/{graph[3]:.4f} ms")
+    if not training_grams:
+        raise RuntimeError("min_norm_solver: no Gram matrix was recorded from MGDA's training")
+    train_stops = np.array([int(min_norm_element_stop(g)[1]) for g in training_grams])
+    graph = graph_turns(lambda: [ms.min_norm_solve(g) for g in training_grams],
+                        lambda: [ms._solve_kernel("min_norm_solver", g, variant="thread")
+                                 for g in training_grams], reps=20)
+    out["training"] = {"matrices": len(training_grams), "k": training_grams[0].shape[-1],
+                       "stop_steps": train_stops.tolist(), "graph_turns": graph,
+                       "graph_ms": min(graph[0], graph[2]),
+                       "thread_graph_ms": min(graph[1], graph[3])}
+    log(f"[time] {card}: min_norm_solver on the {len(training_grams)} Gram matrices (K = "
+        f"{out['training']['k']}) of phase 5f's MGDA and LOG_MGDA sync runs: stop steps min/"
+        f"median/max {train_stops.min()}/{np.median(train_stops):g}/{train_stops.max()} "
+        f"({train_stops.tolist()}); summed device ms of their solves, one launch a matrix, "
+        f"from a CUDA graph in turns new/thread/new/thread {graph[0]:.4f}/{graph[1]:.4f}/"
+        f"{graph[2]:.4f}/{graph[3]:.4f}")
+    return out
+
+
+def time_mtl_solvers(rng, dev, card, worst_rng, training_grams) -> dict:
     """Each solver kernel at the main path's shape (K = 3, one matrix, a
     step's launch) beside its plain version on the card and its bound:
-    eager, device time under the profiler and from a CUDA graph; FairGrad's
-    and NashMTL's one-thread design by name in the same call, in turns
-    (warp, thread, warp, thread), with each design's launch (threads a
-    block, lanes a matrix, registers and spills)."""
+    eager, device time under the profiler and from a CUDA graph; its
+    one-thread design by name in the same call, in turns (new, thread, new,
+    thread), with each design's launch (threads a block, lanes a matrix,
+    registers and spills); MGDA's also on time_min_norm_cases' cases."""
     raw = torch.from_numpy(mtl_solver_grams(rng, 1, 3)[0]).to(dev)
     resources = mtl_solver_resources()
     for name, (regs, spills) in sorted(resources.items()):
         log(f"[config] {card}: {name}: {regs} registers, spill stores/loads {spills[0]}/"
             f"{spills[1]} bytes")
-    for variant in ms.VARIANTS:
-        log(f"[config] {card}: FairGrad/NashMTL solver, {variant} design: "
-            f"{ms.launch_config(variant)}")
+    for name in MTL_SOLVER_NAMES:
+        for variant in ms.designs(name):
+            log(f"[config] {card}: {name}, {variant} design: "
+                f"{[ms.launch_config(name, variant, k) for k in (3, 8)]}")
     out = {}
     for name, run, plain, prep, alpha in (
             ("min_norm_solver", ms.min_norm_solve, ms.min_norm_solve_reference, lambda g: g,
@@ -2860,22 +3029,21 @@ def time_mtl_solvers(rng, dev, card) -> dict:
         entry = {"ms": min(kernel_ms, kernel_ms_2), "plain_ms": plain_ms,
                  "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
                  "device_ms": dev_ms}
-        turns = ""
-        if name != "min_norm_solver":
-            def thread():
-                return ms._solve_kernel(name, gram, *alpha, variant="thread")
 
-            graph = [time_cuda_graph(lambda: run(gram), reps=100),
-                     time_cuda_graph(thread, reps=100),
-                     time_cuda_graph(lambda: run(gram), reps=100),
-                     time_cuda_graph(thread, reps=100)]
-            entry.update(graph_ms=min(graph[0], graph[2]), thread_graph_ms=min(graph[1], graph[3]),
-                         thread_ms=time_cuda(thread, warmup=10, reps=200),
-                         thread_device_ms=device_ms(thread))
-            turns = (f"; from a CUDA graph in turns warp/thread/warp/thread {graph[0]:.4f}/"
-                     f"{graph[1]:.4f}/{graph[2]:.4f}/{graph[3]:.4f} ms; the thread design "
-                     f"eager {entry['thread_ms']:.4f} ms, device {entry['thread_device_ms']:.4f} "
-                     f"ms under the profiler")
+        def thread():
+            return ms._solve_kernel(name, gram, *alpha, variant="thread")
+
+        graph = graph_turns(lambda: run(gram), thread)
+        entry.update(graph_ms=min(graph[0], graph[2]), thread_graph_ms=min(graph[1], graph[3]),
+                     thread_ms=time_cuda(thread, warmup=10, reps=200),
+                     thread_device_ms=device_ms(thread))
+        turns = (f"; from a CUDA graph in turns new/thread/new/thread {graph[0]:.4f}/"
+                 f"{graph[1]:.4f}/{graph[2]:.4f}/{graph[3]:.4f} ms; the thread design "
+                 f"eager {entry['thread_ms']:.4f} ms, device {entry['thread_device_ms']:.4f} "
+                 f"ms under the profiler")
+        if name == "min_norm_solver":
+            entry.update(time_min_norm_cases(dev, card, gram, worst_rng, training_grams))
+            turns += f"; the matrix stops at step {entry['stop_step']}"
         log(f"[time] {card}: {name} K=3 (one Gram matrix): kernel {kernel_ms:.4f}/"
             f"{kernel_ms_2:.4f} ms eager (device {dev_ms:.4f} ms under the profiler), plain "
             f"(eager torch on the card, 3 calls) {plain_ms:.2f} ms, bound {bound_ms:.3e} ms "
@@ -3230,8 +3398,10 @@ def main() -> int:
     fusion_steps = time_train_step(args.seed, dev, card, "cheap_xattn")
     win256_steps = time_train_step(args.seed, dev, card, "cheap_xattn", win_len=WIN256)
     focal_times = time_focal_block(frng, dev, card)
+    threshold_times = time_wide_threshold(np.random.default_rng([args.seed, 21]), dev, card)
     sota_steps = {b: time_train_step(args.seed, dev, card, b) for b in wg.SOTA_BASELINES}
-    times.update(time_mtl_solvers(mrng, dev, card))
+    times.update(time_mtl_solvers(mrng, dev, card, np.random.default_rng([args.seed, 23]),
+                                  mtl["training_grams"]))
     mtl_steps = {m: time_train_step(args.seed, dev, card, mtl_method=m)
                  for m in sorted(METHODS) if m != "cagrad"}
     phase_profiles(engine, args.seed, dev, card)
@@ -3374,7 +3544,8 @@ def main() -> int:
         f"{json.dumps(wide_fusion)}; the T 101 forwards {json.dumps(t101_times)}; the "
         f"cross-attention at Tq = Tk = 128, d 12 {json.dumps(t128_xattn_times)}; the "
         f"sweep over key tiles {json.dumps(long_times)}, the step at win_len {WIN256} "
-        f"{json.dumps(win256)} and its train steps {json.dumps(win256_steps)}")
+        f"{json.dumps(win256)} and its train steps {json.dumps(win256_steps)}; the wide "
+        f"thresholds {json.dumps(threshold_times)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

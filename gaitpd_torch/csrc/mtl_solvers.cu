@@ -1,7 +1,8 @@
 // mtl_solvers: the simplex and fixed-point solvers of MGDA, FairGrad and
 // NashMTL, for NVIDIA Hopper (sm_90a), everything in registers: MGDA's
-// Frank-Wolfe one thread a Gram matrix, FairGrad's and NashMTL's damped
-// Newton iterations one warp a Gram matrix.
+// Frank-Wolfe one thread a Gram matrix (one warp at K = 7 and 8), ended at
+// its bitwise fixed point, FairGrad's and NashMTL's damped Newton
+// iterations one warp a Gram matrix.
 //
 // Not TPU kernels. The JAX package solves these inside its compiled step as
 // XLA loops (gaitpd/learning/minnorm.py: min_norm_element :35-55,
@@ -80,11 +81,45 @@
 // adds; no order of operations that keeps the bits shortens it, so the
 // operations bound, some 10^5 times shorter, is out of reach.
 //
-// Launch: the Newton solvers take blocks of kWarpsPerBlock warps, a warp a
-// matrix, ceil(N / kWarpsPerBlock) blocks; MGDA blocks of 32 threads, a
-// thread a matrix. K is fixed at compile time, 1..8, so that every loop over
-// K unrolls and G, J, w and the right-hand side stay in registers; 2K <= 16
-// lanes do the right-hand side.
+// MGDA. A Frank-Wolfe step is one chain: G w, its argmin, d = w - e_t,
+// G d, d . G d + EPS, the division, the clamp and the update; 186 cycles at
+// K = 3 and 436 at K = 8 in one thread (the `thread` design, kept by name).
+// Under bitwise equality that chain holds one __fdiv_rn (58) and some 21
+// dependent adds, multiplies and selects (~4.9 each), ~160 cycles at K = 3:
+// the floor, some 10^5 times the operations bound. Its length is left alone;
+// its count is cut. A step is a fixed function of (G, w), so once a step
+// leaves w's bits unchanged, every later one would, and w is the 250-step
+// result: the default design compares w with the step before, on
+// __float_as_uint (signed zeros apart, NaNs alike), after every
+// min_norm_design(K).every steps, and stops there. Solves whose optimum is
+// a vertex stop within a few steps; interior optima, where the iterates
+// zig-zag, run all 250.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (python -m
+// gaitpd_torch.tools.mtl_solver_clock). clock64() cycles a step on a seeded
+// matrix that runs 250 steps, K = 2 / 3 / 8: thread 129.7 / 185.9 / 436.1;
+// one thread with the stop, compared after every 1 / 4 / 8 steps: 170.8 /
+// 133.3 / 127.1, 231.9 / 181.0 / 173.5, 505.2 / 478.0 / 927.4; the rows of
+// G on lanes (lane i forms row i of G w and of G d, shuffles gather them)
+// 225.7 / 186.6 / 180.3, 266.9 / 225.2 / 218.8, 477.2 / 422.2 / 412.5. A
+// third layout was not taken: the step towards vertex c on lane c, gamma
+// shuffled from the argmin's lane (268.0 / 185.7 / 613.1 at every 4): the
+// shuffle costs what the chain saves. Those probe kernels schedule unlike
+// the production ones, so the choice was settled on the production kernels
+// themselves, each cadence (2, 4, 8, 16) and verdict (at once, or read one
+// block later so that the branch waits on nothing) instantiated, device ms
+// of a 250-step solve from CUDA graphs: at K = 3 thread 0.0240, one thread
+// compared every 16 steps 0.0236 (every 8: 0.0241, every 4: 0.0253); at
+// K = 8 thread 0.0579, the rows every 2 lagged 0.0554 (one thread every 8:
+// 0.1037, its code too large). At K = 5 no variant with the stop is as
+// fast as thread's 0.0341 (the fastest, every 8 lagged, 0.0349: 2.2 %).
+// Ends of a cadence: a solve that stops at step 59 took 0.0073 ms at every
+// 4 and 0.0077 at every 16 (thread 0.0441).
+//
+// Launch: the Newton solvers and MGDA at K = 7 and 8 take blocks of
+// kWarpsPerBlock warps, a warp a matrix, ceil(N / kWarpsPerBlock) blocks;
+// MGDA below K = 7 blocks of 32 threads, a thread a matrix. K is fixed at
+// compile time, 1..8, so that every loop over K unrolls and G, J, w and the
+// right-hand side stay in registers; 2K <= 16 lanes do the right-hand side.
 //
 // Plain C interface, bound with ctypes (gaitpd_torch/ops/mtl_solvers.py).
 
@@ -104,6 +139,25 @@ constexpr unsigned kFullMask = 0xffffffffu;
 
 enum Method { kMinNorm, kFairGrad, kNashMtl };
 enum Variant { kThreadVariant = 0, kWarpVariant = 1 };
+
+// MGDA's default design at k tasks: its layout (the rows of G on the lanes
+// of a warp, else one thread a matrix), the steps between two compares of
+// its stop, and whether the compare's verdict is read one block later. At
+// each k, the fastest 250-step solve of the production kernels' 19 variants
+// (python -m gaitpd_torch.tools.mtl_solver_clock), an immediate verdict
+// where one was within 1 % of it.
+struct MinNormDesign {
+  bool rows;
+  int every;
+  bool lagged;
+};
+__host__ __device__ constexpr MinNormDesign min_norm_design(int k) {
+  return k <= 3   ? MinNormDesign{false, 16, false}
+         : k == 4 ? MinNormDesign{false, 16, true}
+         : k <= 6 ? MinNormDesign{false, 8, true}
+         : k == 7 ? MinNormDesign{true, 16, false}
+                  : MinNormDesign{true, 2, true};
+}
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
@@ -142,35 +196,121 @@ __device__ __forceinline__ float pick(const float (&v)[K], int i) {
   return r;
 }
 
-// Frank-Wolfe with the exact line search (minnorm.py:35-55)
 template <int K>
-__device__ void min_norm(const float (&g)[K][K], float (&w)[K]) {
+__device__ __forceinline__ void min_norm_init(float (&w)[K]) {
 #pragma unroll
   for (int i = 0; i < K; ++i) w[i] = static_cast<float>(1.0 / K);  // as torch.full(1.0 / k)
-#pragma unroll 1
-  for (int it = 0; it < kMinNormIters; ++it) {
-    float gw[K], e[K], d[K], gd[K];
-    matvec(g, w, gw);
-    int t = 0;
-    float best = gw[0];
+}
+
+// One Frank-Wolfe step with the exact line search (minnorm.py:35-55)
+template <int K>
+__device__ __forceinline__ void min_norm_step(const float (&g)[K][K], float (&w)[K]) {
+  float gw[K], e[K], d[K], gd[K];
+  matvec(g, w, gw);
+  int t = 0;
+  float best = gw[0];
 #pragma unroll
-    for (int j = 1; j < K; ++j) {
-      if (gw[j] < best) {
-        best = gw[j];
-        t = j;
-      }
+  for (int j = 1; j < K; ++j) {
+    if (gw[j] < best) {
+      best = gw[j];
+      t = j;
     }
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      e[i] = i == t ? 1.0f : 0.0f;
-      d[i] = sub(w[i], e[i]);
-    }
-    matvec(g, d, gd);
-    const float gamma = clamp(div(dot(d, gw), add(dot(d, gd), kEps)), 0.0f, 1.0f);
-    const float keep = sub(1.0f, gamma);
-#pragma unroll
-    for (int i = 0; i < K; ++i) w[i] = add(mul(keep, w[i]), mul(gamma, e[i]));
   }
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    e[i] = i == t ? 1.0f : 0.0f;
+    d[i] = sub(w[i], e[i]);
+  }
+  matvec(g, d, gd);
+  const float gamma = clamp(div(dot(d, gw), add(dot(d, gd), kEps)), 0.0f, 1.0f);
+  const float keep = sub(1.0f, gamma);
+#pragma unroll
+  for (int i = 0; i < K; ++i) w[i] = add(mul(keep, w[i]), mul(gamma, e[i]));
+}
+
+// The thread design: the reference's 250 steps, one thread.
+template <int K>
+__device__ void min_norm(const float (&g)[K][K], float (&w)[K]) {
+  min_norm_init(w);
+#pragma unroll 1
+  for (int it = 0; it < kMinNormIters; ++it) min_norm_step(g, w);
+}
+
+// The same step on the lanes of a warp (the default design at K = 7 and 8):
+// lane i < K holds row i of G (the lanes above K repeat row i mod K) and forms
+// row i of G w, then of G d; shuffles gather each to every lane, which forms
+// the argmin, d, the line search and the update alike. Each entry is the
+// serial step's sum in its order, so w keeps its bits.
+template <int K>
+__device__ __forceinline__ void min_norm_step_rows(const float (&grow)[K], float (&w)[K]) {
+  float gw[K], e[K], d[K], gd[K];
+  const float gw_mine = dot(grow, w);
+#pragma unroll
+  for (int j = 0; j < K; ++j) gw[j] = __shfl_sync(kFullMask, gw_mine, j);
+  int t = 0;
+  float best = gw[0];
+#pragma unroll
+  for (int j = 1; j < K; ++j) {
+    if (gw[j] < best) {
+      best = gw[j];
+      t = j;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    e[i] = i == t ? 1.0f : 0.0f;
+    d[i] = sub(w[i], e[i]);
+  }
+  const float gd_mine = dot(grow, d);
+#pragma unroll
+  for (int j = 0; j < K; ++j) gd[j] = __shfl_sync(kFullMask, gd_mine, j);
+  const float gamma = clamp(div(dot(d, gw), add(dot(d, gd), kEps)), 0.0f, 1.0f);
+  const float keep = sub(1.0f, gamma);
+#pragma unroll
+  for (int i = 0; i < K; ++i) w[i] = add(mul(keep, w[i]), mul(gamma, e[i]));
+}
+
+// w and v the same bits, entry by entry (signed zeros apart, NaNs alike)
+template <int K>
+__device__ __forceinline__ bool same_bits(const float (&w)[K], const float (&v)[K]) {
+  unsigned diff = 0;
+#pragma unroll
+  for (int i = 0; i < K; ++i) diff |= __float_as_uint(w[i]) ^ __float_as_uint(v[i]);
+  return diff == 0;
+}
+
+// Frank-Wolfe from w = 1/K by `step`, ended after the first step s, a
+// multiple of Every, that leaves w's bits as they were: a step is a fixed
+// function of (G, w), so every later step would too, and w is the 250-step
+// result. Lagged: the compare's verdict is read after the next Every steps,
+// so that the branch waits on nothing (Every more steps past the fixed
+// point). Returns s, or 250 where no such step came.
+template <int K, int Every, bool Lagged, class Step>
+__device__ __forceinline__ int min_norm_until_fixed(float (&w)[K], Step step) {
+  min_norm_init(w);
+  bool fixed = false;
+  int s = 0;
+#pragma unroll 1
+  for (; s + Every <= kMinNormIters; s += Every) {
+#pragma unroll
+    for (int r = 1; r < Every; ++r) step(w);
+    float before[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) before[i] = w[i];
+    step(w);
+    if constexpr (Lagged) {
+      if (fixed) return s;
+      fixed = same_bits(w, before);
+    } else if (same_bits(w, before)) {
+      return s + Every;
+    }
+  }
+  if constexpr (Lagged) {
+    if (fixed) return s;
+  }
+#pragma unroll 1
+  for (; s < kMinNormIters; ++s) step(w);
+  return kMinNormIters;
 }
 
 // ---------------------------------------------------------------------------
@@ -350,7 +490,9 @@ __device__ void warp_newton(const float (&g)[K][K], float alpha, int lane, float
 // ---------------------------------------------------------------------------
 // Kernels
 
-template <int K, Method M>
+// Every > 0: MGDA's solve with the stop (min_norm_until_fixed<K, Every,
+// Lagged>); Every = 0 the reference's 250 steps
+template <int K, Method M, int Every = 0, bool Lagged = false>
 __global__ void __launch_bounds__(kThreads)
 mtl_solver_kernel(const float* __restrict__ gram, int n, float alpha, float* __restrict__ out) {
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
@@ -362,7 +504,9 @@ mtl_solver_kernel(const float* __restrict__ gram, int n, float alpha, float* __r
 #pragma unroll
     for (int j = 0; j < K; ++j) g[i][j] = gm[i * K + j];
   }
-  if constexpr (M == kMinNorm) {
+  if constexpr (M == kMinNorm && Every > 0) {
+    min_norm_until_fixed<K, Every, Lagged>(w, [&](float (&v)[K]) { min_norm_step(g, v); });
+  } else if constexpr (M == kMinNorm) {
     min_norm(g, w);
   } else if constexpr (M == kFairGrad) {
     fairgrad(g, alpha, w);
@@ -373,21 +517,30 @@ mtl_solver_kernel(const float* __restrict__ gram, int n, float alpha, float* __r
   for (int i = 0; i < K; ++i) out[static_cast<size_t>(m) * K + i] = w[i];
 }
 
-template <int K, Method M>
+// MGDA: the rows layout with the stop, as mtl_solver_kernel's
+template <int K, Method M, int Every = 0, bool Lagged = false>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 mtl_solver_warp_kernel(const float* __restrict__ gram, int n, float alpha,
                        float* __restrict__ out) {
   const int m = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (m >= n) return;  // the whole warp: the shuffles need all 32 lanes
-  float g[K][K], w[K];
+  float w[K];
   const float* gm = gram + static_cast<size_t>(m) * K * K;
+  if constexpr (M == kMinNorm) {
+    float grow[K];
 #pragma unroll
-  for (int i = 0; i < K; ++i) {
+    for (int j = 0; j < K; ++j) grow[j] = gm[(lane % K) * K + j];
+    min_norm_until_fixed<K, Every, Lagged>(w, [&](float (&v)[K]) { min_norm_step_rows(grow, v); });
+  } else {
+    float g[K][K];
 #pragma unroll
-    for (int j = 0; j < K; ++j) g[i][j] = gm[i * K + j];
+    for (int i = 0; i < K; ++i) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) g[i][j] = gm[i * K + j];
+    }
+    warp_newton<K, M>(g, alpha, lane, w);
   }
-  warp_newton<K, M>(g, alpha, lane, w);
   if (lane < K) out[static_cast<size_t>(m) * K + lane] = pick(w, lane);
 }
 
@@ -395,21 +548,26 @@ mtl_solver_warp_kernel(const float* __restrict__ gram, int n, float alpha,
 
 template <int K, Method M>
 void launch_k(const float* gram, float* out, int n, float alpha, int variant, cudaStream_t s) {
-  if constexpr (M != kMinNorm) {
-    if (variant == kWarpVariant) {
+  const int thread_blocks = (n + kThreads - 1) / kThreads;
+  if (variant == kWarpVariant) {
+    constexpr MinNormDesign d = min_norm_design(K);
+    constexpr int every = M == kMinNorm ? d.every : 0;
+    constexpr bool lagged = M == kMinNorm && d.lagged;
+    if constexpr (M != kMinNorm || d.rows) {  // a warp a matrix
       const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-      mtl_solver_warp_kernel<K, M><<<blocks, kWarpsPerBlock * 32, 0, s>>>(gram, n, alpha, out);
-      return;
+      mtl_solver_warp_kernel<K, M, every, lagged>
+          <<<blocks, kWarpsPerBlock * 32, 0, s>>>(gram, n, alpha, out);
+    } else {  // MGDA's one thread a matrix with the stop
+      mtl_solver_kernel<K, M, every, lagged><<<thread_blocks, kThreads, 0, s>>>(gram, n, alpha, out);
     }
+    return;
   }
-  const int blocks = (n + kThreads - 1) / kThreads;
-  mtl_solver_kernel<K, M><<<blocks, kThreads, 0, s>>>(gram, n, alpha, out);
+  mtl_solver_kernel<K, M><<<thread_blocks, kThreads, 0, s>>>(gram, n, alpha, out);
 }
 
 template <Method M>
 int launch(const float* gram, float* out, int n, int k, float alpha, int variant, void* stream) {
-  if (n < 0 || k < 1 || k > kMaxK || (variant != kThreadVariant && variant != kWarpVariant) ||
-      (M == kMinNorm && variant != kThreadVariant)) {
+  if (n < 0 || k < 1 || k > kMaxK || (variant != kThreadVariant && variant != kWarpVariant)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
@@ -434,10 +592,11 @@ extern "C" {
 // Each solves n problems on `stream`: gram (n, k, k) -> out (n, k),
 // contiguous f32 device pointers, 1 <= k <= 8. Returns a cudaError_t: 0 on
 // success, cudaErrorInvalidValue for sizes the kernel does not take.
-// fairgrad_solver and nashmtl_solver run the warp design; the *_variant
-// entries take the design by number (0 thread, 1 warp).
+// min_norm_solver, fairgrad_solver and nashmtl_solver run their default
+// design (1; MGDA's with the stop), the *_variant entries the design by
+// number (0 thread, 1 the default).
 int min_norm_solver(const float* gram, float* out, int n, int k, void* stream) {
-  return launch<kMinNorm>(gram, out, n, k, 0.0f, kThreadVariant, stream);
+  return launch<kMinNorm>(gram, out, n, k, 0.0f, kWarpVariant, stream);
 }
 
 int fairgrad_solver(const float* gram, float* out, int n, int k, float alpha, void* stream) {
@@ -453,18 +612,32 @@ int fairgrad_solver_variant(const float* gram, float* out, int n, int k, float a
   return launch<kFairGrad>(gram, out, n, k, alpha, variant, stream);
 }
 
+int min_norm_solver_variant(const float* gram, float* out, int n, int k, int variant,
+                            void* stream) {
+  return launch<kMinNorm>(gram, out, n, k, 0.0f, variant, stream);
+}
+
 int nashmtl_solver_variant(const float* gram, float* out, int n, int k, int variant,
                            void* stream) {
   return launch<kNashMtl>(gram, out, n, k, 0.0f, variant, stream);
 }
 
-// The launch of a design: threads a block and lanes a matrix.
-int mtl_solver_launch_config(int variant, int* threads, int* lanes) {
-  if (variant != kThreadVariant && variant != kWarpVariant) {
+// The launch of a design of `method` (0 MGDA, 1 FairGrad, 2 NashMTL) at k
+// tasks: threads a block, lanes a matrix, the steps between two compares of
+// MGDA's stop (0: none, 250 steps) and whether its verdict is lagged.
+int mtl_solver_launch_config(int method, int variant, int k, int* threads, int* lanes,
+                             int* every, int* lagged) {
+  if (method < kMinNorm || method > kNashMtl || k < 1 || k > kMaxK ||
+      (variant != kThreadVariant && variant != kWarpVariant)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  *threads = variant == kWarpVariant ? kWarpsPerBlock * 32 : kThreads;
-  *lanes = variant == kWarpVariant ? 32 : 1;
+  const bool stop = method == kMinNorm && variant == kWarpVariant;
+  const MinNormDesign d = min_norm_design(k);
+  const bool warp = variant == kWarpVariant && (method != kMinNorm || d.rows);
+  *threads = warp ? kWarpsPerBlock * 32 : kThreads;
+  *lanes = warp ? 32 : 1;
+  *every = stop ? d.every : 0;
+  *lagged = stop && d.lagged;
   return 0;
 }
 

@@ -21,7 +21,7 @@ the host.
 
 from __future__ import annotations
 
-from typing import List, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 
@@ -166,6 +166,56 @@ def min_norm_element(gram: torch.Tensor, iters: int = 250) -> torch.Tensor:
         gamma = torch.clamp(num / (den + EPS), min=0.0, max=1.0).unsqueeze(-1)
         w = (1.0 - gamma) * w + gamma * e
     return w[0] if single else w
+
+
+def min_norm_every(k: int) -> int:
+    """Steps between two of min_norm_solver's compares of w with the step
+    before, at K tasks (gaitpd_torch/csrc/mtl_solvers.cu::min_norm_design)."""
+    return {5: 8, 6: 8, 8: 2}.get(k, 16)
+
+
+def min_norm_element_stop(gram: torch.Tensor, every: Optional[int] = None,
+                          iters: int = 250) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``min_norm_element`` as the kernel min_norm_solver runs it, ended
+    after a step s, a multiple of ``every`` (``min_norm_every(K)`` by
+    default), that left w's bits unchanged. A step is a fixed function of
+    (G, w), so every later step would leave w so too: w is the ``iters``-step
+    result, bit for bit. Each step is formed towards every vertex c from w
+    alone (d = w - e_c, its G d and d·G d + EPS, d·G w and the division),
+    the one of the smallest gradient entry then taken: the same operations
+    on the same operands for that vertex, so this form checks the order of
+    each sum too. Returns (w, stop): stop (N,) (or a 0-d tensor) is the step
+    s at which each matrix stopped, ``iters`` where none did (where the
+    kernel reads its compare's verdict one block late, it runs ``every``
+    steps past s).
+    gram: (K, K) or (N, K, K)."""
+    g, single = _batched(gram)
+    n, k, _ = g.shape
+    every = min_norm_every(k) if every is None else every
+    w = torch.full((n, k), 1.0 / k, dtype=g.dtype, device=g.device)
+    eye = torch.eye(k, dtype=g.dtype, device=g.device)
+    cols = torch.arange(k, device=g.device)
+    g_rep = g.repeat_interleave(k, dim=0)  # (N K, K, K): one copy a vertex
+    stop = torch.full((n,), iters, dtype=torch.int64, device=g.device)
+    live = torch.ones(n, dtype=torch.bool, device=g.device)
+    for s in range(1, iters + 1):
+        gw = _matvec(g, w)
+        t = _argmin(gw)
+        d = (w[:, None, :] - eye[None]).reshape(n * k, k)  # row c of a matrix: w - e_c
+        num = _dot(d, gw.repeat_interleave(k, dim=0))
+        den = _dot(d, _matvec(g_rep, d)) + EPS
+        gamma = torch.clamp((num / den).reshape(n, k).gather(1, t[:, None]), min=0.0, max=1.0)
+        e = (cols[None, :] == t[:, None]).to(g.dtype)
+        new = (1.0 - gamma) * w + gamma * e
+        if s % every == 0:
+            same = live & (new.view(torch.int32) == w.view(torch.int32)).all(-1)
+            stop = torch.where(same, torch.full_like(stop, s), stop)
+        w = torch.where(live[:, None], new, w)
+        if s % every == 0:
+            live = live & ~same
+            if not bool(live.any()):
+                break
+    return (w[0], stop[0]) if single else (w, stop)
 
 
 def _solve(a: List[List[torch.Tensor]], b: List[torch.Tensor]) -> List[torch.Tensor]:

@@ -7,12 +7,15 @@ matrix the caller has normalised), for a (K, K) Gram matrix or a batch
 (N, K, K) of them. On a CUDA tensor each launches its entry of the
 hand-written kernel gaitpd_torch/csrc/mtl_solvers.cu (no host
 synchronisation), counted in its own counter (``min_norm_launches``,
-``fairgrad_launches``, ``nashmtl_launches``): MGDA's Frank-Wolfe runs one
-thread a matrix; FairGrad's and NashMTL's damped Newton iterations run one
-warp a matrix, the K tasks' powers or reciprocals and the multipliers below
-a pivot on lanes of their own, the rest on every lane alike (the ``warp``
-design; the one-thread ``thread`` design stays reachable through
-``_solve_kernel`` for comparison on the card). On a CPU tensor each takes
+``fairgrad_launches``, ``nashmtl_launches``), in its default design (the
+one-thread ``thread`` design of each stays reachable through
+``_solve_kernel`` for comparison on the card): MGDA's Frank-Wolfe (``stop``)
+one thread a matrix, the rows of G on the lanes of a warp at K = 7 and 8,
+ended once a step leaves w's bits unchanged (its fixed point, so w is the
+250-step result: ``min_norm_element_stop`` is its plain form); FairGrad's
+and NashMTL's damped Newton iterations (``warp``) one warp a matrix, the K
+tasks' powers or reciprocals and the multipliers below a pivot on lanes of
+their own, the rest on every lane alike. On a CPU tensor each takes
 the plain version beside it (``*_reference``), the eager-torch solver of
 gaitpd_torch.learning.minnorm. Kernel and plain version run the same IEEE
 operations on the same operands, in the same order for every entry, and
@@ -22,15 +25,25 @@ agree bit for bit. There is no fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from gaitpd_torch.learning.minnorm import fairgrad_weights, min_norm_element, nashmtl_weights
 
 MAX_TASKS = 8  # K is a compile-time constant of the kernel, 1..8
-# the designs of fairgrad_solver and nashmtl_solver, numbered as the
-# *_solver_variant entries take them; the public wrappers launch "warp"
+MIN_NORM_STEPS = 250  # MGDA's Frank-Wolfe steps, the reference's
+# the designs of FairGrad's and NashMTL's solvers and of MGDA's, numbered as
+# the *_solver_variant entries take them; the public wrappers launch the
+# second
 VARIANTS = ("thread", "warp")
+MIN_NORM_VARIANTS = ("thread", "stop")
+_METHODS = ("min_norm_solver", "fairgrad_solver", "nashmtl_solver")
+
+
+def designs(name: str) -> tuple:
+    """The designs of solver ``name``, by number."""
+    return MIN_NORM_VARIANTS if name == "min_norm_solver" else VARIANTS
 
 # Kernel launches of each solver; callers may reset them to 0.
 min_norm_launches = 0
@@ -61,17 +74,22 @@ def _function(name: str):
     return fn
 
 
-def launch_config(variant: str = "warp") -> dict:
-    """Threads a block and lanes a matrix of a Newton design, as the source
-    launches it."""
+def launch_config(name: str, variant: str, k: int = 3) -> dict:
+    """Threads a block and lanes a matrix of a design of solver ``name`` at
+    K = k, as the source launches it, the steps between two compares of
+    MGDA's stop (0: none, all 250 steps) and whether the compare's verdict
+    is read one block later."""
     from gaitpd_torch.ops import _build
 
     fn = _build.load("mtl_solvers").mtl_solver_launch_config
-    threads, lanes = ctypes.c_int(), ctypes.c_int()
-    err = fn(ctypes.c_int(VARIANTS.index(variant)), ctypes.byref(threads), ctypes.byref(lanes))
+    threads, lanes, every, lagged = (ctypes.c_int() for _ in range(4))
+    err = fn(_METHODS.index(name), designs(name).index(variant), k, ctypes.byref(threads),
+             ctypes.byref(lanes), ctypes.byref(every), ctypes.byref(lagged))
     if err != 0:
         raise RuntimeError(f"mtl_solver_launch_config: cudaError_t {err}")
-    return {"variant": variant, "threads": threads.value, "lanes_per_matrix": lanes.value}
+    return {"variant": variant, "k": k, "threads": threads.value,
+            "lanes_per_matrix": lanes.value, "stop_every": every.value,
+            "stop_lagged": bool(lagged.value)}
 
 
 def _check(gram: torch.Tensor, what: str) -> None:
@@ -103,15 +121,17 @@ def _launch(name: str, gram: torch.Tensor, *args) -> torch.Tensor:
     return out
 
 
-def _solve_kernel(name: str, gram: torch.Tensor, *alpha: float, variant: str = "warp"
+def _solve_kernel(name: str, gram: torch.Tensor, *alpha: float, variant: Optional[str] = None
                   ) -> torch.Tensor:
-    """One launch of ``name`` ("fairgrad_solver" or "nashmtl_solver") in the
-    design ``variant`` ("thread" or "warp") on a CUDA tensor, counted by no
-    counter: the card's comparison of the two designs."""
+    """One launch of ``name`` ("min_norm_solver", "fairgrad_solver" or
+    "nashmtl_solver") in the design ``variant`` (of ``designs(name)``; the
+    default one by default) on a CUDA tensor, counted by no counter: the
+    card's comparison of the two designs."""
     _check(gram, name)
     if gram.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes a CUDA tensor, got {gram.device}")
-    return _launch(f"{name}_variant", gram, *map(float, alpha), VARIANTS.index(variant))
+    number = 1 if variant is None else designs(name).index(variant)
+    return _launch(f"{name}_variant", gram, *map(float, alpha), number)
 
 
 def min_norm_solve(gram: torch.Tensor) -> torch.Tensor:

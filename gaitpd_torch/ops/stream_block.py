@@ -47,8 +47,12 @@ BACKWARD_VARIANT_NAMES = ("generic", "wide")
 TILE_SIZES = (64, 16, 3, 8)
 TILE_CIN = (12, 16, 36)
 # The C_in from which ``_variant`` and ``_backward_variant`` take the wide
-# variants; the kernels themselves take any C_in at TILE_SIZES.
-WIDE_MIN_CIN = 64
+# variants (warp_tile keeps its own C_in); the kernels themselves take any
+# C_in at TILE_SIZES. From 17 to 63 the wide forward took 0.87-0.43x of
+# per_frame's time and the wide backward 0.65-0.27x of the generic one's,
+# at batch 1024 under ReLU and GELU (chip_smoke.py::time_wide_threshold,
+# NVIDIA H100 80GB HBM3, 700 W).
+WIDE_MIN_CIN = 17
 # the shared memory a block may use on the H100 (227 KB)
 MAX_SMEM_BYTES = 227 * 1024
 

@@ -1,8 +1,9 @@
-// clock64() probes of the Newton solvers' dependent chains, for
+// clock64() probes of the solvers' dependent chains, for
 // gaitpd_torch/tools/mtl_solver_clock.py: the latency of one operation of
 // the chain (a dependent chain of `reps` of them, stamped before and after),
 // and the cycles of a whole solve of each design of csrc/mtl_solvers.cu, run
-// by its own device functions (this file includes that source).
+// by its own device functions (this file includes that source), and of the
+// layouts measured beside them.
 //
 // Plain C interface, bound with ctypes.
 
@@ -116,6 +117,157 @@ __device__ void rows_newton(const float (&g)[K][K], float alpha, int lane, float
   }
 }
 
+// MGDA's layouts of a Frank-Wolfe step (probe_min_norm), each but the first
+// run under min_norm_until_fixed's stop, its compare after every
+// `Every`-th step:
+//   thread: csrc/mtl_solvers.cu's thread design, 250 steps, no stop;
+//   thread_stop: the same step, one thread, with the stop (the default
+//     design below K = 7);
+//   vertices: min_norm_step_vertices below, lane c the step towards vertex
+//     c (not taken: 185.7 cycles a step at K = 3 and every 4 against
+//     thread_stop's 181.0, 268.0 against 133.3 at K = 2);
+//   rows: csrc/mtl_solvers.cu's min_norm_step_rows, lane i row i of G w and
+//     of G d (the default design at K = 7 and 8).
+enum MinNormLayout { kMnThread = 0, kMnThreadStop = 1, kMnVertices = 2, kMnRows = 3 };
+
+// vertices: the step on the lanes of a warp, each lane holding G and w:
+// lane c < K forms the step towards vertex c from w alone (d = w - e_c, G d,
+// d . G d + EPS), beside G w and its argmin t, which every lane forms alike;
+// then d . G w and its own gamma, one division. A shuffle brings gamma from
+// lane t to every lane, and every lane applies the update alike. Lane t runs
+// exactly the serial step's operations, so w keeps its bits.
+template <int K>
+__device__ __forceinline__ void min_norm_step_vertices(const float (&g)[K][K], float (&w)[K],
+                                                       int lane) {
+  float gw[K], d[K], gd[K];
+  const int c = lane < K ? lane : 0;  // the lanes above K repeat vertex 0
+#pragma unroll
+  for (int i = 0; i < K; ++i) d[i] = sub(w[i], i == c ? 1.0f : 0.0f);
+  matvec(g, d, gd);
+  const float den = add(dot(d, gd), kEps);
+  matvec(g, w, gw);
+  int t = 0;
+  float best = gw[0];
+#pragma unroll
+  for (int j = 1; j < K; ++j) {
+    if (gw[j] < best) {
+      best = gw[j];
+      t = j;
+    }
+  }
+  const float mine = div(dot(d, gw), den);
+  const float gamma = clamp(__shfl_sync(kFullMask, mine, t), 0.0f, 1.0f);
+  const float keep = sub(1.0f, gamma);
+#pragma unroll
+  for (int i = 0; i < K; ++i) w[i] = add(mul(keep, w[i]), mul(gamma, i == t ? 1.0f : 0.0f));
+}
+
+// One MGDA solve in layout L on one warp, stamped around by lane 0, which
+// also writes w and the step at which the solve stopped (250: none).
+template <int K, int L, int Every>
+__global__ void min_norm_clock_kernel(const float* __restrict__ gram, float* __restrict__ out,
+                                      long long* cycles, int* stop) {
+  const int lane = threadIdx.x;
+  float g[K][K], grow[K], w[K];
+  __syncwarp();
+  const long long t0 = clock64();
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) g[i][j] = gram[i * K + j];
+  }
+  int s = kMinNormIters;
+  if constexpr (L == kMnThread) {
+    min_norm(g, w);
+  } else if constexpr (L == kMnThreadStop) {
+    s = min_norm_until_fixed<K, Every, false>(w, [&](float (&v)[K]) { min_norm_step(g, v); });
+  } else if constexpr (L == kMnVertices) {
+    s = min_norm_until_fixed<K, Every, false>(
+        w, [&](float (&v)[K]) { min_norm_step_vertices(g, v, lane); });
+  } else {
+#pragma unroll
+    for (int c = 0; c < K; ++c) grow[c] = gram[(lane % K) * K + c];
+    s = min_norm_until_fixed<K, Every, false>(w, [&](float (&v)[K]) { min_norm_step_rows(grow, v); });
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) out[i] = w[i];
+    *stop = s;
+  }
+  __syncwarp();
+  const long long t1 = clock64();
+  if (lane == 0) *cycles = t1 - t0;
+}
+
+// csrc/mtl_solvers.cu's MGDA kernels as launched there, at other cadences
+// of the stop's compare: layout 0 the thread kernel (every 0: the thread
+// design), layout 1 the rows kernel (a warp a matrix), the compare after
+// every `every` steps, its verdict read at once or one block later.
+template <int K, bool Lagged>
+int launch_cadence(int layout, int every, const float* gram, int n, float* out,
+                   cudaStream_t s) {
+  const int tb = (n + kThreads - 1) / kThreads;
+  const int wb = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  constexpr int kW = kWarpsPerBlock * 32;
+#define CADENCE(E)                                                                       \
+  if (layout == 0) {                                                                     \
+    mtl_solver_kernel<K, kMinNorm, E, Lagged><<<tb, kThreads, 0, s>>>(gram, n, 0.0f, out); \
+  } else {                                                                               \
+    mtl_solver_warp_kernel<K, kMinNorm, E, Lagged><<<wb, kW, 0, s>>>(gram, n, 0.0f, out);  \
+  }
+  switch (every) {
+    case 0:
+      if (layout != 0 || Lagged) return static_cast<int>(cudaErrorInvalidValue);
+      mtl_solver_kernel<K, kMinNorm><<<tb, kThreads, 0, s>>>(gram, n, 0.0f, out);
+      break;
+    case 2: CADENCE(2) break;
+    case 4: CADENCE(4) break;
+    case 8: CADENCE(8) break;
+    case 16: CADENCE(16) break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef CADENCE
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int K>
+int launch_cadence_k(int layout, int every, int lagged, const float* gram, int n, float* out,
+                     cudaStream_t s) {
+  return lagged ? launch_cadence<K, true>(layout, every, gram, n, out, s)
+                : launch_cadence<K, false>(layout, every, gram, n, out, s);
+}
+
+template <int K, int L>
+int launch_min_norm_every(int every, const float* gram, float* out, long long* cycles,
+                          int* stop) {
+  switch (every) {
+    case 1: min_norm_clock_kernel<K, L, 1><<<1, 32>>>(gram, out, cycles, stop); break;
+    case 2: min_norm_clock_kernel<K, L, 2><<<1, 32>>>(gram, out, cycles, stop); break;
+    case 4: min_norm_clock_kernel<K, L, 4><<<1, 32>>>(gram, out, cycles, stop); break;
+    case 8: min_norm_clock_kernel<K, L, 8><<<1, 32>>>(gram, out, cycles, stop); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int K>
+int launch_min_norm(int layout, int every, const float* gram, float* out, long long* cycles,
+                    int* stop) {
+  switch (layout) {
+    case kMnThread:
+      min_norm_clock_kernel<K, kMnThread, 1><<<1, 32>>>(gram, out, cycles, stop);
+      return static_cast<int>(cudaGetLastError());
+    case kMnThreadStop:
+      return launch_min_norm_every<K, kMnThreadStop>(every, gram, out, cycles, stop);
+    case kMnVertices:
+      return launch_min_norm_every<K, kMnVertices>(every, gram, out, cycles, stop);
+    case kMnRows:
+      return launch_min_norm_every<K, kMnRows>(every, gram, out, cycles, stop);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // One warp; lane 0 stamps. `zero` is a kernel argument, so that the compiler
 // cannot fold x * zero away.
 __global__ void op_chain_kernel(int probe, int reps, float base, float e, float zero,
@@ -200,9 +352,7 @@ __global__ void solve_clock_kernel(const float* __restrict__ gram, float alpha,
 #pragma unroll
     for (int j = 0; j < K; ++j) g[i][j] = gram[i * K + j];
   }
-  if constexpr (M == kMinNorm) {
-    min_norm(g, w);
-  } else if constexpr (V == kThreadVariant) {
+  if constexpr (V == kThreadVariant) {
     if constexpr (M == kFairGrad) {
       fairgrad(g, alpha, w);
     } else {
@@ -246,12 +396,10 @@ int launch_solve(int variant, const float* gram, float alpha, float* out, long l
 template <int K>
 int probe_solve_k(int method, int variant, const float* gram, float alpha, float* out,
                   long long* cycles) {
-  if (variant < kThreadVariant || variant > kRowsVariant ||
-      (method == kMinNorm && variant != kThreadVariant)) {
+  if (variant < kThreadVariant || variant > kRowsVariant) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (method) {
-    case kMinNorm: return launch_solve<K, kMinNorm>(variant, gram, alpha, out, cycles);
     case kFairGrad: return launch_solve<K, kFairGrad>(variant, gram, alpha, out, cycles);
     case kNashMtl: return launch_solve<K, kNashMtl>(variant, gram, alpha, out, cycles);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -277,14 +425,48 @@ int probe_op(int probe, int reps, float base, float e, float zero, long long* cy
   return static_cast<int>(cudaGetLastError());
 }
 
-// method: 0 MGDA, 1 FairGrad, 2 NashMTL; variant: 0 thread, 1 warp, 2
-// gather, 3 rows (MGDA: thread only); k: 3 or 8. gram: k * k floats on the
-// device, out: k.
+// method: 1 FairGrad, 2 NashMTL; variant: 0 thread, 1 warp, 2 gather, 3
+// rows; k: 3 or 8. gram: k * k floats on the device, out: k.
 int probe_solve(int method, int variant, int k, const float* gram, float alpha, float* out,
                 long long* cycles) {
   if (k == 3) return probe_solve_k<3>(method, variant, gram, alpha, out, cycles);
   if (k == 8) return probe_solve_k<8>(method, variant, gram, alpha, out, cycles);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// layout: a MinNormLayout; every: 1, 2, 4 or 8 (the thread layout: any);
+// k: 2..8. gram: k * k floats on the device, out: k, stop: one int.
+int probe_min_norm(int layout, int every, int k, const float* gram, float* out,
+                   long long* cycles, int* stop) {
+  switch (k) {
+    case 2: return launch_min_norm<2>(layout, every, gram, out, cycles, stop);
+    case 3: return launch_min_norm<3>(layout, every, gram, out, cycles, stop);
+    case 4: return launch_min_norm<4>(layout, every, gram, out, cycles, stop);
+    case 5: return launch_min_norm<5>(layout, every, gram, out, cycles, stop);
+    case 6: return launch_min_norm<6>(layout, every, gram, out, cycles, stop);
+    case 7: return launch_min_norm<7>(layout, every, gram, out, cycles, stop);
+    case 8: return launch_min_norm<8>(layout, every, gram, out, cycles, stop);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// MGDA's production kernels at K = k (2..8): layout 0 thread, 1 rows, the
+// stop's compare after every `every` steps (0: none; the thread layout
+// only), its verdict at once or (lagged != 0) one block later; n matrices on
+// `stream`.
+int probe_min_norm_cadence(int k, int layout, int every, int lagged, const float* gram, int n,
+                           float* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (k) {
+    case 2: return launch_cadence_k<2>(layout, every, lagged, gram, n, out, s);
+    case 3: return launch_cadence_k<3>(layout, every, lagged, gram, n, out, s);
+    case 4: return launch_cadence_k<4>(layout, every, lagged, gram, n, out, s);
+    case 5: return launch_cadence_k<5>(layout, every, lagged, gram, n, out, s);
+    case 6: return launch_cadence_k<6>(layout, every, lagged, gram, n, out, s);
+    case 7: return launch_cadence_k<7>(layout, every, lagged, gram, n, out, s);
+    case 8: return launch_cadence_k<8>(layout, every, lagged, gram, n, out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // One thread spinning for `cycles` SM cycles: its time under CUDA events

@@ -1,4 +1,4 @@
-"""clock64() readings of the Newton solvers' dependent chains, on one NVIDIA card.
+"""clock64() readings of the solvers' dependent chains, on one NVIDIA card.
 
     python -m gaitpd_torch.tools.mtl_solver_clock [--reps 1024]
 
@@ -19,6 +19,19 @@ warp:
     multiplier in one lane; rows: a lane a row of J, its pivot rows
     shuffled out), on a seeded Gram matrix, per step (100 FairGrad, 50
     NashMTL, 250 MGDA steps), each held bitwise against the thread design;
+  - MGDA's layouts of a Frank-Wolfe step (thread, 250 steps; thread_stop,
+    vertices and rows, each stopping at its bitwise fixed point with the
+    compare after every 1, 2, 4 or 8 steps) at K = 2..8 on MIN_NORM_N
+    seeded Gram matrices of chip_smoke.py::mtl_solver_grams' law: cycles a
+    step on the first of them that runs all 250 steps, and the step at
+    which each stopped, w held bitwise against the 250-step plain version
+    and the stop step against min_norm_element_stop's;
+  - MGDA's production kernels at K = 2..8 on that 250-step matrix (at
+    K = 3 also chip_smoke.py's worst case and one that stops near step 60),
+    the default and thread designs by their entries beside the thread and
+    rows kernels with the stop's compare after every 2, 4, 8 or 16 steps,
+    its verdict read at once or one block later: device ms from CUDA
+    graphs, two rounds in turns;
   - the SM clock: one thread spinning for 2 * 10^7 cycles, under CUDA
     events, so that cycles convert to microseconds.
 
@@ -39,6 +52,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gaitpd_torch.learning.minnorm import min_norm_element, min_norm_element_stop
 from gaitpd_torch.ops import _build
 
 SOURCE = Path(__file__).resolve().with_suffix(".cu")
@@ -49,6 +63,10 @@ PROBES = {"carrier": 0, "powf": 1, "div": 2, "shfl": 3, "add": 4, "div x2": 5, "
           "powf x2": 7, "rcp": 8}
 DESIGNS = ("thread", "warp", "gather", "rows")
 TASKS = (3, 8)
+MIN_NORM_LAYOUTS = ("thread", "thread_stop", "vertices", "rows")
+MIN_NORM_EVERY = (1, 2, 4, 8)
+MIN_NORM_TASKS = range(2, 9)
+MIN_NORM_N = 32
 BASE = 1.0 / 3.0  # FairGrad's first w at K = 3
 SPIN_CYCLES = 20_000_000
 
@@ -66,8 +84,12 @@ def build() -> ctypes.CDLL:
                            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
     c.probe_solve.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                               ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+    c.probe_min_norm.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+    c.probe_min_norm_cadence.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p, ctypes.c_int,
+                                                              ctypes.c_void_p, ctypes.c_void_p]
     c.probe_spin.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
-    for fn in (c.probe_op, c.probe_solve, c.probe_spin):
+    for fn in (c.probe_op, c.probe_solve, c.probe_min_norm, c.probe_min_norm_cadence,
+               c.probe_spin):
         fn.restype = ctypes.c_int
     return c
 
@@ -106,6 +128,132 @@ def solve_cycles(lib, name: str, variant: int, gram: torch.Tensor, alpha: float)
         c = cycles.item() / STEPS[name]
         best = c if best is None else min(best, c)
     return best, out.clone()
+
+
+def min_norm_cycles(lib, layout: str, every: int, gram: torch.Tensor):
+    """(cycles, w, stop step) of one MGDA solve in `layout`, the least
+    cycles of 5 launches."""
+    k = gram.shape[-1]
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    stop = torch.zeros(1, dtype=torch.int32, device="cuda")
+    out = torch.zeros(k, device="cuda")
+    best = None
+    for _ in range(5):
+        _check(lib.probe_min_norm(MIN_NORM_LAYOUTS.index(layout), every, k, gram.data_ptr(),
+                                  out.data_ptr(), cycles.data_ptr(), stop.data_ptr()),
+               f"min_norm {layout}")
+        torch.cuda.synchronize()
+        best = cycles.item() if best is None else min(best, cycles.item())
+    return best, out.clone(), int(stop.item())
+
+
+def min_norm_grams(rng, n, k) -> torch.Tensor:
+    """chip_smoke.py::mtl_solver_grams' seeded law, without its degenerate
+    matrices."""
+    a = rng.normal(size=(n, k, 6)) * 10.0 ** rng.uniform(-2, 2, size=(n, 1, 1))
+    return torch.from_numpy((a @ a.transpose(0, 2, 1) + 1e-4 * np.eye(k)).astype(np.float32))
+
+
+def min_norm_readings(lib, seed: int) -> dict:
+    """MGDA's layouts at each K: cycles a step on the first seeded matrix
+    that runs all 250 steps (else the one that runs longest), with and
+    without the compare, and each matrix's stop step."""
+    out = {}
+    for k in MIN_NORM_TASKS:
+        grams = min_norm_grams(np.random.default_rng([seed, 20, k]), MIN_NORM_N, k).cuda()
+        want = min_norm_element(grams)
+        stops = {m: min_norm_element_stop(grams, m)[1].tolist() for m in MIN_NORM_EVERY}
+        worst = max(range(len(grams)), key=lambda i: (stops[1][i], -i))
+        out[f"K={k} min_norm stop steps every=1 (plain)"] = stops[1]
+        out[f"K={k} min_norm worst case"] = f"matrix {worst}, stop {stops[1][worst]}"
+        for layout in MIN_NORM_LAYOUTS:
+            for m in (MIN_NORM_EVERY if layout != "thread" else (1,)):
+                got = [min_norm_cycles(lib, layout, m, g) for g in grams]
+                ran = [250 if layout == "thread" else s for _, _, s in got]
+                if not all(torch.equal(w.view(torch.int32), r.view(torch.int32))
+                           for (_, w, _), r in zip(got, want)):
+                    raise RuntimeError(f"K={k} min_norm {layout}: w not bitwise equal to the "
+                                       f"250-step plain version")
+                if layout != "thread" and ran != stops[m]:
+                    raise RuntimeError(f"K={k} min_norm {layout} every={m}: stop steps {ran}, "
+                                       f"the plain stop {stops[m]}")
+                tag = f"K={k} min_norm {layout}" + (f" every={m}" if layout != "thread" else "")
+                out[f"{tag} step"] = got[worst][0] / ran[worst]
+                out[f"{tag} cycles over the {len(grams)} matrices"] = sum(c for c, _, _ in got)
+        out[f"K={k} min_norm stop steps (min, median, max) by every"] = {
+            m: [int(np.min(stops[m])), float(np.median(stops[m])), int(np.max(stops[m]))]
+            for m in MIN_NORM_EVERY}
+    return out
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """Device ms a call of `fn`: `reps` calls captured in a CUDA graph and
+    replayed once under CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(5):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cadence_readings(lib, seed: int) -> dict:
+    """MGDA's production kernels (csrc/mtl_solvers.cu's thread kernel and
+    rows kernel) at each cadence of the stop's compare, at once or lagged
+    one block, beside the default and thread designs by their entries, at
+    K = 2..8 on min_norm_readings' matrix that runs all 250 steps (at K = 3
+    also chip_smoke.py's worst case and a matrix that stops near step 60):
+    device ms from CUDA graphs, two rounds in turns; w held bitwise against
+    the plain version."""
+    from gaitpd_torch.ops import mtl_solvers as ms
+
+    out = {}
+    for k in MIN_NORM_TASKS:
+        grams = min_norm_grams(np.random.default_rng([seed, 20, k]), MIN_NORM_N, k).cuda()
+        stops = min_norm_element_stop(grams, 1)[1].tolist()
+        cases = {"250 steps": grams[stops.index(250)]}
+        if k == 3:
+            cases["chip_smoke's worst case"] = min_norm_grams(
+                np.random.default_rng([seed, 23]), 12, 3)[0].cuda()
+            near = min(range(len(stops)), key=lambda i: abs(stops[i] - 60))
+            cases[f"stops at step {stops[near]}"] = grams[near]
+        for case, gram in cases.items():
+            want = min_norm_element(gram)
+            runs = {"default": lambda g=gram: ms.min_norm_solve(g),
+                    "thread": lambda g=gram: ms._solve_kernel("min_norm_solver", g,
+                                                              variant="thread")}
+            for layout, name in enumerate(("thread", "rows")):
+                for every in (0, 2, 4, 8, 16):
+                    for lagged in (0, 1):
+                        if every == 0 and (layout or lagged):
+                            continue
+
+                        def run(g=gram, layout=layout, every=every, lagged=lagged):
+                            o = torch.empty(k, device="cuda")
+                            _check(lib.probe_min_norm_cadence(
+                                k, layout, every, lagged, g.data_ptr(), 1, o.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream), "cadence")
+                            return o
+                        runs[f"{name} every={every}" + (" lagged" if lagged else "")] = run
+            for name, fn in runs.items():
+                if not torch.equal(fn().view(torch.int32), want.view(torch.int32)):
+                    raise RuntimeError(f"K={k} min_norm {name}: w not bitwise equal")
+            rounds = [{name: graph_ms(fn) for name, fn in runs.items()} for _ in range(2)]
+            for name in runs:
+                out[f"K={k} min_norm {case}, device ms, {name}"] = [r[name] for r in rounds]
+    return out
 
 
 def sm_mhz(lib) -> float:
@@ -159,9 +307,10 @@ def main() -> int:
         gram = torch.from_numpy((a @ a.T + 1e-4 * np.eye(k)).astype(np.float32)).cuda()
         gram_nash = gram / torch.linalg.matrix_norm(gram)
         steps = {}
-        runs = [("min_norm_solver", "thread")] + [
-            (name, design) for name in ("fairgrad_solver", "nashmtl_solver")
-            for design in DESIGNS]
+        cyc, _, _ = min_norm_cycles(lib, "thread", 1, gram)
+        readings[f"K={k} min_norm_solver thread step"] = cyc / STEPS["min_norm_solver"]
+        runs = [(name, design) for name in ("fairgrad_solver", "nashmtl_solver")
+                for design in DESIGNS]
         for name, design in runs:
             gm = gram_nash if name == "nashmtl_solver" else gram
             cyc, w = solve_cycles(lib, name, DESIGNS.index(design), gm, 1.0)
@@ -172,9 +321,11 @@ def main() -> int:
                        for d in DESIGNS):
                 raise RuntimeError(f"K={k} {name}: the designs disagree")
             readings[f"K={k} {name} designs bitwise equal"] = True
+    readings.update(min_norm_readings(lib, args.seed))
+    readings.update(cadence_readings(lib, args.seed))
     mhz = readings["sm_mhz"]
     for key, value in readings.items():
-        if isinstance(value, float) and key != "sm_mhz":
+        if isinstance(value, float) and key != "sm_mhz" and "over the" not in key:
             print(f"[clock] {card}: {key}: {value:.1f} cycles ({value / mhz * 1e3:.1f} ns at "
                   f"{mhz:.0f} MHz)", flush=True)
         else:

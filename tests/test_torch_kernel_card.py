@@ -180,13 +180,15 @@ def test_kernel_matches_plain_on_card(case):
 @pytest.mark.parametrize("case", CASES + FORWARD_EDGE_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_forward_launch_config_on_card(case):
     """The launch of the variant the sizes take: at least one block an SM,
-    and a grid that covers the windows (per_frame: one a block)."""
+    and a grid that covers the windows (per_frame: one a block; warp_tile:
+    four; wide, from C_in 17: 1, 2, 4 or 8)."""
     _cuda()
     bsz, t, cin, k, cout, t_out, act = case
     config = sb.forward_config(bsz, t, cin, cout, k, t_out, act)
     assert config["variant"] == sb.VARIANT_NAMES[sb._variant(t, cin, cout, k, t_out)]
     assert config["threads"] > 0 and config["blocks_per_sm"] >= 1
-    assert config["windows"] == (1 if config["variant"] == "per_frame" else 4)
+    windows = {"per_frame": (1,), "wide": (1, 2, 4, 8)}.get(config["variant"], (4,))
+    assert config["windows"] in windows
     assert config["blocks"] == -(-bsz // config["windows"])
     assert config["smem_bytes"] <= sb.MAX_SMEM_BYTES
 
@@ -253,10 +255,10 @@ def test_kernels_match_plain_at_focal_width_on_card(case):
 
 
 # the wide kernels take any C_in at their T, C_out, K and t_out;
-# stream_block's wrapper picks them from WIDE_MIN_CIN = 64: below it, where
-# the generic kernels run, and at C_in 13 (4-byte copies, one part-filled
-# chunk)
-BELOW_WIDE_CASES = [(37, 64, 13, 3, 16, 8, "gelu"), (3 * 64, 64, 48, 3, 16, 8, "relu")]
+# stream_block's wrapper picks them from WIDE_MIN_CIN = 17: below it, where
+# per_frame and the generic backward run, at C_in 13 (4-byte copies, one
+# part-filled chunk) and 15
+BELOW_WIDE_CASES = [(37, 64, 13, 3, 16, 8, "gelu"), (3 * 64, 64, 15, 3, 16, 8, "relu")]
 
 
 @pytest.mark.gpu
@@ -682,7 +684,9 @@ def test_kernel_refuses_what_it_does_not_take():
 # caller does. The kernel runs the plain version's IEEE operations in its
 # order: w bitwise equal, in one launch and one matrix a launch, and for
 # NEWTON_BATCH matrices in one launch (a grid that 4 warps a block does not
-# divide); FairGrad's and NashMTL's one-thread design, by name, too.
+# divide); each solver's one-thread design, by name, too. MGDA's kernel ends
+# a solve at its bitwise fixed point: a batch of NEWTON_BATCH that mixes
+# solves that stop early with solves that run all 250 steps, in one launch.
 NEWTON_BATCH = 257
 
 
@@ -694,6 +698,14 @@ def _solver_grams(rng, n, k):
     z[0, :] = z[:, 0] = 0.0
     degenerate = [np.zeros((k, k)), np.outer(v, v), np.full((k, k), 2.0), z]
     return np.concatenate([grams, np.stack(degenerate)]).astype(np.float32)
+
+
+def _correlated_grams(rng, n, k):
+    """Task gradients around one shared direction at scales two decades
+    apart: MGDA's Frank-Wolfe mostly reaches its fixed point by step 3."""
+    base = rng.normal(size=(n, 1, 6))
+    a = (base + 0.3 * rng.normal(size=(n, k, 6))) * 10.0 ** rng.uniform(-1, 1, size=(n, k, 1))
+    return (a @ a.transpose(0, 2, 1)).astype(np.float32)
 
 
 def _bitwise(got, want):
@@ -743,10 +755,27 @@ def test_mtl_solver_matches_plain_on_card(solver, k):
         assert torch.equal(run(g), w)
     if solver == "min_norm":
         assert (got >= 0).all() and ((got.sum(-1) - 1).abs() <= 1e-5).all()
-    else:
-        name = counter.replace("_launches", "_solver")
-        before = getattr(ms, counter)
-        for g, w in ((grams, want), (batch, want_batch)):
-            assert _bitwise(ms._solve_kernel(name, g, *alpha, variant="thread"), w)
-            assert _bitwise(ms._solve_kernel(name, g, *alpha, variant="warp"), w)
-        assert getattr(ms, counter) == before  # the designs by name count nothing
+    name = counter.replace("_launches", "_solver")
+    before = getattr(ms, counter)
+    for g, w in ((grams, want), (batch, want_batch)):
+        for variant in ms.designs(name):  # thread, then the default
+            assert _bitwise(ms._solve_kernel(name, g, *alpha, variant=variant), w)
+    assert getattr(ms, counter) == before  # the designs by name count nothing
+    if solver == "min_norm":
+        from gaitpd_torch.learning.minnorm import min_norm_element_stop
+
+        half = NEWTON_BATCH // 2
+        mixed = np.concatenate([_solver_grams(rng, half, k)[:half],
+                                _correlated_grams(rng, NEWTON_BATCH - half, k)])
+        mixed = torch.from_numpy(mixed).to(dev)
+        stops = min_norm_element_stop(mixed)[1]
+        if k > 1:  # at K = 1 every solve stops at the first compare
+            assert (stops < ms.MIN_NORM_STEPS).any() and (stops == ms.MIN_NORM_STEPS).any()
+        want_mixed = plain(mixed)
+        before = (ms.min_norm_launches, ms.fairgrad_launches, ms.nashmtl_launches)
+        assert _bitwise(run(mixed), want_mixed)
+        after = (ms.min_norm_launches, ms.fairgrad_launches, ms.nashmtl_launches)
+        assert after == (before[0] + 1, before[1], before[2])
+        for variant in ms.MIN_NORM_VARIANTS:
+            assert _bitwise(ms._solve_kernel(name, mixed, variant=variant), want_mixed)
+        assert ms.min_norm_launches == after[0]

@@ -72,8 +72,9 @@ def test_plain_matches_pallas_and_jnp(case):
 # the forward's variant by size (T, C_in, C_out, K, t_out): the warp_tile
 # variant's compiled-in sizes (T 64, C_out 16, K 3, t_out 8, C_in 12, 16 or
 # 36) against one size off each; the wide variant's (the same T, C_out, K,
-# t_out, taken from C_in WIDE_MIN_CIN = 64) at its threshold, one below it,
-# FOCAL's 320 and 1024, against a wide C_in at T 101 or K 5 (per_frame); the
+# t_out, taken from C_in WIDE_MIN_CIN = 17) at its threshold, one below it
+# (16 is warp_tile's, so 15), 24, 63, 64, FOCAL's 320 and 1024, against a
+# wide C_in at T 101 or K 5 (per_frame); the
 # FBG/FoG backbones at T 101 (C_in 3, 6, 12, 16, and FOCAL's 32 -> 4 channels
 # in 4 bins; C_out 3); per_frame's shared-memory edge, one frame beyond which
 # the first design (generic) takes the window;
@@ -83,7 +84,9 @@ FORWARD_VARIANT_EDGES = {
     (64, 16, 16, 3, 8): sb.WARP_TILE,
     (64, 36, 16, 3, 8): sb.WARP_TILE,
     (64, 13, 16, 3, 8): sb.PER_FRAME,
-    (64, 24, 16, 3, 8): sb.PER_FRAME,
+    (64, 15, 16, 3, 8): sb.PER_FRAME,  # one below the threshold
+    (64, 17, 16, 3, 8): sb.WIDE,  # the threshold, WIDE_MIN_CIN
+    (64, 24, 16, 3, 8): sb.WIDE,
     (101, 12, 16, 3, 8): sb.PER_FRAME,
     (63, 12, 16, 3, 8): sb.PER_FRAME,
     (64, 12, 16, 1, 8): sb.PER_FRAME,
@@ -91,8 +94,8 @@ FORWARD_VARIANT_EDGES = {
     (64, 12, 16, 3, 7): sb.PER_FRAME,
     (64, 12, 8, 3, 8): sb.PER_FRAME,
     (64, 320, 16, 3, 8): sb.WIDE,  # FOCAL's backbone
-    (64, 64, 16, 3, 8): sb.WIDE,  # the threshold, WIDE_MIN_CIN
-    (64, 63, 16, 3, 8): sb.PER_FRAME,
+    (64, 64, 16, 3, 8): sb.WIDE,
+    (64, 63, 16, 3, 8): sb.WIDE,
     (64, 1024, 16, 3, 8): sb.WIDE,  # beyond what the generic kernels take
     (101, 320, 16, 3, 8): sb.PER_FRAME,
     (64, 320, 16, 5, 8): sb.PER_FRAME,
@@ -120,12 +123,15 @@ def test_forward_variant_at_the_edges(sizes, act):
 
 
 # the backward's variant by the same sizes: the wide variant at the wide
-# forward's sizes, the generic kernel (zero-cotangent windows skipped) for
-# every other, warp_tile's narrow C_in included
+# forward's sizes and at warp_tile's C_in 36 (from WIDE_MIN_CIN = 17), the
+# generic kernel (zero-cotangent windows skipped) for every other, warp_tile's
+# C_in 12 and 16 included
 BACKWARD_VARIANT_EDGES = {
     (64, 12, 16, 3, 8): sb.BWD_GENERIC,
-    (64, 36, 16, 3, 8): sb.BWD_GENERIC,
-    (64, 63, 16, 3, 8): sb.BWD_GENERIC,
+    (64, 16, 16, 3, 8): sb.BWD_GENERIC,  # one below the threshold
+    (64, 17, 16, 3, 8): sb.BWD_WIDE,  # the threshold, WIDE_MIN_CIN
+    (64, 36, 16, 3, 8): sb.BWD_WIDE,
+    (64, 63, 16, 3, 8): sb.BWD_WIDE,
     (64, 64, 16, 3, 8): sb.BWD_WIDE,
     (64, 320, 16, 3, 8): sb.BWD_WIDE,  # FOCAL's backbone
     (64, 330, 16, 3, 8): sb.BWD_WIDE,
