@@ -225,7 +225,31 @@ Phases (each raises on failure, so the script exits non-zero):
      CUDA graph: per_frame, the generic variant it replaces, the library
      call and the plain version, in turns; the wide threshold's shapes also
      with per_frame; the FoG cheap-xattn fusion train step at batch 256 and
-     1024 with its device time and launches.
+     1024 with its device time and launches;
+  7. the CLI and WearGait's folds in one step (--vmap_folds), from random
+     streams of their own: the fold-stacked stream block (10 folds x 3 x 64
+     windows: warp_tile, wide at --enc_out_ch 96, per_frame at --win_len
+     101) against its plain version (forward within 1e-5; backward as in
+     phase 2, the ReLU kink windows' cotangents set to 0 in both), each
+     fold's output and gradients bitwise equal to a launch of that fold
+     alone, one launch each way, each launch's config printed;
+     run_cv_vmapped at the CLI's defaults (10 folds, test_per_class 8; 2
+     sync epochs, 1 async) fold by fold against the sequential run_cv on
+     the card: the first epoch's losses within 1e-4 relative, later epochs
+     within 10x the gap of the sequential run from initial parameters
+     scaled by 1 + 1e-7 N(0, 1) (training amplifies rounding over 14 steps
+     an epoch), each fold's best macro and 7-subset scores within one eval
+     window; a stacked step launches the stream block's forward once, its
+     backward 3 times and the CAGrad solver once for all 10 folds, each
+     eval forward the stream block once, and synchronises the host 0 times;
+     one stacked step at 10 x 64 beside the 10 sequential batch-64 steps
+     it replaces (host clock around synchronised steps, in turns; device
+     time and kernel launches under the profiler); python -m
+     gaitpd_torch.cli --mode weargait --synthetic, with and without
+     --vmap_folds, as two subprocesses at once: each exits 0 and prints the
+     7-subset table; then the fold-stacked block timed at 10 x 192 windows
+     (eager and from a CUDA graph) beside its plain version, a grouped
+     F.conv1d + ReLU + pool and its bound.
 
 Every number is printed beside the card's name and power limit. The
 second-to-last line is a JSON object with one entry per kernel; the last
@@ -246,6 +270,7 @@ import sys
 import tempfile
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -277,6 +302,7 @@ from gaitpd_torch.serve import StreamingSession, WearGaitEngine, poll_sessions
 from gaitpd_torch.tools import recipe_laws
 from gaitpd_torch.train import baseline_drivers as bd
 from gaitpd_torch.train import fbg_fog_driver as ff
+from gaitpd_torch.train import vmap_cv as vc
 from gaitpd_torch.train import weargait_driver as wg
 from gaitpd_torch.train.checkpoint import save_fold_checkpoint
 from gaitpd_torch.train.cv import build_subj2label, make_fixed_balanced_folds_no_overlap
@@ -341,6 +367,8 @@ COUNTERS = {
     "stream_block_backward": (sb, "backward_launches"),
     "stream_block_wide": (sb, "wide_launches"),
     "stream_block_backward_wide": (sb, "wide_backward_launches"),
+    "stream_block_folds": (sb, "fold_launches"),
+    "stream_block_backward_folds": (sb, "fold_backward_launches"),
     "cagrad_solver": (cs, "launches"),
     "cheap_xattn": (cx, "launches"),
     "cheap_xattn_backward": (cx, "backward_launches"),
@@ -3326,6 +3354,521 @@ def phase_sota_profiles(seed, dev, card) -> None:
         profile_table(prof, f"10 x {baseline} train step batch 1024", wall_ms, card)
 
 
+# ---------------------------------------------------------------------------
+# 7. the CLI and WearGait's folds in one step (--vmap_folds)
+# ---------------------------------------------------------------------------
+
+VMAP_FOLDS = 10
+VMAP_CV = dict(n_folds=VMAP_FOLDS, test_per_class=8)  # the CLI's defaults
+# (F, B a fold, T, C_in, K, C_out, t_out, act) of the fold-stacked stream
+# block: the flagship's (3 streams x 64 windows a fold), the fusion's at
+# --enc_out_ch 96 (wide) and the flagship's at --win_len 101 (per_frame)
+FOLD_SHAPES = {
+    "flagship": (VMAP_FOLDS, 3 * 64, 64, 12, 3, 16, 8, "relu"),
+    "enc_out_ch96": (VMAP_FOLDS, 3 * 64, 64, 96, 3, 16, 8, "relu"),
+    "win_len101": (VMAP_FOLDS, 3 * 64, 101, 12, 3, 16, 8, "relu"),
+}
+
+
+def fold_inputs(rng, folds, bsz, t, cin, k, cout, dev, t_out):
+    """x (F·B, T, C_in), w (F, K, C_in, C_out), b (F, C_out), g (F·B, t_out,
+    C_out): each fold's drawn as stream_block_inputs draws one."""
+    parts = [stream_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out) for _ in range(folds)]
+    return (torch.cat([p[0] for p in parts]), torch.stack([p[1] for p in parts]),
+            torch.stack([p[2] for p in parts]), torch.cat([p[3] for p in parts]))
+
+
+def relu_kink_rows(x, w, b, act, folds) -> torch.Tensor:
+    """The windows whose pre-activation lies within two f32 rounding units
+    of 0 under ReLU (in f64 on the CPU), where the kernel and the plain
+    version may take ReLU' on either side, both right: a bool (F·B,)."""
+    kink = torch.zeros(x.shape[0], dtype=torch.bool)
+    if act != "relu":
+        return kink
+    xd, wd, bd = (v.detach().double().cpu() for v in (x, w, b))
+    k, t = wd.shape[1], xd.shape[1]
+    xs = F.pad(xd, (0, 0, k // 2, k // 2)).reshape(folds, -1, t + k - 1, xd.shape[2])
+    z = bd[:, None, None, :].expand(folds, xs.shape[1], t, bd.shape[1]).clone()
+    terms = z.abs()
+    for i in range(k):
+        z += xs[:, :, i:i + t] @ wd[:, i][:, None]
+        terms += xs[:, :, i:i + t].abs() @ wd[:, i][:, None].abs()
+    near = z.abs() <= 2 * np.finfo(np.float32).eps * terms
+    return near.reshape(x.shape[0], -1).any(1)
+
+
+def check_fold_kernels(rng, dev, card) -> dict:
+    """The fold-stacked forward and backward at FOLD_SHAPES: one launch each
+    way for all folds; each fold's output and gradients bitwise equal to a
+    launch of that fold alone; against the plain version
+    (stream_block_folds_reference) within KERNEL_TOL (gw, gb of their
+    largest value), the ReLU kink windows' cotangents set to 0 in both;
+    each launch's config beside the single fold's."""
+    errors = {}
+    for name, (folds, bsz, t, cin, k, cout, t_out, act) in FOLD_SHAPES.items():
+        x, w, b, g = fold_inputs(rng, folds, bsz, t, cin, k, cout, dev, t_out)
+        before = (sb.fold_launches, sb.fold_backward_launches)
+        out = sb.stream_block_folds(x, w, b, t_out, act)
+        grads = sb.stream_block_folds_backward(x, w, b, g, t_out, act)
+        torch.cuda.synchronize()
+        if (sb.fold_launches, sb.fold_backward_launches) != (before[0] + 1, before[1] + 1):
+            raise RuntimeError(f"stream_block_folds[{name}]: not one launch each way")
+        same_fwd = same_bwd = True
+        for f in range(folds):
+            rows = slice(f * bsz, (f + 1) * bsz)
+            same_fwd &= torch.equal(out[rows], sb.stream_block(x[rows], w[f], b[f], t_out, act))
+            single = sb.stream_block_backward(x[rows], w[f], b[f], g[rows], t_out, act)
+            same_bwd &= all(torch.equal(a, c) for a, c in
+                            zip((grads[0][rows], grads[1][f], grads[2][f]), single))
+        err = (out - sb.stream_block_folds_reference(x, w, b, t_out, act)).abs().max().item()
+        kinks = relu_kink_rows(x, w, b, act, folds).to(dev)
+        g_safe = torch.where(kinks[:, None, None], torch.zeros_like(g), g)
+        got = sb.stream_block_folds_backward(x, w, b, g_safe, t_out, act)
+        want = sb.stream_block_folds_backward_reference(x, w, b, g_safe, t_out, act)
+        errs = [(a - c).abs().max().item() for a, c in zip(got, want)]
+        tols = [KERNEL_TOL] + [KERNEL_TOL * max(1.0, c.abs().max().item()) for c in want[1:]]
+        fwd_cfg = sb.forward_config(bsz, t, cin, cout, k, t_out, act, folds=folds)
+        bwd_cfg = sb.backward_config(bsz, t, cin, cout, k, t_out, act, folds=folds)
+        log(f"[kernel] stream_block_folds {name}: {folds} folds x{(folds * bsz, t, cin)} "
+            f"w{tuple(w.shape)} {act} (variant {fwd_cfg['variant']}): forward max abs err "
+            f"{err:.3e} (tol {KERNEL_TOL}); each fold bitwise equal to its own launch: "
+            f"{same_fwd}; backward (variant {bwd_cfg['variant']}) gx/gw/gb max abs err "
+            f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol {tols[0]:.1e}/{tols[1]:.2e}/"
+            f"{tols[2]:.2e}; {int(kinks.sum())} ReLU kink window(s) left out), each fold "
+            f"bitwise equal to its own launch: {same_bwd}")
+        log(f"[config] stream_block_folds {name}: forward {fwd_cfg}; backward {bwd_cfg}; one "
+            f"fold's forward {sb.forward_config(bsz, t, cin, cout, k, t_out, act)}")
+        if not (np.isfinite(err) and err <= KERNEL_TOL
+                and all(np.isfinite(e) and e <= tol for e, tol in zip(errs, tols))):
+            raise RuntimeError(f"stream_block_folds[{name}] disagrees with its plain version: "
+                               f"{err}, {errs}")
+        if not (same_fwd and same_bwd):
+            raise RuntimeError(f"stream_block_folds[{name}]: a fold differs from its own launch")
+        errors[name] = (err, max(errs))
+    return errors
+
+
+def fold_block_bound(folds, bsz, t, cin, k, cout, t_out, backward=False):
+    """The fold-stacked block's bound: F·B windows and F weight sets, read or
+    written once; the backward also writes gx, gw, gb once and recomputes z,
+    then gx and gw (stream_block_backward_bound's count)."""
+    n = folds * bsz
+    if backward:
+        moved = 4 * (2 * n * t * cin + 2 * folds * (k * cin * cout + cout) + n * t_out * cout)
+        flop = 3 * 2 * n * t * cin * cout * k + 4 * n * t * cout
+    else:
+        moved = 4 * (n * t * cin + folds * (k * cin * cout + cout) + n * t_out * cout)
+        flop = 2 * n * t * cin * cout * k
+    return _bound(moved, flop)
+
+
+def time_fold_block(rng, dev, card) -> dict:
+    """The fold-stacked forward and backward at the flagship's fold shape:
+    eager and from a CUDA graph, beside the plain version, the library call
+    (one grouped F.conv1d + ReLU + F.adaptive_avg_pool1d over the folds'
+    channels; the port never calls it) and the bound."""
+    folds, bsz, t, cin, k, cout, t_out, act = FOLD_SHAPES["flagship"]
+    x, w, b, g = fold_inputs(rng, folds, bsz, t, cin, k, cout, dev, t_out)
+    xg = x.reshape(folds, bsz, t, cin).permute(1, 0, 3, 2).reshape(bsz, folds * cin, t)
+    wg_ = w.permute(0, 3, 2, 1).reshape(folds * cout, cin, k).contiguous()
+
+    def library(xl=xg, wl=wg_, bl=b):
+        y = torch.relu(F.conv1d(xl, wl, bl.reshape(-1), padding=k // 2, groups=folds))
+        pooled = F.adaptive_avg_pool1d(y, t_out)  # (B, F·C_out, t_out)
+        return pooled.reshape(bsz, folds, cout, t_out).permute(1, 0, 3, 2).reshape(-1, t_out,
+                                                                                  cout)
+
+    want = sb.stream_block_folds_reference(x, w, b, t_out, act)
+    lib_err = (library() - want).abs().max().item()
+    if lib_err > KERNEL_TOL:
+        raise RuntimeError(f"fold library yardstick computes another function: {lib_err}")
+
+    def kernel():
+        return sb.stream_block_folds(x, w, b, t_out, act)
+
+    def plain():
+        return sb.stream_block_folds_reference(x, w, b, t_out, act)
+
+    with torch.inference_mode():
+        fwd = {"kernel": time_cuda(kernel), "plain": time_cuda(plain, warmup=5, reps=50),
+               "kernel_2": time_cuda(kernel), "library": time_cuda(library),
+               "graph": time_cuda_graph(kernel), "library_graph": time_cuda_graph(library),
+               "graph_2": time_cuda_graph(kernel)}
+    leaves = [v.detach().clone().requires_grad_() for v in (xg, wg_, b)]
+
+    def library_backward():
+        return torch.autograd.grad(library(*leaves), leaves, g)
+
+    def kernel_backward():
+        return sb.stream_block_folds_backward(x, w, b, g, t_out, act)
+
+    def plain_backward():
+        return sb.stream_block_folds_backward_reference(x, w, b, g, t_out, act)
+
+    bwd = {"kernel": time_cuda(kernel_backward),
+           "plain": time_cuda(plain_backward, warmup=3, reps=10),
+           "kernel_2": time_cuda(kernel_backward),
+           "library": time_cuda(library_backward, warmup=5, reps=50),
+           "graph": time_cuda_graph(kernel_backward)}
+    bound = fold_block_bound(folds, bsz, t, cin, k, cout, t_out)
+    bwd_bound = fold_block_bound(folds, bsz, t, cin, k, cout, t_out, backward=True)
+    log(f"[time] {card}: stream_block_folds {folds} folds x({folds * bsz},{t},{cin}) k{k} -> "
+        f"({folds * bsz},{t_out},{cout}): eager kernel {fwd['kernel']:.4f}/{fwd['kernel_2']:.4f} "
+        f"ms, plain {fwd['plain']:.4f} ms, library (grouped conv1d+relu+pool) "
+        f"{fwd['library']:.4f} ms; from a CUDA graph kernel {fwd['graph']:.4f}/"
+        f"{fwd['graph_2']:.4f} ms, library {fwd['library_graph']:.4f} ms; bound "
+        f"{bound[0]:.5f} ms ({bound[1]}); backward: kernel {bwd['kernel']:.4f}/"
+        f"{bwd['kernel_2']:.4f} ms, plain {bwd['plain']:.4f} ms, library (autograd, forward "
+        f"included) {bwd['library']:.4f} ms, graph {bwd['graph']:.4f} ms; bound "
+        f"{bwd_bound[0]:.5f} ms ({bwd_bound[1]})")
+    return {
+        "stream_block_folds": {
+            "ms": min(fwd["kernel"], fwd["kernel_2"]), "plain_ms": fwd["plain"],
+            "library_ms": fwd["library"], "bound_ms": bound[0], "bound_by": bound[1],
+            "graph_ms": min(fwd["graph"], fwd["graph_2"]),
+            "library_graph_ms": fwd["library_graph"], "folds": folds},
+        "stream_block_backward_folds": {
+            "ms": min(bwd["kernel"], bwd["kernel_2"]), "plain_ms": bwd["plain"],
+            "library_ms": bwd["library"], "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+            "graph_ms": bwd["graph"], "folds": folds},
+    }
+
+
+class VmapStepCounter:
+    """Counts the stacked runner's train steps and eval forwards while
+    installed (VmapEpochRunner's methods wrapped, then put back)."""
+
+    def __enter__(self):
+        self.steps = self.evals = 0
+        self._train, self._eval = vc.VmapEpochRunner.train_step, vc.VmapEpochRunner.eval_step_folds
+        counter = self
+
+        def train_step(runner, *a, **k):
+            counter.steps += 1
+            return counter._train(runner, *a, **k)
+
+        def eval_step_folds(runner, *a, **k):
+            counter.evals += 1
+            return counter._eval(runner, *a, **k)
+
+        vc.VmapEpochRunner.train_step = train_step
+        vc.VmapEpochRunner.eval_step_folds = eval_step_folds
+        return self
+
+    def __exit__(self, *exc):
+        vc.VmapEpochRunner.train_step = self._train
+        vc.VmapEpochRunner.eval_step_folds = self._eval
+
+
+def sequential_folds(args, perturb=0.0) -> tuple:
+    """run_cv on ``args``: per fold, its per-epoch train losses and its
+    (best macro, per-mod accuracies, 7-subset scores); and the seconds.
+    With ``perturb``, each fold's initial parameters are scaled by
+    1 + perturb N(0, 1) (a draw of its own a fold)."""
+    losses, results = {}, []
+    run_fold, init = wg.run_fold, wg.init_train_state
+    gen = torch.Generator().manual_seed(7)
+
+    def keep(*a, **k):
+        out = run_fold(*a, **k)
+        results.append(out)
+        return out
+
+    def perturbed(model, *a, **k):
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1.0 + perturb * torch.randn(p.shape, generator=gen))
+        return init(model, *a, **k)
+
+    wg.run_fold = keep
+    if perturb:
+        wg.init_train_state = perturbed
+    try:
+        t0 = time.perf_counter()
+        wg.run_cv(args, on_epoch=lambda fi, ep, st, tr, ev:
+                  losses.setdefault(fi, []).append(np.asarray(tr.loss)))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        wg.run_fold, wg.init_train_state = run_fold, init
+    return losses, results, seconds
+
+
+def loss_gaps(got, want, n_folds) -> list:
+    """Per epoch, the largest relative gap between two runs' per-fold train
+    losses (``got[ep][f]`` or ``got[f + 1][ep]`` as the runs record them)."""
+    gaps = []
+    for ep in range(len(want[1])):
+        gap = 0.0
+        for f in range(n_folds):
+            a = got[ep][f] if isinstance(got, list) else got[f + 1][ep]
+            b = want[f + 1][ep]
+            if not np.all(np.isfinite(a)):
+                raise RuntimeError(f"fold {f + 1} epoch {ep + 1}: non-finite losses")
+            gap = max(gap, float((np.abs(a - b) / np.abs(b)).max()))
+        gaps.append(gap)
+    return gaps
+
+
+def vmap_share(args) -> float:
+    """One eval window's share, in points, of the fold with the fewest eval
+    windows (the sync table pools them; async averages per-batch accuracies,
+    where one window weighs most in the smallest batch)."""
+    shares = []
+    for split in vc._folds_and_splits(args):
+        pool = wg.split_to_device(split, args.async_loading, args.seed, "cpu").eval_pool
+        n = len(pool)
+        batches = [min(args.batch_size, n - i) for i in range(0, n, args.batch_size)]
+        shares.append(100.0 / n if not args.async_loading
+                      else 100.0 / (len(batches) * min(batches)))
+    return max(shares)
+
+
+# the relative size of the yardstick run's perturbation: f32 rounding
+ROUNDING_PERTURBATION = 1e-7
+# how far beyond the yardstick's gap the vmapped run's may lie from the
+# first epoch on (its rounding differs every step, the yardstick's once)
+ROUNDING_GAP_FACTOR = 10.0
+
+
+def compare_vmapped_cv(seed, dev, card) -> dict:
+    """run_cv_vmapped at the CLI's defaults (10 folds, test_per_class 8) on
+    the card, sync for 2 epochs then async for 1, fold by fold against the
+    port's sequential run_cv on the card: the first epoch's train losses
+    within TRAIN_LOSS_RTOL (phase 4's), each fold's best macro accuracy and
+    7-subset scores within one eval window's share. Training amplifies
+    rounding (14 steps an epoch here, 3 in phase 4): after the first epoch
+    the losses are held against a yardstick, the sequential run again from
+    initial parameters scaled by 1 + 1e-7 N(0, 1), within
+    ROUNDING_GAP_FACTOR of its gap. The vmapped run is this slice's main
+    path: every launch count set to 0 just before it and read just after;
+    each stacked train step launches the stream block's forward once, its
+    backward 3 times (one a task pass) and the CAGrad solver once for all
+    the folds, each eval forward the stream block once."""
+    out = {}
+    common = dict(synthetic=True, seed=seed, batch_size=64, wm="gcl", alpha=0.5,
+                  noise_mul=0.0, verbose=False, patience=50, **VMAP_CV)
+    for mode, epochs in (("sync", 2), ("async", 1)):
+        args = wg.WearGaitArgs(epochs=epochs, async_loading=mode == "async", **common)
+        tag = f"vmap_folds {mode}"
+        seq_losses, seq_results, seq_s = sequential_folds(args)
+        yard = [0.0] * epochs
+        if epochs > 1:
+            yard = loss_gaps(sequential_folds(args, ROUNDING_PERTURBATION)[0], seq_losses,
+                             VMAP_FOLDS)
+        vm_losses = []
+        with VmapStepCounter() as counter:
+            reset_launches()
+            t0 = time.perf_counter()
+            res = vc.run_cv_vmapped(args, on_epoch=lambda ep, tr, ev: vm_losses.append(tr["loss"]))
+            torch.cuda.synchronize()
+            vm_s = time.perf_counter() - t0
+            launches = read_launches()
+        log(f"[vmap] {tag}: {epochs} epoch(s) of {VMAP_FOLDS} folds: {counter.steps} stacked "
+            f"train steps and {counter.evals} eval forwards in {vm_s:.2f} s; sequential run_cv "
+            f"{seq_s:.2f} s; launches {launches}")
+        gaps = loss_gaps(vm_losses, seq_losses, VMAP_FOLDS)
+        tols = [TRAIN_LOSS_RTOL] + [max(TRAIN_LOSS_RTOL, ROUNDING_GAP_FACTOR * y)
+                                    for y in yard[1:]]
+        share = vmap_share(args)
+        mask_gap = max(abs(res["per_fold_masks"][mk][f] - seq_results[f][2][mk])
+                       for f in range(VMAP_FOLDS) for mk in wg.MASK_COMBOS)
+        macro_gap = max(abs(res["per_fold_macro"][f] - seq_results[f][0])
+                        for f in range(VMAP_FOLDS))
+        flips = sum(abs(res["per_fold_masks"][mk][f] - seq_results[f][2][mk]) > 1e-6
+                    for f in range(VMAP_FOLDS) for mk in wg.MASK_COMBOS)
+        log(f"[vmap] {tag}: per-epoch train losses vs sequential, max rel gap by epoch "
+            f"{[f'{g:.3e}' for g in gaps]} (tol {[f'{t:.1e}' for t in tols]}; the yardstick "
+            f"run's gap {[f'{y:.3e}' for y in yard]}); best macro max gap {macro_gap:.4f}, "
+            f"7-subset scores max gap {mask_gap:.4f} points ({flips} of {7 * VMAP_FOLDS} "
+            f"differ; one eval window {share:.4f}); macro vmapped {res['macro'][0]:.4f} %, "
+            f"masks {res['masks']}")
+        if (any(g > t for g, t in zip(gaps, tols)) or mask_gap > share + 1e-4
+                or macro_gap > share + 1e-4):
+            raise RuntimeError(f"{tag}: the vmapped run differs from the sequential one")
+        want = {"stream_block": counter.steps + counter.evals,
+                "stream_block_folds": counter.steps + counter.evals,
+                "stream_block_backward": 3 * counter.steps,
+                "stream_block_backward_folds": 3 * counter.steps,
+                "cagrad_solver": counter.steps, "stream_block_wide": 0,
+                "stream_block_backward_wide": 0}
+        wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+        if counter.steps == 0 or wrong:
+            raise RuntimeError(f"{tag}: launches (got, want) {wrong} for {counter.steps} steps")
+        out[mode] = {"launches": launches, "steps": counter.steps, "eval_forwards": counter.evals,
+                     "seconds": vm_s, "sequential_seconds": seq_s, "loss_gaps": gaps,
+                     "yardstick_gaps": yard, "mask_gap": mask_gap}
+    return out
+
+
+def vmap_step_setup(seed, dev, bsz=64):
+    """The stacked CAGrad step at the CLI's defaults: the runner, the
+    stacked state of 10 folds, their first sync batch of ``bsz`` window
+    tuples a fold, and the stacked loss context."""
+    args = wg.WearGaitArgs(synthetic=True, seed=seed, batch_size=bsz, device=dev, **VMAP_CV)
+    datas = [wg.split_to_device(s, False, seed, "cpu") for s in vc._folds_and_splits(args)]
+    data = vc.stack_folds(datas, dev)
+    settings = StepSettings(n_streams=3, wm="gcl", synchronized=True,
+                            private_grads="sum_plus_own")
+    ctx = vc.stack_ctx([make_loss_ctx(settings, [
+        np.bincount(d.ys[k].numpy()[d.train_pool[:, k]], minlength=2) for k in range(3)],
+        device=dev) for d in datas])
+    mtl = make_method("cagrad", 3, c=0.5)
+    state, partition = vc.init_stacked_state(wg.build_model(args, True),
+                                             lambda p: sgd_torch(p, 1e-3), mtl, len(datas), dev)
+    idx, valid = vc.stack_index_batches([d.train_pool for d in datas],
+                                        [np.arange(len(d.train_pool)) for d in datas], bsz)
+    batch = vc._gather(data.xs, data.ys, torch.from_numpy(idx[:, 0]).to(dev),
+                       torch.from_numpy(valid[:, 0]).to(dev), (0, 1, 2))
+    return vc.VmapEpochRunner(settings, mtl, partition), state, batch, ctx
+
+
+def profile_steps(fn, reps=10, table=None) -> dict:
+    """Device time and kernel launches a call of ``fn`` (torch.profiler
+    over ``reps`` calls after one), and the profiled wall time a call; with
+    ``table`` = (label, card), the profile's table by kernel too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    if table is not None:
+        profile_table(prof, f"{reps} x {table[0]}", wall_ms * reps, table[1])
+    return {"device_ms": device_ms, "kernels": sum(e.count for e in kernels) / reps,
+            "wall_ms_profiled": wall_ms, "idle": max(0.0, 1 - device_ms / wall_ms)}
+
+
+def check_vmap_step(seed, dev, card) -> dict:
+    """One stacked step at 10 folds x 64: its launches (the stream block's
+    forward once, its backward 3 times, the solver once), its host
+    synchronisations (0), and its wall time (host clock around 20
+    synchronised steps after 3) beside the 10 sequential batch-64 steps it
+    replaces, in turns (stacked, ten, ten, stacked); then the device time
+    and kernel launches of each under the profiler."""
+    runner, state, batch, ctx = vmap_step_setup(seed, dev)
+
+    def stacked():
+        return runner.train_step(state, batch, ctx, False)
+
+    stacked()
+    torch.cuda.synchronize()
+    reset_launches()
+    stacked()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {"stream_block": 1, "stream_block_folds": 1, "stream_block_backward": 3,
+            "stream_block_backward_folds": 3, "cagrad_solver": 1}
+    syncs = []
+    for _ in range(2):  # a first count of a process may read one more
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                stacked()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+    log(f"[vmap] one stacked step of {VMAP_FOLDS} folds x 64: launches {launches} (want "
+        f"{want}); host synchronisations {syncs[-1]} (counts {syncs})")
+    wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    if wrong or syncs[-1] != 0:
+        raise RuntimeError(f"stacked step: launches (got, want) {wrong}, syncs {syncs}")
+
+    step, seq_state, seq_ctx, seq_batch, gen = make_step_setup(seed, dev, 64)
+
+    def ten():
+        for _ in range(VMAP_FOLDS):
+            step(seq_state, seq_batch, gen, seq_ctx)
+
+    def host_ms(fn, reps=20):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    turns = {"stacked": [], "ten": []}
+    for name in ("stacked", "ten", "ten", "stacked"):
+        turns[name].append(host_ms(stacked if name == "stacked" else ten))
+    prof = {"stacked": profile_steps(stacked, table=(
+        f"stacked CAGrad step of {VMAP_FOLDS} folds x 64", card)),
+            "one": profile_steps(lambda: step(seq_state, seq_batch, gen, seq_ctx))}
+    out = {"stacked_ms": turns["stacked"], "ten_sequential_ms": turns["ten"],
+           "one_sequential_ms": [v / VMAP_FOLDS for v in turns["ten"]],
+           "profile": prof, "launches": launches, "syncs": syncs[-1]}
+    log(f"[time] {card}: one stacked CAGrad step of {VMAP_FOLDS} folds x 64 window tuples: "
+        f"{turns['stacked'][0]:.3f}/{turns['stacked'][1]:.3f} ms (host clock, synchronised); "
+        f"the {VMAP_FOLDS} sequential batch-64 steps it replaces: {turns['ten'][0]:.3f}/"
+        f"{turns['ten'][1]:.3f} ms ({turns['ten'][0] / VMAP_FOLDS:.3f}/"
+        f"{turns['ten'][1] / VMAP_FOLDS:.3f} ms a step); profiler, a step: stacked "
+        f"{prof['stacked']}, sequential {prof['one']}")
+    return out
+
+
+def check_cli_runs(card) -> dict:
+    """python -m gaitpd_torch.cli --mode weargait on synthetic data, with
+    and without --vmap_folds, as subprocesses on the card: each exits 0 and
+    prints the 7-subset table."""
+    out = {}
+    base = [sys.executable, "-m", "gaitpd_torch.cli", "--mode", "weargait", "--synthetic",
+            "--epochs", "1", "--n_folds", "2", "--test_per_class", "3"]
+    root = Path(__file__).resolve().parent
+    runs = {"sequential": [], "vmap_folds": ["--vmap_folds"]}
+    t0 = time.perf_counter()
+    # both at once; each ends (or is killed) before this returns
+    procs = {name: subprocess.Popen(base + extra, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True, cwd=root)
+             for name, extra in runs.items()}
+    try:
+        results = {name: p.communicate(timeout=600) for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for name, (stdout, stderr) in results.items():
+        rc = procs[name].returncode
+        table = "=== Masked accuracy at best epoch" in stdout and all(
+            f"[{mk:5}]" in stdout for mk in wg.MASK_COMBOS)
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("[") and "folds" in ln]
+        log(f"[cli] {' '.join(base[1:] + runs[name])}: exit {rc} ({seconds:.1f} s for both "
+            f"runs at once); 7-subset table printed: {table}; {lines}")
+        if rc != 0 or not table:
+            raise RuntimeError(f"the CLI ({name}) failed: exit {rc}\n{stdout[-2000:]}\n"
+                               f"{stderr[-4000:]}")
+        out[name] = {"exit": rc}
+    out["seconds"] = seconds
+    return out
+
+
+def phase_vmap_cv(seed, dev, card, rng) -> dict:
+    """Phase 7: the fold-stacked kernels against their plain versions, the
+    vmapped CV against the sequential one at the CLI's defaults (the main
+    path's launches), one stacked step's launches, syncs and time, and the
+    CLI end to end."""
+    t0 = time.perf_counter()
+    errors = check_fold_kernels(rng, dev, card)
+    runs = compare_vmapped_cv(seed, dev, card)
+    step = check_vmap_step(seed, dev, card)
+    cli = check_cli_runs(card)
+    log(f"[vmap] phase 7: {time.perf_counter() - t0:.1f} s")
+    return {"errors": errors, "runs": runs, "step": step, "cli": cli}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3425,6 +3968,9 @@ def main() -> int:
     bb_label_xattn = "FoG cheap_xattn fusion (Adam)"
     bb_steps = time_ff_train_step(args.seed, dev, card, bb_xattn_setup, bb_label_xattn)
     bb_profile = time_ff_step_profile(args.seed, dev, card, bb_xattn_setup, bb_label_xattn)
+    # the CLI and WearGait's folds in one step: streams of their own
+    vmap = phase_vmap_cv(args.seed, dev, card, np.random.default_rng([args.seed, 24]))
+    times.update(time_fold_block(np.random.default_rng([args.seed, 25]), dev, card))
 
     # launches on each kernel's own main path: the CAGrad training's for the
     # earlier slices' kernels, the cheap-xattn training's for this slice's
@@ -3473,6 +4019,9 @@ def main() -> int:
     for name in ("cheap_xattn", "cheap_xattn_backward"):
         launches[f"{name}_long"] = win256["launches"][name]
         times[f"{name}_long"] = long_times["win256_batch64"][name]
+    # the fold-stacked block on its own main path: the vmapped CV's sync run
+    for name in ("stream_block_folds", "stream_block_backward_folds"):
+        launches[name] = vmap["runs"]["sync"]["launches"][name]
     long_err = long_errors["win256_batch64"]
     wide_err = wide_errors[WIDE_XATTN_TIMED[0]]
     bb_err = baselines["errors"]["xattn"]["fog_batch256"]
@@ -3512,6 +4061,11 @@ def main() -> int:
          "gaitpd/ops/pallas_blocks.py:184", long_err[0]),
         ("cheap_xattn_backward_long", "gaitpd_torch/csrc/cheap_xattn.cu",
          "gaitpd/ops/pallas_blocks.py:275", long_err[1]),
+        # the stream block with a fold axis: every fold of the CV in one launch
+        ("stream_block_folds", "gaitpd_torch/csrc/stream_block.cu",
+         "gaitpd/ops/pallas_blocks.py:72", vmap["errors"]["flagship"][0]),
+        ("stream_block_backward_folds", "gaitpd_torch/csrc/stream_block.cu",
+         "gaitpd/ops/pallas_blocks.py:160", vmap["errors"]["flagship"][1]),
         # not TPU kernels either: the MGDA, FairGrad and NashMTL solvers
         ("min_norm_solver", "gaitpd_torch/csrc/mtl_solvers.cu", "gaitpd/learning/minnorm.py:35",
          mtl["solver_errors"]["min_norm_solver"]),
@@ -3545,7 +4099,8 @@ def main() -> int:
         f"cross-attention at Tq = Tk = 128, d 12 {json.dumps(t128_xattn_times)}; the "
         f"sweep over key tiles {json.dumps(long_times)}, the step at win_len {WIN256} "
         f"{json.dumps(win256)} and its train steps {json.dumps(win256_steps)}; the wide "
-        f"thresholds {json.dumps(threshold_times)}")
+        f"thresholds {json.dumps(threshold_times)}; the vmapped CV (phase 7) "
+        f"{json.dumps(vmap)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -171,6 +171,20 @@
 // It skips no window (a NaN anywhere reaches gw as in the plain version),
 // uses no float atomics, and gives the same bits from run to run.
 //
+// FOLDS
+//
+// Cross-validation trains F folds' models in one step (gaitpd_torch/train/
+// vmap_cv.py), each on its own B windows with its own weights. Every entry
+// point takes a fold count F: x (F*B, T, Cin) fold-major, w (F, K, Cin, Cout),
+// b (F, Cout), out (F*B, t_out, Cout); the backward gives gx (F*B, T, Cin),
+// gw (F, K, Cin, Cout) and gb (F, Cout). The fold is the grid's z index:
+// every kernel offsets its pointers to fold blockIdx.z's windows, weights
+// and partial rows and then runs as a launch of one fold does, with the
+// windows a block, the split of a window and the reduction order chosen from
+// B alone. So no block's windows span two folds, each fold's result has the
+// bits of a launch of that fold alone, and F = 1 launches what a launch
+// without folds does.
+//
 // Plain C interface, bound with ctypes (gaitpd_torch/ops/stream_block.py).
 
 #include <cuda_runtime.h>
@@ -187,6 +201,14 @@ constexpr size_t kMaxSmem = 227 * 1024;
 
 constexpr int kActRelu = 0;
 constexpr int kActGelu = 1;
+
+// The backward's reduction of its partial rows (reduce_partials_kernel).
+constexpr int kReduceX = 32;      // outputs per block, one per lane
+constexpr int kReduceY = 8;       // rows of a slice summed at once
+constexpr int kReduceSlices = 8;  // slices of the partial rows
+
+// The fold of a block (see FOLDS in the header).
+__device__ __forceinline__ size_t fold_index() { return blockIdx.z; }
 
 constexpr float kInvSqrt2 = 0.70710678118654752440f;
 constexpr float kInvSqrt2Pi = 0.39894228040143267794f;
@@ -254,6 +276,10 @@ stream_block_tile_kernel(const float* __restrict__ x, const float* __restrict__ 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int win = blockIdx.x * kTileWarps + warp;
   float* xw = ws + kTileK * CIN * kTileCout + warp * CIN * kTilePitch;
+  x += fold_index() * batch * kTileT * CIN;
+  w += fold_index() * kTileK * CIN * kTileCout;
+  b += fold_index() * kTileCout;
+  out += fold_index() * batch * kTileTout * kTileCout;
 
   for (int e = threadIdx.x; e < kTileK * CIN * kTileCout; e += kTileThreads) ws[e] = w[e];
   if (win < batch) {
@@ -336,6 +362,10 @@ stream_block_generic_kernel(const float* __restrict__ x, const float* __restrict
 
   const int b0 = blockIdx.x * tile;
   const int nwin = min(tile, batch - b0);
+  x += fold_index() * batch * t_in * cin;
+  w += fold_index() * taps * cout;
+  b += fold_index() * cout;
+  out += fold_index() * batch * t_out * cout;
 
   for (int e = threadIdx.x; e < taps * cout; e += blockDim.x) ws[e] = w[e];
   for (int e = threadIdx.x; e < cout; e += blockDim.x) bs[e] = b[e];
@@ -464,7 +494,9 @@ stream_block_frame_kernel(const float* __restrict__ x, const float* __restrict__
   float* bs = xs + L.b;
   float* ys = xs + L.y;
   const int pad = k / 2;
-  const size_t win = blockIdx.x;
+  const size_t win = fold_index() * gridDim.x + blockIdx.x;  // a block a window of the fold
+  w += fold_index() * k * cin * cout;
+  b += fold_index() * cout;
 
   // padded frame r holds frame r - pad: zero outside the window and beyond C_in
   const float* xg = x + win * t_in * cin;
@@ -609,6 +641,11 @@ stream_block_wide_kernel(const float* __restrict__ x, const float* __restrict__ 
   const int nwin = min(windows, batch - b0);
   const int bin = lane >> 2, cg = lane & 3;
   const int nchunks = (cin + kWideChunk - 1) / kWideChunk;
+  x += fold_index() * batch * kTileT * cin;
+  w += fold_index() * kTileK * cin * kTileCout;
+  b += fold_index() * kTileCout;
+  if (MODE == kWideGradZ) g += fold_index() * batch * kTileTout * kTileCout;
+  out += fold_index() * batch * (MODE == kWideForward ? kTileTout : kTileT) * kTileCout;
 
   float acc[kTileBin][4];
 #pragma unroll
@@ -750,6 +787,11 @@ stream_block_wide_grad_kernel(const float* __restrict__ x, const float* __restri
   const int nchunks = (cin + kWideChunk - 1) / kWideChunk;
   const int range = blockIdx.x / nchunks, chunk = blockIdx.x - range * nchunks;
   const int c0 = chunk * kWideChunk;
+  x += fold_index() * batch * kTileT * cin;
+  w += fold_index() * kTileK * cin * kTileCout;
+  gz += fold_index() * batch * kTileT * kTileCout;
+  gx += fold_index() * batch * kTileT * cin;
+  partial += fold_index() * (ranges + kReduceSlices) * (kTileK * cin * kTileCout + kTileCout);
   const int wb0 = static_cast<int>(static_cast<long long>(range) * batch / ranges);
   const int wb1 = static_cast<int>(static_cast<long long>(range + 1) * batch / ranges);
   const int rounds = (wb1 - wb0 + kWideGradWindows - 1) / kWideGradWindows;
@@ -1029,7 +1071,12 @@ stream_block_backward_kernel(const float* __restrict__ x, const float* __restric
   const int b0 = blockIdx.x * tile;
   const int nwin = min(tile, batch - b0);
   const int nw = k * cin * cout;
-  float* part = partial + static_cast<size_t>(blockIdx.x) * (nw + cout);
+  x += fold_index() * batch * t_in * cin;
+  w += fold_index() * nw;
+  b += fold_index() * cout;
+  g += fold_index() * batch * t_out * cout;
+  gx += fold_index() * batch * t_in * cin;
+  float* part = partial + (fold_index() * (gridDim.x + kReduceSlices) + blockIdx.x) * (nw + cout);
 
   // Set-up: flags, w, b, the bins, and the zero halos.
   if (tid < tile) flags[tid] = 0;
@@ -1245,17 +1292,15 @@ stream_block_backward_kernel(const float* __restrict__ x, const float* __restric
   }
 }
 
-constexpr int kReduceX = 32;      // outputs per block, one per lane
-constexpr int kReduceY = 8;       // rows of a slice summed at once
-constexpr int kReduceSlices = 8;  // slices of the partial rows
-
 // Sums the block rows [0, rows) of `partial` (width floats each) in
 // kReduceSlices slices: slice s = blockIdx.y takes rows
 // [s * rows / S, (s + 1) * rows / S); lane y of it sums rows r0 + y, r0 + y + 8,
-// ... in turn, then lanes 0..7 are added in turn, into row rows + s.
+// ... in turn, then lanes 0..7 are added in turn, into row rows + s. A fold's
+// rows + kReduceSlices rows follow the previous fold's.
 __global__ void __launch_bounds__(kReduceX * kReduceY)
 reduce_partials_kernel(float* partial, int rows, int width) {
   __shared__ float lanes[kReduceY][kReduceX];
+  partial += fold_index() * (rows + kReduceSlices) * width;
   const int e = blockIdx.x * kReduceX + threadIdx.x;
   const int s = blockIdx.y;
   const int r0 = s * rows / kReduceSlices, r1 = (s + 1) * rows / kReduceSlices;
@@ -1281,6 +1326,9 @@ reduce_slices_kernel(const float* __restrict__ partial, int rows, int nw, int nc
   const int width = nw + ncout;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= width) return;
+  partial += fold_index() * (rows + kReduceSlices) * width;
+  gw += fold_index() * nw;
+  gb += fold_index() * ncout;
   const float* slices = partial + static_cast<size_t>(rows) * width + e;
   float sum = slices[0];
   for (int s = 1; s < kReduceSlices; ++s) sum += slices[static_cast<size_t>(s) * width];
@@ -1295,6 +1343,11 @@ bool valid_sizes(int batch, int t_in, int cin, int cout, int k, int t_out, int a
   return batch >= 0 && t_in >= 1 && cin >= 1 && cout >= 1 && k >= 1 && k % 2 == 1 &&
          t_out >= 1 && (act == kActRelu || act == kActGelu);
 }
+
+// Folds a launch takes: the grid's z extent.
+constexpr int kMaxFolds = 65535;
+
+bool valid_folds(int folds) { return folds >= 1 && folds <= kMaxFolds; }
 
 // Windows per block for the backward and its shared memory in bytes, or
 // tile 0 if one window does not fit.
@@ -1469,19 +1522,22 @@ cudaError_t allow_smem(const void* fn, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// Launches L over `folds` folds of `batch` windows each: grid (L.grid, 1, folds).
 cudaError_t launch_forward(const ForwardLaunch& L, const float* x, const float* w,
-                           const float* b, const float* g, float* out, int batch, int t_in,
-                           int cin, int cout, int k, int t_out, int act, cudaStream_t s) {
+                           const float* b, const float* g, float* out, int folds, int batch,
+                           int t_in, int cin, int cout, int k, int t_out, int act,
+                           cudaStream_t s) {
   cudaError_t err = allow_smem(L.fn, L.smem);
   if (err != cudaSuccess) return err;
+  const dim3 grid(L.grid, 1, folds);
   if (L.tile != nullptr) {
-    L.tile<<<L.grid, L.threads, L.smem, s>>>(x, w, b, out, batch);
+    L.tile<<<grid, L.threads, L.smem, s>>>(x, w, b, out, batch);
   } else if (L.wide != nullptr) {
-    L.wide<<<L.grid, L.threads, L.smem, s>>>(x, w, b, g, out, batch, cin, L.windows);
+    L.wide<<<grid, L.threads, L.smem, s>>>(x, w, b, g, out, batch, cin, L.windows);
   } else if (L.frame != nullptr) {
-    L.frame<<<L.grid, L.threads, L.smem, s>>>(x, w, b, out, t_in, cin, cout, k, t_out);
+    L.frame<<<grid, L.threads, L.smem, s>>>(x, w, b, out, t_in, cin, cout, k, t_out);
   } else {
-    stream_block_generic_kernel<<<L.grid, L.threads, L.smem, s>>>(
+    stream_block_generic_kernel<<<grid, L.threads, L.smem, s>>>(
         x, w, b, out, batch, t_in, cin, cout, k, t_out, act, L.windows);
   }
   return cudaGetLastError();
@@ -1492,37 +1548,41 @@ cudaError_t launch_forward(const ForwardLaunch& L, const float* x, const float* 
 extern "C" {
 
 // Launches the forward's `variant` (0 warp_tile, 1 generic, 2 wide, 3
-// per_frame) on `stream`. Returns a cudaError_t: 0 on success,
-// cudaErrorInvalidValue for sizes the variant does not take. x, w, b, out are
-// contiguous f32 device pointers (out 16-byte aligned); act is 0 (ReLU) or 1
-// (exact GELU).
+// per_frame) over `folds` folds of `batch` windows on `stream`. Returns a
+// cudaError_t: 0 on success, cudaErrorInvalidValue for sizes the variant does
+// not take. x (folds*batch, T, Cin), w (folds, K, Cin, Cout), b (folds, Cout),
+// out (folds*batch, t_out, Cout) are contiguous f32 device pointers (out
+// 16-byte aligned); act is 0 (ReLU) or 1 (exact GELU).
 int stream_block_forward(const float* x, const float* w, const float* b, float* out,
-                         int batch, int t_in, int cin, int cout, int k, int t_out,
+                         int folds, int batch, int t_in, int cin, int cout, int k, int t_out,
                          int act, int variant, void* stream) {
   ForwardLaunch L;
-  if (!forward_launch(variant, batch, t_in, cin, cout, k, t_out, act, &L, kWideForward,
+  if (!valid_folds(folds) ||
+      !forward_launch(variant, batch, t_in, cin, cout, k, t_out, act, &L, kWideForward,
                       wide_vec4(cin, x, w), x)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0) return 0;
-  return static_cast<int>(launch_forward(L, x, w, b, nullptr, out, batch, t_in, cin, cout, k,
-                                         t_out, act, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_forward(L, x, w, b, nullptr, out, folds, batch, t_in, cin,
+                                         cout, k, t_out, act,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
 // The forward's launch of `variant` for these sizes: threads a block, dynamic
 // shared memory in bytes, the blocks an SM holds at once (the CUDA occupancy
-// calculator, registers included), the blocks of the grid and the windows a
-// block. Returns a cudaError_t.
-int stream_block_forward_config(int variant, int batch, int t_in, int cin, int cout, int k,
-                                int t_out, int act, int* threads, int* smem_bytes,
+// calculator, registers included), the blocks of the grid (all folds') and
+// the windows a block. Returns a cudaError_t.
+int stream_block_forward_config(int variant, int folds, int batch, int t_in, int cin, int cout,
+                                int k, int t_out, int act, int* threads, int* smem_bytes,
                                 int* blocks_per_sm, int* blocks, int* windows) {
   ForwardLaunch L;
-  if (!forward_launch(variant, batch, t_in, cin, cout, k, t_out, act, &L)) {
+  if (!valid_folds(folds) ||
+      !forward_launch(variant, batch, t_in, cin, cout, k, t_out, act, &L)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   *threads = L.threads;
   *smem_bytes = static_cast<int>(L.smem);
-  *blocks = L.grid;
+  *blocks = L.grid * folds;
   *windows = L.windows;
   cudaError_t err = allow_smem(L.fn, L.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1531,10 +1591,10 @@ int stream_block_forward_config(int variant, int batch, int t_in, int cin, int c
 }
 
 // Rows of the scratch buffer `partial` that the backward's `variant` (0
-// generic, 1 wide) needs for these sizes (one per block of the generic
-// kernel, or per window range of the wide one, then kReduceSlices for the
-// slices' sums; each row K*Cin*Cout + Cout floats), or -1 for sizes it does
-// not take.
+// generic, 1 wide) needs for one fold of these sizes (one per block of the
+// generic kernel, or per window range of the wide one, then kReduceSlices for
+// the slices' sums; each row K*Cin*Cout + Cout floats), or -1 for sizes it
+// does not take. A launch of F folds takes F times as many.
 int stream_block_backward_rows(int variant, int batch, int t_in, int cin, int cout, int k,
                                int t_out) {
   if (!valid_sizes(batch, t_in, cin, cout, k, t_out, kActRelu) || batch == 0) return -1;
@@ -1550,14 +1610,14 @@ int stream_block_backward_rows(int variant, int batch, int t_in, int cin, int co
 
 // The backward's launch of `variant` for these sizes, into out[9]: threads a
 // block, dynamic shared memory in bytes, the blocks an SM holds at once (the
-// CUDA occupancy calculator, registers included), the blocks of the grid and
-// the windows a block (the generic kernel's tile; the wide gx/gw kernel's
-// largest window range); then for the wide variant its first kernel (g_z):
-// windows a block, shared memory, blocks an SM and blocks (0 for the generic
-// variant). Returns a cudaError_t.
-int stream_block_backward_config(int variant, int batch, int t_in, int cin, int cout, int k,
-                                 int t_out, int act, int* out) {
-  if (!valid_sizes(batch, t_in, cin, cout, k, t_out, act)) {
+// CUDA occupancy calculator, registers included), the blocks of the grid (all
+// folds') and the windows a block (the generic kernel's tile; the wide gx/gw
+// kernel's largest window range); then for the wide variant its first kernel
+// (g_z): windows a block, shared memory, blocks an SM and blocks (0 for the
+// generic variant). Returns a cudaError_t.
+int stream_block_backward_config(int variant, int folds, int batch, int t_in, int cin, int cout,
+                                 int k, int t_out, int act, int* out) {
+  if (!valid_folds(folds) || !valid_sizes(batch, t_in, cin, cout, k, t_out, act)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   for (int i = 0; i < 9; ++i) out[i] = 0;
@@ -1571,11 +1631,11 @@ int stream_block_backward_config(int variant, int batch, int t_in, int cin, int 
     const void* fn = reinterpret_cast<const void*>(wide_grad_kernel(wide_vec4(cin)));
     out[0] = kWideThreads;
     out[1] = static_cast<int>(kWideGradSmem);
-    out[3] = ranges * ((cin + kWideChunk - 1) / kWideChunk);
+    out[3] = ranges * ((cin + kWideChunk - 1) / kWideChunk) * folds;
     out[4] = (batch + ranges - 1) / ranges;
     out[5] = L.windows;
     out[6] = static_cast<int>(L.smem);
-    out[8] = L.grid;
+    out[8] = L.grid * folds;
     if ((err = allow_smem(fn, kWideGradSmem)) != cudaSuccess ||
         (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, kWideThreads,
                                                              kWideGradSmem)) != cudaSuccess ||
@@ -1592,7 +1652,7 @@ int stream_block_backward_config(int variant, int batch, int t_in, int cin, int 
   out[0] = kThreads;
   out[1] = static_cast<int>(smem);
   if (tile == 0) return static_cast<int>(cudaErrorInvalidValue);
-  out[3] = (batch + tile - 1) / tile;
+  out[3] = (batch + tile - 1) / tile * folds;
   out[4] = tile;
   const void* fn = reinterpret_cast<const void*>(stream_block_backward_kernel);
   if ((err = allow_smem(fn, smem)) != cudaSuccess) return static_cast<int>(err);
@@ -1600,19 +1660,20 @@ int stream_block_backward_config(int variant, int batch, int t_in, int cin, int 
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], fn, kThreads, smem));
 }
 
-// Launches the backward's `variant` on `stream` (generic: three kernels;
-// wide: four). Returns a cudaError_t. x, w, b as the forward; g (B, t_out,
-// Cout) the cotangent; gx (B, T, Cin), gw (K, Cin, Cout), gb (Cout) the
-// outputs; partial a scratch buffer of stream_block_backward_rows(...) *
-// (K*Cin*Cout + Cout) floats; gz a scratch buffer of B*T*Cout floats for the
-// wide variant (unused, may be null, for the generic one). All contiguous
-// f32 device pointers; gx and gz 16-byte aligned.
+// Launches the backward's `variant` over `folds` folds of `batch` windows on
+// `stream` (generic: three kernels; wide: four). Returns a cudaError_t. x, w,
+// b as the forward; g (folds*batch, t_out, Cout) the cotangent; gx
+// (folds*batch, T, Cin), gw (folds, K, Cin, Cout), gb (folds, Cout) the
+// outputs; partial a scratch buffer of folds * stream_block_backward_rows(...)
+// * (K*Cin*Cout + Cout) floats; gz a scratch buffer of folds*batch*T*Cout
+// floats for the wide variant (unused, may be null, for the generic one). All
+// contiguous f32 device pointers; gx and gz 16-byte aligned.
 int stream_block_backward(const float* x, const float* w, const float* b, const float* g,
                           float* gx, float* gw, float* gb, float* partial, float* gz,
-                          int batch, int t_in, int cin, int cout, int k, int t_out,
+                          int folds, int batch, int t_in, int cin, int cout, int k, int t_out,
                           int act, int variant, void* stream) {
   const int rows = stream_block_backward_rows(variant, batch, t_in, cin, cout, k, t_out);
-  if (rows < 0 || !valid_sizes(batch, t_in, cin, cout, k, t_out, act)) {
+  if (rows < 0 || !valid_folds(folds) || !valid_sizes(batch, t_in, cin, cout, k, t_out, act)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int blocks = rows - kReduceSlices;
@@ -1623,32 +1684,32 @@ int stream_block_backward(const float* x, const float* w, const float* b, const 
     const bool vec4 = wide_vec4(cin, x, w);
     ForwardLaunch L;
     forward_launch(kWide, batch, t_in, cin, cout, k, t_out, act, &L, kWideGradZ, vec4);
-    err = launch_forward(L, x, w, b, g, gz, batch, t_in, cin, cout, k, t_out, act, s);
+    err = launch_forward(L, x, w, b, g, gz, folds, batch, t_in, cin, cout, k, t_out, act, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     const WideGradKernel grad = wide_grad_kernel(vec4);
     err = allow_smem(reinterpret_cast<const void*>(grad), kWideGradSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int chunks = (cin + kWideChunk - 1) / kWideChunk;
-    grad<<<blocks * chunks, kWideThreads, kWideGradSmem, s>>>(x, w, gz, gx, partial, batch, cin,
-                                                               blocks);
+    grad<<<dim3(blocks * chunks, 1, folds), kWideThreads, kWideGradSmem, s>>>(
+        x, w, gz, gx, partial, batch, cin, blocks);
   } else {
     int tile;
     size_t smem;
     backward_tile(t_in, cin, cout, k, t_out, &tile, &smem);
     err = allow_smem(reinterpret_cast<const void*>(stream_block_backward_kernel), smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    stream_block_backward_kernel<<<blocks, kThreads, smem, s>>>(
+    stream_block_backward_kernel<<<dim3(blocks, 1, folds), kThreads, smem, s>>>(
         x, w, b, g, gx, partial, batch, t_in, cin, cout, k, t_out, act, tile);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nw = k * cin * cout;
   const int width = nw + cout;
-  const dim3 grid((width + kReduceX - 1) / kReduceX, kReduceSlices);
+  const dim3 grid((width + kReduceX - 1) / kReduceX, kReduceSlices, folds);
   reduce_partials_kernel<<<grid, dim3(kReduceX, kReduceY), 0, s>>>(partial, blocks, width);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_slices_kernel<<<(width + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+  reduce_slices_kernel<<<dim3((width + kThreads - 1) / kThreads, 1, folds), kThreads, 0, s>>>(
       partial, blocks, nw, cout, gw, gb);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,8 @@
 """Dataset caches: the FBG/FoG reader cache and the WearGait pickle count.
-The port's own counterpart of gaitpd/data/cache.py:20-95 (reference
-train/data_processing/dataset_cache.py:27-104).
+The port's own counterpart of gaitpd/data/cache.py:20-118 (reference
+train/data_processing/dataset_cache.py:27-104, and its command line):
+
+    python -m gaitpd_torch.data.cache [--datasets fbg fog weargait | all] [--rebuild]
 
 A built reader is pickled once under the cache directory and loaded on
 later runs, written whole through a temporary file. The port's files have
@@ -14,9 +16,10 @@ that names it.
 
 from __future__ import annotations
 
+import argparse
 import pickle
 from pathlib import Path
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 from gaitpd_torch.config import normalize_dataset_name, raw_reader_dataset_name
 from gaitpd_torch.data.paths import cache_dir, get_pd_paths, weargait_paths
@@ -119,3 +122,33 @@ def count_weargait_pickles(root: Optional[Path] = None) -> int:
     directory); 0 if it does not exist."""
     d = Path(root) if root else weargait_paths()["output_dir"]
     return len(list(d.glob("*.pkl"))) if d.exists() else 0
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    """Build (or load) each requested reader's cache and print its entry
+    counts; for WearGait, count the preprocessed pickles, and raise
+    FileNotFoundError if there are none (gaitpd/data/cache.py:98-118)."""
+    parser = argparse.ArgumentParser("Generate reusable dataset pickle caches")
+    parser.add_argument(
+        "--datasets", nargs="+", choices=["fbg", "fog", "weargait", "all"],
+        default=["all"],
+    )
+    parser.add_argument("--rebuild", action="store_true")
+    args = parser.parse_args(argv)
+    requested = ["fbg", "fog", "weargait"] if "all" in args.datasets else args.datasets
+    for dataset in requested:
+        if dataset == "weargait":
+            count = count_weargait_pickles()
+            if count == 0:
+                raise FileNotFoundError(
+                    "No WearGait .pkl files found. Run "
+                    "python -m gaitpd_torch.data.preprocess_weargait first."
+                )
+            print(f"[CACHE] WearGait already has {count} per-subject .pkl files.")
+            continue
+        reader = load_reader(dataset, rebuild=args.rebuild)
+        print(f"[CACHE] {dataset}: {summarize_reader(dataset, reader)}")
+
+
+if __name__ == "__main__":
+    main()

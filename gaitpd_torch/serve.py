@@ -12,9 +12,10 @@ ensemble.
     probs = engine.predict_streams({"imu": imu_array})   # walkway/insole absent
 
 ``from_checkpoint`` reads the port's own checkpoints
-(gaitpd_torch.train.checkpoint). Restoring gaitpd's orbax checkpoints needs
-orbax and tensorstore and is not ported: pass the restored flax variables
-dict to the engine. ``from_vmap_checkpoint`` waits for the vmapped CV.
+(gaitpd_torch.train.checkpoint), ``from_vmap_checkpoint`` one fold of the
+stacked snapshot that the vmapped CV writes (gaitpd_torch.train.vmap_cv).
+Restoring gaitpd's orbax checkpoints needs orbax and tensorstore and is not
+ported: pass the restored flax variables dict to the engine.
 """
 
 from __future__ import annotations
@@ -93,6 +94,41 @@ class WearGaitEngine:
         module = copy.deepcopy(model) if model is not None else WearGaitThreeModal(
             synchronized=True, num_classes=num_classes)
         module.load_state_dict(payload["module"])
+        return cls(module, cls._load_stats(ckpt_root), **kw)
+
+    @classmethod
+    def from_vmap_checkpoint(cls, ckpt_root, fold: int = 0, *,
+                             model: Optional[nn.Module] = None, num_classes: int = 2, **kw):
+        """An engine on one fold's best parameters out of the stacked
+        snapshot that the vmapped CV driver writes (``<ckpt_root>/vmap/
+        latest``, gaitpd_torch.train.vmap_cv.save_vmap_checkpoint; the
+        flagship keeps every fold's best parameters in
+        ``extras["best_params"]``, the fold on the leading axis), copied into
+        ``model`` (default: a synchronized ``WearGaitThreeModal``), with the
+        stats of ``<ckpt_root>/stats.json`` where that exists
+        (gaitpd/serve.py:91-117). ``fold`` is 0-based. Raises ValueError on a
+        snapshot without best parameters (the single-modality driver saves
+        none) or a fold out of range."""
+        from gaitpd_torch.train.vmap_cv import load_vmap_snapshot, vmap_checkpoint_path
+
+        payload = load_vmap_snapshot(ckpt_root)
+        path = vmap_checkpoint_path(ckpt_root)
+        if payload is None:
+            raise FileNotFoundError(f"no stacked checkpoint at {path}")
+        extras = payload.get("extras") or {}
+        if "best_params" not in extras:
+            raise ValueError(
+                f"{path} is not a WearGait flagship's vmapped snapshot: its extras carry no "
+                "'best_params' (the single-modality driver saves none); serve from a "
+                "weargait --vmap_folds checkpoint")
+        best = extras["best_params"]
+        n_folds = next(iter(best.values())).shape[0]
+        if not 0 <= fold < n_folds:
+            raise ValueError(f"fold {fold} out of range (snapshot has {n_folds} folds, "
+                             "0-based)")
+        module = copy.deepcopy(model) if model is not None else WearGaitThreeModal(
+            synchronized=True, num_classes=num_classes)
+        module.load_state_dict({name: v[fold] for name, v in best.items()})
         return cls(module, cls._load_stats(ckpt_root), **kw)
 
     @staticmethod

@@ -144,14 +144,14 @@ def main() -> int:
         gz = torch.empty((bsz, t, cout), device=dev)
 
         def forward():
-            err = fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), bsz, t, cin,
-                      cout, k, t_out, act, sb.WIDE, stream)
+            err = fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), 1, bsz, t,
+                      cin, cout, k, t_out, act, sb.WIDE, stream)
             assert err == 0, err
 
         def backward():
             err = bwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(),
                       *(v.data_ptr() for v in grads), partial.data_ptr(), gz.data_ptr(),
-                      bsz, t, cin, cout, k, t_out, act, sb.BWD_WIDE, stream)
+                      1, bsz, t, cin, cout, k, t_out, act, sb.BWD_WIDE, stream)
             assert err == 0, err
 
         line = f"[parts] {card}: {name}:"

@@ -1,0 +1,718 @@
+"""Cross-validation with every fold in one step: WearGait's flagship (CAGrad,
+or the mean of the branch losses at alpha 0) and its single-modality mode.
+Port of gaitpd/train/vmap_cv.py:50-748 (reference train/weargait_train.py:
+533-645, a sequential fold loop).
+
+    res = run_cv_vmapped(WearGaitArgs(synthetic=True, epochs=3))  # on the card
+    res = run_cv_vmapped(WearGaitArgs(synthetic=True, single_mod="imu", device="cpu"))
+
+The folds' models are small and independent, and the card waits on the host
+in a step of one fold (PERF.md §5), so the fold becomes a leading axis of
+every parameter and batch: a step trains F folds at once. The model code
+stays as it is: one fold's forward and loss go through ``torch.func.vmap``
+over ``torch.func.functional_call``, autograd runs outside the vmap on the
+stacked parameters, and the stream block's vmap rule makes its forward one
+launch for all folds (gaitpd_torch/ops/stream_block.py), its backward one
+launch a task pass. The K task passes give the per-task matrix J (F, K, P);
+CAGrad's Gram matrices (F, K, K) go to the solver in one launch; the clip
+and ``sum_plus_own`` act per fold row. SGD's updates are elementwise, so one
+optimizer over the stacked parameters updates each fold as its own would.
+
+Folds differ in size: their windows are zero-padded to the largest fold's
+count, and each fold's index pools stay its own, so a padded row is never
+gathered. Batch counts are padded to the largest fold's with batches that
+are all padding; in such a batch a fold keeps its parameters and momentum
+bitwise, through a per-fold mask on the device (the sequential step skips
+the batch on the host). A step makes no host synchronisation.
+
+Each fold keeps the sequential driver's random streams
+(gaitpd_torch/train/weargait_driver.py::run_fold): its numpy generator
+(seed + 1000 fi) orders its epochs, async mode reseeds its pools each epoch,
+and its ``torch.Generator(seed + fi)`` is built and saved with the rest,
+though no draw of these configurations reads it. So each fold reproduces
+the sequential run of that fold, up to the order of summation
+(tests/test_torch_vmap_cv.py). A fold that has run out of patience keeps
+training with the others, its best snapshot frozen, as gaitpd's.
+
+Not ported yet, each raising NotImplementedError naming its ROADMAP item:
+``baseline``, the MTL methods other than CAGrad, and the draws of the
+recipe (augmentation, modality dropout, the GCL noise) under vmapped folds
+(Queue 1, item 35); data-parallel meshes (item 14); the fused forward (item
+15).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import json
+import os
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch.func import functional_call, vmap
+
+from gaitpd_torch.data import weargait as WG
+from gaitpd_torch.data.sampler import batch_index_matrix
+from gaitpd_torch.learning.mtl import (
+    EPS,
+    CAGrad,
+    FlatPartition,
+    build_flat_partition,
+    make_method,
+)
+from gaitpd_torch.ops.cagrad_solver import cagrad_c_coef, cagrad_solve
+from gaitpd_torch.runtime.device import resolve_device
+from gaitpd_torch.train.cv import build_subj2label, make_fixed_balanced_folds_no_overlap
+from gaitpd_torch.train.loop import DeviceFoldData, EarlyStopper
+from gaitpd_torch.train.optim import sgd_torch
+from gaitpd_torch.train.step import (
+    StepSettings,
+    make_eval_step,
+    make_loss_ctx,
+    make_multitask_loss_fn,
+)
+from gaitpd_torch.train.weargait_driver import (
+    MASK_COMBOS,
+    MODALITIES,
+    WearGaitArgs,
+    build_model,
+    check_supported,
+    get_streams,
+    split_to_device,
+)
+
+# Called after every epoch as on_epoch(epoch, train, eval): aggregate_folds's
+# dicts of (F, ...) arrays.
+VmapEpochHook = Callable[[int, Dict[str, np.ndarray], Dict[str, np.ndarray]], None]
+
+
+def check_vmap_supported(args: WearGaitArgs) -> None:
+    """Raise NotImplementedError for an option the stacked folds do not take
+    yet (and for those the port has not at all)."""
+    check_supported(args)
+    flagship = args.single_mod is None
+    missing = [
+        (args.baseline is not None, "the baselines (baseline)"),
+        (flagship and args.mtl_method != "cagrad", f"the MTL method {args.mtl_method!r}"),
+        (args.modality_dropout > 0, "modality dropout (modality_dropout)"),
+        (args.aug_noise_std > 0 or args.aug_axis_p > 0,
+         "augmentation (aug_noise_std, aug_axis_p)"),
+        (args.noise_mul != 0, "the GCL noise (noise_mul)"),
+    ]
+    for unsupported, what in missing:
+        if unsupported:
+            raise NotImplementedError(
+                f"{what} with vmapped folds: not ported yet (ROADMAP Queue 1, item 35)")
+
+
+# ---------------------------------------------------------------------------
+# Stacking fold data
+# ---------------------------------------------------------------------------
+
+
+def _pad_stack(arrays: List[np.ndarray]) -> np.ndarray:
+    """(N_f, ...) arrays zero-padded on axis 0 to the largest N and stacked
+    to (F, N_max, ...)."""
+    n_max = max(a.shape[0] for a in arrays)
+    out = np.zeros((len(arrays), n_max) + arrays[0].shape[1:], arrays[0].dtype)
+    for f, a in enumerate(arrays):
+        out[f, : a.shape[0]] = a
+    return out
+
+
+@dataclasses.dataclass
+class StackedFoldData:
+    """Every fold on the device with a leading fold axis."""
+
+    xs: Tuple[torch.Tensor, ...]  # per stream: (F, N_max, T, C)
+    ys: Tuple[torch.Tensor, ...]  # per stream: (F, N_max)
+    eval_xs: Tuple[torch.Tensor, ...]
+    eval_ys: Tuple[torch.Tensor, ...]
+    train_pools: List[np.ndarray]  # per fold (host): (N_tr_f, K)
+    eval_pools: List[np.ndarray]
+
+
+def stack_folds(datas: Sequence[DeviceFoldData], device) -> StackedFoldData:
+    """The folds' data (on any device) stacked and moved to ``device``, one
+    copy a stream."""
+
+    def stack(field):
+        k = len(getattr(datas[0], field))
+        return tuple(
+            torch.from_numpy(_pad_stack([getattr(d, field)[i].cpu().numpy() for d in datas]))
+            .to(device) for i in range(k))
+
+    return StackedFoldData(
+        xs=stack("xs"), ys=stack("ys"), eval_xs=stack("eval_xs"), eval_ys=stack("eval_ys"),
+        train_pools=[d.train_pool for d in datas],
+        eval_pools=[d.eval_pool for d in datas],
+    )
+
+
+def stack_index_batches(pools: Sequence[np.ndarray], orders: Sequence[np.ndarray],
+                        batch_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-fold sample orders -> (F, n_b_max, B, K) gather indices and
+    (F, n_b_max, B) validity, on the host; a fold with fewer batches gets
+    batches that are all padding."""
+    idxs, valids = [], []
+    for pool, order in zip(pools, orders):
+        idx_flat, valid_flat = batch_index_matrix(order, batch_size)
+        nb, b = idx_flat.shape
+        idxs.append(pool[idx_flat.reshape(-1)].reshape(nb, b, -1))
+        valids.append(valid_flat)
+    nb_max = max(i.shape[0] for i in idxs)
+    f, b, k = len(idxs), idxs[0].shape[1], idxs[0].shape[2]
+    idx = np.zeros((f, nb_max, b, k), np.int64)
+    valid = np.zeros((f, nb_max, b), np.float32)
+    for i, (ix, va) in enumerate(zip(idxs, valids)):
+        idx[i, : ix.shape[0]] = ix
+        valid[i, : va.shape[0]] = va
+    return idx, valid
+
+
+def stack_ctx(ctxs: Sequence[Tuple[Dict[str, torch.Tensor], ...]]):
+    """Per-fold loss contexts -> one with a leading fold axis on every entry."""
+    return tuple({key: torch.stack([c[s][key] for c in ctxs]) for key in ctxs[0][s]}
+                 for s in range(len(ctxs[0])))
+
+
+def aggregate_folds(metrics: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """gaitpd_torch.train.loop._aggregate for each fold: losses (F, n_b, K),
+    correct (F, n_b, K), n (F, n_b) [, ens_correct (F, n_b)] -> loss, acc,
+    acc_batchmean (F, K) [and ens_acc (F,)], the batches with n == 0 left out."""
+    losses, correct, n = (np.asarray(metrics[k]) for k in ("losses", "correct", "n"))
+    real = n > 0  # (F, n_b)
+    n_real = np.maximum(1, real.sum(axis=1))  # (F,)
+    loss = (losses * real[..., None]).sum(1) / n_real[:, None]
+    acc = correct.sum(1) / np.maximum(1.0, n.sum(1))[:, None] * 100.0
+    per_batch_acc = correct / np.maximum(n[..., None], 1.0)
+    acc_bm = (per_batch_acc * real[..., None]).sum(1) / n_real[:, None] * 100.0
+    out = {"loss": loss, "acc": acc, "acc_batchmean": acc_bm}
+    if "ens_correct" in metrics:
+        ens = np.asarray(metrics["ens_correct"])
+        out["ens_acc"] = ens.sum(1) / np.maximum(1.0, n.sum(1)) * 100.0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The stacked state and its steps
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class StackedState:
+    """Every fold's parameters, stacked: ``params[name]`` is (F, *shape) of
+    the model's parameter ``name``, a leaf the optimizer updates in place."""
+
+    model: torch.nn.Module  # one fold's module: the structure functional_call runs
+    params: Dict[str, torch.Tensor]
+    optimizer: torch.optim.Optimizer
+    mtl_state: Dict[str, torch.Tensor]
+    epoch: int = 0
+
+
+def init_stacked_state(model: torch.nn.Module, make_optimizer, mtl_method, n_folds: int,
+                       device) -> Tuple[StackedState, Optional[FlatPartition]]:
+    """Every fold starts from ``model``'s parameters (the sequential driver
+    builds each fold's model from the same seed): each is stacked F times on
+    ``device``, with one optimizer over the stacked leaves, and the flat
+    partition of one fold's parameters."""
+    model = model.to(device)
+    params = {name: p.detach().unsqueeze(0).repeat((n_folds,) + (1,) * p.dim())
+              .requires_grad_() for name, p in model.named_parameters()}
+    partition = None
+    if mtl_method is not None:
+        partition = build_flat_partition(model, model.shared_modules, model.task_modules)
+    state = StackedState(model=model, params=params,
+                         optimizer=make_optimizer(list(params.values())),
+                         mtl_state=mtl_method.init_state(device) if mtl_method else {})
+    return state, partition
+
+
+class _FoldModule:
+    """One fold's module under vmap: ``model`` called with the fold's slice
+    of the stacked parameters."""
+
+    def __init__(self, model: torch.nn.Module, params: Dict[str, torch.Tensor]):
+        self.model, self.params = model, params
+
+    def __call__(self, *xs):
+        return functional_call(self.model, self.params, xs)
+
+
+def _stacked_cagrad(method, jmat: torch.Tensor, losses: torch.Tensor,
+                    partition: FlatPartition, private_grads: str) -> torch.Tensor:
+    """gaitpd_torch.learning.mtl.mtl_grads with CAGrad for every fold at once:
+    J (F, K, P) -> the final flat gradients (F, P). The Gram matrices (F, K,
+    K) go to the solver in one launch; the clip and ``sum_plus_own`` act on
+    each fold's row."""
+    c, k = method.c, method.n_tasks
+    shared = partition.shared
+    j_shared = torch.where(shared, jmat, torch.zeros_like(jmat))
+    gram = j_shared @ j_shared.transpose(1, 2)
+    c_coef = cagrad_c_coef(gram, c)  # (F,)
+    w = cagrad_solve(gram, c)  # (F, K): one launch
+    gw = (w[:, None, :] @ j_shared)[:, 0]
+    gw_norm = torch.sqrt((w[:, None, :] @ gram @ w[:, :, None])[:, 0, 0] + EPS)
+    lmbda = c_coef / (gw_norm + EPS)
+    g = j_shared.mean(1) + lmbda[:, None] * gw
+    shared_flat = g / (1.0 + c**2) * k
+    if method.max_norm > 0:
+        norm = torch.linalg.vector_norm(shared_flat, dim=1, keepdim=True)
+        shared_flat = shared_flat * torch.clamp(method.max_norm / (norm + 1e-6), max=1.0)
+    priv_flat = torch.ones(k, dtype=jmat.dtype, device=jmat.device) @ jmat
+    if private_grads == "sum_plus_own":
+        own = torch.zeros_like(priv_flat)
+        for t in range(partition.n_tasks):
+            own = own + torch.where(partition.task_id == t, jmat[:, t], torch.zeros_like(own))
+        priv_flat = priv_flat + own
+    return torch.where(shared, shared_flat, priv_flat)
+
+
+class VmapEpochRunner:
+    """Train and eval epochs over stacked folds: one fold's loss and eval
+    step (gaitpd_torch.train.step) under ``torch.func.vmap``, F folds a
+    call. ``mtl_method`` None trains on the mean of the branch losses."""
+
+    def __init__(self, settings: StepSettings, mtl_method=None,
+                 partition: Optional[FlatPartition] = None):
+        if mtl_method is not None and (not isinstance(mtl_method, CAGrad)
+                                       or mtl_method.log_space):
+            raise NotImplementedError(
+                f"{type(mtl_method).__name__} with vmapped folds: not ported yet "
+                "(ROADMAP Queue 1, item 35)")
+        self.settings = settings
+        self.mtl_method = mtl_method
+        self.partition = partition
+        self.loss_fn = make_multitask_loss_fn(settings)
+        self.eval_step = make_eval_step(settings)
+
+    def _losses(self, state: StackedState, xs, ys, valid, ctx):
+        def fold_loss(params, xs, ys, valid, ctx):
+            return self.loss_fn(_FoldModule(state.model, params), xs, ys, valid, ctx, None,
+                                state.epoch)
+
+        return vmap(fold_loss)(state.params, xs, ys, valid, ctx)
+
+    def train_step(self, state: StackedState, batch, ctx, padded: bool):
+        """One step of every fold. ``padded``: whether some fold's batch is
+        all padding (known on the host); such a fold keeps its parameters
+        and momentum."""
+        xs, ys, valid = batch["xs"], batch["ys"], batch["valid"]
+        names = list(state.params)
+        params = [state.params[n] for n in names]
+        ls, logits = self._losses(state, xs, ys, valid, ctx)  # (F, K), per head (F, B, C)
+        if self.mtl_method is None:
+            grads = torch.autograd.grad(ls.mean(1).sum(), params, allow_unused=True)
+        else:
+            if self.partition.names != tuple(names):
+                raise ValueError("the flat partition does not describe this module")
+            n_folds, k = ls.shape
+            rows = []
+            for i in range(k):
+                g = torch.autograd.grad(ls[:, i].sum(), params, retain_graph=i < k - 1,
+                                        allow_unused=True)
+                rows.append(torch.cat([(torch.zeros_like(p) if gi is None else gi)
+                                       .reshape(n_folds, -1) for gi, p in zip(g, params)], 1))
+            final = _stacked_cagrad(self.mtl_method, torch.stack(rows, 1), ls.detach(),
+                                    self.partition, self.settings.private_grads)
+            sizes = [int(np.prod(s)) for s in self.partition.shapes]
+            grads = [f.reshape(p.shape) for f, p in zip(final.split(sizes, 1), params)]
+        active = valid.sum(1) > 0  # (F,), on the device
+        kept = None
+        if padded:
+            opt = state.optimizer
+            kept = [(p, p.detach().clone(), opt.state.get(p, {}).get("momentum_buffer"))
+                    for p in params]
+            kept = [(p, old, None if buf is None else buf.clone()) for p, old, buf in kept]
+        for p, g in zip(params, grads):
+            p.grad = torch.zeros_like(p) if g is None else g
+        state.optimizer.step()
+        if kept is not None:
+            with torch.no_grad():
+                for p, old, buf in kept:
+                    fold = active.reshape((-1,) + (1,) * (p.dim() - 1))
+                    p.copy_(torch.where(fold, p, old))
+                    new_buf = state.optimizer.state[p]["momentum_buffer"]
+                    new_buf.copy_(torch.where(fold, new_buf,
+                                              torch.zeros_like(new_buf) if buf is None else buf))
+        v = valid.to(torch.float32)
+        corr = torch.stack([((lg.detach().argmax(-1) == y) * v).sum(1)
+                            for lg, y in zip(logits, ys)], 1)
+        return state, {"losses": ls.detach(), "correct": corr, "n": v.sum(1)}
+
+    @torch.no_grad()
+    def eval_step_folds(self, state: StackedState, params, batch, ctx, epoch, mask):
+        def fold_eval(params, xs, ys, valid, ctx):
+            out = self.eval_step(_FoldModule(state.model, params),
+                                 {"xs": xs, "ys": ys, "valid": valid}, ctx, None, epoch, mask)
+            return {k: out[k] for k in ("losses", "correct", "ens_correct", "n")}
+
+        return vmap(fold_eval)(params, batch["xs"], batch["ys"], batch["valid"], ctx)
+
+
+def _gather(data_xs, data_ys, idx, valid, head_inputs):
+    """Every fold's batch: idx (F, B, K) per-stream rows of each fold's
+    stacked data."""
+    folds = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    return {
+        "xs": tuple(x[folds, idx[..., i]] for i, x in enumerate(data_xs)),
+        "ys": tuple(data_ys[i][folds, idx[..., i]] for i in head_inputs),
+        "valid": valid,
+    }
+
+
+def _epoch_on_device(idx: np.ndarray, valid: np.ndarray, device):
+    """(F, n_b, B, K) and (F, n_b, B) host arrays -> batch-major device
+    tensors, one copy each, and for each batch the host's count of folds
+    whose batch is all padding."""
+    empty = (valid.sum(2) == 0).sum(0)
+    return (torch.from_numpy(np.ascontiguousarray(idx.transpose(1, 0, 2, 3))).to(device),
+            torch.from_numpy(np.ascontiguousarray(valid.transpose(1, 0, 2))).to(device),
+            [int(e) for e in empty])
+
+
+def _to_host(outs: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
+    """Per-batch metrics of (F, ...) -> (F, n_b, ...) host arrays, one copy a
+    metric."""
+    return {k: torch.stack([o[k] for o in outs], 1).cpu().numpy() for k in outs[0]}
+
+
+def run_train_epoch(runner: VmapEpochRunner, state: StackedState, data: StackedFoldData,
+                    idx: np.ndarray, valid: np.ndarray, ctx, head_inputs):
+    """One epoch of every fold; a batch that is all padding in every fold
+    (the power-of-two tail) is skipped on the host, as the sequential step
+    skips it."""
+    idx_d, valid_d, empty = _epoch_on_device(idx, valid, data.xs[0].device)
+    n_folds, n_heads = idx.shape[0], len(head_inputs)
+    outs = []
+    for b in range(idx_d.shape[0]):
+        if empty[b] == n_folds:
+            zeros = torch.zeros((n_folds, n_heads), device=valid_d.device)
+            outs.append({"losses": zeros, "correct": zeros, "n": zeros[:, 0]})
+            continue
+        batch = _gather(data.xs, data.ys, idx_d[b], valid_d[b], head_inputs)
+        state, m = runner.train_step(state, batch, ctx, empty[b] > 0)
+        outs.append(m)
+    return state, aggregate_folds(_to_host(outs))
+
+
+def run_eval_epoch(runner: VmapEpochRunner, state: StackedState, params, data: StackedFoldData,
+                   idx: np.ndarray, valid: np.ndarray, ctx, head_inputs, epoch: int, mask):
+    idx_d, valid_d, _ = _epoch_on_device(idx, valid, data.eval_xs[0].device)
+    outs = [runner.eval_step_folds(
+        state, params, _gather(data.eval_xs, data.eval_ys, idx_d[b], valid_d[b], head_inputs),
+        ctx, epoch, mask) for b in range(idx_d.shape[0])]
+    return aggregate_folds(_to_host(outs))
+
+
+# ---------------------------------------------------------------------------
+# Stacked checkpoint / resume (every fold in one snapshot)
+# ---------------------------------------------------------------------------
+
+
+def vmap_checkpoint_path(root) -> Path:
+    """``<root>/vmap/latest``: the stacked snapshot of every fold."""
+    return Path(root) / "vmap" / "latest"
+
+
+def save_vmap_checkpoint(root, state: StackedState, stoppers: Sequence[EarlyStopper],
+                         extras: dict, epoch: int, rngs: Sequence[np.random.Generator],
+                         generators: Sequence[torch.Generator]) -> Path:
+    """One ``torch.save`` file holds every fold: the stacked parameters, the
+    optimizer's state (the momentum), the MTL state, the epoch (1-based, the
+    last finished), each fold's early-stop counters and random streams'
+    states, and the driver's ``extras`` (the flagship's stacked best
+    parameters and per-modality accuracies). Replaced whole, so a run cut
+    while writing leaves the previous snapshot; ``latest.json`` beside it is
+    a mirror for people to read."""
+    path = vmap_checkpoint_path(root)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    payload = {
+        "params": {k: v.detach().cpu() for k, v in state.params.items()},
+        "optimizer": state.optimizer.state_dict(),
+        "mtl_state": {k: v.cpu() for k, v in state.mtl_state.items()},
+        "extras": extras,
+        "epoch": int(epoch),
+        "best": [float(s.best) for s in stoppers],
+        "no_improve": [int(s.no_improve) for s in stoppers],
+        "rngs": [r.bit_generator.state for r in rngs],
+        "generators": [g.get_state() for g in generators],
+        "generator_device": generators[0].device.type,
+    }
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    meta = {k: payload[k] for k in ("epoch", "best", "no_improve")}
+    tmp = path.with_name("latest.json.tmp")
+    tmp.write_text(json.dumps(meta))
+    os.replace(tmp, path.with_name("latest.json"))
+    return path
+
+
+def load_vmap_snapshot(root, map_location="cpu") -> Optional[dict]:
+    """The stacked snapshot's payload, or None if there is none."""
+    path = vmap_checkpoint_path(root)
+    if not path.exists():
+        return None
+    return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def restore_vmap_checkpoint(root, state: StackedState, stoppers: Sequence[EarlyStopper],
+                            rngs: Sequence[np.random.Generator],
+                            generators: Sequence[torch.Generator]) -> Optional[dict]:
+    """Load the stacked snapshot into ``state``, ``stoppers``, ``rngs`` and
+    ``generators`` in place and return its payload (``epoch``, ``extras``);
+    None if there is none. Raises ValueError on another fold count or a
+    generator of another kind of device."""
+    payload = load_vmap_snapshot(root)
+    if payload is None:
+        return None
+    if len(payload["best"]) != len(stoppers):
+        raise ValueError(f"{vmap_checkpoint_path(root)} holds {len(payload['best'])} folds, "
+                         f"this run {len(stoppers)}")
+    if payload["generator_device"] != generators[0].device.type:
+        raise ValueError(
+            f"{vmap_checkpoint_path(root)} was written by a run on "
+            f"{payload['generator_device']!r}, and this run's generators are on "
+            f"{generators[0].device.type!r}: resume on the device kind that wrote it")
+    with torch.no_grad():
+        for name, p in state.params.items():
+            p.copy_(payload["params"][name])
+    state.optimizer.load_state_dict(payload["optimizer"])
+    device = next(iter(state.params.values())).device
+    state.mtl_state = {k: v.to(device) for k, v in payload["mtl_state"].items()}
+    for st, best, ni in zip(stoppers, payload["best"], payload["no_improve"]):
+        st.best, st.no_improve = float(best), int(ni)
+    for r, s in zip(rngs, payload["rngs"]):
+        r.bit_generator.state = s
+    for g, s in zip(generators, payload["generators"]):
+        g.set_state(s)
+    return payload
+
+
+# ---------------------------------------------------------------------------
+# The WearGait drivers
+# ---------------------------------------------------------------------------
+
+
+def _folds_and_splits(args: WearGaitArgs):
+    streams, pd_ids, hc_ids = get_streams(args)
+    subj2label = build_subj2label(pd_ids, hc_ids)
+    folds = make_fixed_balanced_folds_no_overlap(
+        pd_ids, hc_ids, n_folds=args.n_folds, per_class=args.test_per_class, seed=args.seed)
+    if args.n_folds_cap:
+        folds = folds[: args.n_folds_cap]
+    return [WG.prepare_split(streams, tr, te, subj2label, win=args.win_len, hop=args.hop_len)
+            for tr, te in folds]
+
+
+def _random_streams(args: WearGaitArgs, n_folds: int, device):
+    """Each fold's numpy generator and torch.Generator, as run_fold builds
+    them (folds numbered from 1)."""
+    rngs = [np.random.default_rng(args.seed + 1000 * fi) for fi in range(1, n_folds + 1)]
+    gens = [torch.Generator(device=device).manual_seed(args.seed + fi)
+            for fi in range(1, n_folds + 1)]
+    return rngs, gens
+
+
+def _eval_indices(stacked: StackedFoldData, batch_size: int):
+    return stack_index_batches(stacked.eval_pools,
+                               [np.arange(len(p)) for p in stacked.eval_pools], batch_size)
+
+
+def run_cv_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpochHook] = None):
+    """weargait_driver.run_cv with every fold in one step (gaitpd/train/
+    vmap_cv.py:235-484): the same summary dict, and ``per_fold_macro``. With
+    ``ckpt_dir`` one stacked snapshot of every fold is written each epoch;
+    ``resume`` continues from it."""
+    check_vmap_supported(args)
+    device = resolve_device(args.device)  # raise before any work
+    if args.single_mod is not None:
+        return _weargait_single_mod_vmapped(args, on_epoch)
+    async_mode = args.async_loading
+    sync_flag = not async_mode
+    splits = _folds_and_splits(args)
+    f = len(splits)
+    datas = [split_to_device(s, async_mode, args.seed, "cpu") for s in splits]
+    stacked = stack_folds(datas, device)
+
+    settings = StepSettings(
+        n_streams=3, wm=args.wm, synchronized=sync_flag, gcl_m=args.gcl_m, gcl_s=args.gcl_s,
+        noise_mul=args.noise_mul, drw_warmup=args.drw_warmup, consistency_lambda=0.0,
+        private_grads="sum_plus_own",
+    )
+    ctx = stack_ctx([
+        make_loss_ctx(settings, [np.bincount(s.train[m].y[d.train_pool[:, k]],
+                                             minlength=args.num_classes)
+                                 for k, m in enumerate(MODALITIES)], device=device)
+        for s, d in zip(splits, datas)])
+
+    mtl = make_method("cagrad", 3, c=args.alpha) if args.alpha > 0 else None
+    make_optimizer = functools.partial(sgd_torch, lr=args.lr, momentum=0.9, weight_decay=1e-4)
+    state, partition = init_stacked_state(build_model(args, sync_flag), make_optimizer, mtl, f,
+                                          device)
+    runner = VmapEpochRunner(settings, mtl, partition)
+    heads = tuple(range(3))
+
+    rngs, gens = _random_streams(args, f, device)
+    stoppers = [EarlyStopper(patience=args.patience) for _ in range(f)]
+    best_params = {k: v.detach().cpu().clone() for k, v in state.params.items()}
+    best_per_mod = np.zeros((f, 3))
+
+    start_epoch = 1
+    if args.ckpt_dir and args.resume:
+        payload = restore_vmap_checkpoint(args.ckpt_dir, state, stoppers, rngs, gens)
+        if payload is not None:
+            best_params = payload["extras"]["best_params"]
+            best_per_mod = payload["extras"]["best_per_mod"].numpy().copy()
+            start_epoch = payload["epoch"] + 1
+            print(f"[vmap-cv] resumed from epoch {start_epoch}")
+
+    eval_idx, eval_valid = _eval_indices(stacked, args.batch_size)
+    for ep in range(start_epoch, args.epochs + 1):
+        state.epoch = ep - 1
+        pools = stacked.train_pools
+        if async_mode:  # each fold's pools reseeded every epoch, as run_fold
+            pools = [WG.async_pool(s.train, np.random.default_rng(args.seed + ep))
+                     for s in splits]
+        idx, valid = stack_index_batches(
+            pools, [r.permutation(len(p)) for r, p in zip(rngs, pools)], args.batch_size)
+        state, tr = run_train_epoch(runner, state, stacked, idx, valid, ctx, heads)
+        ev = run_eval_epoch(runner, state, state.params, stacked, eval_idx, eval_valid, ctx,
+                            heads, state.epoch, (True,) * 3)
+        macros = ev["acc_batchmean"].mean(axis=1) if async_mode else ev["ens_acc"]
+        # a fold out of patience is frozen: the sequential driver stops it
+        improved = [(not st.stop) and st.update(float(v)) for st, v in zip(stoppers, macros)]
+        if any(improved):
+            rows = torch.tensor([i for i, imp in enumerate(improved) if imp])
+            for name, p in state.params.items():
+                best_params[name][rows] = p.detach()[rows.to(p.device)].cpu()
+            best_per_mod[rows.numpy()] = ev["acc_batchmean"][rows.numpy()]
+        if args.ckpt_dir:
+            save_vmap_checkpoint(args.ckpt_dir, state, stoppers,
+                                 {"best_params": best_params,
+                                  "best_per_mod": torch.from_numpy(best_per_mod)},
+                                 ep, rngs, gens)
+        if on_epoch is not None:
+            on_epoch(ep, tr, ev)
+        if args.verbose:
+            print(f"[vmap-cv] Ep {ep:03d} | macro="
+                  f"{np.array2string(np.asarray(macros), precision=1)} best="
+                  f"{np.array2string(np.asarray([s.best for s in stoppers]), precision=1)} "
+                  f"live_folds={sum(not st.stop for st in stoppers)}")
+        if all(st.stop for st in stoppers):
+            print(f"[vmap-cv] all folds early-stopped at epoch {ep}")
+            break
+
+    # --- masked relaxed-input eval at each fold's best parameters ----------
+    best = {k: v.to(device) for k, v in best_params.items()}
+    mask_fold_scores: Dict[str, List[float]] = {}
+    for mk, tup in MASK_COMBOS.items():
+        r = run_eval_epoch(runner, state, best, stacked, eval_idx, eval_valid, ctx, heads,
+                           state.epoch, tup)
+        if async_mode:
+            scores = r["acc_batchmean"][:, np.asarray(tup, bool)].mean(axis=1)
+        else:
+            scores = r["ens_acc"]
+        mask_fold_scores[mk] = [float(s) for s in scores]
+
+    fold_macro = [st.best for st in stoppers]
+    print("\n=== Summary (vmapped CV) ===")
+    print(f"Macro acc mean ± std: {np.mean(fold_macro):.2f}% ± {np.std(fold_macro):.2f}%")
+    print("\n=== Masked accuracy at best epoch (avg across folds) ===")
+    for mk, arr in mask_fold_scores.items():
+        a = np.asarray(arr, float)
+        print(f"[{mk:5}] {a.mean():5.2f}% ± {a.std():4.2f}%  over {len(a)} folds")
+    return {
+        "macro": (float(np.mean(fold_macro)), float(np.std(fold_macro))),
+        "per_fold_macro": [float(x) for x in fold_macro],
+        "per_mod": {m: float(best_per_mod[:, i].mean()) for i, m in enumerate(MODALITIES)},
+        "masks": {k: float(np.mean(v)) for k, v in mask_fold_scores.items()},
+        "per_fold_masks": mask_fold_scores,
+    }
+
+
+def _weargait_single_mod_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpochHook] = None):
+    """weargait_driver.run_single_mod_fold for every fold at once (gaitpd/
+    train/vmap_cv.py:487-668): the chosen stream through the shared backbone
+    and its head, a fresh SGD state every epoch, pooled eval accuracy, no
+    masked table. Checkpoints hold the stacked snapshot, without extras."""
+    device = resolve_device(args.device)
+    async_mode = args.async_loading
+    k = MODALITIES.index(args.single_mod)
+    splits = _folds_and_splits(args)
+    f = len(splits)
+    datas = []
+    for s in splits:
+        d = split_to_device(s, async_mode, args.seed, "cpu")
+        datas.append(DeviceFoldData(
+            xs=d.xs[k:k + 1], ys=d.ys[k:k + 1], train_pool=d.train_pool[:, k:k + 1],
+            eval_pool=d.eval_pool[:, k:k + 1], eval_xs=d.eval_xs[k:k + 1],
+            eval_ys=d.eval_ys[k:k + 1]))
+    stacked = stack_folds(datas, device)
+    settings = StepSettings(n_streams=1, wm=args.wm, synchronized=False, gcl_m=args.gcl_m,
+                            gcl_s=args.gcl_s, noise_mul=args.noise_mul,
+                            drw_warmup=args.drw_warmup)
+    ctx = stack_ctx([make_loss_ctx(settings, [np.bincount(
+        s.train[args.single_mod].y[d.train_pool[:, 0]], minlength=args.num_classes)],
+        device=device) for s, d in zip(splits, datas)])
+    make_optimizer = functools.partial(sgd_torch, lr=args.lr, momentum=0.9, weight_decay=1e-4)
+    state, _ = init_stacked_state(build_model(args, not async_mode), make_optimizer, None, f,
+                                  device)
+    runner = VmapEpochRunner(settings)
+    heads = (0,)
+    rngs, gens = _random_streams(args, f, device)
+    stoppers = [EarlyStopper(patience=args.patience) for _ in range(f)]
+
+    start_epoch = 1
+    if args.ckpt_dir and args.resume:
+        payload = restore_vmap_checkpoint(args.ckpt_dir, state, stoppers, rngs, gens)
+        if payload is not None:
+            start_epoch = payload["epoch"] + 1
+            print(f"[vmap-cv] resumed from epoch {start_epoch}")
+
+    eval_idx, eval_valid = _eval_indices(stacked, args.batch_size)
+    for ep in range(start_epoch, args.epochs + 1):
+        state.epoch = ep - 1
+        # the reference builds a fresh SGD optimizer every epoch
+        # (weargait_train.py:273-276): momentum starts from zero again
+        state.optimizer = make_optimizer(list(state.params.values()))
+        pools = stacked.train_pools
+        if async_mode:
+            pools = [WG.async_pool(s.train, np.random.default_rng(args.seed + ep))[:, k:k + 1]
+                     for s in splits]
+        idx, valid = stack_index_batches(
+            pools, [r.permutation(len(p)) for r, p in zip(rngs, pools)], args.batch_size)
+        state, tr = run_train_epoch(runner, state, stacked, idx, valid, ctx, heads)
+        ev = run_eval_epoch(runner, state, state.params, stacked, eval_idx, eval_valid, ctx,
+                            heads, state.epoch, (True,))
+        vas = ev["acc"][:, 0]  # pooled accuracy (weargait_train.py:292-296)
+        for st, v in zip(stoppers, vas):
+            if not st.stop:
+                st.update(float(v))
+        if args.ckpt_dir:
+            save_vmap_checkpoint(args.ckpt_dir, state, stoppers, {}, ep, rngs, gens)
+        if on_epoch is not None:
+            on_epoch(ep, tr, ev)
+        if args.verbose:
+            print(f"[vmap-cv] Ep {ep:03d} | {args.single_mod} val="
+                  f"{np.array2string(np.asarray(vas), precision=1)} best="
+                  f"{np.array2string(np.asarray([s.best for s in stoppers]), precision=1)}")
+        if all(st.stop for st in stoppers):
+            print(f"[vmap-cv] all folds early-stopped at epoch {ep}")
+            break
+
+    fold_macro = [st.best for st in stoppers]
+    print("\n=== Summary (vmapped CV, single_mod) ===")
+    print(f"Macro acc mean ± std: {np.mean(fold_macro):.2f}% ± {np.std(fold_macro):.2f}%")
+    return {
+        "macro": (float(np.mean(fold_macro)), float(np.std(fold_macro))),
+        "per_fold_macro": [float(x) for x in fold_macro],
+        "per_mod": {m: (float(np.mean(fold_macro)) if m == args.single_mod else 0.0)
+                    for m in MODALITIES},
+        "masks": {},
+    }

@@ -90,13 +90,13 @@ KINK_MAX_WINDOWS = 2
 FOG_KINK_CASE, FOG_KINK_WINDOWS = (2 * 256, 101, 6, 3, 16, 8, "relu"), [503]
 
 
-def _relu_kinks(case, zero=None):
-    """The kink windows of ``case`` (g's rows ``zero`` set to 0), and what
-    the flips of their ReLU' may move gw and gb by: the sums of |g_z| and
-    |g_z x| over the kink entries, g_z the cotangent of z. (sorted window
-    list, gw allowance (K, C_in, C_out), gb allowance (C_out,)), on the
-    CPU in f64."""
-    x, w, b, g = (a.astype(np.float64) for a in _numpy_inputs(case))
+def _relu_kinks(case, zero=None, seed=0):
+    """The kink windows of ``case`` (its inputs from ``seed``, g's rows
+    ``zero`` set to 0), and what the flips of their ReLU' may move gw and gb
+    by: the sums of |g_z| and |g_z x| over the kink entries, g_z the
+    cotangent of z. (sorted window list, gw allowance (K, C_in, C_out), gb
+    allowance (C_out,)), on the CPU in f64."""
+    x, w, b, g = (a.astype(np.float64) for a in _numpy_inputs(case, seed))
     k, t, t_out = w.shape[0], x.shape[1], case[5]
     if case[6] != "relu":
         return [], np.zeros(w.shape), np.zeros(b.shape)
@@ -779,3 +779,129 @@ def test_mtl_solver_matches_plain_on_card(solver, k):
         for variant in ms.MIN_NORM_VARIANTS:
             assert _bitwise(ms._solve_kernel(name, mixed, variant=variant), want_mixed)
         assert ms.min_norm_launches == after[0]
+
+
+# The fold-stacked launches (stream_block_folds, cross-validation's stacked
+# step): one shape a forward variant, each fold's inputs from a seed of its
+# own: warp_tile (the flagship's 3 x 64 windows; the generic backward),
+# wide both ways (--enc_out_ch 96), per_frame (T 101; the generic backward)
+# and the generic forward (a window too long for per_frame, whose generic
+# backward still fits a block)
+FOLD_CASES = [
+    (3 * 64, 64, 12, 3, 16, 8, "relu"),
+    (64, 64, 96, 3, 16, 8, "gelu"),
+    (2 * 16, 101, 6, 3, 16, 8, "relu"),
+    (2, 4000, 8, 3, 4, 8, "relu"),
+]
+FOLD_VARIANTS = {FOLD_CASES[0]: ("warp_tile", "generic"), FOLD_CASES[1]: ("wide", "wide"),
+                 FOLD_CASES[2]: ("per_frame", "generic"), FOLD_CASES[3]: ("generic", "generic")}
+
+
+def _fold_inputs(case, folds, dev):
+    """x (F·B, T, C_in), w (F, K, C_in, C_out), b (F, C_out), g (F·B, t_out,
+    C_out): fold f's from _numpy_inputs(case, seed=f)."""
+    parts = [_numpy_inputs(case, seed=f) for f in range(folds)]
+    join = (np.concatenate, np.stack, np.stack, np.concatenate)
+    return [torch.from_numpy(j([p[i] for p in parts])).to(dev) for i, j in enumerate(join)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("folds", [1, 2, 3, 10])
+@pytest.mark.parametrize("case", FOLD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_fold_stacked_kernels_on_card(case, folds):
+    """One launch each way for all folds. Each fold's forward and gradients
+    have the bits of a launch of that fold alone, and are within the
+    tolerances above of the plain version (stream_block_reference over each
+    fold, the ReLU kinks of each fold's inputs left out as above); the
+    launches' configs are the single fold's, with F times its blocks."""
+    dev = _cuda()
+    bsz, t, cin, k, cout, t_out, act = case
+    x, w, b, g = _fold_inputs(case, folds, dev)
+    counts = lambda: (sb.launches, sb.fold_launches, sb.backward_launches,  # noqa: E731
+                      sb.fold_backward_launches)
+    before = counts()
+    got = sb.stream_block_folds(x, w, b, t_out, act)
+    grads = sb.stream_block_folds_backward(x, w, b, g, t_out, act)
+    torch.cuda.synchronize()
+    assert counts() == tuple(c + 1 for c in before)
+    assert grads[1].shape == w.shape and grads[2].shape == b.shape
+    want = sb.stream_block_folds_reference(x, w, b, t_out, act)
+    assert (got - want).abs().max().item() <= 1e-5
+    for f in range(folds):
+        rows = slice(f * bsz, (f + 1) * bsz)
+        assert torch.equal(got[rows], sb.stream_block(x[rows], w[f], b[f], t_out, act))
+        single = sb.stream_block_backward(x[rows], w[f], b[f], g[rows], t_out, act)
+        for a, c in zip((grads[0][rows], grads[1][f], grads[2][f]), single):
+            assert torch.equal(a, c)
+        plain = sb.stream_block_backward_reference(x[rows], w[f], b[f], g[rows], t_out, act)
+        _backward_close(single, plain, _relu_kinks(case, seed=f))
+    config = sb.forward_config(bsz, t, cin, cout, k, t_out, act, folds=folds)
+    one = sb.forward_config(bsz, t, cin, cout, k, t_out, act)
+    assert (config["variant"], sb.backward_config(bsz, t, cin, cout, k, t_out, act)["variant"]
+            ) == FOLD_VARIANTS[case]
+    assert {**config, "blocks": one["blocks"], "waves": one["waves"]} == one
+    assert config["blocks"] == folds * one["blocks"]
+    bwd = sb.backward_config(bsz, t, cin, cout, k, t_out, act, folds=folds)
+    assert bwd["blocks"] == folds * sb.backward_config(bsz, t, cin, cout, k, t_out, act)["blocks"]
+
+
+@pytest.mark.gpu
+def test_fold_count_one_launches_what_a_single_fold_launches():
+    """F = 1: the configs, and the bits, of the launch without folds."""
+    dev = _cuda()
+    for case in FOLD_CASES:
+        bsz, t, cin, k, cout, t_out, act = case
+        x, w, b, g = _inputs(case, dev)
+        assert (sb.forward_config(bsz, t, cin, cout, k, t_out, act, folds=1)
+                == sb.forward_config(bsz, t, cin, cout, k, t_out, act))
+        assert (sb.backward_config(bsz, t, cin, cout, k, t_out, act, folds=1)
+                == sb.backward_config(bsz, t, cin, cout, k, t_out, act))
+        assert torch.equal(sb.stream_block_folds(x, w[None], b[None], t_out, act),
+                           sb.stream_block(x, w, b, t_out, act))
+        for a, c in zip(sb.stream_block_folds_backward(x, w[None], b[None], g, t_out, act),
+                        sb.stream_block_backward(x, w, b, g, t_out, act)):
+            assert torch.equal(a.reshape(c.shape), c)
+
+
+@pytest.mark.gpu
+def test_fold_stacked_kernels_refuse_a_mismatched_fold_count():
+    dev = _cuda()
+    x, w, b, g = _fold_inputs(FOLD_CASES[0], 3, dev)
+    with pytest.raises(ValueError):
+        sb.stream_block_folds(x[:-1], w, b)  # 3·B - 1 windows for 3 folds
+    with pytest.raises(ValueError):
+        sb.stream_block_folds(x, w, b[:2])
+    with pytest.raises(ValueError):
+        sb.stream_block_folds_backward(x, w, b, g[:-3])
+    with pytest.raises(ValueError):
+        sb.stream_block_folds(x, w[0], b[0])
+
+
+@pytest.mark.gpu
+def test_vmap_over_folds_is_one_launch_each_way_on_card():
+    """stream_block under torch.func.vmap over fold-stacked weights (the
+    stacked CV step): one fold-stacked forward launch, one backward launch
+    through autograd outside the vmap, with stream_block_folds's bits; one
+    launch under no_grad too."""
+    dev = _cuda()
+    case, folds = FOLD_CASES[0], 10
+    bsz, t, cin, k, cout, t_out, act = case
+    x, w, b, g = _fold_inputs(case, folds, dev)
+    xs = x.reshape(folds, bsz, t, cin).requires_grad_()
+    w.requires_grad_()
+    b.requires_grad_()
+    block = torch.func.vmap(lambda xf, wf, bf: sb.stream_block(xf, wf, bf, t_out, act))
+    counts = lambda: (sb.launches, sb.fold_launches, sb.backward_launches,  # noqa: E731
+                      sb.fold_backward_launches)
+    before = counts()
+    out = block(xs, w, b)
+    grads = torch.autograd.grad(out, (xs, w, b), g.reshape(out.shape))
+    torch.cuda.synchronize()
+    assert counts() == tuple(c + 1 for c in before)
+    with torch.no_grad():
+        assert torch.equal(out, block(xs, w, b))
+        want = sb.stream_block_folds(x, w, b, t_out, act)
+        assert torch.equal(out.reshape(want.shape), want)
+    wants = sb.stream_block_folds_backward(x, w.detach(), b.detach(), g, t_out, act)
+    for a, c in zip(grads, wants):
+        assert torch.equal(a.reshape(c.shape), c)

@@ -316,3 +316,58 @@ def test_nan_in_a_zero_cotangent_window_makes_gw_nan():
         np.testing.assert_allclose(c[ok], r[ok], rtol=1e-4, atol=1e-5, err_msg=name)
     assert np.isnan(got[1][:, 5, :]).all() and not np.isnan(np.delete(got[1], 5, axis=1)).any()
     assert np.isfinite(got[0]).all() and np.isfinite(got[2]).all()
+
+
+# the fold-stacked block (cross-validation's stacked step): F folds, each
+# with its own windows and weights
+FOLD_CASES = [(3, (6, 64, 12, 3, 16, 8, "relu")), (2, (4, 101, 6, 3, 16, 8, "gelu"))]
+
+
+def _fold_inputs(folds, case):
+    parts = [_inputs(case, seed=f) for f in range(folds)]
+    return (torch.from_numpy(np.concatenate([p[0] for p in parts])),
+            torch.from_numpy(np.stack([p[1] for p in parts])),
+            torch.from_numpy(np.stack([p[2] for p in parts])))
+
+
+@pytest.mark.parametrize("folds,case", FOLD_CASES, ids=lambda c: "-".join(map(str, c))
+                         if isinstance(c, tuple) else str(c))
+def test_fold_stacked_plain_version_is_each_folds(folds, case):
+    """stream_block_folds on the CPU: fold f's rows are
+    stream_block_reference at w[f], b[f] (the same bits) and within TOL of
+    gaitpd's jnp reference; its gradients, and stream_block_folds_backward's,
+    are each fold's own; torch.func.vmap of stream_block over the folds
+    gives the same within TOL, its gradients through autograd outside the
+    vmap too."""
+    bsz, t_out, act = case[0], case[5], case[6]
+    x, w, b = (v.requires_grad_() for v in _fold_inputs(folds, case))
+    out = sb.stream_block_folds(x, w, b, t_out, act)
+    g = torch.from_numpy(np.random.default_rng(9).normal(size=out.shape).astype(np.float32))
+    grads = torch.autograd.grad(out, (x, w, b), g)
+    folded = sb.stream_block_folds_backward(x.detach(), w.detach(), b.detach(), g, t_out, act)
+    xs = x.reshape(folds, bsz, *x.shape[1:])
+    mapped = torch.func.vmap(lambda xf, wf, bf: sb.stream_block(xf, wf, bf, t_out, act))(xs, w, b)
+    mapped_grads = torch.autograd.grad(mapped, (x, w, b), g.reshape(mapped.shape))
+    for f in range(folds):
+        rows = slice(f * bsz, (f + 1) * bsz)
+        want = sb.stream_block_reference(x[rows], w[f], b[f], t_out, act)
+        assert torch.equal(out[rows], want)
+        jnp_out = jax_reference(jnp.asarray(x[rows].detach().numpy()),
+                                jnp.asarray(w[f].detach().numpy()),
+                                jnp.asarray(b[f].detach().numpy()), t_out, act)
+        np.testing.assert_allclose(out[rows].detach().numpy(), np.asarray(jnp_out), **TOL)
+        torch.testing.assert_close(mapped[f], want, **TOL)
+        wants = sb.stream_block_backward_reference(x[rows], w[f], b[f], g[rows], t_out, act)
+        for got in (grads, folded, mapped_grads):
+            for a, c in zip((got[0][rows], got[1][f], got[2][f]), wants):
+                torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-5)
+
+
+def test_fold_stacked_block_rejects_a_mismatched_fold_count():
+    x, w, b = _fold_inputs(3, FOLD_CASES[0][1])
+    for bad in ((x[:-1], w, b), (x, w, b[:2]), (x, w[0], b[0])):
+        with pytest.raises(ValueError):
+            sb.stream_block_folds(*bad)
+    g = torch.zeros((x.shape[0] - 3, 8, 16))
+    with pytest.raises(ValueError):
+        sb.stream_block_folds_backward(x, w, b, g)
