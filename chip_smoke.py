@@ -212,14 +212,12 @@ Phases (each raises on failure, so the script exits non-zero):
      steps of each (torch.profiler), the SOTA baselines' too; the
      cross-attention forward and backward at the FoG fusion's shape (2 x 256,
      T 101, d 6) and at Tq = Tk = 128, d 12, eager and from a CUDA graph,
-     beside the two-pass kernels they replaced (by name, in turns), the
-     plain versions, scaled_dot_product_attention and its autograd, and the
-     bounds; the
+     beside the plain versions, scaled_dot_product_attention and its
+     autograd, and the bounds; the
      stream block at FOCAL's 2-mod shape beside conv1d + ReLU + pool; the
      sweep over key tiles at --win_len 256's shapes (batch 64 and 1024), at
      N 128, Tq = Tk = 129 and at N 5, Tq 128, Tk 129, d 12, as the FoG shape
-     above, beside the two-pass kernels by name (at N 5 also its forward at
-     units of 32 query rows); the cheap-xattn train step at win_len 256,
+     above; the cheap-xattn train step at win_len 256,
      batch 64 and 1024; every
      T 101 forward shape of phases 5h and 5i (C_in 3, 6, 12, 16, 32) from a
      CUDA graph: per_frame, the generic variant it replaces, the library
@@ -249,7 +247,22 @@ Phases (each raises on failure, so the script exits non-zero):
      --vmap_folds, as two subprocesses at once: each exits 0 and prints the
      7-subset table; then the fold-stacked block timed at 10 x 192 windows
      (eager and from a CUDA graph) beside its plain version, a grouped
-     F.conv1d + ReLU + pool and its bound.
+     F.conv1d + ReLU + pool and its bound;
+  8. WearGait's baselines and the recipe's draws under --vmap_folds, from a
+     random stream of their own: the cross-attention under torch.func.vmap
+     over 10 folds x 6 x 64 problems at each variant's shape (d 12, d 16,
+     T 101, d 96): one launch each way for all folds, each fold bitwise
+     equal to a launch of its own, within phase 5's tolerances of the plain
+     version; run_cv_vmapped of the cheap-xattn fusion (2 sync epochs) and
+     of TACA (2 async epochs, its dropout drawn from each fold's generator)
+     at the CLI's defaults against the sequential run_cv on the card under
+     phase 7's rule, every fold's generator bitwise equal at the end, the
+     cheap-xattn run one cross-attention launch each way a stacked step and
+     TACA none; a stacked cheap-xattn and DeepAV-Lite step at 10 x 64 beside
+     the 10 sequential steps (launches, 0 host synchronisations, host
+     clock, device time, kernels and idle share); the merged cross-attention
+     at 10 x 384 problems timed beside its plain version, SDPA and its
+     bound, and the vmapped forward eager and from a CUDA graph.
 
 Every number is printed beside the card's name and power limit. The
 second-to-last line is a JSON object with one entry per kernel; the last
@@ -921,7 +934,7 @@ WIN256 = 256
 # query rows), from a stream of its own: the fusion at --win_len 256 at the
 # train batch of 64 and at 1024, --win_len 129's Tq = Tk = 129 over the
 # symmetric 2-mod model's two directions of 64 windows, 129 keys at N 5
-# (the edge where the two-pass kernels lost most to SDPA); then its edges:
+# (the edge where the retired two-pass kernels lost most to SDPA); then its edges:
 # 257 keys (a third tile of one key) at width 8, one query row over 300 keys,
 # d 3 and 13 (4-byte copies) with query rows beyond 128, d 64 over 300 keys,
 # 200 query rows against 100 keys (the backward alone)
@@ -933,8 +946,7 @@ SWEEP_LONG_XATTN_CASES = {
     "d13_tq300_tk131": (5, 300, 131, 13), "d64_tk300": (3, 70, 300, 64),
     "tq200_tk100": (5, 200, 100, 12),
 }
-# the timed shapes, each beside the two-pass kernels by name, and the calls
-# a timing there: the two-pass backward at batch 1024 takes some 8 ms a call
+# the timed shapes, and the calls a timing there
 SWEEP_LONG_TIMED = {"win256_batch64": 200, "win256_batch1024": 20, "t129_d12": 200, "tk129": 200}
 # the backbone of the --win_len 256 step: three streams of 64 windows of 256
 # frames at enc_out_ch 12, pooled to 8 bins
@@ -2820,18 +2832,14 @@ def cheap_xattn_backward_bound(n, tq, tk, d):
     return _bound(4 * n * d * (3 * tq + 2 * tk), 5 * 2 * n * tq * tk * d)
 
 
-def time_cheap_xattn(rng, dev, card, shape=XATTN_CASES["main"], old=None, reps=200) -> dict:
+def time_cheap_xattn(rng, dev, card, shape=XATTN_CASES["main"], reps=200) -> dict:
     """The cross-attention's forward and backward at ``shape``: kernel,
     plain version, library call (scaled_dot_product_attention and its
     autograd) and bound, eager and each replayed from a CUDA graph, the
     device's time without the host's; ``reps`` calls a timing (a quarter of
-    them for the plain backward and the library's; warm-up a tenth). With
-    ``old``, also that variant's kernels by name, held against the plain
-    versions and timed in turns with the chosen ones (new, old, new from a
-    graph)."""
+    them for the plain backward and the library's; warm-up a tenth)."""
     n, tq, tk, d = shape
     a, b, g = xattn_inputs(rng, n, tq, tk, d, dev)
-    old_name = None if old is None else cx.VARIANT_NAMES[old]
     few = dict(warmup=max(2, reps // 10), reps=reps)
     fewer = dict(warmup=max(2, reps // 40), reps=max(5, reps // 4))
 
@@ -2851,17 +2859,6 @@ def time_cheap_xattn(rng, dev, card, shape=XATTN_CASES["main"], old=None, reps=2
                  "library_graph_ms": time_cuda_graph(library, **few),
                  "plain_graph_ms": time_cuda_graph(lambda: cx.cheap_xattn_reference(a, b),
                                                    **few)}
-        if old is not None:
-            def old_forward():
-                return cx._forward_kernel(a, b, old)
-
-            old_err = (old_forward() - cx.cheap_xattn_reference(a, b)).abs().max().item()
-            if old_err > XATTN_LONG_ATOL:
-                raise RuntimeError(f"{old_name} forward disagrees with its plain version: "
-                                   f"{old_err}")
-            graph[f"{old_name}_ms"] = time_cuda(old_forward, **few)
-            graph[f"{old_name}_graph_ms"] = time_cuda_graph(old_forward, **few)
-            graph["graph_ms_2"] = time_cuda_graph(lambda: cx.cheap_xattn(a, b), **few)
     bound_ms, bound_by = cheap_xattn_bound(n, tq, tk, d)
     variant = cx.VARIANT_NAMES[cx._variant(tq, tk, d)]
     log(f"[time] {card}: cheap_xattn N {n}, Tq {tq}, Tk {tk}, d {d} (variant {variant}): kernel "
@@ -2869,11 +2866,7 @@ def time_cheap_xattn(rng, dev, card, shape=XATTN_CASES["main"], old=None, reps=2
         f"library scaled_dot_product_attention {library_ms:.4f} ms (max abs diff "
         f"{lib_err:.2e}), bound {bound_ms:.5f} ms ({bound_by})"
         f"; from a CUDA graph (device only): kernel {graph['graph_ms']:.4f} ms, library "
-        f"{graph['library_graph_ms']:.4f} ms, plain {graph['plain_graph_ms']:.4f} ms"
-        + ("" if old is None else
-           f"; {old_name} by name: eager {graph[f'{old_name}_ms']:.4f} ms, from a graph "
-           f"{graph[f'{old_name}_graph_ms']:.4f} ms (max abs err {old_err:.2e}), then the "
-           f"kernel again {graph['graph_ms_2']:.4f} ms"))
+        f"{graph['library_graph_ms']:.4f} ms, plain {graph['plain_graph_ms']:.4f} ms")
 
     leaves = [t.detach().clone().requires_grad_() for t in (a, b)]
 
@@ -2892,18 +2885,6 @@ def time_cheap_xattn(rng, dev, card, shape=XATTN_CASES["main"], old=None, reps=2
     bwd_library = time_cuda(library_backward, **fewer)
     bwd_graph = {"graph_ms": time_cuda_graph(lambda: cx.cheap_xattn_backward(a, b, g), **few),
                  "library_graph_ms": time_cuda_graph(library_backward, **fewer)}
-    if old is not None:
-        def old_backward():
-            return cx._backward_kernel(a, b, g, old)
-
-        old_b_err = max((p - q).abs().max().item() for p, q in zip(old_backward(), want))
-        if old_b_err > XATTN_GRAD_ATOL + XATTN_GRAD_RTOL * max(q.abs().max().item() for q in want):
-            raise RuntimeError(f"{old_name} backward disagrees with its plain version: "
-                               f"{old_b_err}")
-        bwd_graph[f"{old_name}_ms"] = time_cuda(old_backward, **few)
-        bwd_graph[f"{old_name}_graph_ms"] = time_cuda_graph(old_backward, **few)
-        bwd_graph["graph_ms_2"] = time_cuda_graph(lambda: cx.cheap_xattn_backward(a, b, g),
-                                                  **few)
     bwd_bound, bwd_by = cheap_xattn_backward_bound(n, tq, tk, d)
     launch = {bw: xattn_launch(n, tq, tk, d, bw) for bw in (False, True)}
     log(f"[time] {card}: cheap_xattn launch {launch[False]}; cheap_xattn_backward launch "
@@ -2914,11 +2895,7 @@ def time_cheap_xattn(rng, dev, card, shape=XATTN_CASES["main"], old=None, reps=2
         f"scaled_dot_product_attention, forward included; max abs diff {lib_b_err:.2e}) "
         f"{bwd_library:.4f} ms, bound {bwd_bound:.5f} ms ({bwd_by})"
         f"; from a CUDA graph (device only): kernel {bwd_graph['graph_ms']:.4f} ms, "
-        f"library {bwd_graph['library_graph_ms']:.4f} ms"
-        + ("" if old is None else
-           f"; {old_name} by name: eager {bwd_graph[f'{old_name}_ms']:.4f} ms, from a graph "
-           f"{bwd_graph[f'{old_name}_graph_ms']:.4f} ms (max abs err {old_b_err:.2e}), then "
-           f"the kernel again {bwd_graph['graph_ms_2']:.4f} ms"))
+        f"library {bwd_graph['library_graph_ms']:.4f} ms")
     return {
         "cheap_xattn": {"ms": min(kernel_ms, kernel_ms_2), "plain_ms": min(plain_ms, plain_ms_2),
                         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3560,14 +3537,20 @@ class VmapStepCounter:
         vc.VmapEpochRunner.eval_step_folds = self._eval
 
 
-def sequential_folds(args, perturb=0.0) -> tuple:
+def sequential_folds(args, perturb=0.0, generators=None) -> tuple:
     """run_cv on ``args``: per fold, its per-epoch train losses and its
     (best macro, per-mod accuracies, 7-subset scores); and the seconds.
     With ``perturb``, each fold's initial parameters are scaled by
-    1 + perturb N(0, 1) (a draw of its own a fold)."""
+    1 + perturb N(0, 1) (a draw of its own a fold). A ``generators`` list
+    receives each fold's torch.Generator, in fold order."""
     losses, results = {}, []
-    run_fold, init = wg.run_fold, wg.init_train_state
+    run_fold, init, run_eval = wg.run_fold, wg.init_train_state, wg.run_eval_epoch
     gen = torch.Generator().manual_seed(7)
+
+    def eval_epoch(runner, state, data, bsz, generator, *a, **k):
+        if generators is not None and (not generators or generators[-1] is not generator):
+            generators.append(generator)
+        return run_eval(runner, state, data, bsz, generator, *a, **k)
 
     def keep(*a, **k):
         out = run_fold(*a, **k)
@@ -3580,7 +3563,7 @@ def sequential_folds(args, perturb=0.0) -> tuple:
                 p.mul_(1.0 + perturb * torch.randn(p.shape, generator=gen))
         return init(model, *a, **k)
 
-    wg.run_fold = keep
+    wg.run_fold, wg.run_eval_epoch = keep, eval_epoch
     if perturb:
         wg.init_train_state = perturbed
     try:
@@ -3590,7 +3573,7 @@ def sequential_folds(args, perturb=0.0) -> tuple:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     finally:
-        wg.run_fold, wg.init_train_state = run_fold, init
+        wg.run_fold, wg.init_train_state, wg.run_eval_epoch = run_fold, init, run_eval
     return losses, results, seconds
 
 
@@ -3631,32 +3614,45 @@ ROUNDING_PERTURBATION = 1e-7
 ROUNDING_GAP_FACTOR = 10.0
 
 
-def compare_vmapped_cv(seed, dev, card) -> dict:
-    """run_cv_vmapped at the CLI's defaults (10 folds, test_per_class 8) on
-    the card, sync for 2 epochs then async for 1, fold by fold against the
+def flagship_launches(steps, evals) -> dict:
+    """The vmapped flagship's launches: a stacked train step launches the
+    stream block's forward once, its backward 3 times (one a task pass) and
+    the CAGrad solver once for all the folds, each eval forward the stream
+    block once."""
+    return {"stream_block": steps + evals, "stream_block_folds": steps + evals,
+            "stream_block_backward": 3 * steps, "stream_block_backward_folds": 3 * steps,
+            "cagrad_solver": steps, "stream_block_wide": 0, "stream_block_backward_wide": 0}
+
+
+def compare_vmapped_run(args, tag, want_launches) -> dict:
+    """run_cv_vmapped on ``args`` on the card, fold by fold against the
     port's sequential run_cv on the card: the first epoch's train losses
     within TRAIN_LOSS_RTOL (phase 4's), each fold's best macro accuracy and
-    7-subset scores within one eval window's share. Training amplifies
-    rounding (14 steps an epoch here, 3 in phase 4): after the first epoch
-    the losses are held against a yardstick, the sequential run again from
-    initial parameters scaled by 1 + 1e-7 N(0, 1), within
-    ROUNDING_GAP_FACTOR of its gap. The vmapped run is this slice's main
-    path: every launch count set to 0 just before it and read just after;
-    each stacked train step launches the stream block's forward once, its
-    backward 3 times (one a task pass) and the CAGrad solver once for all
-    the folds, each eval forward the stream block once."""
-    out = {}
-    common = dict(synthetic=True, seed=seed, batch_size=64, wm="gcl", alpha=0.5,
-                  noise_mul=0.0, verbose=False, patience=50, **VMAP_CV)
-    for mode, epochs in (("sync", 2), ("async", 1)):
-        args = wg.WearGaitArgs(epochs=epochs, async_loading=mode == "async", **common)
-        tag = f"vmap_folds {mode}"
-        seq_losses, seq_results, seq_s = sequential_folds(args)
-        yard = [0.0] * epochs
-        if epochs > 1:
-            yard = loss_gaps(sequential_folds(args, ROUNDING_PERTURBATION)[0], seq_losses,
-                             VMAP_FOLDS)
-        vm_losses = []
+    7-subset scores within one eval window's share, and each fold's
+    torch.Generator in the same state at the end of both runs, bitwise (the
+    same draws). Training amplifies rounding (14 steps an epoch here, 3 in
+    phase 4): after the first epoch the losses are held against a
+    yardstick, the sequential run again from initial parameters scaled by 1
+    + 1e-7 N(0, 1), within ROUNDING_GAP_FACTOR of its gap. The vmapped run
+    is a main path: every launch count set to 0 just before it and read just
+    after, and held to ``want_launches(steps, eval forwards)``."""
+    epochs = args.epochs
+    seq_gens, vm_gens = [], []
+    seq_losses, seq_results, seq_s = sequential_folds(args, generators=seq_gens)
+    yard = [0.0] * epochs
+    if epochs > 1:
+        yard = loss_gaps(sequential_folds(args, ROUNDING_PERTURBATION)[0], seq_losses,
+                         VMAP_FOLDS)
+    vm_losses = []
+    streams = vc._random_streams
+
+    def keep_streams(*a):
+        rngs, gens = streams(*a)
+        vm_gens.extend(gens)
+        return rngs, gens
+
+    vc._random_streams = keep_streams
+    try:
         with VmapStepCounter() as counter:
             reset_launches()
             t0 = time.perf_counter()
@@ -3664,63 +3660,84 @@ def compare_vmapped_cv(seed, dev, card) -> dict:
             torch.cuda.synchronize()
             vm_s = time.perf_counter() - t0
             launches = read_launches()
-        log(f"[vmap] {tag}: {epochs} epoch(s) of {VMAP_FOLDS} folds: {counter.steps} stacked "
-            f"train steps and {counter.evals} eval forwards in {vm_s:.2f} s; sequential run_cv "
-            f"{seq_s:.2f} s; launches {launches}")
-        gaps = loss_gaps(vm_losses, seq_losses, VMAP_FOLDS)
-        tols = [TRAIN_LOSS_RTOL] + [max(TRAIN_LOSS_RTOL, ROUNDING_GAP_FACTOR * y)
-                                    for y in yard[1:]]
-        share = vmap_share(args)
-        mask_gap = max(abs(res["per_fold_masks"][mk][f] - seq_results[f][2][mk])
-                       for f in range(VMAP_FOLDS) for mk in wg.MASK_COMBOS)
-        macro_gap = max(abs(res["per_fold_macro"][f] - seq_results[f][0])
-                        for f in range(VMAP_FOLDS))
-        flips = sum(abs(res["per_fold_masks"][mk][f] - seq_results[f][2][mk]) > 1e-6
-                    for f in range(VMAP_FOLDS) for mk in wg.MASK_COMBOS)
-        log(f"[vmap] {tag}: per-epoch train losses vs sequential, max rel gap by epoch "
-            f"{[f'{g:.3e}' for g in gaps]} (tol {[f'{t:.1e}' for t in tols]}; the yardstick "
-            f"run's gap {[f'{y:.3e}' for y in yard]}); best macro max gap {macro_gap:.4f}, "
-            f"7-subset scores max gap {mask_gap:.4f} points ({flips} of {7 * VMAP_FOLDS} "
-            f"differ; one eval window {share:.4f}); macro vmapped {res['macro'][0]:.4f} %, "
-            f"masks {res['masks']}")
-        if (any(g > t for g, t in zip(gaps, tols)) or mask_gap > share + 1e-4
-                or macro_gap > share + 1e-4):
-            raise RuntimeError(f"{tag}: the vmapped run differs from the sequential one")
-        want = {"stream_block": counter.steps + counter.evals,
-                "stream_block_folds": counter.steps + counter.evals,
-                "stream_block_backward": 3 * counter.steps,
-                "stream_block_backward_folds": 3 * counter.steps,
-                "cagrad_solver": counter.steps, "stream_block_wide": 0,
-                "stream_block_backward_wide": 0}
-        wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
-        if counter.steps == 0 or wrong:
-            raise RuntimeError(f"{tag}: launches (got, want) {wrong} for {counter.steps} steps")
-        out[mode] = {"launches": launches, "steps": counter.steps, "eval_forwards": counter.evals,
-                     "seconds": vm_s, "sequential_seconds": seq_s, "loss_gaps": gaps,
-                     "yardstick_gaps": yard, "mask_gap": mask_gap}
-    return out
+    finally:
+        vc._random_streams = streams
+    log(f"[vmap] {tag}: {epochs} epoch(s) of {VMAP_FOLDS} folds: {counter.steps} stacked "
+        f"train steps and {counter.evals} eval forwards in {vm_s:.2f} s; sequential run_cv "
+        f"{seq_s:.2f} s; launches {launches}")
+    gaps = loss_gaps(vm_losses, seq_losses, VMAP_FOLDS)
+    tols = [TRAIN_LOSS_RTOL] + [max(TRAIN_LOSS_RTOL, ROUNDING_GAP_FACTOR * y) for y in yard[1:]]
+    share = vmap_share(args)
+    mask_gap = max(abs(res["per_fold_masks"][mk][f] - seq_results[f][2][mk])
+                   for f in range(VMAP_FOLDS) for mk in wg.MASK_COMBOS)
+    macro_gap = max(abs(res["per_fold_macro"][f] - seq_results[f][0])
+                    for f in range(VMAP_FOLDS))
+    flips = sum(abs(res["per_fold_masks"][mk][f] - seq_results[f][2][mk]) > 1e-6
+                for f in range(VMAP_FOLDS) for mk in wg.MASK_COMBOS)
+    same_draws = [torch.equal(a.get_state(), b.get_state()) for a, b in zip(vm_gens, seq_gens)]
+    drew = [not torch.equal(g.get_state(), torch.Generator(device=g.device).manual_seed(
+        args.seed + f + 1).get_state()) for f, g in enumerate(vm_gens)]
+    log(f"[vmap] {tag}: per-epoch train losses vs sequential, max rel gap by epoch "
+        f"{[f'{g:.3e}' for g in gaps]} (tol {[f'{t:.1e}' for t in tols]}; the yardstick "
+        f"run's gap {[f'{y:.3e}' for y in yard]}); best macro max gap {macro_gap:.4f}, "
+        f"7-subset scores max gap {mask_gap:.4f} points ({flips} of {7 * VMAP_FOLDS} "
+        f"differ; one eval window {share:.4f}); each fold's generator state bitwise equal "
+        f"to the sequential run's: {sum(same_draws)}/{len(same_draws)} (folds that drew: "
+        f"{sum(drew)}); macro vmapped {res['macro'][0]:.4f} %, masks {res['masks']}")
+    if (any(g > t for g, t in zip(gaps, tols)) or mask_gap > share + 1e-4
+            or macro_gap > share + 1e-4):
+        raise RuntimeError(f"{tag}: the vmapped run differs from the sequential one")
+    if len(same_draws) != VMAP_FOLDS or not all(same_draws):
+        raise RuntimeError(f"{tag}: the folds' draws differ from the sequential run's")
+    want = want_launches(counter.steps, counter.evals)
+    wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    if counter.steps == 0 or wrong:
+        raise RuntimeError(f"{tag}: launches (got, want) {wrong} for {counter.steps} steps")
+    return {"launches": launches, "steps": counter.steps, "eval_forwards": counter.evals,
+            "seconds": vm_s, "sequential_seconds": seq_s, "loss_gaps": gaps,
+            "yardstick_gaps": yard, "mask_gap": mask_gap, "same_draws": sum(same_draws),
+            "folds_that_drew": sum(drew)}
 
 
-def vmap_step_setup(seed, dev, bsz=64):
-    """The stacked CAGrad step at the CLI's defaults: the runner, the
-    stacked state of 10 folds, their first sync batch of ``bsz`` window
-    tuples a fold, and the stacked loss context."""
-    args = wg.WearGaitArgs(synthetic=True, seed=seed, batch_size=bsz, device=dev, **VMAP_CV)
+def compare_vmapped_cv(seed, dev, card) -> dict:
+    """run_cv_vmapped at the CLI's defaults (10 folds, test_per_class 8) on
+    the card, sync for 2 epochs then async for 1, against the sequential
+    run_cv on the card (compare_vmapped_run), with the flagship's
+    launches."""
+    common = dict(synthetic=True, seed=seed, batch_size=64, wm="gcl", alpha=0.5,
+                  noise_mul=0.0, verbose=False, patience=50, **VMAP_CV)
+    return {mode: compare_vmapped_run(
+        wg.WearGaitArgs(epochs=epochs, async_loading=mode == "async", **common),
+        f"vmap_folds {mode}", flagship_launches) for mode, epochs in (("sync", 2), ("async", 1))}
+
+
+def vmap_step_setup(seed, dev, bsz=64, baseline=None):
+    """The stacked step at the CLI's defaults, the flagship's (CAGrad) or a
+    baseline's (SGD on the mean of its branch losses; DeepAV-Lite and TACA
+    with their dropout): the runner, the stacked state of 10 folds, their
+    first sync batch of ``bsz`` window tuples a fold, the stacked loss
+    context, and the folds' generators (None for the flagship, which draws
+    nothing)."""
+    args = wg.WearGaitArgs(synthetic=True, seed=seed, batch_size=bsz, device=dev,
+                           baseline=baseline, **VMAP_CV)
     datas = [wg.split_to_device(s, False, seed, "cpu") for s in vc._folds_and_splits(args)]
     data = vc.stack_folds(datas, dev)
     settings = StepSettings(n_streams=3, wm="gcl", synchronized=True,
-                            private_grads="sum_plus_own")
+                            private_grads="sum_plus_own",
+                            dropout=baseline in wg.DROPOUT_BASELINES)
     ctx = vc.stack_ctx([make_loss_ctx(settings, [
         np.bincount(d.ys[k].numpy()[d.train_pool[:, k]], minlength=2) for k in range(3)],
         device=dev) for d in datas])
-    mtl = make_method("cagrad", 3, c=0.5)
+    mtl = make_method("cagrad", 3, c=0.5) if baseline is None else None
     state, partition = vc.init_stacked_state(wg.build_model(args, True),
                                              lambda p: sgd_torch(p, 1e-3), mtl, len(datas), dev)
     idx, valid = vc.stack_index_batches([d.train_pool for d in datas],
                                         [np.arange(len(d.train_pool)) for d in datas], bsz)
     batch = vc._gather(data.xs, data.ys, torch.from_numpy(idx[:, 0]).to(dev),
                        torch.from_numpy(valid[:, 0]).to(dev), (0, 1, 2))
-    return vc.VmapEpochRunner(settings, mtl, partition), state, batch, ctx
+    gens = None if baseline is None else vc._random_streams(args, len(datas), dev)[1]
+    runner = vc.VmapEpochRunner(settings, mtl, partition, *wg.baseline_adapters(args))
+    return runner, state, batch, ctx, gens
 
 
 def profile_steps(fn, reps=10, table=None) -> dict:
@@ -3747,17 +3764,21 @@ def profile_steps(fn, reps=10, table=None) -> dict:
             "wall_ms_profiled": wall_ms, "idle": max(0.0, 1 - device_ms / wall_ms)}
 
 
-def check_vmap_step(seed, dev, card) -> dict:
-    """One stacked step at 10 folds x 64: its launches (the stream block's
-    forward once, its backward 3 times, the solver once), its host
-    synchronisations (0), and its wall time (host clock around 20
-    synchronised steps after 3) beside the 10 sequential batch-64 steps it
-    replaces, in turns (stacked, ten, ten, stacked); then the device time
-    and kernel launches of each under the profiler."""
-    runner, state, batch, ctx = vmap_step_setup(seed, dev)
+def check_vmap_step(seed, dev, card, baseline=None, reps=20, table=True) -> dict:
+    """One stacked step at 10 folds x 64, the flagship's or ``baseline``'s:
+    its launches (one train step's of flagship_launches or
+    baseline_launches), its host synchronisations (0), and its wall time
+    (host clock around ``reps`` synchronised steps after 3) beside the 10
+    sequential batch-64 steps it replaces, in turns (stacked, ten, ten,
+    stacked); then the device time, kernel launches and idle share of each
+    under the profiler, over at most 10 steps (with ``table``, the stacked
+    step's table by kernel too). A baseline's stacked step draws from the
+    folds' generators, one draw a fold a site."""
+    runner, state, batch, ctx, gens = vmap_step_setup(seed, dev, baseline=baseline)
+    label = "CAGrad" if baseline is None else baseline
 
     def stacked():
-        return runner.train_step(state, batch, ctx, False)
+        return runner.train_step(state, batch, ctx, False, gens)
 
     stacked()
     torch.cuda.synchronize()
@@ -3765,8 +3786,7 @@ def check_vmap_step(seed, dev, card) -> dict:
     stacked()
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {"stream_block": 1, "stream_block_folds": 1, "stream_block_backward": 3,
-            "stream_block_backward_folds": 3, "cagrad_solver": 1}
+    want = (flagship_launches if baseline is None else baseline_launches(baseline))(1, 0)
     syncs = []
     for _ in range(2):  # a first count of a process may read one more
         with warnings.catch_warnings(record=True) as caught:
@@ -3778,19 +3798,19 @@ def check_vmap_step(seed, dev, card) -> dict:
                 torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         syncs.append(sum("synchroniz" in str(w.message) for w in caught))
-    log(f"[vmap] one stacked step of {VMAP_FOLDS} folds x 64: launches {launches} (want "
-        f"{want}); host synchronisations {syncs[-1]} (counts {syncs})")
+    log(f"[vmap] one stacked {label} step of {VMAP_FOLDS} folds x 64: launches {launches} "
+        f"(want {want}); host synchronisations {syncs[-1]} (counts {syncs})")
     wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
     if wrong or syncs[-1] != 0:
-        raise RuntimeError(f"stacked step: launches (got, want) {wrong}, syncs {syncs}")
+        raise RuntimeError(f"stacked {label} step: launches (got, want) {wrong}, syncs {syncs}")
 
-    step, seq_state, seq_ctx, seq_batch, gen = make_step_setup(seed, dev, 64)
+    step, seq_state, seq_ctx, seq_batch, gen = make_step_setup(seed, dev, 64, baseline)
 
     def ten():
         for _ in range(VMAP_FOLDS):
             step(seq_state, seq_batch, gen, seq_ctx)
 
-    def host_ms(fn, reps=20):
+    def host_ms(fn):
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -3803,13 +3823,13 @@ def check_vmap_step(seed, dev, card) -> dict:
     turns = {"stacked": [], "ten": []}
     for name in ("stacked", "ten", "ten", "stacked"):
         turns[name].append(host_ms(stacked if name == "stacked" else ten))
-    prof = {"stacked": profile_steps(stacked, table=(
-        f"stacked CAGrad step of {VMAP_FOLDS} folds x 64", card)),
-            "one": profile_steps(lambda: step(seq_state, seq_batch, gen, seq_ctx))}
+    prof = {"stacked": profile_steps(stacked, min(10, reps), table=(
+        f"stacked {label} step of {VMAP_FOLDS} folds x 64", card) if table else None),
+            "one": profile_steps(lambda: step(seq_state, seq_batch, gen, seq_ctx), min(10, reps))}
     out = {"stacked_ms": turns["stacked"], "ten_sequential_ms": turns["ten"],
            "one_sequential_ms": [v / VMAP_FOLDS for v in turns["ten"]],
            "profile": prof, "launches": launches, "syncs": syncs[-1]}
-    log(f"[time] {card}: one stacked CAGrad step of {VMAP_FOLDS} folds x 64 window tuples: "
+    log(f"[time] {card}: one stacked {label} step of {VMAP_FOLDS} folds x 64 window tuples: "
         f"{turns['stacked'][0]:.3f}/{turns['stacked'][1]:.3f} ms (host clock, synchronised); "
         f"the {VMAP_FOLDS} sequential batch-64 steps it replaces: {turns['ten'][0]:.3f}/"
         f"{turns['ten'][1]:.3f} ms ({turns['ten'][0] / VMAP_FOLDS:.3f}/"
@@ -3867,6 +3887,157 @@ def phase_vmap_cv(seed, dev, card, rng) -> dict:
     cli = check_cli_runs(card)
     log(f"[vmap] phase 7: {time.perf_counter() - t0:.1f} s")
     return {"errors": errors, "runs": runs, "step": step, "cli": cli}
+
+
+# ---------------------------------------------------------------------------
+# 8. WearGait's baselines and the recipe's draws under --vmap_folds
+# ---------------------------------------------------------------------------
+
+# (F, N a fold, Tq, Tk, d) of the fold-stacked cross-attention: the six
+# directed pairs of a batch of 64 window tuples a fold at each variant's
+# shape on a path: the WearGait fusion (sweep_d12), --enc_out_ch 16
+# (sweep), --win_len 101 (sweep_long forward, sweep_128 backward) and
+# --enc_out_ch 96 (tiled)
+FOLD_XATTN_SHAPES = {
+    "main": (VMAP_FOLDS, 6 * 64, 64, 64, 12),
+    "enc_out_ch16": (VMAP_FOLDS, 6 * 64, 64, 64, 16),
+    "win_len101": (VMAP_FOLDS, 6 * 64, 101, 101, 12),
+    "enc_out_ch96": (VMAP_FOLDS, 6 * 64, 64, 64, 96),
+}
+
+
+def check_fold_xattn(rng, dev, card) -> dict:
+    """The cross-attention under torch.func.vmap over 10 folds at
+    FOLD_XATTN_SHAPES: one forward launch for all folds, one backward launch
+    through autograd outside the vmap, one forward launch under no_grad;
+    each fold's output and gradients bitwise equal to a launch of that fold
+    alone, and within phase 5's tolerances of the plain version."""
+    errors = {}
+    attend = torch.func.vmap(cx.cheap_xattn)
+    for name, (folds, n, tq, tk, d) in FOLD_XATTN_SHAPES.items():
+        a, b, g = (t.reshape(folds, n, -1, d) for t in xattn_inputs(rng, folds * n, tq, tk, d,
+                                                                     dev))
+        leaves = [t.clone().requires_grad_() for t in (a, b)]
+        before = (cx.launches, cx.backward_launches)
+        out = attend(*leaves)
+        grads = torch.autograd.grad(out, leaves, g)
+        torch.cuda.synchronize()
+        each_way = (cx.launches - before[0], cx.backward_launches - before[1])
+        with torch.no_grad():
+            before_ng = cx.launches
+            same_no_grad = torch.equal(attend(a, b), out)
+            no_grad_launches = cx.launches - before_ng
+        same_fwd = same_bwd = True
+        for f in range(folds):
+            same_fwd &= torch.equal(out[f], cx.cheap_xattn(a[f], b[f]))
+            single = cx.cheap_xattn_backward(a[f], b[f], g[f])
+            same_bwd &= torch.equal(grads[0][f], single[0]) and torch.equal(grads[1][f], single[1])
+        flat = [t.reshape(folds * n, -1, d) for t in (a, b, g)]
+        want = cx.cheap_xattn_reference(*flat[:2]).reshape(out.shape)
+        atol, rtol = (KERNEL_TOL, 0.0) if tk <= 64 else (XATTN_LONG_ATOL, XATTN_LONG_RTOL)
+        err = (out - want).abs().max().item()
+        ok = bool(((out - want).abs() <= atol + rtol * want.abs()).all())
+        wants = [w.reshape(t.shape) for w, t in
+                 zip(cx.cheap_xattn_backward_reference(*flat), grads)]
+        errs = [(gk - wk).abs().max().item() for gk, wk in zip(grads, wants)]
+        ok_g = all(bool(((gk - wk).abs() <= XATTN_GRAD_ATOL + XATTN_GRAD_RTOL * wk.abs()).all())
+                   for gk, wk in zip(grads, wants))
+        variants = "/".join(cx.VARIANT_NAMES[cx._variant(tq, tk, d, bw)] for bw in (False, True))
+        log(f"[kernel] cheap_xattn under vmap {name}: {folds} folds x (N {n}, Tq {tq}, Tk {tk}, "
+            f"d {d}) (variants {variants}): launches forward/backward {each_way} (no_grad "
+            f"{no_grad_launches}, its output bitwise equal: {same_no_grad}); forward max abs "
+            f"err {err:.3e}, dA/dB {errs[0]:.3e}/{errs[1]:.3e} (tol {atol:.0e} + {rtol:.0e} "
+            f"rel; {XATTN_GRAD_ATOL:.0e} + {XATTN_GRAD_RTOL:.0e} rel); each fold bitwise equal "
+            f"to its own launch: forward {same_fwd}, backward {same_bwd}")
+        if each_way != (1, 1) or no_grad_launches != 1 or not same_no_grad:
+            raise RuntimeError(f"cheap_xattn under vmap [{name}]: launches {each_way}, no_grad "
+                               f"{no_grad_launches}")
+        if not (ok and ok_g and same_fwd and same_bwd):
+            raise RuntimeError(f"cheap_xattn under vmap [{name}]: errors {err}, {errs}; "
+                               f"bitwise per fold {same_fwd}, {same_bwd}")
+        errors[name] = (err, max(errs))
+    return errors
+
+
+def time_fold_xattn(rng, dev, card) -> dict:
+    """The fold-stacked cross-attention at 10 x 6 x 64 problems: the merged
+    launch's kernel, plain version, SDPA and bound both ways
+    (time_cheap_xattn on the merged batch), and the vmapped forward itself
+    (the fold axis moved and merged, then the launch), eager and from a CUDA
+    graph."""
+    folds, n, tq, tk, d = FOLD_XATTN_SHAPES["main"]
+    times = time_cheap_xattn(rng, dev, card, (folds * n, tq, tk, d))
+    a, b, _ = (t.reshape(folds, n, -1, d) for t in xattn_inputs(rng, folds * n, tq, tk, d, dev))
+    attend = torch.func.vmap(cx.cheap_xattn)
+    with torch.inference_mode():
+        vm = {"vmap_ms": time_cuda(lambda: attend(a, b)),
+              "vmap_graph_ms": time_cuda_graph(lambda: attend(a, b))}
+    log(f"[time] {card}: cheap_xattn under vmap, {folds} folds x (N {n}, Tq {tq}, Tk {tk}, d "
+        f"{d}): eager {vm['vmap_ms']:.4f} ms, from a CUDA graph {vm['vmap_graph_ms']:.4f} ms "
+        f"(the merged launch alone: {times['cheap_xattn']['graph_ms']:.4f} ms from a graph)")
+    times["cheap_xattn"].update(vm, folds=folds)
+    times["cheap_xattn_backward"]["folds"] = folds
+    return {f"{name}_folds": t for name, t in times.items()}
+
+
+def baseline_launches(baseline):
+    """A vmapped baseline run's launches for its stacked train steps and
+    eval forwards: the cheap-xattn fusion launches the stream block and the
+    cross-attention once each way a step (one backward pass), once each an
+    eval forward; TACA launches no kernel of the port."""
+    def want(steps, evals):
+        if baseline == "cheap_xattn":
+            return {"stream_block": steps + evals, "stream_block_folds": steps + evals,
+                    "stream_block_backward": steps, "stream_block_backward_folds": steps,
+                    "cheap_xattn": steps + evals, "cheap_xattn_backward": steps,
+                    "cagrad_solver": 0, "stream_block_wide": 0, "stream_block_backward_wide": 0}
+        return {name: 0 for name in COUNTERS}
+    return want
+
+
+# run_cv_vmapped's baselines at the CLI's defaults (10 folds, test_per_class
+# 8), each against the sequential run on the card
+VMAP_BASELINE_RUNS = {"cheap_xattn sync": ("cheap_xattn", False, 2),
+                      "taca async": ("taca", True, 2)}
+
+
+def phase_vmap_baselines(seed, dev, card, rng) -> dict:
+    """Phase 8: the fold-stacked cross-attention against single-fold
+    launches and its plain version, run_cv_vmapped of the cheap-xattn fusion
+    (sync) and TACA (async, with its dropout drawn from each fold's
+    generator) against the sequential run_cv on the card under phase 7's
+    rule, the draws bitwise equal per fold, and a stacked step of the
+    cheap-xattn fusion and of DeepAV-Lite (the most dropout sites) beside
+    the 10 sequential steps it replaces, with its launches and host
+    synchronisations (0)."""
+    t0 = time.perf_counter()
+    parts = {}
+
+    def done(part):
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+
+    errors = check_fold_xattn(rng, dev, card)
+    done("kernels")
+    runs = {}
+    for tag, (baseline, async_mode, epochs) in VMAP_BASELINE_RUNS.items():
+        args = wg.WearGaitArgs(synthetic=True, seed=seed, batch_size=64, wm="gcl", alpha=0.5,
+                               noise_mul=0.0, verbose=False, patience=50, epochs=epochs,
+                               async_loading=async_mode, baseline=baseline, **VMAP_CV)
+        runs[tag] = compare_vmapped_run(args, f"vmap_folds {tag}", baseline_launches(baseline))
+        done(tag)
+    if runs["taca async"]["folds_that_drew"] != VMAP_FOLDS:
+        raise RuntimeError("taca async: a fold drew no dropout mask")
+    # DeepAV-Lite's sequential step takes ~0.1 s and ~1700 kernels: fewer
+    # timed and profiled steps, no table
+    steps = {"cheap_xattn": check_vmap_step(seed, dev, card, "cheap_xattn", reps=10)}
+    done("cheap_xattn step")
+    steps["deepav_lite"] = check_vmap_step(seed, dev, card, "deepav_lite", reps=3, table=False)
+    done("deepav_lite step")
+    times = time_fold_xattn(rng, dev, card)
+    done("times")
+    seconds = time.perf_counter() - t0
+    log(f"[vmap] phase 8: {seconds:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in parts.items())})")
+    return {"errors": errors, "runs": runs, "steps": steps, "times": times, "seconds": seconds}
 
 
 def main() -> int:
@@ -3949,14 +4120,13 @@ def main() -> int:
                  for m in sorted(METHODS) if m != "cagrad"}
     phase_profiles(engine, args.seed, dev, card)
     phase_sota_profiles(args.seed, dev, card)
-    bb_xattn_times = time_cheap_xattn(bb_rng, dev, card, BB_XATTN_SHAPE, old=cx.TWO_PASS)
+    bb_xattn_times = time_cheap_xattn(bb_rng, dev, card, BB_XATTN_SHAPE)
     t128_xattn_times = time_cheap_xattn(np.random.default_rng([args.seed, 18]), dev, card,
-                                        SWEEP128_XATTN_CASES["t128_d12"], old=cx.TWO_PASS)
-    # the sweep over key tiles beyond 128 keys (--win_len above 128), beside
-    # the two-pass kernels it replaced, by name, in turns
+                                        SWEEP128_XATTN_CASES["t128_d12"])
+    # the sweep over key tiles beyond 128 keys (--win_len above 128)
     long_time_rng = np.random.default_rng([args.seed, 19])
     long_times = {name: time_cheap_xattn(long_time_rng, dev, card, SWEEP_LONG_XATTN_CASES[name],
-                                         old=cx.TWO_PASS, reps=reps)
+                                         reps=reps)
                   for name, reps in SWEEP_LONG_TIMED.items()}
     bb_focal_times = time_stream_block(bb_rng, dev, card, BB_FOCAL_SHAPE, slice(FF_BATCH, None),
                                        "FOCAL async skeleton stream's layout")
@@ -3971,6 +4141,11 @@ def main() -> int:
     # the CLI and WearGait's folds in one step: streams of their own
     vmap = phase_vmap_cv(args.seed, dev, card, np.random.default_rng([args.seed, 24]))
     times.update(time_fold_block(np.random.default_rng([args.seed, 25]), dev, card))
+    # WearGait's baselines and the recipe's draws under --vmap_folds: a
+    # stream of their own
+    vmap_baselines = phase_vmap_baselines(args.seed, dev, card,
+                                          np.random.default_rng([args.seed, 26]))
+    times.update(vmap_baselines["times"])
 
     # launches on each kernel's own main path: the CAGrad training's for the
     # earlier slices' kernels, the cheap-xattn training's for this slice's
@@ -4022,6 +4197,10 @@ def main() -> int:
     # the fold-stacked block on its own main path: the vmapped CV's sync run
     for name in ("stream_block_folds", "stream_block_backward_folds"):
         launches[name] = vmap["runs"]["sync"]["launches"][name]
+    # the fold-stacked cross-attention on its own main path: the vmapped
+    # cheap-xattn fusion's sync run
+    for name in ("cheap_xattn", "cheap_xattn_backward"):
+        launches[f"{name}_folds"] = vmap_baselines["runs"]["cheap_xattn sync"]["launches"][name]
     long_err = long_errors["win256_batch64"]
     wide_err = wide_errors[WIDE_XATTN_TIMED[0]]
     bb_err = baselines["errors"]["xattn"]["fog_batch256"]
@@ -4066,6 +4245,11 @@ def main() -> int:
          "gaitpd/ops/pallas_blocks.py:72", vmap["errors"]["flagship"][0]),
         ("stream_block_backward_folds", "gaitpd_torch/csrc/stream_block.cu",
          "gaitpd/ops/pallas_blocks.py:160", vmap["errors"]["flagship"][1]),
+        # the cross-attention with a fold axis: every fold's problems in one launch
+        ("cheap_xattn_folds", "gaitpd_torch/csrc/cheap_xattn.cu",
+         "gaitpd/ops/pallas_blocks.py:184", vmap_baselines["errors"]["main"][0]),
+        ("cheap_xattn_backward_folds", "gaitpd_torch/csrc/cheap_xattn.cu",
+         "gaitpd/ops/pallas_blocks.py:275", vmap_baselines["errors"]["main"][1]),
         # not TPU kernels either: the MGDA, FairGrad and NashMTL solvers
         ("min_norm_solver", "gaitpd_torch/csrc/mtl_solvers.cu", "gaitpd/learning/minnorm.py:35",
          mtl["solver_errors"]["min_norm_solver"]),
@@ -4100,7 +4284,7 @@ def main() -> int:
         f"sweep over key tiles {json.dumps(long_times)}, the step at win_len {WIN256} "
         f"{json.dumps(win256)} and its train steps {json.dumps(win256_steps)}; the wide "
         f"thresholds {json.dumps(threshold_times)}; the vmapped CV (phase 7) "
-        f"{json.dumps(vmap)}")
+        f"{json.dumps(vmap)}; the vmapped baselines (phase 8) {json.dumps(vmap_baselines)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,6 +12,8 @@ raise NotImplementedError naming their ROADMAP item, before any work.
 
     python -m gaitpd_torch.cli --mode weargait --wm gcl --synthetic --epochs 3 \\
         --n_folds 2 --test_per_class 3 --vmap_folds
+    python -m gaitpd_torch.cli --mode weargait --baseline taca --async_loading \\
+        --synthetic --epochs 3 --n_folds 2 --test_per_class 3 --vmap_folds
     python -m gaitpd_torch.cli --mode fbg_fog --dataset fog --modality sensor \\
         --wm ce --synthetic --epochs 5 --n_folds_cap 1 --device cpu
 """
@@ -124,9 +126,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="weargait flagship: block-diagonal fused 3-stream forward (not "
                         "ported yet: ROADMAP Queue 1, item 15)")
     p.add_argument("--vmap_folds", action="store_true",
-                   help="weargait (the flagship under CAGrad, or --single_mod): train ALL "
-                        "CV folds in one step, each stream-block kernel launched once for "
-                        "every fold (gaitpd_torch/train/vmap_cv.py)")
+                   help="weargait (the flagship under CAGrad, any --baseline, or "
+                        "--single_mod; the recipe's draws per fold): train ALL CV folds in "
+                        "one step, each kernel launched once for every fold "
+                        "(gaitpd_torch/train/vmap_cv.py)")
     p.add_argument("--vmap_hp", action="store_true",
                    help="an (lr x gcl_m x gcl_s x alpha) hyperparameter grid as one "
                         "vmapped program (not ported yet: ROADMAP Queue 1, item 19)")

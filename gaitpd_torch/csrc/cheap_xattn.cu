@@ -13,14 +13,14 @@
 // matrix, 16 KB), so nothing of the Pallas tiling is carried over: a problem's
 // scores never leave the SM, and the work is spread by problems.
 //
-// Six variants; gaitpd_torch/ops/cheap_xattn.py::_variant chooses one from
+// Five variants; gaitpd_torch/ops/cheap_xattn.py::_variant chooses one from
 // (Tq, Tk, d) and the entry points refuse a variant that does not take the
 // sizes:
 //   0  one sweep, d = 12 as a compile-time width: Tk <= 64 (backward also
 //      Tq <= 64); the main path;
 //   1  one sweep, any d <= 64, rows zero-padded to a width of 16, 32 or 64;
-//   2  two passes (the first design): d <= 64, on no path since variant 5;
-//      callable by name at every length, as its yardstick;
+//   2  retired: the two-pass first design (below), deleted once variant 5
+//      had taken its last lengths;
 //   3  one sweep over up to 128 keys, two lanes a query row, backward
 //      only: d <= 64, Tq and Tk <= 128, one of them > 64: the FBG/FoG
 //      cheap-xattn fusion at T 101 and --win_len 128;
@@ -33,8 +33,8 @@
 // THE SCALE. Variants 0, 1, 3 and 5 multiply the dot product by 1/sqrt(d),
 // computed once on the host in double and rounded to f32, as the Pallas
 // kernel does (gaitpd/ops/pallas_blocks.py:201 multiplies by `scale`, :250
-// sets it to 1.0 / np.sqrt(d)); only the jnp reference divides. Variants 2
-// and 4 divide, as the first design did. expf is the accurate one: the build
+// sets it to 1.0 / np.sqrt(d)); only the jnp reference divides. Variant 4
+// divides, as the first design did. expf is the accurate one: the build
 // has no fast math.
 //
 // FORWARD, ONE SWEEP (variants 0, 1)
@@ -137,8 +137,9 @@
 // to device memory. Strict f32 on the CUDA cores; no TF32.
 //
 // What it reaches (PERF.md): at the FoG shape from a CUDA graph, 0.0330 ms
-// backward, 7.1x its bound, against 0.1816 for variant 2 and 0.2164 for
-// the autograd of scaled_dot_product_attention (H100 80GB HBM3 at 700 W).
+// backward, 7.1x its bound, against 0.1816 for the two-pass design and
+// 0.2164 for the autograd of scaled_dot_product_attention (H100 80GB HBM3
+// at 700 W).
 // A score's fixed issue slots (scale, max, expf, sums) match its 16 FMAs at
 // W 8.
 //
@@ -199,31 +200,20 @@
 //
 // What it reaches (PERF.md): at --win_len 256's batch of 64, from a
 // CUDA graph, 0.0648 ms forward and 0.1854 backward, 3.6x and 4.1x their
-// bounds, against 0.1280 and 0.4786 for variant 2 and 0.3786 and 0.8312
-// for scaled_dot_product_attention and its autograd; at N 128, Tq = Tk =
-// 129, 0.0124 and 0.0292 (variant 2: 0.0378 and 0.2015); forward over one
+// bounds, against 0.1280 and 0.4786 for the two-pass design and 0.3786 and
+// 0.8312 for scaled_dot_product_attention and its autograd; at N 128, Tq = Tk =
+// 129, 0.0124 and 0.0292 (two-pass: 0.0378 and 0.2015); forward over one
 // key tile, 0.0167 at the FoG shape and 0.0108 at N 128, Tq = Tk = 128,
 // against 0.0162-0.0164 and 0.0110-0.0111 for variant 3's own forward in
 // the same run (H100 80GB HBM3 at 700 W). 122 registers forward at W 12
 // (16 warps an SM), 153 and 115 in the backward's two launches (12 and
 // 16).
 //
-// TWO PASSES (variant 2), the first design, d <= 64, by name only (variant 5
-// took its lengths, Tk > 128 and, backward, Tq > 128)
-//
-// A block takes one problem and up to 128 query rows; each thread owns one
-// query row. B streams through shared memory in tiles of 64 rows. Forward:
-// the first pass finds the row's maximum score, the second sums exp(s - max)
-// and exp(s - max) * B_k; the score is the dot product divided by sqrt(d).
-// Backward: nothing of the forward is saved. Phase 1, a thread per query row:
-// max and sum (two passes), D_i from the recomputed O_i, a third pass for
-// dA_i; the row's (max, sum, D) go to a scratch buffer. Phase 2, a thread per
-// key row: A, dO and the row statistics stream through shared memory and the
-// thread recomputes P_ik and dS_ik (the same bits as phase 1) and sums dB_k.
-// The register rows hold d <= 64 (arrays of 16, 32 or 64, a template). At
-// the FoG shape above it took 0.0612 ms forward and 0.1831 backward from a
-// CUDA graph, 33x and 39x its bounds (PERF.md, PR 14): it computes each
-// score twice forward and four times backward, a thread a row.
+// TWO PASSES (variant 2, retired), the first design: a thread a query row,
+// B streamed through shared memory, each score computed twice forward and
+// four times backward; 0.0612 ms forward and 0.1831 backward at the FoG
+// shape from a CUDA graph, 33x and 39x its bounds (PERF.md). Variants
+// 3 and 5 took all its lengths, and its kernels were deleted.
 //
 // FORWARD, TILES IN SHARED MEMORY (variant 4), d > 64
 //
@@ -245,13 +235,13 @@
 // S = A B^T is computed once: a thread keeps a 4 x 8 tile of scores in
 // registers (rows ty + 16 ii, keys tx + 8 jj) and reads per 4 columns four
 // float4 of A (a broadcast) and eight of B for 128 FMAs; each dot product
-// sums in ascending column over the chunks, as variant 2 does. The scores,
-// divided by sqrt(d) and -inf past Tk, take A's place in shared memory; a
+// sums in ascending column over the chunks, as the first design did. The
+// scores, divided by sqrt(d) and -inf past Tk, take A's place in shared memory; a
 // warp a row takes its max and sum l by butterflies (every lane the same
 // bits) and writes exp(s - max). Then O = P B: a thread keeps a 4 x 4 tile of
 // outputs (4 rows, 4 columns) and reads per 4 keys four float4 of P and four
 // of B for 64 FMAs, keys in ascending order, and writes O / l. Only l is
-// summed in another order than variant 2's. Strict f32; no atomics: the
+// summed in another order than the first design's. Strict f32; no atomics: the
 // same bits from run to run.
 //
 // Beyond 64 keys the unit walks B in key tiles of 64, as the Pallas kernel
@@ -312,14 +302,13 @@
 
 namespace {
 
-constexpr int kMaxThreads = 128;
-constexpr int kTile = 64;  // rows staged in shared memory at a time
 constexpr int kMaxD = 64;  // the widest register row; wider d runs the tiled kernels
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
-// The variants, numbered as gaitpd_torch/ops/cheap_xattn.py::_variant numbers them.
-enum Variant { kSweepD12 = 0, kSweep = 1, kTwoPass = 2, kSweep128 = 3, kTiled = 4, kSweepLong = 5 };
+// The variants, numbered as gaitpd_torch/ops/cheap_xattn.py::_variant numbers them;
+// 2, the two-pass first design, is retired.
+enum Variant { kSweepD12 = 0, kSweep = 1, kSweep128 = 3, kTiled = 4, kSweepLong = 5 };
 
 constexpr int kSweepT = 64;         // keys (backward: and query rows) the sweep kernels hold
 constexpr int kSweepThreads = 128;  // 4 warps
@@ -333,14 +322,6 @@ constexpr int kSweepForwardBlocks = 4;
 // Row stride of a staged tile of width w: w, or w + 4 where two rows 2j and
 // 2j + 1 would fall into the same banks (the backward's pair of threads).
 __host__ __device__ constexpr int row_stride(int w) { return w % 32 == 0 ? w + 4 : w; }
-
-// Copies rows [r0, r0 + rows) of a row-major (T, d) matrix into dst:
-// contiguous in device memory, so the reads coalesce.
-__device__ __forceinline__ void stage_rows(const float* __restrict__ src, float* dst,
-                                           int r0, int rows, int d) {
-  const float* s = src + static_cast<size_t>(r0) * d;
-  for (int e = threadIdx.x; e < rows * d; e += blockDim.x) dst[e] = s[e];
-}
 
 // Loads row i of a (T, d) matrix into registers, zero beyond d.
 template <int DP>
@@ -778,178 +759,6 @@ size_t sweep128_backward_smem(int w, int tq, int tk) {
   const size_t rows = round16(tq);
   return ((2 * rows + even_up(tk)) * long_stride(w) + 2 * rows * long_pstride(tk)) *
          sizeof(float);
-}
-
-// ---------------------------------------------------------------------------
-// Two passes (variant 2).
-
-// The query row q's max score over all tk rows of bp, and then
-// l = sum_k exp(s_k - max) and acc = sum_k exp(s_k - max) * B_k. Every thread
-// of the block calls it (it synchronises); inactive threads compute nothing.
-template <int DP, bool V4>
-__device__ __forceinline__ void softmax_pass(const float (&q)[DP], const float* __restrict__ bp,
-                                             float* bs, int tk, int d, float sqrt_d,
-                                             bool active, float* m_out, float* l_out,
-                                             float (&acc)[DP]) {
-  float m = -INFINITY;
-  for (int k0 = 0; k0 < tk; k0 += kTile) {
-    const int rows = min(kTile, tk - k0);
-    __syncthreads();
-    stage_rows(bp, bs, k0, rows, d);
-    __syncthreads();
-    if (active) {
-      for (int k = 0; k < rows; ++k) m = fmaxf(m, dot_row<DP, V4>(q, bs + k * d, d) / sqrt_d);
-    }
-  }
-  float l = 0.0f;
-#pragma unroll
-  for (int c = 0; c < DP; ++c) acc[c] = 0.0f;
-  for (int k0 = 0; k0 < tk; k0 += kTile) {
-    const int rows = min(kTile, tk - k0);
-    __syncthreads();
-    stage_rows(bp, bs, k0, rows, d);
-    __syncthreads();
-    if (active) {
-      for (int k = 0; k < rows; ++k) {
-        const float* row = bs + k * d;
-        const float e = expf(dot_row<DP, V4>(q, row, d) / sqrt_d - m);
-        l += e;
-        axpy_row<DP, V4>(acc, e, row, d);
-      }
-    }
-  }
-  *m_out = m;
-  *l_out = l;
-}
-
-// Grid (N, ceil(Tq / blockDim)): block (p, y) takes query rows
-// [y * blockDim, (y + 1) * blockDim) of problem p. Shared memory: kTile * d
-// floats, one tile of B.
-template <int DP, bool V4>
-__global__ void __launch_bounds__(kMaxThreads)
-cheap_xattn_forward_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                           float* __restrict__ out, int tq, int tk, int d, float sqrt_d) {
-  extern __shared__ float4 smem4[];
-  float* bs = reinterpret_cast<float*>(smem4);
-  const size_t p = blockIdx.x;
-  const float* bp = b + p * tk * d;
-  const int i = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool active = i < tq;
-  float q[DP];
-  load_row<DP>(q, a + p * tq * d, i, d, active);
-  float m, l, acc[DP];
-  softmax_pass<DP, V4>(q, bp, bs, tk, d, sqrt_d, active, &m, &l, acc);
-  if (active) {
-    float* o = out + (p * tq + i) * d;
-#pragma unroll
-    for (int c = 0; c < DP; ++c) {
-      if (c < d) o[c] = acc[c] / l;
-    }
-  }
-}
-
-// Grid (N): block p owns problem p. Shared memory: 2 * kTile * d + 3 * kTile
-// floats (phase 2's tiles of A and dO and their row statistics; phase 1 uses
-// the first kTile * d for its tile of B). stats: N * Tq * 3 floats of scratch.
-template <int DP, bool V4>
-__global__ void __launch_bounds__(kMaxThreads)
-cheap_xattn_backward_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                            const float* __restrict__ g, float* __restrict__ da,
-                            float* __restrict__ db, float* stats, int tq, int tk, int d,
-                            float sqrt_d) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const size_t p = blockIdx.x;
-  const float* ap = a + p * tq * d;
-  const float* bp = b + p * tk * d;
-  const float* gp = g + p * tq * d;
-  float* st = stats + p * tq * 3;
-
-  // Phase 1: a thread per query row i.
-  for (int i0 = 0; i0 < tq; i0 += blockDim.x) {
-    const int i = i0 + threadIdx.x;
-    const bool active = i < tq;
-    float q[DP], go[DP];
-    load_row<DP>(q, ap, i, d, active);
-    load_row<DP>(go, gp, i, d, active);
-    float m, l, acc[DP];
-    softmax_pass<DP, V4>(q, bp, smem, tk, d, sqrt_d, active, &m, &l, acc);
-    float dsum = 0.0f;  // D_i = dO_i . O_i, O_i as the forward computes it
-#pragma unroll
-    for (int c = 0; c < DP; ++c) {
-      if (c < d) dsum = fmaf(go[c], acc[c] / l, dsum);
-    }
-#pragma unroll
-    for (int c = 0; c < DP; ++c) acc[c] = 0.0f;  // now dS_i B
-    for (int k0 = 0; k0 < tk; k0 += kTile) {
-      const int rows = min(kTile, tk - k0);
-      __syncthreads();
-      stage_rows(bp, smem, k0, rows, d);
-      __syncthreads();
-      if (active) {
-        for (int k = 0; k < rows; ++k) {
-          const float* row = smem + k * d;
-          const float pk = expf(dot_row<DP, V4>(q, row, d) / sqrt_d - m) / l;
-          const float ds = pk * (dot_row<DP, V4>(go, row, d) - dsum);
-          axpy_row<DP, V4>(acc, ds, row, d);
-        }
-      }
-    }
-    if (active) {
-      float* o = da + (p * tq + i) * d;
-#pragma unroll
-      for (int c = 0; c < DP; ++c) {
-        if (c < d) o[c] = acc[c] / sqrt_d;
-      }
-      st[3 * i] = m;
-      st[3 * i + 1] = l;
-      st[3 * i + 2] = dsum;
-    }
-  }
-
-  // Phase 2: a thread per key row k. The __syncthreads() at the top of the
-  // tile loop also makes phase 1's row statistics visible to the block.
-  float* as = smem;
-  float* gs = as + kTile * d;
-  float* ss = gs + kTile * d;
-  for (int k0 = 0; k0 < tk; k0 += blockDim.x) {
-    const int k = k0 + threadIdx.x;
-    const bool active = k < tk;
-    float kb[DP], acc[DP];
-    load_row<DP>(kb, bp, k, d, active);
-#pragma unroll
-    for (int c = 0; c < DP; ++c) acc[c] = 0.0f;
-    for (int j0 = 0; j0 < tq; j0 += kTile) {
-      const int rows = min(kTile, tq - j0);
-      __syncthreads();
-      stage_rows(ap, as, j0, rows, d);
-      stage_rows(gp, gs, j0, rows, d);
-      for (int e = threadIdx.x; e < 3 * rows; e += blockDim.x) ss[e] = st[3 * j0 + e];
-      __syncthreads();
-      if (active) {
-        for (int j = 0; j < rows; ++j) {
-          const float* arow = as + j * d;
-          const float* grow = gs + j * d;
-          const float pk = expf(dot_row<DP, V4>(kb, arow, d) / sqrt_d - ss[3 * j]) / ss[3 * j + 1];
-          const float ds = pk * (dot_row<DP, V4>(kb, grow, d) - ss[3 * j + 2]);
-          axpy_row<DP, V4>(acc, pk, grow, d);
-          axpy_row<DP, V4>(acc, ds / sqrt_d, arow, d);
-        }
-      }
-    }
-    if (active) {
-      float* o = db + (p * tk + k) * d;
-#pragma unroll
-      for (int c = 0; c < DP; ++c) {
-        if (c < d) o[c] = acc[c];
-      }
-    }
-  }
-}
-
-int threads_for(int rows) {
-  const int t = (rows + 31) / 32 * 32;
-  return t < kMaxThreads ? t : kMaxThreads;
 }
 
 // ---------------------------------------------------------------------------
@@ -1878,7 +1687,6 @@ bool variant_takes(int variant, bool backward, int tq, int tk, int d) {
   switch (variant) {
     case kSweepD12: return sweep && d == 12;
     case kSweep: return sweep && d <= kMaxD;
-    case kTwoPass: return d <= kMaxD;
     case kSweep128: return backward && d <= kMaxD && tk <= kLongT && tq <= kLongT;
     case kTiled: return d > kMaxD;
     case kSweepLong: return d <= kMaxD;
@@ -1989,17 +1797,6 @@ cudaError_t forward_launch(int variant, int n, int tq, int tk, int d, Launch* ou
     const long long units = static_cast<long long>(n) * ((tq + kSweepT - 1) / kSweepT);
     const long long rounds = (units + kSlots - 1) / kSlots;  // kSlots units a block a round
     l.grid = dim3(static_cast<unsigned>(rounds < resident ? rounds : resident));
-  } else if (variant == kTwoPass) {
-    if (d <= 16) {
-      l.kernel = v4 ? fn(cheap_xattn_forward_kernel<16, true>) : fn(cheap_xattn_forward_kernel<16, false>);
-    } else if (d <= 32) {
-      l.kernel = v4 ? fn(cheap_xattn_forward_kernel<32, true>) : fn(cheap_xattn_forward_kernel<32, false>);
-    } else {
-      l.kernel = v4 ? fn(cheap_xattn_forward_kernel<64, true>) : fn(cheap_xattn_forward_kernel<64, false>);
-    }
-    l.threads = threads_for(tq);
-    l.smem = static_cast<size_t>(kTile) * d * sizeof(float);
-    l.grid = dim3(n, (tq + l.threads - 1) / l.threads);
   } else if (variant == kTiled) {
     l.kernel = v4 ? fn(cheap_xattn_forward_tiled_kernel<true>)
                   : fn(cheap_xattn_forward_tiled_kernel<false>);
@@ -2050,16 +1847,6 @@ cudaError_t backward_launch(int variant, int n, int tq, int tk, int d, Launch* o
     l.threads = kLongBwdThreads;
     l.smem = sweep128_backward_smem(w, tq, tk);
     if (l.smem > kMaxSmem) return cudaErrorInvalidValue;
-  } else if (variant == kTwoPass) {
-    if (d <= 16) {
-      l.kernel = v4 ? fn(cheap_xattn_backward_kernel<16, true>) : fn(cheap_xattn_backward_kernel<16, false>);
-    } else if (d <= 32) {
-      l.kernel = v4 ? fn(cheap_xattn_backward_kernel<32, true>) : fn(cheap_xattn_backward_kernel<32, false>);
-    } else {
-      l.kernel = v4 ? fn(cheap_xattn_backward_kernel<64, true>) : fn(cheap_xattn_backward_kernel<64, false>);
-    }
-    l.threads = threads_for(tq > tk ? tq : tk);
-    l.smem = (2 * static_cast<size_t>(kTile) * d + 3 * kTile) * sizeof(float);
   } else if (variant == kTiled) {
     l.kernel = v4 ? fn(cheap_xattn_backward_tiled_kernel<true>)
                   : fn(cheap_xattn_backward_tiled_kernel<false>);
@@ -2089,12 +1876,9 @@ int cheap_xattn_forward(const float* a, const float* b, float* out, int n, int t
   const float* none = nullptr;
   float* no_stats = nullptr;
   void* sweep_args[] = {&a, &b, &out, &n, &tq, &tk, &d, &scale};
-  void* two_pass_args[] = {&a, &b, &out, &tq, &tk, &d, &sqrt_d};
   void* tiled_args[] = {&a, &b, &out, &n, &tq, &tk, &d, &sqrt_d};
   void* long_args[] = {&a, &b, &none, &out, &no_stats, &n, &tq, &tk, &d, &scale};
-  void** args = variant == kTwoPass ? two_pass_args
-                : variant == kTiled ? tiled_args
-                : variant == kSweepLong ? long_args : sweep_args;
+  void** args = variant == kTiled ? tiled_args : variant == kSweepLong ? long_args : sweep_args;
   return static_cast<int>(cudaLaunchKernel(l.kernel, l.grid, dim3(l.threads), args, l.smem,
                                            static_cast<cudaStream_t>(stream)));
 }
@@ -2102,8 +1886,8 @@ int cheap_xattn_forward(const float* a, const float* b, float* out, int n, int t
 // Launches the backward of `variant` on `stream` (variant 5: two launches,
 // query rows then key rows). Returns a cudaError_t. a, b as the forward; g
 // (N, Tq, d) the cotangent; da (N, Tq, d) and db (N, Tk, d) the outputs;
-// stats a scratch buffer of N * Tq * 3 floats for variants 2 and 5, and for
-// 4 beyond 64 keys (unused otherwise: may be null). All contiguous, 16-byte
+// stats a scratch buffer of N * Tq * 3 floats for variant 5, and for 4
+// beyond 64 keys (unused otherwise: may be null). All contiguous, 16-byte
 // aligned f32 device pointers.
 int cheap_xattn_backward(const float* a, const float* b, const float* g, float* da, float* db,
                          float* stats, int n, int tq, int tk, int d, int variant, void* stream) {
@@ -2122,8 +1906,8 @@ int cheap_xattn_backward(const float* a, const float* b, const float* g, float* 
         cudaLaunchKernel(keys.kernel, keys.grid, dim3(keys.threads), keys_args, keys.smem, s));
   }
   void* sweep_args[] = {&a, &b, &g, &da, &db, &tq, &tk, &d, &scale};
-  void* two_pass_args[] = {&a, &b, &g, &da, &db, &stats, &tq, &tk, &d, &sqrt_d};
-  void** args = variant == kTwoPass || variant == kTiled ? two_pass_args : sweep_args;
+  void* tiled_args[] = {&a, &b, &g, &da, &db, &stats, &tq, &tk, &d, &sqrt_d};
+  void** args = variant == kTiled ? tiled_args : sweep_args;
   return static_cast<int>(cudaLaunchKernel(l.kernel, l.grid, dim3(l.threads), args, l.smem, s));
 }
 

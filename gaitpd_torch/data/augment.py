@@ -39,6 +39,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gaitpd_torch.runtime import fold_draws
+
 # H36M 17-joint topology (reference common.py:7-44)
 H36M_FULL = {
     "B.TORSO": 0, "L.HIP": 1, "L.KNEE": 2, "L.FOOT": 3,
@@ -230,17 +232,17 @@ def draw_augment(x: torch.Tensor, spec: AugmentSpec,
     b, dev = x.shape[0], x.device
     draws = {}
     if spec.joints and spec.mirror:
-        draws["mirror_u"] = torch.rand((b,), generator=generator, device=dev)
+        draws["mirror_u"] = fold_draws.rand((b,), generator, device=dev)
     if spec.joints and spec.rotation:
-        draws["rot_axis"] = torch.randint(0, 3, (b,), generator=generator, device=dev)
-        draws["rot_main_u"] = torch.rand((b,), generator=generator, device=dev)
-        draws["rot_rest_u"] = torch.rand((b, 3), generator=generator, device=dev)
+        draws["rot_axis"] = fold_draws.randint(0, 3, (b,), generator, device=dev)
+        draws["rot_main_u"] = fold_draws.rand((b,), generator, device=dev)
+        draws["rot_rest_u"] = fold_draws.rand((b, 3), generator, device=dev)
     if spec.axis_mask:
         n_axes = 3 if spec.joints else x.shape[-1]
-        draws["gate_u"] = torch.rand((b,), generator=generator, device=dev)
-        draws["channel"] = torch.randint(0, n_axes, (b,), generator=generator, device=dev)
+        draws["gate_u"] = fold_draws.rand((b,), generator, device=dev)
+        draws["channel"] = fold_draws.randint(0, n_axes, (b,), generator, device=dev)
     if spec.noise:
-        draws["noise"] = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=dev)
+        draws["noise"] = fold_draws.randn(x.shape, generator, dtype=x.dtype, device=dev)
     return draws
 
 

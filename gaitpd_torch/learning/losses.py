@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gaitpd_torch.runtime import fold_draws
+
 EPS = 1e-8
 
 
@@ -119,9 +121,10 @@ def gcl_loss(
     cosine' = cosine - noise_mul * |clip(N(0, 1/3), -1, 1)| / max(m_list) * m_list
     then subtract the target margin ``m`` and apply (weighted) CE on s*out,
     or with ``train_cls`` the focal loss of factor ``gamma``.
-    The noise is drawn from ``generator`` (on the logits' device); with
-    ``noise_mul == 0`` none is drawn and the loss is exactly the noise-free
-    one.
+    The noise is drawn from ``generator`` (on the logits' device; a
+    gaitpd_torch.runtime.fold_draws.FoldDraws under the stacked folds'
+    vmap); with ``noise_mul == 0`` none is drawn and the loss is exactly
+    the noise-free one.
 
     Deviation from the reference, kept from gaitpd: the reference divides by
     ``m_list.max()`` unguarded, which is NaN for perfectly balanced class
@@ -130,8 +133,8 @@ def gcl_loss(
     """
     cosine = logits
     if noise_mul != 0:
-        noise = torch.randn(logits.shape, dtype=logits.dtype, device=logits.device,
-                            generator=generator) * (1.0 / 3.0)
+        noise = fold_draws.randn(logits.shape, generator, dtype=logits.dtype,
+                                 device=logits.device) * (1.0 / 3.0)
         noise = torch.abs(torch.clamp(noise, -1.0, 1.0))
         denom = torch.clamp(m_list.max(), min=EPS)
         cosine = logits - noise_mul * noise / denom * m_list[None, :]

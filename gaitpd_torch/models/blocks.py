@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gaitpd_torch.runtime import fold_draws
+
 
 # ---------------------------------------------------------------------------
 # Initialisers (torch-law scales)
@@ -196,13 +198,14 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
     """flax's ``nn.Dropout``: keep each entry with probability 1 - rate and
     divide the kept ones by 1 - rate. The identity when ``train`` is False or
     the rate is 0; otherwise the mask is drawn from ``generator`` (on x's
-    device), never from torch's global generator."""
+    device; under the stacked folds' vmap a gaitpd_torch.runtime.fold_draws.
+    FoldDraws), never from torch's global generator."""
     if not train or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout at train time draws from a generator; got None")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = fold_draws.rand(x.shape, generator, device=x.device) < keep
     # a tensor divisor: CUDA divides by a Python number through its reciprocal
     return torch.where(mask, x / torch.full((), keep, dtype=x.dtype, device=x.device),
                        torch.zeros((), dtype=x.dtype, device=x.device))

@@ -78,9 +78,10 @@ def masked_pairwise_enrichment(
     acc + m_j * x over j, then / max(count, 1)."""
     k = len(streams)
     ref = streams[0]
-    if mask is None:
-        mask = torch.ones(k, dtype=torch.bool)
-    mask_f = torch.as_tensor(mask).to(dtype=ref.dtype, device=ref.device)
+    if mask is None:  # made on the device: a host copy would synchronise
+        mask_f = torch.ones(k, dtype=ref.dtype, device=ref.device)
+    else:
+        mask_f = torch.as_tensor(mask).to(dtype=ref.dtype, device=ref.device)
     pairs = [(i, j) for i in range(k) for j in range(k) if i != j]
     if len({tuple(s.shape) for s in streams}) == 1:
         attended = cheap_cross_attention(torch.cat([streams[i] for i, _ in pairs]),

@@ -11,15 +11,19 @@ the hand-written backward kernel of the same file, counted in
 ``cheap_xattn_reference``, under ordinary autograd. There is no fallback from
 one to the other.
 
-The source holds six variants (the sweep over 128 keys backward only);
+Under ``torch.func.vmap`` (the stacked folds of gaitpd_torch/train/vmap_cv.py)
+a CUDA call goes through ``_CheapXAttnFunction``'s vmap rule, with or without
+a gradient: the vmap axis folds into the problem axis, (F, N, T, d) -> (F·N,
+T, d), so all F folds take one forward launch, and autograd outside the vmap
+one backward launch. Each problem's arithmetic does not depend on N, so each
+fold's rows are the bits of its own launch.
+
+The source holds five variants (the sweep over 128 keys backward only);
 ``_variant`` chooses one from the sizes (Tq, Tk, d) and passes it to the
 entry points, which refuse a variant that does not take the sizes. Beyond
 64 keys forward and beyond 128 keys or query rows backward at d <= 64
 (T 101, ``--win_len`` 128 and above), the one sweep over key tiles
-(``SWEEP_LONG``) runs. The two-pass kernels (``TWO_PASS``), the first design
-there, are on no path; they stay callable by name at every length, through
-``_forward_kernel`` and ``_backward_kernel``, as the yardstick the one-sweep
-kernels replaced.
+(``SWEEP_LONG``) runs. Number 2, the two-pass first design, is retired.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from typing import Tuple
 
 import torch
 
-from gaitpd_torch.ops.stream_block import _check_cuda
+from gaitpd_torch.ops.stream_block import _batched, _check_cuda
 
 # Kernel launches made by ``cheap_xattn`` and ``cheap_xattn_backward``;
 # callers may reset them to 0.
@@ -40,8 +44,8 @@ _bound = None
 
 # The kernel variants of csrc/cheap_xattn.cu, numbered as its entry points take
 # them: one sweep with d = 12 as a compile-time width (Tk <= 64; backward also
-# Tq <= 64), one sweep at any d <= 64 (the same lengths), the two-pass kernels
-# (the first design, by name only), one sweep over up to 128 keys and query
+# Tq <= 64), one sweep at any d <= 64 (the same lengths), number 2 retired (the
+# two-pass first design), one sweep over up to 128 keys and query
 # rows with two lanes a query row (backward only, d <= 64 between the two),
 # tiles in shared memory (d > 64, any Tq and Tk, both ways: key tiles of 64
 # with an online softmax forward, one block a problem backward), and one
@@ -49,8 +53,8 @@ _bound = None
 # (d <= 64: forward beyond 64 keys, backward beyond 128 keys or query rows;
 # the backward in two launches, query rows then key rows). Operations bound
 # each at the repo's shapes (csrc header).
-SWEEP_D12, SWEEP, TWO_PASS, SWEEP_128, TILED, SWEEP_LONG = range(6)
-VARIANT_NAMES = ("sweep_d12", "sweep", "two_pass", "sweep_128", "tiled", "sweep_long")
+SWEEP_D12, SWEEP, SWEEP_128, TILED, SWEEP_LONG = 0, 1, 3, 4, 5
+VARIANT_NAMES = ("sweep_d12", "sweep", None, "sweep_128", "tiled", "sweep_long")
 SWEEP_T = 64  # the most keys (backward: and query rows) the sweep kernels hold
 SWEEP_128_T = 128  # the same for the sweep over 128 keys (backward)
 REGISTER_D = 64  # the widest row the register kernels hold
@@ -149,12 +153,17 @@ def _forward_kernel(a, b, variant=None):
 
 class _CheapXAttnFunction(torch.autograd.Function):
     """The forward kernel, with the backward kernel as its gradient. Saves
-    only A and B: the backward recomputes the softmax."""
+    only A and B: the backward recomputes the softmax. Under
+    ``torch.func.vmap`` its vmap rule makes one launch for the whole vmap
+    axis, folded into the problems."""
 
     @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
+    def forward(a, b):
         return _forward_kernel(a, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -162,16 +171,28 @@ class _CheapXAttnFunction(torch.autograd.Function):
         a, b = ctx.saved_tensors
         return cheap_xattn_backward(a, b, g.contiguous())
 
+    @staticmethod
+    def vmap(info, in_dims, a, b):
+        n = info.batch_size
+        a, b = (t.movedim(dim, 0) if dim is not None else t.expand(n, *t.shape)
+                for t, dim in zip((a, b), in_dims))
+        problems, tq, d = a.shape[1:]
+        out = cheap_xattn(a.reshape(n * problems, tq, d).contiguous(),
+                          b.reshape(n * problems, b.shape[2], d).contiguous())
+        return out.reshape(n, problems, tq, d), 0
+
 
 def cheap_xattn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """softmax(A Bᵀ/√d) B for a (N, Tq, d), b (N, Tk, d) -> (N, Tq, d).
 
     CPU tensors take ``cheap_xattn_reference``; CUDA tensors launch the
-    kernel (f32, contiguous), through ``_CheapXAttnFunction`` where
-    a gradient is needed, or raise."""
+    kernel (f32, contiguous), through ``_CheapXAttnFunction`` where a
+    gradient is needed or under ``torch.func.vmap``, or raise."""
     _check(a, b)
     if a.device.type == "cpu":
         return cheap_xattn_reference(a, b)
+    if _batched(a) or _batched(b):
+        return _CheapXAttnFunction.apply(a, b)
     _check_cuda("cheap_xattn", (a, b))
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         return _CheapXAttnFunction.apply(a, b)
@@ -208,11 +229,11 @@ def _backward_kernel(a, b, g, variant=None):
     if n == 0:
         return da, db
     a, b, g = _aligned(a), _aligned(b), _aligned(g)
-    # row statistics of the two-pass kernel, of the sweep over key tiles
-    # (its first launch writes them for its second) and of the tiled one
-    # beyond 64 keys; the others keep theirs on chip
+    # row statistics of the sweep over key tiles (its first launch writes
+    # them for its second) and of the tiled kernel beyond 64 keys; the
+    # others keep theirs on chip
     stats = (torch.empty((n, tq, 3), dtype=torch.float32, device=a.device)
-             if variant in (TWO_PASS, SWEEP_LONG) or (variant == TILED and tk > SWEEP_T)
+             if variant == SWEEP_LONG or (variant == TILED and tk > SWEEP_T)
              else None)
     bwd = _library()[1]
     with torch.cuda.device(a.device):

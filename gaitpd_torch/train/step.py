@@ -51,6 +51,7 @@ from torch import nn
 from gaitpd_torch.data.augment import augment_stream
 from gaitpd_torch.learning import losses as L
 from gaitpd_torch.learning.mtl import FlatPartition, mtl_grads
+from gaitpd_torch.runtime import fold_draws
 
 WEIGHTING_MODES = ("ce", "class_wt", "ldam", "gcl")
 
@@ -193,8 +194,8 @@ def draw_modality_dropout(n_in: int, p: float, generator: torch.Generator,
     [0, n_in), the stream kept when ``keep`` has none."""
     if generator is None:
         raise ValueError("modality dropout draws from the step's generator: pass one")
-    keep = torch.rand((n_in,), generator=generator, device=device) < 1.0 - p
-    forced = torch.randint(0, n_in, (), generator=generator, device=device)
+    keep = fold_draws.rand((n_in,), generator, device=device) < 1.0 - p
+    forced = fold_draws.randint(0, n_in, (), generator, device=device)
     return keep, forced
 
 

@@ -1,9 +1,11 @@
 """Cross-validation with every fold in one step: WearGait's flagship (CAGrad,
-or the mean of the branch losses at alpha 0) and its single-modality mode.
-Port of gaitpd/train/vmap_cv.py:50-748 (reference train/weargait_train.py:
-533-645, a sequential fold loop).
+or the mean of the branch losses at alpha 0), its seven baselines and its
+single-modality mode, with every draw of the recipe. Port of
+gaitpd/train/vmap_cv.py:50-748 (reference train/weargait_train.py:533-645, a
+sequential fold loop).
 
     res = run_cv_vmapped(WearGaitArgs(synthetic=True, epochs=3))  # on the card
+    res = run_cv_vmapped(WearGaitArgs(synthetic=True, baseline="taca", device="cpu"))
     res = run_cv_vmapped(WearGaitArgs(synthetic=True, single_mod="imu", device="cpu"))
 
 The folds' models are small and independent, and the card waits on the host
@@ -11,9 +13,9 @@ in a step of one fold (PERF.md §5), so the fold becomes a leading axis of
 every parameter and batch: a step trains F folds at once. The model code
 stays as it is: one fold's forward and loss go through ``torch.func.vmap``
 over ``torch.func.functional_call``, autograd runs outside the vmap on the
-stacked parameters, and the stream block's vmap rule makes its forward one
-launch for all folds (gaitpd_torch/ops/stream_block.py), its backward one
-launch a task pass. The K task passes give the per-task matrix J (F, K, P);
+stacked parameters, and the kernels' vmap rules make each forward one launch
+for all folds (gaitpd_torch/ops/stream_block.py, ops/cheap_xattn.py), each
+backward one launch a task pass. The K task passes give the per-task matrix J (F, K, P);
 CAGrad's Gram matrices (F, K, K) go to the solver in one launch; the clip
 and ``sum_plus_own`` act per fold row. SGD's updates are elementwise, so one
 optimizer over the stacked parameters updates each fold as its own would.
@@ -28,17 +30,20 @@ the batch on the host). A step makes no host synchronisation.
 Each fold keeps the sequential driver's random streams
 (gaitpd_torch/train/weargait_driver.py::run_fold): its numpy generator
 (seed + 1000 fi) orders its epochs, async mode reseeds its pools each epoch,
-and its ``torch.Generator(seed + fi)`` is built and saved with the rest,
-though no draw of these configurations reads it. So each fold reproduces
-the sequential run of that fold, up to the order of summation
-(tests/test_torch_vmap_cv.py). A fold that has run out of patience keeps
-training with the others, its best snapshot frozen, as gaitpd's.
+and its ``torch.Generator(seed + fi)`` takes the step's draws (augmentation,
+modality dropout, the baselines' dropout, the GCL noise) through
+gaitpd_torch/runtime/fold_draws.py, one draw a fold at that fold's shape.
+A fold draws where its sequential run would: in a train batch that is not
+all padding, in an eval batch of its own count, and not after its early
+stop. So each generator ends where the sequential run leaves it, and each
+fold reproduces the sequential run of that fold, up to the order of
+summation (tests/test_torch_vmap_cv.py, test_torch_vmap_cv_baselines.py).
+A fold that has run out of patience keeps training with the others, its
+best snapshot frozen and its draws off, as gaitpd's.
 
 Not ported yet, each raising NotImplementedError naming its ROADMAP item:
-``baseline``, the MTL methods other than CAGrad, and the draws of the
-recipe (augmentation, modality dropout, the GCL noise) under vmapped folds
-(Queue 1, item 35); data-parallel meshes (item 14); the fused forward (item
-15).
+the MTL methods other than CAGrad under vmapped folds (Queue 1, item 35);
+data-parallel meshes (item 14); the fused forward (item 15).
 """
 
 from __future__ import annotations
@@ -65,23 +70,29 @@ from gaitpd_torch.learning.mtl import (
 )
 from gaitpd_torch.ops.cagrad_solver import cagrad_c_coef, cagrad_solve
 from gaitpd_torch.runtime.device import resolve_device
+from gaitpd_torch.runtime.fold_draws import FoldDraws, fold_tokens
 from gaitpd_torch.train.cv import build_subj2label, make_fixed_balanced_folds_no_overlap
 from gaitpd_torch.train.loop import DeviceFoldData, EarlyStopper
 from gaitpd_torch.train.optim import sgd_torch
 from gaitpd_torch.train.step import (
+    EvalApply,
     StepSettings,
+    TrainApply,
     make_eval_step,
     make_loss_ctx,
     make_multitask_loss_fn,
 )
 from gaitpd_torch.train.weargait_driver import (
+    DROPOUT_BASELINES,
     MASK_COMBOS,
     MODALITIES,
     WearGaitArgs,
+    baseline_adapters,
     build_model,
     check_supported,
     get_streams,
     split_to_device,
+    weargait_aug_config,
 )
 
 # Called after every epoch as on_epoch(epoch, train, eval): aggregate_folds's
@@ -93,19 +104,11 @@ def check_vmap_supported(args: WearGaitArgs) -> None:
     """Raise NotImplementedError for an option the stacked folds do not take
     yet (and for those the port has not at all)."""
     check_supported(args)
-    flagship = args.single_mod is None
-    missing = [
-        (args.baseline is not None, "the baselines (baseline)"),
-        (flagship and args.mtl_method != "cagrad", f"the MTL method {args.mtl_method!r}"),
-        (args.modality_dropout > 0, "modality dropout (modality_dropout)"),
-        (args.aug_noise_std > 0 or args.aug_axis_p > 0,
-         "augmentation (aug_noise_std, aug_axis_p)"),
-        (args.noise_mul != 0, "the GCL noise (noise_mul)"),
-    ]
-    for unsupported, what in missing:
-        if unsupported:
-            raise NotImplementedError(
-                f"{what} with vmapped folds: not ported yet (ROADMAP Queue 1, item 35)")
+    flagship = args.single_mod is None and args.baseline is None
+    if flagship and args.mtl_method != "cagrad":
+        raise NotImplementedError(
+            f"the MTL method {args.mtl_method!r} with vmapped folds: not ported yet "
+            "(ROADMAP Queue 1, item 35)")
 
 
 # ---------------------------------------------------------------------------
@@ -173,10 +176,21 @@ def stack_index_batches(pools: Sequence[np.ndarray], orders: Sequence[np.ndarray
     return idx, valid
 
 
+def _stack_tree(trees):
+    """Equal-structured trees of tuples and dicts of tensors -> one tree
+    whose leaves are the trees' leaves stacked on a leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {key: _stack_tree([t[key] for t in trees]) for key in first}
+    if isinstance(first, (tuple, list)):
+        return tuple(_stack_tree(list(parts)) for parts in zip(*trees))
+    return torch.stack(trees)
+
+
 def stack_ctx(ctxs: Sequence[Tuple[Dict[str, torch.Tensor], ...]]):
-    """Per-fold loss contexts -> one with a leading fold axis on every entry."""
-    return tuple({key: torch.stack([c[s][key] for c in ctxs]) for key in ctxs[0][s]}
-                 for s in range(len(ctxs[0])))
+    """Per-fold loss contexts -> one with a leading fold axis on every entry
+    (the augmentation strengths in ``ctx[0]["aug"]`` too)."""
+    return _stack_tree(list(ctxs))
 
 
 def aggregate_folds(metrics: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -239,8 +253,8 @@ class _FoldModule:
     def __init__(self, model: torch.nn.Module, params: Dict[str, torch.Tensor]):
         self.model, self.params = model, params
 
-    def __call__(self, *xs):
-        return functional_call(self.model, self.params, xs)
+    def __call__(self, *xs, **kwargs):
+        return functional_call(self.model, self.params, xs, kwargs)
 
 
 def _stacked_cagrad(method, jmat: torch.Tensor, losses: torch.Tensor,
@@ -272,13 +286,28 @@ def _stacked_cagrad(method, jmat: torch.Tensor, losses: torch.Tensor,
     return torch.where(shared, shared_flat, priv_flat)
 
 
+def _fold_generator(generators, active, token):
+    """The generator argument of one fold's step under the vmap: the folds'
+    generators, drawing where ``active`` (default: every fold); None
+    without generators."""
+    if generators is None:
+        return None
+    return FoldDraws(generators, [True] * len(generators) if active is None else active, token)
+
+
 class VmapEpochRunner:
     """Train and eval epochs over stacked folds: one fold's loss and eval
     step (gaitpd_torch.train.step) under ``torch.func.vmap``, F folds a
-    call. ``mtl_method`` None trains on the mean of the branch losses."""
+    call. ``mtl_method`` None trains on the mean (or sum, per
+    ``settings.loss_reduction``) of the branch losses. ``train_apply`` and
+    ``eval_apply`` are gaitpd_torch.train.loop.EpochRunner's. A step given the folds' generators (one a fold) draws
+    from each fold's own where ``active`` says (gaitpd_torch/runtime/
+    fold_draws.py)."""
 
     def __init__(self, settings: StepSettings, mtl_method=None,
-                 partition: Optional[FlatPartition] = None):
+                 partition: Optional[FlatPartition] = None,
+                 train_apply: Optional[TrainApply] = None,
+                 eval_apply: Optional[EvalApply] = None):
         if mtl_method is not None and (not isinstance(mtl_method, CAGrad)
                                        or mtl_method.log_space):
             raise NotImplementedError(
@@ -287,26 +316,34 @@ class VmapEpochRunner:
         self.settings = settings
         self.mtl_method = mtl_method
         self.partition = partition
-        self.loss_fn = make_multitask_loss_fn(settings)
-        self.eval_step = make_eval_step(settings)
+        self.loss_fn = make_multitask_loss_fn(settings, train_apply)
+        self.eval_step = make_eval_step(settings, eval_apply)
+        self.reduce = torch.mean if settings.loss_reduction == "mean" else torch.sum
 
-    def _losses(self, state: StackedState, xs, ys, valid, ctx):
-        def fold_loss(params, xs, ys, valid, ctx):
-            return self.loss_fn(_FoldModule(state.model, params), xs, ys, valid, ctx, None,
-                                state.epoch)
+    def _losses(self, state: StackedState, xs, ys, valid, ctx, generators=None, active=None):
+        epoch = state.epoch
 
-        return vmap(fold_loss)(state.params, xs, ys, valid, ctx)
+        def fold_loss(params, xs, ys, valid, ctx, token):
+            return self.loss_fn(_FoldModule(state.model, params), xs, ys, valid, ctx,
+                                _fold_generator(generators, active, token), epoch)
 
-    def train_step(self, state: StackedState, batch, ctx, padded: bool):
+        tokens = fold_tokens(valid.shape[0], valid.device)
+        return vmap(fold_loss)(state.params, xs, ys, valid, ctx, tokens)
+
+    def train_step(self, state: StackedState, batch, ctx, padded: bool,
+                   generators: Optional[Sequence[torch.Generator]] = None,
+                   active: Optional[Sequence[bool]] = None):
         """One step of every fold. ``padded``: whether some fold's batch is
         all padding (known on the host); such a fold keeps its parameters
-        and momentum."""
+        and momentum. ``generators``: the folds' generators, each drawing
+        where ``active`` (host bools, default: every fold) is True."""
         xs, ys, valid = batch["xs"], batch["ys"], batch["valid"]
         names = list(state.params)
         params = [state.params[n] for n in names]
-        ls, logits = self._losses(state, xs, ys, valid, ctx)  # (F, K), per head (F, B, C)
+        # (F, K), per head (F, B, C)
+        ls, logits = self._losses(state, xs, ys, valid, ctx, generators, active)
         if self.mtl_method is None:
-            grads = torch.autograd.grad(ls.mean(1).sum(), params, allow_unused=True)
+            grads = torch.autograd.grad(self.reduce(ls, 1).sum(), params, allow_unused=True)
         else:
             if self.partition.names != tuple(names):
                 raise ValueError("the flat partition does not describe this module")
@@ -345,13 +382,21 @@ class VmapEpochRunner:
         return state, {"losses": ls.detach(), "correct": corr, "n": v.sum(1)}
 
     @torch.no_grad()
-    def eval_step_folds(self, state: StackedState, params, batch, ctx, epoch, mask):
-        def fold_eval(params, xs, ys, valid, ctx):
+    def eval_step_folds(self, state: StackedState, params, batch, ctx, epoch, mask,
+                        generators: Optional[Sequence[torch.Generator]] = None,
+                        active: Optional[Sequence[bool]] = None):
+        """Every fold's eval forward on its batch; the GCL noise, where the
+        settings draw it, from each fold's generator where ``active``."""
+
+        def fold_eval(params, xs, ys, valid, ctx, token):
             out = self.eval_step(_FoldModule(state.model, params),
-                                 {"xs": xs, "ys": ys, "valid": valid}, ctx, None, epoch, mask)
+                                 {"xs": xs, "ys": ys, "valid": valid}, ctx,
+                                 _fold_generator(generators, active, token), epoch, mask)
             return {k: out[k] for k in ("losses", "correct", "ens_correct", "n")}
 
-        return vmap(fold_eval)(params, batch["xs"], batch["ys"], batch["valid"], ctx)
+        valid = batch["valid"]
+        tokens = fold_tokens(valid.shape[0], valid.device)
+        return vmap(fold_eval)(params, batch["xs"], batch["ys"], valid, ctx, tokens)
 
 
 def _gather(data_xs, data_ys, idx, valid, head_inputs):
@@ -382,12 +427,18 @@ def _to_host(outs: Sequence[Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
 
 
 def run_train_epoch(runner: VmapEpochRunner, state: StackedState, data: StackedFoldData,
-                    idx: np.ndarray, valid: np.ndarray, ctx, head_inputs):
+                    idx: np.ndarray, valid: np.ndarray, ctx, head_inputs,
+                    generators: Optional[Sequence[torch.Generator]] = None,
+                    live: Optional[Sequence[bool]] = None):
     """One epoch of every fold; a batch that is all padding in every fold
     (the power-of-two tail) is skipped on the host, as the sequential step
-    skips it."""
+    skips it. With ``generators``, a fold draws in each batch that is not
+    all padding while it is ``live`` (default: every fold): where its
+    sequential run takes a step."""
     idx_d, valid_d, empty = _epoch_on_device(idx, valid, data.xs[0].device)
     n_folds, n_heads = idx.shape[0], len(head_inputs)
+    live = [True] * n_folds if live is None else list(live)
+    stepped = valid.sum(2) > 0  # (F, n_b), on the host
     outs = []
     for b in range(idx_d.shape[0]):
         if empty[b] == n_folds:
@@ -395,17 +446,28 @@ def run_train_epoch(runner: VmapEpochRunner, state: StackedState, data: StackedF
             outs.append({"losses": zeros, "correct": zeros, "n": zeros[:, 0]})
             continue
         batch = _gather(data.xs, data.ys, idx_d[b], valid_d[b], head_inputs)
-        state, m = runner.train_step(state, batch, ctx, empty[b] > 0)
+        active = [bool(on and s) for on, s in zip(live, stepped[:, b])]
+        state, m = runner.train_step(state, batch, ctx, empty[b] > 0, generators, active)
         outs.append(m)
     return state, aggregate_folds(_to_host(outs))
 
 
 def run_eval_epoch(runner: VmapEpochRunner, state: StackedState, params, data: StackedFoldData,
-                   idx: np.ndarray, valid: np.ndarray, ctx, head_inputs, epoch: int, mask):
+                   idx: np.ndarray, valid: np.ndarray, ctx, head_inputs, epoch: int, mask,
+                   generators: Optional[Sequence[torch.Generator]] = None,
+                   draw_batches: Optional[Sequence[int]] = None):
+    """One eval pass of every fold. With ``generators``, fold f draws in its
+    first ``draw_batches[f]`` batches (default: all): its own batch count,
+    where its sequential eval runs every batch of its own, or 0 for a fold
+    whose sequential run has stopped."""
     idx_d, valid_d, _ = _epoch_on_device(idx, valid, data.eval_xs[0].device)
+    n_batches = idx_d.shape[0]
+    if draw_batches is None:
+        draw_batches = [n_batches] * idx.shape[0]
     outs = [runner.eval_step_folds(
         state, params, _gather(data.eval_xs, data.eval_ys, idx_d[b], valid_d[b], head_inputs),
-        ctx, epoch, mask) for b in range(idx_d.shape[0])]
+        ctx, epoch, mask, generators, [b < n for n in draw_batches])
+        for b in range(n_batches)]
     return aggregate_folds(_to_host(outs))
 
 
@@ -520,15 +582,20 @@ def _random_streams(args: WearGaitArgs, n_folds: int, device):
 
 
 def _eval_indices(stacked: StackedFoldData, batch_size: int):
-    return stack_index_batches(stacked.eval_pools,
-                               [np.arange(len(p)) for p in stacked.eval_pools], batch_size)
+    """The eval pass's stacked indices and validity, and each fold's own
+    batch count (the power-of-two tail of its sequential eval included)."""
+    orders = [np.arange(len(p)) for p in stacked.eval_pools]
+    idx, valid = stack_index_batches(stacked.eval_pools, orders, batch_size)
+    counts = [batch_index_matrix(o, batch_size)[0].shape[0] for o in orders]
+    return idx, valid, counts
 
 
 def run_cv_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpochHook] = None):
     """weargait_driver.run_cv with every fold in one step (gaitpd/train/
-    vmap_cv.py:235-484): the same summary dict, and ``per_fold_macro``. With
-    ``ckpt_dir`` one stacked snapshot of every fold is written each epoch;
-    ``resume`` continues from it."""
+    vmap_cv.py:235-484): the flagship or any ``baseline`` (no MTL method,
+    SGD for all, as run_fold), with the recipe's draws; the same summary
+    dict, and ``per_fold_macro``. With ``ckpt_dir`` one stacked snapshot of
+    every fold is written each epoch; ``resume`` continues from it."""
     check_vmap_supported(args)
     device = resolve_device(args.device)  # raise before any work
     if args.single_mod is not None:
@@ -540,22 +607,28 @@ def run_cv_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpochHook] = None)
     datas = [split_to_device(s, async_mode, args.seed, "cpu") for s in splits]
     stacked = stack_folds(datas, device)
 
+    aug_specs, aug_params = weargait_aug_config(args)
     settings = StepSettings(
         n_streams=3, wm=args.wm, synchronized=sync_flag, gcl_m=args.gcl_m, gcl_s=args.gcl_s,
         noise_mul=args.noise_mul, drw_warmup=args.drw_warmup, consistency_lambda=0.0,
-        private_grads="sum_plus_own",
+        private_grads="sum_plus_own", dropout=args.baseline in DROPOUT_BASELINES,
+        modality_dropout=args.modality_dropout, augment=aug_specs,
     )
     ctx = stack_ctx([
         make_loss_ctx(settings, [np.bincount(s.train[m].y[d.train_pool[:, k]],
                                              minlength=args.num_classes)
-                                 for k, m in enumerate(MODALITIES)], device=device)
+                                 for k, m in enumerate(MODALITIES)], device=device,
+                      aug_params=aug_params)
         for s, d in zip(splits, datas)])
 
-    mtl = make_method("cagrad", 3, c=args.alpha) if args.alpha > 0 else None
+    # CAGrad for the flagship only; the baselines train on the mean of the
+    # branch losses (run_fold)
+    use_cagrad = args.baseline is None and args.alpha > 0
+    mtl = make_method("cagrad", 3, c=args.alpha) if use_cagrad else None
     make_optimizer = functools.partial(sgd_torch, lr=args.lr, momentum=0.9, weight_decay=1e-4)
     state, partition = init_stacked_state(build_model(args, sync_flag), make_optimizer, mtl, f,
                                           device)
-    runner = VmapEpochRunner(settings, mtl, partition)
+    runner = VmapEpochRunner(settings, mtl, partition, *baseline_adapters(args))
     heads = tuple(range(3))
 
     rngs, gens = _random_streams(args, f, device)
@@ -572,7 +645,7 @@ def run_cv_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpochHook] = None)
             start_epoch = payload["epoch"] + 1
             print(f"[vmap-cv] resumed from epoch {start_epoch}")
 
-    eval_idx, eval_valid = _eval_indices(stacked, args.batch_size)
+    eval_idx, eval_valid, eval_counts = _eval_indices(stacked, args.batch_size)
     for ep in range(start_epoch, args.epochs + 1):
         state.epoch = ep - 1
         pools = stacked.train_pools
@@ -581,9 +654,11 @@ def run_cv_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpochHook] = None)
                      for s in splits]
         idx, valid = stack_index_batches(
             pools, [r.permutation(len(p)) for r, p in zip(rngs, pools)], args.batch_size)
-        state, tr = run_train_epoch(runner, state, stacked, idx, valid, ctx, heads)
+        live = [not st.stop for st in stoppers]  # a stopped fold draws no more
+        state, tr = run_train_epoch(runner, state, stacked, idx, valid, ctx, heads, gens, live)
         ev = run_eval_epoch(runner, state, state.params, stacked, eval_idx, eval_valid, ctx,
-                            heads, state.epoch, (True,) * 3)
+                            heads, state.epoch, (True,) * 3, gens,
+                            [n if on else 0 for n, on in zip(eval_counts, live)])
         macros = ev["acc_batchmean"].mean(axis=1) if async_mode else ev["ens_acc"]
         # a fold out of patience is frozen: the sequential driver stops it
         improved = [(not st.stop) and st.update(float(v)) for st, v in zip(stoppers, macros)]
@@ -610,10 +685,12 @@ def run_cv_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpochHook] = None)
 
     # --- masked relaxed-input eval at each fold's best parameters ----------
     best = {k: v.to(device) for k, v in best_params.items()}
+    # run_fold's masked eval runs (and draws) where the fold ever improved
+    mask_draws = [n if st.best > 0 else 0 for n, st in zip(eval_counts, stoppers)]
     mask_fold_scores: Dict[str, List[float]] = {}
     for mk, tup in MASK_COMBOS.items():
         r = run_eval_epoch(runner, state, best, stacked, eval_idx, eval_valid, ctx, heads,
-                           state.epoch, tup)
+                           state.epoch, tup, gens, mask_draws)
         if async_mode:
             scores = r["acc_batchmean"][:, np.asarray(tup, bool)].mean(axis=1)
         else:
@@ -654,12 +731,13 @@ def _weargait_single_mod_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpoc
             eval_pool=d.eval_pool[:, k:k + 1], eval_xs=d.eval_xs[k:k + 1],
             eval_ys=d.eval_ys[k:k + 1]))
     stacked = stack_folds(datas, device)
+    aug_specs, aug_params = weargait_aug_config(args, n_streams=1)
     settings = StepSettings(n_streams=1, wm=args.wm, synchronized=False, gcl_m=args.gcl_m,
                             gcl_s=args.gcl_s, noise_mul=args.noise_mul,
-                            drw_warmup=args.drw_warmup)
+                            drw_warmup=args.drw_warmup, augment=aug_specs)
     ctx = stack_ctx([make_loss_ctx(settings, [np.bincount(
         s.train[args.single_mod].y[d.train_pool[:, 0]], minlength=args.num_classes)],
-        device=device) for s, d in zip(splits, datas)])
+        device=device, aug_params=aug_params) for s, d in zip(splits, datas)])
     make_optimizer = functools.partial(sgd_torch, lr=args.lr, momentum=0.9, weight_decay=1e-4)
     state, _ = init_stacked_state(build_model(args, not async_mode), make_optimizer, None, f,
                                   device)
@@ -675,7 +753,7 @@ def _weargait_single_mod_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpoc
             start_epoch = payload["epoch"] + 1
             print(f"[vmap-cv] resumed from epoch {start_epoch}")
 
-    eval_idx, eval_valid = _eval_indices(stacked, args.batch_size)
+    eval_idx, eval_valid, eval_counts = _eval_indices(stacked, args.batch_size)
     for ep in range(start_epoch, args.epochs + 1):
         state.epoch = ep - 1
         # the reference builds a fresh SGD optimizer every epoch
@@ -687,9 +765,11 @@ def _weargait_single_mod_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpoc
                      for s in splits]
         idx, valid = stack_index_batches(
             pools, [r.permutation(len(p)) for r, p in zip(rngs, pools)], args.batch_size)
-        state, tr = run_train_epoch(runner, state, stacked, idx, valid, ctx, heads)
+        live = [not st.stop for st in stoppers]
+        state, tr = run_train_epoch(runner, state, stacked, idx, valid, ctx, heads, gens, live)
         ev = run_eval_epoch(runner, state, state.params, stacked, eval_idx, eval_valid, ctx,
-                            heads, state.epoch, (True,))
+                            heads, state.epoch, (True,), gens,
+                            [n if on else 0 for n, on in zip(eval_counts, live)])
         vas = ev["acc"][:, 0]  # pooled accuracy (weargait_train.py:292-296)
         for st, v in zip(stoppers, vas):
             if not st.stop:

@@ -157,13 +157,16 @@ UNPORTED = {
     "vmap_fbg_fog": (["--mode", "fbg_fog", "--vmap_folds"], 18),
     "vmap_trip": (["--mode", "trip", "--vmap_folds"], 18),
     "vmap_single": (["--mode", "single", "--vmap_folds"], 18),
-    "vmap_baseline": (["--mode", "weargait", "--vmap_folds", "--baseline", "focal"], 35),
     "vmap_mtl_method": (["--mode", "weargait", "--vmap_folds", "--mtl_method", "famo"], 35),
-    "vmap_modality_dropout": (["--mode", "weargait", "--vmap_folds", "--modality_dropout",
-                               "0.3"], 35),
-    "vmap_aug_noise": (["--mode", "weargait", "--vmap_folds", "--aug_noise_std", "0.05"], 35),
-    "vmap_aug_axis": (["--mode", "single", "--single_mod", "imu", "--vmap_folds",
-                       "--aug_axis_p", "0.2"], 35),
+}
+# flags --vmap_folds once refused (item 35) and now takes: each reaches
+# run_cv_vmapped with the Args gaitpd's CLI gives its own
+VMAP_PORTED = {
+    "vmap_baseline": ["--mode", "weargait", "--vmap_folds", "--baseline", "focal"],
+    "vmap_modality_dropout": ["--mode", "weargait", "--vmap_folds", "--modality_dropout", "0.3"],
+    "vmap_aug_noise": ["--mode", "weargait", "--vmap_folds", "--aug_noise_std", "0.05"],
+    "vmap_aug_axis": ["--mode", "single", "--single_mod", "imu", "--vmap_folds",
+                      "--aug_axis_p", "0.2"],
 }
 
 
@@ -179,6 +182,17 @@ def test_unported_flags_raise_naming_their_item(monkeypatch, name):
         monkeypatch.setattr(mod, attr, no_work)
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, item {item}\\)"):
         TC.main(argv + ["--synthetic", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("name", sorted(VMAP_PORTED))
+def test_vmap_folds_takes_flags_it_once_refused(monkeypatch, jax_precision, name):
+    got = _capture(monkeypatch)
+    argv = VMAP_PORTED[name] + ["--synthetic"]
+    JC.main(argv)
+    TC.main(argv + ["--device", "cpu"])
+    fields = dataclasses.asdict(got["port_vmap"])
+    assert fields.pop("device") == "cpu"
+    assert fields == dataclasses.asdict(got["jax_vmap"])
 
 
 @pytest.mark.parametrize("name", ["WearGaitConfig", "LossConfig", "MTLConfig", "MeshConfig",

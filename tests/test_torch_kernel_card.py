@@ -34,6 +34,7 @@ import torch
 from gaitpd_torch.ops import cagrad_solver as cs
 from gaitpd_torch.ops import cheap_xattn as cx
 from gaitpd_torch.ops import stream_block as sb
+from gaitpd_torch.runtime import fold_draws as FD
 from gaitpd_torch.runtime.device import resolve_device
 
 # (B, T, C_in, K, C_out, t_out, act): the cases of test_torch_stream_block,
@@ -510,23 +511,6 @@ def test_cheap_xattn_kernels_match_plain_on_card(case):
         assert torch.equal(gk, ak)  # deterministic: the same bits twice
 
 
-# the two-pass kernels, on no path since the sweep over key tiles, stay
-# callable by name at every length: chip_smoke.py times them beside the
-# sweeps over 128 keys and over key tiles
-@pytest.mark.gpu
-@pytest.mark.parametrize("case", [(7, 101, 101, 6), (5, 64, 64, 12), (3, 65, 128, 64)],
-                         ids=lambda c: "-".join(map(str, c)))
-def test_two_pass_by_name_on_card(case):
-    dev = _cuda()
-    a, b, g = _xattn_inputs(case, dev)
-    got = cx._forward_kernel(a, b, cx.TWO_PASS)
-    grads = cx._backward_kernel(a, b, g, cx.TWO_PASS)
-    torch.cuda.synchronize()
-    assert _xattn_close(got, cx.cheap_xattn_reference(a, b), 2e-5, 2e-4)
-    for gk, wk in zip(grads, cx.cheap_xattn_backward_reference(a, b, g)):
-        assert _xattn_close(gk, wk, 1e-5, 1e-4)
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
 @pytest.mark.parametrize("case", XATTN_EDGE_CASES + SWEEP_LONG_CASES,
@@ -905,3 +889,108 @@ def test_vmap_over_folds_is_one_launch_each_way_on_card():
     wants = sb.stream_block_folds_backward(x, w.detach(), b.detach(), g, t_out, act)
     for a, c in zip(grads, wants):
         assert torch.equal(a.reshape(c.shape), c)
+
+
+# The cross-attention under torch.func.vmap over folds (the stacked CV step):
+# (N a fold, Tq, Tk, d) at each variant's shape on a path, a few problems a
+# fold: the sweep with d 12 (the WearGait fusion's six pairs at 64 x 64), the
+# sweep at another d, T 101 (sweep_long forward, sweep_128 backward: the
+# FBG/FoG fusion) and d 96 (tiled both ways: --enc_out_ch 96)
+XATTN_FOLD_CASES = {
+    (6 * 8, 64, 64, 12): ("sweep_d12", "sweep_d12"),
+    (6 * 4, 64, 64, 16): ("sweep", "sweep"),
+    (2 * 8, 101, 101, 6): ("sweep_long", "sweep_128"),
+    (6 * 4, 64, 64, 96): ("tiled", "tiled"),
+}
+
+
+def _xattn_fold_inputs(case, folds, dev):
+    """a, b, g (F, N, T, d): fold f's from _xattn_inputs(case, seed=f)."""
+    parts = [_xattn_inputs(case, dev, seed=f) for f in range(folds)]
+    return [torch.stack([p[i] for p in parts]) for i in range(3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("folds", [1, 2, 3, 10])
+@pytest.mark.parametrize("case", sorted(XATTN_FOLD_CASES), ids=lambda c: "-".join(map(str, c)))
+def test_cheap_xattn_under_vmap_over_folds_on_card(case, folds):
+    """One forward launch for all folds under the vmap, one backward launch
+    through autograd outside it, one forward launch under no_grad; each
+    fold's output and gradients have the bits of a launch of that fold
+    alone and are within the tolerances above of the plain version."""
+    dev = _cuda()
+    n, tq, tk, d = case
+    assert tuple(cx.VARIANT_NAMES[cx._variant(tq, tk, d, bw)] for bw in (False, True)) == (
+        XATTN_FOLD_CASES[case])
+    a, b, g = _xattn_fold_inputs(case, folds, dev)
+    leaves = [t.clone().requires_grad_() for t in (a, b)]
+    attend = torch.func.vmap(cx.cheap_xattn)
+    before = (cx.launches, cx.backward_launches)
+    out = attend(*leaves)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (cx.launches, cx.backward_launches) == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        before = cx.launches
+        assert torch.equal(attend(a, b), out)
+        assert cx.launches == before + 1
+    for f in range(folds):
+        assert torch.equal(out[f], cx.cheap_xattn(a[f], b[f]))
+        single = cx.cheap_xattn_backward(a[f], b[f], g[f])
+        assert torch.equal(grads[0][f], single[0]) and torch.equal(grads[1][f], single[1])
+        want = cx.cheap_xattn_reference(a[f], b[f])
+        if tk <= 64:
+            assert (out[f] - want).abs().max().item() <= 1e-5
+        else:
+            assert _xattn_close(out[f], want, 2e-5, 2e-4)
+        for gk, wk in zip(single, cx.cheap_xattn_backward_reference(a[f], b[f], g[f])):
+            assert _xattn_close(gk, wk, 1e-5, 1e-4)
+
+
+@pytest.mark.gpu
+def test_cheap_xattn_vmap_expands_an_unbatched_argument_on_card():
+    """in_dims None (keys shared by every fold): expanded, still one launch
+    each way, each fold's rows those of its own launch."""
+    dev = _cuda()
+    case, folds = (6 * 8, 64, 64, 12), 3
+    a, b, g = _xattn_fold_inputs(case, folds, dev)
+    a_leaf, b_leaf = a.clone().requires_grad_(), b[0].clone().requires_grad_()
+    before = (cx.launches, cx.backward_launches)
+    out = torch.func.vmap(cx.cheap_xattn, in_dims=(0, None))(a_leaf, b_leaf)
+    ga, gb = torch.autograd.grad(out, (a_leaf, b_leaf), g)
+    torch.cuda.synchronize()
+    assert (cx.launches, cx.backward_launches) == (before[0] + 1, before[1] + 1)
+    singles = [cx.cheap_xattn_backward(a[f], b[0], g[f]) for f in range(folds)]
+    for f in range(folds):
+        assert torch.equal(out[f], cx.cheap_xattn(a[f], b[0]))
+        assert torch.equal(ga[f], singles[f][0])
+    torch.testing.assert_close(gb, sum(s[1] for s in singles), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_fold_draws_on_cuda_generators_equal_sequential_draws():
+    """Every kind of draw of the step's sites from CUDA generators under the
+    vmap: each active fold's the bits of its own sequential draws, its
+    generator's state where the sequential draws leave it; the inactive
+    fold's rows zero and its generator untouched."""
+    dev = _cuda()
+    seeds, active = (3, 4, 5), (True, False, True)
+    gens = [torch.Generator(device=dev).manual_seed(s) for s in seeds]
+    x = torch.zeros(len(seeds), 64, 12, device=dev)
+
+    def sites(x, g):
+        return (FD.rand(x.shape, g, device=x.device),
+                FD.randn(x.shape, g, device=x.device, dtype=x.dtype),
+                FD.randint(0, x.shape[-1], (x.shape[0],), g, device=x.device),
+                FD.randint(0, 3, (), g, device=x.device))
+
+    got = torch.func.vmap(lambda x, t: sites(x, FD.FoldDraws(gens, active, t)))(
+        x, FD.fold_tokens(len(seeds), dev))
+    for f, (seed, on) in enumerate(zip(seeds, active)):
+        alone = torch.Generator(device=dev).manual_seed(seed)
+        if on:
+            assert all(torch.equal(g[f], w) for g, w in zip(got, sites(x[f], alone)))
+        else:
+            assert all(not g[f].any() for g in got)
+        assert torch.equal(gens[f].get_state(), alone.get_state())
+
