@@ -91,8 +91,8 @@ Phases (each raises on failure, so the script exits non-zero):
      their plain versions at K = 1..8 on seeded and degenerate Gram
      matrices, in one launch, one matrix a launch and 257 matrices in one
      launch (w bitwise equal, finite, MGDA's on the simplex, each launch
-     counted), FairGrad's and NashMTL's one-thread design by name too (w
-     bitwise equal); each method's
+     counted), MGDA's one-thread design by name too (w bitwise equal);
+     each method's
      host synchronisations in one train step, none more than CAGrad's
      (torch.cuda's sync debug mode); for the 12 methods that draw nothing,
      one train step card vs CPU as in phase 4 and run_cv card vs CPU (sync 2
@@ -196,8 +196,8 @@ Phases (each raises on failure, so the script exits non-zero):
      train step of each SOTA baseline at batch 64 and 1024; the MGDA,
      FairGrad and NashMTL solver kernels at K = 3, one matrix (eager and
      device time, plain version, bound; FairGrad's and NashMTL's warp
-     design from a CUDA graph in turns with their one-thread design, and
-     each design's launch, registers and spills) and one train step of every MTL
+     design from a CUDA graph, and each design's launch, registers and
+     spills) and one train step of every MTL
      method at batch 64 and 1024; one CAGrad train step with the recipe on
      at batch 64 and 1024, beside the plain one, with both steps' device
      time and kernel launches at batch 1024 (torch.profiler, in turns), and
@@ -262,7 +262,26 @@ Phases (each raises on failure, so the script exits non-zero):
      the 10 sequential steps (launches, 0 host synchronisations, host
      clock, device time, kernels and idle share); the merged cross-attention
      at 10 x 384 problems timed beside its plain version, SDPA and its
-     bound, and the vmapped forward eager and from a CUDA graph.
+     bound, and the vmapped forward eager and from a CUDA graph;
+  9. the 16 other MTL methods under --vmap_folds, from a random stream of
+     their own: the CAGrad, MGDA, FairGrad and NashMTL solvers under
+     torch.func.vmap over 10 folds' Gram matrices (K = 3): one launch each
+     (counted once by the solver's counter and its fold counter), each
+     fold bitwise equal to a launch of its own and to the plain version;
+     one stacked step at 10 x 64 of each of the 17 methods (a stateful
+     one's after one step) against the 10 sequential steps it replaces,
+     each fold's mtl_grads on the card: final gradients and new states
+     within phase 4's tolerance, every fold's generator bitwise equal, the
+     method's solver once and the stream block's kernels as in phase 7, 0
+     host synchronisations; run_cv_vmapped of PCGrad (with the GCL noise)
+     and NashMTL (2 sync epochs) against the sequential run_cv on the card
+     under phase 7's rule, epoch 1 also held to the yardstick, every
+     fold's generator bitwise equal at the end; MGDA and FairGrad (1 sync
+     epoch) on the card alone, for their solvers' launches; the stacked
+     MGDA, FairGrad, NashMTL and FAMO steps beside the 10 sequential steps
+     (host clock, device time, kernels, idle share); each solver's merged
+     launch of 10 matrices, the vmapped call and the 10 single launches,
+     eager and from a CUDA graph, beside its plain version and its bound.
 
 Every number is printed beside the card's name and power limit. The
 second-to-last line is a JSON object with one entry per kernel; the last
@@ -274,6 +293,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import itertools
 import json
 import re
@@ -388,6 +408,11 @@ COUNTERS = {
     "min_norm_solver": (ms, "min_norm_launches"),
     "fairgrad_solver": (ms, "fairgrad_launches"),
     "nashmtl_solver": (ms, "nashmtl_launches"),
+    # of those, the launches for every fold of a stacked step (a vmap rule)
+    "cagrad_solver_folds": (cs, "fold_launches"),
+    "min_norm_solver_folds": (ms, "min_norm_fold_launches"),
+    "fairgrad_solver_folds": (ms, "fairgrad_fold_launches"),
+    "nashmtl_solver_folds": (ms, "nashmtl_fold_launches"),
 }
 
 
@@ -1687,11 +1712,11 @@ NEWTON_BATCH = 257  # matrices in one launch: a grid that 4 warps a block does n
 def check_mtl_solvers(rng, dev) -> dict:
     """Each solver kernel against its plain version at K = 1..8 on seeded
     and degenerate Gram matrices, in one launch and one matrix a launch,
-    then NEWTON_BATCH of them in one launch; each solver's one-thread
-    design by name on both batches: w bitwise equal (FairGrad's
-    too: kernel and plain version call the same device powf); every w
-    finite, MGDA's on the simplex; the launch counter up by one a launch
-    (none for the design by name). Returns each solver's max abs error at
+    then NEWTON_BATCH of them in one launch; MGDA's one-thread design by
+    name on both batches: w bitwise equal (FairGrad's too: kernel and plain
+    version call the same device powf); every w finite, MGDA's on the
+    simplex; the launch counter up by one a launch (none for the design by
+    name). Returns each solver's max abs error at
     K = 3 (FairGrad's at its default alpha 1)."""
     errors = {}
     for k in range(1, ms.MAX_TASKS + 1):
@@ -1722,17 +1747,17 @@ def check_mtl_solvers(rng, dev) -> dict:
                 bool((t >= 0).all()) and (t.sum(-1) - 1).abs().max().item() <= 1e-5
                 for t in (got, got_batch[torch.isfinite(want_batch).all(-1)]))
             n = len(grams)
-            # the one-thread design, by name
-            alpha = [float(label.split("=")[1])] if "alpha" in label else []
-            by_name = [ms._solve_kernel(counter, t, *alpha, variant="thread")
-                       for t in (grams, batch)]
-            torch.cuda.synchronize()
-            same_thread = (bitwise_rows(by_name[0], want), bitwise_rows(by_name[1], want_batch))
-            thread = (f"; the thread design by name {same_thread[0]}/{n} and "
-                      f"{same_thread[1]}/{NEWTON_BATCH}")
-            if same_thread != (n, NEWTON_BATCH):
-                raise RuntimeError(f"{label} K={k}: the thread design is not bitwise equal "
-                                   f"to the plain version")
+            thread = ""
+            if counter == "min_norm_solver":  # MGDA's one-thread design, by name
+                by_name = [ms._solve_kernel(counter, t, variant="thread") for t in (grams, batch)]
+                torch.cuda.synchronize()
+                same_thread = (bitwise_rows(by_name[0], want),
+                               bitwise_rows(by_name[1], want_batch))
+                thread = (f"; the thread design by name {same_thread[0]}/{n} and "
+                          f"{same_thread[1]}/{NEWTON_BATCH}")
+                if same_thread != (n, NEWTON_BATCH):
+                    raise RuntimeError(f"{label} K={k}: the thread design is not bitwise equal "
+                                       f"to the plain version")
             log(f"[kernel] {label} K={k}, {n} Gram matrices ({n - 12} degenerate): bitwise "
                 f"equal {same}/{n} in one launch, {same_alone}/{n} one matrix a launch, "
                 f"{same_batch}/{NEWTON_BATCH} in one launch of {NEWTON_BATCH} (non-finite in "
@@ -3003,10 +3028,11 @@ def time_min_norm_cases(dev, card, gram, worst_rng, training_grams) -> dict:
 def time_mtl_solvers(rng, dev, card, worst_rng, training_grams) -> dict:
     """Each solver kernel at the main path's shape (K = 3, one matrix, a
     step's launch) beside its plain version on the card and its bound:
-    eager, device time under the profiler and from a CUDA graph; its
-    one-thread design by name in the same call, in turns (new, thread, new,
-    thread), with each design's launch (threads a block, lanes a matrix,
-    registers and spills); MGDA's also on time_min_norm_cases' cases."""
+    eager, device time under the profiler and from a CUDA graph, with each
+    design's launch (threads a block, lanes a matrix, registers and
+    spills); MGDA's beside its one-thread design by name in the same call,
+    in turns (new, thread, new, thread), and on time_min_norm_cases'
+    cases."""
     raw = torch.from_numpy(mtl_solver_grams(rng, 1, 3)[0]).to(dev)
     resources = mtl_solver_resources()
     for name, (regs, spills) in sorted(resources.items()):
@@ -3017,13 +3043,11 @@ def time_mtl_solvers(rng, dev, card, worst_rng, training_grams) -> dict:
             log(f"[config] {card}: {name}, {variant} design: "
                 f"{[ms.launch_config(name, variant, k) for k in (3, 8)]}")
     out = {}
-    for name, run, plain, prep, alpha in (
-            ("min_norm_solver", ms.min_norm_solve, ms.min_norm_solve_reference, lambda g: g,
-             ()),
+    for name, run, plain, prep in (
+            ("min_norm_solver", ms.min_norm_solve, ms.min_norm_solve_reference, lambda g: g),
             ("fairgrad_solver", lambda g: ms.fairgrad_solve(g, 1.0),
-             lambda g: ms.fairgrad_solve_reference(g, 1.0), lambda g: g, (1.0,)),
-            ("nashmtl_solver", ms.nashmtl_solve, ms.nashmtl_solve_reference, nash_normalised,
-             ())):
+             lambda g: ms.fairgrad_solve_reference(g, 1.0), lambda g: g),
+            ("nashmtl_solver", ms.nashmtl_solve, ms.nashmtl_solve_reference, nash_normalised)):
         gram = prep(raw)
         kernel_ms = time_cuda(lambda: run(gram), warmup=10, reps=200)
         plain_ms = time_cuda(lambda: plain(gram), warmup=1, reps=3)
@@ -3034,21 +3058,24 @@ def time_mtl_solvers(rng, dev, card, worst_rng, training_grams) -> dict:
         entry = {"ms": min(kernel_ms, kernel_ms_2), "plain_ms": plain_ms,
                  "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
                  "device_ms": dev_ms}
-
-        def thread():
-            return ms._solve_kernel(name, gram, *alpha, variant="thread")
-
-        graph = graph_turns(lambda: run(gram), thread)
-        entry.update(graph_ms=min(graph[0], graph[2]), thread_graph_ms=min(graph[1], graph[3]),
-                     thread_ms=time_cuda(thread, warmup=10, reps=200),
-                     thread_device_ms=device_ms(thread))
-        turns = (f"; from a CUDA graph in turns new/thread/new/thread {graph[0]:.4f}/"
-                 f"{graph[1]:.4f}/{graph[2]:.4f}/{graph[3]:.4f} ms; the thread design "
-                 f"eager {entry['thread_ms']:.4f} ms, device {entry['thread_device_ms']:.4f} "
-                 f"ms under the profiler")
         if name == "min_norm_solver":
+            def thread():
+                return ms._solve_kernel(name, gram, variant="thread")
+
+            graph = graph_turns(lambda: run(gram), thread)
+            entry.update(graph_ms=min(graph[0], graph[2]),
+                         thread_graph_ms=min(graph[1], graph[3]),
+                         thread_ms=time_cuda(thread, warmup=10, reps=200),
+                         thread_device_ms=device_ms(thread))
+            turns = (f"; from a CUDA graph in turns new/thread/new/thread {graph[0]:.4f}/"
+                     f"{graph[1]:.4f}/{graph[2]:.4f}/{graph[3]:.4f} ms; the thread design "
+                     f"eager {entry['thread_ms']:.4f} ms, device "
+                     f"{entry['thread_device_ms']:.4f} ms under the profiler")
             entry.update(time_min_norm_cases(dev, card, gram, worst_rng, training_grams))
             turns += f"; the matrix stops at step {entry['stop_step']}"
+        else:
+            entry["graph_ms"] = time_cuda_graph(lambda: run(gram), reps=100)
+            turns = f"; from a CUDA graph {entry['graph_ms']:.4f} ms"
         log(f"[time] {card}: {name} K=3 (one Gram matrix): kernel {kernel_ms:.4f}/"
             f"{kernel_ms_2:.4f} ms eager (device {dev_ms:.4f} ms under the profiler), plain "
             f"(eager torch on the card, 3 calls) {plain_ms:.2f} ms, bound {bound_ms:.3e} ms "
@@ -3614,17 +3641,29 @@ ROUNDING_PERTURBATION = 1e-7
 ROUNDING_GAP_FACTOR = 10.0
 
 
+def method_launches(method):
+    """A vmapped flagship run's launches under ``method``: a stacked train
+    step launches the stream block's forward once, its backward 3 times (one
+    a task pass) and the method's own solver (if it has one) once for all
+    the folds, no other solver; each eval forward the stream block once."""
+    own = METHOD_SOLVER.get(method)
+
+    def want(steps, evals):
+        out = {"stream_block": steps + evals, "stream_block_folds": steps + evals,
+               "stream_block_backward": 3 * steps, "stream_block_backward_folds": 3 * steps,
+               "stream_block_wide": 0, "stream_block_backward_wide": 0}
+        for name in ("cagrad_solver",) + MTL_SOLVER_NAMES:
+            out[name] = out[f"{name}_folds"] = steps if name == own else 0
+        return out
+    return want
+
+
 def flagship_launches(steps, evals) -> dict:
-    """The vmapped flagship's launches: a stacked train step launches the
-    stream block's forward once, its backward 3 times (one a task pass) and
-    the CAGrad solver once for all the folds, each eval forward the stream
-    block once."""
-    return {"stream_block": steps + evals, "stream_block_folds": steps + evals,
-            "stream_block_backward": 3 * steps, "stream_block_backward_folds": 3 * steps,
-            "cagrad_solver": steps, "stream_block_wide": 0, "stream_block_backward_wide": 0}
+    """The vmapped flagship's launches under CAGrad (method_launches)."""
+    return method_launches("cagrad")(steps, evals)
 
 
-def compare_vmapped_run(args, tag, want_launches) -> dict:
+def compare_vmapped_run(args, tag, want_launches, yardstick_epoch1=False) -> dict:
     """run_cv_vmapped on ``args`` on the card, fold by fold against the
     port's sequential run_cv on the card: the first epoch's train losses
     within TRAIN_LOSS_RTOL (phase 4's), each fold's best macro accuracy and
@@ -3633,7 +3672,9 @@ def compare_vmapped_run(args, tag, want_launches) -> dict:
     same draws). Training amplifies rounding (14 steps an epoch here, 3 in
     phase 4): after the first epoch the losses are held against a
     yardstick, the sequential run again from initial parameters scaled by 1
-    + 1e-7 N(0, 1), within ROUNDING_GAP_FACTOR of its gap. The vmapped run
+    + 1e-7 N(0, 1), within ROUNDING_GAP_FACTOR of its gap; with
+    ``yardstick_epoch1``, the first epoch too (at least TRAIN_LOSS_RTOL),
+    for a method whose weights amplify rounding within an epoch. The vmapped run
     is a main path: every launch count set to 0 just before it and read just
     after, and held to ``want_launches(steps, eval forwards)``."""
     epochs = args.epochs
@@ -3666,7 +3707,9 @@ def compare_vmapped_run(args, tag, want_launches) -> dict:
         f"train steps and {counter.evals} eval forwards in {vm_s:.2f} s; sequential run_cv "
         f"{seq_s:.2f} s; launches {launches}")
     gaps = loss_gaps(vm_losses, seq_losses, VMAP_FOLDS)
-    tols = [TRAIN_LOSS_RTOL] + [max(TRAIN_LOSS_RTOL, ROUNDING_GAP_FACTOR * y) for y in yard[1:]]
+    tols = [max(TRAIN_LOSS_RTOL, ROUNDING_GAP_FACTOR * y) for y in yard]
+    if not yardstick_epoch1:
+        tols[0] = TRAIN_LOSS_RTOL
     share = vmap_share(args)
     mask_gap = max(abs(res["per_fold_masks"][mk][f] - seq_results[f][2][mk])
                    for f in range(VMAP_FOLDS) for mk in wg.MASK_COMBOS)
@@ -3711,31 +3754,45 @@ def compare_vmapped_cv(seed, dev, card) -> dict:
         f"vmap_folds {mode}", flagship_launches) for mode, epochs in (("sync", 2), ("async", 1))}
 
 
-def vmap_step_setup(seed, dev, bsz=64, baseline=None):
-    """The stacked step at the CLI's defaults, the flagship's (CAGrad) or a
-    baseline's (SGD on the mean of its branch losses; DeepAV-Lite and TACA
-    with their dropout): the runner, the stacked state of 10 folds, their
-    first sync batch of ``bsz`` window tuples a fold, the stacked loss
-    context, and the folds' generators (None for the flagship, which draws
-    nothing)."""
-    args = wg.WearGaitArgs(synthetic=True, seed=seed, batch_size=bsz, device=dev,
-                           baseline=baseline, **VMAP_CV)
+@functools.lru_cache(maxsize=None)
+def vmap_step_data(seed, dev, bsz):
+    """The stacked step's data at the CLI's defaults: every fold's on the
+    card, their first sync batch of ``bsz`` window tuples a fold, each
+    fold's class counts, and the args that made them (built once a seed)."""
+    args = wg.WearGaitArgs(synthetic=True, seed=seed, batch_size=bsz, device=dev, **VMAP_CV)
     datas = [wg.split_to_device(s, False, seed, "cpu") for s in vc._folds_and_splits(args)]
     data = vc.stack_folds(datas, dev)
-    settings = StepSettings(n_streams=3, wm="gcl", synchronized=True,
-                            private_grads="sum_plus_own",
-                            dropout=baseline in wg.DROPOUT_BASELINES)
-    ctx = vc.stack_ctx([make_loss_ctx(settings, [
-        np.bincount(d.ys[k].numpy()[d.train_pool[:, k]], minlength=2) for k in range(3)],
-        device=dev) for d in datas])
-    mtl = make_method("cagrad", 3, c=0.5) if baseline is None else None
-    state, partition = vc.init_stacked_state(wg.build_model(args, True),
-                                             lambda p: sgd_torch(p, 1e-3), mtl, len(datas), dev)
     idx, valid = vc.stack_index_batches([d.train_pool for d in datas],
                                         [np.arange(len(d.train_pool)) for d in datas], bsz)
     batch = vc._gather(data.xs, data.ys, torch.from_numpy(idx[:, 0]).to(dev),
                        torch.from_numpy(valid[:, 0]).to(dev), (0, 1, 2))
-    gens = None if baseline is None else vc._random_streams(args, len(datas), dev)[1]
+    counts = [[np.bincount(d.ys[k].numpy()[d.train_pool[:, k]], minlength=2) for k in range(3)]
+              for d in datas]
+    return args, batch, counts
+
+
+def vmap_step_setup(seed, dev, bsz=64, baseline=None, mtl_method="cagrad", draws=False):
+    """The stacked step at the CLI's defaults, the flagship's (under
+    ``mtl_method``, CAGrad at c 0.5 by default) or a baseline's (SGD on the
+    mean of its branch losses; DeepAV-Lite and TACA with their dropout):
+    the runner, the stacked state of 10 folds, their first sync batch of
+    ``bsz`` window tuples a fold, the stacked loss context, and the folds'
+    generators (None for the flagship unless ``draws`` or its method draws:
+    CAGrad's step draws nothing)."""
+    args, batch, counts = vmap_step_data(seed, dev, bsz)
+    args = dataclasses.replace(args, baseline=baseline)
+    settings = StepSettings(n_streams=3, wm="gcl", synchronized=True,
+                            private_grads="sum_plus_own",
+                            dropout=baseline in wg.DROPOUT_BASELINES)
+    ctx = vc.stack_ctx([make_loss_ctx(settings, c, device=dev) for c in counts])
+    mtl = None
+    if baseline is None:
+        kwargs = {"c": 0.5} if mtl_method in ("cagrad", "log_cagrad") else {}
+        mtl = make_method(mtl_method, 3, **kwargs)
+    state, partition = vc.init_stacked_state(wg.build_model(args, True),
+                                             lambda p: sgd_torch(p, 1e-3), mtl, len(counts), dev)
+    drawing = baseline is not None or draws or mtl_method in DRAWING_METHODS
+    gens = vc._random_streams(args, len(counts), dev)[1] if drawing else None
     runner = vc.VmapEpochRunner(settings, mtl, partition, *wg.baseline_adapters(args))
     return runner, state, batch, ctx, gens
 
@@ -3764,18 +3821,21 @@ def profile_steps(fn, reps=10, table=None) -> dict:
             "wall_ms_profiled": wall_ms, "idle": max(0.0, 1 - device_ms / wall_ms)}
 
 
-def check_vmap_step(seed, dev, card, baseline=None, reps=20, table=True) -> dict:
-    """One stacked step at 10 folds x 64, the flagship's or ``baseline``'s:
-    its launches (one train step's of flagship_launches or
-    baseline_launches), its host synchronisations (0), and its wall time
+def check_vmap_step(seed, dev, card, baseline=None, reps=20, table=True,
+                    mtl_method="cagrad") -> dict:
+    """One stacked step at 10 folds x 64, the flagship's (under
+    ``mtl_method``) or ``baseline``'s: its launches (one train step's of
+    method_launches or baseline_launches), its host synchronisations (0),
+    and its wall time
     (host clock around ``reps`` synchronised steps after 3) beside the 10
     sequential batch-64 steps it replaces, in turns (stacked, ten, ten,
     stacked); then the device time, kernel launches and idle share of each
     under the profiler, over at most 10 steps (with ``table``, the stacked
     step's table by kernel too). A baseline's stacked step draws from the
     folds' generators, one draw a fold a site."""
-    runner, state, batch, ctx, gens = vmap_step_setup(seed, dev, baseline=baseline)
-    label = "CAGrad" if baseline is None else baseline
+    runner, state, batch, ctx, gens = vmap_step_setup(seed, dev, baseline=baseline,
+                                                      mtl_method=mtl_method)
+    label = baseline or ("CAGrad" if mtl_method == "cagrad" else mtl_method)
 
     def stacked():
         return runner.train_step(state, batch, ctx, False, gens)
@@ -3786,7 +3846,7 @@ def check_vmap_step(seed, dev, card, baseline=None, reps=20, table=True) -> dict
     stacked()
     torch.cuda.synchronize()
     launches = read_launches()
-    want = (flagship_launches if baseline is None else baseline_launches(baseline))(1, 0)
+    want = (method_launches(mtl_method) if baseline is None else baseline_launches(baseline))(1, 0)
     syncs = []
     for _ in range(2):  # a first count of a process may read one more
         with warnings.catch_warnings(record=True) as caught:
@@ -3804,7 +3864,8 @@ def check_vmap_step(seed, dev, card, baseline=None, reps=20, table=True) -> dict
     if wrong or syncs[-1] != 0:
         raise RuntimeError(f"stacked {label} step: launches (got, want) {wrong}, syncs {syncs}")
 
-    step, seq_state, seq_ctx, seq_batch, gen = make_step_setup(seed, dev, 64, baseline)
+    step, seq_state, seq_ctx, seq_batch, gen = make_step_setup(seed, dev, 64, baseline,
+                                                               mtl_method=mtl_method)
 
     def ten():
         for _ in range(VMAP_FOLDS):
@@ -4040,6 +4101,294 @@ def phase_vmap_baselines(seed, dev, card, rng) -> dict:
     return {"errors": errors, "runs": runs, "steps": steps, "times": times, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# 9. the 16 other MTL methods under --vmap_folds: the solvers with a fold axis
+# ---------------------------------------------------------------------------
+
+# the methods whose state a stacked step carries: one stacked step first,
+# so that the compared step starts from a state that has moved (FAMO's
+# deferred update runs from the second step on)
+STATEFUL_METHODS = ("uw", "dwa", "famo", "nashmtl")
+# the stacked steps timed beside the 10 sequential steps: one of each
+# solver kernel's methods and FAMO, the largest state
+TIMED_VMAP_METHODS = ("mgda", "fairgrad", "nashmtl", "famo")
+# run_cv_vmapped against the sequential run_cv on the card: PCGrad draws a
+# permutation a step (after the GCL noise), NashMTL a solver and a state.
+# NashMTL's Newton weights (up to ~7e4 on these Gram matrices) amplify
+# rounding within the first epoch: the yardstick run, the sequential run
+# from parameters scaled by 1 + 1e-7 N(0, 1), moved its epoch-1 losses by
+# 1.4e-4 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6), so phase 7's
+# yardstick rule holds epoch 1 too in these runs
+VMAP_MTL_RUNS = {"pcgrad sync": ("pcgrad", 0.5), "nashmtl sync": ("nashmtl", 0.0)}
+# and on the card alone, for their solvers' launches on a main path
+VMAP_MTL_CARD_RUNS = ("mgda", "fairgrad")
+
+
+def fold_solver_calls():
+    """(name, solver on one fold's (K, K) matrix, its plain version, the
+    input map) of the four solvers a stacked step launches."""
+    return [
+        ("cagrad_solver", lambda g: cs.cagrad_solve(g, 0.5),
+         lambda g: cs.cagrad_solve_reference(g, 0.5), lambda g: g),
+        ("min_norm_solver", ms.min_norm_solve, ms.min_norm_solve_reference, lambda g: g),
+        ("fairgrad_solver", lambda g: ms.fairgrad_solve(g, 1.0),
+         lambda g: ms.fairgrad_solve_reference(g, 1.0), lambda g: g),
+        ("nashmtl_solver", ms.nashmtl_solve, ms.nashmtl_solve_reference, nash_normalised),
+    ]
+
+
+def fold_solver_grams(rng, dev, name):
+    """VMAP_FOLDS Gram matrices at K = 3, one a fold, of mtl_solver_grams'
+    law; MGDA's half correlated, so that solves that stop early and solves
+    of 250 steps share the launch."""
+    n = VMAP_FOLDS
+    raw = mtl_solver_grams(rng, n, 3)[:n]
+    if name == "min_norm_solver":
+        raw = np.concatenate([raw[: n // 2], correlated_grams(rng, n - n // 2, 3)])
+    return torch.from_numpy(raw).to(dev)
+
+
+def check_fold_solvers(rng, dev, card) -> dict:
+    """The four solvers under torch.func.vmap over 10 folds at K = 3: one
+    launch for every fold (the solver's counter and its fold counter up by
+    one), each fold's weights bitwise equal to a launch of its own and to
+    the plain version's (phase 5f's rule). Returns each solver's max abs
+    error against the plain version."""
+    errors = {}
+    for name, run, plain, prep in fold_solver_calls():
+        grams = prep(fold_solver_grams(rng, dev, name))
+        before = read_launches()
+        got = torch.func.vmap(run)(grams)
+        torch.cuda.synchronize()
+        after = read_launches()
+        launched = (after[name] - before[name], after[f"{name}_folds"] - before[f"{name}_folds"])
+        alone = torch.stack([run(g) for g in grams])
+        want = plain(grams)
+        same_alone, same_plain = bitwise_rows(got, alone), bitwise_rows(got, want)
+        err = (got - want).abs().max().item()
+        stops = ""
+        if name == "min_norm_solver":
+            stops = f" (stop steps {min_norm_element_stop(grams)[1].tolist()})"
+        log(f"[kernel] {name} under vmap: {VMAP_FOLDS} folds' Gram matrices (K = 3){stops}: "
+            f"launches (counter, fold counter) {launched}; each fold bitwise equal to its own "
+            f"launch {same_alone}/{VMAP_FOLDS}, to the plain version {same_plain}/{VMAP_FOLDS}; "
+            f"max abs err {err:.3e}")
+        if launched != (1, 1) or same_alone != VMAP_FOLDS or same_plain != VMAP_FOLDS:
+            raise RuntimeError(f"{name} under vmap: launches {launched}, bitwise per fold "
+                               f"{same_alone}, against the plain version {same_plain}")
+        errors[name] = err
+    return errors
+
+
+def fold_slice(tree, f):
+    """Fold f's entries of a tree of tuples and dicts of stacked tensors."""
+    if isinstance(tree, dict):
+        return {k: fold_slice(v, f) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(fold_slice(v, f) for v in tree)
+    return tree[f]
+
+
+def clone_generator(gen):
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
+def largest_gap(got, want) -> tuple:
+    """The largest absolute gap between two lists of tensors, and phase 4's
+    tolerance for it: STEP_MOMENTUM_TOL of the largest value (at least 1)."""
+    gap = max((g.double() - w.double()).abs().max().item() for g, w in zip(got, want))
+    largest = max(w.double().abs().max().item() for w in want)
+    return gap, STEP_MOMENTUM_TOL * max(1.0, largest)
+
+
+def check_stacked_method_step(seed, dev, method) -> dict:
+    """One stacked step of ``method`` at 10 folds x 64 (after one step for a
+    stateful method) against the 10 sequential steps it replaces, each
+    fold's mtl_grads on its own parameters, batch, context, state and
+    generator on the card: final gradients and new states within phase 4's
+    tolerance, every fold's generator bitwise equal afterwards; the step is
+    a main path (counts set to 0 just before it): the method's solver once
+    for all folds and the stream block's kernels as in phase 7; then 0 host
+    synchronisations in a stacked step."""
+    runner, state, batch, ctx, gens = vmap_step_setup(seed, dev, mtl_method=method, draws=True)
+    if method in STATEFUL_METHODS:
+        state, _ = runner.train_step(state, batch, ctx, False, gens)
+    names = list(state.params)
+    params0 = {n: p.detach().clone() for n, p in state.params.items()}
+    mtl_state0 = {k: v.clone() for k, v in state.mtl_state.items()}
+    gens0 = [clone_generator(g) for g in gens]
+    torch.cuda.synchronize()
+    reset_launches()
+    state, _ = runner.train_step(state, batch, ctx, False, gens)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    grad_gap = state_gap = (0.0, 0.0)
+    same_draws = 0
+    for f in range(VMAP_FOLDS):
+        params = [params0[n][f].clone().requires_grad_() for n in names]
+        module = vc._FoldModule(state.model, dict(zip(names, params)))
+        xs, ys, valid = fold_slice(batch["xs"], f), fold_slice(batch["ys"], f), batch["valid"][f]
+        ctx_f = fold_slice(ctx, f)
+        grads, _, _, new_state, _ = mtl_lib.mtl_grads(
+            runner.mtl_method,
+            lambda: runner.loss_fn(module, xs, ys, valid, ctx_f, gens0[f], state.epoch),
+            params, runner.partition, fold_slice(mtl_state0, f),
+            private_grads="sum_plus_own", generator=gens0[f])
+        gap = largest_gap([state.params[n].grad[f] for n in names], grads)
+        grad_gap = max(grad_gap, gap)
+        if new_state:
+            keys = sorted(new_state)
+            gap = largest_gap([state.mtl_state[k][f].float() for k in keys],
+                              [new_state[k].float() for k in keys])
+            state_gap = max(state_gap, gap)
+        same_draws += torch.equal(gens[f].get_state(), gens0[f].get_state())
+    want = method_launches(method)(1, 0)
+    wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    syncs = []
+    for _ in range(2):  # a first count of a process may read one more
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                runner.train_step(state, batch, ctx, False, gens)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+    log(f"[vmap] one stacked {method} step of {VMAP_FOLDS} folds x 64 against the "
+        f"{VMAP_FOLDS} sequential steps: final gradients max abs gap {grad_gap[0]:.3e} (tol "
+        f"{grad_gap[1]:.2e}), new states {state_gap[0]:.3e} (tol {state_gap[1]:.2e}); each "
+        f"fold's generator bitwise equal {same_draws}/{VMAP_FOLDS}; launches (those not 0) "
+        f"{ {k: n for k, n in launches.items() if n} }; host synchronisations {syncs[-1]} "
+        f"(counts {syncs})")
+    if grad_gap[0] > grad_gap[1] or state_gap[0] > state_gap[1]:
+        raise RuntimeError(f"stacked {method} step: gradients {grad_gap}, states {state_gap}")
+    if same_draws != VMAP_FOLDS or wrong or syncs[-1] != 0:
+        raise RuntimeError(f"stacked {method} step: draws {same_draws}, launches (got, want) "
+                           f"{wrong}, syncs {syncs}")
+    return {"grad_gap": grad_gap[0], "state_gap": state_gap[0], "launches": launches,
+            "syncs": syncs[-1]}
+
+
+def card_only_vmapped_run(args, tag, want_launches) -> dict:
+    """run_cv_vmapped on ``args`` on the card alone, a main path: every
+    launch count set to 0 just before it and read just after, held to
+    ``want_launches(steps, eval forwards)``; finite losses."""
+    losses = []
+    with VmapStepCounter() as counter:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = vc.run_cv_vmapped(args, on_epoch=lambda ep, tr, ev: losses.append(tr["loss"]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    want = want_launches(counter.steps, counter.evals)
+    wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    finite = all(np.all(np.isfinite(v)) for v in losses)
+    log(f"[vmap] {tag}: {counter.steps} stacked train steps and {counter.evals} eval forwards "
+        f"in {seconds:.2f} s on the card alone; launches {launches}; losses finite {finite}; "
+        f"macro {res['macro'][0]:.4f} %")
+    if counter.steps == 0 or wrong or not finite:
+        raise RuntimeError(f"{tag}: launches (got, want) {wrong}, finite losses {finite}")
+    return {"launches": launches, "steps": counter.steps, "seconds": seconds}
+
+
+def time_fold_solvers(rng, dev, card) -> dict:
+    """Each solver's merged launch of 10 folds' matrices (K = 3), the
+    stacked step's, eager and from a CUDA graph: the kernel on the 10
+    matrices, the vmapped call (the fold axis merged, then the launch), and
+    the 10 single launches it replaces, beside its plain version and its
+    bound (10 times a matrix's operations; MGDA's at each matrix's stop
+    step)."""
+    out = {}
+    for name, run, plain, prep in fold_solver_calls():
+        grams = prep(fold_solver_grams(rng, dev, name))
+
+        def ten():
+            return [run(g) for g in grams]
+
+        def vmapped():
+            return torch.func.vmap(run)(grams)
+
+        t = {"kernel": time_cuda(lambda: run(grams), warmup=10, reps=200),
+             "plain": time_cuda(lambda: plain(grams), warmup=0, reps=2),  # CAGrad's: ~2.4 s
+             "kernel_2": time_cuda(lambda: run(grams), warmup=10, reps=200),
+             "ten": time_cuda(ten, warmup=3, reps=50),
+             "vmap": time_cuda(vmapped, warmup=10, reps=100),
+             "graph": time_cuda_graph(lambda: run(grams), reps=100),
+             "ten_graph": time_cuda_graph(ten, reps=20),
+             "vmap_graph": time_cuda_graph(vmapped, reps=100)}
+        if name == "cagrad_solver":
+            ops = VMAP_FOLDS * solver_ops(3)
+        elif name == "min_norm_solver":
+            stops = int(min_norm_element_stop(grams)[1].sum())
+            ops = mtl_solver_ops(name, 3) * stops // ms.MIN_NORM_STEPS
+        else:
+            ops = VMAP_FOLDS * mtl_solver_ops(name, 3)
+        bound_ms, bound_by = _bound(VMAP_FOLDS * 4 * (9 + 3), ops)
+        log(f"[time] {card}: {name} on {VMAP_FOLDS} folds' Gram matrices (K = 3): one launch "
+            f"{t['kernel']:.4f}/{t['kernel_2']:.4f} ms eager, {t['graph']:.4f} ms from a CUDA "
+            f"graph; under vmap {t['vmap']:.4f} ms eager, {t['vmap_graph']:.4f} from a graph; the "
+            f"{VMAP_FOLDS} single launches it replaces {t['ten']:.4f} ms eager, "
+            f"{t['ten_graph']:.4f} from a graph; plain (eager torch on the card, 2 calls) "
+            f"{t['plain']:.2f} ms; bound {bound_ms:.3e} ms ({bound_by}: {ops} f32 operations); "
+            f"launches a stacked step: 1")
+        out[f"{name}_folds"] = {
+            "ms": min(t["kernel"], t["kernel_2"]), "plain_ms": t["plain"], "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "graph_ms": t["graph"],
+            "vmap_ms": t["vmap"], "vmap_graph_ms": t["vmap_graph"], "ten_single_ms": t["ten"],
+            "ten_single_graph_ms": t["ten_graph"], "folds": VMAP_FOLDS}
+    return out
+
+
+def phase_vmap_mtl(seed, dev, card, rng) -> dict:
+    """Phase 9: the four solvers under vmap against single-fold launches and
+    their plain versions; a stacked step of each of the 17 methods against
+    the 10 sequential steps (launches, draws, 0 host synchronisations);
+    run_cv_vmapped of PCGrad and NashMTL against the sequential run_cv on
+    the card under phase 7's rule, every fold's generator bitwise equal at
+    the end, and of MGDA and FairGrad on the card alone (their solvers'
+    launches on a main path); the stacked MGDA, FairGrad, NashMTL and FAMO
+    steps beside the 10 sequential steps; each merged solver launch timed."""
+    t0 = time.perf_counter()
+    parts = {}
+
+    def done(part):
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+
+    errors = check_fold_solvers(rng, dev, card)
+    done("kernels")
+    steps = {m: check_stacked_method_step(seed, dev, m) for m in sorted(METHODS)}
+    done("stacked steps")
+    runs = {}
+    common = dict(synthetic=True, seed=seed, batch_size=64, wm="gcl", alpha=0.5, verbose=False,
+                  patience=50, **VMAP_CV)
+    for tag, (method, noise) in VMAP_MTL_RUNS.items():
+        args = wg.WearGaitArgs(epochs=2, mtl_method=method, noise_mul=noise, **common)
+        runs[tag] = compare_vmapped_run(args, f"vmap_folds {tag}", method_launches(method),
+                                        yardstick_epoch1=True)
+        done(tag)
+    if runs["pcgrad sync"]["folds_that_drew"] != VMAP_FOLDS:
+        raise RuntimeError("pcgrad sync: a fold drew no permutation")
+    for method in VMAP_MTL_CARD_RUNS:
+        args = wg.WearGaitArgs(epochs=1, mtl_method=method, noise_mul=0.0, **common)
+        runs[f"{method} sync"] = card_only_vmapped_run(args, f"vmap_folds {method} sync",
+                                                       method_launches(method))
+    done("card-only runs")
+    # 5 timed steps a turn: the ten sequential steps take ~0.25 s a call
+    timed = {m: check_vmap_step(seed, dev, card, reps=5, table=False, mtl_method=m)
+             for m in TIMED_VMAP_METHODS}
+    done("timed steps")
+    times = time_fold_solvers(rng, dev, card)
+    done("times")
+    seconds = time.perf_counter() - t0
+    log(f"[vmap] phase 9: {seconds:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in parts.items())})")
+    return {"errors": errors, "steps": steps, "runs": runs, "timed": timed, "times": times,
+            "seconds": seconds}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4146,6 +4495,9 @@ def main() -> int:
     vmap_baselines = phase_vmap_baselines(args.seed, dev, card,
                                           np.random.default_rng([args.seed, 26]))
     times.update(vmap_baselines["times"])
+    # the 16 other MTL methods under --vmap_folds: a stream of their own
+    vmap_mtl = phase_vmap_mtl(args.seed, dev, card, np.random.default_rng([args.seed, 27]))
+    times.update(vmap_mtl["times"])
 
     # launches on each kernel's own main path: the CAGrad training's for the
     # earlier slices' kernels, the cheap-xattn training's for this slice's
@@ -4201,6 +4553,13 @@ def main() -> int:
     # cheap-xattn fusion's sync run
     for name in ("cheap_xattn", "cheap_xattn_backward"):
         launches[f"{name}_folds"] = vmap_baselines["runs"]["cheap_xattn sync"]["launches"][name]
+    # the solvers with a fold axis on their own main paths: CAGrad's in the
+    # vmapped CV's sync run (phase 7), NashMTL's in phase 9's, MGDA's and
+    # FairGrad's in phase 9's runs on the card alone
+    launches["cagrad_solver_folds"] = vmap["runs"]["sync"]["launches"]["cagrad_solver_folds"]
+    for name, run in (("min_norm_solver", "mgda sync"), ("fairgrad_solver", "fairgrad sync"),
+                      ("nashmtl_solver", "nashmtl sync")):
+        launches[f"{name}_folds"] = vmap_mtl["runs"][run]["launches"][f"{name}_folds"]
     long_err = long_errors["win256_batch64"]
     wide_err = wide_errors[WIDE_XATTN_TIMED[0]]
     bb_err = baselines["errors"]["xattn"]["fog_batch256"]
@@ -4257,6 +4616,15 @@ def main() -> int:
          "gaitpd/learning/minnorm.py:125", mtl["solver_errors"]["fairgrad_solver"]),
         ("nashmtl_solver", "gaitpd_torch/csrc/mtl_solvers.cu", "gaitpd/learning/minnorm.py:144",
          mtl["solver_errors"]["nashmtl_solver"]),
+        # the four solvers with a fold axis: every fold of the CV in one launch
+        ("cagrad_solver_folds", "gaitpd_torch/csrc/cagrad_solver.cu",
+         "gaitpd/learning/minnorm.py:58", vmap_mtl["errors"]["cagrad_solver"]),
+        ("min_norm_solver_folds", "gaitpd_torch/csrc/mtl_solvers.cu",
+         "gaitpd/learning/minnorm.py:35", vmap_mtl["errors"]["min_norm_solver"]),
+        ("fairgrad_solver_folds", "gaitpd_torch/csrc/mtl_solvers.cu",
+         "gaitpd/learning/minnorm.py:125", vmap_mtl["errors"]["fairgrad_solver"]),
+        ("nashmtl_solver_folds", "gaitpd_torch/csrc/mtl_solvers.cu",
+         "gaitpd/learning/minnorm.py:144", vmap_mtl["errors"]["nashmtl_solver"]),
     ]
     kernels = []
     for name, source, replaces, err in entries:
@@ -4284,7 +4652,8 @@ def main() -> int:
         f"sweep over key tiles {json.dumps(long_times)}, the step at win_len {WIN256} "
         f"{json.dumps(win256)} and its train steps {json.dumps(win256_steps)}; the wide "
         f"thresholds {json.dumps(threshold_times)}; the vmapped CV (phase 7) "
-        f"{json.dumps(vmap)}; the vmapped baselines (phase 8) {json.dumps(vmap_baselines)}")
+        f"{json.dumps(vmap)}; the vmapped baselines (phase 8) {json.dumps(vmap_baselines)}; "
+        f"the vmapped MTL methods (phase 9) {json.dumps(vmap_mtl)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

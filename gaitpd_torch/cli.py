@@ -14,6 +14,8 @@ raise NotImplementedError naming their ROADMAP item, before any work.
         --n_folds 2 --test_per_class 3 --vmap_folds
     python -m gaitpd_torch.cli --mode weargait --baseline taca --async_loading \\
         --synthetic --epochs 3 --n_folds 2 --test_per_class 3 --vmap_folds
+    python -m gaitpd_torch.cli --mode weargait --synthetic --epochs 2 --n_folds 2 \\
+        --test_per_class 3 --vmap_folds --mtl_method nashmtl
     python -m gaitpd_torch.cli --mode fbg_fog --dataset fog --modality sensor \\
         --wm ce --synthetic --epochs 5 --n_folds_cap 1 --device cpu
 """
@@ -126,9 +128,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="weargait flagship: block-diagonal fused 3-stream forward (not "
                         "ported yet: ROADMAP Queue 1, item 15)")
     p.add_argument("--vmap_folds", action="store_true",
-                   help="weargait (the flagship under CAGrad, any --baseline, or "
-                        "--single_mod; the recipe's draws per fold): train ALL CV folds in "
-                        "one step, each kernel launched once for every fold "
+                   help="weargait (the flagship under any --mtl_method, any --baseline, "
+                        "or --single_mod; the recipe's draws per fold): train ALL CV folds "
+                        "in one step, each kernel launched once for every fold "
                         "(gaitpd_torch/train/vmap_cv.py)")
     p.add_argument("--vmap_hp", action="store_true",
                    help="an (lr x gcl_m x gcl_s x alpha) hyperparameter grid as one "
@@ -258,9 +260,8 @@ def run_weargait(ns: argparse.Namespace, baseline: str = None):
         device=ns.device,
     )
     if ns.vmap_folds:
-        from gaitpd_torch.train.vmap_cv import check_vmap_supported, run_cv_vmapped
+        from gaitpd_torch.train.vmap_cv import run_cv_vmapped
 
-        check_vmap_supported(args)
         return run_cv_vmapped(args)
     return run_cv(args)
 

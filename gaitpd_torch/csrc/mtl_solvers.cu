@@ -47,12 +47,13 @@
 // cycles, three 173.2, two powf 504.4 (each branches to a slow path for
 // special operands, and nothing is scheduled across that branch).
 //
-// The Newton designs. One thread a matrix (the `thread` design, kept by
-// name for comparison: the *_solver_variant entries) runs a step as one
-// chain: at K = 3 the right-hand side's 2K = 6 powf calls (NashMTL: 6
-// divisions) one after another, then the elimination's 3 multipliers and
-// the 3 back-substitution divisions; 1,550 cycles a FairGrad step and 614 a
-// NashMTL step. The `warp` design (the default) gives each of those calls
+// The Newton designs. One thread a matrix (the first, `thread` design,
+// retired once the warp design's times were recorded; its device functions
+// live on in gaitpd_torch/tools/mtl_solver_clock.cu, whose probes measure
+// it) runs a step as one chain: at K = 3 the right-hand side's 2K = 6 powf
+// calls (NashMTL: 6 divisions) one after another, then the elimination's 3
+// multipliers and the 3 back-substitution divisions; 1,550 cycles a
+// FairGrad step and 614 a NashMTL step. The `warp` design (the default) gives each of those calls
 // that is independent of the others a lane of its own:
 //   - right-hand side: lane i < K forms w_i^(-1/alpha) (NashMTL 1/w_i), lane
 //     K + i forms w_i^(-1/alpha - 1) (1/(w_i w_i)): the 2K calls take one
@@ -314,87 +315,6 @@ __device__ __forceinline__ int min_norm_until_fixed(float (&w)[K], Step step) {
 }
 
 // ---------------------------------------------------------------------------
-// The thread design: one thread runs a whole Newton solve.
-
-// x with a x = b: Gaussian elimination without pivoting, back substitution
-template <int K>
-__device__ __forceinline__ void solve(float (&a)[K][K], float (&b)[K], float (&x)[K]) {
-#pragma unroll
-  for (int p = 0; p < K; ++p) {
-#pragma unroll
-    for (int r = p + 1; r < K; ++r) {
-      const float m = div(a[r][p], a[p][p]);
-#pragma unroll
-      for (int c = p + 1; c < K; ++c) a[r][c] = sub(a[r][c], mul(m, a[p][c]));
-      b[r] = sub(b[r], mul(m, b[p]));
-    }
-  }
-#pragma unroll
-  for (int p = K - 1; p >= 0; --p) {
-    float s = b[p];
-#pragma unroll
-    for (int c = p + 1; c < K; ++c) s = sub(s, mul(a[p][c], x[c]));
-    x[p] = div(s, a[p][p]);
-  }
-}
-
-// w <- max(w - damping (G + diag(diag) + EPS I)^-1 f, 1e-6)
-template <int K>
-__device__ __forceinline__ void newton_step(const float (&g)[K][K], float (&w)[K],
-                                            float (&f)[K], const float (&diag)[K],
-                                            float damping) {
-  float a[K][K], delta[K];
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-#pragma unroll
-    for (int j = 0; j < K; ++j) a[i][j] = g[i][j];
-    a[i][i] = add(add(g[i][i], diag[i]), kEps);
-  }
-  solve(a, f, delta);
-#pragma unroll
-  for (int i = 0; i < K; ++i) w[i] = clamp_min(sub(w[i], mul(damping, delta[i])), kFloor);
-}
-
-// G w = w^(-1/alpha) (minnorm.py:125-141)
-template <int K>
-__device__ void fairgrad(const float (&g)[K][K], float alpha, float (&w)[K]) {
-  const float inv_a = div(1.0f, alpha);
-  const float e1 = -inv_a;
-  const float e2 = sub(e1, 1.0f);
-#pragma unroll
-  for (int i = 0; i < K; ++i) w[i] = static_cast<float>(1.0 / K);
-#pragma unroll 1
-  for (int it = 0; it < kFairGradIters; ++it) {
-    float gw[K], f[K], diag[K];
-    matvec(g, w, gw);
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      f[i] = sub(gw[i], powf(w[i], e1));
-      diag[i] = mul(inv_a, powf(w[i], e2));
-    }
-    newton_step(g, w, f, diag, 0.5f);
-  }
-}
-
-// G a = 1/a (minnorm.py:144-158)
-template <int K>
-__device__ void nashmtl(const float (&g)[K][K], float (&w)[K]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) w[i] = 1.0f;
-#pragma unroll 1
-  for (int it = 0; it < kNashMtlIters; ++it) {
-    float gw[K], f[K], diag[K];
-    matvec(g, w, gw);
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      f[i] = sub(gw[i], div(1.0f, w[i]));
-      diag[i] = div(1.0f, mul(w[i], w[i]));
-    }
-    newton_step(g, w, f, diag, 0.8f);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // The warp design: the lanes of one warp share a Newton solve; every lane
 // holds G and w, and ends each step with the same w.
 
@@ -490,11 +410,13 @@ __device__ void warp_newton(const float (&g)[K][K], float alpha, int lane, float
 // ---------------------------------------------------------------------------
 // Kernels
 
-// Every > 0: MGDA's solve with the stop (min_norm_until_fixed<K, Every,
-// Lagged>); Every = 0 the reference's 250 steps
+// MGDA one thread a matrix: Every > 0 its solve with the stop
+// (min_norm_until_fixed<K, Every, Lagged>); Every = 0 the reference's 250
+// steps (the thread design)
 template <int K, Method M, int Every = 0, bool Lagged = false>
 __global__ void __launch_bounds__(kThreads)
 mtl_solver_kernel(const float* __restrict__ gram, int n, float alpha, float* __restrict__ out) {
+  static_assert(M == kMinNorm, "FairGrad and NashMTL run a warp a matrix");
   const int m = blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= n) return;
   float g[K][K], w[K];
@@ -504,20 +426,17 @@ mtl_solver_kernel(const float* __restrict__ gram, int n, float alpha, float* __r
 #pragma unroll
     for (int j = 0; j < K; ++j) g[i][j] = gm[i * K + j];
   }
-  if constexpr (M == kMinNorm && Every > 0) {
+  if constexpr (Every > 0) {
     min_norm_until_fixed<K, Every, Lagged>(w, [&](float (&v)[K]) { min_norm_step(g, v); });
-  } else if constexpr (M == kMinNorm) {
-    min_norm(g, w);
-  } else if constexpr (M == kFairGrad) {
-    fairgrad(g, alpha, w);
   } else {
-    nashmtl(g, w);
+    min_norm(g, w);
   }
 #pragma unroll
   for (int i = 0; i < K; ++i) out[static_cast<size_t>(m) * K + i] = w[i];
 }
 
-// MGDA: the rows layout with the stop, as mtl_solver_kernel's
+// A warp a matrix: MGDA's rows layout with the stop, as mtl_solver_kernel's;
+// FairGrad's and NashMTL's Newton solves
 template <int K, Method M, int Every = 0, bool Lagged = false>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 mtl_solver_warp_kernel(const float* __restrict__ gram, int n, float alpha,
@@ -549,25 +468,32 @@ mtl_solver_warp_kernel(const float* __restrict__ gram, int n, float alpha,
 template <int K, Method M>
 void launch_k(const float* gram, float* out, int n, float alpha, int variant, cudaStream_t s) {
   const int thread_blocks = (n + kThreads - 1) / kThreads;
-  if (variant == kWarpVariant) {
+  const int warp_blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if constexpr (M == kMinNorm) {
     constexpr MinNormDesign d = min_norm_design(K);
-    constexpr int every = M == kMinNorm ? d.every : 0;
-    constexpr bool lagged = M == kMinNorm && d.lagged;
-    if constexpr (M != kMinNorm || d.rows) {  // a warp a matrix
-      const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-      mtl_solver_warp_kernel<K, M, every, lagged>
-          <<<blocks, kWarpsPerBlock * 32, 0, s>>>(gram, n, alpha, out);
-    } else {  // MGDA's one thread a matrix with the stop
-      mtl_solver_kernel<K, M, every, lagged><<<thread_blocks, kThreads, 0, s>>>(gram, n, alpha, out);
+    if (variant == kThreadVariant) {
+      mtl_solver_kernel<K, M><<<thread_blocks, kThreads, 0, s>>>(gram, n, alpha, out);
+    } else if constexpr (d.rows) {
+      mtl_solver_warp_kernel<K, M, d.every, d.lagged>
+          <<<warp_blocks, kWarpsPerBlock * 32, 0, s>>>(gram, n, alpha, out);
+    } else {
+      mtl_solver_kernel<K, M, d.every, d.lagged>
+          <<<thread_blocks, kThreads, 0, s>>>(gram, n, alpha, out);
     }
-    return;
+  } else {
+    mtl_solver_warp_kernel<K, M><<<warp_blocks, kWarpsPerBlock * 32, 0, s>>>(gram, n, alpha, out);
   }
-  mtl_solver_kernel<K, M><<<thread_blocks, kThreads, 0, s>>>(gram, n, alpha, out);
+}
+
+// Whether `method` has the design `variant`: every solver its default
+// (kWarpVariant), MGDA also its thread design
+__host__ __device__ constexpr bool has_design(int method, int variant) {
+  return variant == kWarpVariant || (method == kMinNorm && variant == kThreadVariant);
 }
 
 template <Method M>
 int launch(const float* gram, float* out, int n, int k, float alpha, int variant, void* stream) {
-  if (n < 0 || k < 1 || k > kMaxK || (variant != kThreadVariant && variant != kWarpVariant)) {
+  if (n < 0 || k < 1 || k > kMaxK || !has_design(M, variant)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
@@ -593,7 +519,7 @@ extern "C" {
 // contiguous f32 device pointers, 1 <= k <= 8. Returns a cudaError_t: 0 on
 // success, cudaErrorInvalidValue for sizes the kernel does not take.
 // min_norm_solver, fairgrad_solver and nashmtl_solver run their default
-// design (1; MGDA's with the stop), the *_variant entries the design by
+// design (1; MGDA's with the stop), min_norm_solver_variant MGDA's design by
 // number (0 thread, 1 the default).
 int min_norm_solver(const float* gram, float* out, int n, int k, void* stream) {
   return launch<kMinNorm>(gram, out, n, k, 0.0f, kWarpVariant, stream);
@@ -607,19 +533,9 @@ int nashmtl_solver(const float* gram, float* out, int n, int k, void* stream) {
   return launch<kNashMtl>(gram, out, n, k, 0.0f, kWarpVariant, stream);
 }
 
-int fairgrad_solver_variant(const float* gram, float* out, int n, int k, float alpha,
-                            int variant, void* stream) {
-  return launch<kFairGrad>(gram, out, n, k, alpha, variant, stream);
-}
-
 int min_norm_solver_variant(const float* gram, float* out, int n, int k, int variant,
                             void* stream) {
   return launch<kMinNorm>(gram, out, n, k, 0.0f, variant, stream);
-}
-
-int nashmtl_solver_variant(const float* gram, float* out, int n, int k, int variant,
-                           void* stream) {
-  return launch<kNashMtl>(gram, out, n, k, 0.0f, variant, stream);
 }
 
 // The launch of a design of `method` (0 MGDA, 1 FairGrad, 2 NashMTL) at k
@@ -628,7 +544,7 @@ int nashmtl_solver_variant(const float* gram, float* out, int n, int k, int vari
 int mtl_solver_launch_config(int method, int variant, int k, int* threads, int* lanes,
                              int* every, int* lagged) {
   if (method < kMinNorm || method > kNashMtl || k < 1 || k > kMaxK ||
-      (variant != kThreadVariant && variant != kWarpVariant)) {
+      !has_design(method, variant)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool stop = method == kMinNorm && variant == kWarpVariant;

@@ -12,10 +12,20 @@ FairGrad and NashMTL are one kernel launch each on the card
 every state switch is a ``torch.where``, so a step needs no host
 synchronisation.
 
+One step is two parts: ``per_task_grad_matrix`` gives J, and
+``combine_flat`` turns one fold's J, losses and state into the final flat
+gradient and the new state. ``mtl_grads`` calls both; the stacked
+cross-validation (gaitpd_torch/train/vmap_cv.py) runs ``combine_flat``
+under ``torch.func.vmap`` over the folds, where each solver is one launch
+for all of them (gaitpd_torch/ops/solver_folds.py).
+
 Randomness. RLW, PCGrad and GradDrop draw from the step's
 ``torch.Generator`` (on the device), after the forward and the loss have
 drawn theirs (dropout, GCL noise): each draws in ``combine``, which
-``mtl_grads`` calls after the K backward passes. Each is split into a draw
+``combine_flat`` calls after the K backward passes. The draws go through
+gaitpd_torch/runtime/fold_draws.py, so that under the vmap each fold draws
+from its own generator at the unbatched shape (a ``FoldDraws``), and a
+``torch.Generator`` draws as ``torch`` does. Each is split into a draw
 and a pure function of the draw (``_rlw_weights``, ``_pcgrad_project``,
 ``_graddrop_mask``), so that a test can feed gaitpd's own draw to the pure
 part. A method that draws raises ValueError without a generator.
@@ -40,6 +50,8 @@ from torch import nn
 
 from gaitpd_torch.ops.cagrad_solver import cagrad_c_coef, cagrad_solve
 from gaitpd_torch.ops.mtl_solvers import fairgrad_solve, min_norm_solve, nashmtl_solve
+from gaitpd_torch.runtime import fold_draws
+from gaitpd_torch.runtime.fold_draws import Generator
 
 EPS = 1e-8
 
@@ -153,7 +165,7 @@ def _inv_losses(losses: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.clamp(losses, min=EPS)
 
 
-def _need_generator(generator: Optional[torch.Generator], name: str) -> torch.Generator:
+def _need_generator(generator: Generator, name: str) -> Generator:
     if generator is None:
         raise ValueError(f"{name} draws from the step's generator; got None")
     return generator
@@ -216,8 +228,8 @@ class RLW(_Base):
     """Random loss weighting, w = softmax(N(0,1)) per step (reference :1101-1112)."""
 
     def draw(self, losses, generator):
-        return torch.randn((self.n_tasks,), generator=_need_generator(generator, "RLW"),
-                           dtype=losses.dtype, device=losses.device)
+        return fold_draws.randn((self.n_tasks,), _need_generator(generator, "RLW"),
+                                dtype=losses.dtype, device=losses.device)
 
     def combine(self, losses, j_shared, gram, state, generator=None):
         w = _rlw_weights(self.draw(losses, generator))
@@ -483,8 +495,8 @@ class PCGrad(_Base):
     clips: bool = True
 
     def draw(self, losses, generator):
-        return torch.randperm(self.n_tasks, generator=_need_generator(generator, "PCGrad"),
-                              device=losses.device)
+        return fold_draws.randperm(self.n_tasks, _need_generator(generator, "PCGrad"),
+                                   device=losses.device)
 
     def combine(self, losses, j_shared, gram, state, generator=None):
         merged = _pcgrad_project(j_shared, self.draw(losses, generator)).sum(0)
@@ -509,8 +521,8 @@ class GradDrop(_Base):
     clips: bool = True
 
     def draw(self, j_shared, generator):
-        return torch.rand((j_shared.shape[1],), generator=_need_generator(generator, "GradDrop"),
-                          dtype=j_shared.dtype, device=j_shared.device)
+        return fold_draws.rand((j_shared.shape[1],), _need_generator(generator, "GradDrop"),
+                               dtype=j_shared.dtype, device=j_shared.device)
 
     def combine(self, losses, j_shared, gram, state, generator=None):
         mask = _graddrop_mask(j_shared, self.draw(j_shared, generator))
@@ -551,6 +563,41 @@ def make_method(name: str, n_tasks: int, **kwargs):
 # ---------------------------------------------------------------------------
 
 
+def combine_flat(
+    method,
+    jmat: torch.Tensor,
+    losses: torch.Tensor,
+    partition: FlatPartition,
+    state,
+    private_grads: str = "sum",
+    generator: Generator = None,
+):
+    """One fold's final flat gradient from its per-task gradient matrix
+    ``jmat`` (K, P) and ``losses`` (K,): the method's weighting of the shared
+    columns, its clip, and the private columns' rule (see ``mtl_grads``).
+    ``generator``: the step's, for the methods that draw; a ``FoldDraws``
+    under ``torch.func.vmap`` over the folds.
+    Returns (final_flat (P,), new_state, info)."""
+    if private_grads not in ("sum", "sum_plus_own"):
+        raise ValueError(f"private_grads must be 'sum' or 'sum_plus_own', got {private_grads!r}")
+    shared = partition.shared
+    j_shared = torch.where(shared[None, :], jmat, torch.zeros_like(jmat))
+    gram = j_shared @ j_shared.T
+
+    shared_flat, w_priv, new_state, info = method.combine(losses, j_shared, gram, state,
+                                                         generator)
+    if method.clips and method.max_norm > 0:
+        shared_flat = _clip_flat(shared_flat, method.max_norm)
+
+    priv_flat = w_priv @ jmat
+    if private_grads == "sum_plus_own":
+        own = torch.zeros_like(priv_flat)
+        for t in range(partition.n_tasks):
+            own = own + torch.where(partition.task_id == t, jmat[t], torch.zeros_like(own))
+        priv_flat = priv_flat + own
+    return torch.where(shared, shared_flat, priv_flat), new_state, info
+
+
 def mtl_grads(
     method,
     loss_fn: Callable,
@@ -575,24 +622,7 @@ def mtl_grads(
                        weargait_train.py:217-242).
     Returns (grads, losses, aux, new_state, info); grads is a list in the
     order of ``params``."""
-    if private_grads not in ("sum", "sum_plus_own"):
-        raise ValueError(f"private_grads must be 'sum' or 'sum_plus_own', got {private_grads!r}")
     jmat, losses, aux = per_task_grad_matrix(loss_fn, params, *args)
-    shared = partition.shared
-    j_shared = torch.where(shared[None, :], jmat, torch.zeros_like(jmat))
-    gram = j_shared @ j_shared.T
-
-    shared_flat, w_priv, new_state, info = method.combine(losses, j_shared, gram, state,
-                                                         generator)
-    if method.clips and method.max_norm > 0:
-        shared_flat = _clip_flat(shared_flat, method.max_norm)
-
-    priv_flat = w_priv @ jmat
-    if private_grads == "sum_plus_own":
-        own = torch.zeros_like(priv_flat)
-        for t in range(partition.n_tasks):
-            own = own + torch.where(partition.task_id == t, jmat[t], torch.zeros_like(own))
-        priv_flat = priv_flat + own
-
-    final_flat = torch.where(shared, shared_flat, priv_flat)
+    final_flat, new_state, info = combine_flat(method, jmat, losses, partition, state,
+                                               private_grads, generator)
     return partition.unravel(final_flat), losses, aux, new_state, info

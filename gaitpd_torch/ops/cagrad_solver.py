@@ -11,7 +11,10 @@ the plain version beside it, ``cagrad_solve_reference``, which is
 gaitpd_torch.learning.minnorm.cagrad_weights in eager torch ops. The two
 run the same IEEE operations in the same order and agree bit for bit.
 There is no fallback from one to the other. A batch (N, K, K) of matrices
-is solved in one call either way.
+is solved in one call either way, and under ``torch.func.vmap`` the vmap
+axis joins that batch (gaitpd_torch/ops/solver_folds.py): the stacked
+cross-validation's F folds are one launch, counted in ``launches`` and in
+``fold_launches``.
 """
 
 from __future__ import annotations
@@ -21,18 +24,22 @@ import ctypes
 import torch
 
 from gaitpd_torch.learning.minnorm import EPS, cagrad_weights, sum_entries
+from gaitpd_torch.ops.solver_folds import is_batched, solve_folds
 
 MAX_TASKS = 8  # K is a compile-time constant of the kernel, 1..8
 
-# Kernel launches made by ``cagrad_solve``; callers may reset it to 0.
+# Kernel launches made by ``cagrad_solve``; callers may reset it to 0. Of
+# those, the launches for every entry of a torch.func.vmap (the folds).
 launches = 0
+fold_launches = 0
 
 _bound = None
 
 
 def cagrad_c_coef(gram: torch.Tensor, c: float) -> torch.Tensor:
     """c·sqrt(mean(G) + EPS) + EPS per matrix, the mean's sum taken in the
-    kernel's order: a scalar for (K, K), (N,) for (N, K, K)."""
+    kernel's order: a scalar for (K, K), (N,) for (N, K, K); under
+    ``torch.func.vmap`` each entry's, by the same operations."""
     g = gram.reshape((-1,) + tuple(gram.shape[-2:]))
     total = sum_entries(g)
     # a tensor divisor: PyTorch's CUDA division by a Python number multiplies
@@ -59,17 +66,24 @@ def _library():
     return _bound
 
 
+def _count_fold() -> None:
+    global fold_launches
+    fold_launches += 1
+
+
 def cagrad_solve(gram: torch.Tensor, c: float) -> torch.Tensor:
     """gram: (K, K) or (N, K, K) -> w: (K,) or (N, K) on the simplex.
 
     CPU tensors take ``cagrad_solve_reference``; CUDA tensors launch the
-    kernel or raise."""
+    kernel or raise; under ``torch.func.vmap``, one call for the vmap axis."""
     global launches
     if gram.dim() not in (2, 3) or gram.shape[-1] != gram.shape[-2]:
         raise ValueError(f"expected (K, K) or (N, K, K) Gram matrices, got {tuple(gram.shape)}")
     k = gram.shape[-1]
     if not 1 <= k <= MAX_TASKS:
         raise ValueError(f"the solver takes 1 <= K <= {MAX_TASKS} tasks, got {k}")
+    if is_batched(gram):
+        return solve_folds(cagrad_solve, _count_fold, gram, c)
     if gram.device.type == "cpu":
         return cagrad_solve_reference(gram, c)
     if gram.device.type != "cuda":

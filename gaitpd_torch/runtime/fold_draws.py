@@ -3,8 +3,9 @@
 The stacked cross-validation (gaitpd_torch/train/vmap_cv.py) runs one fold's
 step under ``torch.func.vmap``, and each fold owns a ``torch.Generator``, so
 a draw there has to come from F generators. Every draw site of a step
-(dropout, the GCL noise, the augmentation, modality dropout) calls
-``rand``, ``randn`` or ``randint`` here with the generator it was given:
+(dropout, the GCL noise, the augmentation, modality dropout, the draws of
+RLW, PCGrad and GradDrop) calls ``rand``, ``randn``, ``randint`` or
+``randperm`` here with the generator it was given:
 
 * a ``torch.Generator`` (or None): the plain ``torch`` draw, the same call
   as before, so a sequential run draws bitwise as it did;
@@ -16,7 +17,8 @@ a draw there has to come from F generators. Every draw site of a step
 A fold that a sequential run would not step (a batch that is all padding,
 an eval batch past its own count, a fold that has stopped early) is
 inactive: it draws nothing, its generator stays as it was, and its rows
-hold zeros (dropout keeps every entry, the noise is 0). The activity is
+hold zeros (dropout keeps every entry, the noise is 0), or for ``randperm``
+the identity permutation. The activity is
 known on the host, so no draw synchronises with the card. The cost is F
 draws and one stack a site, where a sequential step makes one draw.
 
@@ -62,8 +64,18 @@ def _draw(kind: str, shape, generator: torch.Generator, spec: dict) -> torch.Ten
         return torch.rand(shape, generator=generator, **spec)
     if kind == "randn":
         return torch.randn(shape, generator=generator, **spec)
+    if kind == "randperm":
+        return torch.randperm(shape[0], generator=generator, device=spec["device"])
     low, high = spec["bounds"]
     return torch.randint(low, high, shape, generator=generator, device=spec["device"])
+
+
+def _idle(kind: str, shape, spec: dict) -> torch.Tensor:
+    """An inactive fold's row: zeros, or the identity permutation."""
+    if kind == "randperm":
+        return torch.arange(shape[0], device=spec["device"])
+    dtype = torch.int64 if kind == "randint" else spec.get("dtype")
+    return torch.zeros(shape, dtype=dtype, device=spec["device"])
 
 
 class _FoldDrawFunction(torch.autograd.Function):
@@ -90,8 +102,7 @@ class _FoldDrawFunction(torch.autograd.Function):
                 rows.append(_draw(kind, shape, g, spec))
                 continue
             if idle is None:
-                dtype = torch.int64 if kind == "randint" else spec.get("dtype")
-                idle = torch.zeros(shape, dtype=dtype, device=spec["device"])
+                idle = _idle(kind, shape, spec)
             rows.append(idle)
         return torch.stack(rows), 0
 
@@ -122,3 +133,10 @@ def randint(low: int, high: int, shape, generator: Generator, *, device=None) ->
     if isinstance(generator, FoldDraws):
         return _fold("randint", shape, generator, {"device": device, "bounds": (low, high)})
     return torch.randint(low, high, shape, generator=generator, device=device)
+
+
+def randperm(n: int, generator: Generator, *, device=None) -> torch.Tensor:
+    """``torch.randperm(n, generator=generator, ...)``, or one draw a fold."""
+    if isinstance(generator, FoldDraws):
+        return _fold("randperm", (n,), generator, {"device": device})
+    return torch.randperm(n, generator=generator, device=device)

@@ -2,14 +2,98 @@
 // gaitpd_torch/tools/mtl_solver_clock.py: the latency of one operation of
 // the chain (a dependent chain of `reps` of them, stamped before and after),
 // and the cycles of a whole solve of each design of csrc/mtl_solvers.cu, run
-// by its own device functions (this file includes that source), and of the
-// layouts measured beside them.
+// by its own device functions (this file includes that source), of
+// FairGrad's and NashMTL's retired one-thread design (kept below), and of
+// the layouts measured beside them.
 //
 // Plain C interface, bound with ctypes.
 
 #include "../csrc/mtl_solvers.cu"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// FairGrad's and NashMTL's first, one-thread design (retired from
+// csrc/mtl_solvers.cu; kept here as the yardstick of the probes): one
+// thread runs a whole Newton solve.
+
+// x with a x = b: Gaussian elimination without pivoting, back substitution
+template <int K>
+__device__ __forceinline__ void solve(float (&a)[K][K], float (&b)[K], float (&x)[K]) {
+#pragma unroll
+  for (int p = 0; p < K; ++p) {
+#pragma unroll
+    for (int r = p + 1; r < K; ++r) {
+      const float m = div(a[r][p], a[p][p]);
+#pragma unroll
+      for (int c = p + 1; c < K; ++c) a[r][c] = sub(a[r][c], mul(m, a[p][c]));
+      b[r] = sub(b[r], mul(m, b[p]));
+    }
+  }
+#pragma unroll
+  for (int p = K - 1; p >= 0; --p) {
+    float s = b[p];
+#pragma unroll
+    for (int c = p + 1; c < K; ++c) s = sub(s, mul(a[p][c], x[c]));
+    x[p] = div(s, a[p][p]);
+  }
+}
+
+// w <- max(w - damping (G + diag(diag) + EPS I)^-1 f, 1e-6)
+template <int K>
+__device__ __forceinline__ void newton_step(const float (&g)[K][K], float (&w)[K],
+                                            float (&f)[K], const float (&diag)[K],
+                                            float damping) {
+  float a[K][K], delta[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) a[i][j] = g[i][j];
+    a[i][i] = add(add(g[i][i], diag[i]), kEps);
+  }
+  solve(a, f, delta);
+#pragma unroll
+  for (int i = 0; i < K; ++i) w[i] = clamp_min(sub(w[i], mul(damping, delta[i])), kFloor);
+}
+
+// G w = w^(-1/alpha) (minnorm.py:125-141)
+template <int K>
+__device__ void fairgrad(const float (&g)[K][K], float alpha, float (&w)[K]) {
+  const float inv_a = div(1.0f, alpha);
+  const float e1 = -inv_a;
+  const float e2 = sub(e1, 1.0f);
+#pragma unroll
+  for (int i = 0; i < K; ++i) w[i] = static_cast<float>(1.0 / K);
+#pragma unroll 1
+  for (int it = 0; it < kFairGradIters; ++it) {
+    float gw[K], f[K], diag[K];
+    matvec(g, w, gw);
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      f[i] = sub(gw[i], powf(w[i], e1));
+      diag[i] = mul(inv_a, powf(w[i], e2));
+    }
+    newton_step(g, w, f, diag, 0.5f);
+  }
+}
+
+// G a = 1/a (minnorm.py:144-158)
+template <int K>
+__device__ void nashmtl(const float (&g)[K][K], float (&w)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) w[i] = 1.0f;
+#pragma unroll 1
+  for (int it = 0; it < kNashMtlIters; ++it) {
+    float gw[K], f[K], diag[K];
+    matvec(g, w, gw);
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      f[i] = sub(gw[i], div(1.0f, w[i]));
+      diag[i] = div(1.0f, mul(w[i], w[i]));
+    }
+    newton_step(g, w, f, diag, 0.8f);
+  }
+}
 
 enum Probe {
   kCarrier = 0,  // x = base + x * zero: the carrier the powf chain needs

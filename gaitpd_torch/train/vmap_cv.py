@@ -1,10 +1,12 @@
-"""Cross-validation with every fold in one step: WearGait's flagship (CAGrad,
-or the mean of the branch losses at alpha 0), its seven baselines and its
-single-modality mode, with every draw of the recipe. Port of
+"""Cross-validation with every fold in one step: WearGait's flagship under
+any of the 17 MTL methods (CAGrad by default, or the mean of the branch
+losses at alpha 0), its seven baselines and its single-modality mode, with
+every draw of the recipe. Port of
 gaitpd/train/vmap_cv.py:50-748 (reference train/weargait_train.py:533-645, a
 sequential fold loop).
 
     res = run_cv_vmapped(WearGaitArgs(synthetic=True, epochs=3))  # on the card
+    res = run_cv_vmapped(WearGaitArgs(synthetic=True, mtl_method="nashmtl", device="cpu"))
     res = run_cv_vmapped(WearGaitArgs(synthetic=True, baseline="taca", device="cpu"))
     res = run_cv_vmapped(WearGaitArgs(synthetic=True, single_mod="imu", device="cpu"))
 
@@ -15,34 +17,40 @@ stays as it is: one fold's forward and loss go through ``torch.func.vmap``
 over ``torch.func.functional_call``, autograd runs outside the vmap on the
 stacked parameters, and the kernels' vmap rules make each forward one launch
 for all folds (gaitpd_torch/ops/stream_block.py, ops/cheap_xattn.py), each
-backward one launch a task pass. The K task passes give the per-task matrix J (F, K, P);
-CAGrad's Gram matrices (F, K, K) go to the solver in one launch; the clip
-and ``sum_plus_own`` act per fold row. SGD's updates are elementwise, so one
-optimizer over the stacked parameters updates each fold as its own would.
+backward one launch a task pass. The K task passes give the per-task
+matrix J (F, K, P); the method's ``combine_flat`` (gaitpd_torch/learning/
+mtl.py) runs under ``torch.func.vmap`` over J, the losses (F, K), the
+stacked method state and the folds' generators, so its Gram matrices
+(F, K, K) go to its solver in one launch (gaitpd_torch/ops/solver_folds.py)
+and its clip and ``sum_plus_own`` act per fold. SGD's updates are
+elementwise, so one optimizer over the stacked parameters updates each
+fold as its own would.
 
 Folds differ in size: their windows are zero-padded to the largest fold's
 count, and each fold's index pools stay its own, so a padded row is never
 gathered. Batch counts are padded to the largest fold's with batches that
-are all padding; in such a batch a fold keeps its parameters and momentum
-bitwise, through a per-fold mask on the device (the sequential step skips
-the batch on the host). A step makes no host synchronisation.
+are all padding; in such a batch a fold keeps its parameters, momentum and
+method state bitwise, through a per-fold mask on the device (the
+sequential step skips the batch on the host). A step makes no host
+synchronisation.
 
 Each fold keeps the sequential driver's random streams
 (gaitpd_torch/train/weargait_driver.py::run_fold): its numpy generator
 (seed + 1000 fi) orders its epochs, async mode reseeds its pools each epoch,
 and its ``torch.Generator(seed + fi)`` takes the step's draws (augmentation,
-modality dropout, the baselines' dropout, the GCL noise) through
+modality dropout, the baselines' dropout, the GCL noise, then RLW's,
+PCGrad's or GradDrop's draw) through
 gaitpd_torch/runtime/fold_draws.py, one draw a fold at that fold's shape.
 A fold draws where its sequential run would: in a train batch that is not
 all padding, in an eval batch of its own count, and not after its early
 stop. So each generator ends where the sequential run leaves it, and each
 fold reproduces the sequential run of that fold, up to the order of
-summation (tests/test_torch_vmap_cv.py, test_torch_vmap_cv_baselines.py).
+summation (tests/test_torch_vmap_cv.py, test_torch_vmap_cv_baselines.py,
+test_torch_vmap_mtl.py).
 A fold that has run out of patience keeps training with the others, its
 best snapshot frozen and its draws off, as gaitpd's.
 
 Not ported yet, each raising NotImplementedError naming its ROADMAP item:
-the MTL methods other than CAGrad under vmapped folds (Queue 1, item 35);
 data-parallel meshes (item 14); the fused forward (item 15).
 """
 
@@ -61,14 +69,7 @@ from torch.func import functional_call, vmap
 
 from gaitpd_torch.data import weargait as WG
 from gaitpd_torch.data.sampler import batch_index_matrix
-from gaitpd_torch.learning.mtl import (
-    EPS,
-    CAGrad,
-    FlatPartition,
-    build_flat_partition,
-    make_method,
-)
-from gaitpd_torch.ops.cagrad_solver import cagrad_c_coef, cagrad_solve
+from gaitpd_torch.learning.mtl import FlatPartition, build_flat_partition, combine_flat, make_method
 from gaitpd_torch.runtime.device import resolve_device
 from gaitpd_torch.runtime.fold_draws import FoldDraws, fold_tokens
 from gaitpd_torch.train.cv import build_subj2label, make_fixed_balanced_folds_no_overlap
@@ -98,17 +99,6 @@ from gaitpd_torch.train.weargait_driver import (
 # Called after every epoch as on_epoch(epoch, train, eval): aggregate_folds's
 # dicts of (F, ...) arrays.
 VmapEpochHook = Callable[[int, Dict[str, np.ndarray], Dict[str, np.ndarray]], None]
-
-
-def check_vmap_supported(args: WearGaitArgs) -> None:
-    """Raise NotImplementedError for an option the stacked folds do not take
-    yet (and for those the port has not at all)."""
-    check_supported(args)
-    flagship = args.single_mod is None and args.baseline is None
-    if flagship and args.mtl_method != "cagrad":
-        raise NotImplementedError(
-            f"the MTL method {args.mtl_method!r} with vmapped folds: not ported yet "
-            "(ROADMAP Queue 1, item 35)")
 
 
 # ---------------------------------------------------------------------------
@@ -231,18 +221,18 @@ class StackedState:
 def init_stacked_state(model: torch.nn.Module, make_optimizer, mtl_method, n_folds: int,
                        device) -> Tuple[StackedState, Optional[FlatPartition]]:
     """Every fold starts from ``model``'s parameters (the sequential driver
-    builds each fold's model from the same seed): each is stacked F times on
-    ``device``, with one optimizer over the stacked leaves, and the flat
-    partition of one fold's parameters."""
+    builds each fold's model from the same seed) and ``mtl_method``'s initial
+    state: each is stacked F times on ``device``, with one optimizer over the
+    stacked leaves, and the flat partition of one fold's parameters."""
     model = model.to(device)
     params = {name: p.detach().unsqueeze(0).repeat((n_folds,) + (1,) * p.dim())
               .requires_grad_() for name, p in model.named_parameters()}
-    partition = None
+    partition, mtl_state = None, {}
     if mtl_method is not None:
         partition = build_flat_partition(model, model.shared_modules, model.task_modules)
+        mtl_state = _stack_tree([mtl_method.init_state(device) for _ in range(n_folds)])
     state = StackedState(model=model, params=params,
-                         optimizer=make_optimizer(list(params.values())),
-                         mtl_state=mtl_method.init_state(device) if mtl_method else {})
+                         optimizer=make_optimizer(list(params.values())), mtl_state=mtl_state)
     return state, partition
 
 
@@ -257,35 +247,6 @@ class _FoldModule:
         return functional_call(self.model, self.params, xs, kwargs)
 
 
-def _stacked_cagrad(method, jmat: torch.Tensor, losses: torch.Tensor,
-                    partition: FlatPartition, private_grads: str) -> torch.Tensor:
-    """gaitpd_torch.learning.mtl.mtl_grads with CAGrad for every fold at once:
-    J (F, K, P) -> the final flat gradients (F, P). The Gram matrices (F, K,
-    K) go to the solver in one launch; the clip and ``sum_plus_own`` act on
-    each fold's row."""
-    c, k = method.c, method.n_tasks
-    shared = partition.shared
-    j_shared = torch.where(shared, jmat, torch.zeros_like(jmat))
-    gram = j_shared @ j_shared.transpose(1, 2)
-    c_coef = cagrad_c_coef(gram, c)  # (F,)
-    w = cagrad_solve(gram, c)  # (F, K): one launch
-    gw = (w[:, None, :] @ j_shared)[:, 0]
-    gw_norm = torch.sqrt((w[:, None, :] @ gram @ w[:, :, None])[:, 0, 0] + EPS)
-    lmbda = c_coef / (gw_norm + EPS)
-    g = j_shared.mean(1) + lmbda[:, None] * gw
-    shared_flat = g / (1.0 + c**2) * k
-    if method.max_norm > 0:
-        norm = torch.linalg.vector_norm(shared_flat, dim=1, keepdim=True)
-        shared_flat = shared_flat * torch.clamp(method.max_norm / (norm + 1e-6), max=1.0)
-    priv_flat = torch.ones(k, dtype=jmat.dtype, device=jmat.device) @ jmat
-    if private_grads == "sum_plus_own":
-        own = torch.zeros_like(priv_flat)
-        for t in range(partition.n_tasks):
-            own = own + torch.where(partition.task_id == t, jmat[:, t], torch.zeros_like(own))
-        priv_flat = priv_flat + own
-    return torch.where(shared, shared_flat, priv_flat)
-
-
 def _fold_generator(generators, active, token):
     """The generator argument of one fold's step under the vmap: the folds'
     generators, drawing where ``active`` (default: every fold); None
@@ -297,10 +258,11 @@ def _fold_generator(generators, active, token):
 
 class VmapEpochRunner:
     """Train and eval epochs over stacked folds: one fold's loss and eval
-    step (gaitpd_torch.train.step) under ``torch.func.vmap``, F folds a
-    call. ``mtl_method`` None trains on the mean (or sum, per
-    ``settings.loss_reduction``) of the branch losses. ``train_apply`` and
-    ``eval_apply`` are gaitpd_torch.train.loop.EpochRunner's. A step given the folds' generators (one a fold) draws
+    step (gaitpd_torch.train.step) and ``mtl_method``'s combine under
+    ``torch.func.vmap``, F folds a call. ``mtl_method`` None trains on the
+    mean (or sum, per ``settings.loss_reduction``) of the branch losses.
+    ``train_apply`` and ``eval_apply`` are gaitpd_torch.train.loop.
+    EpochRunner's. A step given the folds' generators (one a fold) draws
     from each fold's own where ``active`` says (gaitpd_torch/runtime/
     fold_draws.py)."""
 
@@ -308,11 +270,6 @@ class VmapEpochRunner:
                  partition: Optional[FlatPartition] = None,
                  train_apply: Optional[TrainApply] = None,
                  eval_apply: Optional[EvalApply] = None):
-        if mtl_method is not None and (not isinstance(mtl_method, CAGrad)
-                                       or mtl_method.log_space):
-            raise NotImplementedError(
-                f"{type(mtl_method).__name__} with vmapped folds: not ported yet "
-                "(ROADMAP Queue 1, item 35)")
         self.settings = settings
         self.mtl_method = mtl_method
         self.partition = partition
@@ -330,13 +287,31 @@ class VmapEpochRunner:
         tokens = fold_tokens(valid.shape[0], valid.device)
         return vmap(fold_loss)(state.params, xs, ys, valid, ctx, tokens)
 
+    def _combine(self, state: StackedState, jmat, losses, generators, active):
+        """``combine_flat`` of every fold under the vmap: J (F, K, P) and the
+        losses (F, K) -> the final flat gradients (F, P) and the new stacked
+        method state; a method's draw from each fold's generator, after the
+        forward's."""
+        method, partition = self.mtl_method, self.partition
+        private_grads = self.settings.private_grads
+
+        def fold_combine(jmat, losses, mtl_state, token):
+            final, new_state, _ = combine_flat(method, jmat, losses, partition, mtl_state,
+                                               private_grads,
+                                               _fold_generator(generators, active, token))
+            return final, new_state
+
+        tokens = fold_tokens(jmat.shape[0], jmat.device)
+        return vmap(fold_combine)(jmat, losses, state.mtl_state, tokens)
+
     def train_step(self, state: StackedState, batch, ctx, padded: bool,
                    generators: Optional[Sequence[torch.Generator]] = None,
                    active: Optional[Sequence[bool]] = None):
         """One step of every fold. ``padded``: whether some fold's batch is
-        all padding (known on the host); such a fold keeps its parameters
-        and momentum. ``generators``: the folds' generators, each drawing
-        where ``active`` (host bools, default: every fold) is True."""
+        all padding (known on the host); such a fold keeps its parameters,
+        momentum and method state. ``generators``: the folds' generators,
+        each drawing where ``active`` (host bools, default: every fold) is
+        True."""
         xs, ys, valid = batch["xs"], batch["ys"], batch["valid"]
         names = list(state.params)
         params = [state.params[n] for n in names]
@@ -354,11 +329,11 @@ class VmapEpochRunner:
                                         allow_unused=True)
                 rows.append(torch.cat([(torch.zeros_like(p) if gi is None else gi)
                                        .reshape(n_folds, -1) for gi, p in zip(g, params)], 1))
-            final = _stacked_cagrad(self.mtl_method, torch.stack(rows, 1), ls.detach(),
-                                    self.partition, self.settings.private_grads)
+            final, new_mtl_state = self._combine(state, torch.stack(rows, 1), ls.detach(),
+                                                 generators, active)
             sizes = [int(np.prod(s)) for s in self.partition.shapes]
             grads = [f.reshape(p.shape) for f, p in zip(final.split(sizes, 1), params)]
-        active = valid.sum(1) > 0  # (F,), on the device
+        stepped = valid.sum(1) > 0  # (F,), on the device
         kept = None
         if padded:
             opt = state.optimizer
@@ -371,11 +346,17 @@ class VmapEpochRunner:
         if kept is not None:
             with torch.no_grad():
                 for p, old, buf in kept:
-                    fold = active.reshape((-1,) + (1,) * (p.dim() - 1))
+                    fold = stepped.reshape((-1,) + (1,) * (p.dim() - 1))
                     p.copy_(torch.where(fold, p, old))
                     new_buf = state.optimizer.state[p]["momentum_buffer"]
                     new_buf.copy_(torch.where(fold, new_buf,
                                               torch.zeros_like(new_buf) if buf is None else buf))
+        if self.mtl_method is not None:
+            if padded:  # gaitpd's pick: an idle fold's state as it was
+                new_mtl_state = {k: torch.where(stepped.reshape((-1,) + (1,) * (v.dim() - 1)),
+                                                v, state.mtl_state[k])
+                                 for k, v in new_mtl_state.items()}
+            state.mtl_state = new_mtl_state
         v = valid.to(torch.float32)
         corr = torch.stack([((lg.detach().argmax(-1) == y) * v).sum(1)
                             for lg, y in zip(logits, ys)], 1)
@@ -596,7 +577,7 @@ def run_cv_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpochHook] = None)
     SGD for all, as run_fold), with the recipe's draws; the same summary
     dict, and ``per_fold_macro``. With ``ckpt_dir`` one stacked snapshot of
     every fold is written each epoch; ``resume`` continues from it."""
-    check_vmap_supported(args)
+    check_supported(args)  # the stacked folds take every option run_cv takes
     device = resolve_device(args.device)  # raise before any work
     if args.single_mod is not None:
         return _weargait_single_mod_vmapped(args, on_epoch)
@@ -621,10 +602,13 @@ def run_cv_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpochHook] = None)
                       aug_params=aug_params)
         for s, d in zip(splits, datas)])
 
-    # CAGrad for the flagship only; the baselines train on the mean of the
-    # branch losses (run_fold)
-    use_cagrad = args.baseline is None and args.alpha > 0
-    mtl = make_method("cagrad", 3, c=args.alpha) if use_cagrad else None
+    # the MTL method for the flagship only; the baselines train on the mean
+    # of the branch losses (run_fold); c is CAGrad's strength, other methods
+    # take no c
+    mtl = None
+    if args.baseline is None and args.alpha > 0:
+        kwargs = {"c": args.alpha} if args.mtl_method in ("cagrad", "log_cagrad") else {}
+        mtl = make_method(args.mtl_method, 3, **kwargs)
     make_optimizer = functools.partial(sgd_torch, lr=args.lr, momentum=0.9, weight_decay=1e-4)
     state, partition = init_stacked_state(build_model(args, sync_flag), make_optimizer, mtl, f,
                                           device)

@@ -157,7 +157,6 @@ UNPORTED = {
     "vmap_fbg_fog": (["--mode", "fbg_fog", "--vmap_folds"], 18),
     "vmap_trip": (["--mode", "trip", "--vmap_folds"], 18),
     "vmap_single": (["--mode", "single", "--vmap_folds"], 18),
-    "vmap_mtl_method": (["--mode", "weargait", "--vmap_folds", "--mtl_method", "famo"], 35),
 }
 # flags --vmap_folds once refused (item 35) and now takes: each reaches
 # run_cv_vmapped with the Args gaitpd's CLI gives its own
@@ -167,6 +166,7 @@ VMAP_PORTED = {
     "vmap_aug_noise": ["--mode", "weargait", "--vmap_folds", "--aug_noise_std", "0.05"],
     "vmap_aug_axis": ["--mode", "single", "--single_mod", "imu", "--vmap_folds",
                       "--aug_axis_p", "0.2"],
+    "vmap_mtl_method": ["--mode", "weargait", "--vmap_folds", "--mtl_method", "famo"],
 }
 
 

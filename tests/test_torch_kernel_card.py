@@ -24,7 +24,9 @@ version, both right: gx leaves out such windows (at most two a case, found
 from the inputs in f64) and gw and gb allow what their flips may move. The MGDA, FairGrad and NashMTL
 solvers: w bitwise equal to the plain version's (the same IEEE operations
 in the same order, the same device powf), finite, MGDA's on the simplex;
-FairGrad's and NashMTL's one-thread design, by name, bitwise equal too.
+MGDA's one-thread design, by name, bitwise equal too. Under
+``torch.func.vmap`` over F folds each of the four solvers is one launch,
+each fold's weights the bits of a launch of its own.
 """
 
 import numpy as np
@@ -742,7 +744,7 @@ def test_mtl_solver_matches_plain_on_card(solver, k):
     name = counter.replace("_launches", "_solver")
     before = getattr(ms, counter)
     for g, w in ((grams, want), (batch, want_batch)):
-        for variant in ms.designs(name):  # thread, then the default
+        for variant in ms.designs(name):  # MGDA's thread, then the default
             assert _bitwise(ms._solve_kernel(name, g, *alpha, variant=variant), w)
     assert getattr(ms, counter) == before  # the designs by name count nothing
     if solver == "min_norm":
@@ -994,3 +996,67 @@ def test_fold_draws_on_cuda_generators_equal_sequential_draws():
             assert all(not g[f].any() for g in got)
         assert torch.equal(gens[f].get_state(), alone.get_state())
 
+
+
+def _fold_solvers():
+    """(name, solver on one fold's matrices, its launch counter, its fold
+    counter, the input map): the four solvers of the stacked step."""
+    from gaitpd_torch.ops import mtl_solvers as ms
+
+    def nash(g):
+        return g / torch.linalg.matrix_norm(g).clamp(min=1e-8)[..., None, None]
+
+    return {
+        "cagrad": (lambda g: cs.cagrad_solve(g, 0.5), (cs, "launches"), (cs, "fold_launches"),
+                   lambda g: g),
+        "min_norm": (ms.min_norm_solve, (ms, "min_norm_launches"),
+                     (ms, "min_norm_fold_launches"), lambda g: g),
+        "fairgrad": (lambda g: ms.fairgrad_solve(g, 1.0), (ms, "fairgrad_launches"),
+                     (ms, "fairgrad_fold_launches"), lambda g: g),
+        "nashmtl": (ms.nashmtl_solve, (ms, "nashmtl_launches"), (ms, "nashmtl_fold_launches"),
+                    nash),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("folds", [1, 2, 3, 10])
+@pytest.mark.parametrize("solver", ["cagrad", "min_norm", "fairgrad", "nashmtl"])
+def test_solvers_under_vmap_over_folds_on_card(solver, folds):
+    """Each solver under torch.func.vmap over the folds' (K, K) matrices at
+    K = 3 (the stacked step's) and over a batch of 5 a fold: one launch for
+    every fold, counted once by the solver's counter and once by its fold
+    counter; each fold's weights bitwise those of a launch of its own (MGDA's
+    mix early and 250-step solves, so the folds' stops differ)."""
+    dev = _cuda()
+    run, counter, fold_counter, prep = _fold_solvers()[solver]
+    rng = np.random.default_rng(folds)
+    half = folds * 5 // 2
+    raw = np.concatenate([_solver_grams(rng, half, 3)[:half],
+                          _correlated_grams(rng, folds * 5 - half, 3)])
+    grams = prep(torch.from_numpy(raw[rng.permutation(len(raw))]).to(dev)).reshape(folds, 5, 3, 3)
+    for batch in (grams[:, 0], grams):
+        before = (getattr(*counter), getattr(*fold_counter))
+        got = torch.func.vmap(run)(batch)
+        torch.cuda.synchronize()
+        assert (getattr(*counter), getattr(*fold_counter)) == (before[0] + 1, before[1] + 1)
+        assert got.shape == batch.shape[:-1]
+        for f in range(folds):
+            assert _bitwise(got[f], run(batch[f])), (solver, folds, f)
+        assert torch.isfinite(got).all()
+
+
+@pytest.mark.gpu
+def test_fold_draws_randperm_on_cuda_generators():
+    """PCGrad's draw under the vmap from CUDA generators: each active fold's
+    permutation the bits of its own draw, its generator where that draw
+    leaves it; the inactive fold's the identity, its generator untouched."""
+    dev = _cuda()
+    seeds, active = (3, 4, 5), (True, False, True)
+    gens = [torch.Generator(device=dev).manual_seed(s) for s in seeds]
+    got = torch.func.vmap(lambda t: FD.randperm(3, FD.FoldDraws(gens, active, t), device=dev))(
+        FD.fold_tokens(len(seeds), dev))
+    for f, (seed, on) in enumerate(zip(seeds, active)):
+        alone = torch.Generator(device=dev).manual_seed(seed)
+        want = torch.randperm(3, generator=alone, device=dev) if on else torch.arange(3, device=dev)
+        assert torch.equal(got[f], want)
+        assert torch.equal(gens[f].get_state(), alone.get_state())

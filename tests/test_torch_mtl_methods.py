@@ -338,8 +338,18 @@ def test_solver_wrappers_take_the_plain_version_on_cpu():
 @pytest.mark.parametrize("name, alpha", [("fairgrad_solver", (1.0,)), ("nashmtl_solver", ())])
 @pytest.mark.parametrize("variant", MS.VARIANTS)
 def test_solver_designs_by_name_take_a_cuda_tensor_only(name, alpha, variant):
-    """The thread and warp designs by name are the card's comparison of the
-    two: a CPU tensor has no kernel to run and no plain version to fall
-    back on there."""
+    """The designs by name are the card's comparison: a CPU tensor has no
+    kernel to run and no plain version to fall back on there."""
     with pytest.raises(ValueError, match="CUDA"):
         MS._solve_kernel(name, torch.from_numpy(grams(3, n=2)), *alpha, variant=variant)
+
+
+@pytest.mark.parametrize("name, alpha", [("fairgrad_solver", (1.0,)), ("nashmtl_solver", ())])
+def test_newton_solvers_have_one_design(name, alpha):
+    """FairGrad's and NashMTL's one-thread design is gone from the kernel:
+    asked for by name, it is refused before any device is looked at, while
+    MGDA keeps its thread design as the stop design's yardstick."""
+    assert MS.designs(name) == ("warp",)
+    assert MS.designs("min_norm_solver") == ("thread", "stop")
+    with pytest.raises(ValueError, match="designs \\('warp',\\), not 'thread'"):
+        MS._solve_kernel(name, torch.from_numpy(grams(3, n=2)), *alpha, variant="thread")
