@@ -281,7 +281,27 @@ Phases (each raises on failure, so the script exits non-zero):
      MGDA, FairGrad, NashMTL and FAMO steps beside the 10 sequential steps
      (host clock, device time, kernels, idle share); each solver's merged
      launch of 10 matrices, the vmapped call and the 10 single launches,
-     eager and from a CUDA graph, beside its plain version and its bound.
+     eager and from a CUDA graph, beside its plain version and its bound;
+  10. FBG/FoG's folds and the baseline seed sweeps under --vmap_folds, from
+     a random stream of their own: the stream block under torch.func.vmap
+     over 3 folds of 2 x 256 windows at T 101 (FoG's C_in 6 and FBG's 3,
+     8 bins; FOCAL's 32 -> 4 channels, 4 bins, ReLU and GELU): one launch
+     each way for all folds, each fold bitwise equal to a launch of its
+     own, within phase 2's tolerances of the plain version; the CAGrad
+     solver under vmap over 3 folds' 2 x 2 Gram matrices: one launch, each
+     fold bitwise equal to its own launch and to the plain version;
+     run_fbg_fog_vmapped (FoG multimodal, GCL and CAGrad, 2 epochs) and
+     run_baseline_seeds_vmapped of the cheap-xattn fusion (synced, Adam)
+     and FOCAL (async, AdamW with the clip; seeds 0 and 1, 2 folds a seed,
+     2 epochs) against the sequential drivers on the card under phase 7's
+     rule (the accuracies within one eval sample's share), every fold's
+     generator bitwise equal, the launches a stacked step; one stacked FoG
+     CAGrad step at 3 x 256 beside the 3 sequential steps (launches, 0 host
+     synchronisations, also in a stacked FOCAL step under FoldAdam; host
+     clock, device time, kernels, idle share); python -m gaitpd_torch.cli
+     --mode fbg_fog --vmap_folds; the fold-stacked block at FoG's and
+     FOCAL's shapes timed beside its plain version, the grouped library
+     call and its bound, and the solver's merged launch at K = 2.
 
 Every number is printed beside the card's name and power limit. The
 second-to-last line is a JSON object with one entry per kernel; the last
@@ -292,6 +312,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -339,7 +360,7 @@ from gaitpd_torch.train import vmap_cv as vc
 from gaitpd_torch.train import weargait_driver as wg
 from gaitpd_torch.train.checkpoint import save_fold_checkpoint
 from gaitpd_torch.train.cv import build_subj2label, make_fixed_balanced_folds_no_overlap
-from gaitpd_torch.train.optim import adam_torch, adamw_torch, sgd_torch
+from gaitpd_torch.train.optim import FoldAdam, adam_torch, adamw_torch, sgd_torch
 from gaitpd_torch.train.step import StepSettings, TrainState, make_loss_ctx, make_train_step
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
@@ -3466,12 +3487,13 @@ def fold_block_bound(folds, bsz, t, cin, k, cout, t_out, backward=False):
     return _bound(moved, flop)
 
 
-def time_fold_block(rng, dev, card) -> dict:
-    """The fold-stacked forward and backward at the flagship's fold shape:
-    eager and from a CUDA graph, beside the plain version, the library call
-    (one grouped F.conv1d + ReLU + F.adaptive_avg_pool1d over the folds'
-    channels; the port never calls it) and the bound."""
-    folds, bsz, t, cin, k, cout, t_out, act = FOLD_SHAPES["flagship"]
+def time_fold_block(rng, dev, card, shape=FOLD_SHAPES["flagship"]) -> dict:
+    """The fold-stacked forward and backward at a ReLU fold ``shape`` (the
+    flagship's by default): eager and from a CUDA graph, beside the plain
+    version, the library call (one grouped F.conv1d + ReLU +
+    F.adaptive_avg_pool1d over the folds' channels; the port never calls
+    it) and the bound."""
+    folds, bsz, t, cin, k, cout, t_out, act = shape
     x, w, b, g = fold_inputs(rng, folds, bsz, t, cin, k, cout, dev, t_out)
     xg = x.reshape(folds, bsz, t, cin).permute(1, 0, 3, 2).reshape(bsz, folds * cin, t)
     wg_ = w.permute(0, 3, 2, 1).reshape(folds * cout, cin, k).contiguous()
@@ -4389,6 +4411,574 @@ def phase_vmap_mtl(seed, dev, card, rng) -> dict:
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# 10. FBG/FoG's folds and the baseline seed sweeps under --vmap_folds
+# ---------------------------------------------------------------------------
+
+FF_VMAP_FOLDS = 3
+# (F, B a fold, T, C_in, K, C_out, t_out, act) of the fold-stacked stream
+# block at the FBG/FoG drivers' batch: FoG's and FBG's multitask backbones
+# (both streams' windows, 8 bins) and FOCAL's 2-mod one (32 -> 4 channels,
+# 4 bins; ReLU on its path, GELU beside it)
+FF_FOLD_SHAPES = {
+    "fog": (FF_VMAP_FOLDS, 2 * FF_BATCH, 101, 6, 3, 16, 8, "relu"),
+    "fbg": (FF_VMAP_FOLDS, 2 * FF_BATCH, 101, 3, 3, 16, 8, "relu"),
+    "focal": (FF_VMAP_FOLDS, 2 * FF_BATCH, 101, 32, 3, 4, 4, "relu"),
+    "focal_gelu": (FF_VMAP_FOLDS, 2 * FF_BATCH, 101, 32, 3, 4, 4, "gelu"),
+}
+FF_CAGRAD_C = 0.1  # FbgFogArgs.alpha: CAGrad's c at K = 2
+# the seed sweeps held against the sequential driver run once a seed: the
+# cheap-xattn fusion (synced, one joint head, Adam) and FOCAL (async, two
+# heads, AdamW with the clip)
+FF_SEEDS = (0, 1)
+FF_SEED_RUNS = {"cheap_xattn fusion sync (Adam)": ("fusion", "cheap_xattn", True),
+                "focal async (AdamW, clip)": ("focal", "cheap_xattn", False)}
+
+
+def check_ff_fold_kernels(rng, dev) -> dict:
+    """The stream block under torch.func.vmap over FF_VMAP_FOLDS folds at
+    FF_FOLD_SHAPES, as the stacked FBG/FoG step calls it: one fold-stacked
+    launch forward, one backward through autograd outside the vmap; each
+    fold's output and gradients bitwise those of a launch of its own;
+    against the plain version within phase 2's tolerances (the ReLU kink
+    windows' cotangents set to 0). Returns each shape's (forward, backward)
+    max abs error."""
+    errors = {}
+    for name, (folds, bsz, t, cin, k, cout, t_out, act) in FF_FOLD_SHAPES.items():
+        x, w, b, g = fold_inputs(rng, folds, bsz, t, cin, k, cout, dev, t_out)
+        xs = x.reshape(folds, bsz, t, cin).clone().requires_grad_()
+        wl, bl = w.clone().requires_grad_(), b.clone().requires_grad_()
+        block = torch.func.vmap(lambda xf, wf, bf: sb.stream_block(xf, wf, bf, t_out, act))
+        before = read_launches()
+        out = block(xs, wl, bl)
+        grads = torch.autograd.grad(out, (xs, wl, bl), g.reshape(out.shape))
+        torch.cuda.synchronize()
+        after = read_launches()
+        launched = tuple(after[n] - before[n] for n in (
+            "stream_block", "stream_block_folds", "stream_block_backward",
+            "stream_block_backward_folds"))
+        out = out.reshape(folds * bsz, t_out, cout)
+        grads = (grads[0].reshape(x.shape), grads[1], grads[2])
+        same_fwd = same_bwd = 0
+        for f in range(folds):
+            rows = slice(f * bsz, (f + 1) * bsz)
+            same_fwd += torch.equal(out[rows], sb.stream_block(x[rows], w[f], b[f], t_out, act))
+            single = sb.stream_block_backward(x[rows], w[f], b[f], g[rows], t_out, act)
+            same_bwd += all(torch.equal(a, c) for a, c in
+                            zip((grads[0][rows], grads[1][f], grads[2][f]), single))
+        err = (out - sb.stream_block_folds_reference(x, w, b, t_out, act)).abs().max().item()
+        kinks = relu_kink_rows(x, w, b, act, folds).to(dev)
+        g_safe = torch.where(kinks[:, None, None], torch.zeros_like(g), g)
+        got = sb.stream_block_folds_backward(x, w, b, g_safe, t_out, act)
+        want = sb.stream_block_folds_backward_reference(x, w, b, g_safe, t_out, act)
+        errs = [(a - c).abs().max().item() for a, c in zip(got, want)]
+        tols = [KERNEL_TOL] + [KERNEL_TOL * max(1.0, c.abs().max().item()) for c in want[1:]]
+        fwd_cfg = sb.forward_config(bsz, t, cin, cout, k, t_out, act, folds=folds)
+        bwd_cfg = sb.backward_config(bsz, t, cin, cout, k, t_out, act, folds=folds)
+        log(f"[kernel] stream_block under vmap fbg_fog {name}: {folds} folds x{(bsz, t, cin)} "
+            f"w{tuple(w.shape[1:])} {act} (variants {fwd_cfg['variant']}/{bwd_cfg['variant']}): "
+            f"launches (forward, its fold counter, backward, its fold counter) {launched}; "
+            f"each fold bitwise equal to its own launch: forward {same_fwd}/{folds}, backward "
+            f"{same_bwd}/{folds}; forward max abs err {err:.3e} (tol {KERNEL_TOL}); backward "
+            f"gx/gw/gb max abs err {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol "
+            f"{tols[0]:.1e}/{tols[1]:.2e}/{tols[2]:.2e}; {int(kinks.sum())} ReLU kink "
+            f"window(s) left out)")
+        log(f"[config] stream_block under vmap fbg_fog {name}: forward {fwd_cfg}; backward "
+            f"{bwd_cfg}")
+        if launched != (1, 1, 1, 1):
+            raise RuntimeError(f"stream_block under vmap [{name}]: launches {launched}")
+        if same_fwd != folds or same_bwd != folds:
+            raise RuntimeError(f"stream_block under vmap [{name}]: a fold differs from its "
+                               "own launch")
+        if not (np.isfinite(err) and err <= KERNEL_TOL
+                and all(np.isfinite(e) and e <= tol for e, tol in zip(errs, tols))):
+            raise RuntimeError(f"stream_block under vmap [{name}] disagrees with its plain "
+                               f"version: {err}, {errs}")
+        errors[name] = (err, max(errs))
+    return errors
+
+
+def check_ff_fold_solver(rng, dev, card) -> dict:
+    """The CAGrad solver under torch.func.vmap over FF_VMAP_FOLDS folds'
+    Gram matrices at K = 2 (the stacked FBG/FoG step's, c 0.1): one launch
+    (the counter and its fold counter up by one), each fold's weights
+    bitwise those of its own launch and of the plain version; then timed:
+    the merged launch, the vmapped call and the single launches it
+    replaces, eager and from a CUDA graph, beside the plain version and the
+    bound."""
+    grams = torch.from_numpy(mtl_solver_grams(rng, FF_VMAP_FOLDS, 2)[:FF_VMAP_FOLDS]).to(dev)
+
+    def run(gram):
+        return cs.cagrad_solve(gram, FF_CAGRAD_C)
+
+    def vmapped():
+        return torch.func.vmap(run)(grams)
+
+    def singles():
+        return [run(gram) for gram in grams]
+
+    before = read_launches()
+    got = vmapped()
+    torch.cuda.synchronize()
+    after = read_launches()
+    launched = tuple(after[n] - before[n] for n in ("cagrad_solver", "cagrad_solver_folds"))
+    want = cs.cagrad_solve_reference(grams, FF_CAGRAD_C)
+    same_alone = bitwise_rows(got, torch.stack(singles()))
+    same_plain = bitwise_rows(got, want)
+    err = (got - want).abs().max().item()
+    log(f"[kernel] cagrad_solver under vmap: {FF_VMAP_FOLDS} folds' Gram matrices (K = 2, c "
+        f"{FF_CAGRAD_C}): launches (counter, fold counter) {launched}; each fold bitwise equal "
+        f"to its own launch {same_alone}/{FF_VMAP_FOLDS}, to the plain version "
+        f"{same_plain}/{FF_VMAP_FOLDS}; max abs err {err:.3e}")
+    if launched != (1, 1) or same_alone != FF_VMAP_FOLDS or same_plain != FF_VMAP_FOLDS:
+        raise RuntimeError(f"cagrad_solver under vmap at K = 2: launches {launched}, bitwise "
+                           f"per fold {same_alone}, against the plain version {same_plain}")
+    t = {"kernel": time_cuda(lambda: run(grams), warmup=10, reps=200),
+         "plain": time_cuda(lambda: cs.cagrad_solve_reference(grams, FF_CAGRAD_C), warmup=0,
+                            reps=2),
+         "kernel_2": time_cuda(lambda: run(grams), warmup=10, reps=200),
+         "singles": time_cuda(singles, warmup=3, reps=50),
+         "vmap": time_cuda(vmapped, warmup=10, reps=100),
+         "graph": time_cuda_graph(lambda: run(grams), reps=100),
+         "singles_graph": time_cuda_graph(singles, reps=20),
+         "vmap_graph": time_cuda_graph(vmapped, reps=100)}
+    bound_ms, bound_by = _bound(FF_VMAP_FOLDS * 4 * (4 + 2), FF_VMAP_FOLDS * solver_ops(2))
+    log(f"[time] {card}: cagrad_solver on {FF_VMAP_FOLDS} folds' Gram matrices (K = 2): one "
+        f"launch {t['kernel']:.4f}/{t['kernel_2']:.4f} ms eager, {t['graph']:.4f} ms from a "
+        f"CUDA graph; under vmap {t['vmap']:.4f} ms eager, {t['vmap_graph']:.4f} from a graph; "
+        f"the {FF_VMAP_FOLDS} single launches it replaces {t['singles']:.4f} ms eager, "
+        f"{t['singles_graph']:.4f} from a graph; plain (eager torch on the card, 2 calls) "
+        f"{t['plain']:.2f} ms; bound {bound_ms:.3e} ms ({bound_by})")
+    return {"max_abs_err": err, "times": {
+        "ms": min(t["kernel"], t["kernel_2"]), "plain_ms": t["plain"], "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by, "graph_ms": t["graph"],
+        "vmap_ms": t["vmap"], "vmap_graph_ms": t["vmap_graph"], "single_launches_ms":
+        t["singles"], "single_launches_graph_ms": t["singles_graph"], "folds": FF_VMAP_FOLDS,
+        "k": 2}}
+
+
+@contextlib.contextmanager
+def perturbed_init(module, perturb):
+    """While installed, ``module.init_train_state`` first scales each
+    parameter of the model it is given by 1 + perturb N(0, 1) (a yardstick
+    run: rounding-sized changes of the initial weights)."""
+    if not perturb:
+        yield
+        return
+    init, gen = module.init_train_state, torch.Generator().manual_seed(7)
+
+    def perturbed(model, *a, **k):
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1.0 + perturb * torch.randn(p.shape, generator=gen))
+        return init(model, *a, **k)
+
+    module.init_train_state = perturbed
+    try:
+        yield
+    finally:
+        module.init_train_state = init
+
+
+@contextlib.contextmanager
+def sequential_generators(module, store):
+    """While installed, each fold's generator that ``module``'s sequential
+    driver evaluates with is appended to ``store`` (in fold order)."""
+    run_eval = module.run_eval_epoch
+
+    def eval_epoch(runner, state, data, bsz, generator, *a, **k):
+        if not store or store[-1] is not generator:
+            store.append(generator)
+        return run_eval(runner, state, data, bsz, generator, *a, **k)
+
+    module.run_eval_epoch = eval_epoch
+    try:
+        yield
+    finally:
+        module.run_eval_epoch = run_eval
+
+
+@contextlib.contextmanager
+def stacked_generators(store):
+    """While installed, the stacked run's generators go to ``store``."""
+    streams = vc._instance_streams
+
+    def keep(*a):
+        rngs, gens = streams(*a)
+        store.extend(gens)
+        return rngs, gens
+
+    vc._instance_streams = keep
+    try:
+        yield
+    finally:
+        vc._instance_streams = streams
+
+
+def ff_vmap_launches(kind):
+    """A stacked FBG/FoG run's launches: a CAGrad multimodal step (``kind``
+    None) 1 stream-block forward, 2 backward (one a task pass) and 1 solver
+    launch for every fold; a fusion or FOCAL step 1 forward and 1
+    backward, the cheap-xattn fusion also 1 cross-attention forward and 1
+    backward; an eval forward one forward of each kernel its model uses."""
+
+    def want(steps, evals):
+        out = {name: 0 for name in COUNTERS}
+        backward = steps if kind else 2 * steps
+        out.update(stream_block=steps + evals, stream_block_folds=steps + evals,
+                   stream_block_backward=backward, stream_block_backward_folds=backward)
+        if kind is None:
+            out.update(cagrad_solver=steps, cagrad_solver_folds=steps)
+        if kind == "cheap_xattn":
+            out.update(cheap_xattn=steps + evals, cheap_xattn_backward=steps)
+        return out
+    return want
+
+
+def compare_ff_stacked(tag, seq, yard, stacked, share, want_launches) -> dict:
+    """A stacked FBG/FoG run against the sequential runs it replaces, on the
+    card, under phase 7's rule. ``seq`` and ``yard``: the sequential runs'
+    (per-fold per-epoch train losses {fold: [...]}, per-fold (skel, sensor,
+    avg), the folds' generators, seconds), ``yard`` from initial parameters
+    scaled by 1 + 1e-7 N(0, 1); ``stacked()`` -> (per-epoch (F, K) losses,
+    per-fold (skel, sensor, avg), generators, seconds). The first epoch's
+    losses within TRAIN_LOSS_RTOL, later ones within ROUNDING_GAP_FACTOR of
+    the yardstick's gap; the accuracies within one eval sample's ``share``;
+    every fold's generator bitwise equal at the end; the stacked run a main
+    path (counts set to 0 just before it, read just after), its launches
+    ``want_launches(steps, evals)``."""
+    seq_losses, seq_results, seq_gens, seq_s = seq
+    n_folds = len(seq_losses)
+    with VmapStepCounter() as counter:
+        reset_launches()
+        vm_losses, vm_results, vm_gens, vm_s = stacked()
+        torch.cuda.synchronize()
+        launches = read_launches()
+    yard_gaps = loss_gaps(yard[0], seq_losses, n_folds)
+    gaps = loss_gaps(vm_losses, seq_losses, n_folds)
+    tols = [TRAIN_LOSS_RTOL] + [max(TRAIN_LOSS_RTOL, ROUNDING_GAP_FACTOR * y)
+                                for y in yard_gaps[1:]]
+    acc_gap = max(abs(a - b) for r, s in zip(vm_results, seq_results) for a, b in zip(r, s))
+    same = [torch.equal(a.get_state(), b.get_state()) for a, b in zip(vm_gens, seq_gens)]
+    want = want_launches(counter.steps, counter.evals)
+    wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    log(f"[vmap] {tag}: {n_folds} folds, {len(gaps)} epoch(s): {counter.steps} stacked train "
+        f"steps and {counter.evals} eval forwards in {vm_s:.2f} s, the sequential runs "
+        f"{seq_s:.2f} s; launches {launches}")
+    log(f"[vmap] {tag}: per-epoch train losses vs sequential, max rel gap by epoch "
+        f"{[f'{g:.3e}' for g in gaps]} (tol {[f'{t:.1e}' for t in tols]}; the yardstick "
+        f"run's gap {[f'{y:.3e}' for y in yard_gaps]}); (skel, sensor, avg) max gap "
+        f"{acc_gap:.4f} points (one eval sample {share:.4f}); each fold's generator state "
+        f"bitwise equal to the sequential run's: {sum(same)}/{len(same)}")
+    if any(g > t for g, t in zip(gaps, tols)) or acc_gap > share + 1e-4:
+        raise RuntimeError(f"{tag}: the stacked run differs from the sequential one")
+    if len(same) != n_folds or not all(same):
+        raise RuntimeError(f"{tag}: the folds' draws differ from the sequential runs'")
+    if counter.steps == 0 or wrong:
+        raise RuntimeError(f"{tag}: launches (got, want) {wrong} for {counter.steps} steps")
+    return {"launches": launches, "steps": counter.steps, "eval_forwards": counter.evals,
+            "seconds": vm_s, "sequential_seconds": seq_s, "loss_gaps": gaps,
+            "yardstick_gaps": yard_gaps, "acc_gap": acc_gap, "same_draws": sum(same)}
+
+
+def compare_fbg_fog_vmapped(seed, dev) -> dict:
+    """run_fbg_fog_vmapped for FoG multimodal under GCL and CAGrad (the
+    LayerNorm + cosine heads), 2 epochs, every fold of FF_READERS' FoG
+    reader (2 train steps of 256 an epoch), against the sequential main on
+    the card (compare_ff_stacked)."""
+    reader = syn.make_fog_reader(seed=seed, **FF_READERS["fog"])
+    args = ff.FbgFogArgs(dataset="fog", modality="multimodal", wm="gcl",
+                         use_norm_and_cos=True, epochs=2, seed=seed, verbose=False)
+    n_eval = []
+
+    def sequential(perturb):
+        losses, results, gens = {}, [], []
+        one_fold = ff.train_one_fold
+
+        def keep(*a, **k):
+            results.append(one_fold(*a, **k))
+            return results[-1]
+
+        def hook(fi, ep, state, tr, ev):
+            losses.setdefault(fi, []).append(np.asarray(tr.loss))
+            n_eval.append(len(ev.trues[0]))
+
+        ff.train_one_fold = keep
+        try:
+            with perturbed_init(ff, perturb), sequential_generators(ff, gens):
+                t0 = time.perf_counter()
+                ff.main(args, on_epoch=hook, reader=reader)
+                torch.cuda.synchronize()
+        finally:
+            ff.train_one_fold = one_fold
+        return losses, results, gens, time.perf_counter() - t0
+
+    def stacked():
+        losses, results, gens = [], [], []
+        folds = vc._fbg_fog_folds_vmapped
+
+        def keep(*a, **k):
+            results.extend(folds(*a, **k))
+            return results
+
+        vc._fbg_fog_folds_vmapped = keep
+        try:
+            with stacked_generators(gens):
+                t0 = time.perf_counter()
+                vc.run_fbg_fog_vmapped(dataclasses.replace(args, verbose=True), reader=reader,
+                                       on_epoch=lambda ep, tr, ev: losses.append(tr["loss"]))
+                torch.cuda.synchronize()
+        finally:
+            vc._fbg_fog_folds_vmapped = folds
+        return losses, results, gens, time.perf_counter() - t0
+
+    seq = sequential(0.0)
+    return compare_ff_stacked("run_fbg_fog_vmapped fog multimodal (GCL, CAGrad)", seq,
+                              sequential(ROUNDING_PERTURBATION), stacked, 100.0 / min(n_eval),
+                              ff_vmap_launches(None))
+
+
+def compare_seed_sweep(tag, kind, variant, synced) -> dict:
+    """run_baseline_seeds_vmapped of one configuration, seeds FF_SEEDS, 2
+    folds a seed, 2 epochs, on synthetic FoG, against baseline_drivers.main
+    run once a seed on the card (compare_ff_stacked; the instances in
+    (seed, fold) order)."""
+    common = dict(synced=synced, epochs=2, n_folds_cap=2, synthetic=True)
+
+    def sequential(perturb):
+        losses, results, gens, t0 = {}, [], [], time.perf_counter()
+        one_fold = bd.train_fold
+
+        def keep(*a, **k):
+            results.append(one_fold(*a, **k))
+            return results[-1]
+
+        bd.train_fold = keep
+        try:
+            with perturbed_init(bd, perturb), sequential_generators(bd, gens):
+                for s, seed in enumerate(FF_SEEDS):
+                    bd.main(bd.BaselineArgs(kind=kind, dataset="fog", fusion_type=variant,
+                                            seed=seed, verbose=False, **common),
+                            on_epoch=lambda fi, ep, st, tr, ev, s=s: losses.setdefault(
+                                2 * s + fi, []).append(np.asarray(tr.loss)))
+            torch.cuda.synchronize()
+        finally:
+            bd.train_fold = one_fold
+        return losses, results, gens, time.perf_counter() - t0
+
+    def stacked():
+        losses, gens = [], []
+        with stacked_generators(gens):
+            t0 = time.perf_counter()
+            out = vc.run_baseline_seeds_vmapped(
+                "fog", kind, variant, list(FF_SEEDS), verbose=True, **common,
+                on_epoch=lambda ep, tr, ev: losses.append(tr["loss"]))
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        # the per-seed means, set against the sequential folds' means below
+        return losses, [tuple(out[s][k] for k in ("skel", "sensor", "avg")) for s in FF_SEEDS
+                        for _ in range(2)], gens, seconds
+
+    seq = sequential(0.0)
+    means = [tuple(np.asarray(seq[1][2 * s:2 * s + 2]).mean(axis=0))
+             for s in range(len(FF_SEEDS))]
+    # a synthetic FoG fold evaluates 3 subjects' 4 segments
+    return compare_ff_stacked(f"run_baseline_seeds_vmapped {tag}",
+                              (seq[0], [m for m in means for _ in range(2)], seq[2], seq[3]),
+                              sequential(ROUNDING_PERTURBATION), stacked, 100.0 / 12,
+                              ff_vmap_launches("cheap_xattn" if kind == "fusion" else kind))
+
+
+def ff_vmap_step_setup(seed, dev, folds=FF_VMAP_FOLDS, bsz=FF_BATCH):
+    """The stacked FBG/FoG step of ``folds`` folds: FoG multimodal under GCL
+    and CAGrad at K = 2 (c 0.1), SGD, each fold's own batch of ``bsz``
+    window pairs drawn as ff_step_setup draws one (fold f's from seed +
+    f), the stacked loss context; the runner and the stacked state."""
+    args = ff.FbgFogArgs(dataset="fog", modality="multimodal", seed=seed, use_norm_and_cos=True)
+    settings = StepSettings(n_streams=2, wm="gcl", consistency_lambda=0.0, private_grads="sum")
+    mtl = make_method("cagrad", 2, c=args.alpha, max_norm=args.max_norm)
+    state, partition = vc.init_stacked_state(
+        ff.choose_model(args, FBG_FOG_DIMS["fog"]), lambda p: sgd_torch(p, 1e-3, 0.9, 1e-4),
+        mtl, folds, dev)
+    batches = [ff_step_setup(seed + f, "cpu", bsz)[3] for f in range(folds)]
+    batch = {"xs": tuple(torch.stack([b["xs"][i] for b in batches]).to(dev) for i in range(2)),
+             "ys": tuple(torch.stack([b["ys"][i] for b in batches]).to(dev) for i in range(2)),
+             "valid": torch.ones((folds, bsz), device=dev)}
+    ctx = vc.stack_ctx([make_loss_ctx(settings, [[300, 200, 120]] * 2, device=dev)
+                        for _ in range(folds)])
+    return vc.VmapEpochRunner(settings, mtl, partition), state, batch, ctx
+
+
+def stacked_syncs(fn) -> list:
+    """Host synchronisations in a call of ``fn``, twice (a process's first
+    count may read one more), as torch.cuda's sync debug mode reports them."""
+    counts = []
+    for _ in range(2):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        counts.append(sum("synchroniz" in str(w.message) for w in caught))
+    return counts
+
+
+def focal_fold_adam_step(seed, dev, folds=FF_VMAP_FOLDS, bsz=FF_BATCH):
+    """The stacked FOCAL FoG async step under FoldAdam (AdamW, decay 1e-4,
+    the clip 1.0), as run_train_epoch calls it: the host's stepped mask and
+    the step's row of the optimizer's plan, made before the call."""
+    args = bd.BaselineArgs(kind="focal", seed=seed)
+    dims, hp = FBG_FOG_DIMS["fog"], bd._hp(args, "fog")
+    settings = StepSettings(n_streams=2, wm="ce", loss_reduction="sum")
+    state, _ = vc.init_stacked_state(
+        bd._build_model(args, dims, hp, False),
+        lambda p: FoldAdam(p, folds, hp["lr"], weight_decay=1e-4, grad_clip=1.0), None, folds,
+        dev)
+    g = torch.Generator().manual_seed(seed)
+    batch = {"xs": (torch.rand((folds, bsz, dims.pose_length, dims.skeleton_input_dim),
+                               generator=g).to(dev),
+                    torch.randn((folds, bsz, hp["sensor_length"], dims.sensor_in_channels),
+                                generator=g).to(dev)),
+             "ys": (torch.randint(0, 3, (folds, bsz), generator=g).to(dev),) * 2,
+             "valid": torch.ones((folds, bsz), device=dev)}
+    ctx = vc.stack_ctx([make_loss_ctx(settings, [[300, 200, 120]] * 2, device=dev)
+                        for _ in range(folds)])
+    runner = vc.VmapEpochRunner(settings)
+    stepped = np.ones((folds, 8), bool)
+    plan = state.optimizer.plan(stepped)
+    calls = iter(range(8))
+
+    def step():
+        b = next(calls)
+        return runner.train_step(state, batch, ctx, False, None, None, stepped[:, b], plan[b])
+
+    return step
+
+
+def time_ff_vmap_step(seed, dev, card, reps=10) -> dict:
+    """One stacked FoG multimodal CAGrad step of 3 folds x 256 window pairs
+    beside the 3 sequential batch-256 steps it replaces: its launches (one
+    step's of ff_vmap_launches), its host synchronisations (0; also in a
+    stacked FOCAL step under FoldAdam), wall time (host clock around
+    ``reps`` synchronised steps after 3, in turns: stacked, three, three,
+    stacked), and each one's device time, kernel launches and idle share
+    under the profiler."""
+    runner, state, batch, ctx = ff_vmap_step_setup(seed, dev)
+
+    def stacked():
+        return runner.train_step(state, batch, ctx, False)
+
+    stacked()
+    torch.cuda.synchronize()
+    reset_launches()
+    stacked()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = ff_vmap_launches(None)(1, 0)
+    wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    syncs = stacked_syncs(stacked)
+    adam_step = focal_fold_adam_step(seed, dev)
+    adam_step()
+    adam_syncs = stacked_syncs(adam_step)
+    log(f"[vmap] one stacked FoG multimodal CAGrad step of {FF_VMAP_FOLDS} folds x {FF_BATCH}: "
+        f"launches {launches} (want {want}); host synchronisations {syncs[-1]} (counts "
+        f"{syncs}); a stacked FOCAL step under FoldAdam (AdamW, the clip): host "
+        f"synchronisations {adam_syncs[-1]} (counts {adam_syncs})")
+    if wrong or syncs[-1] != 0 or adam_syncs[-1] != 0:
+        raise RuntimeError(f"stacked FoG step: launches (got, want) {wrong}, syncs {syncs}, "
+                           f"FoldAdam step syncs {adam_syncs}")
+    step, seq_state, seq_ctx, seq_batch, gen = ff_step_setup(seed, dev, FF_BATCH)
+
+    def three():
+        for _ in range(FF_VMAP_FOLDS):
+            step(seq_state, seq_batch, gen, seq_ctx)
+
+    def host_ms(fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    turns = {"stacked": [], "three": []}
+    for name in ("stacked", "three", "three", "stacked"):
+        turns[name].append(host_ms(stacked if name == "stacked" else three))
+    prof = {"stacked": profile_steps(stacked, reps),
+            "one": profile_steps(lambda: step(seq_state, seq_batch, gen, seq_ctx), reps)}
+    log(f"[time] {card}: one stacked FoG multimodal CAGrad step of {FF_VMAP_FOLDS} folds x "
+        f"{FF_BATCH} window pairs: {turns['stacked'][0]:.3f}/{turns['stacked'][1]:.3f} ms (host "
+        f"clock, synchronised); the {FF_VMAP_FOLDS} sequential batch-{FF_BATCH} steps it "
+        f"replaces: {turns['three'][0]:.3f}/{turns['three'][1]:.3f} ms "
+        f"({turns['three'][0] / FF_VMAP_FOLDS:.3f}/{turns['three'][1] / FF_VMAP_FOLDS:.3f} ms "
+        f"a step); profiler, a step: stacked {prof['stacked']}, sequential {prof['one']}")
+    return {"stacked_ms": turns["stacked"], "three_sequential_ms": turns["three"],
+            "profile": prof, "launches": launches, "syncs": syncs[-1],
+            "fold_adam_syncs": adam_syncs[-1]}
+
+
+def check_ff_cli(card) -> dict:
+    """python -m gaitpd_torch.cli --mode fbg_fog --vmap_folds on synthetic
+    FoG for 1 epoch, as a subprocess on the card: it exits 0 and prints the
+    summary."""
+    cmd = [sys.executable, "-m", "gaitpd_torch.cli", "--mode", "fbg_fog", "--dataset", "fog",
+           "--synthetic", "--vmap_folds", "--epochs", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=Path(__file__).resolve().parent)
+    seconds = time.perf_counter() - t0
+    summary = [ln for ln in proc.stdout.splitlines() if ln.startswith("mean skel=")]
+    log(f"[cli] {' '.join(cmd[1:])}: exit {proc.returncode} ({seconds:.1f} s); {summary}")
+    if proc.returncode != 0 or not summary:
+        raise RuntimeError(f"the CLI (fbg_fog --vmap_folds) failed: exit {proc.returncode}\n"
+                           f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return {"exit": proc.returncode, "seconds": seconds}
+
+
+def phase_vmap_fbg_fog(seed, dev, card, rng) -> dict:
+    """Phase 10: the stream block under vmap at FBG/FoG's and FOCAL's fold
+    shapes and the CAGrad solver under vmap at K = 2, against single-fold
+    launches and their plain versions; run_fbg_fog_vmapped and two seed
+    sweeps against the sequential drivers on the card; one stacked FoG
+    CAGrad step beside the 3 sequential steps; the CLI's --vmap_folds for
+    fbg_fog; the fold-stacked block timed at FoG's and FOCAL's shapes."""
+    t0 = time.perf_counter()
+    parts = {}
+
+    def done(part):
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+
+    errors = check_ff_fold_kernels(rng, dev)
+    solver = check_ff_fold_solver(rng, dev, card)
+    done("kernels")
+    runs = {"fbg_fog": compare_fbg_fog_vmapped(seed, dev)}
+    done("run_fbg_fog_vmapped")
+    for tag, (kind, variant, synced) in FF_SEED_RUNS.items():
+        runs[tag] = compare_seed_sweep(tag, kind, variant, synced)
+    done("seed sweeps")
+    step = time_ff_vmap_step(seed, dev, card)
+    done("timed step")
+    cli = check_ff_cli(card)
+    done("cli")
+    times = {}
+    for name, key in (("fog", "fbg_fog"), ("focal", "focal_fbg_fog")):
+        timed = time_fold_block(rng, dev, card, FF_FOLD_SHAPES[name])
+        times[f"stream_block_folds_{key}"] = timed["stream_block_folds"]
+        times[f"stream_block_backward_folds_{key}"] = timed["stream_block_backward_folds"]
+    times["cagrad_solver_folds_k2"] = solver["times"]
+    done("times")
+    seconds = time.perf_counter() - t0
+    log(f"[vmap] {card}: phase 10: {seconds:.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in parts.items())})")
+    return {"errors": errors, "solver_error": solver["max_abs_err"], "runs": runs, "step": step,
+            "cli": cli, "times": times, "seconds": seconds}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4498,6 +5088,10 @@ def main() -> int:
     # the 16 other MTL methods under --vmap_folds: a stream of their own
     vmap_mtl = phase_vmap_mtl(args.seed, dev, card, np.random.default_rng([args.seed, 27]))
     times.update(vmap_mtl["times"])
+    # FBG/FoG's folds and the baseline seed sweeps under --vmap_folds: a
+    # stream of their own
+    vmap_ff = phase_vmap_fbg_fog(args.seed, dev, card, np.random.default_rng([args.seed, 28]))
+    times.update(vmap_ff["times"])
 
     # launches on each kernel's own main path: the CAGrad training's for the
     # earlier slices' kernels, the cheap-xattn training's for this slice's
@@ -4560,6 +5154,15 @@ def main() -> int:
     for name, run in (("min_norm_solver", "mgda sync"), ("fairgrad_solver", "fairgrad sync"),
                       ("nashmtl_solver", "nashmtl sync")):
         launches[f"{name}_folds"] = vmap_mtl["runs"][run]["launches"][f"{name}_folds"]
+    # the fold-stacked block at FBG/FoG's and FOCAL's shapes and the CAGrad
+    # solver under vmap at K = 2 on their own main paths: phase 10's stacked
+    # FoG CAGrad run and its FOCAL seed sweep
+    ff_vm = vmap_ff["runs"]["fbg_fog"]["launches"]
+    focal_vm = vmap_ff["runs"]["focal async (AdamW, clip)"]["launches"]
+    for name in ("stream_block_folds", "stream_block_backward_folds"):
+        launches[f"{name}_fbg_fog"] = ff_vm[name]
+        launches[f"{name}_focal_fbg_fog"] = focal_vm[name]
+    launches["cagrad_solver_folds_k2"] = ff_vm["cagrad_solver_folds"]
     long_err = long_errors["win256_batch64"]
     wide_err = wide_errors[WIDE_XATTN_TIMED[0]]
     bb_err = baselines["errors"]["xattn"]["fog_batch256"]
@@ -4625,6 +5228,18 @@ def main() -> int:
          "gaitpd/learning/minnorm.py:125", vmap_mtl["errors"]["fairgrad_solver"]),
         ("nashmtl_solver_folds", "gaitpd_torch/csrc/mtl_solvers.cu",
          "gaitpd/learning/minnorm.py:144", vmap_mtl["errors"]["nashmtl_solver"]),
+        # the stream block with a fold axis at FBG/FoG's and FOCAL's shapes,
+        # and the CAGrad solver under vmap at FBG/FoG's K = 2
+        ("stream_block_folds_fbg_fog", "gaitpd_torch/csrc/stream_block.cu",
+         "gaitpd/ops/pallas_blocks.py:72", vmap_ff["errors"]["fog"][0]),
+        ("stream_block_backward_folds_fbg_fog", "gaitpd_torch/csrc/stream_block.cu",
+         "gaitpd/ops/pallas_blocks.py:160", vmap_ff["errors"]["fog"][1]),
+        ("stream_block_folds_focal_fbg_fog", "gaitpd_torch/csrc/stream_block.cu",
+         "gaitpd/ops/pallas_blocks.py:72", vmap_ff["errors"]["focal"][0]),
+        ("stream_block_backward_folds_focal_fbg_fog", "gaitpd_torch/csrc/stream_block.cu",
+         "gaitpd/ops/pallas_blocks.py:160", vmap_ff["errors"]["focal"][1]),
+        ("cagrad_solver_folds_k2", "gaitpd_torch/csrc/cagrad_solver.cu",
+         "gaitpd/learning/minnorm.py:58", vmap_ff["solver_error"]),
     ]
     kernels = []
     for name, source, replaces, err in entries:
@@ -4653,7 +5268,8 @@ def main() -> int:
         f"{json.dumps(win256)} and its train steps {json.dumps(win256_steps)}; the wide "
         f"thresholds {json.dumps(threshold_times)}; the vmapped CV (phase 7) "
         f"{json.dumps(vmap)}; the vmapped baselines (phase 8) {json.dumps(vmap_baselines)}; "
-        f"the vmapped MTL methods (phase 9) {json.dumps(vmap_mtl)}")
+        f"the vmapped MTL methods (phase 9) {json.dumps(vmap_mtl)}; FBG/FoG's folds and the "
+        f"seed sweeps (phase 10) {json.dumps(vmap_ff)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,8 +3,9 @@ surface, defaults and mode dispatch, plus ``--device``.
 
 Each mode is a call of one of the port's drivers on its Args dataclass:
 ``fbg_fog`` (and ``trip``, ``single`` without ``--single_mod``) the FBG/FoG
-driver, ``weargait`` (and ``single --single_mod``) WearGait's ``run_cv``, or
-with ``--vmap_folds`` its every-fold-in-one-step ``run_cv_vmapped``,
+driver's ``main``, or with ``--vmap_folds`` its every-fold-in-one-step
+``run_fbg_fog_vmapped``; ``weargait`` (and ``single --single_mod``)
+WearGait's ``run_cv``, or with ``--vmap_folds`` ``run_cv_vmapped``;
 ``fusion`` and ``deepav``/``focal``/``taca`` the FBG/FoG baseline drivers
 (which ignore ``--vmap_folds``, as gaitpd's do). Runs go to the card unless
 ``--device cpu`` is given. Flags whose module the port does not have yet
@@ -18,6 +19,8 @@ raise NotImplementedError naming their ROADMAP item, before any work.
         --test_per_class 3 --vmap_folds --mtl_method nashmtl
     python -m gaitpd_torch.cli --mode fbg_fog --dataset fog --modality sensor \\
         --wm ce --synthetic --epochs 5 --n_folds_cap 1 --device cpu
+    python -m gaitpd_torch.cli --mode fbg_fog --dataset fog --synthetic --epochs 2 \\
+        --vmap_folds
 """
 
 from __future__ import annotations
@@ -129,8 +132,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "ported yet: ROADMAP Queue 1, item 15)")
     p.add_argument("--vmap_folds", action="store_true",
                    help="weargait (the flagship under any --mtl_method, any --baseline, "
-                        "or --single_mod; the recipe's draws per fold): train ALL CV folds "
-                        "in one step, each kernel launched once for every fold "
+                        "or --single_mod; the recipe's draws per fold) and fbg_fog/trip/"
+                        "single (each --modality mode's folds): train ALL CV folds in one "
+                        "step, each kernel launched once for every fold "
                         "(gaitpd_torch/train/vmap_cv.py)")
     p.add_argument("--vmap_hp", action="store_true",
                    help="an (lr x gcl_m x gcl_s x alpha) hyperparameter grid as one "
@@ -163,8 +167,6 @@ def run_fbg_fog(ns: argparse.Namespace):
     from gaitpd_torch.train.fbg_fog_driver import FbgFogArgs, main
 
     _check_hp(ns)
-    if ns.vmap_folds:
-        raise _not_ported("vmapped folds of the FBG/FoG driver (--vmap_folds)", 18)
     if ns.modality == "sensor" and (ns.aug_mirror_p > 0 or ns.aug_rot_deg > 0):
         print("warning: --aug_mirror_p/--aug_rot_deg are skeleton-stream "
               "transforms; --modality sensor ignores them "
@@ -204,6 +206,10 @@ def run_fbg_fog(ns: argparse.Namespace):
         aug_axis_p=ns.aug_axis_p,
         device=ns.device,
     )
+    if ns.vmap_folds:
+        from gaitpd_torch.train.vmap_cv import run_fbg_fog_vmapped
+
+        return run_fbg_fog_vmapped(args)
     return main(args)
 
 

@@ -19,12 +19,25 @@ on the host from torch's CPU step count, in double, where optax's are f32 on
 the device: a step from equal parameters and gradients agrees with
 optax's within two f32 ulps of the largest parameter, 2.4e-7 of it
 (tests/test_torch_fbg_fog_baselines.py).
+
+``FoldAdam`` is both for the stacked cross-validation
+(gaitpd_torch/train/vmap_cv.py), whose leaves carry a leading fold axis:
+gaitpd vmaps the optax update over the folds, so each fold keeps its own
+state. Each fold has its own step count, kept on the host from the host's
+mask of the folds that step, and each fold's bias corrections are computed
+there in double for a whole epoch at once (``plan``: one copy to the device
+an epoch, none a step); the clip takes ‖g‖ over each fold's slice of every
+leaf; a fold that does not step keeps its parameters, moments and count
+bitwise. SGD needs none of this: its update is elementwise and stateless
+but for the momentum, so one ``torch.optim.SGD`` over the stacked leaves
+updates each fold as its own would.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Iterable, Optional, Sequence
 
+import numpy as np
 import torch
 
 
@@ -72,3 +85,84 @@ def adam_torch(params: Iterable[torch.nn.Parameter], lr: float,
     0.999, 1e-8)) (gaitpd/train/optim.py:34-39)."""
     return _clip_before_step(torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8),
                              grad_clip)
+
+
+class FoldAdam(torch.optim.Optimizer):
+    """``adam_torch`` (``weight_decay`` 0) or ``adamw_torch`` for each fold of
+    fold-stacked leaves, each (F, *shape): per fold, optax's
+    chain(clip_by_global_norm(grad_clip) if grad_clip, adam | adamw(lr,
+    0.9, 0.999, 1e-8, weight_decay)), with torch's moment updates. Each
+    fold's step count lives in the param group (``fold_steps``), so
+    ``state_dict`` carries it."""
+
+    def __init__(self, params: Iterable[torch.Tensor], n_folds: int, lr: float,
+                 weight_decay: float = 0.0, grad_clip: float = 0.0,
+                 betas=(0.9, 0.999), eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
+                                      grad_clip=grad_clip, fold_steps=[0] * n_folds))
+
+    @property
+    def fold_steps(self) -> list:
+        return list(self.param_groups[0]["fold_steps"])
+
+    def plan(self, stepped: np.ndarray) -> torch.Tensor:
+        """The bias corrections of the steps to come: ``stepped`` (F, n_b),
+        host bools of the folds that step in each batch -> (n_b, 2, F) f32 on
+        the leaves' device, row b holding each fold's -lr / (1 - b1^t) and
+        sqrt(1 - b2^t) at the count t it reaches in batch b (computed in
+        double, as torch's Adam does on the host)."""
+        group = self.param_groups[0]
+        b1, b2 = group["betas"]
+        t = np.maximum(1, np.asarray(group["fold_steps"])[:, None]
+                       + np.cumsum(np.asarray(stepped, bool), axis=1))
+        table = np.stack([-group["lr"] / (1.0 - b1 ** t), np.sqrt(1.0 - b2 ** t)])
+        device = group["params"][0].device
+        return torch.from_numpy(table.transpose(2, 0, 1).astype(np.float32)).to(device)
+
+    @torch.no_grad()
+    def step(self, stepped: Sequence[bool], stepped_mask: Optional[torch.Tensor] = None,
+             factors: Optional[torch.Tensor] = None) -> None:
+        """Update every fold from the leaves' ``.grad``. ``stepped``: host
+        bools, the folds that step; the others keep their leaves, moments
+        and counts bitwise. ``stepped_mask``: the same on the device, and
+        ``factors``: this step's row of ``plan`` (default: each built here,
+        one copy each)."""
+        group = self.param_groups[0]
+        stepped = [bool(s) for s in stepped]
+        b1, b2 = group["betas"]
+        lr, eps, wd, clip = group["lr"], group["eps"], group["weight_decay"], group["grad_clip"]
+        params = group["params"]
+        n = len(stepped)
+        if factors is None:
+            factors = self.plan(np.asarray(stepped)[:, None])[0]
+        if stepped_mask is None:
+            stepped_mask = torch.tensor(stepped, device=params[0].device)
+
+        def per_fold(v, like):
+            return v.reshape((n,) + (1,) * (like.dim() - 1))
+
+        grads = [p.grad for p in params]
+        if clip > 0:  # optax's law, ‖g‖ over each fold's slice of every leaf
+            norm = torch.stack([(g * g).reshape(n, -1).sum(1) for g in grads]).sum(0).sqrt()
+            keep = norm < clip
+            grads = [torch.where(per_fold(keep, g), g, (g / per_fold(norm, g)) * clip)
+                     for g in grads]
+        for p, g in zip(params, grads):
+            state = self.state[p]
+            if not state:
+                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            m, v = state["exp_avg"], state["exp_avg_sq"]
+            new_p = p.mul(1 - lr * wd) if wd != 0 else p
+            new_m = m.lerp(g, 1 - b1)
+            new_v = v.mul(b2).addcmul_(g, g, value=1 - b2)
+            denom = (new_v.sqrt() / per_fold(factors[1], p)).add_(eps)
+            new_p = new_p + new_m / denom * per_fold(factors[0], p)
+            if not all(stepped):
+                on = per_fold(stepped_mask, p)
+                new_p, new_m, new_v = (torch.where(on, a, b) for a, b in
+                                       ((new_p, p), (new_m, m), (new_v, v)))
+            p.copy_(new_p)
+            m.copy_(new_m)
+            v.copy_(new_v)
+        group["fold_steps"] = [c + s for c, s in zip(group["fold_steps"], stepped)]

@@ -1,14 +1,19 @@
 """Cross-validation with every fold in one step: WearGait's flagship under
 any of the 17 MTL methods (CAGrad by default, or the mean of the branch
 losses at alpha 0), its seven baselines and its single-modality mode, with
-every draw of the recipe. Port of
-gaitpd/train/vmap_cv.py:50-748 (reference train/weargait_train.py:533-645, a
-sequential fold loop).
+every draw of the recipe; the FBG/FoG driver's folds of each mode; and the
+FBG/FoG baselines' seed sweeps, every (seed, fold) instance of one
+configuration in one step. Port of gaitpd/train/vmap_cv.py (reference
+train/weargait_train.py:533-645 and fbg_fog_train.py:410-436, sequential
+fold loops; run_all.sh's seed axis).
 
     res = run_cv_vmapped(WearGaitArgs(synthetic=True, epochs=3))  # on the card
     res = run_cv_vmapped(WearGaitArgs(synthetic=True, mtl_method="nashmtl", device="cpu"))
     res = run_cv_vmapped(WearGaitArgs(synthetic=True, baseline="taca", device="cpu"))
     res = run_cv_vmapped(WearGaitArgs(synthetic=True, single_mod="imu", device="cpu"))
+    res = run_fbg_fog_vmapped(FbgFogArgs(dataset="fog", synthetic=True, epochs=3))
+    res = run_baseline_seeds_vmapped("fog", "focal", "", [0, 1], synthetic=True,
+                                     epochs=2, device="cpu")
 
 The folds' models are small and independent, and the card waits on the host
 in a step of one fold (PERF.md §5), so the fold becomes a leading axis of
@@ -24,18 +29,20 @@ stacked method state and the folds' generators, so its Gram matrices
 (F, K, K) go to its solver in one launch (gaitpd_torch/ops/solver_folds.py)
 and its clip and ``sum_plus_own`` act per fold. SGD's updates are
 elementwise, so one optimizer over the stacked parameters updates each
-fold as its own would.
+fold as its own would; the baselines' Adam and AdamW keep a state and a
+step count a fold (gaitpd_torch/train/optim.py::FoldAdam).
 
 Folds differ in size: their windows are zero-padded to the largest fold's
 count, and each fold's index pools stay its own, so a padded row is never
 gathered. Batch counts are padded to the largest fold's with batches that
-are all padding; in such a batch a fold keeps its parameters, momentum and
-method state bitwise, through a per-fold mask on the device (the
+are all padding; in such a batch a fold keeps its parameters, optimizer
+state and method state bitwise, through a per-fold mask on the device (the
 sequential step skips the batch on the host). A step makes no host
 synchronisation.
 
 Each fold keeps the sequential driver's random streams
-(gaitpd_torch/train/weargait_driver.py::run_fold): its numpy generator
+(gaitpd_torch/train/weargait_driver.py::run_fold, fbg_fog_driver.py::
+train_one_fold, baseline_drivers.py::train_fold): its numpy generator
 (seed + 1000 fi) orders its epochs, async mode reseeds its pools each epoch,
 and its ``torch.Generator(seed + fi)`` takes the step's draws (augmentation,
 modality dropout, the baselines' dropout, the GCL noise, then RLW's,
@@ -46,7 +53,7 @@ all padding, in an eval batch of its own count, and not after its early
 stop. So each generator ends where the sequential run leaves it, and each
 fold reproduces the sequential run of that fold, up to the order of
 summation (tests/test_torch_vmap_cv.py, test_torch_vmap_cv_baselines.py,
-test_torch_vmap_mtl.py).
+test_torch_vmap_mtl.py, test_torch_vmap_fbg_fog.py).
 A fold that has run out of patience keeps training with the others, its
 best snapshot frozen and its draws off, as gaitpd's.
 
@@ -67,14 +74,35 @@ import numpy as np
 import torch
 from torch.func import functional_call, vmap
 
+from gaitpd_torch.config import FBG_FOG_DIMS, FBG_FOG_TRAIN, normalize_dataset_name
 from gaitpd_torch.data import weargait as WG
+from gaitpd_torch.data.fbg_fog import build_fusion_fold
 from gaitpd_torch.data.sampler import batch_index_matrix
 from gaitpd_torch.learning.mtl import FlatPartition, build_flat_partition, combine_flat, make_method
 from gaitpd_torch.runtime.device import resolve_device
 from gaitpd_torch.runtime.fold_draws import FoldDraws, fold_tokens
-from gaitpd_torch.train.cv import build_subj2label, make_fixed_balanced_folds_no_overlap
+from gaitpd_torch.train import metrics as M
+from gaitpd_torch.train.baseline_drivers import BaselineArgs, _adapters, _build_model, _hp
+from gaitpd_torch.train.baseline_drivers import get_reader as get_baseline_reader
+from gaitpd_torch.train.cv import (
+    FOG_EXCLUDED_SUBJECTS,
+    build_subj2label,
+    fbg_label_dict,
+    fog_label_dict,
+    generate_class_stratified_folds,
+    make_fixed_balanced_folds_no_overlap,
+)
+from gaitpd_torch.train.fbg_fog_driver import (
+    MODALITY_MODES,
+    FbgFogArgs,
+    augment_config,
+    choose_model,
+    fold_to_device,
+)
+from gaitpd_torch.train.fbg_fog_driver import check_supported as check_fbg_fog_supported
+from gaitpd_torch.train.fbg_fog_driver import get_reader as get_fbg_fog_reader
 from gaitpd_torch.train.loop import DeviceFoldData, EarlyStopper
-from gaitpd_torch.train.optim import sgd_torch
+from gaitpd_torch.train.optim import FoldAdam, sgd_torch
 from gaitpd_torch.train.step import (
     EvalApply,
     StepSettings,
@@ -218,15 +246,23 @@ class StackedState:
     epoch: int = 0
 
 
-def init_stacked_state(model: torch.nn.Module, make_optimizer, mtl_method, n_folds: int,
+def init_stacked_state(models, make_optimizer, mtl_method, n_folds: int,
                        device) -> Tuple[StackedState, Optional[FlatPartition]]:
-    """Every fold starts from ``model``'s parameters (the sequential driver
-    builds each fold's model from the same seed) and ``mtl_method``'s initial
-    state: each is stacked F times on ``device``, with one optimizer over the
-    stacked leaves, and the flat partition of one fold's parameters."""
-    model = model.to(device)
-    params = {name: p.detach().unsqueeze(0).repeat((n_folds,) + (1,) * p.dim())
-              .requires_grad_() for name, p in model.named_parameters()}
+    """The stacked state of ``n_folds`` folds. ``models``: one module, which
+    every fold starts from (the sequential drivers build each fold's model
+    from one seed), or one a fold (a seed sweep's folds start from their
+    seeds' models). Each fold also starts from ``mtl_method``'s initial
+    state; everything is stacked on ``device``, with one optimizer
+    (``make_optimizer(leaves)``) over the stacked leaves, and the flat
+    partition of one fold's parameters."""
+    if isinstance(models, torch.nn.Module):
+        models = [models] * n_folds
+    if len(models) != n_folds:
+        raise ValueError(f"{len(models)} models for {n_folds} folds")
+    model = models[0].to(device)
+    named = [dict(m.named_parameters()) for m in models]
+    params = {name: torch.stack([n[name].detach().to(device) for n in named]).requires_grad_()
+              for name in named[0]}
     partition, mtl_state = None, {}
     if mtl_method is not None:
         partition = build_flat_partition(model, model.shared_modules, model.task_modules)
@@ -306,12 +342,18 @@ class VmapEpochRunner:
 
     def train_step(self, state: StackedState, batch, ctx, padded: bool,
                    generators: Optional[Sequence[torch.Generator]] = None,
-                   active: Optional[Sequence[bool]] = None):
+                   active: Optional[Sequence[bool]] = None,
+                   stepped: Optional[Sequence[bool]] = None,
+                   adam_factors: Optional[torch.Tensor] = None):
         """One step of every fold. ``padded``: whether some fold's batch is
         all padding (known on the host); such a fold keeps its parameters,
-        momentum and method state. ``generators``: the folds' generators,
-        each drawing where ``active`` (host bools, default: every fold) is
-        True."""
+        its optimizer's state (momentum; Adam's moments and count) and its
+        method state. ``generators``: the folds' generators, each drawing
+        where ``active`` (host bools, default: every fold) is True. Under a
+        FoldAdam, ``stepped`` (host bools: the folds whose batch is not all
+        padding) and ``adam_factors`` (this step's row of its ``plan``) are
+        what run_train_epoch knows on the host; left out, they are read here
+        (``stepped`` from the device, where ``padded``)."""
         xs, ys, valid = batch["xs"], batch["ys"], batch["valid"]
         names = list(state.params)
         params = [state.params[n] for n in names]
@@ -333,29 +375,35 @@ class VmapEpochRunner:
                                                  generators, active)
             sizes = [int(np.prod(s)) for s in self.partition.shapes]
             grads = [f.reshape(p.shape) for f, p in zip(final.split(sizes, 1), params)]
-        stepped = valid.sum(1) > 0  # (F,), on the device
-        kept = None
-        if padded:
-            opt = state.optimizer
-            kept = [(p, p.detach().clone(), opt.state.get(p, {}).get("momentum_buffer"))
-                    for p in params]
-            kept = [(p, old, None if buf is None else buf.clone()) for p, old, buf in kept]
+        stepped_mask = valid.sum(1) > 0  # (F,), on the device
         for p, g in zip(params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
-        state.optimizer.step()
-        if kept is not None:
-            with torch.no_grad():
-                for p, old, buf in kept:
-                    fold = stepped.reshape((-1,) + (1,) * (p.dim() - 1))
-                    p.copy_(torch.where(fold, p, old))
-                    new_buf = state.optimizer.state[p]["momentum_buffer"]
-                    new_buf.copy_(torch.where(fold, new_buf,
-                                              torch.zeros_like(new_buf) if buf is None else buf))
+        opt = state.optimizer
+        if isinstance(opt, FoldAdam):
+            if stepped is None:
+                stepped = (stepped_mask.cpu().numpy() if padded
+                           else [True] * stepped_mask.shape[0])
+            opt.step(stepped, stepped_mask, adam_factors)
+        else:
+            kept = None
+            if padded:
+                kept = [(p, p.detach().clone(), opt.state.get(p, {}).get("momentum_buffer"))
+                        for p in params]
+                kept = [(p, old, None if buf is None else buf.clone()) for p, old, buf in kept]
+            opt.step()
+            if kept is not None:
+                with torch.no_grad():
+                    for p, old, buf in kept:
+                        fold = stepped_mask.reshape((-1,) + (1,) * (p.dim() - 1))
+                        p.copy_(torch.where(fold, p, old))
+                        new_buf = opt.state[p]["momentum_buffer"]
+                        new_buf.copy_(torch.where(
+                            fold, new_buf, torch.zeros_like(new_buf) if buf is None else buf))
         if self.mtl_method is not None:
             if padded:  # gaitpd's pick: an idle fold's state as it was
-                new_mtl_state = {k: torch.where(stepped.reshape((-1,) + (1,) * (v.dim() - 1)),
-                                                v, state.mtl_state[k])
-                                 for k, v in new_mtl_state.items()}
+                new_mtl_state = {k: torch.where(
+                    stepped_mask.reshape((-1,) + (1,) * (v.dim() - 1)), v, state.mtl_state[k])
+                    for k, v in new_mtl_state.items()}
             state.mtl_state = new_mtl_state
         v = valid.to(torch.float32)
         corr = torch.stack([((lg.detach().argmax(-1) == y) * v).sum(1)
@@ -365,15 +413,19 @@ class VmapEpochRunner:
     @torch.no_grad()
     def eval_step_folds(self, state: StackedState, params, batch, ctx, epoch, mask,
                         generators: Optional[Sequence[torch.Generator]] = None,
-                        active: Optional[Sequence[bool]] = None):
+                        active: Optional[Sequence[bool]] = None, collect: bool = False):
         """Every fold's eval forward on its batch; the GCL noise, where the
-        settings draw it, from each fold's generator where ``active``."""
+        settings draw it, from each fold's generator where ``active``. With
+        ``collect``, also each head's predictions (F, K, B) and the
+        ensemble's (F, B)."""
+        keys = ("losses", "correct", "ens_correct", "n") + (("preds", "pred_ens") if collect
+                                                            else ())
 
         def fold_eval(params, xs, ys, valid, ctx, token):
             out = self.eval_step(_FoldModule(state.model, params),
                                  {"xs": xs, "ys": ys, "valid": valid}, ctx,
                                  _fold_generator(generators, active, token), epoch, mask)
-            return {k: out[k] for k in ("losses", "correct", "ens_correct", "n")}
+            return {k: out[k] for k in keys}
 
         valid = batch["valid"]
         tokens = fold_tokens(valid.shape[0], valid.device)
@@ -420,6 +472,8 @@ def run_train_epoch(runner: VmapEpochRunner, state: StackedState, data: StackedF
     n_folds, n_heads = idx.shape[0], len(head_inputs)
     live = [True] * n_folds if live is None else list(live)
     stepped = valid.sum(2) > 0  # (F, n_b), on the host
+    # a FoldAdam's bias corrections for the whole epoch: one copy
+    plan = state.optimizer.plan(stepped) if isinstance(state.optimizer, FoldAdam) else None
     outs = []
     for b in range(idx_d.shape[0]):
         if empty[b] == n_folds:
@@ -428,7 +482,8 @@ def run_train_epoch(runner: VmapEpochRunner, state: StackedState, data: StackedF
             continue
         batch = _gather(data.xs, data.ys, idx_d[b], valid_d[b], head_inputs)
         active = [bool(on and s) for on, s in zip(live, stepped[:, b])]
-        state, m = runner.train_step(state, batch, ctx, empty[b] > 0, generators, active)
+        state, m = runner.train_step(state, batch, ctx, empty[b] > 0, generators, active,
+                                     stepped[:, b], None if plan is None else plan[b])
         outs.append(m)
     return state, aggregate_folds(_to_host(outs))
 
@@ -436,20 +491,26 @@ def run_train_epoch(runner: VmapEpochRunner, state: StackedState, data: StackedF
 def run_eval_epoch(runner: VmapEpochRunner, state: StackedState, params, data: StackedFoldData,
                    idx: np.ndarray, valid: np.ndarray, ctx, head_inputs, epoch: int, mask,
                    generators: Optional[Sequence[torch.Generator]] = None,
-                   draw_batches: Optional[Sequence[int]] = None):
+                   draw_batches: Optional[Sequence[int]] = None, collect: bool = False):
     """One eval pass of every fold. With ``generators``, fold f draws in its
     first ``draw_batches[f]`` batches (default: all): its own batch count,
     where its sequential eval runs every batch of its own, or 0 for a fold
-    whose sequential run has stopped."""
+    whose sequential run has stopped. With ``collect`` the result also
+    holds the predictions, ``preds`` (F, n_b, K, B) and ``pred_ens`` (F,
+    n_b, B), read back with the metrics."""
     idx_d, valid_d, _ = _epoch_on_device(idx, valid, data.eval_xs[0].device)
     n_batches = idx_d.shape[0]
     if draw_batches is None:
         draw_batches = [n_batches] * idx.shape[0]
     outs = [runner.eval_step_folds(
         state, params, _gather(data.eval_xs, data.eval_ys, idx_d[b], valid_d[b], head_inputs),
-        ctx, epoch, mask, generators, [b < n for n in draw_batches])
+        ctx, epoch, mask, generators, [b < n for n in draw_batches], collect)
         for b in range(n_batches)]
-    return aggregate_folds(_to_host(outs))
+    host = _to_host(outs)
+    out = aggregate_folds(host)
+    if collect:
+        out.update(preds=host["preds"], pred_ens=host["pred_ens"])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -553,13 +614,17 @@ def _folds_and_splits(args: WearGaitArgs):
             for tr, te in folds]
 
 
-def _random_streams(args: WearGaitArgs, n_folds: int, device):
-    """Each fold's numpy generator and torch.Generator, as run_fold builds
-    them (folds numbered from 1)."""
-    rngs = [np.random.default_rng(args.seed + 1000 * fi) for fi in range(1, n_folds + 1)]
-    gens = [torch.Generator(device=device).manual_seed(args.seed + fi)
-            for fi in range(1, n_folds + 1)]
+def _instance_streams(instances: Sequence[Tuple[int, int]], device):
+    """Each (seed, fold number) instance's numpy generator (seed + 1000 fi)
+    and torch.Generator (seed + fi), as the sequential drivers build them."""
+    rngs = [np.random.default_rng(seed + 1000 * fi) for seed, fi in instances]
+    gens = [torch.Generator(device=device).manual_seed(seed + fi) for seed, fi in instances]
     return rngs, gens
+
+
+def _random_streams(args, n_folds: int, device):
+    """``_instance_streams`` of ``args.seed``'s folds, numbered from 1."""
+    return _instance_streams([(args.seed, fi) for fi in range(1, n_folds + 1)], device)
 
 
 def _eval_indices(stacked: StackedFoldData, batch_size: int):
@@ -780,3 +845,276 @@ def _weargait_single_mod_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpoc
                     for m in MODALITIES},
         "masks": {},
     }
+
+
+# ---------------------------------------------------------------------------
+# The FBG/FoG drivers: the multitask models' folds, the baselines' seed sweeps
+# ---------------------------------------------------------------------------
+
+
+def _class_counts(data: DeviceFoldData, streams, num_classes: int) -> list:
+    """Each stream's class counts over the fold's train pool."""
+    return [np.bincount(data.ys[k].numpy()[data.train_pool[:, k]], minlength=num_classes)
+            for k in streams]
+
+
+def _collected(data: DeviceFoldData, preds: torch.Tensor, pred_ens: torch.Tensor,
+               n_batches: int, batch_size: int, head_inputs):
+    """One fold's collected eval predictions, as the sequential
+    run_eval_epoch(collect=True) returns them: its first ``n_batches`` of
+    ``preds`` (n_b, K, B) and ``pred_ens`` (n_b, B) flattened to its valid
+    samples in eval order, and their labels."""
+    idx_flat, valid_flat = batch_index_matrix(np.arange(len(data.eval_pool)), batch_size)
+    vmask = valid_flat.reshape(-1) > 0
+    rows = data.eval_pool[idx_flat.reshape(-1)][vmask]
+    return ([preds[:n_batches, k].reshape(-1).numpy()[vmask] for k in range(preds.shape[1])],
+            [data.eval_ys[src].numpy()[rows[:, src]] for src in head_inputs],
+            pred_ens[:n_batches].reshape(-1).numpy()[vmask])
+
+
+def run_fbg_fog_vmapped(args: FbgFogArgs, on_epoch: Optional[VmapEpochHook] = None,
+                        reader=None):
+    """fbg_fog_driver.main with every class-stratified fold of each mode in
+    one step (gaitpd/train/vmap_cv.py:751-790); the same summary dict. With
+    ``ckpt_dir`` one stacked snapshot a mode under ``<ckpt_dir>/<mode>``,
+    which ``resume`` continues. ``reader``: as main's."""
+    check_fbg_fog_supported(args)
+    resolve_device(args.device)  # raise before any work
+    dataset = normalize_dataset_name(args.dataset)
+    reader = get_fbg_fog_reader(args) if reader is None else reader
+    label_dict = fbg_label_dict(reader) if dataset == "fbg" else fog_label_dict(reader)
+    folds = generate_class_stratified_folds(label_dict, np.random.default_rng(args.seed))
+    if args.n_folds_cap:
+        folds = folds[: args.n_folds_cap]
+    summary = {}
+    for mod in MODALITY_MODES[args.modality]:
+        ckpt = str(Path(args.ckpt_dir) / mod) if args.ckpt_dir else None
+        print(f"\n>>> MODE: {mod.upper()} (vmapped folds) <<<")
+        results = _fbg_fog_folds_vmapped(
+            reader, folds, dataclasses.replace(args, modality=mod, ckpt_dir=ckpt), on_epoch)
+        mean_sk, mean_se, mean_av = np.asarray(results).mean(axis=0)
+        if mod == "multimodal" and args.synchronized_loading:
+            print(f"mean Ensemble Acc: {mean_av:.2f}%")
+        else:
+            print(f"mean skel={mean_sk:.2f}%, sensor={mean_se:.2f}%, avg={mean_av:.2f}%")
+        summary[mod] = dict(skel=mean_sk, sensor=mean_se, avg=mean_av)
+    return summary
+
+
+def _fbg_fog_folds_vmapped(reader, folds, args: FbgFogArgs,
+                           on_epoch: Optional[VmapEpochHook] = None) -> list:
+    """Every fold of one mode at once (gaitpd/train/vmap_cv.py:793-1045):
+    fbg_fog_driver.train_one_fold's model, SGD, loss context, method (CAGrad
+    at K = 2 by default, any other under the stacked combine) and random
+    streams a fold. Returns [(skel, sensor, best avg)] a fold from its best
+    epoch's collected predictions, which the stacked snapshot carries."""
+    device = resolve_device(args.device)
+    dataset = normalize_dataset_name(args.dataset)
+    dims, tp = FBG_FOG_DIMS[dataset], FBG_FOG_TRAIN[dataset]
+    epochs = args.epochs or tp.epochs
+    batch_size = args.batch_size or tp.batch_size
+    multimodal = args.modality == "multimodal"
+    sync_multimodal = multimodal and args.synchronized_loading
+    n_streams = 2 if multimodal else 1
+    heads = tuple(range(n_streams))
+    datas = [fold_to_device(build_fusion_fold(
+        dataset, reader, tr, ev, synchronized=args.synchronized_loading, seed=args.seed,
+        pad_skel=dims.pose_length, pad_sens=dims.sensor_length, modality=args.modality),
+        args.modality, "cpu") for tr, ev in folds]
+    f = len(datas)
+    stacked = stack_folds(datas, device)
+    aug_specs, aug_params = augment_config(args, dims.skeleton_input_dim, args.modality)
+    settings = StepSettings(
+        n_streams=n_streams, wm=args.wm, synchronized=args.synchronized_loading,
+        ldam_s=args.ldam_s, gcl_m=args.gcl_m, gcl_s=args.gcl_s, noise_mul=args.noise_mul,
+        drw_warmup=args.drw_warmup,
+        consistency_lambda=args.consistency_lambda if multimodal else 0.0,
+        private_grads="sum", augment=aug_specs)
+    ctx = stack_ctx([make_loss_ctx(settings, _class_counts(d, heads, dims.num_classes),
+                                   device=device, aug_params=aug_params, ldam_max_m=args.ldam_m)
+                     for d in datas])
+    mtl = None
+    if multimodal and args.alpha > 0:
+        kwargs = ({"c": args.alpha, "max_norm": args.max_norm}
+                  if args.mtl_method in ("cagrad", "log_cagrad") else {})
+        mtl = make_method(args.mtl_method, n_streams, **kwargs)
+    make_optimizer = functools.partial(sgd_torch, lr=tp.learning_rate, momentum=tp.momentum,
+                                       weight_decay=tp.weight_decay)
+    state, partition = init_stacked_state(choose_model(args, dims), make_optimizer, mtl, f,
+                                          device)
+    runner = VmapEpochRunner(settings, mtl, partition)
+    rngs, gens = _random_streams(args, f, device)
+    stoppers = [EarlyStopper(patience=tp.patience) for _ in range(f)]
+    eval_idx, eval_valid, eval_counts = _eval_indices(stacked, batch_size)
+    # the best epoch's predictions at fixed shapes, so the snapshot holds them
+    n_b, b_sz = eval_idx.shape[1], eval_idx.shape[2]
+    best = {"best_preds": torch.zeros((f, n_b, n_streams, b_sz), dtype=torch.int64),
+            "best_pred_ens": torch.zeros((f, n_b, b_sz), dtype=torch.int64),
+            "has_best": torch.zeros(f, dtype=torch.bool)}
+
+    start_epoch = 1
+    if args.ckpt_dir and args.resume:
+        payload = restore_vmap_checkpoint(args.ckpt_dir, state, stoppers, rngs, gens)
+        if payload is not None:
+            best = {k: payload["extras"][k] for k in best}
+            start_epoch = payload["epoch"] + 1
+            print(f"[vmap-cv] resumed from epoch {start_epoch}")
+
+    for ep in range(start_epoch, epochs + 1):
+        state.epoch = ep - 1
+        idx, valid = stack_index_batches(
+            stacked.train_pools, [r.permutation(len(p)) for r, p in zip(rngs, stacked.train_pools)],
+            batch_size)
+        live = [not st.stop for st in stoppers]  # a stopped fold draws no more
+        state, tr = run_train_epoch(runner, state, stacked, idx, valid, ctx, heads, gens, live)
+        ev = run_eval_epoch(runner, state, state.params, stacked, eval_idx, eval_valid, ctx,
+                            heads, state.epoch, (True,) * n_streams, gens,
+                            [n if on else 0 for n, on in zip(eval_counts, live)], collect=True)
+        if sync_multimodal:
+            avgs = ev["ens_acc"]
+        elif multimodal:
+            avgs = ev["acc"].mean(axis=1)
+        else:
+            avgs = ev["acc"][:, 0]
+        # a fold out of patience is frozen: the sequential driver stops it
+        improved = [(not st.stop) and st.update(float(v)) for st, v in zip(stoppers, avgs)]
+        if any(improved):
+            rows = torch.tensor([i for i, imp in enumerate(improved) if imp])
+            best["best_preds"][rows] = torch.from_numpy(ev["preds"])[rows]
+            best["best_pred_ens"][rows] = torch.from_numpy(ev["pred_ens"])[rows]
+            best["has_best"][rows] = True
+        if args.ckpt_dir:
+            save_vmap_checkpoint(args.ckpt_dir, state, stoppers, best, ep, rngs, gens)
+        if on_epoch is not None:
+            on_epoch(ep, tr, ev)
+        if args.verbose:
+            print(f"[vmap-cv] Ep {ep:03d}/{epochs} | avg="
+                  f"{np.array2string(np.asarray(avgs), precision=1)} best="
+                  f"{np.array2string(np.asarray([s.best for s in stoppers]), precision=1)}")
+        if all(st.stop for st in stoppers):
+            print(f"[vmap-cv] all folds early-stopped at epoch {ep}")
+            break
+
+    results = []
+    for i, (d, st) in enumerate(zip(datas, stoppers)):
+        if not best["has_best"][i]:
+            results.append((0.0, 0.0, 0.0))
+            continue
+        preds, trues, preds_ens = _collected(d, best["best_preds"][i], best["best_pred_ens"][i],
+                                             eval_counts[i], batch_size, heads)
+        accs = [M.accuracy(p, t) for p, t in zip(preds, trues)]
+        sk, se = {"skeleton": (accs[0], 0.0), "sensor": (0.0, accs[0])}.get(args.modality,
+                                                                           tuple(accs))
+        results.append((sk, se, float(st.best)))
+        if args.verbose:
+            if sync_multimodal:
+                M.print_report(trues[0], preds_ens, f"Fold {i + 1} Best Ensemble")
+            else:
+                M.print_report(trues[0], preds[0], f"Fold {i + 1} Best Stream0")
+    return results
+
+
+def run_fusion_seeds_vmapped(dataset: str, fusion_type: str, seeds: Sequence[int], **kw):
+    """run_baseline_seeds_vmapped of one fusion type (gaitpd/train/
+    vmap_cv.py:1048-1050)."""
+    return run_baseline_seeds_vmapped(dataset, "fusion", fusion_type, seeds, **kw)
+
+
+def run_baseline_seeds_vmapped(dataset: str, kind: str, variant: str, seeds: Sequence[int], *,
+                               synced: bool = False, wm: str = "ce",
+                               epochs: Optional[int] = None, batch_size: Optional[int] = None,
+                               n_folds_cap: Optional[int] = None, synthetic: bool = False,
+                               verbose: bool = False, device=None,
+                               on_epoch: Optional[VmapEpochHook] = None) -> dict:
+    """Every (seed, fold) instance of one FBG/FoG baseline configuration in
+    one step (gaitpd/train/vmap_cv.py:1053-1269): ``kind`` fusion (of
+    ``variant``'s fusion type; Adam, the mean of the CE losses) or deepav,
+    focal, taca (AdamW with decay 1e-4 and the clip 1.0, their sum), each
+    instance as baseline_drivers.train_fold trains it: its seed's reader,
+    folds (FBG with the FoG exclusions), model and random streams.
+    Returns {seed: {"skel", "sensor", "avg"}}, the means over its folds."""
+    dataset = normalize_dataset_name(dataset)
+    dims = FBG_FOG_DIMS[dataset]
+    bargs = BaselineArgs(kind=kind, dataset=dataset, fusion_type=variant, synced=synced, wm=wm,
+                         epochs=epochs, batch_size=batch_size, synthetic=synthetic,
+                         device=device)
+    dev = resolve_device(device)  # raise before any work
+    hp = _hp(bargs, dataset)
+    # one joint head when synced, but the share-latent fusion's two
+    # (reference fusion_train.py:168-173)
+    two_heads = (not synced) or (kind == "fusion" and variant == "share_latent")
+    head_inputs = (0, 1) if two_heads else (0,)
+
+    instances, models = [], []  # (seed, fold number, host data), a model each
+    for seed in seeds:
+        sargs = dataclasses.replace(bargs, seed=seed)
+        reader = get_baseline_reader(sargs)
+        # baseline_drivers.main passes the FoG exclusions for FBG too
+        label_dict = (fbg_label_dict(reader, exclude=FOG_EXCLUDED_SUBJECTS) if dataset == "fbg"
+                      else fog_label_dict(reader))
+        folds = generate_class_stratified_folds(label_dict, np.random.default_rng(seed))
+        model = _build_model(sargs, dims, hp, synced)
+        for fi, (tr, te) in enumerate(folds[:n_folds_cap] if n_folds_cap else folds, 1):
+            fold = build_fusion_fold(dataset, reader, tr, te, synchronized=synced, seed=seed,
+                                     pad_skel=dims.pose_length, pad_sens=hp["sensor_length"],
+                                     modality="multimodal")
+            instances.append((seed, fi, fold_to_device(fold, "multimodal", "cpu")))
+            models.append(model)
+    f = len(instances)
+    datas = [d for _, _, d in instances]
+    stacked = stack_folds(datas, dev)
+    settings = StepSettings(n_streams=len(head_inputs), wm=wm if wm in ("ce", "class_wt") else "ce",
+                            synchronized=synced,
+                            loss_reduction="mean" if kind == "fusion" else "sum")
+    ctx = stack_ctx([make_loss_ctx(settings, _class_counts(d, head_inputs, dims.num_classes),
+                                   device=dev) for d in datas])
+    if kind == "fusion":  # reference fusion_train.py:202, no clip
+        make_optimizer = functools.partial(FoldAdam, n_folds=f, lr=hp["lr"])
+    else:
+        make_optimizer = functools.partial(FoldAdam, n_folds=f, lr=hp["lr"], weight_decay=1e-4,
+                                           grad_clip=1.0)
+    state, _ = init_stacked_state(models, make_optimizer, None, f, dev)
+    runner = VmapEpochRunner(settings, None, None, *_adapters(bargs, hp))
+    rngs, gens = _instance_streams([(seed, fi) for seed, fi, _ in instances], dev)
+    stoppers = [EarlyStopper(patience=hp["patience"]) for _ in range(f)]
+    best_payload = [None] * f
+    eval_idx, eval_valid, eval_counts = _eval_indices(stacked, hp["batch"])
+
+    for ep in range(1, hp["epochs"] + 1):
+        state.epoch = ep - 1
+        idx, valid = stack_index_batches(
+            stacked.train_pools, [r.permutation(len(p)) for r, p in zip(rngs, stacked.train_pools)],
+            hp["batch"])
+        live = [not st.stop for st in stoppers]
+        state, tr = run_train_epoch(runner, state, stacked, idx, valid, ctx, head_inputs, gens,
+                                    live)
+        ev = run_eval_epoch(runner, state, state.params, stacked, eval_idx, eval_valid, ctx,
+                            head_inputs, state.epoch, (True, True), gens,
+                            [n if on else 0 for n, on in zip(eval_counts, live)], collect=True)
+        scores = ev["acc"].mean(axis=1)  # the joint head's, or the mean of the two heads'
+        improved = [(not st.stop) and st.update(float(v)) for st, v in zip(stoppers, scores)]
+        for i, imp in enumerate(improved):
+            if imp:
+                preds = torch.from_numpy(ev["preds"][i])
+                best_payload[i] = _collected(datas[i], preds, torch.from_numpy(ev["pred_ens"][i]),
+                                             eval_counts[i], hp["batch"], head_inputs)[:2]
+        if on_epoch is not None:
+            on_epoch(ep, tr, ev)
+        if verbose:
+            print(f"[vmap-sweep {kind}:{variant}] Ep {ep:03d}/{hp['epochs']} best="
+                  f"{np.array2string(np.asarray([s.best for s in stoppers]), precision=1)}")
+        if all(st.stop for st in stoppers):
+            break
+
+    per_seed: Dict[int, list] = {}
+    for (seed, _, _), payload in zip(instances, best_payload):
+        row = (0.0, 0.0, 0.0)
+        if payload is not None:
+            accs = [M.accuracy(p, t) for p, t in zip(*payload)]
+            row = (accs[0], 0.0, accs[0]) if len(accs) == 1 else (*accs, 0.5 * sum(accs))
+        per_seed.setdefault(seed, []).append(row)
+    out = {}
+    for seed, rows in per_seed.items():
+        sk, se, av = np.asarray(rows).mean(axis=0)
+        out[seed] = {"skel": float(sk), "sensor": float(se), "avg": float(av)}
+    return out

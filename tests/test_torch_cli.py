@@ -69,7 +69,8 @@ ARGVS = {
     "taca": ["--mode", "taca", "--dataset", "fbg", "--n_folds_cap", "1", "--quiet"],
 }
 # the modes whose driver reads --vmap_folds, or ignores it as gaitpd's does
-VMAP_MODES = ("single_mod", "weargait", "fusion", "deepav", "focal", "taca")
+VMAP_MODES = ("fbg_fog", "trip", "single", "single_mod", "weargait", "fusion", "deepav",
+              "focal", "taca")
 
 
 @pytest.fixture
@@ -116,6 +117,7 @@ def _capture(monkeypatch):
         wear, vmapped, fbg, base = mods
         monkeypatch.setattr(wear, "run_cv", record(side))
         monkeypatch.setattr(vmapped, "run_cv_vmapped", record(side + "_vmap"))
+        monkeypatch.setattr(vmapped, "run_fbg_fog_vmapped", record(side + "_vmap"))
         monkeypatch.setattr(fbg, "main", record(side))
         monkeypatch.setattr(base, "main", record(side))
     return got
@@ -140,7 +142,7 @@ def test_each_mode_builds_gaitpd_args(monkeypatch, jax_precision, name, vmap):
     flags = _precision_flags()
     TC.main(argv + ["--device", "cpu"])
     assert _precision_flags() == flags  # as they were, after --matmul_precision high too
-    vmapped = vmap and name in ("single_mod", "weargait")
+    vmapped = vmap and name in ("fbg_fog", "trip", "single", "single_mod", "weargait")
     want, mine = (got["jax_vmap"], got["port_vmap"]) if vmapped else (got["jax"], got["port"])
     assert type(mine).__name__ == type(want).__name__
     fields = dataclasses.asdict(mine)
@@ -154,12 +156,10 @@ UNPORTED = {
     "hp_alphas": (["--mode", "single", "--single_mod", "imu", "--hp_alphas", "0.5"], 19),
     "fused": (["--mode", "weargait", "--fused"], 15),
     "data_parallel": (["--mode", "weargait", "--data_parallel"], 14),
-    "vmap_fbg_fog": (["--mode", "fbg_fog", "--vmap_folds"], 18),
-    "vmap_trip": (["--mode", "trip", "--vmap_folds"], 18),
-    "vmap_single": (["--mode", "single", "--vmap_folds"], 18),
 }
-# flags --vmap_folds once refused (item 35) and now takes: each reaches
-# run_cv_vmapped with the Args gaitpd's CLI gives its own
+# flags and modes --vmap_folds once refused (items 35 and 18) and now takes:
+# each reaches run_cv_vmapped or run_fbg_fog_vmapped with the Args gaitpd's
+# CLI gives its own
 VMAP_PORTED = {
     "vmap_baseline": ["--mode", "weargait", "--vmap_folds", "--baseline", "focal"],
     "vmap_modality_dropout": ["--mode", "weargait", "--vmap_folds", "--modality_dropout", "0.3"],
@@ -167,6 +167,9 @@ VMAP_PORTED = {
     "vmap_aug_axis": ["--mode", "single", "--single_mod", "imu", "--vmap_folds",
                       "--aug_axis_p", "0.2"],
     "vmap_mtl_method": ["--mode", "weargait", "--vmap_folds", "--mtl_method", "famo"],
+    "vmap_fbg_fog": ["--mode", "fbg_fog", "--vmap_folds"],
+    "vmap_trip": ["--mode", "trip", "--vmap_folds"],
+    "vmap_single": ["--mode", "single", "--vmap_folds"],
 }
 
 

@@ -778,9 +778,16 @@ FOLD_CASES = [
     (64, 64, 96, 3, 16, 8, "gelu"),
     (2 * 16, 101, 6, 3, 16, 8, "relu"),
     (2, 4000, 8, 3, 4, 8, "relu"),
+    # FBG's backbone (C_in 3) and FOCAL's 2-mod one (32 -> 4 channels, 4
+    # bins; ReLU on its path, GELU beside it) on the stacked FBG/FoG folds
+    (2 * 16, 101, 3, 3, 16, 8, "relu"),
+    (2 * 16, 101, 32, 3, 4, 4, "relu"),
+    (2 * 16, 101, 32, 3, 4, 4, "gelu"),
 ]
 FOLD_VARIANTS = {FOLD_CASES[0]: ("warp_tile", "generic"), FOLD_CASES[1]: ("wide", "wide"),
-                 FOLD_CASES[2]: ("per_frame", "generic"), FOLD_CASES[3]: ("generic", "generic")}
+                 FOLD_CASES[2]: ("per_frame", "generic"), FOLD_CASES[3]: ("generic", "generic"),
+                 FOLD_CASES[4]: ("per_frame", "generic"), FOLD_CASES[5]: ("per_frame", "generic"),
+                 FOLD_CASES[6]: ("per_frame", "generic")}
 
 
 def _fold_inputs(case, folds, dev):
@@ -1019,21 +1026,23 @@ def _fold_solvers():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 3])
 @pytest.mark.parametrize("folds", [1, 2, 3, 10])
 @pytest.mark.parametrize("solver", ["cagrad", "min_norm", "fairgrad", "nashmtl"])
-def test_solvers_under_vmap_over_folds_on_card(solver, folds):
+def test_solvers_under_vmap_over_folds_on_card(solver, folds, k):
     """Each solver under torch.func.vmap over the folds' (K, K) matrices at
-    K = 3 (the stacked step's) and over a batch of 5 a fold: one launch for
-    every fold, counted once by the solver's counter and once by its fold
-    counter; each fold's weights bitwise those of a launch of its own (MGDA's
-    mix early and 250-step solves, so the folds' stops differ)."""
+    K = 3 (WearGait's stacked step) and K = 2 (FBG/FoG's) and over a batch
+    of 5 a fold: one launch for every fold, counted once by the solver's
+    counter and once by its fold counter; each fold's weights bitwise those
+    of a launch of its own (MGDA's mix early and 250-step solves, so the
+    folds' stops differ)."""
     dev = _cuda()
     run, counter, fold_counter, prep = _fold_solvers()[solver]
     rng = np.random.default_rng(folds)
     half = folds * 5 // 2
-    raw = np.concatenate([_solver_grams(rng, half, 3)[:half],
-                          _correlated_grams(rng, folds * 5 - half, 3)])
-    grams = prep(torch.from_numpy(raw[rng.permutation(len(raw))]).to(dev)).reshape(folds, 5, 3, 3)
+    raw = np.concatenate([_solver_grams(rng, half, k)[:half],
+                          _correlated_grams(rng, folds * 5 - half, k)])
+    grams = prep(torch.from_numpy(raw[rng.permutation(len(raw))]).to(dev)).reshape(folds, 5, k, k)
     for batch in (grams[:, 0], grams):
         before = (getattr(*counter), getattr(*fold_counter))
         got = torch.func.vmap(run)(batch)
