@@ -303,6 +303,27 @@ Phases (each raises on failure, so the script exits non-zero):
      FOCAL's shapes timed beside its plain version, the grouped library
      call and its bound, and the solver's merged launch at K = 2.
 
+  11. the HP grid (--vmap_hp) and the sweep runner, from a random stream
+     of their own: the stream block under vmap over the grid's 40 instances
+     (4 rows x 10 folds x 3 x 64 windows), as in phase 7; the CAGrad solver
+     with c one value a matrix (40 matrices at K = 3 and K = 2, c in 0.1,
+     0.5, 25): one launch, each matrix bitwise a scalar-c launch of its own
+     and the plain version, directly and under vmap with a batched c;
+     run_weargait_hp_vmapped of the flagship (GCL, CAGrad c 0.5, 2 sync
+     epochs; rows lr 1e-3 / alpha 0.5, alpha 25, lr 1e-8, lr 3e-3) against
+     run_cv_vmapped on the card under phase 7's rule (its args' row), every
+     instance's generator bitwise its fold's, the other rows training
+     otherwise, one solver launch a stacked step reading c per matrix; the
+     cheap-xattn fusion's lr grid (1 epoch) likewise; FoG's grid ({}, the
+     driver's values written out, lr 10), the written-out row against the
+     empty one; one stacked grid step of 4 x 10 x 64 beside the stacked
+     10-fold step (launches, 0 host synchronisations, host clock, device
+     time, kernels, idle share); python -m gaitpd_torch.cli --vmap_hp and
+     python -m gaitpd_torch.sweep (--vmap_seeds, then sequential: done=2,
+     then skipped=2, failed=0 both times) as subprocesses; the fold block at
+     the grid's 40 instances and the per-matrix solver at 40 matrices timed
+     beside their plain versions, the library and their bounds.
+
 Every number is printed beside the card's name and power limit. The
 second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device it exits 1
@@ -434,6 +455,8 @@ COUNTERS = {
     "min_norm_solver_folds": (ms, "min_norm_fold_launches"),
     "fairgrad_solver_folds": (ms, "fairgrad_fold_launches"),
     "nashmtl_solver_folds": (ms, "nashmtl_fold_launches"),
+    # of the CAGrad solver's, the launches that read c one value a matrix
+    "cagrad_solver_per_matrix_c": (cs, "per_matrix_launches"),
 }
 
 
@@ -3422,15 +3445,15 @@ def relu_kink_rows(x, w, b, act, folds) -> torch.Tensor:
     return near.reshape(x.shape[0], -1).any(1)
 
 
-def check_fold_kernels(rng, dev, card) -> dict:
-    """The fold-stacked forward and backward at FOLD_SHAPES: one launch each
+def check_fold_kernels(rng, dev, card, shapes=FOLD_SHAPES) -> dict:
+    """The fold-stacked forward and backward at ``shapes``: one launch each
     way for all folds; each fold's output and gradients bitwise equal to a
     launch of that fold alone; against the plain version
     (stream_block_folds_reference) within KERNEL_TOL (gw, gb of their
     largest value), the ReLU kink windows' cotangents set to 0 in both;
     each launch's config beside the single fold's."""
     errors = {}
-    for name, (folds, bsz, t, cin, k, cout, t_out, act) in FOLD_SHAPES.items():
+    for name, (folds, bsz, t, cin, k, cout, t_out, act) in shapes.items():
         x, w, b, g = fold_inputs(rng, folds, bsz, t, cin, k, cout, dev, t_out)
         before = (sb.fold_launches, sb.fold_backward_launches)
         out = sb.stream_block_folds(x, w, b, t_out, act)
@@ -4979,6 +5002,509 @@ def phase_vmap_fbg_fog(seed, dev, card, rng) -> dict:
             "cli": cli, "times": times, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# 11. the HP grid (--vmap_hp) and the sweep runner
+# ---------------------------------------------------------------------------
+
+# the solver's strengths one a matrix: CAGrad's c of the flagship (0.5), of
+# FBG/FoG (0.1) and an extreme row (25)
+GRID_C_VALUES = (0.1, 0.5, 25.0)
+GRID_MATRICES = 40  # 4 grid rows x the CLI's 10 folds
+# the flagship's grid at the CLI's defaults: the args' row first (lr 1e-3,
+# alpha 0.5), an extreme alpha, a near-zero lr and a larger lr
+WEARGAIT_GRID = [{"lr": 1e-3, "alpha": 0.5}, {"lr": 1e-3, "alpha": 25.0},
+                 {"lr": 1e-8, "alpha": 0.5}, {"lr": 3e-3, "alpha": 0.5}]
+GRID_ROWS = len(WEARGAIT_GRID)
+# the fold-stacked block at the grid's instance axis: 40 instances x 3 x 64
+# windows at the flagship's shape
+GRID_FOLD_SHAPE = (GRID_ROWS * VMAP_FOLDS,) + FOLD_SHAPES["flagship"][1:]
+
+
+def check_grid_solver(rng, dev, card) -> dict:
+    """The CAGrad solver with c one value a matrix (an HP grid's instances):
+    40 matrices at K = 3 and K = 2, c cycling through GRID_C_VALUES, in one
+    launch (the counter and the per-matrix counter up by one), each matrix's
+    w bitwise that of a scalar-c launch of its own and of the plain version;
+    the same under torch.func.vmap with a batched c (the fold counter up by
+    one too). At K = 3, timed: the merged launch, the vmapped call and the
+    40 scalar-c launches it replaces, eager and from a CUDA graph, beside
+    the plain version and the bound (40 solves' operations)."""
+    out = {}
+    for k in (3, 2):
+        grams = torch.from_numpy(mtl_solver_grams(rng, GRID_MATRICES, k)[:GRID_MATRICES]).to(dev)
+        cvals = [GRID_C_VALUES[i % 3] for i in range(GRID_MATRICES)]
+        c = torch.tensor(cvals, dtype=torch.float32, device=dev)
+
+        def counts():
+            got = read_launches()
+            return tuple(got[n] for n in ("cagrad_solver", "cagrad_solver_folds",
+                                          "cagrad_solver_per_matrix_c"))
+
+        before = counts()
+        direct = cs.cagrad_solve(grams, c)
+        torch.cuda.synchronize()
+        mid = counts()
+        vmapped = torch.func.vmap(cs.cagrad_solve)(grams, c)
+        torch.cuda.synchronize()
+        after = counts()
+        launched = (tuple(m - b for m, b in zip(mid, before)),
+                    tuple(a - m for a, m in zip(after, mid)))
+        singles = torch.stack([cs.cagrad_solve(g, cv) for g, cv in zip(grams, cvals)])
+        want = cs.cagrad_solve_reference(grams, c)
+        same = {"direct_vs_scalar": bitwise_rows(direct, singles),
+                "direct_vs_plain": bitwise_rows(direct, want),
+                "vmap_vs_scalar": bitwise_rows(vmapped, singles),
+                "vmap_vs_plain": bitwise_rows(vmapped, want)}
+        err = max((direct - want).abs().max().item(), (vmapped - want).abs().max().item())
+        log(f"[kernel] cagrad_solver with c per matrix: {GRID_MATRICES} Gram matrices (K = {k}, "
+            f"c in {GRID_C_VALUES}): launches (counter, fold counter, per-matrix counter) "
+            f"direct {launched[0]}, under vmap {launched[1]}; bitwise equal (of "
+            f"{GRID_MATRICES}) {same}; max abs err {err:.3e}")
+        if (launched != ((1, 0, 1), (1, 1, 1))
+                or any(v != GRID_MATRICES for v in same.values())):
+            raise RuntimeError(f"cagrad_solver with c per matrix at K = {k}: launches "
+                               f"{launched}, bitwise {same}")
+        out[f"k{k}"] = {"max_abs_err": err, "bitwise": same}
+        if k != 3:
+            continue
+
+        def run():
+            return cs.cagrad_solve(grams, c)
+
+        def scalar_launches():
+            return [cs.cagrad_solve(g, cv) for g, cv in zip(grams, cvals)]
+
+        def vmapped_call():
+            return torch.func.vmap(cs.cagrad_solve)(grams, c)
+
+        t = {"kernel": time_cuda(run, warmup=10, reps=200),
+             "plain": time_cuda(lambda: cs.cagrad_solve_reference(grams, c), warmup=0, reps=2),
+             "kernel_2": time_cuda(run, warmup=10, reps=200),
+             "singles": time_cuda(scalar_launches, warmup=2, reps=20),
+             "vmap": time_cuda(vmapped_call, warmup=10, reps=100),
+             "graph": time_cuda_graph(run, reps=100),
+             "singles_graph": time_cuda_graph(scalar_launches, reps=10),
+             "vmap_graph": time_cuda_graph(vmapped_call, reps=100)}
+        bound_ms, bound_by = _bound(GRID_MATRICES * 4 * (k * k + 1 + k),
+                                    GRID_MATRICES * solver_ops(k))
+        log(f"[time] {card}: cagrad_solver with c per matrix on {GRID_MATRICES} Gram matrices "
+            f"(K = {k}): one launch {t['kernel']:.4f}/{t['kernel_2']:.4f} ms eager, "
+            f"{t['graph']:.4f} ms from a CUDA graph; under vmap {t['vmap']:.4f} ms eager, "
+            f"{t['vmap_graph']:.4f} from a graph; the {GRID_MATRICES} scalar-c launches it "
+            f"replaces {t['singles']:.4f} ms eager, {t['singles_graph']:.4f} from a graph; plain "
+            f"(eager torch on the card, 2 calls) {t['plain']:.2f} ms; bound {bound_ms:.3e} ms "
+            f"({bound_by})")
+        out["times"] = {
+            "ms": min(t["kernel"], t["kernel_2"]), "plain_ms": t["plain"], "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "graph_ms": t["graph"],
+            "vmap_ms": t["vmap"], "vmap_graph_ms": t["vmap_graph"],
+            "scalar_launches_ms": t["singles"], "scalar_launches_graph_ms": t["singles_graph"],
+            "matrices": GRID_MATRICES, "k": k}
+    return out
+
+
+def check_fold_sgd(rng, dev) -> dict:
+    """FoldSGD (an lr an instance) against sgd_torch run instance by
+    instance on the card, 3 steps at lrs 1e-3, 3e-3, 1e-8 and 10 on leaves
+    of the flagship's shapes: the leaves and momenta that are bitwise
+    equal, and the largest gap relative to the largest value (the CPU holds
+    them bitwise: tests/test_torch_hp_search.py)."""
+    from gaitpd_torch.train.optim import FoldSGD
+
+    lrs = [1e-3, 3e-3, 1e-8, 10.0]
+    shapes = [(3, 12, 16), (16,), (2, 8), (1000,)]
+    p0 = [torch.from_numpy(rng.normal(size=(len(lrs),) + s).astype(np.float32)).to(dev)
+          for s in shapes]
+    grads = [[torch.from_numpy(rng.normal(size=p.shape).astype(np.float32)).to(dev) for p in p0]
+             for _ in range(3)]
+    leaves = [p.clone().requires_grad_() for p in p0]
+    opt = FoldSGD(leaves, lr=torch.tensor(lrs, device=dev))
+    for gs in grads:
+        for p, g in zip(leaves, gs):
+            p.grad = g.clone()
+        opt.step()
+    same, total, gap = 0, 0, 0.0
+    for i, lr in enumerate(lrs):
+        own = [p[i].clone().requires_grad_() for p in p0]
+        ref = sgd_torch(own, lr=lr)
+        for gs in grads:
+            for p, g in zip(own, gs):
+                p.grad = g[i].clone()
+            ref.step()
+        for p, q in zip(leaves, own):
+            pairs = ((p.detach()[i], q.detach()),
+                     (opt.state[p]["momentum_buffer"][i], ref.state[q]["momentum_buffer"]))
+            for a, b in pairs:
+                total += 1
+                same += int(torch.equal(a, b))
+                gap = max(gap, ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item())
+    log(f"[hp] FoldSGD vs sgd_torch instance by instance on the card (lrs {lrs}, 3 steps): "
+        f"bitwise equal {same}/{total} leaves and momenta; largest gap {gap:.3e} of the "
+        f"largest value")
+    if gap > STEP_PARAM_TOL:
+        raise RuntimeError(f"FoldSGD departs from sgd_torch on the card: {gap}")
+    return {"bitwise": same, "of": total, "gap": gap}
+
+
+@contextlib.contextmanager
+def perturbed_stacked_init(perturb):
+    """While installed, vmap_cv.init_stacked_state first scales each
+    parameter of the model it is given by 1 + perturb N(0, 1): a yardstick
+    run of the stacked runner."""
+    init, gen = vc.init_stacked_state, torch.Generator().manual_seed(7)
+
+    def perturbed(models, *a, **k):
+        with torch.no_grad():
+            for p in models.parameters():
+                p.mul_(1.0 + perturb * torch.randn(p.shape, generator=gen).to(p.device))
+        return init(models, *a, **k)
+
+    vc.init_stacked_state = perturbed
+    try:
+        yield
+    finally:
+        vc.init_stacked_state = init
+
+
+def epoch_gaps(got, want) -> list:
+    """Per epoch, the largest relative gap between two runs' (F, K) train
+    losses; raises on a non-finite loss."""
+    gaps = []
+    for ep, (a, b) in enumerate(zip(got, want), 1):
+        if not (np.all(np.isfinite(a)) and np.all(np.isfinite(b))):
+            raise RuntimeError(f"epoch {ep}: non-finite losses")
+        gaps.append(float((np.abs(a - b) / np.abs(b)).max()))
+    return gaps
+
+
+def stacked_run(fn, *a, **k) -> dict:
+    """``fn(*a, on_epoch=..., **k)`` on the card as a main path: every count
+    set to 0 just before it and read just after; its per-epoch train losses
+    (F, K), its generators, its stacked steps and eval forwards, seconds."""
+    losses, gens = [], []
+    with VmapStepCounter() as counter, stacked_generators(gens):
+        reset_launches()
+        t0 = time.perf_counter()
+        res = fn(*a, on_epoch=lambda ep, tr, ev: losses.append(tr["loss"]), **k)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    return {"result": res, "losses": losses, "gens": gens, "steps": counter.steps,
+            "evals": counter.evals, "seconds": seconds, "launches": launches}
+
+
+def hold_grid_row(tag, grid_run, plain_run, grid, row, n_folds, share, yard,
+                  want_launches) -> dict:
+    """Row ``row`` of ``grid``'s run against a plain stacked run under phase 7's
+    rule: epoch 1's losses within TRAIN_LOSS_RTOL, later epochs' within
+    ROUNDING_GAP_FACTOR of the yardstick's gap ``yard`` (at least
+    TRAIN_LOSS_RTOL); each fold's best within one eval window's ``share``;
+    each instance's generator bitwise its fold's in the plain run at the
+    end; the grid run's launches ``want_launches(steps, evals)``."""
+    rows = grid_run["result"]["table"]
+    mine = [ep[row * n_folds:(row + 1) * n_folds] for ep in grid_run["losses"]]
+    gaps = epoch_gaps(mine, plain_run["losses"])
+    tols = [TRAIN_LOSS_RTOL] + [max(TRAIN_LOSS_RTOL, ROUNDING_GAP_FACTOR * y) for y in yard[1:]]
+    best = next(r for r in rows if r["hp"] == grid[row])["per_fold"]
+    plain_best = plain_run["result"]["per_fold_macro"]
+    macro_gap = max(abs(a - b) for a, b in zip(best, plain_best))
+    n_inst = len(grid_run["gens"])
+    same = sum(torch.equal(g.get_state(), plain_run["gens"][i % n_folds].get_state())
+               for i, g in enumerate(grid_run["gens"]))
+    want = want_launches(grid_run["steps"], grid_run["evals"])
+    launches = grid_run["launches"]
+    wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    log(f"[hp] {tag}: {n_inst} instances, {grid_run['steps']} stacked train steps and "
+        f"{grid_run['evals']} eval forwards in {grid_run['seconds']:.2f} s (the plain stacked "
+        f"run of {n_folds} folds {plain_run['seconds']:.2f} s); launches {launches}")
+    log(f"[hp] {tag}: row {row} vs the plain run, max rel loss gap by epoch "
+        f"{[f'{g:.3e}' for g in gaps]} (tol {[f'{t:.1e}' for t in tols]}; yardstick "
+        f"{[f'{y:.3e}' for y in yard]}); best macro max gap {macro_gap:.4f} points (one eval "
+        f"window {share:.4f}); each instance's generator bitwise its fold's: {same}/{n_inst}")
+    if any(g > t for g, t in zip(gaps, tols)) or macro_gap > share + 1e-4:
+        raise RuntimeError(f"{tag}: row {row} differs from the plain stacked run")
+    if same != n_inst:
+        raise RuntimeError(f"{tag}: the instances' generators differ from their folds'")
+    if grid_run["steps"] == 0 or wrong:
+        raise RuntimeError(f"{tag}: launches (got, want) {wrong}")
+    return {"launches": launches, "steps": grid_run["steps"], "evals": grid_run["evals"],
+            "seconds": grid_run["seconds"], "plain_seconds": plain_run["seconds"],
+            "loss_gaps": gaps, "yardstick_gaps": yard, "macro_gap": macro_gap,
+            "same_draws": same}
+
+
+def grid_launches(want_plain):
+    """The grid run's launches: the plain run's law, and the solver's
+    per-matrix launches one a step (the alpha axis)."""
+    def want(steps, evals):
+        return {**want_plain(steps, evals), "cagrad_solver_per_matrix_c": steps}
+    return want
+
+
+def rows_differ(grid_run, rows, n_folds) -> list:
+    """Whether each of ``rows`` trains otherwise than row 0: its last
+    epoch's losses beyond 1e-4 relative of row 0's."""
+    last = grid_run["losses"][-1]
+    base = last[:n_folds]
+    return [bool(np.any(np.abs(last[r * n_folds:(r + 1) * n_folds] - base) > 1e-4 * np.abs(base)))
+            for r in rows]
+
+
+def compare_weargait_grid(seed, dev) -> dict:
+    """run_weargait_hp_vmapped at the CLI's defaults (10 folds,
+    test_per_class 8), GCL + CAGrad c 0.5, 2 sync epochs, WEARGAIT_GRID (40
+    instances), against run_cv_vmapped on the card (hold_grid_row: the
+    yardstick run_cv_vmapped again from parameters scaled by 1 + 1e-7 N(0,
+    1)); the other rows train otherwise; one solver launch a stacked step,
+    reading c one value a matrix."""
+    from gaitpd_torch.train.hp_search import run_weargait_hp_vmapped
+
+    args = wg.WearGaitArgs(synthetic=True, seed=seed, batch_size=64, wm="gcl", alpha=0.5,
+                           noise_mul=0.0, verbose=False, patience=50, epochs=2, **VMAP_CV)
+    plain = stacked_run(vc.run_cv_vmapped, args)
+    with perturbed_stacked_init(ROUNDING_PERTURBATION):
+        yard = epoch_gaps(stacked_run(vc.run_cv_vmapped, args)["losses"], plain["losses"])
+    grid = stacked_run(run_weargait_hp_vmapped, args, WEARGAIT_GRID)
+    out = hold_grid_row("weargait grid (GCL, CAGrad)", grid, plain, WEARGAIT_GRID, 0, VMAP_FOLDS,
+                        vmap_share(args), yard, grid_launches(flagship_launches))
+    differ = rows_differ(grid, range(1, GRID_ROWS), VMAP_FOLDS)
+    ranked = [(r["hp"], round(r["macro_mean"], 4)) for r in grid["result"]["table"]]
+    log(f"[hp] weargait grid: rows 1-{GRID_ROWS - 1} ({WEARGAIT_GRID[1:]}) train otherwise "
+        f"than row 0: {differ}; ranked {ranked}")
+    if not all(differ):
+        raise RuntimeError(f"weargait grid: rows that train as row 0: {differ}")
+    return out
+
+
+def compare_baseline_grid(seed, dev) -> dict:
+    """run_weargait_hp_vmapped of the cheap-xattn fusion at the CLI's
+    defaults, lrs 1e-3 and 3e-3 (FoldSGD), 1 epoch, against run_cv_vmapped
+    of the baseline on the card (hold_grid_row at one epoch); the second
+    row trains otherwise."""
+    from gaitpd_torch.train.hp_search import run_weargait_hp_vmapped
+
+    args = wg.WearGaitArgs(synthetic=True, seed=seed, batch_size=64, baseline="cheap_xattn",
+                           verbose=False, patience=50, epochs=1, **VMAP_CV)
+    plain = stacked_run(vc.run_cv_vmapped, args)
+    rows = [{"lr": 1e-3}, {"lr": 3e-3}]
+    grid = stacked_run(run_weargait_hp_vmapped, args, rows)
+    out = hold_grid_row("cheap_xattn grid (lr axis)", grid, plain, rows, 0, VMAP_FOLDS,
+                        vmap_share(args), [0.0], baseline_launches("cheap_xattn"))
+    if not rows_differ(grid, [1], VMAP_FOLDS)[0]:
+        raise RuntimeError("cheap_xattn grid: lr 3e-3 trains as lr 1e-3")
+    return out
+
+
+def compare_fog_grid(seed, dev) -> dict:
+    """run_fbg_fog_hp_vmapped on synthetic FoG multimodal, GCL + CAGrad (c
+    0.1), 2 epochs, 2 folds, rows {}, the driver's values written out
+    {lr 1e-3, alpha 0.1} and lr 10: the written-out row against the empty
+    one, which runs the same arithmetic (losses within TRAIN_LOSS_RTOL
+    every epoch, each fold's best within one eval sample's share), and the
+    lr 10 row trains otherwise; the launches of a stacked FoG CAGrad run."""
+    from gaitpd_torch.train.hp_search import run_fbg_fog_hp_vmapped
+
+    args = ff.FbgFogArgs(dataset="fog", modality="multimodal", wm="gcl", use_norm_and_cos=True,
+                         synthetic=True, epochs=2, n_folds_cap=2, seed=seed, verbose=False)
+    grid = [{}, {"lr": 1e-3, "alpha": FF_CAGRAD_C}, {"lr": 10.0}]
+    run = stacked_run(run_fbg_fog_hp_vmapped, args, grid)
+    nf = run["result"]["n_folds"]
+    rows = {tuple(sorted(r["hp"].items())): r for r in run["result"]["table"]}
+    gaps = epoch_gaps([ep[nf:2 * nf] for ep in run["losses"]], [ep[:nf] for ep in run["losses"]])
+    acc_gap = max(abs(a - b) for a, b in zip(rows[tuple(sorted(grid[1].items()))]["per_fold"],
+                                             rows[()]["per_fold"]))
+    differ = rows_differ(run, [2], nf)[0]
+    want = grid_launches(ff_vmap_launches(None))(run["steps"], run["evals"])
+    wrong = {k: (run["launches"][k], n) for k, n in want.items() if run["launches"][k] != n}
+    log(f"[hp] fog grid (GCL, CAGrad): {len(run['gens'])} instances, {run['steps']} stacked "
+        f"steps, {run['evals']} eval forwards in {run['seconds']:.2f} s; launches "
+        f"{run['launches']}; the written-out row vs the empty one: max rel loss gap by epoch "
+        f"{[f'{g:.3e}' for g in gaps]} (tol {TRAIN_LOSS_RTOL:.0e}), accuracy max gap "
+        f"{acc_gap:.4f} points (one eval sample {100.0 / 12:.4f}); lr 10 trains otherwise: "
+        f"{differ}; ranked {[(r['hp'], round(r['acc_mean'], 4)) for r in run['result']['table']]}")
+    if any(g > TRAIN_LOSS_RTOL for g in gaps) or acc_gap > 100.0 / 12 + 1e-4 or not differ:
+        raise RuntimeError("fog grid: the written-out row differs from the empty one, or lr 10 "
+                           "trains as it")
+    if wrong:
+        raise RuntimeError(f"fog grid: launches (got, want) {wrong}")
+    return {"launches": run["launches"], "steps": run["steps"], "loss_gaps": gaps,
+            "acc_gap": acc_gap, "seconds": run["seconds"]}
+
+
+def grid_step_setup(seed, dev, bsz=64):
+    """One stacked step of the flagship's grid at the CLI's defaults:
+    WEARGAIT_GRID's 4 rows x 10 folds, each fold's first sync batch of
+    ``bsz`` window tuples repeated for every row, each instance's GCL
+    scales in its context, c in its method state and lr in FoldSGD
+    (hp_search's own helpers); the runner, the stacked state, the batch and
+    the context."""
+    from gaitpd_torch.train import hp_search as hs
+
+    args, batch, counts = vmap_step_data(seed, dev, bsz)
+    settings = StepSettings(n_streams=3, wm="gcl", synchronized=True,
+                            private_grads="sum_plus_own")
+    ctx = hs._grid_ctx([make_loss_ctx(settings, c, device=dev) for c in counts], WEARGAIT_GRID,
+                       args.gcl_m, args.gcl_s, dev)
+    mtl = make_method("cagrad", 3, c=0.5)
+    state, partition = vc.init_stacked_state(
+        wg.build_model(args, True), hs._grid_optimizer(WEARGAIT_GRID, 1e-3, VMAP_FOLDS, 0.9, 1e-4,
+                                                       dev),
+        mtl, GRID_ROWS * VMAP_FOLDS, dev)
+    state.mtl_state["cagrad_c"] = hs._per_instance(WEARGAIT_GRID, "alpha", 0.5, VMAP_FOLDS, dev)
+
+    def rep(t):
+        return t.repeat((GRID_ROWS,) + (1,) * (t.dim() - 1))
+
+    grid_batch = {"xs": tuple(rep(x) for x in batch["xs"]),
+                  "ys": tuple(rep(y) for y in batch["ys"]), "valid": rep(batch["valid"])}
+    return vc.VmapEpochRunner(settings, mtl, partition), state, grid_batch, ctx
+
+
+def time_grid_step(seed, dev, card, reps=5) -> dict:
+    """One stacked step of the flagship's 4 x 10 x 64 grid beside the
+    stacked 10-fold step of run_cv_vmapped: the grid step's launches (one
+    train step's of the flagship, the solver reading c per matrix) and host
+    synchronisations (0), then the host clock around ``reps`` synchronised
+    steps after 3 (in turns: grid, folds, folds, grid), and each one's
+    device time, kernel launches and idle share under the profiler, with
+    the grid step's table by kernel."""
+    runner, state, batch, ctx = grid_step_setup(seed, dev)
+
+    def grid():
+        return runner.train_step(state, batch, ctx, False)
+
+    grid()
+    torch.cuda.synchronize()
+    reset_launches()
+    grid()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = grid_launches(flagship_launches)(1, 0)
+    wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    syncs = stacked_syncs(grid)
+    log(f"[hp] one stacked grid step ({GRID_ROWS} rows x {VMAP_FOLDS} folds x 64, CAGrad with c "
+        f"per instance, FoldSGD): launches {launches} (want {want}); host synchronisations "
+        f"{syncs[-1]} (counts {syncs})")
+    if wrong or syncs[-1] != 0:
+        raise RuntimeError(f"stacked grid step: launches (got, want) {wrong}, syncs {syncs}")
+    f_runner, f_state, f_batch, f_ctx, _ = vmap_step_setup(seed, dev)
+
+    def folds():
+        return f_runner.train_step(f_state, f_batch, f_ctx, False)
+
+    def host_ms(fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    turns = {"grid": [], "folds": []}
+    for name in ("grid", "folds", "folds", "grid"):
+        turns[name].append(host_ms(grid if name == "grid" else folds))
+    prof = {"grid": profile_steps(grid, reps, table=(
+        f"stacked grid step of {GRID_ROWS} x {VMAP_FOLDS} instances x 64", card)),
+            "folds": profile_steps(folds, reps)}
+    log(f"[time] {card}: one stacked grid step of {GRID_ROWS} x {VMAP_FOLDS} instances x 64 "
+        f"window tuples: {turns['grid'][0]:.3f}/{turns['grid'][1]:.3f} ms (host clock, "
+        f"synchronised); the stacked {VMAP_FOLDS}-fold step of run_cv_vmapped: "
+        f"{turns['folds'][0]:.3f}/{turns['folds'][1]:.3f} ms; profiler, a step: grid "
+        f"{prof['grid']}, folds {prof['folds']}")
+    return {"grid_ms": turns["grid"], "folds_ms": turns["folds"], "profile": prof,
+            "launches": launches, "syncs": syncs[-1]}
+
+
+def check_grid_commands(card) -> dict:
+    """The CLI's --vmap_hp and the sweep runner as subprocesses on the card:
+    python -m gaitpd_torch.cli --mode weargait --vmap_hp (2 lrs x 2 alphas)
+    must exit 0 and print the ranked grid, with its 4 rows; meanwhile python
+    -m gaitpd_torch.sweep on the FoG cheap-xattn fusion, seeds 0 and 1,
+    with --vmap_seeds (done=2 failed=0), then without it (skipped=2
+    failed=0): a failed job fails the phase."""
+    root = Path(__file__).resolve().parent
+    cli = [sys.executable, "-m", "gaitpd_torch.cli", "--mode", "weargait", "--synthetic",
+           "--epochs", "1", "--n_folds", "2", "--test_per_class", "3", "--vmap_hp", "--hp_lrs",
+           "1e-3", "3e-3", "--hp_alphas", "0.5", "1.0"]
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    sweep = [sys.executable, "-m", "gaitpd_torch.sweep", "--mode", "fusion", "--dataset", "fog",
+             "--synthetic", "--synchronized_loading", "--fusion_types", "cheap_xattn", "--seeds",
+             "0", "1", "--epochs", "1", "--n_folds_cap", "1", "--out", out_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cli, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=root)
+    try:
+        runs = [subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=root)
+                for cmd in (sweep + ["--vmap_seeds"], sweep)]
+        cli_out, cli_err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    table = cli_out.split("=== HP grid ranked by mean CV macro ===")
+    rows = [ln for ln in table[-1].splitlines() if "->" in ln] if len(table) == 2 else []
+    log(f"[cli] {' '.join(cli[1:])}: exit {proc.returncode}; ranked grid printed with "
+        f"{len(rows)} rows: {rows}")
+    if proc.returncode != 0 or len(rows) != 4:
+        raise RuntimeError(f"the CLI (--vmap_hp) failed: exit {proc.returncode}\n"
+                           f"{cli_out[-2000:]}\n{cli_err[-4000:]}")
+    counts = []
+    for run, want in zip(runs, ("done=2 skipped=0 failed=0", "done=0 skipped=2 failed=0")):
+        last = [ln for ln in run.stdout.splitlines() if ln.startswith("[SWEEP] done=")]
+        counts.append(last[-1] if last else None)
+        log(f"[cli] {' '.join(run.args[1:])}: exit {run.returncode}; {counts[-1]} (want {want})")
+        if run.returncode != 0 or counts[-1] != f"[SWEEP] {want}":
+            raise RuntimeError(f"the sweep failed: exit {run.returncode}, {counts[-1]}\n"
+                               f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    log(f"[cli] the CLI's grid and both sweeps: {seconds:.1f} s (the CLI alongside the sweeps)")
+    return {"cli_exit": proc.returncode, "sweep_counts": counts, "seconds": seconds}
+
+
+def phase_hp_grid(seed, dev, card, rng) -> dict:
+    """Phase 11: the fold-stacked block at the grid's 40 instances and the
+    CAGrad solver with c per matrix against single launches and their plain
+    versions; the flagship's grid and the
+    cheap-xattn fusion's against run_cv_vmapped, FoG's grid rows against
+    each other; one stacked grid step beside the stacked 10-fold step; the
+    CLI's --vmap_hp and the sweep runner; the fold-stacked block timed at
+    the grid's 40 instances."""
+    t0 = time.perf_counter()
+    parts = {}
+
+    def done(part):
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+
+    errors = check_fold_kernels(rng, dev, card, {"grid": GRID_FOLD_SHAPE})
+    solver = check_grid_solver(rng, dev, card)
+    sgd = check_fold_sgd(rng, dev)
+    done("kernels")
+    runs = {"weargait": compare_weargait_grid(seed, dev)}
+    done("weargait grid")
+    runs["cheap_xattn"] = compare_baseline_grid(seed, dev)
+    done("cheap_xattn grid")
+    runs["fog"] = compare_fog_grid(seed, dev)
+    done("fog grid")
+    step = time_grid_step(seed, dev, card)
+    done("timed step")
+    commands = check_grid_commands(card)
+    done("cli and sweep")
+    timed = time_fold_block(rng, dev, card, GRID_FOLD_SHAPE)
+    times = {"cagrad_solver_per_matrix_c": solver["times"],
+             "stream_block_folds_grid": timed["stream_block_folds"],
+             "stream_block_backward_folds_grid": timed["stream_block_backward_folds"]}
+    done("times")
+    seconds = time.perf_counter() - t0
+    log(f"[hp] {card}: phase 11: {seconds:.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in parts.items())})")
+    return {"errors": errors, "solver": {k: v for k, v in solver.items() if k != "times"},
+            "fold_sgd": sgd, "runs": runs, "step": step, "commands": commands, "times": times,
+            "seconds": seconds}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5092,6 +5618,9 @@ def main() -> int:
     # stream of their own
     vmap_ff = phase_vmap_fbg_fog(args.seed, dev, card, np.random.default_rng([args.seed, 28]))
     times.update(vmap_ff["times"])
+    # the HP grid and the sweep runner: a stream of their own
+    hp_grid = phase_hp_grid(args.seed, dev, card, np.random.default_rng([args.seed, 29]))
+    times.update(hp_grid["times"])
 
     # launches on each kernel's own main path: the CAGrad training's for the
     # earlier slices' kernels, the cheap-xattn training's for this slice's
@@ -5163,6 +5692,12 @@ def main() -> int:
         launches[f"{name}_fbg_fog"] = ff_vm[name]
         launches[f"{name}_focal_fbg_fog"] = focal_vm[name]
     launches["cagrad_solver_folds_k2"] = ff_vm["cagrad_solver_folds"]
+    # the solver reading c one value a matrix and the fold-stacked block at
+    # the grid's 40 instances on their own main path: phase 11's flagship grid
+    grid_vm = hp_grid["runs"]["weargait"]["launches"]
+    launches["cagrad_solver_per_matrix_c"] = grid_vm["cagrad_solver_per_matrix_c"]
+    for name in ("stream_block_folds", "stream_block_backward_folds"):
+        launches[f"{name}_grid"] = grid_vm[name]
     long_err = long_errors["win256_batch64"]
     wide_err = wide_errors[WIDE_XATTN_TIMED[0]]
     bb_err = baselines["errors"]["xattn"]["fog_batch256"]
@@ -5240,6 +5775,14 @@ def main() -> int:
          "gaitpd/ops/pallas_blocks.py:160", vmap_ff["errors"]["focal"][1]),
         ("cagrad_solver_folds_k2", "gaitpd_torch/csrc/cagrad_solver.cu",
          "gaitpd/learning/minnorm.py:58", vmap_ff["solver_error"]),
+        # the HP grid's: the stream block on 40 instances, the CAGrad solver
+        # with c one value a matrix
+        ("stream_block_folds_grid", "gaitpd_torch/csrc/stream_block.cu",
+         "gaitpd/ops/pallas_blocks.py:72", hp_grid["errors"]["grid"][0]),
+        ("stream_block_backward_folds_grid", "gaitpd_torch/csrc/stream_block.cu",
+         "gaitpd/ops/pallas_blocks.py:160", hp_grid["errors"]["grid"][1]),
+        ("cagrad_solver_per_matrix_c", "gaitpd_torch/csrc/cagrad_solver.cu",
+         "gaitpd/learning/minnorm.py:58", hp_grid["solver"]["k3"]["max_abs_err"]),
     ]
     kernels = []
     for name, source, replaces, err in entries:
@@ -5269,7 +5812,8 @@ def main() -> int:
         f"thresholds {json.dumps(threshold_times)}; the vmapped CV (phase 7) "
         f"{json.dumps(vmap)}; the vmapped baselines (phase 8) {json.dumps(vmap_baselines)}; "
         f"the vmapped MTL methods (phase 9) {json.dumps(vmap_mtl)}; FBG/FoG's folds and the "
-        f"seed sweeps (phase 10) {json.dumps(vmap_ff)}")
+        f"seed sweeps (phase 10) {json.dumps(vmap_ff)}; the HP grid and the sweep runner "
+        f"(phase 11) {json.dumps(hp_grid)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

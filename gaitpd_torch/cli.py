@@ -5,11 +5,15 @@ Each mode is a call of one of the port's drivers on its Args dataclass:
 ``fbg_fog`` (and ``trip``, ``single`` without ``--single_mod``) the FBG/FoG
 driver's ``main``, or with ``--vmap_folds`` its every-fold-in-one-step
 ``run_fbg_fog_vmapped``; ``weargait`` (and ``single --single_mod``)
-WearGait's ``run_cv``, or with ``--vmap_folds`` ``run_cv_vmapped``;
-``fusion`` and ``deepav``/``focal``/``taca`` the FBG/FoG baseline drivers
-(which ignore ``--vmap_folds``, as gaitpd's do). Runs go to the card unless
-``--device cpu`` is given. Flags whose module the port does not have yet
-raise NotImplementedError naming their ROADMAP item, before any work.
+WearGait's ``run_cv``, or with ``--vmap_folds`` ``run_cv_vmapped``; with
+``--vmap_hp`` (taken before ``--vmap_folds``) the grid of ``--hp_lrs``,
+``--hp_gcl_ms``, ``--hp_gcl_ss`` and ``--hp_alphas`` in one stacked run
+(gaitpd_torch/train/hp_search.py; the ``--hp_*`` flags do nothing without
+it, as in gaitpd); ``fusion`` and ``deepav``/``focal``/``taca`` the FBG/FoG
+baseline drivers (which ignore ``--vmap_folds`` and ``--vmap_hp``, as
+gaitpd's do). Runs go to the card unless ``--device cpu`` is given. Flags
+whose module the port does not have yet raise NotImplementedError naming
+their ROADMAP item, before any work.
 
     python -m gaitpd_torch.cli --mode weargait --wm gcl --synthetic --epochs 3 \\
         --n_folds 2 --test_per_class 3 --vmap_folds
@@ -21,6 +25,8 @@ raise NotImplementedError naming their ROADMAP item, before any work.
         --wm ce --synthetic --epochs 5 --n_folds_cap 1 --device cpu
     python -m gaitpd_torch.cli --mode fbg_fog --dataset fog --synthetic --epochs 2 \\
         --vmap_folds
+    python -m gaitpd_torch.cli --mode weargait --synthetic --epochs 2 --n_folds 2 \\
+        --test_per_class 3 --vmap_hp --hp_lrs 1e-3 3e-3 --hp_alphas 0.5 1.0
 """
 
 from __future__ import annotations
@@ -30,8 +36,6 @@ import argparse
 from gaitpd_torch.runtime.device import MATMUL_PRECISIONS, matmul_precision
 
 MODES = ("fbg_fog", "trip", "single", "weargait", "fusion", "deepav", "focal", "taca")
-
-HP_FLAGS = ("hp_lrs", "hp_gcl_ms", "hp_gcl_ss", "hp_alphas")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -137,8 +141,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "step, each kernel launched once for every fold "
                         "(gaitpd_torch/train/vmap_cv.py)")
     p.add_argument("--vmap_hp", action="store_true",
-                   help="an (lr x gcl_m x gcl_s x alpha) hyperparameter grid as one "
-                        "vmapped program (not ported yet: ROADMAP Queue 1, item 19)")
+                   help="weargait (any --baseline, or --single_mod) and fbg_fog/trip/single: "
+                        "train an (lr x gcl_m x gcl_s x alpha) hyperparameter grid, every "
+                        "(row, fold) instance in one step (gaitpd_torch/train/hp_search.py)")
     p.add_argument("--hp_lrs", nargs="+", type=float, default=None,
                    help="lr values for --vmap_hp (default: just --lr)")
     p.add_argument("--hp_gcl_ms", nargs="+", type=float, default=None,
@@ -158,15 +163,9 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{what}: not ported yet (ROADMAP Queue 1, item {item})")
 
 
-def _check_hp(ns: argparse.Namespace) -> None:
-    if ns.vmap_hp or any(getattr(ns, f) is not None for f in HP_FLAGS):
-        raise _not_ported("the hyperparameter grid (--vmap_hp, --hp_*)", 19)
-
-
 def run_fbg_fog(ns: argparse.Namespace):
     from gaitpd_torch.train.fbg_fog_driver import FbgFogArgs, main
 
-    _check_hp(ns)
     if ns.modality == "sensor" and (ns.aug_mirror_p > 0 or ns.aug_rot_deg > 0):
         print("warning: --aug_mirror_p/--aug_rot_deg are skeleton-stream "
               "transforms; --modality sensor ignores them "
@@ -206,6 +205,11 @@ def run_fbg_fog(ns: argparse.Namespace):
         aug_axis_p=ns.aug_axis_p,
         device=ns.device,
     )
+    if ns.vmap_hp:
+        from gaitpd_torch.train.hp_search import make_grid, run_fbg_fog_hp_vmapped
+
+        grid = make_grid(ns.hp_lrs, ns.hp_gcl_ms, ns.hp_gcl_ss, ns.hp_alphas)
+        return run_fbg_fog_hp_vmapped(args, grid)
     if ns.vmap_folds:
         from gaitpd_torch.train.vmap_cv import run_fbg_fog_vmapped
 
@@ -216,7 +220,6 @@ def run_fbg_fog(ns: argparse.Namespace):
 def run_weargait(ns: argparse.Namespace, baseline: str = None):
     from gaitpd_torch.train.weargait_driver import WearGaitArgs, run_cv
 
-    _check_hp(ns)
     if ns.fused:
         raise _not_ported("the fused forward (--fused)", 15)
     if ns.aug_mirror_p > 0 or ns.aug_rot_deg > 0:
@@ -265,6 +268,12 @@ def run_weargait(ns: argparse.Namespace, baseline: str = None):
         aug_axis_p=ns.aug_axis_p,
         device=ns.device,
     )
+    if ns.vmap_hp:
+        from gaitpd_torch.train.hp_search import make_grid, run_weargait_hp_vmapped
+
+        grid = make_grid(ns.hp_lrs or [args.lr], ns.hp_gcl_ms or [args.gcl_m],
+                         ns.hp_gcl_ss or [args.gcl_s], alphas=ns.hp_alphas)
+        return run_weargait_hp_vmapped(args, grid)
     if ns.vmap_folds:
         from gaitpd_torch.train.vmap_cv import run_cv_vmapped
 

@@ -9,7 +9,9 @@
 // host would add a synchronisation. This kernel runs the whole solver in one
 // launch and reads and writes device memory only.
 //
-// What it computes, for each (K, K) Gram matrix G and the strength c:
+// What it computes, for each (K, K) Gram matrix G and the strength c (one c
+// for all matrices, or c[m] for matrix m: an HP grid's instances each have
+// their own; both read the same f32 value, so equal values give equal bits):
 //   c_coef = c sqrt(mean(G) + EPS) + EPS                 (mtl.py:412-413)
 //   w = argmin over the simplex of  w . G b + c_coef sqrt(w . G w + EPS),
 //       b = 1/K, by the same fixed iterations as the reference: 60 projected
@@ -205,7 +207,8 @@ __device__ __forceinline__ void line_step(const Problem<K>& p, float (&w)[K],
 
 template <int K>
 __global__ void __launch_bounds__(kThreads)
-cagrad_solver_kernel(const float* __restrict__ gram, int n, float c, float* __restrict__ w_out) {
+cagrad_solver_kernel(const float* __restrict__ gram, int n, float c,
+                     const float* __restrict__ c_per, float* __restrict__ w_out) {
   // one warp a matrix: every lane runs the serial steps alike
   const int m = blockIdx.x;
   const int lane = threadIdx.x;
@@ -224,7 +227,8 @@ cagrad_solver_kernel(const float* __restrict__ gram, int n, float c, float* __re
     total = add(total, p.g[e / K][e % K]);
     frob = add(frob, mul(p.g[e / K][e % K], p.g[e / K][e % K]));
   }
-  p.c = add(mul(c, __fsqrt_rn(add(div(total, static_cast<float>(K * K)), kEps))), kEps);
+  const float cm = c_per != nullptr ? c_per[m] : c;
+  p.c = add(mul(cm, __fsqrt_rn(add(div(total, static_cast<float>(K * K)), kEps))), kEps);
   float w[K];
 #pragma unroll
   for (int i = 0; i < K; ++i) w[i] = static_cast<float>(1.0 / K);  // as torch.full(1.0 / k)
@@ -273,8 +277,9 @@ cagrad_solver_kernel(const float* __restrict__ gram, int n, float c, float* __re
 }
 
 template <int K>
-void launch(const float* gram, float* w, int n, float c, cudaStream_t stream) {
-  cagrad_solver_kernel<K><<<n, kThreads, 0, stream>>>(gram, n, c, w);
+void launch(const float* gram, float* w, int n, float c, const float* c_per,
+            cudaStream_t stream) {
+  cagrad_solver_kernel<K><<<n, kThreads, 0, stream>>>(gram, n, c, c_per, w);
 }
 
 }  // namespace
@@ -282,21 +287,24 @@ void launch(const float* gram, float* w, int n, float c, cudaStream_t stream) {
 extern "C" {
 
 // Solves n problems on `stream`: gram (n, k, k) -> w (n, k), contiguous f32
-// device pointers, 1 <= k <= 8. Returns a cudaError_t: 0 on success,
-// cudaErrorInvalidValue for sizes the kernel does not take.
-int cagrad_solver(const float* gram, float* w, int n, int k, float c, void* stream) {
+// device pointers, 1 <= k <= 8; the strength c for every matrix, or, where
+// c_per is not null, c_per[m] (n f32 on the device) for matrix m. Returns a
+// cudaError_t: 0 on success, cudaErrorInvalidValue for sizes the kernel does
+// not take.
+int cagrad_solver(const float* gram, float* w, int n, int k, float c, const float* c_per,
+                  void* stream) {
   if (n < 0 || k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
-    case 1: launch<1>(gram, w, n, c, s); break;
-    case 2: launch<2>(gram, w, n, c, s); break;
-    case 3: launch<3>(gram, w, n, c, s); break;
-    case 4: launch<4>(gram, w, n, c, s); break;
-    case 5: launch<5>(gram, w, n, c, s); break;
-    case 6: launch<6>(gram, w, n, c, s); break;
-    case 7: launch<7>(gram, w, n, c, s); break;
-    default: launch<8>(gram, w, n, c, s); break;
+    case 1: launch<1>(gram, w, n, c, c_per, s); break;
+    case 2: launch<2>(gram, w, n, c, c_per, s); break;
+    case 3: launch<3>(gram, w, n, c, c_per, s); break;
+    case 4: launch<4>(gram, w, n, c, c_per, s); break;
+    case 5: launch<5>(gram, w, n, c, c_per, s); break;
+    case 6: launch<6>(gram, w, n, c, c_per, s); break;
+    case 7: launch<7>(gram, w, n, c, c_per, s); break;
+    default: launch<8>(gram, w, n, c, c_per, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -433,14 +433,17 @@ class CAGrad(_Base):
 
     Per-task grads -> dual weights w on the simplex -> g = ḡ + (c·||ḡ||_G /
     ||g_w||)·g_w, rescaled by 1/(1+c²), scaled by K, then clipped to
-    max_norm. Private parameters keep the plain per-task gradient sum."""
+    max_norm. Private parameters keep the plain per-task gradient sum.
+    c is the field, or the state's ``cagrad_c`` (an f32 tensor) where it
+    has one, as gaitpd's (gaitpd/learning/mtl.py:407): an HP grid's
+    instances each carry their own there (gaitpd_torch/train/hp_search.py)."""
 
     c: float = 0.4
     clips: bool = True
     log_space: bool = False  # LOG_CAGrad (reference :975-1098)
 
     def combine(self, losses, j_shared, gram, state, generator=None):
-        c = self.c
+        c = state.get("cagrad_c", self.c)
         if self.log_space:
             inv_l = _inv_losses(losses)
             j_shared = j_shared * inv_l[:, None]

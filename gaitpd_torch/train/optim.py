@@ -31,6 +31,16 @@ leaf; a fold that does not step keeps its parameters, moments and count
 bitwise. SGD needs none of this: its update is elementwise and stateless
 but for the momentum, so one ``torch.optim.SGD`` over the stacked leaves
 updates each fold as its own would.
+
+``FoldSGD`` is SGD with an lr for each instance of stacked leaves, an (F,)
+tensor on the device: an HP grid's lr axis (gaitpd_torch/train/
+hp_search.py; gaitpd injects each instance's lr into its optax state).
+torch's law, g += wd·p, buf = μ·buf + g (the first buf = g), then
+p += (-lr_f)·buf as one ``addcmul_``, which rounds once as torch's
+``add_(buf, alpha=-lr)`` does: each instance's bits equal its own
+``sgd_torch`` step on the CPU (tests/test_torch_hp_search.py). Its state is
+torch's ``momentum_buffer``, so the stacked step's pick of an idle fold
+(gaitpd_torch/train/vmap_cv.py) holds for it as for SGD.
 """
 
 from __future__ import annotations
@@ -45,6 +55,33 @@ def sgd_torch(params: Iterable[torch.nn.Parameter], lr: float, momentum: float =
               weight_decay: float = 1e-4) -> torch.optim.SGD:
     return torch.optim.SGD(params, lr=lr, momentum=momentum, weight_decay=weight_decay,
                            nesterov=False)
+
+
+class FoldSGD(torch.optim.Optimizer):
+    """``sgd_torch`` for each instance of stacked leaves, each (F, *shape),
+    instance f at ``lr[f]``: ``lr`` an (F,) f32 tensor on the leaves'
+    device; momentum and weight decay shared."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: torch.Tensor, momentum: float = 0.9,
+                 weight_decay: float = 1e-4):
+        super().__init__(params, dict(lr=lr, momentum=momentum, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self) -> None:
+        group = self.param_groups[0]
+        neg_lr = -group["lr"]
+        mu, wd = group["momentum"], group["weight_decay"]
+        for p in group["params"]:
+            if p.grad is None:
+                continue
+            g = p.grad.add(p, alpha=wd) if wd != 0 else p.grad
+            state = self.state[p]
+            buf = state.get("momentum_buffer")
+            if buf is None:
+                buf = state["momentum_buffer"] = torch.clone(g).detach()
+            else:
+                buf.mul_(mu).add_(g)
+            p.addcmul_(buf, neg_lr.reshape((-1,) + (1,) * (p.dim() - 1)))
 
 
 @torch.no_grad()

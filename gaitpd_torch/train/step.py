@@ -144,8 +144,12 @@ def branch_loss(
     if settings.wm == "ldam":
         return L.ldam_loss(logits, labels, ctx["ldam_m"], s=settings.ldam_s,
                            weight=ctx["cls_w"], valid=valid)
-    return L.gcl_loss(logits, labels, ctx["gcl_m"], generator, m=settings.gcl_m,
-                      s=settings.gcl_s, noise_mul=settings.noise_mul,
+    # m and s: the settings', or the context's gcl_m_scale and gcl_s_scale
+    # where it has them (gaitpd/train/step.py:126-134): an HP grid's
+    # instances each carry their own (gaitpd_torch/train/hp_search.py)
+    return L.gcl_loss(logits, labels, ctx["gcl_m"], generator,
+                      m=ctx.get("gcl_m_scale", settings.gcl_m),
+                      s=ctx.get("gcl_s_scale", settings.gcl_s), noise_mul=settings.noise_mul,
                       weight=ctx["drw_w"], valid=valid)
 
 

@@ -1,8 +1,10 @@
 """gaitpd_torch.cli against gaitpd.cli on the CPU: the same argv parses to
 the same flags (the port's one more, ``--device``), each mode builds the
 same Args for its driver (the drivers are stood in for on both sides, and
-``device`` is left out of the comparison), every flag whose module the port
-has not yet raises NotImplementedError naming its ROADMAP item before any
+``device`` is left out of the comparison), ``--vmap_hp`` reaches the HP
+grid runners with gaitpd's Args and grid (and the ``--hp_*`` flags without
+it the plain driver, as in gaitpd), every flag whose module the port has
+not yet raises NotImplementedError naming its ROADMAP item before any
 work, the five config dataclasses have gaitpd's fields and defaults, and
 ``python -m gaitpd_torch.data.cache`` refuses an empty WearGait directory as
 gaitpd's does. Two runs end to end, WearGait and FBG/FoG, one fold of one
@@ -31,6 +33,7 @@ import gaitpd.config as JCFG  # noqa: E402
 import gaitpd.data.cache as JCACHE  # noqa: E402
 import gaitpd.train.baseline_drivers as JB  # noqa: E402
 import gaitpd.train.fbg_fog_driver as JF  # noqa: E402
+import gaitpd.train.hp_search as JH  # noqa: E402
 import gaitpd.train.vmap_cv as JV  # noqa: E402
 import gaitpd.train.weargait_driver as JD  # noqa: E402
 import gaitpd_torch.cli as TC  # noqa: E402
@@ -38,6 +41,7 @@ import gaitpd_torch.config as TCFG  # noqa: E402
 import gaitpd_torch.data.cache as TCACHE  # noqa: E402
 import gaitpd_torch.train.baseline_drivers as TB  # noqa: E402
 import gaitpd_torch.train.fbg_fog_driver as TF  # noqa: E402
+import gaitpd_torch.train.hp_search as TH  # noqa: E402
 import gaitpd_torch.train.vmap_cv as TV  # noqa: E402
 import gaitpd_torch.train.weargait_driver as TD  # noqa: E402
 from gaitpd_torch.params import load_flax_params  # noqa: E402
@@ -113,13 +117,22 @@ def _capture(monkeypatch):
             return {}
         return driver
 
-    for side, mods in (("jax", (JD, JV, JF, JB)), ("port", (TD, TV, TF, TB))):
-        wear, vmapped, fbg, base = mods
+    def record_grid(side):
+        def runner(args, grid, *rest, **kw):
+            got[side] = args
+            got[side + "_grid"] = grid
+            return {}
+        return runner
+
+    for side, mods in (("jax", (JD, JV, JF, JB, JH)), ("port", (TD, TV, TF, TB, TH))):
+        wear, vmapped, fbg, base, hp = mods
         monkeypatch.setattr(wear, "run_cv", record(side))
         monkeypatch.setattr(vmapped, "run_cv_vmapped", record(side + "_vmap"))
         monkeypatch.setattr(vmapped, "run_fbg_fog_vmapped", record(side + "_vmap"))
         monkeypatch.setattr(fbg, "main", record(side))
         monkeypatch.setattr(base, "main", record(side))
+        monkeypatch.setattr(hp, "run_weargait_hp_vmapped", record_grid(side + "_hp"))
+        monkeypatch.setattr(hp, "run_fbg_fog_hp_vmapped", record_grid(side + "_hp"))
     return got
 
 
@@ -151,11 +164,24 @@ def test_each_mode_builds_gaitpd_args(monkeypatch, jax_precision, name, vmap):
 
 
 UNPORTED = {
-    "vmap_hp": (["--mode", "weargait", "--vmap_hp"], 19),
-    "hp_lrs": (["--mode", "fbg_fog", "--hp_lrs", "1e-3"], 19),
-    "hp_alphas": (["--mode", "single", "--single_mod", "imu", "--hp_alphas", "0.5"], 19),
     "fused": (["--mode", "weargait", "--fused"], 15),
     "data_parallel": (["--mode", "weargait", "--data_parallel"], 14),
+}
+# flags once refused (item 19) and now taken: with --vmap_hp (before
+# --vmap_folds) each reaches an HP grid runner ("hp") with the Args and the
+# grid gaitpd's CLI gives its own; the --hp_* flags without it, and the
+# baseline modes, reach the plain driver ("plain"), as in gaitpd
+HP_PORTED = {
+    "vmap_hp": (["--mode", "weargait", "--vmap_hp"], "hp"),
+    "hp_lrs": (["--mode", "fbg_fog", "--hp_lrs", "1e-3"], "plain"),
+    "hp_alphas": (["--mode", "single", "--single_mod", "imu", "--vmap_hp", "--hp_alphas", "0.5"],
+                  "hp"),
+    "vmap_hp_fbg_fog": (["--mode", "fbg_fog", "--vmap_hp", "--vmap_folds", "--hp_lrs", "1e-3",
+                         "3e-3", "--hp_gcl_ss", "20", "--hp_alphas", "0.1", "0.3"], "hp"),
+    "vmap_hp_trip": (["--mode", "trip", "--modality", "both", "--vmap_hp"], "hp"),
+    "vmap_hp_baseline": (["--mode", "weargait", "--baseline", "taca", "--vmap_hp", "--hp_lrs",
+                          "1e-3", "3e-3", "--hp_gcl_ms", "0.1", "0.3", "--vmap_folds"], "hp"),
+    "vmap_hp_fusion_mode": (["--mode", "fusion", "--vmap_hp", "--hp_lrs", "1e-3"], "plain"),
 }
 # flags and modes --vmap_folds once refused (items 35 and 18) and now takes:
 # each reaches run_cv_vmapped or run_fbg_fog_vmapped with the Args gaitpd's
@@ -185,6 +211,24 @@ def test_unported_flags_raise_naming_their_item(monkeypatch, name):
         monkeypatch.setattr(mod, attr, no_work)
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, item {item}\\)"):
         TC.main(argv + ["--synthetic", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("name", sorted(HP_PORTED))
+def test_vmap_hp_reaches_the_grid_runners(monkeypatch, jax_precision, name):
+    got = _capture(monkeypatch)
+    argv, where = HP_PORTED[name]
+    argv = argv + ["--synthetic"]
+    JC.main(argv)
+    TC.main(argv + ["--device", "cpu"])
+    side = "_hp" if where == "hp" else ""
+    assert ("port_hp" in got) == ("jax_hp" in got) == (where == "hp")
+    want, mine = got["jax" + side], got["port" + side]
+    assert type(mine).__name__ == type(want).__name__
+    fields = dataclasses.asdict(mine)
+    assert fields.pop("device") == "cpu"
+    assert fields == dataclasses.asdict(want)
+    if where == "hp":
+        assert got["port_hp_grid"] == got["jax_hp_grid"]
 
 
 @pytest.mark.parametrize("name", sorted(VMAP_PORTED))

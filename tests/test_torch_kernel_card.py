@@ -1054,6 +1054,42 @@ def test_solvers_under_vmap_over_folds_on_card(solver, folds, k):
         assert torch.isfinite(got).all()
 
 
+C_VALUES = (0.1, 0.5, 25.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("folds", [1, 4, 40])
+def test_cagrad_solver_per_matrix_c_on_card(folds, k):
+    """CAGrad's strength one value a matrix (an HP grid's instances): one
+    launch, each matrix's w bitwise that of a scalar-c launch of its own
+    and of the plain version with its c, directly and under
+    torch.func.vmap with a batched c (counted once by the solver's counter,
+    its fold counter and its per-matrix counter)."""
+    dev = _cuda()
+    rng = np.random.default_rng(100 * k + folds)
+    grams = torch.from_numpy(_solver_grams(rng, folds, k)[:folds]).to(dev)
+    cvals = [C_VALUES[f % 3] for f in range(folds)]
+    c = torch.tensor(cvals, dtype=torch.float32, device=dev)
+    counters = lambda: (cs.launches, cs.fold_launches, cs.per_matrix_launches)  # noqa: E731
+    before = counters()
+    direct = cs.cagrad_solve(grams, c)
+    torch.cuda.synchronize()
+    assert counters() == (before[0] + 1, before[1], before[2] + 1)
+    before = counters()
+    vmapped = torch.func.vmap(cs.cagrad_solve)(grams, c)
+    torch.cuda.synchronize()
+    assert counters() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    want = cs.cagrad_solve_reference(grams, c)
+    assert _bitwise(direct, want) and _bitwise(vmapped, want)
+    for f in range(folds):
+        assert _bitwise(direct[f], cs.cagrad_solve(grams[f], cvals[f])), (folds, f)
+    for cv in C_VALUES:  # one c for all: the scalar launch's bits
+        assert _bitwise(cs.cagrad_solve(grams, torch.full_like(c, cv)), cs.cagrad_solve(grams, cv))
+    with pytest.raises(TypeError):
+        cs.cagrad_solve(grams, c.cpu())  # no host copy of c in a step
+
+
 @pytest.mark.gpu
 def test_fold_draws_randperm_on_cuda_generators():
     """PCGrad's draw under the vmap from CUDA generators: each active fold's
