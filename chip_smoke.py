@@ -323,6 +323,25 @@ Phases (each raises on failure, so the script exits non-zero):
      then skipped=2, failed=0 both times) as subprocesses; the fold block at
      the grid's 40 instances and the per-matrix solver at 40 matrices timed
      beside their plain versions, the library and their bounds.
+  12. the fused forward (--fused), from a random stream of its own: the
+     fused flagship against the unfused one on the card at 1024 window
+     tuples (sync and async; plain and LayerNorm + cosine heads): logits
+     within 2e-5, one stream-block launch a forward; the stream block at
+     the main shape in the fused backbone's (b, stream) row order, forward
+     and the backward in a CAGrad task pass's layout (every third row live)
+     against their plain versions as in phase 2, timed eager and from a
+     CUDA graph beside the plain versions, the library calls and the
+     bounds, the backward in turns with the stream-major task layout and
+     all rows live; one fused CAGrad step card vs CPU as in phase 4; a fused
+     run_cv card vs CPU (sync, 2 epochs) as in phase 4, a train step 1
+     stream-block forward, 3 backward and 1 solver launch, an eval forward
+     1 forward; run_cv_vmapped fused (1 sync epoch) against the
+     sequential fused run_cv on the card under phase 7's rule; the fused
+     and unfused sequential (64), stacked (10 x 64) and grid (4 x 10 x 64)
+     CAGrad steps: the fused step's launches (the unfused law), the host
+     clock of synchronised steps in turns (median and spread), and under
+     gaitpd_torch.runtime.profiling.trace each one's kernels, cuDNN
+     weight-gradient kernels by name and windows/s (StepTimer).
 
 Every number is printed beside the card's name and power limit. The
 second-to-last line is a JSON object with one entry per kernel; the last
@@ -366,12 +385,14 @@ from gaitpd_torch.learning.mtl import (
 )
 from gaitpd_torch.models import baselines as BL
 from gaitpd_torch.models.blocks import dropout
+from gaitpd_torch.models.fused import FusedWearGaitThreeModal
 from gaitpd_torch.models.multitask import CHANNELS, MODALITIES, WearGaitThreeModal
 from gaitpd_torch.ops import _build
 from gaitpd_torch.ops import cagrad_solver as cs
 from gaitpd_torch.ops import cheap_xattn as cx
 from gaitpd_torch.ops import mtl_solvers as ms
 from gaitpd_torch.ops import stream_block as sb
+from gaitpd_torch.runtime import profiling
 from gaitpd_torch.runtime.device import resolve_device
 from gaitpd_torch.serve import StreamingSession, WearGaitEngine, poll_sessions
 from gaitpd_torch.tools import recipe_laws
@@ -3816,16 +3837,18 @@ def vmap_step_data(seed, dev, bsz):
     return args, batch, counts
 
 
-def vmap_step_setup(seed, dev, bsz=64, baseline=None, mtl_method="cagrad", draws=False):
+def vmap_step_setup(seed, dev, bsz=64, baseline=None, mtl_method="cagrad", draws=False,
+                    fused=False):
     """The stacked step at the CLI's defaults, the flagship's (under
-    ``mtl_method``, CAGrad at c 0.5 by default) or a baseline's (SGD on the
+    ``mtl_method``, CAGrad at c 0.5 by default; with ``fused`` the fused
+    forward) or a baseline's (SGD on the
     mean of its branch losses; DeepAV-Lite and TACA with their dropout):
     the runner, the stacked state of 10 folds, their first sync batch of
     ``bsz`` window tuples a fold, the stacked loss context, and the folds'
     generators (None for the flagship unless ``draws`` or its method draws:
     CAGrad's step draws nothing)."""
     args, batch, counts = vmap_step_data(seed, dev, bsz)
-    args = dataclasses.replace(args, baseline=baseline)
+    args = dataclasses.replace(args, baseline=baseline, fused=fused)
     settings = StepSettings(n_streams=3, wm="gcl", synchronized=True,
                             private_grads="sum_plus_own",
                             dropout=baseline in wg.DROPOUT_BASELINES)
@@ -3989,7 +4012,7 @@ def phase_vmap_cv(seed, dev, card, rng) -> dict:
     t0 = time.perf_counter()
     errors = check_fold_kernels(rng, dev, card)
     runs = compare_vmapped_cv(seed, dev, card)
-    step = check_vmap_step(seed, dev, card)
+    step = check_vmap_step(seed, dev, card, reps=10)
     cli = check_cli_runs(card)
     log(f"[vmap] phase 7: {time.perf_counter() - t0:.1f} s")
     return {"errors": errors, "runs": runs, "step": step, "cli": cli}
@@ -5331,8 +5354,9 @@ def compare_fog_grid(seed, dev) -> dict:
             "acc_gap": acc_gap, "seconds": run["seconds"]}
 
 
-def grid_step_setup(seed, dev, bsz=64):
-    """One stacked step of the flagship's grid at the CLI's defaults:
+def grid_step_setup(seed, dev, bsz=64, fused=False):
+    """One stacked step of the flagship's grid at the CLI's defaults
+    (with ``fused`` the fused forward):
     WEARGAIT_GRID's 4 rows x 10 folds, each fold's first sync batch of
     ``bsz`` window tuples repeated for every row, each instance's GCL
     scales in its context, c in its method state and lr in FoldSGD
@@ -5341,6 +5365,7 @@ def grid_step_setup(seed, dev, bsz=64):
     from gaitpd_torch.train import hp_search as hs
 
     args, batch, counts = vmap_step_data(seed, dev, bsz)
+    args = dataclasses.replace(args, fused=fused)
     settings = StepSettings(n_streams=3, wm="gcl", synchronized=True,
                             private_grads="sum_plus_own")
     ctx = hs._grid_ctx([make_loss_ctx(settings, c, device=dev) for c in counts], WEARGAIT_GRID,
@@ -5505,6 +5530,277 @@ def phase_hp_grid(seed, dev, card, rng) -> dict:
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# 12. the fused forward (--fused)
+# ---------------------------------------------------------------------------
+
+FUSED_BATCH = 1024  # window tuples of the logits check: the backbone sees 3 x 1024 windows
+# fused against unfused logits: gaitpd's bound (tests/test_fused.py); stage
+# B's kernel addition is the one step that rounds apart
+FUSED_LOGIT_TOL = 2e-5
+# the heads of the logits check: plain, LayerNorm + cosine (GCL)
+FUSED_HEADS = {"plain": (False, False), "norm_cosine": (True, True)}
+FUSED_STEP_REPS = {"sequential": 10, "stacked": 8, "grid": 4}  # timed steps a turn
+FUSED_TRACE_REPS = 2  # steps a profiler trace
+
+
+def check_fused_logits(rng, dev) -> dict:
+    """The fused flagship against the unfused one on the card, from the
+    same parameters, at FUSED_BATCH window tuples and the flagship widths,
+    sync and async, plain and LayerNorm + cosine heads: logits within
+    FUSED_LOGIT_TOL, finite, and each forward one stream-block launch."""
+    xs = [torch.from_numpy(rng.normal(size=(FUSED_BATCH, WIN, CHANNELS[m])).astype(np.float32))
+          .to(dev) for m in MODALITIES]
+    errors = {}
+    for sync in (True, False):
+        for head, (use_norm, use_cosine) in FUSED_HEADS.items():
+            kw = dict(synchronized=sync, use_norm=use_norm, use_cosine=use_cosine)
+            plain = WearGaitThreeModal(**kw, generator=torch.Generator().manual_seed(11)).to(dev)
+            fused = FusedWearGaitThreeModal(**kw, generator=torch.Generator().manual_seed(11))
+            fused = fused.to(dev)
+            outs, counts = [], []
+            with torch.no_grad():
+                for model in (fused, plain):
+                    reset_launches()
+                    outs.append(model(*xs))
+                    torch.cuda.synchronize()
+                    counts.append(read_launches()["stream_block"])
+            got, want = outs
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            finite = all(torch.isfinite(a).all().item() for a in got)
+            tag = f"{'sync' if sync else 'async'} {head}"
+            errors[tag] = err
+            log(f"[fused] logits at {FUSED_BATCH} window tuples, {tag} heads: fused vs unfused "
+                f"max abs gap {err:.3e} (tol {FUSED_LOGIT_TOL}); finite {finite}; stream-block "
+                f"launches a forward fused/unfused {counts[0]}/{counts[1]}")
+            if not finite or err > FUSED_LOGIT_TOL or counts != [1, 1]:
+                raise RuntimeError(f"fused logits {tag}: gap {err}, launches {counts}")
+    return errors
+
+
+def fused_launches(steps, evals) -> dict:
+    """A sequential fused run's launches: a train step one stream-block
+    forward, 3 backward (one a CAGrad task pass) and one solver; an eval
+    forward one stream-block forward; nothing wide or fold-stacked."""
+    return {"stream_block": steps + evals, "stream_block_backward": 3 * steps,
+            "cagrad_solver": steps, "stream_block_wide": 0, "stream_block_backward_wide": 0,
+            "stream_block_folds": 0, "stream_block_backward_folds": 0}
+
+
+def time_steps_in_turns(fns: dict, reps: int) -> dict:
+    """Host-clock milliseconds of each of ``reps`` synchronised calls of
+    each function (3 warm-up calls first), in turns a, b, b, a: each
+    function's median, min and max over its 2 x reps calls."""
+    names = list(fns)
+    samples = {n: [] for n in names}
+    for name in names + names[::-1]:
+        fn = fns[name]
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples[name].append(1e3 * (time.perf_counter() - t0))
+    return {n: {"median_ms": float(np.median(v)), "min_ms": min(v), "max_ms": max(v),
+                "p10_ms": float(np.percentile(v, 10)), "p90_ms": float(np.percentile(v, 90))}
+            for n, v in samples.items()}
+
+
+def traced_counts(fn, windows) -> dict:
+    """FUSED_TRACE_REPS synchronised calls of ``fn`` under
+    gaitpd_torch.runtime.profiling.trace (its Chrome trace written to a
+    directory removed after): CUDA kernels a call, cuDNN's weight-gradient
+    kernels a call by name, the kernels' summed device time a call, and
+    the calls' windows/s from a StepTimer (``windows`` a call; the
+    profiler's overhead included)."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    timer = profiling.StepTimer()
+    with tempfile.TemporaryDirectory() as tmp, profiling.trace(tmp) as prof:
+        timer.reset()
+        for _ in range(FUSED_TRACE_REPS):
+            fn()
+            torch.cuda.synchronize()
+            timer.add(windows)
+        summary = timer.summary()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    wgrad = {e.key: e.count / FUSED_TRACE_REPS for e in kernels if "wgrad" in e.key}
+    return {"kernels": sum(e.count for e in kernels) / FUSED_TRACE_REPS,
+            "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3 / FUSED_TRACE_REPS,
+            "wgrad_kernels": sum(wgrad.values()), "wgrad_by_name": wgrad,
+            "timer": summary}
+
+
+def time_fused_steps(seed, dev, card) -> dict:
+    """The fused train step against the unfused one, where each runs: the
+    sequential CAGrad step at batch 64, the stacked 10 x 64 step of
+    run_cv_vmapped and the 4 x 10 x 64 grid step. For each, the fused
+    step's launches (the unfused step's law: one stream-block forward, 3
+    backward, one solver, for all folds or instances), its host clock in
+    turns with the unfused one (median and spread), and each one's kernels,
+    cuDNN weight-gradient kernels and windows/s under the profiler's
+    trace."""
+    def sequential(fused):
+        step, state, ctx, batch, gen = make_step_setup(seed, dev, 64, fused=fused)
+        return lambda: step(state, batch, gen, ctx)
+
+    def stacked(fused):
+        runner, state, batch, ctx, gens = vmap_step_setup(seed, dev, fused=fused)
+        return lambda: runner.train_step(state, batch, ctx, False, gens)
+
+    def grid(fused):
+        runner, state, batch, ctx = grid_step_setup(seed, dev, fused=fused)
+        return lambda: runner.train_step(state, batch, ctx, False)
+
+    cases = {"sequential": (sequential, 64, fused_launches),
+             "stacked": (stacked, VMAP_FOLDS * 64, flagship_launches),
+             "grid": (grid, GRID_ROWS * VMAP_FOLDS * 64, grid_launches(flagship_launches))}
+    out = {}
+    for name, (setup, windows, law) in cases.items():
+        fns = {"fused": setup(True), "unfused": setup(False)}
+        fns["fused"]()
+        torch.cuda.synchronize()
+        reset_launches()
+        fns["fused"]()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = law(1, 0)
+        wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+        if wrong:
+            raise RuntimeError(f"fused {name} step: launches (got, want) {wrong}")
+        times = time_steps_in_turns(fns, FUSED_STEP_REPS[name])
+        counts = {k: traced_counts(fn, windows) for k, fn in fns.items()}
+        out[name] = {"times": times, "counts": counts, "launches": launches,
+                     "windows": windows}
+        log(f"[time] {card}: fused vs unfused {name} CAGrad step ({windows} window tuples): "
+            + "; ".join(
+                f"{k} median {t['median_ms']:.3f} ms (min {t['min_ms']:.3f}, p10 "
+                f"{t['p10_ms']:.3f}, p90 {t['p90_ms']:.3f}, max {t['max_ms']:.3f}; "
+                f"{2 * FUSED_STEP_REPS[name]} synchronised steps), traced: "
+                f"{counts[k]['kernels']:.1f} kernels, {counts[k]['wgrad_kernels']:.1f} cuDNN "
+                f"weight-gradient kernels {counts[k]['wgrad_by_name']}, kernel sum "
+                f"{counts[k]['device_ms']:.3f} ms, {counts[k]['timer']['windows_per_sec']} "
+                f"windows/s" for k, t in times.items())
+            + f"; the fused step's launches {launches}")
+    return out
+
+
+def time_fused_layout(rng, dev, card) -> dict:
+    """The stream block at the main shape (3 x 1024 windows) in the fused
+    backbone's row order, (b, stream): the forward (the same kernel and
+    shape as the unfused path's) and the backward in a CAGrad task pass
+    of the fused layout, the walkway's rows (every third) live, held
+    against their plain versions (phase 2's rule), then timed: eager and
+    from a CUDA graph beside the plain versions, the library calls and the
+    bounds; the backward from a graph in turns with the unfused
+    stream-major task layout (the first third live) and all rows live."""
+    bsz, t, cin, k, cout, t_out, act = MAIN_SHAPE
+    x, w, b, g = stream_block_inputs(rng, bsz, t, cin, k, cout, dev, t_out)
+    rows = torch.arange(bsz, device=dev)[:, None, None]
+    layouts = {"fused": torch.where(rows % 3 == 0, g, torch.zeros_like(g)),
+               "stream_major": torch.where(rows < N_WINDOWS, g, torch.zeros_like(g)),
+               "all_live": g}
+    fwd_err = hold_forward("fused backbone", x, w, b, t_out, act)
+    bwd_err = hold_backward("fused (b, stream) task layout", x, w, b, layouts["fused"], t_out,
+                            act)[0]
+    w_torch = w.permute(2, 1, 0).contiguous()
+
+    def library():
+        y = torch.relu(F.conv1d(x.transpose(1, 2), w_torch, b, padding=k // 2))
+        return F.adaptive_avg_pool1d(y, t_out).transpose(1, 2)
+
+    leaves = [t_.detach().clone().requires_grad_() for t_ in (x, w, b)]
+
+    def library_backward():
+        xl, wl, bl = leaves
+        y = torch.relu(F.conv1d(xl.transpose(1, 2), wl.permute(2, 1, 0), bl, padding=k // 2))
+        out = F.adaptive_avg_pool1d(y, t_out).transpose(1, 2)
+        return torch.autograd.grad(out, leaves, layouts["fused"])
+
+    with torch.inference_mode():
+        fwd = {"kernel": time_cuda(lambda: sb.stream_block(x, w, b, t_out)),
+               "plain": time_cuda(lambda: sb.stream_block_reference(x, w, b, t_out)),
+               "library": time_cuda(library),
+               "graph": time_cuda_graph(lambda: sb.stream_block(x, w, b, t_out))}
+    bwd = {"kernel": time_cuda(lambda: sb.stream_block_backward(x, w, b, layouts["fused"],
+                                                                t_out)),
+           "plain": time_cuda(lambda: sb.stream_block_backward_reference(
+               x, w, b, layouts["fused"], t_out), warmup=5, reps=50),
+           "library": time_cuda(library_backward, warmup=5, reps=50)}
+    graph = {name: [] for name in layouts}
+    for name in ("fused", "stream_major", "all_live", "all_live", "stream_major", "fused"):
+        graph[name].append(time_cuda_graph(
+            lambda: sb.stream_block_backward(x, w, b, layouts[name], t_out)))
+    fwd_bound = stream_block_bound(bsz, t, cin, k, cout, t_out)
+    bwd_bound = stream_block_backward_bound(bsz, t, cin, k, cout, t_out, live=bsz // 3)
+    log(f"[time] {card}: stream_block x({bsz},{t},{cin}) in the fused backbone: forward "
+        f"kernel {fwd['kernel']:.4f} ms eager, {fwd['graph']:.4f} ms from a CUDA graph, plain "
+        f"{fwd['plain']:.4f} ms, library {fwd['library']:.4f} ms, bound {fwd_bound[0]:.5f} ms "
+        f"({fwd_bound[1]}); backward in the fused task layout (every third row live): kernel "
+        f"{bwd['kernel']:.4f} ms eager, plain {bwd['plain']:.4f} ms, library (autograd, forward "
+        f"included) {bwd['library']:.4f} ms, bound {bwd_bound[0]:.5f} ms ({bwd_bound[1]}); "
+        f"from a CUDA graph in turns (device only): fused layout "
+        f"{'/'.join(f'{v:.4f}' for v in graph['fused'])} ms, stream-major layout "
+        f"{'/'.join(f'{v:.4f}' for v in graph['stream_major'])} ms, all rows live "
+        f"{'/'.join(f'{v:.4f}' for v in graph['all_live'])} ms")
+    return {
+        "errors": (fwd_err, bwd_err),
+        "stream_block_fused": {"ms": fwd["kernel"], "plain_ms": fwd["plain"],
+                               "library_ms": fwd["library"], "bound_ms": fwd_bound[0],
+                               "bound_by": fwd_bound[1], "graph_ms": fwd["graph"]},
+        "stream_block_backward_fused": {
+            "ms": bwd["kernel"], "plain_ms": bwd["plain"], "library_ms": bwd["library"],
+            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+            "graph_ms": min(graph["fused"]), "stream_major_graph_ms": min(graph["stream_major"]),
+            "all_live_graph_ms": min(graph["all_live"])},
+    }
+
+
+def phase_fused(seed, dev, card, rng) -> dict:
+    """Phase 12: the fused forward. Fused against unfused logits on the
+    card; one fused CAGrad step card vs CPU (phase 4's tolerances); a fused
+    run_cv card vs CPU (sync, 2 epochs; phase 4's rules, and a train step 1
+    stream-block forward, 3 backward and 1 solver launch, an eval forward
+    1 forward); a fused run_cv_vmapped against the sequential fused run on
+    the card (phase 7's rule, 1 sync epoch); the fused and unfused
+    sequential, stacked and grid steps timed and traced; the stream block in
+    the fused backbone's row order, checked and timed."""
+    t0 = time.perf_counter()
+    parts = {}
+
+    def done(part):
+        parts[part] = time.perf_counter() - t0 - sum(parts.values())
+
+    logits = check_fused_logits(rng, dev)
+    layout = time_fused_layout(rng, dev, card)
+    done("kernels and logits")
+    compare_one_step("fused CAGrad step at batch 64", dev,
+                     lambda device: make_step_setup(seed, device, 64, fused=True))
+    runs = compare_run_cv("fused", dict(train_common(seed), fused=True), (("sync", 2),),
+                          fused_launches(1, 0), ("stream_block",),
+                          per_eval_forward={"stream_block": 1})
+    done("run_cv")
+    common = dict(synthetic=True, seed=seed, batch_size=64, wm="gcl", alpha=0.5, noise_mul=0.0,
+                  verbose=False, patience=50, fused=True, **VMAP_CV)
+    runs["vmap sync"] = compare_vmapped_run(wg.WearGaitArgs(epochs=1, **common),
+                                            "vmap_folds fused sync", flagship_launches)
+    done("run_cv_vmapped")
+    steps = time_fused_steps(seed, dev, card)
+    done("timed steps")
+    seconds = time.perf_counter() - t0
+    log(f"[fused] {card}: phase 12: {seconds:.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in parts.items())})")
+    return {"logits": logits, "errors": layout["errors"], "runs": runs, "steps": steps,
+            "times": {k: layout[k] for k in ("stream_block_fused",
+                                             "stream_block_backward_fused")},
+            "seconds": seconds}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5621,6 +5917,9 @@ def main() -> int:
     # the HP grid and the sweep runner: a stream of their own
     hp_grid = phase_hp_grid(args.seed, dev, card, np.random.default_rng([args.seed, 29]))
     times.update(hp_grid["times"])
+    # the fused forward: a stream of its own
+    fused = phase_fused(args.seed, dev, card, np.random.default_rng([args.seed, 30]))
+    times.update(fused["times"])
 
     # launches on each kernel's own main path: the CAGrad training's for the
     # earlier slices' kernels, the cheap-xattn training's for this slice's
@@ -5698,6 +5997,10 @@ def main() -> int:
     launches["cagrad_solver_per_matrix_c"] = grid_vm["cagrad_solver_per_matrix_c"]
     for name in ("stream_block_folds", "stream_block_backward_folds"):
         launches[f"{name}_grid"] = grid_vm[name]
+    # the stream block in the fused backbone's (b, stream) row order on its
+    # own main path: phase 12's fused sync run
+    for name in ("stream_block", "stream_block_backward"):
+        launches[f"{name}_fused"] = fused["runs"]["sync"]["launches"][name]
     long_err = long_errors["win256_batch64"]
     wide_err = wide_errors[WIDE_XATTN_TIMED[0]]
     bb_err = baselines["errors"]["xattn"]["fog_batch256"]
@@ -5783,6 +6086,11 @@ def main() -> int:
          "gaitpd/ops/pallas_blocks.py:160", hp_grid["errors"]["grid"][1]),
         ("cagrad_solver_per_matrix_c", "gaitpd_torch/csrc/cagrad_solver.cu",
          "gaitpd/learning/minnorm.py:58", hp_grid["solver"]["k3"]["max_abs_err"]),
+        # the fused forward's backbone: the three streams folded (b, stream)
+        ("stream_block_fused", "gaitpd_torch/csrc/stream_block.cu",
+         "gaitpd/ops/pallas_blocks.py:72", fused["errors"][0]),
+        ("stream_block_backward_fused", "gaitpd_torch/csrc/stream_block.cu",
+         "gaitpd/ops/pallas_blocks.py:160", fused["errors"][1]),
     ]
     kernels = []
     for name, source, replaces, err in entries:
@@ -5813,7 +6121,7 @@ def main() -> int:
         f"{json.dumps(vmap)}; the vmapped baselines (phase 8) {json.dumps(vmap_baselines)}; "
         f"the vmapped MTL methods (phase 9) {json.dumps(vmap_mtl)}; FBG/FoG's folds and the "
         f"seed sweeps (phase 10) {json.dumps(vmap_ff)}; the HP grid and the sweep runner "
-        f"(phase 11) {json.dumps(hp_grid)}")
+        f"(phase 11) {json.dumps(hp_grid)}; the fused forward (phase 12) {json.dumps(fused)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -132,8 +132,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train-time random modality dropout probability (weargait; "
                         "relaxed-input training)")
     p.add_argument("--fused", action="store_true",
-                   help="weargait flagship: block-diagonal fused 3-stream forward (not "
-                        "ported yet: ROADMAP Queue 1, item 15)")
+                   help="weargait flagship: block-diagonal fused 3-stream forward (the "
+                        "same parameters, logits within ~1e-5; the backbone one kernel "
+                        "launch for the three streams; gaitpd_torch/models/fused.py)")
     p.add_argument("--vmap_folds", action="store_true",
                    help="weargait (the flagship under any --mtl_method, any --baseline, "
                         "or --single_mod; the recipe's draws per fold) and fbg_fog/trip/"
@@ -220,8 +221,6 @@ def run_fbg_fog(ns: argparse.Namespace):
 def run_weargait(ns: argparse.Namespace, baseline: str = None):
     from gaitpd_torch.train.weargait_driver import WearGaitArgs, run_cv
 
-    if ns.fused:
-        raise _not_ported("the fused forward (--fused)", 15)
     if ns.aug_mirror_p > 0 or ns.aug_rot_deg > 0:
         print("warning: --aug_mirror_p/--aug_rot_deg are skeleton-stream "
               "transforms; the WearGait sensor streams ignore them "

@@ -18,7 +18,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -31,6 +31,9 @@ NVCC_FLAGS = [
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# called with the BuildResult of each build that runs nvcc
+# (gaitpd_torch.runtime.profiling.log_compile_times)
+BUILD_LISTENERS: List[Callable[["BuildResult"], None]] = []
 
 
 @dataclass
@@ -81,7 +84,10 @@ def build(name: str) -> BuildResult:
         raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n{log}")
     log_path.write_text(log)
     os.replace(tmp, out)
-    return BuildResult(name, out, seconds, log)
+    result = BuildResult(name, out, seconds, log)
+    for listener in BUILD_LISTENERS:
+        listener(result)
+    return result
 
 
 def build_all() -> List[BuildResult]:

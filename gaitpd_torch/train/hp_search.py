@@ -32,6 +32,8 @@ test_torch_hp_search.py). Each runner returns gaitpd's grid ranked by the
 mean over the folds of each instance's best, ``{"table", "n_folds",
 "grid_size"}``, and prints it.
 
+With ``fused`` the flagship's instances run the fused forward
+(gaitpd_torch/models/fused.py), as run_cv_vmapped's folds do.
 Data-parallel meshes (``mesh``) raise NotImplementedError naming their
 ROADMAP item (Queue 1, item 14), as the drivers do.
 """

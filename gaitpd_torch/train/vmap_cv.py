@@ -57,8 +57,11 @@ test_torch_vmap_mtl.py, test_torch_vmap_fbg_fog.py).
 A fold that has run out of patience keeps training with the others, its
 best snapshot frozen and its draws off, as gaitpd's.
 
-Not ported yet, each raising NotImplementedError naming its ROADMAP item:
-data-parallel meshes (item 14); the fused forward (item 15).
+The fused flagship (``fused``, gaitpd_torch/models/fused.py) runs here as
+the unfused one does: its backbone is one stream-block launch for every
+fold's three streams, and the CAGrad solver one launch for every fold.
+Data-parallel meshes, not ported yet, raise NotImplementedError naming
+their ROADMAP item (Queue 1, item 14).
 """
 
 from __future__ import annotations

@@ -7,6 +7,7 @@ Port of gaitpd/train/weargait_driver.py:37-47,49-68,73-198,248-533
     res = run_cv(WearGaitArgs(synthetic=True, baseline="cheap_xattn"))
     res = run_cv(WearGaitArgs(synthetic=True, baseline="focal", device="cpu"))
     res = run_cv(WearGaitArgs(synthetic=True, single_mod="imu", device="cpu"))
+    res = run_cv(WearGaitArgs(synthetic=True, fused=True, device="cpu"))
     # the recipe: augmentation, modality dropout, per-fold checkpoints
     res = run_cv(WearGaitArgs(data_dir="data/WearGait/WearGait_preproc_SPmT_30Hz",
                               aug_noise_std=0.05, aug_axis_p=0.2, modality_dropout=0.3,
@@ -16,11 +17,13 @@ The flagship model (CAGrad), the seven baselines (the four fusion models and
 DeepAV-Lite, FOCAL and TACA, on the mean of the branch losses) and the
 single-modality mode, on synthetic streams or the preprocessed pickles of
 real recordings (``synthetic=False``; reading them needs pandas). With
-``ckpt_dir`` each fold but a single-modality one saves ``latest`` every
-epoch and ``best`` on improvement (gaitpd_torch.train.checkpoint), and
-``resume`` continues a fold from its ``latest``. Options of the reference
-trainer that the port does not have yet raise NotImplementedError naming
-their ROADMAP item; none is silently ignored.
+``fused`` the flagship runs the fused forward (gaitpd_torch/models/
+fused.py); a baseline and the single-modality mode ignore it, as gaitpd's
+do. With ``ckpt_dir`` each fold but a single-modality one saves ``latest``
+every epoch and ``best`` on improvement (gaitpd_torch.train.checkpoint),
+and ``resume`` continues a fold from its ``latest``. Data-parallel meshes,
+which the port does not have yet, raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from gaitpd_torch.data.synthetic import make_weargait_streams
 from gaitpd_torch.learning.mtl import make_method
 from gaitpd_torch.models import baselines as BL
 from gaitpd_torch.models import fusion as FU
+from gaitpd_torch.models.fused import FusedWearGaitThreeModal
 from gaitpd_torch.models.multitask import WearGaitThreeModal
 from gaitpd_torch.runtime.device import DeviceLike, resolve_device
 from gaitpd_torch.train.checkpoint import (
@@ -153,13 +157,9 @@ def weargait_aug_config(args, n_streams: int = 3):
 
 def check_supported(args: WearGaitArgs) -> None:
     """Raise NotImplementedError for an option the port does not have yet."""
-    missing = [
-        (args.fused, "the fused forward (fused)", "Queue 1, item 15"),
-        (args.mesh is not None, "data-parallel meshes (mesh)", "Queue 1, item 14"),
-    ]
-    for unsupported, what, item in missing:
-        if unsupported:
-            raise NotImplementedError(f"{what}: not ported yet (ROADMAP {item})")
+    if args.mesh is not None:
+        raise NotImplementedError(
+            "data-parallel meshes (mesh): not ported yet (ROADMAP Queue 1, item 14)")
 
 
 class SingleBranch(WearGaitThreeModal):
@@ -182,7 +182,10 @@ def build_model(args: WearGaitArgs, sync_flag: bool,
     flagship's branch (reference weargait_train.py:458-524,
     gaitpd/train/weargait_driver.py:123-166), its weights drawn from
     ``generator`` (default: seeded with args.seed). ``baseline_torch_init``
-    reaches DeepAV-Lite alone, as in gaitpd."""
+    reaches DeepAV-Lite alone, as in gaitpd. With ``fused`` the flagship is
+    gaitpd_torch.models.fused.FusedWearGaitThreeModal (the same parameters,
+    the fused forward); a baseline or ``single_mod`` ignores it, as gaitpd's
+    ``flagship_apply`` (gaitpd/train/weargait_driver.py:232-244)."""
     g = generator if generator is not None else torch.Generator().manual_seed(args.seed)
     common = dict(enc_out_ch=args.enc_out_ch, backbone_dim=args.backbone_dim,
                   shared_out_ch=args.shared_out_ch, num_classes=args.num_classes,
@@ -207,6 +210,8 @@ def build_model(args: WearGaitArgs, sync_flag: bool,
     common.update(use_norm=args.use_norm, use_cosine=args.use_cosine)
     if args.single_mod is not None:
         return SingleBranch(args.single_mod, **common)
+    if args.fused:
+        return FusedWearGaitThreeModal(**common)
     return WearGaitThreeModal(**common)
 
 

@@ -164,10 +164,9 @@ def test_each_mode_builds_gaitpd_args(monkeypatch, jax_precision, name, vmap):
 
 
 UNPORTED = {
-    "fused": (["--mode", "weargait", "--fused"], 15),
     "data_parallel": (["--mode", "weargait", "--data_parallel"], 14),
 }
-# flags once refused (item 19) and now taken: with --vmap_hp (before
+# flags once refused (items 19 and 15) and now taken: with --vmap_hp (before
 # --vmap_folds) each reaches an HP grid runner ("hp") with the Args and the
 # grid gaitpd's CLI gives its own; the --hp_* flags without it, and the
 # baseline modes, reach the plain driver ("plain"), as in gaitpd
@@ -182,8 +181,12 @@ HP_PORTED = {
     "vmap_hp_baseline": (["--mode", "weargait", "--baseline", "taca", "--vmap_hp", "--hp_lrs",
                           "1e-3", "3e-3", "--hp_gcl_ms", "0.1", "0.3", "--vmap_folds"], "hp"),
     "vmap_hp_fusion_mode": (["--mode", "fusion", "--vmap_hp", "--hp_lrs", "1e-3"], "plain"),
+    # --fused (item 15), once refused: the plain driver, and with --vmap_hp
+    # the grid runner (with --vmap_folds: VMAP_PORTED)
+    "fused": (["--mode", "weargait", "--fused"], "plain"),
+    "fused_vmap_hp": (["--mode", "weargait", "--fused", "--vmap_hp", "--hp_lrs", "1e-3"], "hp"),
 }
-# flags and modes --vmap_folds once refused (items 35 and 18) and now takes:
+# flags and modes --vmap_folds once refused (items 35, 18 and 15) and now takes:
 # each reaches run_cv_vmapped or run_fbg_fog_vmapped with the Args gaitpd's
 # CLI gives its own
 VMAP_PORTED = {
@@ -196,6 +199,7 @@ VMAP_PORTED = {
     "vmap_fbg_fog": ["--mode", "fbg_fog", "--vmap_folds"],
     "vmap_trip": ["--mode", "trip", "--vmap_folds"],
     "vmap_single": ["--mode", "single", "--vmap_folds"],
+    "vmap_fused": ["--mode", "weargait", "--vmap_folds", "--fused"],
 }
 
 

@@ -195,7 +195,7 @@ def test_dropout_baselines_train_with_dropout(monkeypatch, baseline, dropout):
     assert seen == [dropout]
 
 
-@pytest.mark.parametrize("option", [dict(fused=True), dict(mesh=object())])
+@pytest.mark.parametrize("option", [dict(mesh=object())])
 def test_unported_options_raise(option):
     kw = {**CONFIGS["sync_gcl"], "epochs": 1, "device": "cpu", **option}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
