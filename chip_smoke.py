@@ -7,7 +7,8 @@ Phases (each raises on failure, so the script exits non-zero):
   1. device: the card's name, count and power limit; build every kernel in
      gaitpd_torch/csrc with nvcc, one process each, all at once, and print
      each kernel's registers, spills and shared memory from nvcc's -Xptxas -v
-     lines;
+     lines; phase 2 starts once the stream block and the CAGrad solver are
+     built, the other sources finishing alongside phases 2-4;
   2. kernels: each kernel against its plain PyTorch version on the card
      (f32, TF32 off): the stream block's forward (max abs <= 1e-5, two
      launches give the same bits, each line naming its variant) and
@@ -341,7 +342,23 @@ Phases (each raises on failure, so the script exits non-zero):
      CAGrad steps: the fused step's launches (the unfused law), the host
      clock of synchronised steps in turns (median and spread), and under
      gaitpd_torch.runtime.profiling.trace each one's kernels, cuDNN
-     weight-gradient kernels by name and windows/s (StepTimer).
+     weight-gradient kernels by name and windows/s (StepTimer);
+  13. remat and the data-parallel mesh, from a random stream of its own:
+     the CAGrad step at batch 64 under remat "none", "dots" and "nothing",
+     card vs CPU as in phase 4 and on the card against "none" (phase 4's
+     tolerances), its stream-block launches (forward 1/1/4, backward 3/3/3
+     a step), its median step time and peak memory at batch 64 and 1024;
+     DeepAV-Lite at dropout 0.1 under each policy: the masks a
+     recomputation draws bitwise the first forward's, the step equal to
+     "none"'s, the generator bitwise where "none" leaves it; the
+     data-parallel step over a 1-rank NCCL mesh against the step without
+     one; python -m gaitpd_torch.entry multichip 2 (two gloo ranks sharing
+     the card through gaitpd's dry-run phases) and the CLI's
+     --data_parallel as subprocesses.
+
+The subprocess checks of phases 7, 10, 11 and 13 run all at once before
+phase 7 (run_commands), the main process waiting. After each phase a line
+``[phase] <name> <seconds>`` gives its wall time.
 
 Every number is printed beside the card's name and power limit. The
 second-to-last line is a JSON object with one entry per kernel; the last
@@ -352,13 +369,16 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
 import itertools
 import json
+import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -392,8 +412,9 @@ from gaitpd_torch.ops import cagrad_solver as cs
 from gaitpd_torch.ops import cheap_xattn as cx
 from gaitpd_torch.ops import mtl_solvers as ms
 from gaitpd_torch.ops import stream_block as sb
-from gaitpd_torch.runtime import profiling
+from gaitpd_torch.runtime import fold_draws, profiling
 from gaitpd_torch.runtime.device import resolve_device
+from gaitpd_torch.runtime.mesh import make_mesh, mesh_sharding
 from gaitpd_torch.serve import StreamingSession, WearGaitEngine, poll_sessions
 from gaitpd_torch.tools import recipe_laws
 from gaitpd_torch.train import baseline_drivers as bd
@@ -485,6 +506,16 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
+_LAP = [0.0]
+
+
+def lap(name: str) -> None:
+    """Print the wall seconds since the last lap as ``[phase] <name> <s>``."""
+    now = time.perf_counter()
+    log(f"[phase] {name} {now - _LAP[0]:.1f}")
+    _LAP[0] = now
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -546,23 +577,47 @@ def read_launches() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_device() -> str:
+# the kernels phases 2-4 launch: phase 1 waits for their builds alone, and
+# the others (the cheap cross-attention's takes ~145 s) build alongside
+# phases 2-4 (finish_builds)
+EARLY_KERNELS = ("stream_block", "cagrad_solver")
+
+
+def log_build(r) -> None:
+    log(f"[build] {r.name}: nvcc {r.seconds:.2f} s -> {r.path.name}")
+    for kernel, regs, spills, rest in kernel_resources(r.log):
+        log(f"[build]   {kernel}: {regs} registers, spill stores/loads {spills[0]}/"
+            f"{spills[1]} bytes; {rest}")
+    for line in r.log.splitlines():  # anything but ptxas's resource report
+        if line.strip() and not re.match(r"\s*(ptxas info|\d+ bytes stack frame)", line):
+            log(f"[build]   {line.strip()}")
+
+
+def phase_device() -> tuple:
+    """The card's name, count and power limit; one nvcc a kernel source,
+    all started at once, waiting for EARLY_KERNELS' alone. Returns the
+    card line, each source's pending build and the builds' start time."""
     log(f"[device] {torch.cuda.get_device_name(0)}, count={torch.cuda.device_count()}, "
         f"torch {torch.__version__}, cuda {torch.version.cuda}")
     card = card_line()
     log(f"[device] nvidia-smi: {card}")
     t0 = time.perf_counter()
-    results = _build.build_all()
-    log(f"[build] {len(results)} kernel(s) in {time.perf_counter() - t0:.2f} s wall")
-    for r in results:
-        log(f"[build] {r.name}: nvcc {r.seconds:.2f} s -> {r.path.name}")
-        for kernel, regs, spills, rest in kernel_resources(r.log):
-            log(f"[build]   {kernel}: {regs} registers, spill stores/loads {spills[0]}/"
-                f"{spills[1]} bytes; {rest}")
-        for line in r.log.splitlines():  # anything but ptxas's resource report
-            if line.strip() and not re.match(r"\s*(ptxas info|\d+ bytes stack frame)", line):
-                log(f"[build]   {line.strip()}")
-    return card
+    names = _build.sources()
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=len(names))
+    builds = {name: pool.submit(_build.build, name) for name in names}
+    pool.shutdown(wait=False)
+    for name in EARLY_KERNELS:
+        log_build(builds[name].result())
+    return card, builds, t0
+
+
+def finish_builds(builds, t0) -> None:
+    """Wait for every other build (phase_device) and log it."""
+    for name, pending in builds.items():
+        if name not in EARLY_KERNELS:
+            log_build(pending.result())
+    log(f"[build] {len(builds)} kernel(s) in {time.perf_counter() - t0:.2f} s wall, those "
+        f"past {', '.join(EARLY_KERNELS)} alongside phases 2-4")
 
 
 def kernel_resources(log: str) -> list:
@@ -1938,7 +1993,8 @@ def solver_per_step(method) -> dict:
 
 def phase_mtl_methods(seed, dev, rng) -> dict:
     """This slice's main path: the 12 drawless methods one step card vs CPU
-    and run_cv card vs CPU (sync 2 epochs; async 1 for FAMO and MGDA), 3
+    and run_cv card vs CPU (sync 1 epoch; async 1 for FAMO
+    and MGDA), 3
     stream-block backward launches and one launch of the method's own solver
     a step; the 3 drawing methods' run_cv on the card alone (sync 1 epoch)
     and their draws' laws; each method's host synchronisations a step."""
@@ -1949,7 +2005,7 @@ def phase_mtl_methods(seed, dev, rng) -> dict:
     training_grams = []  # those of the MGDA and LOG_MGDA sync runs on the card
     for method in DRAWLESS_METHODS:
         check_one_step(seed, dev, mtl_method=method)
-        modes = (("sync", 2), ("async", 1)) if method in ("famo", "mgda") else (("sync", 2),)
+        modes = (("sync", 1), ("async", 1)) if method in ("famo", "mgda") else (("sync", 1),)
         per_step = {"stream_block_backward": 3, "stream_block_wide": 0,
                     "stream_block_backward_wide": 0, **solver_per_step(method)}
         own = METHOD_SOLVER.get(method)
@@ -3177,13 +3233,14 @@ def time_serving(engine, rng, card) -> dict:
 
 
 def make_step_setup(seed, dev, bsz, baseline=None, no_dropout=False, mtl_method="cagrad",
-                    recipe=False, **widths):
+                    recipe=False, remat="none", sharding=None, **widths):
     """A flagship model with its SGD and ``mtl_method`` step (CAGrad at
     c = 0.5 by default), or a baseline with SGD on the mean of its branch
     losses (sync; DeepAV-Lite and TACA with their dropout, or at rate 0 with
     ``no_dropout``), one card-resident batch of ``bsz`` window tuples, and
     the step's generator. With ``recipe`` the step augments and drops
-    modalities as RECIPE sets them; ``widths`` sets WearGaitArgs' sizes
+    modalities as RECIPE sets them; ``remat`` is StepSettings.remat,
+    ``sharding`` make_train_step's; ``widths`` sets WearGaitArgs' sizes
     (enc_out_ch, win_len)."""
     args = wg.WearGaitArgs(seed=seed, baseline=baseline, **(RECIPE if recipe else {}), **widths)
     model = wg.build_model(args, True)
@@ -3194,15 +3251,17 @@ def make_step_setup(seed, dev, bsz, baseline=None, no_dropout=False, mtl_method=
     settings = StepSettings(n_streams=3, wm="gcl", synchronized=True,
                             private_grads="sum_plus_own",
                             dropout=baseline in wg.DROPOUT_BASELINES,
-                            modality_dropout=args.modality_dropout, augment=aug_specs)
+                            modality_dropout=args.modality_dropout, augment=aug_specs,
+                            remat=remat)
     if baseline is None:
         kwargs = {"c": 0.5} if mtl_method in ("cagrad", "log_cagrad") else {}
         mtl = make_method(mtl_method, 3, **kwargs)
         step = make_train_step(settings, mtl, build_flat_partition(
-            model, model.shared_modules, model.task_modules))
+            model, model.shared_modules, model.task_modules), sharding=sharding)
         mtl_state = mtl.init_state(dev)
     else:
-        step = make_train_step(settings, train_apply=wg.baseline_adapters(args)[0])
+        step = make_train_step(settings, train_apply=wg.baseline_adapters(args)[0],
+                               sharding=sharding)
         mtl_state = {}
     state = TrainState(module=model, optimizer=sgd_torch(model.parameters(), 1e-3),
                        mtl_state=mtl_state)
@@ -3289,17 +3348,18 @@ def time_ff_step_profile(seed, dev, card, setup=None, label="FoG multimodal CAGr
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(10):
+            for _ in range(PROFILE_REPS):
                 step(state, batch, gen, ctx)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
         kernels = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
         out[f"batch{bsz}"] = {
-            "device_ms": sum(e.self_device_time_total for e in kernels) / 1e4,
-            "kernels": sum(e.count for e in kernels) / 10, "wall_ms_profiled": wall_ms / 10}
+            "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3 / PROFILE_REPS,
+            "kernels": sum(e.count for e in kernels) / PROFILE_REPS,
+            "wall_ms_profiled": wall_ms / PROFILE_REPS}
         if bsz == FF_BATCH:
-            profile_table(prof, f"10 x {label} train step batch {bsz}", wall_ms, card)
+            profile_table(prof, f"{PROFILE_REPS} x {label} train step batch {bsz}", wall_ms, card)
     log(f"[time] {card}: {label} train step, device time (ms), kernel "
         f"launches and profiled wall time (ms) a step: {out}")
     return out
@@ -3318,13 +3378,13 @@ def time_recipe_step(seed, dev, card) -> dict:
         step(state, batch, gen, ctx)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
+            for _ in range(PROFILE_REPS):
                 step(state, batch, gen, ctx)
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-        runs[label].append((sum(e.self_device_time_total for e in kernels) / 1e4,
-                            sum(e.count for e in kernels) / 10))
+        runs[label].append((sum(e.self_device_time_total for e in kernels) / 1e3 / PROFILE_REPS,
+                            sum(e.count for e in kernels) / PROFILE_REPS))
     out = {label: {"device_ms": [r[0] for r in rs], "kernels": [r[1] for r in rs]}
            for label, rs in runs.items()}
     log(f"[time] {card}: CAGrad train step batch 1024, device time (ms) and kernel launches a "
@@ -3368,8 +3428,8 @@ def profile_table(prof, label, wall_ms, card) -> None:
 
 
 def phase_profiles(engine, seed, dev, card) -> None:
-    """Device time by kernel over 10 batch-1024 predict_windows calls, 10
-    batch-1024 CAGrad train steps and 10 batch-1024 cheap-xattn train steps."""
+    """Device time by kernel over PROFILE_REPS batch-1024 predict_windows
+    calls, CAGrad train steps and cheap-xattn train steps."""
     from torch.profiler import ProfilerActivity, profile
 
     batch = {m: np.random.default_rng(0).normal(size=(N_WINDOWS, WIN, c)).astype(np.float32)
@@ -3377,37 +3437,37 @@ def phase_profiles(engine, seed, dev, card) -> None:
     engine.predict_windows(batch)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(10):
+        for _ in range(PROFILE_REPS):
             engine.predict_windows(batch)
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    profile_table(prof, f"10 x predict_windows batch {N_WINDOWS}", wall_ms, card)
+    profile_table(prof, f"{PROFILE_REPS} x predict_windows batch {N_WINDOWS}", wall_ms, card)
 
     step, state, ctx, tbatch, _ = make_step_setup(seed, dev, 1024)
     step(state, tbatch, None, ctx)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(10):
+        for _ in range(PROFILE_REPS):
             step(state, tbatch, None, ctx)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    profile_table(prof, "10 x CAGrad train step batch 1024", wall_ms, card)
+    profile_table(prof, f"{PROFILE_REPS} x CAGrad train step batch 1024", wall_ms, card)
 
     step, state, ctx, tbatch, _ = make_step_setup(seed, dev, 1024, "cheap_xattn")
     step(state, tbatch, None, ctx)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(10):
+        for _ in range(PROFILE_REPS):
             step(state, tbatch, None, ctx)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    profile_table(prof, "10 x cheap_xattn train step batch 1024", wall_ms, card)
+    profile_table(prof, f"{PROFILE_REPS} x cheap_xattn train step batch 1024", wall_ms, card)
 
 
 def phase_sota_profiles(seed, dev, card) -> None:
-    """Device time by kernel over 10 batch-1024 train steps of each SOTA
-    baseline, at its dropout."""
+    """Device time by kernel over PROFILE_REPS batch-1024 train steps of
+    each SOTA baseline, at its dropout."""
     from torch.profiler import ProfilerActivity, profile
 
     for baseline in wg.SOTA_BASELINES:
@@ -3416,11 +3476,11 @@ def phase_sota_profiles(seed, dev, card) -> None:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for _ in range(10):
+            for _ in range(PROFILE_REPS):
                 step(state, tbatch, gen, ctx)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-        profile_table(prof, f"10 x {baseline} train step batch 1024", wall_ms, card)
+        profile_table(prof, f"{PROFILE_REPS} x {baseline} train step batch 1024", wall_ms, card)
 
 
 # ---------------------------------------------------------------------------
@@ -3429,6 +3489,10 @@ def phase_sota_profiles(seed, dev, card) -> None:
 
 VMAP_FOLDS = 10
 VMAP_CV = dict(n_folds=VMAP_FOLDS, test_per_class=8)  # the CLI's defaults
+# the runs held against sequential ones but phase 9's: the CLI's splits,
+# their first 4 folds (the timed steps keep all 10)
+VMAP_RUN_FOLDS = 4
+VMAP_RUN_CV = dict(VMAP_CV, n_folds_cap=VMAP_RUN_FOLDS)
 # (F, B a fold, T, C_in, K, C_out, t_out, act) of the fold-stacked stream
 # block: the flagship's (3 streams x 64 windows a fold), the fusion's at
 # --enc_out_ch 96 (wide) and the flagship's at --win_len 101 (per_frame)
@@ -3744,12 +3808,13 @@ def compare_vmapped_run(args, tag, want_launches, yardstick_epoch1=False) -> dic
     is a main path: every launch count set to 0 just before it and read just
     after, and held to ``want_launches(steps, eval forwards)``."""
     epochs = args.epochs
+    n_folds = args.n_folds_cap or args.n_folds
     seq_gens, vm_gens = [], []
     seq_losses, seq_results, seq_s = sequential_folds(args, generators=seq_gens)
     yard = [0.0] * epochs
     if epochs > 1:
         yard = loss_gaps(sequential_folds(args, ROUNDING_PERTURBATION)[0], seq_losses,
-                         VMAP_FOLDS)
+                         n_folds)
     vm_losses = []
     streams = vc._random_streams
 
@@ -3769,34 +3834,34 @@ def compare_vmapped_run(args, tag, want_launches, yardstick_epoch1=False) -> dic
             launches = read_launches()
     finally:
         vc._random_streams = streams
-    log(f"[vmap] {tag}: {epochs} epoch(s) of {VMAP_FOLDS} folds: {counter.steps} stacked "
+    log(f"[vmap] {tag}: {epochs} epoch(s) of {n_folds} folds: {counter.steps} stacked "
         f"train steps and {counter.evals} eval forwards in {vm_s:.2f} s; sequential run_cv "
         f"{seq_s:.2f} s; launches {launches}")
-    gaps = loss_gaps(vm_losses, seq_losses, VMAP_FOLDS)
+    gaps = loss_gaps(vm_losses, seq_losses, n_folds)
     tols = [max(TRAIN_LOSS_RTOL, ROUNDING_GAP_FACTOR * y) for y in yard]
     if not yardstick_epoch1:
         tols[0] = TRAIN_LOSS_RTOL
     share = vmap_share(args)
     mask_gap = max(abs(res["per_fold_masks"][mk][f] - seq_results[f][2][mk])
-                   for f in range(VMAP_FOLDS) for mk in wg.MASK_COMBOS)
+                   for f in range(n_folds) for mk in wg.MASK_COMBOS)
     macro_gap = max(abs(res["per_fold_macro"][f] - seq_results[f][0])
-                    for f in range(VMAP_FOLDS))
+                    for f in range(n_folds))
     flips = sum(abs(res["per_fold_masks"][mk][f] - seq_results[f][2][mk]) > 1e-6
-                for f in range(VMAP_FOLDS) for mk in wg.MASK_COMBOS)
+                for f in range(n_folds) for mk in wg.MASK_COMBOS)
     same_draws = [torch.equal(a.get_state(), b.get_state()) for a, b in zip(vm_gens, seq_gens)]
     drew = [not torch.equal(g.get_state(), torch.Generator(device=g.device).manual_seed(
         args.seed + f + 1).get_state()) for f, g in enumerate(vm_gens)]
     log(f"[vmap] {tag}: per-epoch train losses vs sequential, max rel gap by epoch "
         f"{[f'{g:.3e}' for g in gaps]} (tol {[f'{t:.1e}' for t in tols]}; the yardstick "
         f"run's gap {[f'{y:.3e}' for y in yard]}); best macro max gap {macro_gap:.4f}, "
-        f"7-subset scores max gap {mask_gap:.4f} points ({flips} of {7 * VMAP_FOLDS} "
+        f"7-subset scores max gap {mask_gap:.4f} points ({flips} of {7 * n_folds} "
         f"differ; one eval window {share:.4f}); each fold's generator state bitwise equal "
         f"to the sequential run's: {sum(same_draws)}/{len(same_draws)} (folds that drew: "
         f"{sum(drew)}); macro vmapped {res['macro'][0]:.4f} %, masks {res['masks']}")
     if (any(g > t for g, t in zip(gaps, tols)) or mask_gap > share + 1e-4
             or macro_gap > share + 1e-4):
         raise RuntimeError(f"{tag}: the vmapped run differs from the sequential one")
-    if len(same_draws) != VMAP_FOLDS or not all(same_draws):
+    if len(same_draws) != n_folds or not all(same_draws):
         raise RuntimeError(f"{tag}: the folds' draws differ from the sequential run's")
     want = want_launches(counter.steps, counter.evals)
     wrong = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
@@ -3809,12 +3874,12 @@ def compare_vmapped_run(args, tag, want_launches, yardstick_epoch1=False) -> dic
 
 
 def compare_vmapped_cv(seed, dev, card) -> dict:
-    """run_cv_vmapped at the CLI's defaults (10 folds, test_per_class 8) on
-    the card, sync for 2 epochs then async for 1, against the sequential
-    run_cv on the card (compare_vmapped_run), with the flagship's
-    launches."""
+    """run_cv_vmapped on the first VMAP_RUN_FOLDS folds of the CLI's
+    defaults (10 folds, test_per_class 8) on the card, sync for 2 epochs
+    then async for 1, against the sequential run_cv on the card
+    (compare_vmapped_run), with the flagship's launches."""
     common = dict(synthetic=True, seed=seed, batch_size=64, wm="gcl", alpha=0.5,
-                  noise_mul=0.0, verbose=False, patience=50, **VMAP_CV)
+                  noise_mul=0.0, verbose=False, patience=50, **VMAP_RUN_CV)
     return {mode: compare_vmapped_run(
         wg.WearGaitArgs(epochs=epochs, async_loading=mode == "async", **common),
         f"vmap_folds {mode}", flagship_launches) for mode, epochs in (("sync", 2), ("async", 1))}
@@ -3865,11 +3930,18 @@ def vmap_step_setup(seed, dev, bsz=64, baseline=None, mtl_method="cagrad", draws
     return runner, state, batch, ctx, gens
 
 
-def profile_steps(fn, reps=10, table=None) -> dict:
+# calls a profiler session traces: a session's cost grows with its events;
+# the host clock's timed reps are counted apart
+PROFILE_REPS = 3
+
+
+def profile_steps(fn, reps=None, table=None) -> dict:
     """Device time and kernel launches a call of ``fn`` (torch.profiler
     over ``reps`` calls after one), and the profiled wall time a call; with
     ``table`` = (label, card), the profile's table by kernel too."""
     from torch.autograd import DeviceType
+
+    reps = PROFILE_REPS if reps is None else reps
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -3896,10 +3968,11 @@ def check_vmap_step(seed, dev, card, baseline=None, reps=20, table=True,
     method_launches or baseline_launches), its host synchronisations (0),
     and its wall time
     (host clock around ``reps`` synchronised steps after 3) beside the 10
-    sequential batch-64 steps it replaces, in turns (stacked, ten, ten,
-    stacked); then the device time, kernel launches and idle share of each
-    under the profiler, over at most 10 steps (with ``table``, the stacked
-    step's table by kernel too). A baseline's stacked step draws from the
+    sequential batch-64 steps it replaces, in turns (stacked, ten, stacked:
+    phase 6 times the batch-64 step too); then the device time, kernel
+    launches and idle share of each under the profiler, over at most
+    PROFILE_REPS steps (with ``table``, the stacked step's table by kernel
+    too). A baseline's stacked step draws from the
     folds' generators, one draw a fold a site."""
     runner, state, batch, ctx, gens = vmap_step_setup(seed, dev, baseline=baseline,
                                                       mtl_method=mtl_method)
@@ -3950,19 +4023,20 @@ def check_vmap_step(seed, dev, card, baseline=None, reps=20, table=True,
         return 1e3 * (time.perf_counter() - t0) / reps
 
     turns = {"stacked": [], "ten": []}
-    for name in ("stacked", "ten", "ten", "stacked"):
+    for name in ("stacked", "ten", "stacked"):
         turns[name].append(host_ms(stacked if name == "stacked" else ten))
-    prof = {"stacked": profile_steps(stacked, min(10, reps), table=(
+    prof = {"stacked": profile_steps(stacked, min(PROFILE_REPS, reps), table=(
         f"stacked {label} step of {VMAP_FOLDS} folds x 64", card) if table else None),
-            "one": profile_steps(lambda: step(seq_state, seq_batch, gen, seq_ctx), min(10, reps))}
+            "one": profile_steps(lambda: step(seq_state, seq_batch, gen, seq_ctx),
+                                 min(PROFILE_REPS, reps))}
     out = {"stacked_ms": turns["stacked"], "ten_sequential_ms": turns["ten"],
            "one_sequential_ms": [v / VMAP_FOLDS for v in turns["ten"]],
            "profile": prof, "launches": launches, "syncs": syncs[-1]}
     log(f"[time] {card}: one stacked {label} step of {VMAP_FOLDS} folds x 64 window tuples: "
         f"{turns['stacked'][0]:.3f}/{turns['stacked'][1]:.3f} ms (host clock, synchronised); "
-        f"the {VMAP_FOLDS} sequential batch-64 steps it replaces: {turns['ten'][0]:.3f}/"
-        f"{turns['ten'][1]:.3f} ms ({turns['ten'][0] / VMAP_FOLDS:.3f}/"
-        f"{turns['ten'][1] / VMAP_FOLDS:.3f} ms a step); profiler, a step: stacked "
+        f"the {VMAP_FOLDS} sequential batch-64 steps it replaces: {turns['ten'][0]:.3f} ms "
+        f"({turns['ten'][0] / VMAP_FOLDS:.3f} ms a step, one turn between the stacked ones: "
+        f"phase 6 times the batch-64 step too); profiler, a step: stacked "
         f"{prof['stacked']}, sequential {prof['one']}")
     return out
 
@@ -4004,16 +4078,17 @@ def check_cli_runs(card) -> dict:
     return out
 
 
-def phase_vmap_cv(seed, dev, card, rng) -> dict:
+def phase_vmap_cv(seed, dev, card, rng, commands) -> dict:
     """Phase 7: the fold-stacked kernels against their plain versions, the
     vmapped CV against the sequential one at the CLI's defaults (the main
     path's launches), one stacked step's launches, syncs and time, and the
-    CLI end to end."""
+    CLI end to end (check_cli_runs, run with the other phases' subprocesses:
+    ``commands``)."""
     t0 = time.perf_counter()
     errors = check_fold_kernels(rng, dev, card)
     runs = compare_vmapped_cv(seed, dev, card)
     step = check_vmap_step(seed, dev, card, reps=10)
-    cli = check_cli_runs(card)
+    cli = commands["cli"]
     log(f"[vmap] phase 7: {time.perf_counter() - t0:.1f} s")
     return {"errors": errors, "runs": runs, "step": step, "cli": cli}
 
@@ -4151,10 +4226,10 @@ def phase_vmap_baselines(seed, dev, card, rng) -> dict:
     for tag, (baseline, async_mode, epochs) in VMAP_BASELINE_RUNS.items():
         args = wg.WearGaitArgs(synthetic=True, seed=seed, batch_size=64, wm="gcl", alpha=0.5,
                                noise_mul=0.0, verbose=False, patience=50, epochs=epochs,
-                               async_loading=async_mode, baseline=baseline, **VMAP_CV)
+                               async_loading=async_mode, baseline=baseline, **VMAP_RUN_CV)
         runs[tag] = compare_vmapped_run(args, f"vmap_folds {tag}", baseline_launches(baseline))
         done(tag)
-    if runs["taca async"]["folds_that_drew"] != VMAP_FOLDS:
+    if runs["taca async"]["folds_that_drew"] != VMAP_RUN_FOLDS:
         raise RuntimeError("taca async: a fold drew no dropout mask")
     # DeepAV-Lite's sequential step takes ~0.1 s and ~1700 kernels: fewer
     # timed and profiled steps, no table
@@ -4431,6 +4506,9 @@ def phase_vmap_mtl(seed, dev, card, rng) -> dict:
     steps = {m: check_stacked_method_step(seed, dev, m) for m in sorted(METHODS)}
     done("stacked steps")
     runs = {}
+    # the compared runs at all 10 folds: NashMTL's Newton weights amplify
+    # rounding within an epoch, and the yardstick's gap, a largest over
+    # the folds, is steadier over 10
     common = dict(synthetic=True, seed=seed, batch_size=64, wm="gcl", alpha=0.5, verbose=False,
                   patience=50, **VMAP_CV)
     for tag, (method, noise) in VMAP_MTL_RUNS.items():
@@ -4440,6 +4518,7 @@ def phase_vmap_mtl(seed, dev, card, rng) -> dict:
         done(tag)
     if runs["pcgrad sync"]["folds_that_drew"] != VMAP_FOLDS:
         raise RuntimeError("pcgrad sync: a fold drew no permutation")
+    common.update(VMAP_RUN_CV)  # the card-only runs on the first 4 folds
     for method in VMAP_MTL_CARD_RUNS:
         args = wg.WearGaitArgs(epochs=1, mtl_method=method, noise_mul=0.0, **common)
         runs[f"{method} sync"] = card_only_vmapped_run(args, f"vmap_folds {method} sync",
@@ -4955,8 +5034,9 @@ def time_ff_vmap_step(seed, dev, card, reps=10) -> dict:
     turns = {"stacked": [], "three": []}
     for name in ("stacked", "three", "three", "stacked"):
         turns[name].append(host_ms(stacked if name == "stacked" else three))
-    prof = {"stacked": profile_steps(stacked, reps),
-            "one": profile_steps(lambda: step(seq_state, seq_batch, gen, seq_ctx), reps)}
+    prof = {"stacked": profile_steps(stacked, min(PROFILE_REPS, reps)),
+            "one": profile_steps(lambda: step(seq_state, seq_batch, gen, seq_ctx),
+                                 min(PROFILE_REPS, reps))}
     log(f"[time] {card}: one stacked FoG multimodal CAGrad step of {FF_VMAP_FOLDS} folds x "
         f"{FF_BATCH} window pairs: {turns['stacked'][0]:.3f}/{turns['stacked'][1]:.3f} ms (host "
         f"clock, synchronised); the {FF_VMAP_FOLDS} sequential batch-{FF_BATCH} steps it "
@@ -4986,13 +5066,14 @@ def check_ff_cli(card) -> dict:
     return {"exit": proc.returncode, "seconds": seconds}
 
 
-def phase_vmap_fbg_fog(seed, dev, card, rng) -> dict:
+def phase_vmap_fbg_fog(seed, dev, card, rng, commands) -> dict:
     """Phase 10: the stream block under vmap at FBG/FoG's and FOCAL's fold
     shapes and the CAGrad solver under vmap at K = 2, against single-fold
     launches and their plain versions; run_fbg_fog_vmapped and two seed
     sweeps against the sequential drivers on the card; one stacked FoG
     CAGrad step beside the 3 sequential steps; the CLI's --vmap_folds for
-    fbg_fog; the fold-stacked block timed at FoG's and FOCAL's shapes."""
+    fbg_fog (check_ff_cli, in ``commands``); the fold-stacked block timed at
+    FoG's and FOCAL's shapes."""
     t0 = time.perf_counter()
     parts = {}
 
@@ -5009,8 +5090,7 @@ def phase_vmap_fbg_fog(seed, dev, card, rng) -> dict:
     done("seed sweeps")
     step = time_ff_vmap_step(seed, dev, card)
     done("timed step")
-    cli = check_ff_cli(card)
-    done("cli")
+    cli = commands["ff_cli"]
     times = {}
     for name, key in (("fog", "fbg_fog"), ("focal", "focal_fbg_fog")):
         timed = time_fold_block(rng, dev, card, FF_FOLD_SHAPES[name])
@@ -5430,9 +5510,9 @@ def time_grid_step(seed, dev, card, reps=5) -> dict:
     turns = {"grid": [], "folds": []}
     for name in ("grid", "folds", "folds", "grid"):
         turns[name].append(host_ms(grid if name == "grid" else folds))
-    prof = {"grid": profile_steps(grid, reps, table=(
+    prof = {"grid": profile_steps(grid, min(PROFILE_REPS, reps), table=(
         f"stacked grid step of {GRID_ROWS} x {VMAP_FOLDS} instances x 64", card)),
-            "folds": profile_steps(folds, reps)}
+            "folds": profile_steps(folds, min(PROFILE_REPS, reps))}
     log(f"[time] {card}: one stacked grid step of {GRID_ROWS} x {VMAP_FOLDS} instances x 64 "
         f"window tuples: {turns['grid'][0]:.3f}/{turns['grid'][1]:.3f} ms (host clock, "
         f"synchronised); the stacked {VMAP_FOLDS}-fold step of run_cv_vmapped: "
@@ -5489,14 +5569,15 @@ def check_grid_commands(card) -> dict:
     return {"cli_exit": proc.returncode, "sweep_counts": counts, "seconds": seconds}
 
 
-def phase_hp_grid(seed, dev, card, rng) -> dict:
+def phase_hp_grid(seed, dev, card, rng, commands) -> dict:
     """Phase 11: the fold-stacked block at the grid's 40 instances and the
     CAGrad solver with c per matrix against single launches and their plain
     versions; the flagship's grid and the
     cheap-xattn fusion's against run_cv_vmapped, FoG's grid rows against
     each other; one stacked grid step beside the stacked 10-fold step; the
-    CLI's --vmap_hp and the sweep runner; the fold-stacked block timed at
-    the grid's 40 instances."""
+    CLI's --vmap_hp and the sweep runner (check_grid_commands, in
+    ``commands``); the fold-stacked block timed at the grid's 40
+    instances."""
     t0 = time.perf_counter()
     parts = {}
 
@@ -5515,8 +5596,7 @@ def phase_hp_grid(seed, dev, card, rng) -> dict:
     done("fog grid")
     step = time_grid_step(seed, dev, card)
     done("timed step")
-    commands = check_grid_commands(card)
-    done("cli and sweep")
+    commands = commands["grid"]
     timed = time_fold_block(rng, dev, card, GRID_FOLD_SHAPE)
     times = {"cagrad_solver_per_matrix_c": solver["times"],
              "stream_block_folds_grid": timed["stream_block_folds"],
@@ -5786,7 +5866,7 @@ def phase_fused(seed, dev, card, rng) -> dict:
                           per_eval_forward={"stream_block": 1})
     done("run_cv")
     common = dict(synthetic=True, seed=seed, batch_size=64, wm="gcl", alpha=0.5, noise_mul=0.0,
-                  verbose=False, patience=50, fused=True, **VMAP_CV)
+                  verbose=False, patience=50, fused=True, **VMAP_RUN_CV)
     runs["vmap sync"] = compare_vmapped_run(wg.WearGaitArgs(epochs=1, **common),
                                             "vmap_folds fused sync", flagship_launches)
     done("run_cv_vmapped")
@@ -5801,6 +5881,258 @@ def phase_fused(seed, dev, card, rng) -> dict:
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# 13. remat (StepSettings.remat) and the data-parallel mesh
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("none", "dots", "nothing")
+# stream-block launches of one CAGrad step (K = 3) under each policy:
+# "nothing" recomputes the forward in each of the K task passes
+REMAT_LAUNCHES = {"none": {"stream_block": 1, "stream_block_backward": 3},
+                  "dots": {"stream_block": 1, "stream_block_backward": 3},
+                  "nothing": {"stream_block": 4, "stream_block_backward": 3}}
+REMAT_STEP_REPS = 20  # timed steps a policy and batch, each synchronised
+
+
+def remat_step_times(seed, dev, policy) -> dict:
+    """At each of TRAIN_BATCHES, the median host-clock time of a
+    synchronised CAGrad step under ``policy`` (after 3) and the card's peak
+    memory in one step."""
+    out = {}
+    for bsz in TRAIN_BATCHES:
+        step, state, ctx, batch, gen = make_step_setup(seed, dev, bsz, remat=policy)
+        for _ in range(3):
+            step(state, batch, gen, ctx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(state, batch, gen, ctx)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ms = []
+        for _ in range(REMAT_STEP_REPS):
+            t0 = time.perf_counter()
+            step(state, batch, gen, ctx)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        out[f"batch{bsz}"] = {"median_ms": float(np.median(ms)), "peak_bytes_above_state": peak}
+    return out
+
+
+def check_remat_steps(seed, dev, card) -> dict:
+    """The flagship's CAGrad step at batch 64 under each remat policy: card
+    vs CPU as in phase 4, then on the card against the "none" step from the
+    same parameters and batch (phase 4's tolerances), with its stream-block
+    launches (REMAT_LAUNCHES); then its median time and peak memory at
+    each of TRAIN_BATCHES."""
+    out, ref = {}, None
+    for policy in REMAT_POLICIES:
+        compare_one_step(f"CAGrad step at batch 64, remat {policy}", dev,
+                         lambda device, p=policy: make_step_setup(seed, device, 64, remat=p))
+        step, state, ctx, batch, gen = make_step_setup(seed, dev, 64, remat=policy)
+        torch.cuda.synchronize()
+        reset_launches()
+        step(state, batch, gen, ctx)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        params = [p.detach().clone() for p in state.module.parameters()]
+        momenta = [state.optimizer.state[p]["momentum_buffer"].clone()
+                   for p in state.module.parameters()]
+        if ref is None:
+            ref = (params, momenta)
+        gaps = [max((a - b).abs().max().item() for a, b in zip(got, want))
+                for got, want in ((params, ref[0]), (momenta, ref[1]))]
+        scale = [max(1.0, max(w.abs().max().item() for w in want)) for want in ref]
+        bitwise = all(torch.equal(a, b) for a, b in zip(params + momenta, ref[0] + ref[1]))
+        want = REMAT_LAUNCHES[policy]
+        got = {k: launches[k] for k in want}
+        times = remat_step_times(seed, dev, policy)
+        log(f"[remat] {card}: CAGrad step under remat {policy}: stream-block launches {got} "
+            f"(want {want}); against remat none on the card: parameters max abs gap "
+            f"{gaps[0]:.3e} (tol {STEP_PARAM_TOL * scale[0]:.2e}), momentum {gaps[1]:.3e} (tol "
+            f"{STEP_MOMENTUM_TOL * scale[1]:.2e}), bitwise equal {bitwise}; "
+            + "; ".join(f"batch {b[5:]}: median {t['median_ms']:.3f} ms a step, peak memory "
+                        f"{t['peak_bytes_above_state'] / 2**20:.2f} MiB above the state"
+                        for b, t in times.items()))
+        if got != want:
+            raise RuntimeError(f"remat {policy}: stream-block launches {got}, want {want}")
+        if gaps[0] > STEP_PARAM_TOL * scale[0] or gaps[1] > STEP_MOMENTUM_TOL * scale[1]:
+            raise RuntimeError(f"remat {policy}: the step differs from remat none: {gaps}")
+        out[policy] = {"launches": got, "gaps_vs_none": gaps, "bitwise_vs_none": bitwise,
+                       "times": times}
+    return out
+
+
+def check_remat_draws(seed, dev) -> dict:
+    """DeepAV-Lite at dropout 0.1 (its masks drawn inside the recomputed
+    forward) one step on the card under each remat policy from the same
+    parameters, batch and generator: under "nothing" the masks the
+    recomputation draws are bitwise the first forward's; the parameters and
+    momentum equal the "none" step's (phase 4's tolerances), and the
+    generator ends where the "none" step leaves it, bitwise."""
+    out, ref = {}, None
+    rand = fold_draws.rand
+    for policy in REMAT_POLICIES:
+        masks = []
+
+        def recorded(*a, **k):
+            masks.append(rand(*a, **k))
+            return masks[-1]
+
+        step, state, ctx, batch, gen = make_step_setup(seed, dev, 64, "deepav_lite", remat=policy)
+        fold_draws.rand = recorded
+        try:
+            step(state, batch, gen, ctx)
+        finally:
+            fold_draws.rand = rand
+        torch.cuda.synchronize()
+        first = masks if policy != "nothing" else masks[:len(masks) // 2]
+        replayed = (policy != "nothing" or (len(masks) % 2 == 0 and all(
+            torch.equal(a, b) for a, b in zip(first, masks[len(first):]))))
+        params = [p.detach().clone() for p in state.module.parameters()]
+        momenta = [state.optimizer.state[p]["momentum_buffer"].clone()
+                   for p in state.module.parameters()]
+        if ref is None:
+            ref = (params, momenta, gen.get_state(), len(masks))
+        gaps = [max((a - b).abs().max().item() for a, b in zip(got, want))
+                for got, want in ((params, ref[0]), (momenta, ref[1]))]
+        scale = [max(1.0, max(w.abs().max().item() for w in want)) for want in ref[:2]]
+        same_gen = torch.equal(gen.get_state(), ref[2])
+        log(f"[remat] DeepAV-Lite step (dropout {DROPOUT_RATE}) under remat {policy} on the "
+            f"card: {len(masks)} dropout draws ({len(first)} in the first forward), the "
+            f"recomputed ones bitwise the first's: {replayed}; against remat none: parameters "
+            f"max abs gap {gaps[0]:.3e}, momentum {gaps[1]:.3e}; generator bitwise where remat "
+            f"none leaves it: {same_gen}")
+        if (not replayed or len(first) != ref[3] or not same_gen
+                or gaps[0] > STEP_PARAM_TOL * scale[0] or gaps[1] > STEP_MOMENTUM_TOL * scale[1]):
+            raise RuntimeError(f"remat {policy}: the dropout step differs from remat none")
+        out[policy] = {"draws": len(masks), "replayed": replayed, "gaps_vs_none": gaps}
+    return out
+
+
+def check_mesh_step(seed, dev) -> dict:
+    """The data-parallel CAGrad step at batch 64 over a mesh of one rank
+    (make_mesh on the card: NCCL) against the step without a mesh from the
+    same parameters and batch, with the recipe's draws (RowShard), within
+    phase 4's tolerances (and whether bitwise); an all_reduce and an
+    all_gather_object over the group; the group is destroyed after."""
+    mesh = make_mesh()
+    try:
+        group = mesh.get_group()
+        t = torch.full((3,), 2.0, device=dev)
+        torch.distributed.all_reduce(t, group=group)
+        gathered = [None]
+        torch.distributed.all_gather_object(gathered, "rank0", group=group)
+        runs = {}
+        for name, sharding in (("mesh", mesh_sharding(mesh)), ("none", None)):
+            step, state, ctx, batch, gen = make_step_setup(seed, dev, 64, recipe=True,
+                                                           sharding=sharding)
+            _, metrics = step(state, batch, gen, ctx)
+            runs[name] = ([p.detach().clone() for p in state.module.parameters()]
+                          + [state.optimizer.state[p]["momentum_buffer"].clone()
+                             for p in state.module.parameters()], metrics, gen.get_state())
+        gap = max((a - b).abs().max().item() for a, b in zip(runs["mesh"][0], runs["none"][0]))
+        scale = max(1.0, max(w.abs().max().item() for w in runs["none"][0]))
+        bitwise = all(torch.equal(a, b) for a, b in zip(runs["mesh"][0], runs["none"][0]))
+        same_gen = torch.equal(runs["mesh"][2], runs["none"][2])
+        log(f"[mesh] data-parallel CAGrad step (recipe draws) over a 1-rank NCCL mesh "
+            f"({torch.distributed.get_backend()}; all_reduce {t.tolist()}, all_gather_object "
+            f"{gathered}) vs no mesh: parameters and momentum max abs gap {gap:.3e} (tol "
+            f"{STEP_PARAM_TOL * scale:.2e}), bitwise equal {bitwise}; generators bitwise "
+            f"equal {same_gen}; losses {runs['mesh'][1]['losses'].tolist()}")
+        if gap > STEP_PARAM_TOL * scale or not same_gen or t.tolist() != [2.0] * 3:
+            raise RuntimeError("the 1-rank data-parallel step differs from the plain step")
+        return {"gap": gap, "bitwise": bitwise, "backend": torch.distributed.get_backend()}
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_group(cmd, timeout) -> subprocess.CompletedProcess:
+    """``cmd`` on the card in a session of its own, its output captured; on
+    a timeout or an error every process of the session (a dry run's spawned
+    ranks too) is killed before this returns or raises."""
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            cwd=Path(__file__).resolve().parent, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    return subprocess.CompletedProcess(cmd, proc.returncode, stdout, stderr)
+
+
+def check_mesh_commands(card) -> dict:
+    """Phase 13's subprocesses on the card: python -m gaitpd_torch.entry
+    multichip 2 (two spawned ranks of a gloo group sharing the card run
+    gaitpd's dry-run phases: the data-parallel step against the
+    single-process step, fold-sharded run_cv_vmapped sync and async and the
+    sharded HP grid against single-process runs) must exit 0 and print that
+    every phase passed; the CLI with --data_parallel (a 1-rank NCCL mesh)
+    must print the mesh line and the 7-subset table."""
+    cmds = {"dryrun": [sys.executable, "-m", "gaitpd_torch.entry", "multichip", "2"],
+            "cli_data_parallel": [sys.executable, "-m", "gaitpd_torch.cli", "--mode", "weargait",
+                                  "--synthetic", "--epochs", "1", "--n_folds", "2",
+                                  "--test_per_class", "3", "--data_parallel"]}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(cmds)) as pool:
+        futures = {k: pool.submit(run_group, c, 900) for k, c in cmds.items()}
+        runs = {k: f.result() for k, f in futures.items()}
+    seconds = time.perf_counter() - t0
+    dry, cli = runs["dryrun"], runs["cli_data_parallel"]
+    phases = [ln for ln in dry.stdout.splitlines() if ln.startswith(("[dryrun", "dryrun_"))]
+    log(f"[mesh] python -m gaitpd_torch.entry multichip 2: exit {dry.returncode}; "
+        f"{phases}")
+    if dry.returncode != 0 or "dryrun_multichip(2) OK" not in dry.stdout:
+        raise RuntimeError(f"the dry run failed: exit {dry.returncode}\n{dry.stdout[-3000:]}\n"
+                           f"{dry.stderr[-4000:]}")
+    mesh_line = [ln for ln in cli.stdout.splitlines() if ln.startswith("Data-parallel mesh")]
+    table = all(f"[{mk:5}]" in cli.stdout for mk in wg.MASK_COMBOS)
+    log(f"[mesh] {' '.join(cli.args[1:])}: exit {cli.returncode}; {mesh_line}; 7-subset table "
+        f"printed: {table} ({seconds:.1f} s for both at once)")
+    if cli.returncode != 0 or mesh_line != ["Data-parallel mesh over 1 device(s)"] or not table:
+        raise RuntimeError(f"the CLI (--data_parallel) failed: exit {cli.returncode}\n"
+                           f"{cli.stdout[-2000:]}\n{cli.stderr[-4000:]}")
+    return {"dryrun_exit": dry.returncode, "cli_exit": cli.returncode, "seconds": seconds}
+
+
+def run_commands(card) -> dict:
+    """The subprocess checks of phases 7, 10, 11 and 13, all at once, the
+    main process waiting: the CLI with and without --vmap_folds
+    (check_cli_runs), the FBG/FoG CLI (check_ff_cli), the CLI's grid and
+    the sweeps (check_grid_commands), the dry run and --data_parallel
+    (check_mesh_commands). Each is a process of its own on the card, so
+    their start-ups (imports, the card's context, the kernels' libraries)
+    overlap instead of adding up."""
+    checks = {"cli": check_cli_runs, "ff_cli": check_ff_cli, "grid": check_grid_commands,
+              "mesh": check_mesh_commands}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(checks)) as pool:
+        futures = {name: pool.submit(check, card) for name, check in checks.items()}
+        out = {name: f.result() for name, f in futures.items()}
+    log(f"[cli] the subprocess checks of phases 7, 10, 11 and 13 at once: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+def phase_remat_mesh(dev, card, rng, commands) -> dict:
+    """Phase 13: remat on the card (check_remat_steps, check_remat_draws),
+    the data-parallel step over a 1-rank NCCL mesh (check_mesh_step), each
+    from models, batches and generators seeded from ``rng``; and the dry
+    run and the CLI's --data_parallel (check_mesh_commands, run with the
+    other phases' subprocesses: ``commands``)."""
+    t0 = time.perf_counter()
+    seed = int(rng.integers(1 << 30))
+    remat = check_remat_steps(seed, dev, card)
+    draws = check_remat_draws(seed, dev)
+    mesh = check_mesh_step(seed, dev)
+    seconds = time.perf_counter() - t0
+    log(f"[remat] {card}: phase 13: {seconds:.1f} s in this process")
+    return {"remat": remat, "remat_draws": draws, "mesh": mesh, "commands": commands,
+            "seconds": seconds}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5809,14 +6141,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    _LAP[0] = t_start
     dev = resolve_device("cuda")
     rng = np.random.default_rng(args.seed)
-    card = phase_device()
+    card, builds, t_build = phase_device()
+    lap("1_device_build")
     sb_errors = check_stream_block(
         rng, dev, [n for n in STREAM_BLOCK_CASES if n not in FUSION_WIDTH_CASES])
     solver_err = check_solver(rng, dev)
+    lap("2_kernels")
     engine, serve_launches = phase_serving(args.seed, rng)
+    lap("3_serving")
     training = phase_training(args.seed, dev)
+    lap("4_training")
+    finish_builds(builds, t_build)
+    lap("1_device_build_rest")
     # the fusion slice draws from its own stream, so the phases above see the
     # inputs they always saw
     xrng = np.random.default_rng([args.seed, 3])
@@ -5833,54 +6172,69 @@ def main() -> int:
     print_xattn_configs(card)
     check_forward_edges(np.random.default_rng([args.seed, 8]), dev, card)
     check_solver_each_k(np.random.default_rng([args.seed, 9]), dev)
+    lap("5_fusion_kernels")
     fusion, single = phase_fusion_training(args.seed, dev)
+    lap("5_fusion_training")
     # the SOTA baselines' slice: a stream of its own as well
     frng = np.random.default_rng([args.seed, 10])
     focal_errors = check_focal_blocks(frng, dev, card)
     check_dropout_on_card(dev)
     sota = phase_sota_training(args.seed, dev)
+    lap("5e_sota")
     # the other MTL methods' slice: a stream of its own as well
     mrng = np.random.default_rng([args.seed, 11])
     mtl = phase_mtl_methods(args.seed, dev, mrng)
+    lap("5f_mtl_methods")
     # the recipe's slice: a stream of its own as well
     recipe = phase_recipe(args.seed, dev)
+    lap("5g_recipe")
     # the FBG/FoG driver's slice: a stream of its own as well
     ff_rng = np.random.default_rng([args.seed, 13])
     fbg_fog = phase_fbg_fog(args.seed, dev, ff_rng)
+    lap("5h_fbg_fog")
     # the FBG/FoG baseline drivers' slice: a stream of its own as well
     bb_rng = np.random.default_rng([args.seed, 14])
     baselines = phase_baselines(args.seed, dev, card, bb_rng)
+    lap("5i_baseline_drivers")
     # the kernel redesigns' slice: the tiled cross-attention on the fusion's
     # path at enc_out_ch 96
     wide_fusion = phase_wide_fusion_training(args.seed, dev)
+    lap("5j_wide_fusion")
     # the sweep over key tiles' slice: its kernels' shapes and edges, then the
     # fusion's step at --win_len 256, from a stream of its own
     long_rng = np.random.default_rng([args.seed, 20])
     long_errors = check_xattn_with_launches(long_rng, dev, card, SWEEP_LONG_XATTN_CASES)
     win256 = phase_win256(args.seed, dev, long_rng, card)
+    lap("5k_win256")
     times = time_stream_block(rng, dev, card)
     times["cagrad_solver"] = time_solver(rng, dev, card)
     serving = time_serving(engine, rng, card)
+    lap("6_times_kernels_serving")
     train_steps = time_train_step(args.seed, dev, card)
     ff_steps = time_ff_train_step(args.seed, dev, card)
     ff_profile = time_ff_step_profile(args.seed, dev, card)
+    lap("6_times_train_ff_steps")
     ff_times = time_stream_block(ff_rng, dev, card, FF_SHAPE, slice(FF_BATCH, None),
                                  "FoG async skeleton task layout")
     recipe_times = {"steps": time_train_step(args.seed, dev, card, recipe=True),
                     "profile": time_recipe_step(args.seed, dev, card),
                     "checkpoint_save": time_checkpoint_save(args.seed, dev, card)}
+    lap("6_times_fbg_fog_recipe")
     times.update(time_cheap_xattn(xrng, dev, card))
     fusion_steps = time_train_step(args.seed, dev, card, "cheap_xattn")
     win256_steps = time_train_step(args.seed, dev, card, "cheap_xattn", win_len=WIN256)
     focal_times = time_focal_block(frng, dev, card)
     threshold_times = time_wide_threshold(np.random.default_rng([args.seed, 21]), dev, card)
+    lap("6_times_xattn_focal")
     sota_steps = {b: time_train_step(args.seed, dev, card, b) for b in wg.SOTA_BASELINES}
     times.update(time_mtl_solvers(mrng, dev, card, np.random.default_rng([args.seed, 23]),
                                   mtl["training_grams"]))
     mtl_steps = {m: time_train_step(args.seed, dev, card, mtl_method=m)
                  for m in sorted(METHODS) if m != "cagrad"}
+    lap("6_times_sota_mtl_steps")
     phase_profiles(engine, args.seed, dev, card)
     phase_sota_profiles(args.seed, dev, card)
+    lap("6_profiles")
     bb_xattn_times = time_cheap_xattn(bb_rng, dev, card, BB_XATTN_SHAPE)
     t128_xattn_times = time_cheap_xattn(np.random.default_rng([args.seed, 18]), dev, card,
                                         SWEEP128_XATTN_CASES["t128_d12"])
@@ -5892,6 +6246,7 @@ def main() -> int:
     bb_focal_times = time_stream_block(bb_rng, dev, card, BB_FOCAL_SHAPE, slice(FF_BATCH, None),
                                        "FOCAL async skeleton stream's layout")
     t101_times = time_t101_forwards(np.random.default_rng([args.seed, 16]), dev, card)
+    lap("6_times_bb_long_t101")
 
     def bb_xattn_setup(seed, device, bsz):
         return bb_step_setup(seed, device, bsz, "fusion", fusion_type="cheap_xattn")
@@ -5899,27 +6254,42 @@ def main() -> int:
     bb_label_xattn = "FoG cheap_xattn fusion (Adam)"
     bb_steps = time_ff_train_step(args.seed, dev, card, bb_xattn_setup, bb_label_xattn)
     bb_profile = time_ff_step_profile(args.seed, dev, card, bb_xattn_setup, bb_label_xattn)
+    lap("6_times_bb_steps")
     # the CLI and WearGait's folds in one step: streams of their own
-    vmap = phase_vmap_cv(args.seed, dev, card, np.random.default_rng([args.seed, 24]))
+    commands = run_commands(card)
+    lap("7_10_11_13_subprocesses")
+    vmap = phase_vmap_cv(args.seed, dev, card, np.random.default_rng([args.seed, 24]), commands)
     times.update(time_fold_block(np.random.default_rng([args.seed, 25]), dev, card))
+    lap("7_vmap_cv")
     # WearGait's baselines and the recipe's draws under --vmap_folds: a
     # stream of their own
     vmap_baselines = phase_vmap_baselines(args.seed, dev, card,
                                           np.random.default_rng([args.seed, 26]))
     times.update(vmap_baselines["times"])
+    lap("8_vmap_baselines")
     # the 16 other MTL methods under --vmap_folds: a stream of their own
     vmap_mtl = phase_vmap_mtl(args.seed, dev, card, np.random.default_rng([args.seed, 27]))
     times.update(vmap_mtl["times"])
+    lap("9_vmap_mtl")
     # FBG/FoG's folds and the baseline seed sweeps under --vmap_folds: a
     # stream of their own
-    vmap_ff = phase_vmap_fbg_fog(args.seed, dev, card, np.random.default_rng([args.seed, 28]))
+    vmap_ff = phase_vmap_fbg_fog(args.seed, dev, card, np.random.default_rng([args.seed, 28]),
+                                 commands)
     times.update(vmap_ff["times"])
+    lap("10_vmap_fbg_fog")
     # the HP grid and the sweep runner: a stream of their own
-    hp_grid = phase_hp_grid(args.seed, dev, card, np.random.default_rng([args.seed, 29]))
+    hp_grid = phase_hp_grid(args.seed, dev, card, np.random.default_rng([args.seed, 29]),
+                            commands)
     times.update(hp_grid["times"])
+    lap("11_hp_grid")
     # the fused forward: a stream of its own
     fused = phase_fused(args.seed, dev, card, np.random.default_rng([args.seed, 30]))
     times.update(fused["times"])
+    lap("12_fused")
+    # remat and the data-parallel mesh: a stream of its own (no draw yet)
+    remat_mesh = phase_remat_mesh(dev, card, np.random.default_rng([args.seed, 31]),
+                                  commands["mesh"])
+    lap("13_remat_mesh")
 
     # launches on each kernel's own main path: the CAGrad training's for the
     # earlier slices' kernels, the cheap-xattn training's for this slice's
@@ -6001,6 +6371,10 @@ def main() -> int:
     # own main path: phase 12's fused sync run
     for name in ("stream_block", "stream_block_backward"):
         launches[f"{name}_fused"] = fused["runs"]["sync"]["launches"][name]
+    # the stream block's forward launches in one CAGrad step under each
+    # remat policy (phase 13): "nothing" reruns it in each task pass
+    times["stream_block"]["remat_forward_launches_a_step"] = {
+        policy: run["launches"]["stream_block"] for policy, run in remat_mesh["remat"].items()}
     long_err = long_errors["win256_batch64"]
     wide_err = wide_errors[WIDE_XATTN_TIMED[0]]
     bb_err = baselines["errors"]["xattn"]["fog_batch256"]
@@ -6121,7 +6495,8 @@ def main() -> int:
         f"{json.dumps(vmap)}; the vmapped baselines (phase 8) {json.dumps(vmap_baselines)}; "
         f"the vmapped MTL methods (phase 9) {json.dumps(vmap_mtl)}; FBG/FoG's folds and the "
         f"seed sweeps (phase 10) {json.dumps(vmap_ff)}; the HP grid and the sweep runner "
-        f"(phase 11) {json.dumps(hp_grid)}; the fused forward (phase 12) {json.dumps(fused)}")
+        f"(phase 11) {json.dumps(hp_grid)}; the fused forward (phase 12) {json.dumps(fused)}; "
+        f"remat and the mesh (phase 13) {json.dumps(remat_mesh)}")
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,9 +11,14 @@ WearGait's ``run_cv``, or with ``--vmap_folds`` ``run_cv_vmapped``; with
 (gaitpd_torch/train/hp_search.py; the ``--hp_*`` flags do nothing without
 it, as in gaitpd); ``fusion`` and ``deepav``/``focal``/``taca`` the FBG/FoG
 baseline drivers (which ignore ``--vmap_folds`` and ``--vmap_hp``, as
-gaitpd's do). Runs go to the card unless ``--device cpu`` is given. Flags
-whose module the port does not have yet raise NotImplementedError naming
-their ROADMAP item, before any work.
+gaitpd's do). Runs go to the card unless ``--device cpu`` is given. With
+``--data_parallel`` the run takes a mesh over every rank of ``torchrun``'s
+group, or a group of one rank without it (gaitpd_torch/runtime/mesh.py):
+the sequential drivers shard each train batch over it, ``--vmap_folds`` and
+``--vmap_hp`` their folds or instances.
+
+    torchrun --nproc_per_node 2 -m gaitpd_torch.cli --mode weargait --synthetic \\
+        --epochs 2 --n_folds 2 --test_per_class 3 --data_parallel --device cpu
 
     python -m gaitpd_torch.cli --mode weargait --wm gcl --synthetic --epochs 3 \\
         --n_folds 2 --test_per_class 3 --vmap_folds
@@ -113,8 +118,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "in cuBLAS or cuDNN; parity with the f32 reference); high and "
                         "default let cuBLAS and cuDNN use TF32")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard batches over all devices (not ported yet: ROADMAP Queue 1, "
-                        "item 14)")
+                   help="shard batches over every rank of the process group (torchrun's, "
+                        "or one rank): torch.distributed, NCCL on the card, gloo on the CPU")
     p.add_argument("--aug_mirror_p", type=float, default=0.0,
                    help="train-time on-device augmentation: per-sample mirror-reflection "
                         "probability (skeleton streams). Negates the x coordinate and, on "
@@ -158,10 +163,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where to run: the card (default) or cpu (the kernels' plain "
                         "versions)")
     return p
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what}: not ported yet (ROADMAP Queue 1, item {item})")
 
 
 def run_fbg_fog(ns: argparse.Namespace):
@@ -307,9 +308,12 @@ def main(argv=None):
     products' precision ``--matmul_precision``; the process's precision
     flags are as they were when it returns."""
     ns = build_parser().parse_args(argv)
-    if ns.data_parallel:
-        raise _not_ported("data-parallel meshes (--data_parallel)", 14)
     ns.mesh = None
+    if ns.data_parallel:
+        from gaitpd_torch.runtime.mesh import make_mesh, mesh_size
+
+        ns.mesh = make_mesh(device=ns.device)
+        print(f"Data-parallel mesh over {mesh_size(ns.mesh)} device(s)")
     print("Arguments:", ns)
     with matmul_precision(ns.matmul_precision):
         return run(ns)

@@ -157,8 +157,9 @@ class MTLConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout for data-parallel execution, as gaitpd's; the port
-    runs on one card and has no mesh yet (ROADMAP Queue 1, item 14)."""
+    """Device-mesh layout for data-parallel execution, as gaitpd's: the
+    port's mesh is a torch DeviceMesh over the ranks of the process group
+    (gaitpd_torch/runtime/mesh.py::make_mesh)."""
 
     data_axis: str = "data"
     n_devices: Optional[int] = None  # None = all available

@@ -9,7 +9,9 @@ zero.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+import contextvars
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -19,12 +21,33 @@ from gaitpd_torch.runtime import fold_draws
 
 EPS = 1e-8
 
+_BATCH_TOTAL: contextvars.ContextVar = contextvars.ContextVar("batch_total", default=None)
+
+
+@contextlib.contextmanager
+def sharded_batch(total: Callable[[torch.Tensor], torch.Tensor]) -> Iterator[None]:
+    """Within, each loss divides by ``total`` of its local normaliser (the
+    valid count, the class-weight sum): with a data-parallel step's sum over
+    the mesh (gaitpd_torch/runtime/mesh.py::BatchSharding.sum), a rank's loss
+    is its rows' share of the global batch's loss, and the ranks' losses and
+    gradients add up to the single-process step's."""
+    token = _BATCH_TOTAL.set(total)
+    try:
+        yield
+    finally:
+        _BATCH_TOTAL.reset(token)
+
+
+def _total(t: torch.Tensor) -> torch.Tensor:
+    total = _BATCH_TOTAL.get()
+    return t if total is None else total(t)
+
 
 def _masked_mean(x: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor:
-    if valid is None:
+    if valid is None and _BATCH_TOTAL.get() is None:
         return x.mean()
-    valid = valid.to(x.dtype)
-    return (x * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    valid = torch.ones_like(x) if valid is None else valid.to(x.dtype)
+    return (x * valid).sum() / torch.clamp(_total(valid.sum()), min=1.0)
 
 
 def _weighted_nll(logits, labels, weight, valid):
@@ -32,12 +55,12 @@ def _weighted_nll(logits, labels, weight, valid):
     sum(w[y_i] * nll_i) / sum(w[y_i])."""
     logp = F.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, labels[:, None].long())[:, 0]
-    if weight is None and valid is None:
+    if weight is None and valid is None and _BATCH_TOTAL.get() is None:
         return nll.mean()
     w = torch.ones_like(nll) if weight is None else weight[labels.long()]
     if valid is not None:
         w = w * valid.to(nll.dtype)
-    return (w * nll).sum() / torch.clamp(w.sum(), min=EPS)
+    return (w * nll).sum() / torch.clamp(_total(w.sum()), min=EPS)
 
 
 def cross_entropy(logits, labels, weight=None, valid=None):

@@ -610,12 +610,15 @@ def mtl_grads(
     *args,
     private_grads: str = "sum",
     generator: Optional[torch.Generator] = None,
+    total: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ):
     """The final gradient of each parameter for one multitask step.
 
     loss_fn(*args) -> ((K,) losses, aux), computed from ``params``.
     ``generator``: the step's, for the methods that draw (RLW, PCGrad,
-    GradDrop); they draw after ``loss_fn`` has run.
+    GradDrop); they draw after ``loss_fn`` has run. ``total``: a
+    data-parallel step's sum over the mesh, applied to J and the losses
+    before the combine, so that every rank combines the global matrix.
 
     private_grads:
       "sum"          — private parameters get Σ_k w_priv_k g_k (FBG/FoG
@@ -626,6 +629,8 @@ def mtl_grads(
     Returns (grads, losses, aux, new_state, info); grads is a list in the
     order of ``params``."""
     jmat, losses, aux = per_task_grad_matrix(loss_fn, params, *args)
+    if total is not None:
+        jmat, losses = total(jmat), total(losses)
     final_flat, new_state, info = combine_flat(method, jmat, losses, partition, state,
                                                private_grads, generator)
     return partition.unravel(final_flat), losses, aux, new_state, info

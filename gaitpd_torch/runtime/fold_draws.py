@@ -9,6 +9,8 @@ RLW, PCGrad and GradDrop) calls ``rand``, ``randn``, ``randint`` or
 
 * a ``torch.Generator`` (or None): the plain ``torch`` draw, the same call
   as before, so a sequential run draws bitwise as it did;
+* a ``RowShard``, in a data-parallel step: the draw at the global batch's
+  shape, this rank's rows of it;
 * a ``FoldDraws``, inside the vmap: ``_FoldDrawFunction``'s vmap rule draws
   fold by fold, each from its own generator at the unbatched shape, and
   stacks the draws. So each generator advances exactly as a sequential run
@@ -51,7 +53,27 @@ class FoldDraws:
         self.token = token
 
 
-Generator = Union[torch.Generator, FoldDraws, None]
+class RowShard:
+    """One rank's rows of a batch sharded over ``count`` ranks
+    (gaitpd_torch/runtime/mesh.py): a draw of shape (b, ...) is made from
+    ``generator`` at the global batch's shape (count * b, ...), and rows
+    [index * b, (index + 1) * b) are this rank's. Every rank draws the global
+    batch's numbers from a generator seeded alike, so each row gets the
+    number it gets in the single-process step, and the generator advances
+    as it does there. Only per-row draws take one (the augmentation, the
+    forward's dropout, the GCL noise); a step's other draws use
+    ``generator`` itself."""
+
+    def __init__(self, generator: torch.Generator, count: int, index: int):
+        self.generator, self.count, self.index = generator, count, index
+
+    def rows(self, draw, shape) -> torch.Tensor:
+        b = shape[0]
+        full = draw((b * self.count,) + tuple(shape[1:]), self.generator)
+        return full[self.index * b:(self.index + 1) * b]
+
+
+Generator = Union[torch.Generator, FoldDraws, RowShard, None]
 
 
 def fold_tokens(n_folds: int, device=None) -> torch.Tensor:
@@ -116,6 +138,8 @@ def rand(shape, generator: Generator, *, device=None,
     """``torch.rand(shape, generator=generator, ...)``, or one draw a fold."""
     if isinstance(generator, FoldDraws):
         return _fold("rand", shape, generator, {"device": device, "dtype": dtype})
+    if isinstance(generator, RowShard):
+        return generator.rows(lambda s, g: rand(s, g, device=device, dtype=dtype), shape)
     return torch.rand(shape, generator=generator, device=device, dtype=dtype)
 
 
@@ -124,6 +148,8 @@ def randn(shape, generator: Generator, *, device=None,
     """``torch.randn(shape, generator=generator, ...)``, or one draw a fold."""
     if isinstance(generator, FoldDraws):
         return _fold("randn", shape, generator, {"device": device, "dtype": dtype})
+    if isinstance(generator, RowShard):
+        return generator.rows(lambda s, g: randn(s, g, device=device, dtype=dtype), shape)
     return torch.randn(shape, generator=generator, device=device, dtype=dtype)
 
 
@@ -132,6 +158,8 @@ def randint(low: int, high: int, shape, generator: Generator, *, device=None) ->
     draw a fold."""
     if isinstance(generator, FoldDraws):
         return _fold("randint", shape, generator, {"device": device, "bounds": (low, high)})
+    if isinstance(generator, RowShard):
+        return generator.rows(lambda s, g: randint(low, high, s, g, device=device), shape)
     return torch.randint(low, high, shape, generator=generator, device=device)
 
 
@@ -139,4 +167,6 @@ def randperm(n: int, generator: Generator, *, device=None) -> torch.Tensor:
     """``torch.randperm(n, generator=generator, ...)``, or one draw a fold."""
     if isinstance(generator, FoldDraws):
         return _fold("randperm", (n,), generator, {"device": device})
+    if isinstance(generator, RowShard):
+        raise TypeError("a permutation is not a per-row draw: draw it from RowShard.generator")
     return torch.randperm(n, generator=generator, device=device)

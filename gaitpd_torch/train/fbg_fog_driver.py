@@ -17,8 +17,10 @@ on their one loss. With ``ckpt_dir`` each fold saves ``latest`` every
 epoch and ``best`` on improvement (gaitpd_torch.train.checkpoint), and
 ``resume`` continues a fold from its ``latest``, the fold's numpy and torch
 generators restored, not replayed. The reports print through the port's
-numpy metrics, so no run needs sklearn. Options of the reference that the
-port does not have yet raise NotImplementedError naming their ROADMAP item.
+numpy metrics, so no run needs sklearn. With ``mesh`` (gaitpd_torch/
+runtime/mesh.py::make_mesh) every train step is data-parallel over the
+mesh's ranks, each ending it with the single-process step's parameters;
+only the mesh's first rank writes the checkpoints and the loss plots.
 The fusion and SOTA baselines train in gaitpd_torch.train.baseline_drivers.
 """
 
@@ -42,6 +44,7 @@ from gaitpd_torch.models.multitask import (
     SkelModalityModel,
 )
 from gaitpd_torch.runtime.device import DeviceLike, resolve_device
+from gaitpd_torch.runtime.mesh import mesh_rank, replicate
 from gaitpd_torch.train import metrics as M
 from gaitpd_torch.train.checkpoint import (
     load_snapshot,
@@ -97,7 +100,7 @@ class FbgFogArgs:
     synthetic_pose_per_joint: bool = False
     n_folds_cap: Optional[int] = None
     verbose: bool = True
-    mesh: object = None
+    mesh: object = None  # a torch DeviceMesh (gaitpd_torch.runtime.mesh.make_mesh)
     mtl_method: str = "cagrad"  # a key of gaitpd_torch.learning.mtl.METHODS
     ckpt_dir: Optional[str] = None
     resume: bool = False
@@ -113,10 +116,7 @@ class FbgFogArgs:
 
 
 def check_supported(args: FbgFogArgs) -> None:
-    """Raise NotImplementedError for an option the port does not have yet."""
-    if args.mesh is not None:
-        raise NotImplementedError(
-            "data-parallel meshes (mesh): not ported yet (ROADMAP Queue 1, item 14)")
+    """Raise ValueError for a modality the driver does not know."""
     if args.modality not in MODALITY_MODES:
         raise ValueError(f"modality must be one of {sorted(MODALITY_MODES)}, "
                          f"got {args.modality!r}")
@@ -270,7 +270,10 @@ def train_one_fold(
                   if args.mtl_method in ("cagrad", "log_cagrad") else {})
         mtl = make_method(args.mtl_method, n_streams, **kwargs)
     state, partition = init_train_state(model, make_optimizer, mtl, device)
-    runner = EpochRunner(settings, mtl, partition)
+    if args.mesh is not None:
+        replicate(state.module, args.mesh)
+    runner = EpochRunner(settings, mtl, partition, mesh=args.mesh)
+    writer = mesh_rank(args.mesh) == 0
 
     rng = np.random.default_rng(args.seed + 1000 * fold_idx)
     generator = torch.Generator(device=device).manual_seed(args.seed + fold_idx)
@@ -305,7 +308,7 @@ def train_one_fold(
         else:
             avg = float(ev.acc[0])
         improved = stopper.update(avg, payload=ev)
-        if args.ckpt_dir:
+        if args.ckpt_dir and writer:
             save = functools.partial(save_fold_checkpoint, args.ckpt_dir, fold_idx, state,
                                      best_metric=stopper.best, rng=rng, generator=generator)
             save(no_improve=stopper.no_improve)
@@ -319,7 +322,7 @@ def train_one_fold(
             print(f"[Fold {fold_idx}] Early stopping at epoch {ep+1}")
             break
 
-    if args.save_loss_plots:
+    if args.save_loss_plots and writer:
         M.save_loss_curve("loss_plots", fold_idx, train_losses, val_losses,
                           tag=f"{dataset}_{args.modality}_{args.wm}_loss_curve")
 

@@ -34,8 +34,11 @@ mean over the folds of each instance's best, ``{"table", "n_folds",
 
 With ``fused`` the flagship's instances run the fused forward
 (gaitpd_torch/models/fused.py), as run_cv_vmapped's folds do.
-Data-parallel meshes (``mesh``) raise NotImplementedError naming their
-ROADMAP item (Queue 1, item 14), as the drivers do.
+With a mesh (``args.mesh``, gaitpd_torch/runtime/mesh.py) the instance axis
+shards over its ranks as run_cv_vmapped's folds do: each rank trains its
+contiguous block of instances, with no collective in a step, and the bests
+are gathered in instance order; an instance count the mesh does not divide
+is printed and every rank runs them all.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from gaitpd_torch.data import weargait as WG
 from gaitpd_torch.data.fbg_fog import build_fusion_fold
 from gaitpd_torch.learning.mtl import make_method
 from gaitpd_torch.runtime.device import resolve_device
+from gaitpd_torch.runtime.mesh import FoldShard, shard_folds
 from gaitpd_torch.train import vmap_cv as VC
 from gaitpd_torch.train.cv import fbg_label_dict, fog_label_dict, generate_class_stratified_folds
 from gaitpd_torch.train.fbg_fog_driver import (
@@ -73,7 +77,6 @@ from gaitpd_torch.train.weargait_driver import (
     WearGaitArgs,
     baseline_adapters,
     build_model,
-    check_supported,
     split_to_device,
     weargait_aug_config,
 )
@@ -114,11 +117,31 @@ def _check_alpha_axis(args, mtl, grid: Grid) -> bool:
     return wants and ok
 
 
-def _per_instance(grid: Grid, key: str, default: float, n_folds: int, device) -> torch.Tensor:
+def _per_instance(grid: Grid, key: str, default: float, n_folds: int, device,
+                  shard: Optional[FoldShard] = None) -> torch.Tensor:
     """Each instance's value of ``key`` (its row's, else ``default``), h-major:
-    (H·nf,) f32 on ``device``."""
-    rows = [hp.get(key, default) for hp in grid]
-    return torch.tensor(np.repeat(rows, n_folds), dtype=torch.float32, device=device)
+    (H·nf,) f32 on ``device``, or ``shard``'s block of them."""
+    values = np.repeat([hp.get(key, default) for hp in grid], n_folds)
+    if shard is not None:
+        values = shard.take(values)
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def _slice_tree(tree, shard: FoldShard):
+    """Every tensor of a stacked tree cut to ``shard``'s block of instances."""
+    if isinstance(tree, dict):
+        return {k: _slice_tree(v, shard) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_slice_tree(v, shard) for v in tree)
+    return tree[shard.start:shard.stop]
+
+
+def _local(stacked: VC.StackedFoldData, shard: FoldShard) -> VC.StackedFoldData:
+    """The stacked instances of ``shard``'s block."""
+    return VC.StackedFoldData(
+        xs=_slice_tree(stacked.xs, shard), ys=_slice_tree(stacked.ys, shard),
+        eval_xs=_slice_tree(stacked.eval_xs, shard), eval_ys=_slice_tree(stacked.eval_ys, shard),
+        train_pools=shard.take(stacked.train_pools), eval_pools=shard.take(stacked.eval_pools))
 
 
 def _repeat_folds(stacked: VC.StackedFoldData, h: int) -> VC.StackedFoldData:
@@ -147,20 +170,21 @@ def _grid_ctx(fold_ctxs, grid: Grid, gcl_m: float, gcl_s: float, device):
 
 
 def _grid_optimizer(grid: Grid, lr: float, n_folds: int, momentum: float, weight_decay: float,
-                    device) -> Callable:
+                    device, shard: Optional[FoldShard] = None) -> Callable:
     """``make_optimizer`` of the stacked leaves: ``sgd_torch`` where every row
     trains at one lr, else ``FoldSGD`` at each instance's."""
     lrs = {hp.get("lr", lr) for hp in grid}
     if len(lrs) == 1:
         return functools.partial(sgd_torch, lr=lrs.pop(), momentum=momentum,
                                  weight_decay=weight_decay)
-    return functools.partial(FoldSGD, lr=_per_instance(grid, "lr", lr, n_folds, device),
+    return functools.partial(FoldSGD, lr=_per_instance(grid, "lr", lr, n_folds, device, shard),
                              momentum=momentum, weight_decay=weight_decay)
 
 
 def _train_grid(runner: VC.VmapEpochRunner, state: VC.StackedState, stacked: VC.StackedFoldData,
-                ctx, heads, grid: Grid, n_folds: int, *, epochs: int, patience: int, seed: int,
-                batch_size: int, score: Callable, pools: Optional[Callable] = None,
+                ctx, heads, grid: Grid, n_folds: int, shard: FoldShard, *, epochs: int,
+                patience: int, seed: int, batch_size: int, score: Callable,
+                pools: Optional[Callable] = None,
                 fresh_optimizer: Optional[Callable] = None,
                 on_epoch: Optional[VC.VmapEpochHook] = None, verbose: bool = False,
                 label: str = "") -> np.ndarray:
@@ -168,19 +192,20 @@ def _train_grid(runner: VC.VmapEpochRunner, state: VC.StackedState, stacked: VC.
     checkpoints or the masked table): ``score(ev)`` -> each instance's
     selection metric; ``pools(ep)`` -> each instance's train pools (default:
     the stacked ones); ``fresh_optimizer(leaves)`` replaces the optimizer at
-    each epoch's start. Returns each instance's best, (H, nf)."""
+    each epoch's start. ``stacked``, ``ctx`` and the state hold ``shard``'s
+    block of the instances. Returns each instance's best, (H, nf)."""
     h = len(grid)
     device = stacked.xs[0].device
-    rngs, gens = VC._instance_streams([(seed, fi) for _ in grid for fi in range(1, n_folds + 1)],
-                                      device)
-    stoppers = [EarlyStopper(patience=patience) for _ in range(h * n_folds)]
+    rngs, gens = VC._instance_streams(
+        shard.take([(seed, fi) for _ in grid for fi in range(1, n_folds + 1)]), device)
+    stoppers = [EarlyStopper(patience=patience) for _ in range(shard.stop - shard.start)]
     eval_idx, eval_valid, eval_counts = VC._eval_indices(stacked, batch_size)
     mask = (True,) * len(heads)
     for ep in range(1, epochs + 1):
         state.epoch = ep - 1
         if fresh_optimizer is not None:
             state.optimizer = fresh_optimizer(list(state.params.values()))
-        train_pools = stacked.train_pools if pools is None else pools(ep)
+        train_pools = stacked.train_pools if pools is None else shard.take(pools(ep))
         idx, valid = VC.stack_index_batches(
             train_pools, [r.permutation(len(p)) for r, p in zip(rngs, train_pools)], batch_size)
         live = [not st.stop for st in stoppers]  # a stopped instance draws no more
@@ -194,13 +219,17 @@ def _train_grid(runner: VC.VmapEpochRunner, state: VC.StackedState, stacked: VC.
         if on_epoch is not None:
             on_epoch(ep, tr, ev)
         if verbose:
-            best = np.asarray([s.best for s in stoppers]).reshape(h, n_folds)
-            print(f"[hp-vmap] Ep {ep:03d} | {label}per-HP mean best = "
-                  f"{np.array2string(best.mean(axis=1), precision=1)}")
+            best = np.asarray([s.best for s in stoppers])
+            if shard.mesh is None:
+                print(f"[hp-vmap] Ep {ep:03d} | {label}per-HP mean best = "
+                      f"{np.array2string(best.reshape(h, n_folds).mean(axis=1), precision=1)}")
+            else:
+                print(f"[hp-vmap] Ep {ep:03d} | {label}instances {shard.start}-{shard.stop - 1} "
+                      f"best = {np.array2string(best, precision=1)}")
         if all(st.stop for st in stoppers):
             print(f"[hp-vmap] all instances early-stopped at epoch {ep}")
             break
-    return np.asarray([s.best for s in stoppers]).reshape(h, n_folds)
+    return np.asarray(shard.gather([s.best for s in stoppers])).reshape(h, n_folds)
 
 
 def _ranked(grid: Grid, best: np.ndarray, metric: str, title: str) -> dict:
@@ -224,7 +253,6 @@ def run_weargait_hp_vmapped(args: WearGaitArgs, grid: Grid,
     mean of its branch losses, no method, as run_cv_vmapped) and
     ``single_mod``; ranked by the mean best macro accuracy. Rows may set any
     of lr, gcl_m, gcl_s, alpha (the args' values otherwise)."""
-    check_supported(args)
     device = resolve_device(args.device)  # raise before any work
     if args.single_mod is not None:
         return _weargait_single_mod_hp_vmapped(args, grid, on_epoch)
@@ -232,8 +260,9 @@ def run_weargait_hp_vmapped(args: WearGaitArgs, grid: Grid,
     sync_flag = not async_mode
     splits = VC._folds_and_splits(args)
     nf, h = len(splits), len(grid)
+    shard = shard_folds(h * nf, args.mesh, "[hp-vmap]", "instances")
     datas = [split_to_device(s, async_mode, args.seed, "cpu") for s in splits]
-    stacked = _repeat_folds(VC.stack_folds(datas, device), h)
+    stacked = _local(_repeat_folds(VC.stack_folds(datas, device), h), shard)
 
     aug_specs, aug_params = weargait_aug_config(args)
     settings = StepSettings(
@@ -247,7 +276,7 @@ def run_weargait_hp_vmapped(args: WearGaitArgs, grid: Grid,
                                           for k, m in enumerate(MODALITIES)],
                                device=device, aug_params=aug_params)
                  for s, d in zip(splits, datas)]
-    ctx = _grid_ctx(fold_ctxs, grid, args.gcl_m, args.gcl_s, device)
+    ctx = _slice_tree(_grid_ctx(fold_ctxs, grid, args.gcl_m, args.gcl_s, device), shard)
 
     # the method for the flagship only, as run_cv_vmapped
     mtl = None
@@ -255,11 +284,12 @@ def run_weargait_hp_vmapped(args: WearGaitArgs, grid: Grid,
         kwargs = {"c": args.alpha} if args.mtl_method in ("cagrad", "log_cagrad") else {}
         mtl = make_method(args.mtl_method, 3, **kwargs)
     sweep_alpha = _check_alpha_axis(args, mtl, grid)
-    make_optimizer = _grid_optimizer(grid, args.lr, nf, 0.9, 1e-4, device)
+    make_optimizer = _grid_optimizer(grid, args.lr, nf, 0.9, 1e-4, device, shard)
     state, partition = VC.init_stacked_state(build_model(args, sync_flag), make_optimizer, mtl,
-                                             h * nf, device)
+                                             shard.stop - shard.start, device)
     if sweep_alpha:
-        state.mtl_state["cagrad_c"] = _per_instance(grid, "alpha", args.alpha, nf, device)
+        state.mtl_state["cagrad_c"] = _per_instance(grid, "alpha", args.alpha, nf, device,
+                                                    shard)
     runner = VC.VmapEpochRunner(settings, mtl, partition, *baseline_adapters(args))
 
     def pools(ep):  # each fold's pools reseeded every epoch, as run_fold
@@ -267,7 +297,7 @@ def run_weargait_hp_vmapped(args: WearGaitArgs, grid: Grid,
                 for s in splits] * h
 
     best = _train_grid(
-        runner, state, stacked, ctx, (0, 1, 2), grid, nf, epochs=args.epochs,
+        runner, state, stacked, ctx, (0, 1, 2), grid, nf, shard, epochs=args.epochs,
         patience=args.patience, seed=args.seed, batch_size=args.batch_size,
         score=lambda ev: ev["acc_batchmean"].mean(axis=1) if async_mode else ev["ens_acc"],
         pools=pools if async_mode else None, on_epoch=on_epoch, verbose=args.verbose)
@@ -294,7 +324,8 @@ def _weargait_single_mod_hp_vmapped(args: WearGaitArgs, grid: Grid,
             xs=d.xs[k:k + 1], ys=d.ys[k:k + 1], train_pool=d.train_pool[:, k:k + 1],
             eval_pool=d.eval_pool[:, k:k + 1], eval_xs=d.eval_xs[k:k + 1],
             eval_ys=d.eval_ys[k:k + 1]))
-    stacked = _repeat_folds(VC.stack_folds(datas, device), h)
+    shard = shard_folds(h * nf, args.mesh, "[hp-vmap]", "instances")
+    stacked = _local(_repeat_folds(VC.stack_folds(datas, device), h), shard)
     aug_specs, aug_params = weargait_aug_config(args, n_streams=1)
     settings = StepSettings(n_streams=1, wm=args.wm, synchronized=False, gcl_m=args.gcl_m,
                             gcl_s=args.gcl_s, noise_mul=args.noise_mul,
@@ -302,10 +333,10 @@ def _weargait_single_mod_hp_vmapped(args: WearGaitArgs, grid: Grid,
     fold_ctxs = [make_loss_ctx(settings, [np.bincount(
         s.train[args.single_mod].y[d.train_pool[:, 0]], minlength=args.num_classes)],
         device=device, aug_params=aug_params) for s, d in zip(splits, datas)]
-    ctx = _grid_ctx(fold_ctxs, grid, args.gcl_m, args.gcl_s, device)
-    make_optimizer = _grid_optimizer(grid, args.lr, nf, 0.9, 1e-4, device)
+    ctx = _slice_tree(_grid_ctx(fold_ctxs, grid, args.gcl_m, args.gcl_s, device), shard)
+    make_optimizer = _grid_optimizer(grid, args.lr, nf, 0.9, 1e-4, device, shard)
     state, _ = VC.init_stacked_state(build_model(args, not async_mode), make_optimizer, None,
-                                     h * nf, device)
+                                     shard.stop - shard.start, device)
 
     def pools(ep):
         return [WG.async_pool(s.train, np.random.default_rng(args.seed + ep))[:, k:k + 1]
@@ -313,7 +344,8 @@ def _weargait_single_mod_hp_vmapped(args: WearGaitArgs, grid: Grid,
 
     # the reference builds a fresh SGD every epoch (weargait_train.py:273-276)
     best = _train_grid(
-        VC.VmapEpochRunner(settings), state, stacked, ctx, (0,), grid, nf, epochs=args.epochs,
+        VC.VmapEpochRunner(settings), state, stacked, ctx, (0,), grid, nf, shard,
+        epochs=args.epochs,
         patience=args.patience, seed=args.seed, batch_size=args.batch_size,
         score=lambda ev: ev["acc"][:, 0], pools=pools if async_mode else None,
         fresh_optimizer=make_optimizer, on_epoch=on_epoch, verbose=args.verbose,
@@ -359,7 +391,8 @@ def run_fbg_fog_hp_vmapped(args: FbgFogArgs, grid: Grid,
         dataset, reader, tr, ev, synchronized=args.synchronized_loading, seed=args.seed,
         pad_skel=dims.pose_length, pad_sens=dims.sensor_length, modality=args.modality),
         args.modality, "cpu") for tr, ev in folds]
-    stacked = _repeat_folds(VC.stack_folds(datas, device), h)
+    shard = shard_folds(h * nf, args.mesh, "[hp-vmap]", "instances")
+    stacked = _local(_repeat_folds(VC.stack_folds(datas, device), h), shard)
     aug_specs, aug_params = augment_config(args, dims.skeleton_input_dim, args.modality)
     settings = StepSettings(
         n_streams=n_streams, wm=args.wm, synchronized=args.synchronized_loading,
@@ -370,7 +403,7 @@ def run_fbg_fog_hp_vmapped(args: FbgFogArgs, grid: Grid,
     fold_ctxs = [make_loss_ctx(settings, VC._class_counts(d, heads, dims.num_classes),
                                device=device, aug_params=aug_params, ldam_max_m=args.ldam_m)
                  for d in datas]
-    ctx = _grid_ctx(fold_ctxs, grid, args.gcl_m, args.gcl_s, device)
+    ctx = _slice_tree(_grid_ctx(fold_ctxs, grid, args.gcl_m, args.gcl_s, device), shard)
     mtl = None
     if multimodal and args.alpha > 0:
         kwargs = ({"c": args.alpha, "max_norm": args.max_norm}
@@ -378,11 +411,12 @@ def run_fbg_fog_hp_vmapped(args: FbgFogArgs, grid: Grid,
         mtl = make_method(args.mtl_method, n_streams, **kwargs)
     sweep_alpha = _check_alpha_axis(args, mtl, grid)
     make_optimizer = _grid_optimizer(grid, tp.learning_rate, nf, tp.momentum, tp.weight_decay,
-                                     device)
+                                     device, shard)
     state, partition = VC.init_stacked_state(choose_model(args, dims), make_optimizer, mtl,
-                                             h * nf, device)
+                                             shard.stop - shard.start, device)
     if sweep_alpha:
-        state.mtl_state["cagrad_c"] = _per_instance(grid, "alpha", args.alpha, nf, device)
+        state.mtl_state["cagrad_c"] = _per_instance(grid, "alpha", args.alpha, nf, device,
+                                                    shard)
 
     def score(ev):
         if multimodal and args.synchronized_loading:
@@ -390,7 +424,7 @@ def run_fbg_fog_hp_vmapped(args: FbgFogArgs, grid: Grid,
         return ev["acc"].mean(axis=1) if multimodal else ev["acc"][:, 0]
 
     best = _train_grid(VC.VmapEpochRunner(settings, mtl, partition), state, stacked, ctx, heads,
-                       grid, nf, epochs=epochs, patience=tp.patience, seed=args.seed,
+                       grid, nf, shard, epochs=epochs, patience=tp.patience, seed=args.seed,
                        batch_size=batch_size, score=score, on_epoch=on_epoch,
                        verbose=args.verbose)
     return _ranked(grid, best, "acc", "HP grid ranked by mean CV accuracy")

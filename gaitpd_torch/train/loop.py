@@ -20,6 +20,7 @@ from torch import nn
 
 from gaitpd_torch.data.sampler import batch_index_matrix
 from gaitpd_torch.learning.mtl import FlatPartition, build_flat_partition
+from gaitpd_torch.runtime.mesh import mesh_sharding
 from gaitpd_torch.train.step import (
     EvalApply,
     StepSettings,
@@ -71,16 +72,21 @@ class EpochRunner:
     default: gaitpd_torch.train.step.make_apply_adapters). ``head_inputs``
     names the input each head's labels come from: the identity for the
     N-stream models (the default), ``(0,)`` for a model whose one joint head
-    takes the first input's label."""
+    takes the first input's label. With ``mesh`` (gaitpd_torch/runtime/
+    mesh.py) each train step is data-parallel over its ranks, the batch
+    sharded over every axis of the mesh; the eval stays whole on every rank,
+    as gaitpd shards only the train body (gaitpd/train/loop.py:101-124)."""
 
     def __init__(self, settings: StepSettings, mtl_method=None,
                  partition: Optional[FlatPartition] = None,
                  train_apply: Optional[TrainApply] = None,
                  eval_apply: Optional[EvalApply] = None,
-                 head_inputs: Optional[Sequence[int]] = None):
+                 head_inputs: Optional[Sequence[int]] = None, mesh=None):
         self.settings = settings
         self.head_inputs = tuple(head_inputs or range(settings.n_streams))
-        self.train_step = make_train_step(settings, mtl_method, partition, train_apply)
+        sharding = None if mesh is None else mesh_sharding(mesh)
+        self.train_step = make_train_step(settings, mtl_method, partition, train_apply,
+                                          sharding)
         self.eval_step = make_eval_step(settings, eval_apply)
 
     def train_epoch(self, state, xs, ys, idx, valid, counts, generator, ctx):

@@ -36,12 +36,27 @@ other stream are zero.
 
 Batches carry a ``valid`` mask, so padded batches are exact, and
 ``n_valid``, its count on the host: a fully padded batch is a no-op decided
-without waiting for the device. Rematerialisation, which the port does not
-have yet, raises NotImplementedError when set.
+without waiting for the device.
+
+Rematerialisation (``remat``, gaitpd_torch/runtime/remat.py): only the
+train forward (``train_apply``) is recomputed, as in gaitpd; the
+augmentation, modality dropout and the losses run once.
+
+Data parallelism (``make_train_step``'s ``sharding``, gaitpd_torch/runtime/
+mesh.py): every rank gets the global batch, takes its contiguous rows and
+ends the step with the single-process step's parameters, up to the order of
+f32 summation. The loss normalisers are summed over the mesh before the
+division (gaitpd_torch.learning.losses.sharded_batch), then the per-task
+matrix J and the losses (or, without a method, the gradients) and the
+metrics; the method combines the global J on every rank. The per-row draws
+(augmentation, dropout, GCL noise) are made at the global batch's shape and
+sliced (``RowShard``); modality dropout and the methods' draws are made
+whole, from the same generator on every rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -52,6 +67,8 @@ from gaitpd_torch.data.augment import augment_stream
 from gaitpd_torch.learning import losses as L
 from gaitpd_torch.learning.mtl import FlatPartition, mtl_grads
 from gaitpd_torch.runtime import fold_draws
+from gaitpd_torch.runtime.fold_draws import RowShard
+from gaitpd_torch.runtime.remat import REMAT_POLICIES, rematerialise
 
 WEIGHTING_MODES = ("ce", "class_wt", "ldam", "gcl")
 
@@ -87,7 +104,11 @@ class StepSettings:
     # relaxed-input training: zero-fill each input stream with this
     # probability, one draw a stream a batch; one stream always stays on
     modality_dropout: float = 0.0
-    remat: str = "none"
+    # rematerialisation of the train forward in the K per-task backward
+    # passes: "none" keeps its activations, "dots" keeps the products'
+    # outputs and recomputes the elementwise ops, "nothing" recomputes the
+    # whole forward in each pass (gaitpd_torch/runtime/remat.py)
+    remat: str = "none"  # none | dots | nothing
     # one AugmentSpec (or None) per input stream; the strengths are tensors
     # in ctx[0]["aug"] (make_loss_ctx's aug_params)
     augment: Optional[Tuple[Any, ...]] = None
@@ -95,9 +116,8 @@ class StepSettings:
     def __post_init__(self):
         if self.wm not in WEIGHTING_MODES:
             raise ValueError(f"wm must be one of {WEIGHTING_MODES}, got {self.wm!r}")
-        if self.remat != "none":
-            raise NotImplementedError(
-                "rematerialisation policies are not ported yet (ROADMAP Queue 1, item 14)")
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(f"remat must be one of {REMAT_POLICIES}, got {self.remat!r}")
 
 
 # train_apply(module, xs, generator, epoch) and eval_apply(module, xs, epoch)
@@ -222,6 +242,7 @@ def make_multitask_loss_fn(settings: StepSettings,
     adapter)."""
     if train_apply is None:
         train_apply = make_apply_adapters(settings)[0]
+    train_apply = rematerialise(train_apply, settings.remat)
 
     def loss_fn(module, xs, ys, valid, ctx, generator, epoch):
         if settings.augment is not None:
@@ -229,7 +250,7 @@ def make_multitask_loss_fn(settings: StepSettings,
                        for x, spec, params in zip(xs, settings.augment, ctx[0]["aug"]))
         if settings.modality_dropout > 0:
             xs = modality_dropout(xs, *draw_modality_dropout(
-                len(xs), settings.modality_dropout, generator, xs[0].device))
+                len(xs), settings.modality_dropout, whole(generator), xs[0].device))
         logits = train_apply(module, xs, generator, epoch)
         if not isinstance(logits, (tuple, list)):
             logits = (logits,)
@@ -249,6 +270,12 @@ def make_multitask_loss_fn(settings: StepSettings,
     return loss_fn
 
 
+def whole(generator):
+    """The generator of a step's draws that are not per row: a ``RowShard``'s
+    own, else ``generator``."""
+    return generator.generator if isinstance(generator, RowShard) else generator
+
+
 def _batch_metrics(logits, ys, valid, losses):
     """Per-stream correct counts and the batch size, on the device
     (reference fbg_fog_train.py:154-156, weargait_train.py:312-317)."""
@@ -263,9 +290,17 @@ def _padded_metrics(settings: StepSettings, device) -> Dict[str, torch.Tensor]:
     return {"losses": zeros, "correct": zeros.clone(), "n": torch.zeros((), device=device)}
 
 
+def _sum_grads(grads, params, total):
+    """``total`` of every gradient, in one collective over their
+    concatenation."""
+    flat = torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
+                      for g, p in zip(grads, params)])
+    return list(total(flat).split([p.numel() for p in params]))
+
+
 def make_train_step(settings: StepSettings, mtl_method=None,
                     partition: Optional[FlatPartition] = None,
-                    train_apply: Optional[TrainApply] = None) -> Callable:
+                    train_apply: Optional[TrainApply] = None, sharding=None) -> Callable:
     """train_step(state, batch, generator, ctx) -> (state, metrics).
 
     Without ``mtl_method`` the gradient is that of the mean (or sum, per
@@ -273,37 +308,54 @@ def make_train_step(settings: StepSettings, mtl_method=None,
     gaitpd_torch.learning.mtl.mtl_grads. A parameter the forward does not
     reach gets a zero gradient, so weight decay still moves it. A fully
     padded batch (quantized epoch tails) leaves parameters, momentum and MTL
-    state unchanged."""
+    state unchanged.
+
+    ``sharding``: a gaitpd_torch.runtime.mesh.BatchSharding; the step is
+    then data-parallel (module docstring): ``batch`` is the global batch on
+    every rank, and ``generator`` is seeded alike on every rank. The metrics
+    are the global batch's."""
     loss_fn = make_multitask_loss_fn(settings, train_apply)
     reduce = torch.mean if settings.loss_reduction == "mean" else torch.sum
+    total = None if sharding is None else sharding.sum
 
     def train_step(state: TrainState, batch, generator, ctx):
         xs, ys, valid = batch["xs"], batch["ys"], batch["valid"]
         if batch["n_valid"] == 0:
             return state, _padded_metrics(settings, valid.device)
+        draws = generator
+        if sharding is not None:
+            xs, ys, valid = (tuple(sharding.rows(x) for x in xs),
+                             tuple(sharding.rows(y) for y in ys), sharding.rows(valid))
+            draws = RowShard(generator, sharding.count, sharding.index)
         module = state.module
         named = list(module.named_parameters())
         params = [p for _, p in named]
-        if mtl_method is None:
-            ls, logits = loss_fn(module, xs, ys, valid, ctx, generator, state.epoch)
-            grads = torch.autograd.grad(reduce(ls), params, allow_unused=True)
-            ls = ls.detach()
-        else:
-            if partition is None or partition.names != tuple(n for n, _ in named):
-                raise ValueError("the flat partition does not describe this module")
-            grads, ls, logits, state.mtl_state, _info = mtl_grads(
-                mtl_method,
-                lambda: loss_fn(module, xs, ys, valid, ctx, generator, state.epoch),
-                params,
-                partition,
-                state.mtl_state,
-                private_grads=settings.private_grads,
-                generator=generator,
-            )
+        with (contextlib.nullcontext() if total is None else L.sharded_batch(total)):
+            if mtl_method is None:
+                ls, logits = loss_fn(module, xs, ys, valid, ctx, draws, state.epoch)
+                grads = torch.autograd.grad(reduce(ls), params, allow_unused=True)
+                ls = ls.detach()
+                if total is not None:
+                    grads, ls = _sum_grads(grads, params, total), total(ls)
+            else:
+                if partition is None or partition.names != tuple(n for n, _ in named):
+                    raise ValueError("the flat partition does not describe this module")
+                grads, ls, logits, state.mtl_state, _info = mtl_grads(
+                    mtl_method,
+                    lambda: loss_fn(module, xs, ys, valid, ctx, draws, state.epoch),
+                    params,
+                    partition,
+                    state.mtl_state,
+                    private_grads=settings.private_grads,
+                    generator=generator,
+                    total=total,
+                )
         for p, g in zip(params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
         state.optimizer.step()
         metrics = _batch_metrics([lg.detach() for lg in logits], ys, valid, ls)
+        if total is not None:
+            metrics.update(correct=total(metrics["correct"]), n=total(metrics["n"]))
         return state, metrics
 
     return train_step

@@ -60,8 +60,21 @@ best snapshot frozen and its draws off, as gaitpd's.
 The fused flagship (``fused``, gaitpd_torch/models/fused.py) runs here as
 the unfused one does: its backbone is one stream-block launch for every
 fold's three streams, and the CAGrad solver one launch for every fold.
-Data-parallel meshes, not ported yet, raise NotImplementedError naming
-their ROADMAP item (Queue 1, item 14).
+
+With a mesh (``args.mesh``, gaitpd_torch/runtime/mesh.py) the folds shard
+over its ranks as gaitpd's ``shard_map`` shards them: each rank runs its
+contiguous block of folds with their own generators, with no collective in
+a step, and the per-fold results are gathered in fold order at the end. A
+fold count the mesh does not divide is printed and every rank runs all
+folds, as gaitpd runs them on one device. A rank's stacked checkpoint holds
+its block (gaitpd_torch.runtime.mesh.FoldShard.checkpoint_root).
+
+Rematerialisation (``settings.remat``): under ``"nothing"`` the checkpoint
+goes around the vmapped fold loss, since torch refuses one inside
+``torch.func.vmap`` over ``functional_call``, so the augmentation and the
+losses are recomputed with the forward, every fold's generator replayed
+(gaitpd_torch/runtime/remat.py); under ``"dots"`` the elementwise ops'
+checkpoints sit inside the vmap, as in the sequential step.
 """
 
 from __future__ import annotations
@@ -84,6 +97,8 @@ from gaitpd_torch.data.sampler import batch_index_matrix
 from gaitpd_torch.learning.mtl import FlatPartition, build_flat_partition, combine_flat, make_method
 from gaitpd_torch.runtime.device import resolve_device
 from gaitpd_torch.runtime.fold_draws import FoldDraws, fold_tokens
+from gaitpd_torch.runtime.mesh import shard_folds
+from gaitpd_torch.runtime.remat import checkpoint_replaying
 from gaitpd_torch.train import metrics as M
 from gaitpd_torch.train.baseline_drivers import BaselineArgs, _adapters, _build_model, _hp
 from gaitpd_torch.train.baseline_drivers import get_reader as get_baseline_reader
@@ -121,7 +136,6 @@ from gaitpd_torch.train.weargait_driver import (
     WearGaitArgs,
     baseline_adapters,
     build_model,
-    check_supported,
     get_streams,
     split_to_device,
     weargait_aug_config,
@@ -312,19 +326,29 @@ class VmapEpochRunner:
         self.settings = settings
         self.mtl_method = mtl_method
         self.partition = partition
-        self.loss_fn = make_multitask_loss_fn(settings, train_apply)
+        # "nothing" checkpoints the vmapped loss as a whole (_losses)
+        inner = (dataclasses.replace(settings, remat="none") if settings.remat == "nothing"
+                 else settings)
+        self.loss_fn = make_multitask_loss_fn(inner, train_apply)
         self.eval_step = make_eval_step(settings, eval_apply)
         self.reduce = torch.mean if settings.loss_reduction == "mean" else torch.sum
 
     def _losses(self, state: StackedState, xs, ys, valid, ctx, generators=None, active=None):
         epoch = state.epoch
-
-        def fold_loss(params, xs, ys, valid, ctx, token):
-            return self.loss_fn(_FoldModule(state.model, params), xs, ys, valid, ctx,
-                                _fold_generator(generators, active, token), epoch)
-
         tokens = fold_tokens(valid.shape[0], valid.device)
-        return vmap(fold_loss)(state.params, xs, ys, valid, ctx, tokens)
+
+        def run(gens, *xs):
+            def fold_loss(params, xs, ys, valid, ctx, token):
+                return self.loss_fn(_FoldModule(state.model, params), xs, ys, valid, ctx,
+                                    _fold_generator(gens, active, token), epoch)
+
+            return vmap(fold_loss)(state.params, xs, ys, valid, ctx, tokens)
+
+        if self.settings.remat != "nothing":
+            return run(generators, *xs)
+        if generators is None:
+            return checkpoint_replaying(lambda _, *xs: run(None, *xs), [], *xs)
+        return checkpoint_replaying(run, generators, *xs)
 
     def _combine(self, state: StackedState, jmat, losses, generators, active):
         """``combine_flat`` of every fold under the vmap: J (F, K, P) and the
@@ -625,9 +649,11 @@ def _instance_streams(instances: Sequence[Tuple[int, int]], device):
     return rngs, gens
 
 
-def _random_streams(args, n_folds: int, device):
-    """``_instance_streams`` of ``args.seed``'s folds, numbered from 1."""
-    return _instance_streams([(args.seed, fi) for fi in range(1, n_folds + 1)], device)
+def _random_streams(args, folds, device):
+    """``_instance_streams`` of ``args.seed``'s folds: ``folds`` lists their
+    numbers, or counts them from 1."""
+    ids = range(1, folds + 1) if isinstance(folds, int) else folds
+    return _instance_streams([(args.seed, fi) for fi in ids], device)
 
 
 def _eval_indices(stacked: StackedFoldData, batch_size: int):
@@ -644,14 +670,18 @@ def run_cv_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpochHook] = None)
     vmap_cv.py:235-484): the flagship or any ``baseline`` (no MTL method,
     SGD for all, as run_fold), with the recipe's draws; the same summary
     dict, and ``per_fold_macro``. With ``ckpt_dir`` one stacked snapshot of
-    every fold is written each epoch; ``resume`` continues from it."""
-    check_supported(args)  # the stacked folds take every option run_cv takes
+    every fold is written each epoch; ``resume`` continues from it. With
+    ``args.mesh`` the folds shard over its ranks (module docstring)."""
     device = resolve_device(args.device)  # raise before any work
     if args.single_mod is not None:
         return _weargait_single_mod_vmapped(args, on_epoch)
     async_mode = args.async_loading
     sync_flag = not async_mode
     splits = _folds_and_splits(args)
+    shard = shard_folds(len(splits), args.mesh)
+    fold_ids = shard.take(range(1, len(splits) + 1))
+    splits = shard.take(splits)
+    ckpt_dir = shard.checkpoint_root(args.ckpt_dir)
     f = len(splits)
     datas = [split_to_device(s, async_mode, args.seed, "cpu") for s in splits]
     stacked = stack_folds(datas, device)
@@ -683,14 +713,14 @@ def run_cv_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpochHook] = None)
     runner = VmapEpochRunner(settings, mtl, partition, *baseline_adapters(args))
     heads = tuple(range(3))
 
-    rngs, gens = _random_streams(args, f, device)
+    rngs, gens = _random_streams(args, fold_ids, device)
     stoppers = [EarlyStopper(patience=args.patience) for _ in range(f)]
     best_params = {k: v.detach().cpu().clone() for k, v in state.params.items()}
     best_per_mod = np.zeros((f, 3))
 
     start_epoch = 1
-    if args.ckpt_dir and args.resume:
-        payload = restore_vmap_checkpoint(args.ckpt_dir, state, stoppers, rngs, gens)
+    if ckpt_dir and args.resume:
+        payload = restore_vmap_checkpoint(ckpt_dir, state, stoppers, rngs, gens)
         if payload is not None:
             best_params = payload["extras"]["best_params"]
             best_per_mod = payload["extras"]["best_per_mod"].numpy().copy()
@@ -719,8 +749,8 @@ def run_cv_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpochHook] = None)
             for name, p in state.params.items():
                 best_params[name][rows] = p.detach()[rows.to(p.device)].cpu()
             best_per_mod[rows.numpy()] = ev["acc_batchmean"][rows.numpy()]
-        if args.ckpt_dir:
-            save_vmap_checkpoint(args.ckpt_dir, state, stoppers,
+        if ckpt_dir:
+            save_vmap_checkpoint(ckpt_dir, state, stoppers,
                                  {"best_params": best_params,
                                   "best_per_mod": torch.from_numpy(best_per_mod)},
                                  ep, rngs, gens)
@@ -747,9 +777,10 @@ def run_cv_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpochHook] = None)
             scores = r["acc_batchmean"][:, np.asarray(tup, bool)].mean(axis=1)
         else:
             scores = r["ens_acc"]
-        mask_fold_scores[mk] = [float(s) for s in scores]
+        mask_fold_scores[mk] = shard.gather([float(s) for s in scores])
 
-    fold_macro = [st.best for st in stoppers]
+    fold_macro = shard.gather([st.best for st in stoppers])
+    best_per_mod = np.asarray(shard.gather(list(best_per_mod)))
     print("\n=== Summary (vmapped CV) ===")
     print(f"Macro acc mean ± std: {np.mean(fold_macro):.2f}% ± {np.std(fold_macro):.2f}%")
     print("\n=== Masked accuracy at best epoch (avg across folds) ===")
@@ -774,6 +805,10 @@ def _weargait_single_mod_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpoc
     async_mode = args.async_loading
     k = MODALITIES.index(args.single_mod)
     splits = _folds_and_splits(args)
+    shard = shard_folds(len(splits), args.mesh)
+    fold_ids = shard.take(range(1, len(splits) + 1))
+    splits = shard.take(splits)
+    ckpt_dir = shard.checkpoint_root(args.ckpt_dir)
     f = len(splits)
     datas = []
     for s in splits:
@@ -795,12 +830,12 @@ def _weargait_single_mod_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpoc
                                   device)
     runner = VmapEpochRunner(settings)
     heads = (0,)
-    rngs, gens = _random_streams(args, f, device)
+    rngs, gens = _random_streams(args, fold_ids, device)
     stoppers = [EarlyStopper(patience=args.patience) for _ in range(f)]
 
     start_epoch = 1
-    if args.ckpt_dir and args.resume:
-        payload = restore_vmap_checkpoint(args.ckpt_dir, state, stoppers, rngs, gens)
+    if ckpt_dir and args.resume:
+        payload = restore_vmap_checkpoint(ckpt_dir, state, stoppers, rngs, gens)
         if payload is not None:
             start_epoch = payload["epoch"] + 1
             print(f"[vmap-cv] resumed from epoch {start_epoch}")
@@ -826,8 +861,8 @@ def _weargait_single_mod_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpoc
         for st, v in zip(stoppers, vas):
             if not st.stop:
                 st.update(float(v))
-        if args.ckpt_dir:
-            save_vmap_checkpoint(args.ckpt_dir, state, stoppers, {}, ep, rngs, gens)
+        if ckpt_dir:
+            save_vmap_checkpoint(ckpt_dir, state, stoppers, {}, ep, rngs, gens)
         if on_epoch is not None:
             on_epoch(ep, tr, ev)
         if args.verbose:
@@ -838,7 +873,7 @@ def _weargait_single_mod_vmapped(args: WearGaitArgs, on_epoch: Optional[VmapEpoc
             print(f"[vmap-cv] all folds early-stopped at epoch {ep}")
             break
 
-    fold_macro = [st.best for st in stoppers]
+    fold_macro = shard.gather([st.best for st in stoppers])
     print("\n=== Summary (vmapped CV, single_mod) ===")
     print(f"Macro acc mean ± std: {np.mean(fold_macro):.2f}% ± {np.std(fold_macro):.2f}%")
     return {
@@ -880,7 +915,8 @@ def run_fbg_fog_vmapped(args: FbgFogArgs, on_epoch: Optional[VmapEpochHook] = No
     """fbg_fog_driver.main with every class-stratified fold of each mode in
     one step (gaitpd/train/vmap_cv.py:751-790); the same summary dict. With
     ``ckpt_dir`` one stacked snapshot a mode under ``<ckpt_dir>/<mode>``,
-    which ``resume`` continues. ``reader``: as main's."""
+    which ``resume`` continues. ``reader``: as main's. With ``args.mesh``
+    each mode's folds shard over its ranks (module docstring)."""
     check_fbg_fog_supported(args)
     resolve_device(args.device)  # raise before any work
     dataset = normalize_dataset_name(args.dataset)
@@ -920,10 +956,13 @@ def _fbg_fog_folds_vmapped(reader, folds, args: FbgFogArgs,
     sync_multimodal = multimodal and args.synchronized_loading
     n_streams = 2 if multimodal else 1
     heads = tuple(range(n_streams))
+    shard = shard_folds(len(folds), args.mesh)
+    fold_ids = shard.take(range(1, len(folds) + 1))
+    ckpt_dir = shard.checkpoint_root(args.ckpt_dir)
     datas = [fold_to_device(build_fusion_fold(
         dataset, reader, tr, ev, synchronized=args.synchronized_loading, seed=args.seed,
         pad_skel=dims.pose_length, pad_sens=dims.sensor_length, modality=args.modality),
-        args.modality, "cpu") for tr, ev in folds]
+        args.modality, "cpu") for tr, ev in shard.take(folds)]
     f = len(datas)
     stacked = stack_folds(datas, device)
     aug_specs, aug_params = augment_config(args, dims.skeleton_input_dim, args.modality)
@@ -946,7 +985,7 @@ def _fbg_fog_folds_vmapped(reader, folds, args: FbgFogArgs,
     state, partition = init_stacked_state(choose_model(args, dims), make_optimizer, mtl, f,
                                           device)
     runner = VmapEpochRunner(settings, mtl, partition)
-    rngs, gens = _random_streams(args, f, device)
+    rngs, gens = _random_streams(args, fold_ids, device)
     stoppers = [EarlyStopper(patience=tp.patience) for _ in range(f)]
     eval_idx, eval_valid, eval_counts = _eval_indices(stacked, batch_size)
     # the best epoch's predictions at fixed shapes, so the snapshot holds them
@@ -956,8 +995,8 @@ def _fbg_fog_folds_vmapped(reader, folds, args: FbgFogArgs,
             "has_best": torch.zeros(f, dtype=torch.bool)}
 
     start_epoch = 1
-    if args.ckpt_dir and args.resume:
-        payload = restore_vmap_checkpoint(args.ckpt_dir, state, stoppers, rngs, gens)
+    if ckpt_dir and args.resume:
+        payload = restore_vmap_checkpoint(ckpt_dir, state, stoppers, rngs, gens)
         if payload is not None:
             best = {k: payload["extras"][k] for k in best}
             start_epoch = payload["epoch"] + 1
@@ -986,8 +1025,8 @@ def _fbg_fog_folds_vmapped(reader, folds, args: FbgFogArgs,
             best["best_preds"][rows] = torch.from_numpy(ev["preds"])[rows]
             best["best_pred_ens"][rows] = torch.from_numpy(ev["pred_ens"])[rows]
             best["has_best"][rows] = True
-        if args.ckpt_dir:
-            save_vmap_checkpoint(args.ckpt_dir, state, stoppers, best, ep, rngs, gens)
+        if ckpt_dir:
+            save_vmap_checkpoint(ckpt_dir, state, stoppers, best, ep, rngs, gens)
         if on_epoch is not None:
             on_epoch(ep, tr, ev)
         if args.verbose:
@@ -1011,10 +1050,10 @@ def _fbg_fog_folds_vmapped(reader, folds, args: FbgFogArgs,
         results.append((sk, se, float(st.best)))
         if args.verbose:
             if sync_multimodal:
-                M.print_report(trues[0], preds_ens, f"Fold {i + 1} Best Ensemble")
+                M.print_report(trues[0], preds_ens, f"Fold {fold_ids[i]} Best Ensemble")
             else:
-                M.print_report(trues[0], preds[0], f"Fold {i + 1} Best Stream0")
-    return results
+                M.print_report(trues[0], preds[0], f"Fold {fold_ids[i]} Best Stream0")
+    return shard.gather(results)
 
 
 def run_fusion_seeds_vmapped(dataset: str, fusion_type: str, seeds: Sequence[int], **kw):

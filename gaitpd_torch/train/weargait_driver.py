@@ -21,9 +21,10 @@ real recordings (``synthetic=False``; reading them needs pandas). With
 fused.py); a baseline and the single-modality mode ignore it, as gaitpd's
 do. With ``ckpt_dir`` each fold but a single-modality one saves ``latest``
 every epoch and ``best`` on improvement (gaitpd_torch.train.checkpoint),
-and ``resume`` continues a fold from its ``latest``. Data-parallel meshes,
-which the port does not have yet, raise NotImplementedError naming their
-ROADMAP item.
+and ``resume`` continues a fold from its ``latest``. With ``mesh``
+(gaitpd_torch/runtime/mesh.py::make_mesh) every train step is data-parallel
+over the mesh's ranks, each ending it with the single-process step's
+parameters; only the mesh's first rank writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from gaitpd_torch.models import fusion as FU
 from gaitpd_torch.models.fused import FusedWearGaitThreeModal
 from gaitpd_torch.models.multitask import WearGaitThreeModal
 from gaitpd_torch.runtime.device import DeviceLike, resolve_device
+from gaitpd_torch.runtime.mesh import mesh_rank, replicate
 from gaitpd_torch.train.checkpoint import (
     load_snapshot,
     restore_fold_checkpoint,
@@ -131,7 +133,7 @@ class WearGaitArgs:
     data_dir: Optional[str] = None
     n_folds_cap: Optional[int] = None
     verbose: bool = True
-    mesh: object = None
+    mesh: object = None  # a torch DeviceMesh (gaitpd_torch.runtime.mesh.make_mesh)
     mtl_method: str = "cagrad"  # a key of gaitpd_torch.learning.mtl.METHODS
     ckpt_dir: Optional[str] = None
     resume: bool = False
@@ -153,13 +155,6 @@ def weargait_aug_config(args, n_streams: int = 3):
     specs = (AugmentSpec(noise=noise > 0, axis_mask=axis > 0),) * n_streams
     params = tuple(make_aug_params(noise_std=noise, axis_p=axis) for _ in range(n_streams))
     return specs, params
-
-
-def check_supported(args: WearGaitArgs) -> None:
-    """Raise NotImplementedError for an option the port does not have yet."""
-    if args.mesh is not None:
-        raise NotImplementedError(
-            "data-parallel meshes (mesh): not ported yet (ROADMAP Queue 1, item 14)")
 
 
 class SingleBranch(WearGaitThreeModal):
@@ -283,7 +278,6 @@ def run_fold(
     on_epoch: Optional[EpochHook] = None,
 ) -> Tuple[float, Tuple[float, float, float], Dict[str, float]]:
     """Train one fold; returns (best_macro, per-mod accs, per-mask scores)."""
-    check_supported(args)
     device = resolve_device(args.device)
     async_mode = args.async_loading
     sync_flag = not async_mode
@@ -320,7 +314,9 @@ def run_fold(
         mtl = make_method(args.mtl_method, 3, **kwargs)
     make_optimizer = functools.partial(sgd_torch, lr=args.lr, momentum=0.9, weight_decay=1e-4)
     state, partition = init_train_state(model, make_optimizer, mtl, device)
-    runner = EpochRunner(settings, mtl, partition, *baseline_adapters(args))
+    if args.mesh is not None:
+        replicate(state.module, args.mesh)
+    runner = EpochRunner(settings, mtl, partition, *baseline_adapters(args), mesh=args.mesh)
 
     rng = np.random.default_rng(args.seed + 1000 * fi)
     generator = torch.Generator(device=device).manual_seed(args.seed + fi)
@@ -358,7 +354,7 @@ def run_fold(
             best_w, best_i, best_m = float(vaw), float(vai), float(vam)
             # a snapshot, never an alias of the live parameters
             best_params = {k: v.detach().clone() for k, v in state.module.state_dict().items()}
-        if args.ckpt_dir:
+        if args.ckpt_dir and mesh_rank(args.mesh) == 0:
             save = functools.partial(save_fold_checkpoint, args.ckpt_dir, fi, state,
                                      best_metric=stopper.best, rng=rng, generator=generator)
             save(no_improve=stopper.no_improve)
@@ -418,7 +414,6 @@ def run_single_mod_fold(
     the shared backbone and its head, a fresh SGD state every epoch, pooled
     eval accuracy, no masked table, augmentation but no modality dropout and
     no checkpoint, as in gaitpd. Returns (best, per-mod accs, {})."""
-    check_supported(args)
     device = resolve_device(args.device)
     async_mode = args.async_loading
     k = MODALITIES.index(args.single_mod)
@@ -441,7 +436,9 @@ def run_single_mod_fold(
     ctx = make_loss_ctx(settings, counts, device=device, aug_params=aug_params)
     make_optimizer = functools.partial(sgd_torch, lr=args.lr, momentum=0.9, weight_decay=1e-4)
     state, _ = init_train_state(build_model(args, not async_mode), make_optimizer, None, device)
-    runner = EpochRunner(settings)
+    if args.mesh is not None:
+        replicate(state.module, args.mesh)
+    runner = EpochRunner(settings, mesh=args.mesh)
     rng = np.random.default_rng(args.seed + 1000 * fi)
     generator = torch.Generator(device=device).manual_seed(args.seed + fi)
     stopper = EarlyStopper(patience=args.patience)
@@ -477,7 +474,6 @@ def run_single_mod_fold(
 
 def run_cv(args: WearGaitArgs, on_epoch: Optional[EpochHook] = None):
     """reference weargait_train.py:533-645."""
-    check_supported(args)
     resolve_device(args.device)  # no card and no device="cpu": raise before any work
     streams, pd_ids, hc_ids = get_streams(args)
     subj2label = build_subj2label(pd_ids, hc_ids)

@@ -3,9 +3,9 @@ the same flags (the port's one more, ``--device``), each mode builds the
 same Args for its driver (the drivers are stood in for on both sides, and
 ``device`` is left out of the comparison), ``--vmap_hp`` reaches the HP
 grid runners with gaitpd's Args and grid (and the ``--hp_*`` flags without
-it the plain driver, as in gaitpd), every flag whose module the port has
-not yet raises NotImplementedError naming its ROADMAP item before any
-work, the five config dataclasses have gaitpd's fields and defaults, and
+it the plain driver, as in gaitpd), ``--data_parallel`` reaches each
+driver with a mesh (of the test process alone) and gaitpd's other Args,
+the five config dataclasses have gaitpd's fields and defaults, and
 ``python -m gaitpd_torch.data.cache`` refuses an empty WearGait directory as
 gaitpd's does. Two runs end to end, WearGait and FBG/FoG, one fold of one
 epoch, from gaitpd's initial parameters (copied into the port's model by
@@ -163,8 +163,15 @@ def test_each_mode_builds_gaitpd_args(monkeypatch, jax_precision, name, vmap):
     assert fields == dataclasses.asdict(want)
 
 
-UNPORTED = {
-    "data_parallel": (["--mode", "weargait", "--data_parallel"], 14),
+# --data_parallel, once refused (item 14): with a mode (and --vmap_folds or
+# --vmap_hp) it reaches that driver with a mesh, the rest of the Args as
+# gaitpd's CLI gives its own
+MESH_PORTED = {
+    "data_parallel": (["--mode", "weargait", "--data_parallel"], ""),
+    "data_parallel_vmap_folds": (["--mode", "weargait", "--data_parallel", "--vmap_folds"],
+                                 "_vmap"),
+    "data_parallel_vmap_hp": (["--mode", "weargait", "--data_parallel", "--vmap_hp"], "_hp"),
+    "data_parallel_fbg_fog": (["--mode", "fbg_fog", "--data_parallel"], ""),
 }
 # flags once refused (items 19 and 15) and now taken: with --vmap_hp (before
 # --vmap_folds) each reaches an HP grid runner ("hp") with the Args and the
@@ -203,18 +210,27 @@ VMAP_PORTED = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_flags_raise_naming_their_item(monkeypatch, name):
-    argv, item = UNPORTED[name]
-
-    def no_work(*a, **k):
-        raise AssertionError("a driver started before the flag was refused")
-
-    for mod, attr in ((TD, "run_cv"), (TV, "run_cv_vmapped"), (TF, "main"),
-                      (TD, "get_streams"), (TV, "get_streams")):
-        monkeypatch.setattr(mod, attr, no_work)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, item {item}\\)"):
+@pytest.mark.parametrize("name", sorted(MESH_PORTED))
+def test_unported_flags_raise_naming_their_item(monkeypatch, capsys, jax_precision, name):
+    """--data_parallel, once refused: the port's mesh over its process
+    group (one rank here), gaitpd's over its 8 virtual devices; the other
+    fields equal."""
+    got = _capture(monkeypatch)
+    argv, side = MESH_PORTED[name]
+    JC.main(argv + ["--synthetic"])
+    try:
         TC.main(argv + ["--synthetic", "--device", "cpu"])
+    finally:
+        torch.distributed.destroy_process_group()
+    assert "Data-parallel mesh over 1 device(s)" in capsys.readouterr().out
+    want, mine = got["jax" + side], got["port" + side]
+    assert type(mine).__name__ == type(want).__name__
+    assert mine.mesh.size() == 1 and want.mesh is not None
+    fields = {f.name: getattr(mine, f.name) for f in dataclasses.fields(mine)}
+    assert fields.pop("device") == "cpu"
+    fields.pop("mesh")
+    assert fields == {f.name: getattr(want, f.name) for f in dataclasses.fields(want)
+                      if f.name != "mesh"}
 
 
 @pytest.mark.parametrize("name", sorted(HP_PORTED))

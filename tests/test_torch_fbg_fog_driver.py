@@ -172,12 +172,22 @@ def test_skeleton_augmentation_draws_change_the_run():
     assert np.all(np.isfinite(losses[1])) and not np.array_equal(losses[0], losses[1])
 
 
-@pytest.mark.parametrize("option", [dict(mesh=object()), dict(modality="fused")])
+@pytest.mark.parametrize("option", [dict(mesh=True), dict(modality="fused")])
 def test_unported_options_raise(option):
-    args = TD.FbgFogArgs(**COMMON, device="cpu", **option)
-    error = NotImplementedError if "mesh" in option else ValueError
-    with pytest.raises(error, match="ROADMAP" if "mesh" in option else "modality"):
-        TD.main(args)
+    """An unknown modality raises ValueError. A mesh, once refused (ROADMAP
+    Queue 1, item 14), now runs: main data-parallel over a mesh of this
+    process alone gives main's summary without one, exactly."""
+    if "mesh" not in option:
+        with pytest.raises(ValueError, match="modality"):
+            TD.main(TD.FbgFogArgs(**COMMON, device="cpu", **option))
+        return
+    from test_torch_mesh import one_rank_mesh, one_thread_here
+
+    kw = dict(COMMON, epochs=1, modality="multimodal", device="cpu")
+    with one_thread_here(), one_rank_mesh() as mesh:
+        got = TD.main(TD.FbgFogArgs(**kw, mesh=mesh))
+    with one_thread_here():
+        assert got == TD.main(TD.FbgFogArgs(**kw))
 
 
 def test_default_device_is_the_card():

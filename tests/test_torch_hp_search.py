@@ -29,6 +29,7 @@ steps are many small ops, which the parallel test workers' threads would
 otherwise oversubscribe.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -271,10 +272,17 @@ def test_hp_vmap_rejects_ignored_alpha_axis(monkeypatch, kw, grid):
 
 
 def test_mesh_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        run_weargait_hp_vmapped(TD.WearGaitArgs(**{**KW, "mesh": object()}), [{}])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        run_fbg_fog_hp_vmapped(TF.FbgFogArgs(**{**FOG_KW, "mesh": object()}), [{}])
+    """Once refused (ROADMAP Queue 1, item 14), a mesh now shards the grid's
+    instances: over a mesh of this process alone, both grids' tables equal
+    those without one (over 2 and 4 ranks: gaitpd_torch.entry's dry run)."""
+    from test_torch_mesh import one_rank_mesh
+
+    grid = [{}, {"lr": 3e-3}]
+    for run, args in ((run_weargait_hp_vmapped, TD.WearGaitArgs(**{**KW, "epochs": 1})),
+                      (run_fbg_fog_hp_vmapped, TF.FbgFogArgs(**{**FOG_KW, "epochs": 1}))):
+        with one_rank_mesh() as mesh:
+            got = run(dataclasses.replace(args, mesh=mesh), grid)
+        assert got == run(args, grid)
 
 
 def test_fold_sgd_matches_sgd_torch_per_instance():

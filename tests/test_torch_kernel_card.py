@@ -1105,3 +1105,36 @@ def test_fold_draws_randperm_on_cuda_generators():
         want = torch.randperm(3, generator=alone, device=dev) if on else torch.arange(3, device=dev)
         assert torch.equal(got[f], want)
         assert torch.equal(gens[f].get_state(), alone.get_state())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["dots", "nothing"])
+def test_stream_block_gradients_under_remat_on_card(policy):
+    """The shared backbone's three task passes (the CAGrad step's K = 3
+    backward passes, each task's cotangent on its own third of the rows)
+    under remat: gx, gw and gb the bits of the passes without remat; the
+    forward kernel launched 1 + 3 times under "nothing", once under
+    "dots"."""
+    from gaitpd_torch.runtime.remat import rematerialise
+
+    dev = _cuda()
+    x, w, b, _ = _inputs((3 * 64, 64, 12, 3, 16, 8, "relu"), dev)
+    x, w, b = (t.detach().requires_grad_() for t in (x, w, b))
+
+    def forward(module, xs, generator, epoch):
+        return sb.stream_block(xs[0], w, b, 8, "relu")
+
+    grads = {}
+    for name in ("none", policy):
+        before = sb.launches
+        out = rematerialise(forward, name)(None, (x,), None, 0)
+        rows = []
+        for task in range(3):
+            loss = (out[64 * task:64 * (task + 1)] ** 2).sum()
+            rows.append(torch.autograd.grad(loss, (x, w, b), retain_graph=task < 2))
+        torch.cuda.synchronize()
+        grads[name] = (rows, sb.launches - before)
+    assert grads["none"][1] == 1
+    assert grads[policy][1] == (4 if policy == "nothing" else 1)
+    for got, want in zip(grads[policy][0], grads["none"][0]):
+        assert all(torch.equal(g, h) for g, h in zip(got, want))

@@ -191,8 +191,20 @@ def test_eval_step_all_masks(sync):
 
 @pytest.mark.parametrize("option", [dict(remat="dots"), dict(remat="nothing")])
 def test_unported_settings_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TS.StepSettings(n_streams=3, **option)
+    """Once refused (ROADMAP Queue 1, item 14), remat now runs: one CAGrad
+    step under it leaves the parameters and momentum of the step without it,
+    bitwise (tests/test_torch_remat.py holds it against gaitpd's)."""
+    out = []
+    for kw in (dict(), option):
+        _, _, tm, _, ts = _pair(True, **kw)
+        state = TS.TrainState(module=tm, optimizer=TO.sgd_torch(tm.parameters(), LR, 0.9, 1e-4),
+                              mtl_state={})
+        step = TS.make_train_step(ts, TM.make_method("cagrad", 3, c=0.5),
+                                  TM.build_flat_partition(tm, tm.shared_modules, tm.task_modules))
+        state, _ = step(state, _t_batch(*_batches(0, 1)[0]), None, TS.make_loss_ctx(ts, COUNTS))
+        out.append((export_flax_params(tm), _momentum(tm, state.optimizer)))
+    for got, want in zip(out[1], out[0]):
+        _assert_close(got, want, atol=0)
 
 
 # --- the two-stream consistency term (FBG/FoG, synchronized GCL) ----------

@@ -195,11 +195,18 @@ def test_dropout_baselines_train_with_dropout(monkeypatch, baseline, dropout):
     assert seen == [dropout]
 
 
-@pytest.mark.parametrize("option", [dict(mesh=object())])
+@pytest.mark.parametrize("option", [dict(mesh=True)])
 def test_unported_options_raise(option):
-    kw = {**CONFIGS["sync_gcl"], "epochs": 1, "device": "cpu", **option}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TD.run_cv(TD.WearGaitArgs(**kw))
+    """Once refused (ROADMAP Queue 1, item 14), a mesh now runs: run_cv
+    data-parallel over a mesh of this process alone gives the results of
+    run_cv without one, exactly (2 ranks: tests/test_torch_mesh.py)."""
+    from test_torch_mesh import one_rank_mesh, one_thread_here
+
+    kw = {**CONFIGS["sync_gcl"], "epochs": 1, "device": "cpu"}
+    with one_thread_here(), one_rank_mesh() as mesh:
+        got = TD.run_cv(TD.WearGaitArgs(**kw, mesh=mesh))
+    with one_thread_here():
+        assert got == TD.run_cv(TD.WearGaitArgs(**kw))
 
 
 @pytest.mark.parametrize("method, wants_c", [("cagrad", True), ("log_cagrad", True),
